@@ -1,0 +1,307 @@
+"""Layers of the serving slice (counterpart of paddle_tpu/nn/layers.py):
+Linear, Embedding, RMSNorm, Dropout and MultiHeadAttention with its
+KV-cache decode mixin.
+
+Linear weights are (in, out), as in the JAX package, so parameters move
+across by name without transposes. The JAX package returns new cache
+arrays from every decode step; here caches and page pools are updated
+IN PLACE (slice assignment / ``index_put_``) and the same tensors are
+returned, so the call shapes stay those of the JAX methods."""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from .. import initializer as I
+from ..core.dtypes import to_dtype
+from ..core.enforce import UnimplementedError, enforce
+from ..core.places import resolve_device
+from ..ops import nn as ON
+from .layer import Layer
+
+
+class Linear(Layer):
+    """FC layer: ``x @ weight (+ bias)``, weight (in, out)."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 bias_attr: bool = True, dtype=None, *, device=None,
+                 generator=None):
+        super().__init__()
+        self.in_features, self.out_features = in_features, out_features
+        self.create_parameter("weight", (in_features, out_features), dtype,
+                              I.XavierUniform(), device=device,
+                              generator=generator)
+        self.has_bias = bias_attr
+        if bias_attr:
+            self.create_parameter("bias", (out_features,), dtype,
+                                  I.Constant(0.0), is_bias=True,
+                                  device=device, generator=generator)
+
+    def forward(self, x):
+        out = torch.matmul(x, self.weight)
+        if self.has_bias:
+            out = out + self.bias
+        return out
+
+
+class RMSNorm(Layer):
+    def __init__(self, dim: int, epsilon: float = 1e-6, dtype=None, *,
+                 device=None, generator=None):
+        super().__init__()
+        self.epsilon = epsilon
+        self.create_parameter("weight", (dim,), dtype, I.Constant(1.0),
+                              device=device, generator=generator)
+
+    def forward(self, x):
+        return ON.rms_norm(x, self.weight, epsilon=self.epsilon)
+
+
+class Embedding(Layer):
+    """Lookup table (num_embeddings, embedding_dim)."""
+
+    def __init__(self, num_embeddings: int, embedding_dim: int,
+                 padding_idx: Optional[int] = None, dtype=None, *,
+                 device=None, generator=None):
+        super().__init__()
+        self.padding_idx = padding_idx
+        self.create_parameter("weight", (num_embeddings, embedding_dim),
+                              dtype, I.XavierNormal(),
+                              device=device, generator=generator)
+
+    def forward(self, ids):
+        return ON.embedding(ids, self.weight, self.padding_idx)
+
+
+class Dropout(Layer):
+    """Dropout: a no-op in eval mode or at p == 0 (all the serving slice
+    runs). Training-mode dropout comes with the training slice."""
+
+    def __init__(self, p: float = 0.5):
+        super().__init__()
+        self.p = p
+
+    def forward(self, x):
+        if self.p == 0.0 or not self.training:
+            return x
+        raise UnimplementedError(
+            "training-mode dropout belongs to the training slice (ROADMAP "
+            "queue 1 item 3); call .eval() to serve")
+
+
+class _MHADecodeMixin:
+    """Incremental-decode pieces for MultiHeadAttention (KV cache)."""
+
+    def init_cache(self, batch: int, capacity: int, dtype=None):
+        """Zeroed (B, capacity, h_kv, hd) K and V caches on the layer's
+        device, in the projection dtype unless ``dtype`` is given."""
+        w = self.k_proj.weight
+        dt = to_dtype(dtype) if dtype is not None else w.dtype
+        shape = (batch, capacity, self.num_kv_heads, self.head_dim)
+        return (torch.zeros(shape, dtype=dt, device=w.device),
+                torch.zeros(shape, dtype=dt, device=w.device))
+
+    def project_kv(self, key, value=None):
+        value = key if value is None else value
+        b, tk, _ = key.shape
+        k = self.k_proj(key).reshape(b, tk, self.num_kv_heads, self.head_dim)
+        v = self.v_proj(value).reshape(b, tk, self.num_kv_heads,
+                                       self.head_dim)
+        return k, v
+
+    def attend_kv(self, query, k, v, q_positions, window=None,
+                  decode_kernel: bool = False):
+        """Attention of ``query`` (B, Tq, D) against pre-projected k/v,
+        each query at its absolute cache position (``q_positions``: (Tq,)
+        or (B, 1)) keeping the cache positions at or before its own (and
+        inside ``window``). Rotary queries rotate by the same positions.
+        With ``decode_kernel`` and one query per row, eligible shapes take
+        the decode kernel, which applies that mask itself; every other
+        call builds the mask here for the plain path."""
+        from ..ops.attention import (cache_keep_mask, decode_flash_ok,
+                                     rotary_embedding,
+                                     scaled_dot_product_attention)
+        from ..ops.kernels.decode_attention import decode_attention
+
+        b, tq, d = query.shape
+        q = self.q_proj(query).reshape(b, tq, self.num_heads, self.head_dim)
+        if self.rotary:
+            q = rotary_embedding(q, q_positions, theta=self.rotary_theta)
+        if (decode_kernel and tq == 1 and self.use_flash
+                and decode_flash_ok(k.shape[1], self.head_dim)):
+            out = decode_attention(q, k, v, q_positions.reshape(-1),
+                                   window=window)
+        else:
+            out = scaled_dot_product_attention(
+                q, k, v, mask=cache_keep_mask(q_positions, k.shape[1],
+                                              window),
+                use_flash=self.use_flash)
+        return self.out_proj(out.reshape(b, tq, d))
+
+    def forward_chunk(self, x_chunk, cache_k, cache_v, t0, window=None,
+                      decode_kernel: bool = False):
+        """S positions in one call: write the chunk's K/V into the caches
+        at [t0, t0+S) (in place) and attend position i over cache
+        positions <= t0+i. The write start clamps to cap-S, as JAX's
+        dynamic_update_slice does. Returns (out, cache_k, cache_v)."""
+        b, s, _ = x_chunk.shape
+        cap = cache_k.shape[1]
+        t0 = int(t0)
+        # one positions array for the k rotation here, and the q rotation
+        # and the mask in attend_kv — they must never desynchronize
+        pos_chunk = t0 + torch.arange(s, dtype=torch.int32,
+                                      device=x_chunk.device)
+        k_c, v_c = self._project_kv_t(x_chunk, pos_chunk)
+        start = min(max(t0, 0), cap - s)
+        cache_k[:, start:start + s] = k_c.to(cache_k.dtype)
+        cache_v[:, start:start + s] = v_c.to(cache_v.dtype)
+        out = self.attend_kv(x_chunk, cache_k, cache_v, pos_chunk,
+                             window=window, decode_kernel=decode_kernel)
+        return out, cache_k, cache_v
+
+    def _project_kv_t(self, x_t, positions):
+        """Project (and rotate) K/V: x_t (B, S, D) -> (B, S, kv_heads,
+        head_dim) each; ``positions`` (S,) or (B, S)."""
+        b, s, _ = x_t.shape
+        k_t = self.k_proj(x_t).reshape(b, s, self.num_kv_heads,
+                                       self.head_dim)
+        v_t = self.v_proj(x_t).reshape(b, s, self.num_kv_heads,
+                                       self.head_dim)
+        if self.rotary:
+            from ..ops.attention import rotary_embedding
+
+            k_t = rotary_embedding(k_t, positions, theta=self.rotary_theta)
+        return k_t, v_t
+
+    def forward_step_paged(self, x_t, kpool, vpool, table, t_rows,
+                           window=None):
+        """One decode position per row against a paged cache: project and
+        rotate this position's K/V, write it into each row's page at its
+        logical cursor (in place; out-of-range cursors drop), attend over
+        the row's pages. ``x_t``: (B, 1, D); returns (out, kpool,
+        vpool)."""
+        from ..ops import paged_kv
+
+        pos_rows = t_rows.to(torch.int32)[:, None]            # (B, 1)
+        k_t, v_t = self._project_kv_t(x_t, pos_rows)
+        paged_kv.write_rows(kpool, vpool, table, pos_rows[:, 0], k_t, v_t,
+                            kpool.shape[1])
+        out = paged_kv.attend(self._rotated_q(x_t, pos_rows), kpool, vpool,
+                              table, pos_rows[:, 0], window=window)
+        b, tq, d = x_t.shape
+        return self.out_proj(out.reshape(b, tq, d)), kpool, vpool
+
+    def forward_chunk_paged(self, x_chunk, kpool, vpool, table_row, t0,
+                            window=None):
+        """S prefill positions for one row (batch 1) against the paged
+        cache: chunk-write (in place), then attend position i over the
+        pages up to t0+i on the plain path. ``x_chunk``: (1, S, D)."""
+        from ..ops import paged_kv
+        from ..ops.attention import (cache_keep_mask,
+                                     scaled_dot_product_attention)
+
+        b, s, d = x_chunk.shape
+        t0 = int(t0)
+        pos_chunk = t0 + torch.arange(s, dtype=torch.int32,
+                                      device=x_chunk.device)
+        k_c, v_c = self._project_kv_t(x_chunk, pos_chunk)
+        paged_kv.write_chunk(kpool, vpool, table_row, t0, k_c, v_c,
+                             kpool.shape[1])
+        # gather only the live page columns [0, t0+S)
+        k = paged_kv.gather_rows(kpool, table_row[None], upto=t0 + s)
+        v = paged_kv.gather_rows(vpool, table_row[None], upto=t0 + s)
+        out = scaled_dot_product_attention(
+            self._rotated_q(x_chunk, pos_chunk), k, v,
+            mask=cache_keep_mask(pos_chunk, k.shape[1], window),
+            use_flash=False)
+        return self.out_proj(out.reshape(b, s, d)), kpool, vpool
+
+    def _rotated_q(self, query, positions):
+        """Projected (and rotated) q for the paged paths."""
+        from ..ops.attention import rotary_embedding
+
+        b, tq, _ = query.shape
+        q = self.q_proj(query).reshape(b, tq, self.num_heads, self.head_dim)
+        if self.rotary:
+            q = rotary_embedding(q, positions, theta=self.rotary_theta)
+        return q
+
+    def forward_step(self, x_t, cache_k, cache_v, t, window=None,
+                     decode_kernel: bool = False):
+        """One decode step (``x_t``: (B, 1, D)) — forward_chunk S=1."""
+        return self.forward_chunk(x_t, cache_k, cache_v, t, window=window,
+                                  decode_kernel=decode_kernel)
+
+    def forward_step_rows(self, x_t, cache_k, cache_v, t_rows,
+                          window=None, decode_kernel: bool = False):
+        """One decode position per row at per-row cursors ``t_rows``
+        (B,) — the continuous-batching step. Each row's K/V lands at its
+        own index (in place; the index clamps to [0, cap-1] as JAX's
+        per-row dynamic_update_slice does). ``x_t``: (B, 1, D)."""
+        b = x_t.shape[0]
+        cap = cache_k.shape[1]
+        pos_rows = t_rows.to(torch.int32)[:, None]            # (B, 1)
+        k_t, v_t = self._project_kv_t(x_t, pos_rows)
+        rows = torch.arange(b, device=x_t.device)
+        idx = pos_rows[:, 0].long().clamp(0, cap - 1)
+        cache_k[rows, idx] = k_t[:, 0].to(cache_k.dtype)
+        cache_v[rows, idx] = v_t[:, 0].to(cache_v.dtype)
+        out = self.attend_kv(x_t, cache_k, cache_v, pos_rows, window=window,
+                             decode_kernel=decode_kernel)
+        return out, cache_k, cache_v
+
+
+class MultiHeadAttention(_MHADecodeMixin, Layer):
+    """Transformer attention with GQA and rotary embeddings."""
+
+    def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0,
+                 bias: bool = True, use_flash: bool = True, dtype=None,
+                 num_kv_heads: Optional[int] = None,
+                 rotary: bool = False, rotary_theta: float = 10000.0, *,
+                 device=None, generator=None):
+        super().__init__()
+        enforce(embed_dim % num_heads == 0,
+                "embed_dim %s not divisible by heads %s", embed_dim,
+                num_heads)
+        device = resolve_device(device)
+        self.rotary = rotary
+        self.rotary_theta = float(rotary_theta)
+        self.num_heads = num_heads
+        self.head_dim = embed_dim // num_heads
+        self.num_kv_heads = num_kv_heads or num_heads
+        enforce(num_heads % self.num_kv_heads == 0,
+                "num_heads %s not divisible by num_kv_heads %s",
+                num_heads, self.num_kv_heads)
+        self.dropout_p = dropout
+        self.use_flash = use_flash
+        kv_dim = self.num_kv_heads * self.head_dim
+        kw = dict(bias_attr=bias, dtype=dtype, device=device,
+                  generator=generator)
+        self.q_proj = Linear(embed_dim, embed_dim, **kw)
+        self.k_proj = Linear(embed_dim, kv_dim, **kw)
+        self.v_proj = Linear(embed_dim, kv_dim, **kw)
+        self.out_proj = Linear(embed_dim, embed_dim, **kw)
+
+    def forward(self, query, key=None, value=None, attn_mask=None,
+                causal: bool = False, window: Optional[int] = None):
+        from ..ops.attention import (rotary_embedding,
+                                     scaled_dot_product_attention)
+
+        key = query if key is None else key
+        value = key if value is None else value
+        b, tq, d = query.shape
+        tk = key.shape[1]
+        q = self.q_proj(query).reshape(b, tq, self.num_heads, self.head_dim)
+        k, v = self.project_kv(key, value)
+        if self.rotary:
+            enforce(tk == tq, "rotary MHA is self-attention shaped "
+                    "(tq=%s != tk=%s)", tq, tk)
+            pos = torch.arange(tq, device=query.device)
+            q = rotary_embedding(q, pos, theta=self.rotary_theta)
+            k = rotary_embedding(k, pos, theta=self.rotary_theta)
+        out = scaled_dot_product_attention(
+            q, k, v, mask=attn_mask, causal=causal,
+            dropout_p=self.dropout_p if self.training else 0.0,
+            use_flash=self.use_flash, window=window)
+        return self.out_proj(out.reshape(b, tq, d))

@@ -26,8 +26,11 @@ setup(
     version="0.3.0",
     description="TPU-native rebuild of the PaddlePaddle Fluid capability "
                 "surface on JAX/XLA/Pallas",
-    packages=find_packages(include=["paddle_tpu", "paddle_tpu.*"]),
-    package_data={"paddle_tpu.native": ["*.so", "Makefile", "src/*"]},
+    packages=find_packages(include=["paddle_tpu", "paddle_tpu.*",
+                                    "paddle_tpu_torch",
+                                    "paddle_tpu_torch.*"]),
+    package_data={"paddle_tpu.native": ["*.so", "Makefile", "src/*"],
+                  "paddle_tpu_torch": ["csrc/*.cu"]},
     python_requires=">=3.10",
     install_requires=["jax", "numpy"],
     cmdclass={"build_py": BuildWithNative},

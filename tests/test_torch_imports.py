@@ -1,0 +1,148 @@
+"""Import hygiene and device rules of the port (paddle_tpu_torch):
+
+- no module of the package, and not chip_smoke.py, imports jax or the
+  JAX package;
+- the package imports with no triton and no nvcc;
+- with no CUDA, entry points called without ``device=`` raise a typed
+  error instead of carrying on on the CPU;
+- on CPU tensors the kernel wrappers run their plain versions and their
+  launch counters stay at 0."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import paddle_tpu_torch
+from paddle_tpu_torch.core import (DeviceUnavailableError,
+                                   KernelCompileError, resolve_device)
+from paddle_tpu_torch.models import gpt as TG
+from paddle_tpu_torch.ops.kernels import _build
+from paddle_tpu_torch.ops.kernels import decode_attention as K
+from paddle_tpu_torch.serving import BatchedDecoder
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PKG = ROOT / "paddle_tpu_torch"
+SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "paddle_tpu")
+
+
+def _imported(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+@pytest.mark.parametrize("path", SOURCES,
+                         ids=[str(p.relative_to(ROOT)) for p in SOURCES])
+def test_no_jax_or_jax_package_import(path):
+    bad = [m for m in _imported(path)
+           if m.split(".")[0] in FORBIDDEN]
+    assert not bad, (path, bad)
+
+
+def test_package_imports_without_triton_nvcc_or_jax():
+    """Every module imports in a fresh interpreter with an empty PATH (no
+    nvcc); neither triton nor jax gets imported."""
+    code = (
+        "import pkgutil, sys, paddle_tpu_torch\n"
+        "for m in pkgutil.walk_packages(paddle_tpu_torch.__path__, "
+        "'paddle_tpu_torch.'):\n"
+        "    __import__(m.name)\n"
+        "bad = [m for m in ('jax', 'paddle_tpu', 'triton') "
+        "if m in sys.modules]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         env={"PATH": "", "PYTHONPATH": str(ROOT)},
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and "ok" in out.stdout, out.stderr
+
+
+def test_build_without_nvcc_raises_typed(monkeypatch, tmp_path):
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_build.os.path, "exists", lambda p: False)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    with pytest.raises(KernelCompileError, match="nvcc"):
+        _build.build("decode_attention")
+
+
+def test_build_sources_and_hashed_library_path():
+    assert (_build.CSRC / "decode_attention.cu").exists()
+    path = _build.library_path("decode_attention")
+    assert path.parent == _build.BUILD_DIR
+    assert path.name.startswith("decode_attention-")
+    with pytest.raises(KernelCompileError, match="no CUDA source"):
+        _build.library_path("missing_kernel")
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_resolve_device_without_cuda_raises(no_cuda):
+    with pytest.raises(DeviceUnavailableError, match="device='cpu'"):
+        resolve_device(None)
+    with pytest.raises(DeviceUnavailableError):
+        resolve_device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_model_without_device_raises_without_cuda(no_cuda):
+    with pytest.raises(DeviceUnavailableError):
+        TG.GPTForCausalLM(TG.GPTConfig.tiny())
+
+
+def test_decoder_without_device_raises_without_cuda(no_cuda):
+    model = TG.GPTForCausalLM(TG.GPTConfig.tiny(), device="cpu")
+    with pytest.raises(DeviceUnavailableError):
+        BatchedDecoder(model, slots=2, capacity=64)
+    dec = BatchedDecoder(model, slots=2, capacity=64, device="cpu")
+    assert dec.device == torch.device("cpu")
+
+
+def test_cpu_tensors_take_plain_versions_and_count_nothing():
+    rng = np.random.default_rng(0)
+    q = torch.from_numpy(rng.normal(size=(2, 1, 4, 64)).astype(np.float32))
+    k = torch.from_numpy(rng.normal(size=(2, 128, 2, 64)).astype(
+        np.float32))
+    pool = torch.from_numpy(rng.normal(size=(4, 64, 2, 64)).astype(
+        np.float32))
+    table = torch.tensor([[0, 1], [3, 2]], dtype=torch.int32)
+    t = torch.tensor([5, 100], dtype=torch.int32)
+    n = (K.decode_attention.launches, K.decode_attention_paged.launches)
+    got = K.decode_attention(q, k, k, t, window=16)
+    torch.testing.assert_close(got, K.decode_attention_plain(q, k, k, t, 16),
+                               rtol=0, atol=0)
+    got = K.decode_attention_paged(q, pool, pool, table, t)
+    torch.testing.assert_close(
+        got, K.decode_attention_paged_plain(q, pool, pool, table, t),
+        rtol=0, atol=0)
+    # a whole arena on the CPU goes through the wrappers without a launch
+    model = TG.GPTForCausalLM(TG.GPTConfig(
+        vocab_size=64, hidden_size=128, num_layers=1, num_heads=2,
+        num_kv_heads=1, intermediate_size=128, max_position=128),
+        device="cpu").eval()
+    for kw in ({}, dict(pages=4, page_size=64)):
+        dec = BatchedDecoder(model, slots=2, capacity=128, device="cpu",
+                             **kw)
+        rid = dec.submit([1, 2, 3], 4)
+        assert dec.run()[rid].shape == (4,)
+    assert (K.decode_attention.launches,
+            K.decode_attention_paged.launches) == n
+    if not torch.cuda.is_available():
+        assert n == (0, 0)
+
+
+def test_version_and_exports():
+    assert paddle_tpu_torch.__version__
+    assert paddle_tpu_torch.resolve_device("cpu").type == "cpu"

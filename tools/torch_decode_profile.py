@@ -1,0 +1,94 @@
+#!/usr/bin/env python3
+"""Where a decode tick of the port's serving arena spends its time, on the
+CUDA card: GPTConfig.small() (float32, seeded random weights) in
+BatchedDecoder(slots=8, capacity=2048), contiguous and paged
+(pages=8*32+8, page_size=64), 8 requests of 32 prompt tokens kept busy.
+
+For each mode it runs a warm-up, times ``--ticks`` decode ticks on the
+host clock with the profiler off, then profiles as many more with
+torch.profiler, and prints: host wall ms per tick (profiler off, and
+on), device busy ms per tick (the sum of CUDA kernel and memcpy times),
+the device's idle share against the profiler-off wall time, device ops
+per tick, and the kernels with the most device time.
+
+    python3 tools/torch_decode_profile.py [--ticks 20]
+"""
+
+import argparse
+import os
+import subprocess
+import sys
+import time
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+
+def profile_mode(torch, model, mode, kw, ticks):
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.serving import BatchedDecoder
+
+    dec = BatchedDecoder(model, slots=8, capacity=2048, **kw)
+    rng = torch.Generator().manual_seed(2)
+    for _ in range(8):
+        dec.submit(torch.randint(1, 32000, (32,), generator=rng).tolist(),
+                   2 * ticks + 8)
+    with torch.inference_mode():
+        dec._admit()
+        for _ in range(4):                       # warm-up ticks
+            dec._step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(ticks):
+            dec._step()
+        torch.cuda.synchronize()
+        plain_wall = time.perf_counter() - t0
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(ticks):
+                dec._step()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in events)
+    launches = sum(e.count for e in events)
+    print(f"[{mode}] {ticks} ticks: host wall "
+          f"{1e3 * plain_wall / ticks:.3f} ms per tick (profiler on: "
+          f"{1e3 * wall / ticks:.3f}), device busy "
+          f"{busy_us / 1e3 / ticks:.3f} ms per tick, device idle share "
+          f"{1 - busy_us / 1e6 / plain_wall:.3f}, "
+          f"{launches / ticks:.1f} device ops per tick")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"[{mode}]   {e.self_device_time_total / 1e3 / ticks:8.4f} "
+              f"ms/tick x{e.count // ticks:3d}  {e.key[:90]}")
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("needs a CUDA card", file=sys.stderr)
+        return 2
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--ticks", type=int, default=20)
+    args = ap.parse_args()
+    from paddle_tpu_torch.models import gpt
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = gpt.GPTForCausalLM(gpt.GPTConfig.small(), generator=gen).eval()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    print(f"[card] {smi.stdout.strip()}")
+    profile_mode(torch, model, "contiguous", {}, args.ticks)
+    profile_mode(torch, model, "paged", dict(pages=8 * 32 + 8,
+                                             page_size=64), args.ticks)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
