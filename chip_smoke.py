@@ -7,8 +7,9 @@ H100. Run from the repository root, with no arguments:
 Phases, each printed as it runs:
 
 1. the device, and ``nvidia-smi --query-gpu=name,power.limit``;
-2. the nvcc build of the port's CUDA source, with its seconds and the
-   ``-Xptxas -v`` register / shared-memory lines;
+2. the nvcc builds of the port's CUDA sources, one nvcc per source, all
+   started together, with their seconds and the ``-Xptxas -v`` register /
+   shared-memory lines;
 3. each decode-attention kernel against its plain PyTorch version on
    the card (B=8, cap=2048, H=12, Hkv=4, D=64; cursors across [0, 2047]
    with block edges; window None and 256; the paged form with
@@ -30,7 +31,28 @@ Phases, each printed as it runs:
    before each launch, as a decode tick finds the cache cold): kernel
    ms, plain-version ms, bytes and the memory/compute bound, and, as a
    yardstick the port never calls, torch's scaled_dot_product_attention
-   on the same keys.
+   on the same keys;
+6. the three flash-attention kernels (forward, dq, dk/dv) against their
+   plain versions on the card: o, lse, dq, dk and dv in float32 (atol
+   1e-4) and bfloat16 compared in float32 (atol 2e-2), at the training
+   shape (B=8, T=1024, H=12, Hkv=4, D=64, causal) and at each option the
+   gate admits (non-causal; Hkv 12 and 1; window 256; a kv_mask with a
+   padded tail and a row with no live key; Tq=512 against Tk=1024;
+   D=128 and D=256);
+7. the training slice at full width, bench_gpt's configuration:
+   GPTConfig.small() with remat, max_position=1024, float32, seeded
+   weights, one (8, 1024) batch of seeded ids, Adam(1e-3) through
+   Trainer. First one forward_loss backward on the kernel path is held
+   against the same weights with use_flash=False (plain attention on the
+   card); then, with the launch counters set to 0, one training step must
+   launch the flash forward 24 times (12 blocks + 12 remat recomputes),
+   dq 12 and dk/dv 12 times; then 5 more steps, every loss finite and
+   the last below the first, timed on the host clock after a
+   synchronize;
+8. timing of the flash kernels at the training shape (float32, L2
+   flushed): kernel and plain ms, the operation/byte bound, and torch's
+   scaled_dot_product_attention forward (and its backward alone, on a
+   kept graph) as the yardstick.
 
 Any failure exits non-zero. The line before the last is the kernels'
 JSON record; the last line is
@@ -38,9 +60,11 @@ JSON record; the last line is
 """
 
 import json
+import math
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, float32
 # outside the tensor cores, bf16 on the tensor cores
@@ -59,6 +83,43 @@ KERNEL_ROWS = {
         replaces="paddle_tpu/ops/pallas/flash_decode.py:137 "
                  "(_paged_kernel, via flash_decode_paged :157)"),
 }
+FLASH_ROWS = {
+    "flash_attention_fwd": dict(
+        replaces="paddle_tpu/ops/pallas/flash_attention.py:187 "
+                 "(_fwd_kernel, via _fwd_call :398)"),
+    "flash_attention_dq": dict(
+        replaces="paddle_tpu/ops/pallas/flash_attention.py:422 "
+                 "(_dq_kernel, via _bwd_call :637)"),
+    "flash_attention_dkv": dict(
+        replaces="paddle_tpu/ops/pallas/flash_attention.py:497 "
+                 "(_dkv_kernel, via _bwd_call :687)"),
+}
+# the training path: bench_gpt (bench.py:411-440) at full width
+TB, TT, TH, THKV = 8, 1024, 12, 4
+# (B, Tq, Tk, H, Hkv, D, causal, window, kv_mask): the training shape
+# first, then each option the flash gate admits
+FLASH_CASES = [
+    (TB, TT, TT, TH, THKV, D, True, None, False),
+    (2, 512, 512, 12, 4, 64, False, None, False),
+    (2, 512, 512, 12, 12, 64, True, None, False),
+    (2, 512, 512, 12, 1, 64, True, None, False),
+    (2, 1024, 1024, 4, 2, 64, True, 256, False),
+    (2, 512, 512, 4, 2, 64, False, 256, False),
+    (3, 512, 512, 4, 2, 64, True, None, True),
+    (2, 512, 1024, 4, 2, 64, True, None, False),
+    (2, 256, 256, 4, 2, 128, True, None, True),
+    (2, 256, 256, 4, 2, 256, True, 100, False),
+]
+# float32: the forward's online softmax rescales in another order than
+# the plain whole-row softmax (the backward recomputes from the same lse);
+# bfloat16: one bf16 rounding of an output of magnitude < 4 is <= 1.6e-2
+FLASH_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# the training check step, kernels against plain attention on the same
+# weights: the loss at atol 1e-4 (float32 sums over 8192 rows of ~10.4),
+# each gradient within 1e-3 of its parameter's largest plain-grad entry
+# (float32 attention summed in another order, carried back through 12
+# blocks)
+LOSS_ATOL, GRAD_RTOL = 1e-4, 1e-3
 
 
 def log(*a):
@@ -74,13 +135,21 @@ def nvidia_smi_line() -> str:
 
 
 def phase_build():
+    """One nvcc per source, all started together."""
     from paddle_tpu_torch.ops.kernels import _build
 
-    b = _build.build("decode_attention")
-    log(f"[build] {b.name}: nvcc {b.seconds:.2f} s -> {b.path.name}")
-    for line in b.log.splitlines():
-        if "Compiling entry" in line or "Used" in line or "spill" in line:
-            log(f"[build]   {line.strip()}")
+    names = ("decode_attention", "flash_attention")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(names)) as pool:
+        built = list(pool.map(_build.build, names))
+    log(f"[build] {len(names)} sources in {time.perf_counter() - t0:.2f} s "
+        f"wall")
+    for b in built:
+        log(f"[build] {b.name}: nvcc {b.seconds:.2f} s -> {b.path.name}")
+        for line in b.log.splitlines():
+            if ("Compiling entry" in line or "Used" in line
+                    or "spill" in line):
+                log(f"[build]   {line.strip()}")
 
 
 def kernel_inputs(torch, dtype, seed=0):
@@ -319,6 +388,238 @@ def phase_timing(torch, K, err, launches):
     return rows
 
 
+def flash_inputs(torch, case, dtype, gen):
+    """q, k, v, do and kv_mask for one flash case, on the card."""
+    b, tq, tk, h, hkv, d, _, _, mask = case
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    q, k, v = rand(b, tq, h, d), rand(b, tk, hkv, d), rand(b, tk, hkv, d)
+    do = rand(b, tq, h, d)
+    km = None
+    if mask:
+        km = torch.ones((b, tk), dtype=torch.bool, device="cuda")
+        km[0, tk - 100:] = False        # a padded tail
+        km[1, :] = False                # a row with no live key
+    return q, k, v, do, km
+
+
+def flash_kw(case, km):
+    return dict(causal=case[6], scale=case[5] ** -0.5, window=case[7],
+                kv_mask=km)
+
+
+def phase_flash_kernels(torch, FK):
+    """Each flash kernel against its plain version; returns the float32
+    max abs error per kernel over every case."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    err = {name: 0.0 for name in FLASH_ROWS}
+    for case in FLASH_CASES:
+        for dname in ("float32", "bfloat16"):
+            q, k, v, do, km = flash_inputs(torch, case, getattr(torch, dname),
+                                           gen)
+            kw = flash_kw(case, km)
+            o, lse = FK.flash_attention_fwd(q, k, v, **kw)
+            delta = (do.float() * o.float()).sum(-1).transpose(1, 2)
+            delta = delta.contiguous()
+            dq = FK.flash_attention_dq(q, k, v, do, lse, delta, **kw)
+            dk, dv = FK.flash_attention_dkv(q, k, v, do, lse, delta, **kw)
+            o_p, lse_p = FK.flash_attention_fwd_plain(q, k, v, **kw)
+            dq_p = FK.flash_attention_dq_plain(q, k, v, do, lse, delta, **kw)
+            dk_p, dv_p = FK.flash_attention_dkv_plain(q, k, v, do, lse,
+                                                      delta, **kw)
+            torch.cuda.synchronize()
+            e = {n: (a.float() - b.float()).abs().max().item()
+                 for n, a, b in (("o", o, o_p), ("lse", lse, lse_p),
+                                 ("dq", dq, dq_p), ("dk", dk, dk_p),
+                                 ("dv", dv, dv_p))}
+            finite = all(bool(torch.isfinite(x).all())
+                         for x in (o, dq, dk, dv))
+            ok = finite and max(e.values()) <= FLASH_TOL[dname]
+            log(f"[flash] {case} {dname}: max abs err "
+                + ", ".join(f"{n} {x:.3e}" for n, x in e.items())
+                + f" (atol {FLASH_TOL[dname]}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"a flash kernel disagrees with its plain "
+                                 f"version at {case} {dname}")
+            if dname == "float32":
+                for name, x in (("flash_attention_fwd",
+                                 max(e["o"], e["lse"])),
+                                ("flash_attention_dq", e["dq"]),
+                                ("flash_attention_dkv",
+                                 max(e["dk"], e["dv"]))):
+                    err[name] = max(err[name], x)
+    return err
+
+
+def flash_counts(FK):
+    return {name: getattr(FK, name).launches for name in FLASH_ROWS}
+
+
+def phase_training(torch, FK):
+    """bench_gpt's step at full width: the kernel path against plain
+    attention, exact launch counts, then 5 Adam steps. Returns the
+    launches of the training run and the steps' numbers."""
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.parallel import Trainer
+
+    cfg = gpt.GPTConfig.small()
+    cfg.max_position, cfg.remat = TT, True
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    model = gpt.GPTForCausalLM(cfg, generator=gen)
+    ids = torch.randint(0, cfg.vocab_size, (TB, TT),
+                        generator=torch.Generator().manual_seed(6))
+    ids = ids.to("cuda")
+    params = dict(model.named_parameters())
+    log(f"[train] GPTConfig.small() remat, max_position {TT}, float32, "
+        f"{sum(p.numel() for p in params.values())} parameters; batch "
+        f"({TB}, {TT})")
+
+    # 1. the kernel path against plain attention on the same weights
+    model.train()
+    grads, losses = [], []
+    for use_flash in (True, False):
+        for blk in model.blocks:
+            blk.self_attn.use_flash = use_flash
+        n0 = flash_counts(FK)
+        loss = model.forward_loss(ids)
+        loss.backward()
+        launched = {k: v - n0[k] for k, v in flash_counts(FK).items()}
+        if (min(launched.values()) == 0 if use_flash
+                else max(launched.values()) > 0):
+            raise SystemExit(f"check step use_flash={use_flash}: flash "
+                             f"launches {launched}")
+        losses.append(loss.item())
+        grads.append({n: p.grad for n, p in params.items()})
+        for p in params.values():
+            p.grad = None
+    for blk in model.blocks:
+        blk.self_attn.use_flash = True
+    worst = max((grads[0][n] - grads[1][n]).abs().max().item()
+                / max(grads[1][n].abs().max().item(), 1e-30)
+                for n in params)
+    dloss = abs(losses[0] - losses[1])
+    log(f"[train] check step: loss kernels {losses[0]:.6f}, plain "
+        f"{losses[1]:.6f} (|diff| {dloss:.3e}, atol {LOSS_ATOL}); worst "
+        f"grad diff / the parameter's max plain grad {worst:.3e} (limit "
+        f"{GRAD_RTOL})")
+    if not (dloss <= LOSS_ATOL and worst <= GRAD_RTOL):
+        raise SystemExit("the kernel path's loss or grads disagree with "
+                         "plain attention")
+    del grads
+
+    # 2. launch counts of one step, 3. five more steps
+    trainer = Trainer(model, optimizer.Adam(1e-3),
+                      lambda m, batch, g: (m.forward_loss(batch), {}))
+    torch.cuda.synchronize()
+    for name in FLASH_ROWS:
+        getattr(FK, name).launches = 0
+    trainer.train_step(ids)
+    torch.cuda.synchronize()
+    per_step = flash_counts(FK)
+    want = {"flash_attention_fwd": 2 * cfg.num_layers,
+            "flash_attention_dq": cfg.num_layers,
+            "flash_attention_dkv": cfg.num_layers}
+    log(f"[train] launches in one step: {per_step} (want {want})")
+    if per_step != want:
+        raise SystemExit("a training step launched the flash kernels "
+                         "another number of times")
+    losses, secs = [], []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        loss, _ = trainer.train_step(ids)
+        losses.append(loss.item())             # synchronises
+        secs.append(time.perf_counter() - t0)
+    launches = flash_counts(FK)
+    ms = 1e3 * sum(secs) / len(secs)
+    log(f"[train] 5 Adam steps: losses {[round(x, 6) for x in losses]}; "
+        f"ms per step {[round(1e3 * x, 3) for x in secs]}, mean "
+        f"{ms:.3f} ms, {TB * TT / (ms / 1e3):.1f} tokens/s; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; launches "
+        f"over the 6 steps {launches}")
+    if not (all(math.isfinite(x) for x in losses)
+            and losses[-1] < losses[0]):
+        raise SystemExit(f"training losses not finite and falling: "
+                         f"{losses}")
+    return launches, per_step
+
+
+def phase_flash_timing(torch, FK, err, launches, per_step):
+    """The three flash kernels at the training shape, float32."""
+    import torch.nn.functional as F
+
+    case = FLASH_CASES[0]
+    b, t, _, h, hkv, d = case[:6]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    q, k, v, do, _ = flash_inputs(torch, case, torch.float32, gen)
+    kw = flash_kw(case, None)
+    o, lse = FK.flash_attention_fwd(q, k, v, **kw)
+    delta = (do * o).sum(-1).transpose(1, 2).contiguous()
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+
+    # the yardstick, never called by the port: one SDPA call, and its
+    # backward alone on a kept graph
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                         enable_gqa=True)
+    dot = do.transpose(1, 2)
+
+    def sdpa_fwd():
+        F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                       enable_gqa=True)
+
+    def sdpa_bwd():
+        torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)
+
+    live = b * h * t * (t + 1) // 2          # causal, Tq == Tk
+    qo = b * t * h * d * 4                   # one (B, T, H, D) float32
+    kv = b * t * hkv * d * 4
+    row = b * h * t * 4                      # lse or delta
+    cases = {
+        "flash_attention_fwd": (
+            lambda: FK.flash_attention_fwd(q, k, v, **kw),
+            lambda: FK.flash_attention_fwd_plain(q, k, v, **kw), sdpa_fwd,
+            4 * d, qo + 2 * kv + qo + row),
+        "flash_attention_dq": (
+            lambda: FK.flash_attention_dq(q, k, v, do, lse, delta, **kw),
+            lambda: FK.flash_attention_dq_plain(q, k, v, do, lse, delta,
+                                                **kw), sdpa_bwd,
+            6 * d, 2 * qo + 2 * kv + 2 * row + qo),
+        "flash_attention_dkv": (
+            lambda: FK.flash_attention_dkv(q, k, v, do, lse, delta, **kw),
+            lambda: FK.flash_attention_dkv_plain(q, k, v, do, lse, delta,
+                                                 **kw), sdpa_bwd,
+            8 * d, 2 * qo + 2 * kv + 2 * row + 2 * kv),
+    }
+    rows = []
+    for name, (kern, plain, lib, flops_per_score, nbytes) in cases.items():
+        ms = time_ms(torch, kern, flush, n=20)
+        plain_ms = time_ms(torch, plain, flush, n=5)
+        lib_ms = time_ms(torch, lib, flush, n=20)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = live * flops_per_score / PEAK_FLOPS["float32"] * 1e3
+        bound_ms = max(t_bytes, t_ops)
+        bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        log(f"[time] {name} float32 {case[:6]} causal: kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms; "
+            f"{live * flops_per_score} flops, {nbytes} bytes, bound "
+            f"{bound_ms:.4f} ms ({bound_by}), {100 * bound_ms / ms:.1f}% of "
+            f"the bound; {per_step[name]} launches per training step")
+        rows.append(dict(name=name, route="cuda",
+                         source="paddle_tpu_torch/csrc/flash_attention.cu",
+                         replaces=FLASH_ROWS[name]["replaces"],
+                         launches=launches[name], max_abs_err=err[name],
+                         ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, library_ms=lib_ms))
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -327,6 +628,7 @@ def main() -> int:
         return 2
     from paddle_tpu_torch.models import gpt
     from paddle_tpu_torch.ops.kernels import decode_attention as K
+    from paddle_tpu_torch.ops.kernels import flash_attention as FK
 
     # float32 matmuls in full float32 (no TF32), stated and set
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -367,6 +669,13 @@ def main() -> int:
         f"includes one B=1 launch per layer per prefill)")
 
     rows = phase_timing(torch, K, err, launches)
+    del model
+    torch.cuda.empty_cache()
+
+    flash_err = phase_flash_kernels(torch, FK)
+    flash_launches, per_step = phase_training(torch, FK)
+    rows += phase_flash_timing(torch, FK, flash_err, flash_launches,
+                               per_step)
     log(f"[card] {smi}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

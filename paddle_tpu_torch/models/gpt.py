@@ -1,6 +1,7 @@
 """Decoder-only causal LM, GPT/Llama-style (counterpart of
 paddle_tpu/models/gpt.py): RoPE, GQA attention, RMSNorm pre-norm blocks,
-SwiGLU FFNs, a tied LM head and KV-cached decoding.
+SwiGLU FFNs, a tied LM head, KV-cached decoding and the fused
+linear-CE training head.
 
 Parameter names and layouts are the JAX package's
 (``blocks.<i>.self_attn.q_proj.weight``, Linear weights (in, out), the
@@ -15,6 +16,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .. import initializer as I
 from .. import nn
@@ -68,10 +70,6 @@ def _check_supported(cfg: GPTConfig):
         raise UnimplementedError(
             f"seq_parallel={cfg.seq_parallel!r} is not ported yet: ROADMAP "
             "queue 1 item 11 (distributed)")
-    if cfg.remat:
-        raise UnimplementedError(
-            "remat=True (per-block recompute) belongs to the training "
-            "slice: ROADMAP queue 1 item 3")
 
 
 class _SwiGLU(Layer):
@@ -158,12 +156,38 @@ class GPTForCausalLM(Layer):
 
     def _trunk(self, ids, kv_mask=None):
         x = self.embed(ids)
+        remat = self.cfg.remat and torch.is_grad_enabled()
         for blk in self.blocks:
-            x = blk(x, kv_mask=kv_mask)
+            if remat:
+                # per-block recompute (jax.checkpoint in the JAX package):
+                # the block's activations are dropped after the forward
+                # and recomputed, flash forward included, in the backward
+                x = checkpoint(blk, x, kv_mask=kv_mask, use_reentrant=False)
+            else:
+                x = blk(x, kv_mask=kv_mask)
         return self.norm_f(x)
 
     def forward(self, ids, kv_mask=None):
         return self._trunk(ids, kv_mask=kv_mask) @ self._head_weight()
+
+    def forward_loss(self, ids, labels=None, kv_mask=None,
+                     vocab_chunk: int = 1024, ignore_index: int = -100):
+        """Mean next-token CE through the fused chunked linear-CE head
+        (the (B*T, V) logits never exist). ``labels`` default to ids
+        shifted left, the last position ignored; pass explicit labels
+        with ``ignore_index`` holes for masked or padded positions."""
+        from ..ops.fused_loss import mean_linear_cross_entropy
+
+        h = self._trunk(ids, kv_mask=kv_mask)
+        if labels is None:
+            labels = torch.cat(
+                [ids[:, 1:], torch.full((ids.shape[0], 1), ignore_index,
+                                        dtype=ids.dtype, device=ids.device)],
+                dim=1)
+        b, t, d = h.shape
+        return mean_linear_cross_entropy(
+            h.reshape(b * t, d), self._head_weight(), None,
+            labels.reshape(-1), chunk=vocab_chunk, ignore_index=ignore_index)
 
     def _cached_blocks(self, x, caches, attn_step, head: bool = True):
         """ONE definition of the cached-decode block composition
@@ -279,3 +303,16 @@ class GPTForCausalLM(Layer):
         """KV-cached greedy continuation — generate(temperature=0)."""
         return self.generate(prompt_ids, max_len, temperature=0.0,
                              capacity=capacity)
+
+
+def loss_fn(logits, labels, ignore_index: int = -100):
+    """Plain (unfused) next-token CE over (B, T, V) logits — the test
+    oracle for forward_loss."""
+    b, t, v = logits.shape
+    flat = logits.reshape(b * t, v).float()
+    lbl = labels.reshape(-1)
+    keep = lbl != ignore_index
+    picked = torch.log_softmax(flat, dim=-1).gather(
+        1, lbl.clamp(0, v - 1)[:, None].long())[:, 0]
+    return -torch.where(keep, picked, 0.0).sum() / torch.clamp(
+        keep.sum(), min=1)

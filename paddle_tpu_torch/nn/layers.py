@@ -1,4 +1,4 @@
-"""Layers of the serving slice (counterpart of paddle_tpu/nn/layers.py):
+"""Layers of the port (counterpart of paddle_tpu/nn/layers.py):
 Linear, Embedding, RMSNorm, Dropout and MultiHeadAttention with its
 KV-cache decode mixin.
 
@@ -75,8 +75,9 @@ class Embedding(Layer):
 
 
 class Dropout(Layer):
-    """Dropout: a no-op in eval mode or at p == 0 (all the serving slice
-    runs). Training-mode dropout comes with the training slice."""
+    """Dropout: a no-op in eval mode or at p == 0 (what the serving and
+    training slices run). Training-mode dropout with p > 0 is not ported
+    yet."""
 
     def __init__(self, p: float = 0.5):
         super().__init__()
@@ -86,8 +87,8 @@ class Dropout(Layer):
         if self.p == 0.0 or not self.training:
             return x
         raise UnimplementedError(
-            "training-mode dropout belongs to the training slice (ROADMAP "
-            "queue 1 item 3); call .eval() to serve")
+            "training-mode dropout with p > 0 is not ported yet: ROADMAP "
+            "queue 1 item 3; call .eval() to serve")
 
 
 class _MHADecodeMixin:

@@ -5,11 +5,11 @@ Layout convention: (batch, seq, heads, head_dim) — "BTHD".
 ``xla_attention`` keeps the JAX package's name for the plain masked
 path: the JAX package leaves it to XLA, and here it is plain PyTorch
 math (einsum plus a masked softmax). Prefill attends with a per-query
-mask and always takes it, as in the JAX package. The training-shaped
-flash path (``_fwd_kernel``) is not ported yet: on a CUDA tensor whose
-shape the flash gate accepts, :func:`scaled_dot_product_attention`
-raises instead of quietly running the plain math where the JAX package
-would run a kernel."""
+mask and always takes it, as in the JAX package. On a CUDA tensor whose
+shape the flash gate accepts, with no mask or a key-padding mask,
+:func:`scaled_dot_product_attention` runs :func:`flash_attention`: the
+forward and recompute-backward CUDA kernels of
+``ops/kernels/flash_attention.py``."""
 
 from __future__ import annotations
 
@@ -28,29 +28,86 @@ def scaled_dot_product_attention(q, k, v, mask=None, causal: bool = False,
                                  dropout_p: float = 0.0,
                                  scale: Optional[float] = None,
                                  use_flash: bool = True,
+                                 segment_ids=None,
                                  window: Optional[int] = None):
     """q: (B, Tq, H, D), k/v: (B, Tk, Hkv, D) -> (B, Tq, H, D).
 
     mask: broadcastable to (B, H, Tq, Tk); True = keep. window: sliding
     window (lookback-only when causal, a symmetric band otherwise).
-    Packed-batch ``segment_ids`` come with the training slice."""
+    Attention dropout and packed-batch ``segment_ids`` are not ported
+    and raise."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     enforce(window is None or window >= 1,
             "window must be >= 1, got %s", window)
-    if dropout_p != 0.0:
-        raise UnimplementedError(
-            "attention dropout belongs to the training slice (ROADMAP "
-            "queue 1 item 3); the serving slice attends with dropout_p=0")
+    _check_unported(segment_ids, dropout_p)
     if use_flash:
         kv_mask = _as_kv_mask(mask, q.shape[0], k.shape[1])
         if (mask is None or kv_mask is not None) and _flash_ok(q, k):
-            raise UnimplementedError(
-                "this shape takes the flash-attention forward kernel "
-                "(_fwd_kernel), which is not ported yet: ROADMAP queue 2 "
-                "item 1 (training slice)")
+            return flash_attention(q, k, v, causal=causal, scale=scale,
+                                   kv_mask=kv_mask, window=window)
     return xla_attention(q, k, v, mask=mask, causal=causal, scale=scale,
                          window=window)
+
+
+def _check_unported(segment_ids, dropout_p):
+    if segment_ids is not None:
+        raise UnimplementedError(
+            "packed-batch segment_ids are not ported yet: ROADMAP queue 2 "
+            "item 1 (flash-attention options)")
+    if dropout_p != 0.0:
+        raise UnimplementedError(
+            "attention dropout is not ported yet: ROADMAP queue 1 item 3 "
+            "(training-mode dropout) and queue 2 item 1 (the in-kernel "
+            "dropout hash)")
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward kernel; backward = delta = rowsum(do * o) in float32, then
+    the dq kernel and the dk/dv kernel (the JAX package's custom VJP)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_mask, causal, scale, window):
+        from .kernels.flash_attention import flash_attention_fwd
+
+        o, lse = flash_attention_fwd(q, k, v, causal=causal, scale=scale,
+                                     window=window, kv_mask=kv_mask)
+        ctx.save_for_backward(q, k, v, o, lse, kv_mask)
+        ctx.opts = dict(causal=causal, scale=scale, window=window)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        from .kernels.flash_attention import (flash_attention_dkv,
+                                              flash_attention_dq)
+
+        q, k, v, o, lse, kv_mask = ctx.saved_tensors
+        do = do.contiguous()
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2)
+        delta = delta.contiguous()
+        dq = flash_attention_dq(q, k, v, do, lse, delta, kv_mask=kv_mask,
+                                **ctx.opts)
+        dk, dv = flash_attention_dkv(q, k, v, do, lse, delta,
+                                     kv_mask=kv_mask, **ctx.opts)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention(q, k, v, causal: bool = False,
+                    scale: Optional[float] = None, kv_mask=None,
+                    window: Optional[int] = None, segment_ids=None,
+                    dropout_p: float = 0.0):
+    """Blockwise attention over q (B, Tq, H, D) and k/v (B, Tk, Hkv, D),
+    differentiable by the recompute backward (counterpart of
+    paddle_tpu/ops/pallas/flash_attention.py ``flash_attention``).
+    ``kv_mask``: (B, Tk) keep-mask; a row with no live key outputs zeros.
+    On CUDA tensors the three kernels run; on CPU tensors their plain
+    versions."""
+    _check_unported(segment_ids, dropout_p)
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    return _FlashAttention.apply(q, k, v, kv_mask, bool(causal),
+                                 float(scale),
+                                 None if window is None else int(window))
 
 
 def _as_kv_mask(mask, b: int, tk: int):
@@ -157,12 +214,13 @@ def decode_flash_ok(capacity: int, d: int) -> bool:
 
 
 def _flash_ok(q, k) -> bool:
-    """The training-kernel gate for (B, T, H, D) operands on the card."""
+    """The flash-kernel gate for (B, T, H, D) operands on the card."""
     return q.is_cuda and flash_shape_ok(q.shape[1], k.shape[1],
                                         q.shape[-1])
 
 
 def flash_shape_ok(tq: int, tk: int, d: int) -> bool:
-    """The training kernel's shape rule: 64-divisible sequence lengths
-    and a supported head dim (the TPU's tuned verdicts are not read)."""
+    """The flash kernels' shape rule: 64-divisible sequence lengths and
+    a supported head dim; every shape it admits runs on the kernels (the
+    TPU's tuned verdicts are not read)."""
     return tq % 64 == 0 and tk % 64 == 0 and d in _FLASH_HEAD_DIMS

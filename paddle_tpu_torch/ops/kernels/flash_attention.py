@@ -1,0 +1,329 @@
+"""Flash attention over (batch, seq, heads, head_dim) tensors: the
+forward and the recompute backward, each a hand-written CUDA kernel for
+Hopper (``csrc/flash_attention.cu``) with its plain PyTorch version
+beside it.
+
+Replaces (TPU kernels): paddle_tpu/ops/pallas/flash_attention.py
+``_fwd_kernel`` (:func:`flash_attention_fwd`), ``_dq_kernel``
+(:func:`flash_attention_dq`) and ``_dkv_kernel``
+(:func:`flash_attention_dkv`).
+
+Bound: operations. The live scores (B*H*T*(T+1)/2 when causal) cost 4*D
+flops each forward, 6*D for dq and 8*D for dk/dv, against a few tens of
+MB of operands at the training shape. Design: one thread block per
+(batch, head, 64-row tile) walks only the 64-wide tiles that hold a live
+entry, with tiles in shared memory and float32 sums in registers; dk/dv
+loop over the GQA group inside the block, so they come back summed onto
+the kv heads. The source file says what is left for a later change.
+
+Layout at these functions: q (B, Tq, H, D); k, v (B, Tk, Hkv, D); lse
+and delta (B, H, Tq) float32; kv_mask (B, Tk) bool, True = attend. Tq
+and Tk are multiples of 64 and D is 64, 128 or 256 (the dispatch gate's
+rule, ``ops.attention.flash_shape_ok``). Query row r sits at position
+r + Tk - Tq (bottom-right causal alignment).
+
+Dispatch: a wrapper takes the plain version only for tensors on the CPU.
+For a CUDA tensor it launches the kernel or raises; there is no
+fallback. Each wrapper counts its launches in ``.launches``.
+
+Types: float32 and bfloat16. As in the TPU kernels, p is rounded to the
+input type before p.v and p^T.do, ds before ds.k and ds^T.q, and every
+sum is float32."""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from ...core.enforce import (InvalidArgumentError, KernelLaunchError,
+                             enforce)
+
+# the TPU kernels' finite mask value (flash_attention.py _NEG_INF); p = 0
+# where s <= NEG_INF / 2
+NEG_INF = -1e30
+HEAD_DIMS = (64, 128, 256)
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+# ----- plain versions ------------------------------------------------------
+
+def _keep(b, tq, tk, causal, window, kv_mask, device):
+    """(B|1, 1, 1, Tq, Tk) keep-mask over the (b, kv head, group, q, k)
+    score layout — the kernels' per-entry rule."""
+    rows = torch.arange(tq, device=device)[:, None] + (tk - tq)
+    cols = torch.arange(tk, device=device)[None, :]
+    keep = torch.ones((tq, tk), dtype=torch.bool, device=device)
+    if causal:
+        keep &= cols <= rows
+    if window is not None:
+        keep &= rows - cols < window
+        if not causal:
+            keep &= cols - rows < window
+    keep = keep[None, None, None]
+    if kv_mask is not None:
+        keep = keep & kv_mask.to(device=device, dtype=torch.bool)[
+            :, None, None, None, :]
+    return keep
+
+
+def _scores(q, k, causal, scale, window, kv_mask):
+    """Masked float32 scores (B, Hkv, G, Tq, Tk) and the grouped q."""
+    b, tq, h, d = q.shape
+    tk, kv_h = k.shape[1], k.shape[2]
+    q5 = q.reshape(b, tq, kv_h, h // kv_h, d)
+    s = torch.einsum("bqkgd,btkd->bkgqt", q5.float(), k.float()) * scale
+    keep = _keep(b, tq, tk, causal, window, kv_mask, q.device)
+    return torch.where(keep, s, NEG_INF), q5
+
+
+def flash_attention_fwd_plain(q, k, v, *, causal: bool, scale: float,
+                              window: Optional[int] = None, kv_mask=None):
+    """Plain PyTorch version of :func:`flash_attention_fwd`: the whole
+    masked row at once, in float32. Returns (o, lse)."""
+    b, tq, h, d = q.shape
+    s, _ = _scores(q, k, causal, scale, window, kv_mask)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    p = torch.where(s <= NEG_INF * 0.5, 0.0, p)
+    l = p.sum(dim=-1, keepdim=True)
+    l = torch.where(l == 0.0, 1.0, l)
+    o = torch.einsum("bkgqt,btkd->bkgqd", p.to(v.dtype).float(),
+                     v.float()) / l
+    o = o.permute(0, 3, 1, 2, 4).reshape(b, tq, h, d).to(q.dtype)
+    lse = (m + torch.log(torch.clamp(l, min=1e-37)))[..., 0]
+    return o, lse.reshape(b, h, tq)
+
+
+def _probs(q, k, lse, causal, scale, window, kv_mask):
+    s, q5 = _scores(q, k, causal, scale, window, kv_mask)
+    b, kv_h, g, tq, _ = s.shape
+    p = torch.exp(s - lse.reshape(b, kv_h, g, tq)[..., None])
+    return torch.where(s <= NEG_INF * 0.5, 0.0, p), q5
+
+
+def _ds(p, do5, v, delta, scale, dtype):
+    b, kv_h, g, tq, _ = p.shape
+    dp = torch.einsum("bqkgd,btkd->bkgqt", do5.float(), v.float())
+    ds = p * (dp - delta.reshape(b, kv_h, g, tq)[..., None]) * scale
+    return ds.to(dtype).float()
+
+
+def flash_attention_dq_plain(q, k, v, do, lse, delta, *, causal: bool,
+                             scale: float, window: Optional[int] = None,
+                             kv_mask=None):
+    """Plain PyTorch version of :func:`flash_attention_dq`."""
+    b, tq, h, d = q.shape
+    p, _ = _probs(q, k, lse, causal, scale, window, kv_mask)
+    ds = _ds(p, do.reshape(p.shape[0], tq, p.shape[1], p.shape[2], d), v,
+             delta, scale, k.dtype)
+    dq = torch.einsum("bkgqt,btkd->bqkgd", ds, k.float())
+    return dq.reshape(b, tq, h, d).to(q.dtype)
+
+
+def flash_attention_dkv_plain(q, k, v, do, lse, delta, *, causal: bool,
+                              scale: float, window: Optional[int] = None,
+                              kv_mask=None):
+    """Plain PyTorch version of :func:`flash_attention_dkv`; dk and dv
+    summed over each GQA group. Returns (dk, dv)."""
+    p, q5 = _probs(q, k, lse, causal, scale, window, kv_mask)
+    do5 = do.reshape(q5.shape)
+    dv = torch.einsum("bkgqt,bqkgd->btkd", p.to(do.dtype).float(),
+                      do5.float())
+    ds = _ds(p, do5, v, delta, scale, q.dtype)
+    dk = torch.einsum("bkgqt,bqkgd->btkd", ds, q5.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+# ----- wrappers ------------------------------------------------------------
+
+class _FlashArgs(ctypes.Structure):
+    """Mirror of ``struct FlashArgs`` in csrc/flash_attention.cu."""
+
+    _fields_ = (
+        [(n, ctypes.c_void_p) for n in (
+            "q", "k", "v", "dout", "lse", "delta", "kv_mask", "o",
+            "lse_out", "dq", "dk", "dv")]
+        + [(f"{t}_s{a}", ctypes.c_longlong) for t in ("q", "k", "v", "do")
+           for a in "bth"]
+        + [(n, ctypes.c_int) for n in (
+            "B", "Tq", "Tk", "H", "Hkv", "D", "causal", "window")]
+        + [("scale", ctypes.c_float)])
+
+
+def _lib():
+    """The built library, its C signatures declared once (pointers and
+    the stream as c_void_p, so none is cut to 32 bits)."""
+    from . import _build
+
+    lib = _build.load("flash_attention")
+    if not getattr(lib, "_pt_declared", False):
+        lib.pt_flash_args_size.argtypes = []
+        lib.pt_flash_args_size.restype = ctypes.c_size_t
+        size = lib.pt_flash_args_size()
+        if size != ctypes.sizeof(_FlashArgs):
+            raise KernelLaunchError(
+                f"FlashArgs is {size} bytes in the library and "
+                f"{ctypes.sizeof(_FlashArgs)} in its ctypes mirror")
+        for fn in (lib.pt_flash_fwd, lib.pt_flash_dq, lib.pt_flash_dkv):
+            fn.argtypes = [ctypes.c_int, ctypes.POINTER(_FlashArgs),
+                           ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        lib._pt_declared = True
+    return lib
+
+
+def _check(q, k, v, window, kv_mask, *extra):
+    """Shapes for every caller; device, dtype and strides for the card."""
+    b, tq, h, d = q.shape
+    tk, kv_h = k.shape[1], k.shape[2]
+    enforce(tuple(k.shape) == tuple(v.shape) and k.shape[0] == b
+            and k.shape[3] == d,
+            "k/v must both be (B=%s, Tk, Hkv, D=%s), got %s and %s", b, d,
+            tuple(k.shape), tuple(v.shape))
+    enforce(h % kv_h == 0, "heads %s not divisible by kv heads %s", h,
+            kv_h)
+    enforce(window is None or window >= 1, "window must be >= 1, got %s",
+            window)
+    enforce(kv_mask is None or tuple(kv_mask.shape) == (b, tk),
+            "kv_mask must be (B, Tk) = (%s, %s), got %s", b, tk,
+            None if kv_mask is None else tuple(kv_mask.shape))
+    if q.device.type == "cpu":
+        return
+    enforce(q.is_cuda, "flash attention runs on cuda or cpu, got %s",
+            q.device)
+    if tq % 64 or tk % 64 or d not in HEAD_DIMS:
+        raise InvalidArgumentError(
+            f"the flash kernels take sequence lengths divisible by 64 and "
+            f"head_dim in {HEAD_DIMS}, got Tq={tq}, Tk={tk}, D={d}")
+    for x in (q, k, v) + extra:
+        if x.device != q.device:
+            raise InvalidArgumentError(
+                f"flash attention operands must share one device, got "
+                f"{x.device} and {q.device}")
+        if x.dtype != q.dtype:
+            raise InvalidArgumentError(
+                f"q, k, v and do must share one dtype, got {x.dtype} and "
+                f"{q.dtype}")
+        if x.stride(-1) != 1:
+            raise InvalidArgumentError(
+                "flash attention operands need a unit head_dim stride")
+    if q.dtype not in _DTYPE_CODE:
+        raise InvalidArgumentError(
+            f"the flash kernels take float32 or bfloat16, got {q.dtype}")
+
+
+def _row_stats(x, b, h, tq):
+    enforce(tuple(x.shape) == (b, h, tq) and x.dtype == torch.float32,
+            "lse/delta must be float32 (B, H, Tq) = (%s, %s, %s), got %s "
+            "%s", b, h, tq, x.dtype, tuple(x.shape))
+    return x.contiguous()
+
+
+def _args(q, k, v, do, causal, scale, window, kv_mask, **ptrs):
+    b, tq, h, d = q.shape
+    a = _FlashArgs()
+    for name, x in (("q", q), ("k", k), ("v", v), ("do", do)):
+        if x is not None:
+            sb, st, sh, _ = x.stride()
+            setattr(a, f"{name}_sb", sb)
+            setattr(a, f"{name}_st", st)
+            setattr(a, f"{name}_sh", sh)
+            setattr(a, "dout" if name == "do" else name, x.data_ptr())
+    if kv_mask is not None:
+        ptrs["kv_mask"] = kv_mask
+    for name, x in ptrs.items():
+        setattr(a, name, x.data_ptr())
+    a.B, a.Tq, a.Tk, a.H, a.Hkv, a.D = b, tq, k.shape[1], h, k.shape[2], d
+    a.causal = int(bool(causal))
+    a.window = int(window or 0)
+    a.scale = float(scale)
+    return a
+
+
+def _mask_u8(kv_mask, device):
+    if kv_mask is None:
+        return None
+    return kv_mask.to(device=device, dtype=torch.uint8).contiguous()
+
+
+def _launch(fn_name, q, a):
+    lib = _lib()
+    rc = getattr(lib, fn_name)(
+        _DTYPE_CODE[q.dtype], ctypes.byref(a),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise KernelLaunchError(
+            f"{fn_name} launch failed: cudaGetLastError() = {rc}")
+
+
+def flash_attention_fwd(q, k, v, *, causal: bool, scale: float,
+                        window: Optional[int] = None, kv_mask=None):
+    """Attention of q (B, Tq, H, D) over k/v (B, Tk, Hkv, D). Returns
+    (o (B, Tq, H, D) in q's dtype, lse (B, H, Tq) float32); a row with no
+    live key gets o = 0 and lse = -1e30."""
+    _check(q, k, v, window, kv_mask)
+    if q.device.type == "cpu":
+        return flash_attention_fwd_plain(q, k, v, causal=causal,
+                                         scale=scale, window=window,
+                                         kv_mask=kv_mask)
+    b, tq, h, d = q.shape
+    o = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
+    kvm = _mask_u8(kv_mask, q.device)
+    _launch("pt_flash_fwd", q, _args(q, k, v, None, causal, scale, window,
+                                     kvm, o=o, lse_out=lse))
+    flash_attention_fwd.launches += 1
+    return o, lse
+
+
+flash_attention_fwd.launches = 0
+
+
+def flash_attention_dq(q, k, v, do, lse, delta, *, causal: bool,
+                       scale: float, window: Optional[int] = None,
+                       kv_mask=None):
+    """dq (B, Tq, H, D) from the forward's ``lse`` and ``delta`` =
+    rowsum(do * o), both (B, H, Tq) float32."""
+    _check(q, k, v, window, kv_mask, do)
+    if q.device.type == "cpu":
+        return flash_attention_dq_plain(q, k, v, do, lse, delta,
+                                        causal=causal, scale=scale,
+                                        window=window, kv_mask=kv_mask)
+    b, tq, h, _ = q.shape
+    lse, delta = _row_stats(lse, b, h, tq), _row_stats(delta, b, h, tq)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    kvm = _mask_u8(kv_mask, q.device)
+    _launch("pt_flash_dq", q, _args(q, k, v, do, causal, scale, window, kvm,
+                                    lse=lse, delta=delta, dq=dq))
+    flash_attention_dq.launches += 1
+    return dq
+
+
+flash_attention_dq.launches = 0
+
+
+def flash_attention_dkv(q, k, v, do, lse, delta, *, causal: bool,
+                        scale: float, window: Optional[int] = None,
+                        kv_mask=None):
+    """dk and dv (B, Tk, Hkv, D), each summed over the query heads of its
+    GQA group. Returns (dk, dv)."""
+    _check(q, k, v, window, kv_mask, do)
+    if q.device.type == "cpu":
+        return flash_attention_dkv_plain(q, k, v, do, lse, delta,
+                                         causal=causal, scale=scale,
+                                         window=window, kv_mask=kv_mask)
+    b, tq, h, _ = q.shape
+    lse, delta = _row_stats(lse, b, h, tq), _row_stats(delta, b, h, tq)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    kvm = _mask_u8(kv_mask, q.device)
+    _launch("pt_flash_dkv", q, _args(q, k, v, do, causal, scale, window,
+                                     kvm, lse=lse, delta=delta, dk=dk,
+                                     dv=dv))
+    flash_attention_dkv.launches += 1
+    return dk, dv
+
+
+flash_attention_dkv.launches = 0

@@ -1,0 +1,118 @@
+"""The training driver (counterpart of paddle_tpu/parallel/api.py
+``Trainer``), single device.
+
+The JAX Trainer owns functional (params, buffers, opt_state) and a
+jitted step. Here the model's own parameters are the state: a step runs
+the loss builder, ``backward()``, and the optimizer's in-place update.
+PyTorch runs eagerly, so there is nothing to compile; ``train_steps`` is
+a Python loop."""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import torch
+
+from ..core.enforce import UnimplementedError, enforce
+from ..core.random import make_generator
+from ..optimizer.optimizers import Optimizer
+
+_MULTI_DEVICE = "is not ported yet: ROADMAP queue 1 item 11 (distributed)"
+
+
+class Trainer:
+    """Training driver.
+
+    ``loss_builder(model, batch, generator) -> (loss, metrics)``: the
+    PyTorch form of the JAX package's ``(params, buffers, rng, batch)``.
+    ``generator`` is the trainer's ``torch.Generator`` (seed 0, on the
+    parameters' device) in a training step and None in ``eval_step``.
+    Arguments of the JAX Trainer that this slice does not carry raise
+    :class:`UnimplementedError` naming their ROADMAP item."""
+
+    def __init__(self, model: torch.nn.Module, optimizer: Optimizer,
+                 loss_builder: Callable, mesh=None, param_spec=None,
+                 opt_state_rules=None, amp: Optional[str] = None,
+                 grad_accum_steps: int = 1, plan=None,
+                 grad_compression: Optional[str] = None):
+        for name, value in (("mesh", mesh), ("plan", plan),
+                            ("param_spec", param_spec),
+                            ("opt_state_rules", opt_state_rules),
+                            ("grad_compression", grad_compression)):
+            if value is not None:
+                raise UnimplementedError(f"Trainer {name}= {_MULTI_DEVICE}")
+        if amp is not None:
+            raise UnimplementedError(
+                "Trainer amp= is not ported yet: ROADMAP queue 1 item 3 "
+                "(amp.py)")
+        enforce(grad_accum_steps >= 1, "grad_accum_steps must be >= 1")
+        if grad_accum_steps > 1:
+            raise UnimplementedError(
+                "Trainer grad_accum_steps > 1 is not ported yet: ROADMAP "
+                "queue 1 item 3")
+        self.model = model
+        self.optimizer = optimizer
+        self.loss_builder = loss_builder
+        self.params: Dict[str, torch.nn.Parameter] = dict(
+            model.named_parameters())
+        self.opt_state = optimizer.init(self.params)
+        self._generator = make_generator(
+            0, next(iter(self.params.values())).device)
+
+    def train_step(self, batch) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        """One update: loss, backward, optimizer. Returns the loss
+        (detached, on the device: reading it syncs) and the metrics."""
+        self.model.train()
+        for p in self.params.values():
+            p.grad = None
+        loss, metrics = self.loss_builder(self.model, batch,
+                                          self._generator)
+        loss.backward()
+        grads = {name: (p.grad if p.grad is not None
+                        else torch.zeros_like(p))
+                 for name, p in self.params.items()}
+        self.optimizer.apply(self.params, grads, self.opt_state)
+        return loss.detach(), _detach(metrics)
+
+    def train_steps(self, batch, n: int):
+        """``n`` updates on the same batch; returns the last step's
+        (loss, metrics)."""
+        enforce(n >= 1, "train_steps needs n >= 1, got %s", n)
+        for _ in range(n):
+            out = self.train_step(batch)
+        return out
+
+    def eval_step(self, batch):
+        """(loss, metrics) in eval mode, without gradients."""
+        was_training = self.model.training
+        self.model.eval()
+        try:
+            with torch.no_grad():
+                return self.loss_builder(self.model, batch, None)
+        finally:
+            self.model.train(was_training)
+
+    @classmethod
+    def supervised(cls, model: torch.nn.Module, optimizer: Optimizer,
+                   loss_fn: Callable, metrics_fn: Optional[Callable] = None,
+                   **kw) -> "Trainer":
+        """For (x, label) batches: ``dict(x=..., label=...)`` or a tuple
+        ``(x, label)``; loss = ``loss_fn(model(x), label)``."""
+
+        def loss_builder(model, batch, generator):
+            if isinstance(batch, dict):
+                x, label = batch["x"], batch["label"]
+            else:
+                x, label = batch
+            out = model(x)
+            loss = loss_fn(out, label)
+            metrics = metrics_fn(out, label) if metrics_fn else {}
+            return loss, metrics
+
+        return cls(model, optimizer, loss_builder, **kw)
+
+
+def _detach(tree):
+    if isinstance(tree, dict):
+        return {k: _detach(v) for k, v in tree.items()}
+    return tree.detach() if torch.is_tensor(tree) else tree

@@ -129,11 +129,16 @@ def test_generate_sampled_needs_generator(pair):
 @pytest.mark.parametrize("over,item", [
     (dict(moe_experts=4), "item 9"),
     (dict(seq_parallel="ring"), "item 11"),
-    (dict(remat=True), "item 3"),
+    (dict(dropout=0.1), "item 3"),
 ])
 def test_later_slice_configs_raise(over, item):
+    """Options of later slices raise when built or, for dropout, when a
+    training-mode forward reaches them (remat is ported: test_torch_train
+    runs it)."""
     with pytest.raises(UnimplementedError, match=item):
-        TG.GPTForCausalLM(TG.GPTConfig(**dict(CFG, **over)), device="cpu")
+        model = TG.GPTForCausalLM(TG.GPTConfig(**dict(CFG, **over)),
+                                  device="cpu")
+        model.train()(torch.from_numpy(_ids((1, 8), 0)))
 
 
 def test_load_numpy_state_checks_names_and_shapes(pair):

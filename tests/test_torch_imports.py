@@ -23,6 +23,7 @@ from paddle_tpu_torch.core import (DeviceUnavailableError,
 from paddle_tpu_torch.models import gpt as TG
 from paddle_tpu_torch.ops.kernels import _build
 from paddle_tpu_torch.ops.kernels import decode_attention as K
+from paddle_tpu_torch.ops.kernels import flash_attention as FK
 from paddle_tpu_torch.serving import BatchedDecoder
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -76,10 +77,11 @@ def test_build_without_nvcc_raises_typed(monkeypatch, tmp_path):
 
 
 def test_build_sources_and_hashed_library_path():
-    assert (_build.CSRC / "decode_attention.cu").exists()
-    path = _build.library_path("decode_attention")
-    assert path.parent == _build.BUILD_DIR
-    assert path.name.startswith("decode_attention-")
+    for name in ("decode_attention", "flash_attention"):
+        assert (_build.CSRC / f"{name}.cu").exists()
+        path = _build.library_path(name)
+        assert path.parent == _build.BUILD_DIR
+        assert path.name.startswith(f"{name}-")
     with pytest.raises(KernelCompileError, match="no CUDA source"):
         _build.library_path("missing_kernel")
 
@@ -137,10 +139,34 @@ def test_cpu_tensors_take_plain_versions_and_count_nothing():
                              **kw)
         rid = dec.submit([1, 2, 3], 4)
         assert dec.run()[rid].shape == (4,)
+    # the three flash wrappers take their plain versions on CPU tensors,
+    # and a training step of the model on the CPU launches nothing
+    fn = (FK.flash_attention_fwd.launches, FK.flash_attention_dq.launches,
+          FK.flash_attention_dkv.launches)
+    kv = k[:, :128]
+    kw = dict(causal=True, scale=0.125, window=None, kv_mask=None)
+    qf = torch.from_numpy(rng.normal(size=(2, 128, 4, 64)).astype(
+        np.float32))
+    o, lse = FK.flash_attention_fwd(qf, kv, kv, **kw)
+    want = FK.flash_attention_fwd_plain(qf, kv, kv, **kw)
+    torch.testing.assert_close(o, want[0], rtol=0, atol=0)
+    delta = (qf * o).sum(-1).transpose(1, 2).contiguous()
+    torch.testing.assert_close(
+        FK.flash_attention_dq(qf, kv, kv, qf, lse, delta, **kw),
+        FK.flash_attention_dq_plain(qf, kv, kv, qf, lse, delta, **kw),
+        rtol=0, atol=0)
+    torch.testing.assert_close(
+        FK.flash_attention_dkv(qf, kv, kv, qf, lse, delta, **kw),
+        FK.flash_attention_dkv_plain(qf, kv, kv, qf, lse, delta, **kw),
+        rtol=0, atol=0)
+    model.train()
+    model.forward_loss(torch.randint(1, 64, (2, 64))).backward()
     assert (K.decode_attention.launches,
             K.decode_attention_paged.launches) == n
+    assert (FK.flash_attention_fwd.launches, FK.flash_attention_dq.launches,
+            FK.flash_attention_dkv.launches) == fn
     if not torch.cuda.is_available():
-        assert n == (0, 0)
+        assert n == (0, 0) and fn == (0, 0, 0)
 
 
 def test_version_and_exports():
