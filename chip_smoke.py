@@ -7,39 +7,60 @@ H100. Run from the repository root, with no arguments:
 Phases, each printed as it runs:
 
 1. the device, and ``nvidia-smi --query-gpu=name,power.limit``;
-2. the nvcc builds of the port's CUDA sources, one nvcc per source, all
+2. the nvcc builds of the port's three CUDA sources, one nvcc per source, all
    started together, with their seconds and the ``-Xptxas -v`` register /
    shared-memory lines;
 3. each decode-attention kernel against its plain PyTorch version on
    the card (B=8, cap=2048, H=12, Hkv=4, D=64; cursors across [0, 2047]
-   with block edges; window None and 256; the paged form with
+   with block edges; window None and 256; the paged forms with
    page_size=64, a shuffled table with garbage past the live range and
-   a parked row), float32 at atol 1e-4 and bfloat16 compared in float32
-   at atol 2e-2;
-   then the paged cache write with a parked row, run under torch's sync
-   debug mode "error" (a write that read anything back to the host
-   would raise) and held exactly against a plain reference;
+   a parked row; the int8 form over pools quantized from the same seeded
+   floats with the port's absmax_encode), float32 at atol 1e-4 and
+   bfloat16 compared in float32 at atol 2e-2; the int8 matrix product
+   against its plain version, exactly, at MNIST's three layer shapes and
+   33x100x17, per-tensor and per-channel weight scales, float32 and
+   bfloat16 out;
+   then the paged cache write, float and int8 pools, with a parked row,
+   run under torch's sync debug mode "error" (a write that read anything
+   back to the host would raise) and held exactly against a plain
+   reference;
 4. the serving slice at full width in float32: GPTConfig.small() with
    seeded random weights serves 16 requests (prompts of 8-48 tokens,
    max_new=32) through BatchedDecoder(slots=8, capacity=2048), then
    again paged (pages=8*32+8, page_size=64). Each path runs with the
    launch counters set to 0 just before and read just after; a kernel
-   of the path that never launched fails the run. Every emitted token
-   must sit within 1e-3 of its position's max logit when the request is
-   re-run teacher-forced through _chunk_logits on a fresh cache;
+   of the path that never launched, or another decode kernel that did,
+   fails the run. Every emitted token must sit within 1e-3 of its
+   position's max logit when the request is re-run teacher-forced
+   through _chunk_logits on a fresh cache. Then int8 KV: the same 16
+   requests with kv_dtype="int8" (the int8 kernel launches at least once
+   per layer per tick, the float paged kernel never), the pool bytes of
+   both arms (int8 >= 3.5x smaller) and the outputs that agree with the
+   float paged run (reported; untrained-model argmax ties); its gate is
+   the JAX package's logit parity: a 37-token prefill and 6
+   teacher-forced steps within 0.05 x the float pools' logit spread;
 5. timing with CUDA events at the phase-3 shapes (float32, L2 flushed
    before each launch, as a decode tick finds the cache cold): kernel
    ms, plain-version ms, bytes and the memory/compute bound, and, as a
    yardstick the port never calls, torch's scaled_dot_product_attention
-   on the same keys;
-6. the three flash-attention kernels (forward, dq, dk/dv) against their
+   on the same keys (the int8 row: on keys dequantized beforehand);
+   the int8 kernel's ms beside the float paged kernel's;
+6. int8 inference: MnistMLP(512, 256) with seeded weights through
+   quantize_model, calibrate on 4 seeded (8, 784) batches, freeze and
+   int8_swap (3 layers); one batch-8192 forward with the counter at 0
+   launches the int8 matrix product 3 times, equals the same swapped
+   model on the plain version exactly, and lies within 0.1 relative of
+   the fake-quant float model; its ms beside the float32 MnistMLP's;
+   then the kernel timed at MNIST layer 1 against its plain version and
+   torch._int_mm plus the same scaling as the yardstick;
+7. the three flash-attention kernels (forward, dq, dk/dv) against their
    plain versions on the card: o, lse, dq, dk and dv in float32 (atol
    1e-4) and bfloat16 compared in float32 (atol 2e-2), at the training
    shape (B=8, T=1024, H=12, Hkv=4, D=64, causal) and at each option the
    gate admits (non-causal; Hkv 12 and 1; window 256; a kv_mask with a
    padded tail and a row with no live key; Tq=512 against Tk=1024;
    D=128 and D=256);
-7. the training slice at full width, bench_gpt's configuration:
+8. the training slice at full width, bench_gpt's configuration:
    GPTConfig.small() with remat, max_position=1024, float32, seeded
    weights, one (8, 1024) batch of seeded ids, Adam(1e-3) through
    Trainer. First one forward_loss backward on the kernel path is held
@@ -49,7 +70,7 @@ Phases, each printed as it runs:
    dq 12 and dk/dv 12 times; then 5 more steps, every loss finite and
    the last below the first, timed on the host clock after a
    synchronize;
-8. timing of the flash kernels at the training shape (float32, L2
+9. timing of the flash kernels at the training shape (float32, L2
    flushed): kernel and plain ms, the operation/byte bound, and torch's
    scaled_dot_product_attention forward (and its backward alone, on a
    kept graph) as the yardstick.
@@ -82,7 +103,21 @@ KERNEL_ROWS = {
     "decode_attention_paged": dict(
         replaces="paddle_tpu/ops/pallas/flash_decode.py:137 "
                  "(_paged_kernel, via flash_decode_paged :157)"),
+    "decode_attention_paged_quant": dict(
+        replaces="paddle_tpu/ops/pallas/flash_decode.py:146 "
+                 "(_paged_kernel_quant, via flash_decode_paged(k_scale=, "
+                 "v_scale=) :157)"),
 }
+QMM_REPLACES = ("paddle_tpu/ops/pallas/quant_matmul.py:45 (_kernel, via "
+                "quant_matmul :186)")
+INT8_PEAK_OPS = 1979e12       # H100 SXM dense int8 tensor-core peak
+# MnistMLP(512, 256) at bench.py's mnist batch: (M, K, N) of its layers
+MNIST_BATCH = 8192
+MNIST_SHAPES = [(MNIST_BATCH, 784, 512), (MNIST_BATCH, 512, 256),
+                (MNIST_BATCH, 256, 10)]
+# the JAX package's int8-vs-float logit contract (tests/test_serving.py)
+# and its int8-vs-fake-quant bound (tests/test_quant_matmul.py)
+INT8_KV_SPREAD, INT8_MLP_REL = 0.05, 0.1
 FLASH_ROWS = {
     "flash_attention_fwd": dict(
         replaces="paddle_tpu/ops/pallas/flash_attention.py:187 "
@@ -138,7 +173,7 @@ def phase_build():
     """One nvcc per source, all started together."""
     from paddle_tpu_torch.ops.kernels import _build
 
-    names = ("decode_attention", "flash_attention")
+    names = ("decode_attention", "flash_attention", "quant_matmul")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         built = list(pool.map(_build.build, names))
@@ -153,6 +188,8 @@ def phase_build():
 
 
 def kernel_inputs(torch, dtype, seed=0):
+    from paddle_tpu_torch.quant.ops import absmax_encode
+
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -172,8 +209,16 @@ def kernel_inputs(torch, dtype, seed=0):
     table[1, 2:] = -5
     t_c = torch.tensor(T_CONTIG, dtype=torch.int32, device=dev)
     t_p = torch.tensor(T_PAGED, dtype=torch.int32, device=dev)
+    # int8 pools quantized per vector from the same floats
+    kq, ks = absmax_encode(kp.float(), axis=-1)
+    vq, vs = absmax_encode(vp.float(), axis=-1)
     return dict(q=q, k=k, v=v, kp=kp, vp=vp, table=table, t_c=t_c,
-                t_p=t_p)
+                t_p=t_p, kq=kq, ks=ks[..., 0].contiguous(), vq=vq,
+                vs=vs[..., 0].contiguous())
+
+
+def quant_planes(x):
+    return x["kq"], x["ks"], x["vq"], x["vs"]
 
 
 def phase_kernels(torch, K):
@@ -196,6 +241,13 @@ def phase_kernels(torch, K):
                     K.decode_attention_paged_plain(
                         x["q"], x["kp"], x["vp"], x["table"], x["t_p"],
                         window)),
+                "decode_attention_paged_quant": (
+                    K.decode_attention_paged_quant(
+                        x["q"], *quant_planes(x), x["table"], x["t_p"],
+                        window=window),
+                    K.decode_attention_paged_quant_plain(
+                        x["q"], *quant_planes(x), x["table"], x["t_p"],
+                        window)),
             }
             torch.cuda.synchronize()
             for name, (got, want) in pairs.items():
@@ -212,32 +264,84 @@ def phase_kernels(torch, K):
     return err
 
 
+def qmm_operands(torch, m, k, n, gen):
+    def i8(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                             dtype=torch.int8)
+
+    sa = torch.rand((), generator=gen, device="cuda") * 0.01
+    return i8(m, k), i8(k, n), sa
+
+
+def phase_qmm_kernels(torch, QM):
+    """The int8 matrix product against its plain version, required
+    exactly equal; returns the largest difference seen (0.0)."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    worst = 0.0
+    for m, k, n in MNIST_SHAPES + [(33, 100, 17)]:
+        a, b, sa = qmm_operands(torch, m, k, n, gen)
+        for sb in (torch.rand((), generator=gen, device="cuda") * 0.01,
+                   torch.rand((n,), generator=gen, device="cuda") * 0.01):
+            for dt in (torch.float32, torch.bfloat16):
+                got = QM.quant_matmul(a, b, sa, sb, out_dtype=dt)
+                want = QM.quant_matmul_plain(a, b, sa, sb, out_dtype=dt)
+                torch.cuda.synchronize()
+                e = (got.float() - want.float()).abs().max().item()
+                ok = torch.equal(got, want)
+                log(f"[kernels] quant_matmul {m}x{k}x{n} "
+                    f"{'per-channel' if sb.ndim else 'per-tensor'} "
+                    f"{str(dt)[6:]}: max abs diff {e:.3e} (exact "
+                    f"required) {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise SystemExit("quant_matmul disagrees with its plain "
+                                     "version")
+                worst = max(worst, e)
+    return worst
+
+
 def phase_paged_write(torch):
-    """paged_kv.write_rows on the card drops the parked row without a
-    host sync and writes the live rows exactly where a plain loop
-    does."""
+    """paged_kv.write_rows on the card, into float and into int8 pools,
+    drops the parked row without a host sync and writes the live rows
+    exactly where a plain loop does."""
     from paddle_tpu_torch.ops import paged_kv
+    from paddle_tpu_torch.quant.ops import absmax_encode
 
     x = kernel_inputs(torch, torch.float32, seed=2)
-    kp, vp = x["kp"].clone(), x["vp"].clone()
     gen = torch.Generator(device="cuda").manual_seed(3)
     k_t = torch.randn(B, 1, HKV, D, generator=gen, device="cuda")
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        paged_kv.write_rows(kp, vp, x["table"], x["t_p"], k_t, -k_t, PS)
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    want_k, want_v = x["kp"].clone(), x["vp"].clone()
-    for b, t in enumerate(T_PAGED):
-        if t < CAP:                             # the parked row drops
+
+    def int8_planes(vec):
+        q, s = absmax_encode(vec, axis=-1)
+        return [q, s[..., 0]]
+
+    arms = {"float": ([x["kp"]], [x["vp"]], lambda vec: [vec]),
+            "int8": ([x["kq"], x["ks"]], [x["vq"], x["vs"]], int8_planes)}
+    for arm, (k_planes, v_planes, encode) in arms.items():
+        got_k = [p.clone() for p in k_planes]
+        got_v = [p.clone() for p in v_planes]
+        kp, vp = ((paged_kv.QuantizedPool(*g) if arm == "int8" else g[0])
+                  for g in (got_k, got_v))
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            paged_kv.write_rows(kp, vp, x["table"], x["t_p"], k_t, -k_t, PS)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        want_k = [p.clone() for p in k_planes]
+        want_v = [p.clone() for p in v_planes]
+        for b, t in enumerate(T_PAGED):
+            if t >= CAP:                        # the parked row drops
+                continue
             page = int(x["table"][b, t // PS])
-            want_k[page, t % PS] = k_t[b, 0]
-            want_v[page, t % PS] = -k_t[b, 0]
-    if not (torch.equal(kp, want_k) and torch.equal(vp, want_v)):
-        raise SystemExit("paged write_rows disagrees with its plain loop")
-    log("[kernels] paged write_rows: no host sync, parked row dropped, "
-        "live rows exact")
+            for want, vec in ((want_k, k_t[b, 0]), (want_v, -k_t[b, 0])):
+                for plane, val in zip(want, encode(vec)):
+                    plane[page, t % PS] = val
+        if not all(torch.equal(g, w) for g, w in zip(got_k + got_v,
+                                                      want_k + want_v)):
+            raise SystemExit(f"paged write_rows ({arm} pools) disagrees "
+                             "with its plain loop")
+        log(f"[kernels] paged write_rows, {arm} pools: no host sync, parked "
+            "row dropped, live rows exact")
 
 
 def teacher_forced_check(torch, model, prompts, outs):
@@ -263,9 +367,15 @@ def teacher_forced_check(torch, model, prompts, outs):
 
 
 def phase_serving(torch, K, model, prompts, mode, kw):
+    """Serve the prompts through one arena with the launch counters at 0:
+    its decode kernel must launch at least once per layer per tick, the
+    other decode kernels never. Float arenas also hold every token to
+    the teacher-forced check. Returns the outputs, the kernel's launches,
+    the ticks and the decoder."""
     from paddle_tpu_torch.serving import BatchedDecoder
 
-    kernel = ("decode_attention_paged" if kw else "decode_attention")
+    kernel = ("decode_attention_paged_quant" if kw.get("kv_dtype")
+              else "decode_attention_paged" if kw else "decode_attention")
     # warm-up (library handles, allocator) outside the measured run
     warm = BatchedDecoder(model, slots=8, capacity=CAP,
                           device=model.device, **kw)
@@ -284,20 +394,68 @@ def phase_serving(torch, K, model, prompts, mode, kw):
     wall = time.perf_counter() - t0
     launches = {name: getattr(K, name).launches for name in KERNEL_ROWS}
     outs = [outs[r] for r in rids]
-    if launches[kernel] <= 0:
-        raise SystemExit(f"{mode}: {kernel} never launched on the path")
+    if launches[kernel] < model.cfg.num_layers * dec.tick_count:
+        raise SystemExit(f"{mode}: {kernel} launched {launches[kernel]} "
+                         f"times in {dec.tick_count} ticks")
+    if any(n for name, n in launches.items() if name != kernel):
+        raise SystemExit(f"{mode}: another decode kernel launched: "
+                         f"{launches}")
     for o in outs:
         if o.shape != (32,) or o.min() < 0 or o.max() >= 32000:
             raise SystemExit(f"{mode}: malformed output {o}")
-    with torch.inference_mode():
-        worst = teacher_forced_check(torch, model, prompts, outs)
+    gap = ""
+    if not kw.get("kv_dtype"):
+        with torch.inference_mode():
+            gap = (f"; teacher-forced worst gap "
+                   f"{teacher_forced_check(torch, model, prompts, outs):.2e}")
     toks = sum(len(o) for o in outs)
     log(f"[serve:{mode}] {len(outs)} requests, {toks} tokens in "
         f"{wall:.3f} s: {toks / wall:.1f} tokens/s; {dec.tick_count} "
         f"decode ticks, {1e3 * dec.tick_seconds / dec.tick_count:.3f} ms "
-        f"per tick; launches {launches}; teacher-forced worst gap "
-        f"{worst:.2e}")
-    return outs, launches[kernel], dec.tick_count
+        f"per tick; launches {launches}{gap}")
+    return outs, launches[kernel], dec.tick_count, dec
+
+
+def phase_int8_logits(torch, model):
+    """The JAX package's int8-KV logit contract at full width: a 37-token
+    prompt prefilled into a float and an int8 pool, then 6 steps
+    teacher-forced along the float argmax; every step's int8 logits
+    within 0.05 x the float logits' spread."""
+    from paddle_tpu_torch.serving import PagedKVPool
+
+    attn0 = model.blocks[0].self_attn
+    dev = model.device
+
+    def mint(kv_dtype):
+        al = PagedKVPool(2, PS, attn0.num_kv_heads, attn0.head_dim,
+                         kv_dtype=kv_dtype, device=dev)
+        table = torch.as_tensor(al.alloc(2), device=dev)[None]
+        return [(al.empty_pool(), al.empty_pool()) for _ in model.blocks], \
+            table
+
+    (pf, tf), (pq, tq) = mint(None), mint("int8")
+    prompt = torch.randint(1, 32000, (1, 37),
+                           generator=torch.Generator().manual_seed(83))
+    prompt = prompt.to(dev)
+    with torch.inference_mode():
+        lf, pf = model._chunk_logits_paged(prompt, pf, tf[0], 0)
+        lq, pq = model._chunk_logits_paged(prompt, pq, tq[0], 0)
+        spread = (lf.max() - lf.min()).item()
+        worst = [(lq - lf).abs().max().item() / spread]
+        tok = lf[:, -1].argmax(-1)
+        for i in range(6):
+            t = torch.full((1,), 37 + i, dtype=torch.int32, device=dev)
+            lf, pf = model._step_logits_paged(tok, pf, tf, t)
+            lq, pq = model._step_logits_paged(tok, pq, tq, t)
+            worst.append((lq - lf).abs().max().item() / spread)
+            tok = lf.argmax(-1)
+    finite = bool(torch.isfinite(lq).all())
+    log(f"[serve:paged-int8] logit parity: max |int8 - float| / spread "
+        f"per step {[round(w, 6) for w in worst]} (spread {spread:.4f}, "
+        f"limit {INT8_KV_SPREAD})")
+    if not finite or max(worst) >= INT8_KV_SPREAD:
+        raise SystemExit("int8 KV logits leave the float logits' band")
+    return max(worst)
 
 
 def time_ms(torch, fn, flush, n=50):
@@ -318,11 +476,12 @@ def time_ms(torch, fn, flush, n=50):
     return total / n
 
 
-def bound(live_keys, dname, itemsize, extra_bytes):
+def bound(live_keys, dname, vec_bytes, extra_bytes):
     """Least time (ms) for the live keys: bytes (each live K and V vector
-    read once, plus q, o, cursors and table) over the HBM rate, and
-    operations (4*D flops per live key per query head) over the peak."""
-    nbytes = live_keys * HKV * D * 2 * itemsize + extra_bytes
+    of ``vec_bytes`` read once, plus q, o, cursors and table) over the
+    HBM rate, and operations (4*D flops per live key per query head)
+    over the peak."""
+    nbytes = live_keys * HKV * 2 * vec_bytes + extra_bytes
     flops = live_keys * H * 4 * D
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dname] * 1e3
@@ -352,13 +511,15 @@ def phase_timing(torch, K, err, launches):
 
     kg = K.gather_pages(x["kp"], x["table"]).contiguous()
     vg = K.gather_pages(x["vp"], x["table"]).contiguous()
+    kgq = K.dequantize_pages(x["kq"], x["ks"], x["table"]).contiguous()
+    vgq = K.dequantize_pages(x["vq"], x["vs"], x["table"]).contiguous()
     cases = {
         "decode_attention": (
             lambda: K.decode_attention(x["q"], x["k"], x["v"], x["t_c"]),
             lambda: K.decode_attention_plain(x["q"], x["k"], x["v"],
                                              x["t_c"]),
             lambda: sdpa(x["k"], x["v"], x["t_c"]),
-            live_c, qo),
+            live_c, D * item, qo),
         "decode_attention_paged": (
             lambda: K.decode_attention_paged(x["q"], x["kp"], x["vp"],
                                              x["table"], x["t_p"]),
@@ -367,14 +528,22 @@ def phase_timing(torch, K, err, launches):
             # the pages gathered beforehand (gather not timed): no one
             # library call attends over a page table
             lambda: sdpa(kg, vg, x["t_p"]),
-            live_p, qo + pages_live * 4),
+            live_p, D * item, qo + pages_live * 4),
+        "decode_attention_paged_quant": (
+            lambda: K.decode_attention_paged_quant(
+                x["q"], *quant_planes(x), x["table"], x["t_p"]),
+            lambda: K.decode_attention_paged_quant_plain(
+                x["q"], *quant_planes(x), x["table"], x["t_p"]),
+            # the pages gathered and dequantized beforehand (not timed)
+            lambda: sdpa(kgq, vgq, x["t_p"]),
+            live_p, D + 4, qo + pages_live * 4),
     }
     rows = []
-    for name, (kern, plain, lib, live, extra) in cases.items():
+    for name, (kern, plain, lib, live, vec, extra) in cases.items():
         ms = time_ms(torch, kern, flush)
         plain_ms = time_ms(torch, plain, flush)
         lib_ms = time_ms(torch, lib, flush)
-        bound_ms, bound_by, nbytes = bound(live, "float32", item, extra)
+        bound_ms, bound_by, nbytes = bound(live, "float32", vec, extra)
         log(f"[time] {name} float32: kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms; {nbytes} bytes, "
             f"bound {bound_ms:.4f} ms ({bound_by}), "
@@ -385,7 +554,96 @@ def phase_timing(torch, K, err, launches):
                          launches=launches[name], max_abs_err=err[name],
                          ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                          bound_by=bound_by, library_ms=lib_ms))
+    f_ms, q_ms = rows[1]["ms"], rows[2]["ms"]
+    log(f"[time] paged decode at the same cursors: int8 pools {q_ms:.4f} "
+        f"ms, float32 pools {f_ms:.4f} ms (int8 / float {q_ms / f_ms:.3f})")
     return rows
+
+
+def phase_int8_mnist(torch, QM):
+    """PTQ of MnistMLP(512, 256) on the card and one batch-8192 int8
+    forward. Returns the kernel's launches in that forward."""
+    from paddle_tpu_torch import quant
+    from paddle_tpu_torch.models.mnist import MnistMLP
+    from paddle_tpu_torch.quant import int8 as int8_mod
+
+    def mlp():
+        return MnistMLP(512, 256, device="cuda", generator=torch.Generator(
+            device="cuda").manual_seed(9)).eval()
+
+    fmodel, model = mlp(), quant.quantize_model(mlp())
+    rng = torch.Generator().manual_seed(10)
+    calib = [torch.randn(8, 784, generator=rng).to("cuda")
+             for _ in range(4)]
+    x = torch.randn(MNIST_BATCH, 784, generator=rng).to("cuda")
+    quant.calibrate(model, calib)
+    with torch.no_grad():
+        ref = model(x)                       # fake-quant float, eval
+        swapped = quant.int8_swap(model, quant.freeze(model))
+        if swapped != 3:
+            raise SystemExit(f"int8_swap swapped {swapped} layers, not 3")
+        torch.cuda.synchronize()
+        QM.quant_matmul.launches = 0
+        out = model(x)
+        torch.cuda.synchronize()
+        launches = QM.quant_matmul.launches
+        int8_mod.quant_matmul = QM.quant_matmul_plain
+        try:
+            plain = model(x)
+        finally:
+            int8_mod.quant_matmul = QM.quant_matmul
+        rel = ((out - ref).abs().max() / ref.abs().max()).item()
+        exact = torch.equal(out, plain)
+        flush = torch.empty(64 * 2 ** 20, dtype=torch.float32,
+                            device="cuda")
+        int8_ms = time_ms(torch, lambda: model(x), flush, n=20)
+        float_ms = time_ms(torch, lambda: fmodel(x), flush, n=20)
+    log(f"[int8:mnist] MnistMLP(512, 256) PTQ: {swapped} layers swapped; "
+        f"batch {MNIST_BATCH} forward launched quant_matmul {launches} "
+        f"times; equals the plain-version path: {exact}; max |int8 - "
+        f"fake-quant| / max |fake-quant| {rel:.3e} (limit {INT8_MLP_REL}); "
+        f"forward {int8_ms:.4f} ms int8, {float_ms:.4f} ms float32 "
+        f"(CUDA events, L2 flushed, mean of 20)")
+    if not (launches == 3 and exact and rel < INT8_MLP_REL
+            and bool(torch.isfinite(out).all())
+            and out.shape == (MNIST_BATCH, 10)):
+        raise SystemExit("the int8 MnistMLP forward failed its checks")
+    return launches
+
+
+def phase_qmm_timing(torch, QM, err, launches):
+    """The int8 matrix product at MNIST layer 1: kernel, plain version,
+    and torch._int_mm plus the same scaling as the yardstick."""
+    m, k, n = MNIST_SHAPES[0]
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    a, b, sa = qmm_operands(torch, m, k, n, gen)
+    sb = torch.rand((n,), generator=gen, device="cuda") * 0.01
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+
+    def library():
+        return torch._int_mm(a, b).float() * (sa * sb)[None, :]
+
+    if not torch.equal(library(), QM.quant_matmul(a, b, sa, sb)):
+        raise SystemExit("the _int_mm yardstick computes another function")
+    ms = time_ms(torch, lambda: QM.quant_matmul(a, b, sa, sb), flush)
+    plain_ms = time_ms(torch, lambda: QM.quant_matmul_plain(a, b, sa, sb),
+                       flush)
+    lib_ms = time_ms(torch, library, flush)
+    nbytes = m * k + k * n + 4 * n + 4 + 4 * m * n
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * m * n * k / INT8_PEAK_OPS * 1e3
+    bound_ms = max(t_bytes, t_ops)
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    log(f"[time] quant_matmul {m}x{k}x{n} per-channel, float32 out: kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, _int_mm + scale "
+        f"{lib_ms:.4f} ms; {2 * m * n * k} int8 ops, {nbytes} bytes, bound "
+        f"{bound_ms:.4f} ms ({bound_by}), {100 * bound_ms / ms:.1f}% of the "
+        f"bound; {launches} launches per MnistMLP forward")
+    return dict(name="quant_matmul", route="cuda",
+                source="paddle_tpu_torch/csrc/quant_matmul.cu",
+                replaces=QMM_REPLACES, launches=launches, max_abs_err=err,
+                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=lib_ms)
 
 
 def flash_inputs(torch, case, dtype, gen):
@@ -629,6 +887,8 @@ def main() -> int:
     from paddle_tpu_torch.models import gpt
     from paddle_tpu_torch.ops.kernels import decode_attention as K
     from paddle_tpu_torch.ops.kernels import flash_attention as FK
+    from paddle_tpu_torch.ops.kernels import quant_matmul as QM
+    from paddle_tpu_torch.serving import PagedKVPool
 
     # float32 matmuls in full float32 (no TF32), stated and set
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -642,6 +902,7 @@ def main() -> int:
 
     phase_build()
     err = phase_kernels(torch, K)
+    qmm_err = phase_qmm_kernels(torch, QM)
     phase_paged_write(torch)
 
     gen = torch.Generator(device="cuda")
@@ -656,21 +917,42 @@ def main() -> int:
     prompts = [torch.randint(1, 32000, (n,), generator=rng).tolist()
                for n in lens]
     launches = {}
-    outs_c, launches["decode_attention"], ticks_c = phase_serving(
+    paged = dict(pages=B * 32 + 8, page_size=PS)
+    outs_c, launches["decode_attention"], ticks_c, _ = phase_serving(
         torch, K, model, prompts, "contiguous", {})
-    outs_p, launches["decode_attention_paged"], ticks_p = phase_serving(
-        torch, K, model, prompts, "paged",
-        dict(pages=B * 32 + 8, page_size=PS))
+    outs_p, launches["decode_attention_paged"], ticks_p, _ = phase_serving(
+        torch, K, model, prompts, "paged", paged)
     agree = sum(int((a == b).all()) for a, b in zip(outs_c, outs_p))
     log(f"[serve] contiguous and paged agree on {agree}/16 requests; "
         f"launches per decode tick: contiguous "
         f"{launches['decode_attention'] / ticks_c:.2f}, paged "
         f"{launches['decode_attention_paged'] / ticks_p:.2f} (paged "
         f"includes one B=1 launch per layer per prefill)")
+    outs_q, launches["decode_attention_paged_quant"], ticks_q, dec_q = \
+        phase_serving(torch, K, model, prompts, "paged-int8",
+                      dict(paged, kv_dtype="int8"))
+    attn0 = model.blocks[0].self_attn
+    float_bytes = PagedKVPool(paged["pages"], PS, attn0.num_kv_heads,
+                              attn0.head_dim, device="cuda").pool_nbytes
+    int8_bytes = dec_q._allocator.pool_nbytes
+    del dec_q
+    agree = sum(int((a == b).all()) for a, b in zip(outs_p, outs_q))
+    ratio = float_bytes / int8_bytes
+    log(f"[serve:paged-int8] pool bytes per layer (K or V side): int8 "
+        f"{int8_bytes}, float32 {float_bytes} ({ratio:.3f}x smaller, "
+        f">= 3.5 required); {agree}/16 requests agree with the "
+        f"float paged run (reported, not gated); launches per decode tick "
+        f"{launches['decode_attention_paged_quant'] / ticks_q:.2f}")
+    if ratio < 3.5:
+        raise SystemExit("the int8 pool is not >= 3.5x smaller")
+    phase_int8_logits(torch, model)
 
     rows = phase_timing(torch, K, err, launches)
     del model
     torch.cuda.empty_cache()
+
+    qmm_launches = phase_int8_mnist(torch, QM)
+    rows.append(phase_qmm_timing(torch, QM, qmm_err, qmm_launches))
 
     flash_err = phase_flash_kernels(torch, FK)
     flash_launches, per_step = phase_training(torch, FK)

@@ -46,3 +46,8 @@ class Layer(nn.Module):
 
 class LayerList(nn.ModuleList):
     """reference: dygraph LayerList — children named "0", "1", ..."""
+
+
+class Sequential(nn.Sequential):
+    """reference: dygraph Sequential — children named "0", "1", ..., so
+    parameter names match the JAX package's."""

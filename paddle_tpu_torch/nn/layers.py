@@ -1,6 +1,6 @@
 """Layers of the port (counterpart of paddle_tpu/nn/layers.py):
-Linear, Embedding, RMSNorm, Dropout and MultiHeadAttention with its
-KV-cache decode mixin.
+Linear (with its ``act=``), Embedding, RMSNorm, Dropout and
+MultiHeadAttention with its KV-cache decode mixin.
 
 Linear weights are (in, out), as in the JAX package, so parameters move
 across by name without transposes. The JAX package returns new cache
@@ -13,6 +13,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from .. import initializer as I
 from ..core.dtypes import to_dtype
@@ -22,14 +23,27 @@ from ..ops import nn as ON
 from .layer import Layer
 
 
+def _apply_act(x, act: Optional[str]):
+    """The activation named ``act`` (None = identity), resolved in
+    ``torch.nn.functional`` and then ``torch`` (the JAX package resolves
+    ``ops.math`` and then ``jax.nn``; ``ops.math`` comes with ROADMAP
+    queue 1 item 9)."""
+    if act is None:
+        return x
+    fn = getattr(F, act, None) or getattr(torch, act, None)
+    enforce(callable(fn), "unknown activation %s", act)
+    return fn(x)
+
+
 class Linear(Layer):
-    """FC layer: ``x @ weight (+ bias)``, weight (in, out)."""
+    """FC layer: ``act(x @ weight (+ bias))``, weight (in, out)."""
 
     def __init__(self, in_features: int, out_features: int,
-                 bias_attr: bool = True, dtype=None, *, device=None,
-                 generator=None):
+                 bias_attr: bool = True, act: Optional[str] = None,
+                 dtype=None, *, device=None, generator=None):
         super().__init__()
         self.in_features, self.out_features = in_features, out_features
+        self.act = act
         self.create_parameter("weight", (in_features, out_features), dtype,
                               I.XavierUniform(), device=device,
                               generator=generator)
@@ -43,7 +57,7 @@ class Linear(Layer):
         out = torch.matmul(x, self.weight)
         if self.has_bias:
             out = out + self.bias
-        return out
+        return _apply_act(out, self.act)
 
 
 class RMSNorm(Layer):
@@ -117,11 +131,11 @@ class _MHADecodeMixin:
         each query at its absolute cache position (``q_positions``: (Tq,)
         or (B, 1)) keeping the cache positions at or before its own (and
         inside ``window``). Rotary queries rotate by the same positions.
-        With ``decode_kernel`` and one query per row, eligible shapes take
-        the decode kernel, which applies that mask itself; every other
-        call builds the mask here for the plain path."""
-        from ..ops.attention import (cache_keep_mask, decode_flash_ok,
-                                     rotary_embedding,
+        With ``decode_kernel`` and one query per row, the decode wrapper
+        runs, whatever the shape, and applies that mask itself (on the
+        card it launches the kernel or raises); every other call builds
+        the mask here for the plain path."""
+        from ..ops.attention import (cache_keep_mask, rotary_embedding,
                                      scaled_dot_product_attention)
         from ..ops.kernels.decode_attention import decode_attention
 
@@ -129,8 +143,7 @@ class _MHADecodeMixin:
         q = self.q_proj(query).reshape(b, tq, self.num_heads, self.head_dim)
         if self.rotary:
             q = rotary_embedding(q, q_positions, theta=self.rotary_theta)
-        if (decode_kernel and tq == 1 and self.use_flash
-                and decode_flash_ok(k.shape[1], self.head_dim)):
+        if decode_kernel and tq == 1 and self.use_flash:
             out = decode_attention(q, k, v, q_positions.reshape(-1),
                                    window=window)
         else:

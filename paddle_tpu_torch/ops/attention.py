@@ -19,8 +19,8 @@ import torch
 
 from ..core.enforce import UnimplementedError, enforce
 
-# head dims both decode and training kernels support — one list for
-# every dispatch gate (ops/attention.py:152 in the JAX package)
+# head dims the training kernels' dispatch gate admits
+# (ops/attention.py:152 in the JAX package)
 _FLASH_HEAD_DIMS = (64, 128, 256)
 
 
@@ -199,18 +199,6 @@ def cache_keep_mask(positions, n_keys: int, window: Optional[int] = None):
     if window is not None:
         keep &= cols > pos - window
     return keep[None, None] if positions.ndim == 1 else keep[:, None]
-
-
-def decode_flash_ok(capacity: int, d: int) -> bool:
-    """Dispatch gate for the single-position decode kernels
-    (ops/kernels/decode_attention.py): supported head dim and a
-    block-divisible cache capacity — the JAX gate's shape rule. The
-    TPU's tuned verdicts (tuned_blocks.json) are not read: they are TPU
-    measurements. The wrappers themselves pick the kernel on a CUDA
-    tensor and the plain version on a CPU tensor."""
-    from .kernels.decode_attention import decode_block_k
-
-    return d in _FLASH_HEAD_DIMS and decode_block_k(capacity) is not None
 
 
 def _flash_ok(q, k) -> bool:

@@ -1,14 +1,18 @@
 """Single-position decode attention: the contiguous and the paged
-KV-cache forms, each a hand-written CUDA kernel for Hopper
-(``csrc/decode_attention.cu``) with its plain PyTorch version beside it.
+KV-cache forms, the paged one over float or int8 pools, each a
+hand-written CUDA kernel for Hopper (``csrc/decode_attention.cu``) with
+its plain PyTorch version beside it.
 
 Replaces (TPU kernels): paddle_tpu/ops/pallas/flash_decode.py
-``_decode_kernel`` (through ``flash_decode``) and ``_paged_kernel``
-(through ``flash_decode_paged``), which share ``_decode_core``.
+``_decode_kernel`` (through ``flash_decode``), ``_paged_kernel``
+(through ``flash_decode_paged``) and ``_paged_kernel_quant`` (through
+``flash_decode_paged(k_scale=, v_scale=)``), which share
+``_decode_core``.
 
 Bound: bytes. A call must read every live K and V vector once:
-``sum_b (min(t_b, L-1) - lo_b + 1) * Hkv * D * 2 * itemsize``, against
-3.35 TB/s on an H100 SXM. Design: one thread block per (row, kv head)
+``sum_b (min(t_b, L-1) - lo_b + 1) * Hkv * 2 * D * itemsize`` (int8
+pools: ``(D + 4)`` bytes per vector, its float32 scale included),
+against 3.35 TB/s on an H100 SXM. Design: one thread block per (row, kv head)
 walks only the live key range in tiles of 64 keys, loading each K/V
 tile into shared memory once for the whole GQA group (the TPU kernel's
 O(t) reads), with the online softmax in float32. The source file says
@@ -22,7 +26,10 @@ integer, bumped only where the kernel launches).
 
 Types: float32 (the JAX default, what parity runs at) and bfloat16 (what
 a server on the card would run), both accumulated in float32. Unlike the
-TPU kernel, p stays float32 in the p.V product for bfloat16 inputs."""
+TPU kernel, p stays float32 in the p.V product for bfloat16 inputs. The
+int8 form takes int8 value planes with float32 scale planes, q in
+float32 or bfloat16, and computes in float32 (the TPU kernel casts q to
+float32); its output is in q's dtype."""
 
 from __future__ import annotations
 
@@ -37,19 +44,8 @@ from ...core.enforce import (InvalidArgumentError, KernelLaunchError,
 # the TPU kernel's finite mask value (flash_attention.py _NEG_INF) and
 # its dead-score threshold (flash_decode.py: p = 0 where s <= -5e29)
 NEG_INF = -1e30
-DEFAULT_DECODE_BLOCK_K = 256
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _SMEM_LIMIT = 232448     # bytes of shared memory one block may use
-
-
-def decode_block_k(capacity: int) -> Optional[int]:
-    """The JAX package's kv block for a cache capacity (largest of 256,
-    128, 64 that divides it); None = shape ineligible for the kernel
-    (the dispatch gate's rule). The CUDA kernel itself tiles by 64."""
-    for bk in (DEFAULT_DECODE_BLOCK_K, 128, 64):
-        if capacity % bk == 0:
-            return bk
-    return None
 
 
 # ----- plain versions ------------------------------------------------------
@@ -103,6 +99,26 @@ def decode_attention_paged_plain(q, kpool, vpool, table, t,
     t = _cursors(t, b, q.device)
     return _attend_plain(q, gather_pages(kpool, table),
                          gather_pages(vpool, table), t, window,
+                         d ** -0.5 if scale is None else scale)
+
+
+def dequantize_pages(qpool, spool, table):
+    """Each row's logical cache from an int8 value plane and its scale
+    plane: ``q * scale`` in float32, (B, n_log*ps, Hkv, D)."""
+    return (gather_pages(qpool, table).float()
+            * gather_pages(spool, table)[..., None])
+
+
+def decode_attention_paged_quant_plain(q, kq, ks, vq, vs, table, t,
+                                       window: Optional[int] = None,
+                                       scale: Optional[float] = None):
+    """Plain PyTorch version of :func:`decode_attention_paged_quant`:
+    gather and dequantize the pages, then the masked softmax in
+    float32."""
+    b, _, _, d = q.shape
+    t = _cursors(t, b, q.device)
+    return _attend_plain(q, dequantize_pages(kq, ks, table),
+                         dequantize_pages(vq, vs, table), t, window,
                          d ** -0.5 if scale is None else scale)
 
 
@@ -169,6 +185,9 @@ def _lib():
         lib.pt_decode_attention_paged.argtypes = (
             [i32] + [ptr] * 6 + [i32] * 8 + [ctypes.c_float, ptr])
         lib.pt_decode_attention_paged.restype = i32
+        lib.pt_decode_attention_paged_quant.argtypes = (
+            [i32] + [ptr] * 8 + [i32] * 8 + [ctypes.c_float, ptr])
+        lib.pt_decode_attention_paged_quant.restype = i32
         lib._pt_declared = True
     return lib
 
@@ -252,3 +271,71 @@ def decode_attention_paged(q, kpool, vpool, table, t, *,
 
 
 decode_attention_paged.launches = 0
+
+
+def _check_quant_planes(q, kq, ks, vq, vs):
+    """The int8 kernel's operand contract: int8 value planes with 16-byte
+    aligned rows (head_dim a multiple of 16) and float32 scale planes,
+    all contiguous on q's device."""
+    if q.dtype not in _DTYPE_CODE or not q.is_contiguous():
+        raise InvalidArgumentError(
+            f"the int8 decode kernel takes a contiguous q in float32 or "
+            f"bfloat16, got {q.dtype}")
+    for name, x, dt in (("kq", kq, torch.int8), ("vq", vq, torch.int8),
+                        ("ks", ks, torch.float32), ("vs", vs, torch.float32)):
+        if x.device != q.device or x.dtype != dt or not x.is_contiguous():
+            raise InvalidArgumentError(
+                f"{name} must be a contiguous {dt} tensor on {q.device}, "
+                f"got {x.dtype} on {x.device}")
+    if kq.shape[3] % 16 or kq.data_ptr() % 16 or vq.data_ptr() % 16:
+        raise InvalidArgumentError(
+            f"the int8 decode kernel loads 16-byte vectors: head_dim "
+            f"{kq.shape[3]} must be a multiple of 16 and the value planes "
+            f"16-byte aligned")
+
+
+def decode_attention_paged_quant(q, kq, ks, vq, vs, table, t, *,
+                                 window: Optional[int] = None,
+                                 scale: Optional[float] = None):
+    """Paged decode attention over int8 pools: value planes ``kq``/``vq``
+    (pages, page_size, Hkv, D) int8 and their per-(page, position, kv
+    head) float32 scale planes ``ks``/``vs`` (pages, page_size, Hkv);
+    each K/V element is ``value * scale``. ``table`` (B, n_log) int32,
+    ``t`` scalar or (B,) cursors, as :func:`decode_attention_paged`.
+    Returns (B, 1, H, D) in q's dtype."""
+    b, _, h, d = q.shape
+    pages, ps, kv_h = kq.shape[0], kq.shape[1], kq.shape[2]
+    _check_common(q, window, kv_h, kq.shape[3])
+    enforce(tuple(kq.shape) == tuple(vq.shape),
+            "kq %s and vq %s differ", tuple(kq.shape), tuple(vq.shape))
+    for name, sc in (("ks", ks), ("vs", vs)):
+        enforce(tuple(sc.shape) == (pages, ps, kv_h),
+                "%s must be the pool's (pages, page_size, kv_heads) scale "
+                "plane %s, got %s", name, (pages, ps, kv_h),
+                tuple(sc.shape))
+    enforce(table.ndim == 2 and table.shape[0] == b,
+            "table must be (B=%s, n_log), got %s", b, tuple(table.shape))
+    n_log = table.shape[1]
+    if q.device.type == "cpu":
+        return decode_attention_paged_quant_plain(q, kq, ks, vq, vs, table,
+                                                  t, window, scale)
+    enforce(q.is_cuda, "decode attention runs on cuda or cpu, got %s",
+            q.device)
+    t = _cursors(t, b, q.device)
+    table = table.to(device=q.device, dtype=torch.int32).contiguous()
+    _check_quant_planes(q, kq, ks, vq, vs)
+    lib = _lib()
+    _check_smem(lib, h // kv_h, d)
+    out = torch.empty_like(q)
+    rc = lib.pt_decode_attention_paged_quant(
+        _DTYPE_CODE[q.dtype], q.data_ptr(), kq.data_ptr(), ks.data_ptr(),
+        vq.data_ptr(), vs.data_ptr(), table.data_ptr(), t.data_ptr(),
+        out.data_ptr(), b, pages, ps, n_log, h, kv_h, d, window or 0,
+        float(d ** -0.5 if scale is None else scale),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(rc, "decode_attention_paged_quant")
+    decode_attention_paged_quant.launches += 1
+    return out
+
+
+decode_attention_paged_quant.launches = 0

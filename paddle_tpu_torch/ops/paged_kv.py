@@ -1,7 +1,15 @@
-"""Paged-KV cache ops over a float page pool (counterpart of the float
-half of paddle_tpu/ops/paged_kv.py): K/V live in a shared (pages,
-page_size, kv_heads, head_dim) pool; a request's logical cache is its
-page-id sequence. The host-side allocator is serving.PagedKVPool.
+"""Paged-KV cache ops (counterpart of paddle_tpu/ops/paged_kv.py): K/V
+live in a shared (pages, page_size, kv_heads, head_dim) pool; a
+request's logical cache is its page-id sequence. The host-side allocator
+is serving.PagedKVPool.
+
+Pools come in two storage forms, as in the JAX package: a float tensor,
+or a :class:`QuantizedPool` (int8 values plus one float32 abs-max scale
+per (page, position, kv head) vector, the ``quant.ops.absmax_encode``
+format). Writes quantize on append; attention hands the int8 decode
+kernel the raw planes, and the gather path (prefill, and the wrapper's
+plain version on the CPU) dequantizes only the gathered rows. This
+module is the one place that branches on the storage form.
 
 Writes are IN PLACE (the JAX functions return new pools). JAX scatters
 with ``mode="drop"``, so a cursor past a row's table capacity writes
@@ -9,14 +17,56 @@ nothing. Torch has no drop mode, and boolean indexing would copy a
 count to the host on every write, so a dropped row is sent to a place
 another row writes with that row's value (see ``_drop_index``) — a
 clamped write of its own value would corrupt another request's page.
-The int8 pool form (``QuantizedPool``) comes with the
-``kv_dtype="int8"`` slice (ROADMAP queue 1 item 7)."""
+An int8 pool writes its value and scale planes with the same indices."""
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
+
+
+class QuantizedPool(NamedTuple):
+    """int8 paged K or V pool: ``q`` (pages, page_size, kv_heads,
+    head_dim) int8 values, ``scale`` (pages, page_size, kv_heads)
+    float32 per-vector abs-max scales (dequant = ``q * scale``).
+    ``shape``/``dtype`` mirror the value plane, so shape-driven callers
+    (``kpool.shape[1]`` is the page size) never branch."""
+
+    q: torch.Tensor
+    scale: torch.Tensor
+
+    @property
+    def shape(self):
+        return self.q.shape
+
+    @property
+    def dtype(self):
+        return self.q.dtype
+
+    @property
+    def nbytes(self) -> int:
+        """Device bytes of the pool, values and scales."""
+        return quantized_pool_nbytes(self.q.shape)
+
+
+def quantized_pool_nbytes(shape) -> int:
+    """Device bytes a :class:`QuantizedPool` with value layout ``shape``
+    = (pages, page_size, kv_heads, head_dim) costs: int8 values plus one
+    float32 scale per vector. The one byte formula of the storage form
+    (``QuantizedPool.nbytes`` and ``PagedKVPool.pool_nbytes`` read it)."""
+    pages, page_size, kv_heads, head_dim = shape
+    vecs = pages * page_size * kv_heads
+    return vecs * head_dim + vecs * 4
+
+
+def _encode_vectors(x):
+    """(..., head_dim) float -> (int8 values, scales (...,)): per-vector
+    abs-max int8, the shared quant.ops convention."""
+    from ..quant.ops import absmax_encode
+
+    q, scale = absmax_encode(x, axis=-1)
+    return q, scale[..., 0]
 
 
 def _drop_index(page, off, valid, pages: int):
@@ -35,13 +85,25 @@ def _drop_index(page, off, valid, pages: int):
              torch.where(valid, off, off[j])), valid, j)
 
 
-def _pool_write(pool, idx, valid, j, x):
-    """pool[idx] = x (in place) for the valid rows; dropped rows store
+def _plane_write(plane, idx, valid, j, x):
+    """plane[idx] = x (in place) for the valid rows; dropped rows store
     what row j stores (its x, or the old value when no row is valid)."""
-    x = x.to(pool.dtype)
-    dropped = torch.where(valid[j].view(1, 1, 1), x[j],
-                          pool[idx[0][j], idx[1][j]])
-    pool[idx] = torch.where(valid.view(-1, 1, 1), x, dropped)
+    tail = (1,) * (x.ndim - 1)
+    dropped = torch.where(valid[j].view(1, *tail), x[j],
+                          plane[idx[0][j], idx[1][j]])
+    plane[idx] = torch.where(valid.view(-1, *tail), x, dropped)
+
+
+def _pool_write(pool, idx, valid, j, x):
+    """Write the vectors ``x`` (rows, kv, hd) at ``idx``, dropping the
+    invalid rows: quantize on append into both planes of a
+    :class:`QuantizedPool`, a dtype-cast store into a float pool."""
+    if isinstance(pool, QuantizedPool):
+        q, s = _encode_vectors(x)
+        _plane_write(pool.q, idx, valid, j, q)
+        _plane_write(pool.scale, idx, valid, j, s)
+    else:
+        _plane_write(pool, idx, valid, j, x.to(pool.dtype))
 
 
 def write_rows(kpool, vpool, table, t_rows, k_t, v_t, page_size: int):
@@ -80,29 +142,31 @@ def gather_rows(pool, table, upto: Optional[int] = None):
     """Each row's logical cache: (B, n_cols * page_size, kv, hd). ``upto``
     bounds the live positions (prefill): only the first
     ceil(upto / page_size) table columns are gathered. Page ids clamp
-    into the pool, as JAX's gather clamps."""
-    from .kernels.decode_attention import gather_pages
+    into the pool, as JAX's gather clamps. A :class:`QuantizedPool`
+    dequantizes here, only the gathered rows, to float32."""
+    from .kernels.decode_attention import dequantize_pages, gather_pages
 
     if upto is not None:
         n_cols = max(1, -(-int(upto) // pool.shape[1]))
         table = table[:, :min(table.shape[1], n_cols)]
+    if isinstance(pool, QuantizedPool):
+        return dequantize_pages(pool.q, pool.scale, table)
     return gather_pages(pool, table)
 
 
 def attend(q, kpool, vpool, table, t_rows, window: Optional[int] = None):
-    """Decode attention over the paged cache: the paged decode kernel
-    when the gate admits the shape, else gather the pages and attend on
-    the plain masked path. ``t_rows``: scalar or (B,) logical cursors."""
-    from . import attention as A
-    from .kernels.decode_attention import _cursors, decode_attention_paged
+    """Decode attention over the paged cache, whatever its shape: the
+    paged decode wrapper (an int8 pool hands the int8 one its raw value
+    and scale planes). On the card that launches the kernel or raises a
+    typed error for a shape the kernel cannot run; on the CPU the wrapper
+    gathers (and dequantizes) the pages and attends on its plain
+    version. ``t_rows``: scalar or (B,) logical cursors."""
+    from .kernels.decode_attention import (decode_attention_paged,
+                                           decode_attention_paged_quant)
 
-    d = q.shape[-1]
-    page_size, n_log = kpool.shape[1], table.shape[1]
-    t_rows = _cursors(t_rows, q.shape[0], q.device)
-    if A.decode_flash_ok(page_size * n_log, d):
-        return decode_attention_paged(q, kpool, vpool, table, t_rows,
-                                      window=window)
-    keep = A.cache_keep_mask(t_rows[:, None], n_log * page_size, window)
-    return A.scaled_dot_product_attention(
-        q, gather_rows(kpool, table), gather_rows(vpool, table), mask=keep,
-        use_flash=False)
+    if isinstance(kpool, QuantizedPool):
+        return decode_attention_paged_quant(
+            q, kpool.q, kpool.scale, vpool.q, vpool.scale, table, t_rows,
+            window=window)
+    return decode_attention_paged(q, kpool, vpool, table, t_rows,
+                                  window=window)

@@ -1,0 +1,24 @@
+"""Quantization of the port (counterpart of paddle_tpu/quant): fake
+quantization and the shared abs-max int8 encode/decode (``ops``),
+QAT/PTQ by layer rewrite (``qat``), and int8 execution of frozen Linear
+layers on the int8 matrix-product kernel (``int8``)."""
+
+from .int8 import Int8Linear, int8_linear, int8_swap
+from .ops import (MovingAverageState, abs_max_scale, absmax_decode,
+                  absmax_encode, dequantize,
+                  fake_channel_wise_quantize_abs_max,
+                  fake_quantize_abs_max,
+                  fake_quantize_moving_average_abs_max,
+                  moving_average_abs_max_scale, moving_average_state_init,
+                  quantize_dequantize, quantize_to_int)
+from .qat import QuantConfig, QuantedLayer, calibrate, freeze, quantize_model
+
+__all__ = [
+    "Int8Linear", "int8_linear", "int8_swap",
+    "MovingAverageState", "abs_max_scale", "absmax_decode", "absmax_encode",
+    "dequantize", "fake_channel_wise_quantize_abs_max",
+    "fake_quantize_abs_max", "fake_quantize_moving_average_abs_max",
+    "moving_average_abs_max_scale", "moving_average_state_init",
+    "quantize_dequantize", "quantize_to_int",
+    "QuantConfig", "QuantedLayer", "calibrate", "freeze", "quantize_model",
+]

@@ -7,7 +7,10 @@ budget) the next prompt is prefilled into it between ticks.
 Two cache forms, as in the JAX package: contiguous per-block
 (slots, capacity, Hkv, D) arenas (the decode tick runs the contiguous
 decode kernel), or paged (``pages=N``): per-block shared page pools plus
-one page table (the decode tick runs the paged decode kernel). Prefill
+one page table (the decode tick runs the paged decode kernel). Paged
+pools may be int8 (``kv_dtype="int8"``: values plus per-vector float32
+scales, quantized on append; the tick runs the int8 paged decode
+kernel, and prefill attends over the dequantized gathered rows). Prefill
 runs the bucketed prompt cache-only on the plain masked path, then
 re-steps the last prompt token for the next-token logits.
 
@@ -16,7 +19,7 @@ caches and pools are written IN PLACE; a slot's prefill works on a
 batch-1 view of its arena row, so nothing is written back.
 
 Left for later slices (each raises a typed error naming its ROADMAP.md
-item): prefix caching, int8 KV, chunked prefill, speculative decoding,
+item): prefix caching, chunked prefill, speculative decoding,
 ``decode_steps > 1``, KV handoff, per-token streams, and the debug
 server / flight recorder / preemption hooks of ``run``."""
 
@@ -31,6 +34,7 @@ import torch
 from .core.dtypes import default_dtype, to_dtype
 from .core.enforce import UnimplementedError, enforce
 from .core.places import resolve_device
+from .ops import paged_kv
 from .ops.sampling import sample_from_logits
 
 __all__ = ["BatchedDecoder", "PagedKVPool", "Request"]
@@ -41,14 +45,21 @@ class PagedKVPool:
     (pages, page_size, kv_heads, head_dim) pools shared by all requests;
     each request owns a row of the page table. Host-side alloc/free
     here; the decoder keeps its own per-block pools, minted with
-    :meth:`empty_pool` (the JAX package's ``arrays=False`` form)."""
+    :meth:`empty_pool` (the JAX package's ``arrays=False`` form).
+    ``kv_dtype="int8"`` mints ``ops.paged_kv.QuantizedPool`` pools:
+    (1 + 4 / head_dim) bytes per cached element instead of the float
+    itemsize, which is what sets the sessions a fixed pool budget
+    holds."""
 
     def __init__(self, pages: int, page_size: int, kv_heads: int,
-                 head_dim: int, dtype=None, *, device=None):
+                 head_dim: int, dtype=None, *, kv_dtype=None, device=None):
         enforce(page_size in (64, 128, 256),
                 "page_size must be one of (64, 128, 256), got %s",
                 page_size)
         enforce(pages >= 1, "pages must be >= 1, got %s", pages)
+        enforce(kv_dtype in (None, "int8"),
+                'kv_dtype must be None or "int8", got %r', kv_dtype)
+        self.kv_dtype = kv_dtype
         self.dtype = to_dtype(dtype) if dtype is not None else \
             default_dtype()
         self.device = resolve_device(device)
@@ -62,9 +73,24 @@ class PagedKVPool:
     def free_pages(self) -> int:
         return len(self._free)
 
-    def empty_pool(self) -> torch.Tensor:
-        """One zeroed pool tensor (K or V side) on the pool's device."""
+    def empty_pool(self):
+        """One zeroed pool (K or V side) on the pool's device: a float
+        tensor, or a QuantizedPool when ``kv_dtype="int8"``."""
+        if self.kv_dtype == "int8":
+            return paged_kv.QuantizedPool(
+                torch.zeros(self.shape, dtype=torch.int8,
+                            device=self.device),
+                torch.zeros(self.shape[:3], dtype=torch.float32,
+                            device=self.device))
         return torch.zeros(self.shape, dtype=self.dtype, device=self.device)
+
+    @property
+    def pool_nbytes(self) -> int:
+        """Device bytes one pool (K or V side) costs."""
+        if self.kv_dtype == "int8":
+            return paged_kv.quantized_pool_nbytes(self.shape)
+        return int(np.prod(self.shape)) * torch.empty(
+            (), dtype=self.dtype).element_size()
 
     def alloc(self, n: int) -> np.ndarray:
         """Claim n pages (typed error when exhausted)."""
@@ -109,17 +135,13 @@ class Request:
         self.t_done = 0.0
 
 
-def _reject_later_slices(prefix_cache, kv_dtype, prefill_chunk, draft,
-                         gamma, decode_steps):
+def _reject_later_slices(prefix_cache, prefill_chunk, draft, gamma,
+                         decode_steps):
     """BatchedDecoder options of later slices raise; none is accepted and
     then ignored."""
     if prefix_cache:
         raise UnimplementedError(
             "prefix_cache is not ported yet: ROADMAP queue 1 item 7")
-    if kv_dtype is not None:
-        raise UnimplementedError(
-            f"kv_dtype={kv_dtype!r} (int8 KV) is not ported yet: ROADMAP "
-            "queue 1 item 7")
     if prefill_chunk is not None:
         raise UnimplementedError(
             "prefill_chunk (chunked prefill) is not ported yet: ROADMAP "
@@ -141,8 +163,9 @@ class BatchedDecoder:
     {request_id: np.ndarray of generated ids (prompt excluded)}. Sampling
     parameters apply to every request (temperature=0 = greedy; sampled
     modes draw from ``generator``, a ``torch.Generator`` on the device);
-    ``eos_id`` ends a request early. ``device``: the CUDA card when None
-    (raises when there is none); it must be the model's device."""
+    ``eos_id`` ends a request early. ``kv_dtype="int8"`` (paged mode
+    only) keeps the page pools in int8. ``device``: the CUDA card when
+    None (raises when there is none); it must be the model's device."""
 
     def __init__(self, model, slots: int, capacity: int, *,
                  eos_id: Optional[int] = None,
@@ -153,8 +176,8 @@ class BatchedDecoder:
                  prefix_cache: bool = False, kv_dtype=None,
                  prefill_chunk: Optional[int] = None, draft=None,
                  gamma: int = 4, decode_steps: int = 1, device=None):
-        _reject_later_slices(prefix_cache, kv_dtype, prefill_chunk, draft,
-                             gamma, decode_steps)
+        _reject_later_slices(prefix_cache, prefill_chunk, draft, gamma,
+                             decode_steps)
         self.device = resolve_device(device)
         enforce(model.device == self.device,
                 "the model lives on %s but the decoder on %s", model.device,
@@ -184,7 +207,8 @@ class BatchedDecoder:
             attn0 = model.blocks[0].self_attn
             self._allocator = PagedKVPool(
                 pages, page_size, attn0.num_kv_heads, attn0.head_dim,
-                dtype=attn0.k_proj.weight.dtype, device=self.device)
+                dtype=attn0.k_proj.weight.dtype, kv_dtype=kv_dtype,
+                device=self.device)
             self.page_size = page_size
             self.n_log = capacity // page_size
             al = self._allocator
@@ -193,6 +217,9 @@ class BatchedDecoder:
             self.table = np.zeros((slots, self.n_log), np.int32)
             self._slot_pages: List[Optional[np.ndarray]] = [None] * slots
         else:
+            enforce(kv_dtype is None,
+                    "kv_dtype requires paged mode (pages=N) — the "
+                    "contiguous arena has no quantized form")
             self.caches = [blk.self_attn.init_cache(slots, capacity)
                            for blk in model.blocks]
         self.tok = np.zeros((slots,), np.int32)       # last token per slot

@@ -102,10 +102,37 @@ def test_scalar_cursor_broadcasts():
     _close(got, want)
 
 
-def test_decode_block_k_gate():
-    assert K.decode_block_k(2048) == 256
-    assert K.decode_block_k(192) == 64
-    assert K.decode_block_k(100) is None
+@pytest.mark.parametrize("embed,heads,cap", [(512, 8, 256), (256, 8, 100)],
+                         ids=["d64_cap256", "d32_cap100"])
+def test_layer_decode_takes_the_wrapper_at_any_shape(monkeypatch, embed,
+                                                     heads, cap):
+    """A decode step of the attention layer calls the decode wrapper
+    whatever the head_dim and the capacity (on the card: the kernel or a
+    typed error, never the plain path), and equals the layer's masked
+    plain path to 1e-5."""
+    from paddle_tpu_torch.nn.layers import MultiHeadAttention
+
+    calls = []
+    real = K.decode_attention
+
+    def spy(*a, **kw):
+        calls.append(1)
+        return real(*a, **kw)
+
+    monkeypatch.setattr(K, "decode_attention", spy)
+    gen = torch.Generator().manual_seed(cap)
+    attn = MultiHeadAttention(embed, heads, num_kv_heads=heads // 2,
+                              device="cpu", generator=gen)
+    x = torch.randn(B, 1, embed, generator=gen)
+    k = torch.randn(B, cap, heads // 2, embed // heads, generator=gen)
+    v = torch.randn(B, cap, heads // 2, embed // heads, generator=gen)
+    pos = torch.tensor([[0], [cap // 2], [cap - 1]], dtype=torch.int32)
+    with torch.no_grad():
+        got = attn.attend_kv(x, k, v, pos, decode_kernel=True)
+        want = attn.attend_kv(x, k, v, pos)
+    assert calls == [1]
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5,
+                               rtol=0)
 
 
 @pytest.mark.gpu

@@ -20,10 +20,13 @@ import torch
 import paddle_tpu_torch
 from paddle_tpu_torch.core import (DeviceUnavailableError,
                                    KernelCompileError, resolve_device)
+from paddle_tpu_torch import quant
 from paddle_tpu_torch.models import gpt as TG
+from paddle_tpu_torch.models.mnist import MnistMLP
 from paddle_tpu_torch.ops.kernels import _build
 from paddle_tpu_torch.ops.kernels import decode_attention as K
 from paddle_tpu_torch.ops.kernels import flash_attention as FK
+from paddle_tpu_torch.ops.kernels import quant_matmul as QM
 from paddle_tpu_torch.serving import BatchedDecoder
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -77,7 +80,7 @@ def test_build_without_nvcc_raises_typed(monkeypatch, tmp_path):
 
 
 def test_build_sources_and_hashed_library_path():
-    for name in ("decode_attention", "flash_attention"):
+    for name in ("decode_attention", "flash_attention", "quant_matmul"):
         assert (_build.CSRC / f"{name}.cu").exists()
         path = _build.library_path(name)
         assert path.parent == _build.BUILD_DIR
@@ -102,6 +105,12 @@ def test_resolve_device_without_cuda_raises(no_cuda):
 def test_model_without_device_raises_without_cuda(no_cuda):
     with pytest.raises(DeviceUnavailableError):
         TG.GPTForCausalLM(TG.GPTConfig.tiny())
+
+
+def test_mnist_without_device_raises_without_cuda(no_cuda):
+    with pytest.raises(DeviceUnavailableError):
+        MnistMLP()
+    assert MnistMLP(device="cpu").fc1.weight.device.type == "cpu"
 
 
 def test_decoder_without_device_raises_without_cuda(no_cuda):
@@ -172,3 +181,41 @@ def test_cpu_tensors_take_plain_versions_and_count_nothing():
 def test_version_and_exports():
     assert paddle_tpu_torch.__version__
     assert paddle_tpu_torch.resolve_device("cpu").type == "cpu"
+
+
+def test_int8_paths_on_cpu_take_plain_versions_and_count_nothing():
+    """The int8 decode and int8 matmul wrappers take their plain versions
+    on CPU tensors; an int8 paged arena and a PTQ-swapped MnistMLP run
+    end to end on the CPU with their launch counters unchanged."""
+    n = (K.decode_attention_paged_quant.launches, QM.quant_matmul.launches)
+    rng = np.random.default_rng(1)
+    q = torch.from_numpy(rng.normal(size=(2, 1, 4, 64)).astype(np.float32))
+    kq = torch.from_numpy(rng.integers(-127, 128, (4, 64, 2, 64)).astype(
+        np.int8))
+    ks = torch.rand(4, 64, 2)
+    table = torch.tensor([[0, 1], [3, 2]], dtype=torch.int32)
+    t = torch.tensor([5, 100], dtype=torch.int32)
+    torch.testing.assert_close(
+        K.decode_attention_paged_quant(q, kq, ks, kq, ks, table, t),
+        K.decode_attention_paged_quant_plain(q, kq, ks, kq, ks, table, t),
+        rtol=0, atol=0)
+    a = torch.from_numpy(rng.integers(-127, 128, (5, 9)).astype(np.int8))
+    b = torch.from_numpy(rng.integers(-127, 128, (9, 3)).astype(np.int8))
+    assert torch.equal(QM.quant_matmul(a, b, 0.5, torch.ones(3)),
+                       QM.quant_matmul_plain(a, b, 0.5, torch.ones(3)))
+    model = TG.GPTForCausalLM(TG.GPTConfig(
+        vocab_size=64, hidden_size=128, num_layers=1, num_heads=2,
+        num_kv_heads=1, intermediate_size=128, max_position=128),
+        device="cpu").eval()
+    dec = BatchedDecoder(model, slots=2, capacity=128, device="cpu",
+                         pages=4, page_size=64, kv_dtype="int8")
+    rid = dec.submit([1, 2, 3], 4)
+    assert dec.run()[rid].shape == (4,)
+    mlp = quant.quantize_model(MnistMLP(16, 8, device="cpu"))
+    quant.calibrate(mlp, [torch.randn(4, 784)])
+    assert quant.int8_swap(mlp, quant.freeze(mlp)) == 3
+    assert mlp(torch.randn(6, 784)).shape == (6, 10)
+    assert (K.decode_attention_paged_quant.launches,
+            QM.quant_matmul.launches) == n
+    if not torch.cuda.is_available():
+        assert n == (0, 0)

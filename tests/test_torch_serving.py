@@ -7,7 +7,15 @@ decode ticks reach the Pallas decode kernels in interpret mode.
 
 Gate: teacher-forced per-step logits at atol 1e-4 (the port's arena is
 forced along the JAX tokens); free-running tokens equal up to the first
-position where JAX's own top-2 logit gap is below 1e-4."""
+position where JAX's own top-2 logit gap is below 1e-4.
+
+int8 KV (``kv_dtype="int8"``, paged): the JAX package's logit-parity
+contract (tests/test_serving.py) — a 37-token prefill and 6
+teacher-forced steps, int8 pools within 0.05 x the float logits' spread
+of float pools. Against the JAX int8 pools the gate is 0.01 x spread,
+not 1e-4: the two frameworks' K/V differ by ~1e-6, so a vector's int8
+code can flip by one step (absmax/127) where the division lands on a
+rounding tie (observed: see the test's docstring)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -20,6 +28,7 @@ from paddle_tpu.ops import attention as JA
 from paddle_tpu.ops import paged_kv as JP
 from paddle_tpu.ops import sampling as JS
 from paddle_tpu.serving import BatchedDecoder as JaxDecoder
+from paddle_tpu.serving import PagedKVPool as JaxPool
 from paddle_tpu_torch.core import EnforceError, UnimplementedError
 from paddle_tpu_torch.models import gpt as TG
 from paddle_tpu_torch.ops import paged_kv as TP
@@ -236,7 +245,6 @@ def test_page_pool_alloc_free():
 
 @pytest.mark.parametrize("kw,item", [
     (dict(prefix_cache=True), "item 7"),
-    (dict(kv_dtype="int8"), "item 7"),
     (dict(prefill_chunk=16), "item 7"),
     (dict(draft=object()), "item 7"),
     (dict(gamma=2), "item 7"),
@@ -246,6 +254,99 @@ def test_later_slice_options_raise(setup, kw, item):
     _, tm, _, _ = setup
     with pytest.raises(UnimplementedError, match=item):
         BatchedDecoder(tm, slots=2, capacity=128, device="cpu", **kw)
+
+
+def test_int8_kv_requires_paged_mode(setup):
+    _, tm, _, _ = setup
+    with pytest.raises(EnforceError, match="paged mode"):
+        BatchedDecoder(tm, slots=2, capacity=128, device="cpu",
+                       kv_dtype="int8")
+    with pytest.raises(EnforceError, match="kv_dtype"):
+        PagedKVPool(4, 64, 2, 64, kv_dtype="int4", device="cpu")
+
+
+def test_int8_arena_completes_requests(setup):
+    """The int8 paged arena serves the five requests (slot reuse, eos)
+    with well-formed outputs, its pools QuantizedPools."""
+    _, tm, prompts, eos = setup
+    dec = BatchedDecoder(tm, slots=2, capacity=128, eos_id=eos,
+                         device="cpu", pages=12, page_size=64,
+                         kv_dtype="int8")
+    outs = _serve(dec, prompts)
+    assert isinstance(dec.pools[0][0], TP.QuantizedPool)
+    assert dec.pools[0][0].q.dtype == torch.int8
+    for o, n in zip(outs, MAX_NEW):
+        assert 1 <= len(o) <= n and o.min() >= 0 and o.max() < 512
+
+
+def _mint(model, kv_dtype, jax_side):
+    """Per-block (K, V) pools of 2 pages and the (1, 2) table, from the
+    JAX or the port's PagedKVPool."""
+    attn0 = model.blocks[0].self_attn
+    if jax_side:
+        al = JaxPool(2, 64, attn0.num_kv_heads, attn0.head_dim,
+                     arrays=False, kv_dtype=kv_dtype)
+        table = jnp.asarray(al.alloc(2))[None]
+    else:
+        al = PagedKVPool(2, 64, attn0.num_kv_heads, attn0.head_dim,
+                         kv_dtype=kv_dtype, device="cpu")
+        table = torch.from_numpy(al.alloc(2))[None]
+    return [(al.empty_pool(), al.empty_pool()) for _ in model.blocks], table
+
+
+def test_int8_kv_teacher_forced_logit_parity(setup):
+    """Prefill 37 tokens, then 6 teacher-forced steps (along the port's
+    float argmax): the port's int8 pools stay within 0.05 x the float
+    logits' spread of its float pools (observed 7.4e-3 x spread), and
+    within 1e-3 x spread of the JAX int8 pools. That limit lies between
+    its two readings: 7.2e-7 x spread observed (no code flipped on this
+    input; a one-step code flip at a rounding tie stays far below 1e-3),
+    and 7.4e-3 x spread, the int8-vs-float reading, which a port whose
+    int8 pools skipped quantization would show."""
+    jm, tm, _, _ = setup
+    prompt = np.random.default_rng(83).integers(1, 512, 37).astype(
+        np.int32)
+    pf, tf = _mint(tm, None, False)
+    pq, tq = _mint(tm, "int8", False)
+    jq, jt = _mint(jm, "int8", True)
+    with torch.inference_mode():
+        lf, pf = tm._chunk_logits_paged(torch.from_numpy(prompt)[None], pf,
+                                        tf[0], 0)
+        lq, pq = tm._chunk_logits_paged(torch.from_numpy(prompt)[None], pq,
+                                        tq[0], 0)
+    lj, jq = jm._chunk_logits_paged(jnp.asarray(prompt)[None], jq, jt[0], 0)
+    spread = float(lf.max() - lf.min())
+    worst_f = (lq - lf).abs().max().item() / spread
+    worst_j = np.abs(lq.numpy() - np.asarray(lj)).max() / spread
+    tok = lf[:, -1].argmax(-1)
+    for i in range(6):
+        t = torch.tensor([37 + i], dtype=torch.int32)
+        with torch.inference_mode():
+            lf, pf = tm._step_logits_paged(tok, pf, tf, t)
+            lq, pq = tm._step_logits_paged(tok, pq, tq, t)
+        lj, jq = jm._step_logits_paged(jnp.asarray(tok.numpy()), jq, jt,
+                                       jnp.asarray(t.numpy()))
+        worst_f = max(worst_f, (lq - lf).abs().max().item() / spread)
+        worst_j = max(worst_j,
+                      np.abs(lq.numpy() - np.asarray(lj)).max() / spread)
+        tok = lf.argmax(-1)                              # teacher-forced
+    assert worst_f < 0.05, worst_f
+    assert worst_j < 1e-3, worst_j
+
+
+def test_int8_pool_density(setup):
+    """The int8 pool costs >= 3.5x fewer bytes than the float32 pool at
+    the same page count, by the JAX package's byte formula."""
+    _, tm, _, _ = setup
+    fp = BatchedDecoder(tm, slots=2, capacity=128, pages=8, page_size=64,
+                        device="cpu")
+    q8 = BatchedDecoder(tm, slots=2, capacity=128, pages=8, page_size=64,
+                        device="cpu", kv_dtype="int8")
+    ratio = fp._allocator.pool_nbytes / q8._allocator.pool_nbytes
+    assert ratio >= 3.5, ratio
+    assert q8._allocator.pool_nbytes == q8.pools[0][0].nbytes == (
+        JP.quantized_pool_nbytes(q8._allocator.shape))
+    assert fp._allocator.pool_nbytes == fp.pools[0][0].numel() * 4
 
 
 @pytest.mark.parametrize("kw", [dict(debug_port=0),

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Where a decode tick of the port's serving arena spends its time, on the
 CUDA card: GPTConfig.small() (float32, seeded random weights) in
-BatchedDecoder(slots=8, capacity=2048), contiguous and paged
-(pages=8*32+8, page_size=64), 8 requests of 32 prompt tokens kept busy.
+BatchedDecoder(slots=8, capacity=2048), contiguous, paged
+(pages=8*32+8, page_size=64) and paged with int8 KV (kv_dtype="int8"),
+8 requests of 32 prompt tokens kept busy.
 
 For each mode it runs a warm-up, times ``--ticks`` decode ticks on the
 host clock with the profiler off, then profiles as many more with
@@ -85,8 +86,10 @@ def main() -> int:
                          text=True, timeout=60, check=True)
     print(f"[card] {smi.stdout.strip()}")
     profile_mode(torch, model, "contiguous", {}, args.ticks)
-    profile_mode(torch, model, "paged", dict(pages=8 * 32 + 8,
-                                             page_size=64), args.ticks)
+    paged = dict(pages=8 * 32 + 8, page_size=64)
+    profile_mode(torch, model, "paged", paged, args.ticks)
+    profile_mode(torch, model, "paged-int8", dict(paged, kv_dtype="int8"),
+                 args.ticks)
     return 0
 
 
