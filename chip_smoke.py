@@ -12,14 +12,19 @@ Phases, each printed as it runs:
    shared-memory lines;
 3. each decode-attention kernel against its plain PyTorch version on
    the card (B=8, cap=2048, H=12, Hkv=4, D=64; cursors across [0, 2047]
-   with block edges; window None and 256; the paged forms with
+   with block edges, and a second set on and beside the split's
+   256-position chunk edges (255, 256, 257, ...); window None, 256 and
+   100 (across a chunk edge); the paged forms with
    page_size=64, a shuffled table with garbage past the live range and
    a parked row; the int8 form over pools quantized from the same seeded
    floats with the port's absmax_encode), float32 at atol 1e-4 and
    bfloat16 compared in float32 at atol 2e-2; the int8 matrix product
    against its plain version, exactly, at MNIST's three layer shapes and
    33x100x17, per-tensor and per-channel weight scales, float32 and
-   bfloat16 out;
+   bfloat16 out; its fused form quant_linear (the activation encode in
+   the prologue, bias and ReLU in the epilogue) against its plain
+   version, exactly, at the three layer shapes and 33x100x17, with and
+   without bias and ReLU, float32 and bfloat16 out;
    then the paged cache write, float and int8 pools, with a parked row,
    run under torch's sync debug mode "error" (a write that read anything
    back to the host would raise) and held exactly against a plain
@@ -27,7 +32,9 @@ Phases, each printed as it runs:
 4. the serving slice at full width in float32: GPTConfig.small() with
    seeded random weights serves 16 requests (prompts of 8-48 tokens,
    max_new=32) through BatchedDecoder(slots=8, capacity=2048), then
-   again paged (pages=8*32+8, page_size=64). Each path runs with the
+   again paged (pages=8*32+8, page_size=64), and paged once more with 8
+   requests of 1200-1900 prompt tokens (long live contexts: every
+   decode call walks several of the split's chunks). Each run has the
    launch counters set to 0 just before and read just after; a kernel
    of the path that never launched, or another decode kernel that did,
    fails the run. Every emitted token must sit within 1e-3 of its
@@ -47,12 +54,20 @@ Phases, each printed as it runs:
    the int8 kernel's ms beside the float paged kernel's;
 6. int8 inference: MnistMLP(512, 256) with seeded weights through
    quantize_model, calibrate on 4 seeded (8, 784) batches, freeze and
-   int8_swap (3 layers); one batch-8192 forward with the counter at 0
-   launches the int8 matrix product 3 times, equals the same swapped
-   model on the plain version exactly, and lies within 0.1 relative of
-   the fake-quant float model; its ms beside the float32 MnistMLP's;
-   then the kernel timed at MNIST layer 1 against its plain version and
-   torch._int_mm plus the same scaling as the yardstick;
+   int8_swap (3 layers); with the counters at 0, one batch-8192 forward
+   launches the fused quant_linear 3 times and nothing else (the
+   kernels' record takes both counts from this run, so quant_matmul's
+   is 0: no path of the port calls it); then, with the counters at 0
+   again, a check run sends the same batch through the public unfused
+   entry points per layer (absmax_encode, quant_matmul, bias, ReLU: the
+   JAX int8_linear's composition), which launches quant_matmul 3 times
+   and must equal the fused forward exactly; the forward equals the
+   same swapped model on the plain version exactly and lies within 0.1
+   relative of the fake-quant float model; its ms beside the float32
+   MnistMLP's; then both kernels
+   timed at MNIST's three layer shapes against their plain versions and
+   the yardsticks torch._int_mm plus the same scaling (and, for the
+   fused form, the encode before it and bias and ReLU after it);
 7. the three flash-attention kernels (forward, dq, dk/dv) against their
    plain versions on the card: o, lse, dq, dk and dv in float32 (atol
    1e-4) and bfloat16 compared in float32 (atol 2e-2), at the training
@@ -80,6 +95,7 @@ JSON record; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
+import itertools
 import json
 import math
 import subprocess
@@ -95,6 +111,9 @@ B, CAP, H, HKV, D, PS = 8, 2048, 12, 4, 64, 64
 PAGES = B * CAP // PS + 8
 T_CONTIG = [0, 63, 64, 700, 1023, 1024, 1777, 2047]
 T_PAGED = [0, 63, 64, 700, 1024, 1777, 2047, CAP]    # last row parked
+# on and beside the split's chunk edges (256 positions a chunk)
+T_EDGE = [255, 256, 257, 511, 512, 513, 1279, 1280]
+T_EDGE_PAGED = [255, 256, 257, 511, 512, 513, 1279, CAP]
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 KERNEL_ROWS = {
     "decode_attention": dict(
@@ -110,6 +129,9 @@ KERNEL_ROWS = {
 }
 QMM_REPLACES = ("paddle_tpu/ops/pallas/quant_matmul.py:45 (_kernel, via "
                 "quant_matmul :186)")
+QLIN_REPLACES = ("paddle_tpu/ops/pallas/quant_matmul.py:45 (_kernel, via "
+                 "quant_matmul :186, with the encode, bias and ReLU around "
+                 "it in paddle_tpu/quant/int8.py int8_linear :34)")
 INT8_PEAK_OPS = 1979e12       # H100 SXM dense int8 tensor-core peak
 # MnistMLP(512, 256) at bench.py's mnist batch: (M, K, N) of its layers
 MNIST_BATCH = 8192
@@ -225,9 +247,15 @@ def phase_kernels(torch, K):
     """Each kernel against its plain version; returns the float32 max
     abs error per kernel."""
     err = {name: 0.0 for name in KERNEL_ROWS}
-    for dname in ("float32", "bfloat16"):
+    for dname, edges in itertools.product(("float32", "bfloat16"),
+                                          (False, True)):
         x = kernel_inputs(torch, getattr(torch, dname))
-        for window in (None, 256):
+        if edges:
+            x["t_c"] = torch.tensor(T_EDGE, dtype=torch.int32,
+                                    device="cuda")
+            x["t_p"] = torch.tensor(T_EDGE_PAGED, dtype=torch.int32,
+                                    device="cuda")
+        for window in (None, 256, 100):
             pairs = {
                 "decode_attention": (
                     K.decode_attention(x["q"], x["k"], x["v"], x["t_c"],
@@ -253,9 +281,10 @@ def phase_kernels(torch, K):
             for name, (got, want) in pairs.items():
                 e = (got.float() - want.float()).abs().max().item()
                 ok = e <= TOL[dname] and bool(torch.isfinite(got).all())
-                log(f"[kernels] {name} {dname} window={window}: max abs "
-                    f"err {e:.3e} (atol {TOL[dname]}) "
-                    f"{'ok' if ok else 'FAIL'}")
+                log(f"[kernels] {name} {dname} "
+                    f"{'chunk-edge' if edges else 'phase-3'} cursors "
+                    f"window={window}: max abs err {e:.3e} (atol "
+                    f"{TOL[dname]}) {'ok' if ok else 'FAIL'}")
                 if not ok:
                     raise SystemExit(f"{name} disagrees with its plain "
                                      f"version ({dname}, window={window})")
@@ -274,10 +303,11 @@ def qmm_operands(torch, m, k, n, gen):
 
 
 def phase_qmm_kernels(torch, QM):
-    """The int8 matrix product against its plain version, required
-    exactly equal; returns the largest difference seen (0.0)."""
+    """The int8 matrix product and its fused form against their plain
+    versions, required exactly equal; returns the largest difference
+    seen for each (0.0)."""
     gen = torch.Generator(device="cuda").manual_seed(8)
-    worst = 0.0
+    worst = worst_lin = 0.0
     for m, k, n in MNIST_SHAPES + [(33, 100, 17)]:
         a, b, sa = qmm_operands(torch, m, k, n, gen)
         for sb in (torch.rand((), generator=gen, device="cuda") * 0.01,
@@ -296,7 +326,28 @@ def phase_qmm_kernels(torch, QM):
                     raise SystemExit("quant_matmul disagrees with its plain "
                                      "version")
                 worst = max(worst, e)
-    return worst
+        x = torch.randn(m, k, generator=gen, device="cuda") * 2
+        a_scale = torch.tensor(3.0 / 127, device="cuda")
+        w_scale = torch.rand((n,), generator=gen, device="cuda") * 0.01
+        bias = torch.randn(n, generator=gen, device="cuda")
+        w_packed = QM.pack_weight(b)
+        for bb, relu, dt in itertools.product(
+                (None, bias), (False, True), (torch.float32, torch.bfloat16)):
+            got = QM.quant_linear(x, w_packed, a_scale, w_scale, bb, relu,
+                                  out_dtype=dt)
+            want = QM.quant_linear_plain(x, w_packed, a_scale, w_scale, bb,
+                                         relu, out_dtype=dt)
+            torch.cuda.synchronize()
+            e = (got.float() - want.float()).abs().max().item()
+            ok = torch.equal(got, want)
+            log(f"[kernels] quant_linear {m}x{k}x{n} bias="
+                f"{bb is not None} relu={relu} {str(dt)[6:]}: max abs diff "
+                f"{e:.3e} (exact required) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit("quant_linear disagrees with its plain "
+                                 "version")
+            worst_lin = max(worst_lin, e)
+    return worst, worst_lin
 
 
 def phase_paged_write(torch):
@@ -351,7 +402,8 @@ def teacher_forced_check(torch, model, prompts, outs):
     for p, o in zip(prompts, outs):
         seq = torch.as_tensor(list(p) + [int(x) for x in o],
                               device=model.device)
-        caches = [blk.self_attn.init_cache(1, 128) for blk in model.blocks]
+        caches = [blk.self_attn.init_cache(1, -(-len(seq) // 128) * 128)
+                  for blk in model.blocks]
         logits, _ = model._chunk_logits(seq[None], caches, 0)
         rows = logits[0, len(p) - 1:len(p) - 1 + len(o)].float()
         if not bool(torch.isfinite(rows).all()):
@@ -366,7 +418,7 @@ def teacher_forced_check(torch, model, prompts, outs):
     return worst
 
 
-def phase_serving(torch, K, model, prompts, mode, kw):
+def phase_serving(torch, K, model, prompts, mode, kw, max_new=32):
     """Serve the prompts through one arena with the launch counters at 0:
     its decode kernel must launch at least once per layer per tick, the
     other decode kernels never. Float arenas also hold every token to
@@ -384,7 +436,7 @@ def phase_serving(torch, K, model, prompts, mode, kw):
     del warm
     dec = BatchedDecoder(model, slots=8, capacity=CAP, device=model.device,
                          **kw)
-    rids = [dec.submit(p, 32) for p in prompts]
+    rids = [dec.submit(p, max_new) for p in prompts]
     torch.cuda.synchronize()
     for name in KERNEL_ROWS:
         getattr(K, name).launches = 0
@@ -401,7 +453,7 @@ def phase_serving(torch, K, model, prompts, mode, kw):
         raise SystemExit(f"{mode}: another decode kernel launched: "
                          f"{launches}")
     for o in outs:
-        if o.shape != (32,) or o.min() < 0 or o.max() >= 32000:
+        if o.shape != (max_new,) or o.min() < 0 or o.max() >= 32000:
             raise SystemExit(f"{mode}: malformed output {o}")
     gap = ""
     if not kw.get("kv_dtype"):
@@ -409,10 +461,15 @@ def phase_serving(torch, K, model, prompts, mode, kw):
             gap = (f"; teacher-forced worst gap "
                    f"{teacher_forced_check(torch, model, prompts, outs):.2e}")
     toks = sum(len(o) for o in outs)
+    lens = [len(p) for p in prompts]
+    lo, hi = min(lens), max(lens) + max_new - 1
+    split = ("every" if lo >= 256 and len(prompts) <= dec.slots
+             else "no" if hi < 256 else "some")
     log(f"[serve:{mode}] {len(outs)} requests, {toks} tokens in "
         f"{wall:.3f} s: {toks / wall:.1f} tokens/s; {dec.tick_count} "
         f"decode ticks, {1e3 * dec.tick_seconds / dec.tick_count:.3f} ms "
-        f"per tick; launches {launches}{gap}")
+        f"per tick; launches {launches}{gap}; live keys per row "
+        f"{lo}-{hi}: {split} decode call has a row of 256 or more")
     return outs, launches[kernel], dec.tick_count, dec
 
 
@@ -460,12 +517,15 @@ def phase_int8_logits(torch, model):
 
 def time_ms(torch, fn, flush, n=50):
     """Mean CUDA-event time of ``fn`` over ``n`` launches, the L2 flushed
-    (a 256 MB write) before each one."""
+    (a 256 MB write) before each one. A 100k-cycle device sleep after
+    the flush keeps the card busy while the host runs the wrapper, so
+    the host's time before the first launch stays out of the window."""
     for _ in range(3):
         fn()
     total = 0.0
     for _ in range(n):
         flush.zero_()
+        torch.cuda._sleep(100_000)
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
@@ -560,9 +620,28 @@ def phase_timing(torch, K, err, launches):
     return rows
 
 
+def unfused_forward(torch, QM, model, x):
+    """The swapped MnistMLP's forward through the public unfused entry
+    points, layer by layer, as the JAX package's int8_linear composes
+    them: absmax_encode at the layer's scale, quant_matmul on the int8
+    weight, the bias, then the layer's ReLU."""
+    from paddle_tpu_torch.quant.ops import _encode_at
+
+    h = x
+    for layer in (model.fc1, model.fc2, model.fc3):
+        a_scale, w_scale, _ = layer._kernel_operands()
+        h = QM.quant_matmul(_encode_at(h, a_scale), layer.weight_int8,
+                            a_scale, w_scale) + layer.linear_bias
+        if layer.act == "relu":
+            h = torch.relu(h)
+    return h
+
+
 def phase_int8_mnist(torch, QM):
     """PTQ of MnistMLP(512, 256) on the card and one batch-8192 int8
-    forward. Returns the kernel's launches in that forward."""
+    forward, fused, then through the unfused public entry points as a
+    check. Returns each wrapper's launches in the fused forward, the
+    main path (quant_matmul: 0)."""
     from paddle_tpu_torch import quant
     from paddle_tpu_torch.models.mnist import MnistMLP
     from paddle_tpu_torch.quant import int8 as int8_mod
@@ -582,68 +661,125 @@ def phase_int8_mnist(torch, QM):
         swapped = quant.int8_swap(model, quant.freeze(model))
         if swapped != 3:
             raise SystemExit(f"int8_swap swapped {swapped} layers, not 3")
+        model(x)                             # packs the weights once
         torch.cuda.synchronize()
-        QM.quant_matmul.launches = 0
+        # the main path: the swapped model's forward
+        QM.quant_matmul.launches = QM.quant_linear.launches = 0
         out = model(x)
         torch.cuda.synchronize()
-        launches = QM.quant_matmul.launches
-        int8_mod.quant_matmul = QM.quant_matmul_plain
+        launches = {"quant_linear": QM.quant_linear.launches,
+                    "quant_matmul": QM.quant_matmul.launches}
+        # a check run, not a path: the public unfused entry points
+        QM.quant_matmul.launches = QM.quant_linear.launches = 0
+        unfused = unfused_forward(torch, QM, model, x)
+        torch.cuda.synchronize()
+        check_qmm = QM.quant_matmul.launches
+        check_qlin = QM.quant_linear.launches
+        int8_mod.quant_linear = QM.quant_linear_plain
         try:
             plain = model(x)
         finally:
-            int8_mod.quant_matmul = QM.quant_matmul
+            int8_mod.quant_linear = QM.quant_linear
         rel = ((out - ref).abs().max() / ref.abs().max()).item()
         exact = torch.equal(out, plain)
+        same = torch.equal(out, unfused)
         flush = torch.empty(64 * 2 ** 20, dtype=torch.float32,
                             device="cuda")
         int8_ms = time_ms(torch, lambda: model(x), flush, n=20)
         float_ms = time_ms(torch, lambda: fmodel(x), flush, n=20)
     log(f"[int8:mnist] MnistMLP(512, 256) PTQ: {swapped} layers swapped; "
-        f"batch {MNIST_BATCH} forward launched quant_matmul {launches} "
-        f"times; equals the plain-version path: {exact}; max |int8 - "
-        f"fake-quant| / max |fake-quant| {rel:.3e} (limit {INT8_MLP_REL}); "
-        f"forward {int8_ms:.4f} ms int8, {float_ms:.4f} ms float32 "
-        f"(CUDA events, L2 flushed, mean of 20)")
-    if not (launches == 3 and exact and rel < INT8_MLP_REL
+        f"batch {MNIST_BATCH} forward launched quant_linear "
+        f"{launches['quant_linear']} times and quant_matmul "
+        f"{launches['quant_matmul']}; equals the plain-version path: "
+        f"{exact}; check run through the unfused public entry points "
+        f"(quant_matmul launched {check_qmm} times, quant_linear "
+        f"{check_qlin}) gives the same logits: {same}; "
+        f"max |int8 - fake-quant| / max |fake-quant| {rel:.3e} (limit "
+        f"{INT8_MLP_REL}); forward {int8_ms:.4f} ms int8, {float_ms:.4f} ms "
+        f"float32 (CUDA events, L2 flushed, mean of 20)")
+    if not (launches == {"quant_linear": 3, "quant_matmul": 0}
+            and check_qmm == 3 and check_qlin == 0 and exact and same and rel < INT8_MLP_REL
             and bool(torch.isfinite(out).all())
             and out.shape == (MNIST_BATCH, 10)):
         raise SystemExit("the int8 MnistMLP forward failed its checks")
     return launches
 
 
-def phase_qmm_timing(torch, QM, err, launches):
-    """The int8 matrix product at MNIST layer 1: kernel, plain version,
-    and torch._int_mm plus the same scaling as the yardstick."""
-    m, k, n = MNIST_SHAPES[0]
-    gen = torch.Generator(device="cuda").manual_seed(11)
-    a, b, sa = qmm_operands(torch, m, k, n, gen)
-    sb = torch.rand((n,), generator=gen, device="cuda") * 0.01
-    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
-
-    def library():
-        return torch._int_mm(a, b).float() * (sa * sb)[None, :]
-
-    if not torch.equal(library(), QM.quant_matmul(a, b, sa, sb)):
-        raise SystemExit("the _int_mm yardstick computes another function")
-    ms = time_ms(torch, lambda: QM.quant_matmul(a, b, sa, sb), flush)
-    plain_ms = time_ms(torch, lambda: QM.quant_matmul_plain(a, b, sa, sb),
-                       flush)
-    lib_ms = time_ms(torch, library, flush)
-    nbytes = m * k + k * n + 4 * n + 4 + 4 * m * n
+def gemm_bound(m, k, n, a_bytes, extra):
+    """Least time (ms) of an int8 GEMM: bytes (A at a_bytes a value, B,
+    the (N,) scale, ``extra`` more, the float32 output) over the HBM
+    rate, and 2MNK operations over the int8 peak."""
+    nbytes = a_bytes * m * k + k * n + 4 * n + extra + 4 * m * n
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = 2 * m * n * k / INT8_PEAK_OPS * 1e3
-    bound_ms = max(t_bytes, t_ops)
-    bound_by = "bytes" if t_bytes >= t_ops else "operations"
-    log(f"[time] quant_matmul {m}x{k}x{n} per-channel, float32 out: kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, _int_mm + scale "
-        f"{lib_ms:.4f} ms; {2 * m * n * k} int8 ops, {nbytes} bytes, bound "
-        f"{bound_ms:.4f} ms ({bound_by}), {100 * bound_ms / ms:.1f}% of the "
-        f"bound; {launches} launches per MnistMLP forward")
-    return dict(name="quant_matmul", route="cuda",
-                source="paddle_tpu_torch/csrc/quant_matmul.cu",
-                replaces=QMM_REPLACES, launches=launches, max_abs_err=err,
-                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=lib_ms)
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
+            "operations", nbytes)
+
+
+def phase_qmm_timing(torch, QM, errs, launches):
+    """quant_matmul and quant_linear at MNIST's three layer shapes
+    (per-channel scales, float32 out): kernel, plain version and the
+    yardsticks torch._int_mm plus the same scaling (the fused form's:
+    the encode before it, bias and ReLU after it). Returns the two
+    kernels' rows, at layer 1."""
+    from paddle_tpu_torch.quant.ops import _encode_at
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    rows = {}
+    for m, k, n in MNIST_SHAPES:
+        a, b, sa = qmm_operands(torch, m, k, n, gen)
+        sa = sa.reshape(1)
+        sb = torch.rand((n,), generator=gen, device="cuda") * 0.01
+        x = torch.randn(m, k, generator=gen, device="cuda") * 2
+        bias = torch.randn(n, generator=gen, device="cuda")
+        w_packed = QM.pack_weight(b)
+        # _int_mm takes N % 8 == 0: layer 3's B padded to 16 columns
+        n8 = -(-n // 8) * 8
+        b8 = torch.zeros((k, n8), dtype=torch.int8, device="cuda")
+        b8[:, :n] = b
+        pad = "" if n8 == n else f" (B padded to {n8} columns)"
+
+        def library():
+            return torch._int_mm(a, b8)[:, :n].float() * (sa * sb)[None, :]
+
+        def library_linear():
+            acc = torch._int_mm(_encode_at(x, sa), b8)[:, :n]
+            return torch.relu(acc.float() * (sa * sb)[None, :] + bias)
+
+        cases = {
+            "quant_matmul": (
+                lambda: QM.quant_matmul(a, b, sa, sb),
+                lambda: QM.quant_matmul_plain(a, b, sa, sb), library, 1, 4,
+                QMM_REPLACES),
+            "quant_linear": (
+                lambda: QM.quant_linear(x, w_packed, sa, sb, bias, True),
+                lambda: QM.quant_linear_plain(x, w_packed, sa, sb, bias,
+                                              True),
+                library_linear, 4, 8, QLIN_REPLACES),
+        }
+        for name, (kern, plain, lib, a_bytes, extra, replaces) in \
+                cases.items():
+            if not torch.equal(lib(), kern()):
+                raise SystemExit(f"the {name} yardstick computes another "
+                                 "function")
+            ms = time_ms(torch, kern, flush)
+            plain_ms = time_ms(torch, plain, flush)
+            lib_ms = time_ms(torch, lib, flush)
+            bound_ms, bound_by, nbytes = gemm_bound(m, k, n, a_bytes, extra)
+            log(f"[time] {name} {m}x{k}x{n} per-channel, float32 out: "
+                f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, yardstick "
+                f"{lib_ms:.4f} ms{pad}; {2 * m * n * k} int8 ops, {nbytes} "
+                f"bytes, bound {bound_ms:.4f} ms ({bound_by}), "
+                f"{100 * bound_ms / ms:.1f}% of the bound")
+            if name not in rows:        # the row is layer 1's
+                rows[name] = dict(
+                    name=name, route="cuda",
+                    source="paddle_tpu_torch/csrc/quant_matmul.cu",
+                    replaces=replaces, launches=launches[name],
+                    max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
+                    bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
+    return [rows["quant_matmul"], rows["quant_linear"]]
 
 
 def flash_inputs(torch, case, dtype, gen):
@@ -902,7 +1038,7 @@ def main() -> int:
 
     phase_build()
     err = phase_kernels(torch, K)
-    qmm_err = phase_qmm_kernels(torch, QM)
+    qmm_err, qlin_err = phase_qmm_kernels(torch, QM)
     phase_paged_write(torch)
 
     gen = torch.Generator(device="cuda")
@@ -922,6 +1058,12 @@ def main() -> int:
         torch, K, model, prompts, "contiguous", {})
     outs_p, launches["decode_attention_paged"], ticks_p, _ = phase_serving(
         torch, K, model, prompts, "paged", paged)
+    # the same paged path at long contexts, where the split walks more
+    # than one live chunk per row (its launches stay out of the record)
+    long_lens = torch.randint(1200, 1901, (8,), generator=rng).tolist()
+    long_prompts = [torch.randint(1, 32000, (n,), generator=rng).tolist()
+                    for n in long_lens]
+    phase_serving(torch, K, model, long_prompts, "paged-long", paged)
     agree = sum(int((a == b).all()) for a, b in zip(outs_c, outs_p))
     log(f"[serve] contiguous and paged agree on {agree}/16 requests; "
         f"launches per decode tick: contiguous "
@@ -952,7 +1094,9 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     qmm_launches = phase_int8_mnist(torch, QM)
-    rows.append(phase_qmm_timing(torch, QM, qmm_err, qmm_launches))
+    rows += phase_qmm_timing(torch, QM, {"quant_matmul": qmm_err,
+                                         "quant_linear": qlin_err},
+                             qmm_launches)
 
     flash_err = phase_flash_kernels(torch, FK)
     flash_launches, per_step = phase_training(torch, FK)

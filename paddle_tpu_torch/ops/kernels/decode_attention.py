@@ -12,17 +12,23 @@ Replaces (TPU kernels): paddle_tpu/ops/pallas/flash_decode.py
 Bound: bytes. A call must read every live K and V vector once:
 ``sum_b (min(t_b, L-1) - lo_b + 1) * Hkv * 2 * D * itemsize`` (int8
 pools: ``(D + 4)`` bytes per vector, its float32 scale included),
-against 3.35 TB/s on an H100 SXM. Design: one thread block per (row, kv head)
-walks only the live key range in tiles of 64 keys, loading each K/V
-tile into shared memory once for the whole GQA group (the TPU kernel's
-O(t) reads), with the online softmax in float32. The source file says
-what is left for a later change (too few blocks for 132 SMs at small
-batch; no double buffering).
+against 3.35 TB/s on an H100 SXM. Design: a split over the cache length
+— one thread block per (row, kv head, chunk of ``CHUNK`` = 256
+positions), S = ceil(L / 256) chunks from the static length L — each
+walking only its live 64-key tiles, loading each K/V tile into shared
+memory once for the whole GQA group with 16-byte ``cp.async`` copies
+(double-buffered), with the online softmax in float32; the last block
+of each (row, kv head) merges the chunks' partials (m, l, acc) with the
+log-sum-exp rule in the same launch. The wrappers allocate the partials
+scratch per call and keep the merge counters per device and stream.
+:func:`_attend_plain_split` is the plain version of that walk and merge.
 
 Dispatch: a wrapper takes the plain version only for tensors on the
 CPU. For a CUDA tensor it launches the kernel or raises — there is no
 fallback. Each wrapper counts its launches in ``.launches`` (a plain
-integer, bumped only where the kernel launches).
+integer, bumped only where the kernel launches). The kernels copy K/V
+rows as 16-byte vectors: on the card, ``head_dim * itemsize`` must be a
+multiple of 16 and the planes 16-byte aligned, or the wrapper raises.
 
 Types: float32 (the JAX default, what parity runs at) and bfloat16 (what
 a server on the card would run), both accumulated in float32. Unlike the
@@ -46,30 +52,52 @@ from ...core.enforce import (InvalidArgumentError, KernelLaunchError,
 NEG_INF = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _SMEM_LIMIT = 232448     # bytes of shared memory one block may use
+CHUNK = 256              # cache positions per split (the kernel's kChunk)
 
 
 # ----- plain versions ------------------------------------------------------
 
-def _attend_plain(q, k, v, t, window, scale):
-    """q (B, 1, H, D) against a logical cache k/v (B, L, Hkv, D), keys
-    [lo, t] live, in float32 with the TPU kernel's masking values."""
+def _attend_plain_split(q, k, v, t, window, scale, chunk: int = CHUNK):
+    """The kernels' split walk in plain PyTorch: :func:`_attend_plain`
+    over each ``chunk`` of cache positions separately, giving partials
+    (m, l, unnormalized acc) per chunk (an empty chunk: m = -1e30,
+    l = 0), merged with the log-sum-exp rule — weights exp(m_s - max m)
+    over the chunks with l > 0, l == 0 read as 1 after the merge."""
     b, _, h, d = q.shape
     length, kv_h = k.shape[1], k.shape[2]
     g = h // kv_h
     qf = q[:, 0].float().reshape(b, kv_h, g, d)
-    s = torch.einsum("bkgd,blkd->bkgl", qf, k.float()) * scale
     cols = torch.arange(length, device=q.device)[None, :]
     live = cols <= t[:, None]
     if window is not None:
         live &= cols > (t - window)[:, None]
-    s = torch.where(live[:, None, None, :], s, NEG_INF)
-    m = s.amax(dim=-1, keepdim=True)
-    p = torch.exp(s - m)
-    p = torch.where(s <= NEG_INF * 0.5, 0.0, p)
-    l = p.sum(dim=-1, keepdim=True)
+    ms, ls, accs = [], [], []
+    for c0 in range(0, length, chunk):
+        kc, vc = k[:, c0:c0 + chunk].float(), v[:, c0:c0 + chunk].float()
+        s = torch.einsum("bkgd,blkd->bkgl", qf, kc) * scale
+        s = torch.where(live[:, None, None, c0:c0 + chunk], s, NEG_INF)
+        m = s.amax(dim=-1, keepdim=True)
+        p = torch.exp(s - m)
+        p = torch.where(s <= NEG_INF * 0.5, 0.0, p)
+        ms.append(m)
+        ls.append(p.sum(dim=-1, keepdim=True))
+        accs.append(torch.einsum("bkgl,blkd->bkgd", p, vc))
+    m, l, acc = torch.stack(ms), torch.stack(ls), torch.stack(accs)
+    mx = torch.where(l > 0, m, NEG_INF).amax(dim=0)
+    w = torch.where(l > 0, torch.exp(m - mx), 0.0)
+    l = (l * w).sum(dim=0)
     l = torch.where(l == 0.0, 1.0, l)
-    out = torch.einsum("bkgl,blkd->bkgd", p, v.float()) / l
+    out = (acc * w).sum(dim=0) / l
     return out.reshape(b, 1, h, d).to(q.dtype)
+
+
+def _attend_plain(q, k, v, t, window, scale):
+    """q (B, 1, H, D) against a logical cache k/v (B, L, Hkv, D), keys
+    [lo, t] live, in float32 with the TPU kernel's masking values: the
+    split walk with the whole row as one chunk (its merge weight is
+    exp(0) = 1)."""
+    return _attend_plain_split(q, k, v, t, window, scale,
+                               chunk=max(k.shape[1], 1))
 
 
 def decode_attention_plain(q, k, v, t, window: Optional[int] = None,
@@ -161,12 +189,53 @@ def _check_cuda(*tensors):
             f"decode attention kernels take float32 or bfloat16, got {dt}")
 
 
-def _check_smem(lib, g: int, d: int):
-    need = lib.pt_decode_attention_smem_bytes(g, d)
+def _check_rows(planes, d: int):
+    """The kernels copy K/V rows in 16-byte vectors: rows of a multiple
+    of 16 bytes, planes 16-byte aligned."""
+    item = planes[0].element_size()
+    if (d * item) % 16 or any(x.data_ptr() % 16 for x in planes):
+        raise InvalidArgumentError(
+            f"the decode kernels copy 16-byte vectors: head_dim {d} x "
+            f"{item} bytes must be a multiple of 16 and the K/V planes "
+            f"16-byte aligned")
+
+
+_smem_ok = set()
+
+
+def _check_smem(lib, g: int, d: int, kv_bytes: int):
+    if (g, d, kv_bytes) in _smem_ok:
+        return
+    need = lib.pt_decode_attention_smem_bytes(g, d, kv_bytes)
     if need > _SMEM_LIMIT:
         raise InvalidArgumentError(
             f"group size {g} at head_dim {d} needs {need} bytes of shared "
             f"memory per block; the card allows {_SMEM_LIMIT}")
+    _smem_ok.add((g, d, kv_bytes))
+
+
+_scratch = {}
+
+
+def _split_operands(q, kv_h: int, length: int):
+    """S, the partials scratch (B*H*S*(D+2) float32, contents undefined),
+    the merge counters (B*Hkv ints) and the stream handle. Scratch and
+    counters are kept per device and stream and grown on demand: calls
+    on one stream run in order and a launch has merged its partials
+    before it ends, and the kernel leaves the counters at 0, so a call
+    on another stream cannot see a count in progress."""
+    b, _, h, d = q.shape
+    splits = -(-length // CHUNK)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    key = (q.device, stream)
+    need = b * h * splits * (d + 2)
+    part, cnt = _scratch.get(key, (None, None))
+    if part is None or part.numel() < need or cnt.numel() < b * kv_h:
+        part = torch.empty(need, dtype=torch.float32, device=q.device)
+        cnt = torch.zeros(max(b * kv_h, 256), dtype=torch.int32,
+                          device=q.device)
+        _scratch[key] = (part, cnt)
+    return splits, part, cnt, stream
 
 
 def _lib():
@@ -177,16 +246,17 @@ def _lib():
     lib = _build.load("decode_attention")
     if not getattr(lib, "_pt_declared", False):
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.pt_decode_attention_smem_bytes.argtypes = [i32, i32]
+        f32 = ctypes.c_float
+        lib.pt_decode_attention_smem_bytes.argtypes = [i32] * 3
         lib.pt_decode_attention_smem_bytes.restype = ctypes.c_size_t
         lib.pt_decode_attention.argtypes = (
-            [i32] + [ptr] * 5 + [i32] * 6 + [ctypes.c_float, ptr])
+            [i32] + [ptr] * 7 + [i32] * 6 + [f32, i32, ptr])
         lib.pt_decode_attention.restype = i32
         lib.pt_decode_attention_paged.argtypes = (
-            [i32] + [ptr] * 6 + [i32] * 8 + [ctypes.c_float, ptr])
+            [i32] + [ptr] * 8 + [i32] * 8 + [f32, i32, ptr])
         lib.pt_decode_attention_paged.restype = i32
         lib.pt_decode_attention_paged_quant.argtypes = (
-            [i32] + [ptr] * 8 + [i32] * 8 + [ctypes.c_float, ptr])
+            [i32] + [ptr] * 10 + [i32] * 8 + [f32, i32, ptr])
         lib.pt_decode_attention_paged_quant.restype = i32
         lib._pt_declared = True
     return lib
@@ -215,14 +285,16 @@ def decode_attention(q, k, v, t, *, window: Optional[int] = None,
             q.device)
     t = _cursors(t, b, q.device)
     _check_cuda(q, k, v)
+    _check_rows((k, v), d)
     lib = _lib()
-    _check_smem(lib, h // kv_h, d)
+    _check_smem(lib, h // kv_h, d, k.element_size())
     out = torch.empty_like(q)
+    splits, part, cnt, stream = _split_operands(q, kv_h, cap)
     rc = lib.pt_decode_attention(
         _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        t.data_ptr(), out.data_ptr(), b, cap, h, kv_h, d, window or 0,
-        float(d ** -0.5 if scale is None else scale),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        t.data_ptr(), out.data_ptr(), part.data_ptr(), cnt.data_ptr(), b,
+        cap, h, kv_h, d, window or 0,
+        float(d ** -0.5 if scale is None else scale), splits, stream)
     _raise_on(rc, "decode_attention")
     decode_attention.launches += 1
     return out
@@ -256,15 +328,17 @@ def decode_attention_paged(q, kpool, vpool, table, t, *,
     t = _cursors(t, b, q.device)
     table = table.to(device=q.device, dtype=torch.int32).contiguous()
     _check_cuda(q, kpool, vpool)
+    _check_rows((kpool, vpool), d)
     lib = _lib()
-    _check_smem(lib, h // kv_h, d)
+    _check_smem(lib, h // kv_h, d, kpool.element_size())
     out = torch.empty_like(q)
+    splits, part, cnt, stream = _split_operands(q, kv_h, n_log * ps)
     rc = lib.pt_decode_attention_paged(
         _DTYPE_CODE[q.dtype], q.data_ptr(), kpool.data_ptr(),
         vpool.data_ptr(), table.data_ptr(), t.data_ptr(), out.data_ptr(),
-        b, pages, ps, n_log, h, kv_h, d, window or 0,
-        float(d ** -0.5 if scale is None else scale),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        part.data_ptr(), cnt.data_ptr(), b, pages, ps, n_log, h, kv_h, d,
+        window or 0, float(d ** -0.5 if scale is None else scale), splits,
+        stream)
     _raise_on(rc, "decode_attention_paged")
     decode_attention_paged.launches += 1
     return out
@@ -325,14 +399,15 @@ def decode_attention_paged_quant(q, kq, ks, vq, vs, table, t, *,
     table = table.to(device=q.device, dtype=torch.int32).contiguous()
     _check_quant_planes(q, kq, ks, vq, vs)
     lib = _lib()
-    _check_smem(lib, h // kv_h, d)
+    _check_smem(lib, h // kv_h, d, 1)
     out = torch.empty_like(q)
+    splits, part, cnt, stream = _split_operands(q, kv_h, n_log * ps)
     rc = lib.pt_decode_attention_paged_quant(
         _DTYPE_CODE[q.dtype], q.data_ptr(), kq.data_ptr(), ks.data_ptr(),
         vq.data_ptr(), vs.data_ptr(), table.data_ptr(), t.data_ptr(),
-        out.data_ptr(), b, pages, ps, n_log, h, kv_h, d, window or 0,
-        float(d ** -0.5 if scale is None else scale),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        out.data_ptr(), part.data_ptr(), cnt.data_ptr(), b, pages, ps,
+        n_log, h, kv_h, d, window or 0,
+        float(d ** -0.5 if scale is None else scale), splits, stream)
     _raise_on(rc, "decode_attention_paged_quant")
     decode_attention_paged_quant.launches += 1
     return out

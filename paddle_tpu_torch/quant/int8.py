@@ -1,9 +1,10 @@
 """int8 execution of frozen quantized Linear layers (counterpart of the
-Linear half of paddle_tpu/quant/int8.py) over the int8 matrix-product
-kernel (``ops/kernels/quant_matmul.py``): weights live as int8 buffers
-(from ``quant.freeze``), activations quantize per tensor at the recorded
-activation scale, the product accumulates in int32 and dequantizes in
-the kernel's epilogue.
+Linear half of paddle_tpu/quant/int8.py) over the fused int8 kernel
+(``ops/kernels/quant_matmul.py`` ``quant_linear``): weights live as int8
+buffers (from ``quant.freeze``); one launch encodes the activations per
+tensor at the recorded activation scale, accumulates the product in
+int32, dequantizes, adds the bias and, for a ``"relu"`` layer, applies
+ReLU.
 
 As in the JAX package, ``int8_linear`` takes 2-D activations (N, D)
 only. ``Int8Conv2D``/``int8_conv2d`` come with the convolution slice
@@ -18,8 +19,8 @@ import torch
 
 from ..core.enforce import InvalidArgumentError, enforce
 from ..nn.layer import Layer
-from ..ops.kernels.quant_matmul import quant_matmul
-from .ops import _absmax_scale, _encode_at
+from ..ops.kernels.quant_matmul import pack_weight, quant_linear
+from .ops import _absmax_scale
 
 
 def _as_int8_weight(w):
@@ -41,37 +42,51 @@ def _linear_scales(act_scale, weight_scale, n: int, device):
             w_scale.expand(n).contiguous())
 
 
-def _int8_matmul(x, w_i8, a_scale, w_scale, bias, out_dtype):
-    """x (N, D) float encoded at ``a_scale``, times the int8 weight, the
-    product dequantized in the kernel's epilogue; then the bias."""
+def _check_2d(x):
     if x.ndim != 2:
         raise InvalidArgumentError(
             f"int8_linear takes 2-D activations (N, D), got rank {x.ndim} "
             f"(shape {tuple(x.shape)})")
-    out = quant_matmul(_encode_at(x, a_scale), w_i8, a_scale, w_scale,
-                       out_dtype=out_dtype)
-    if bias is not None:
-        out = out + bias
-    return out
+
+
+def _int8_linear(x, w_packed, a_scale, w_scale, bias, out_dtype,
+                 relu=False):
+    """``quant_linear`` with the JAX package's result type: a float32
+    bias is added in the kernel; any other case adds it after the
+    product, as ``out + bias`` promotes there."""
+    _check_2d(x)
+    if bias is None or (out_dtype == torch.float32
+                        and bias.dtype == torch.float32):
+        return quant_linear(x, w_packed, a_scale, w_scale, bias, relu,
+                            out_dtype=out_dtype)
+    out = quant_linear(x, w_packed, a_scale, w_scale,
+                       out_dtype=out_dtype) + bias
+    return torch.relu(out) if relu else out
 
 
 def int8_linear(x, frozen_entry, bias=None, *, out_dtype=torch.float32):
     """Run a frozen Linear layer in int8: ``x`` (N, D) float;
     ``frozen_entry`` is one value of ``quant.freeze()``'s dict
     (``weight_int8`` (D, O), ``weight_scale`` (O,), ``act_scale``
-    scalar)."""
+    scalar). The weight is packed for the kernel on every call; an
+    :class:`Int8Linear` packs it once."""
     w_i8 = _as_int8_weight(frozen_entry["weight_int8"])
     a_scale, w_scale = _linear_scales(frozen_entry["act_scale"],
                                       frozen_entry["weight_scale"],
                                       w_i8.shape[1], x.device)
-    return _int8_matmul(x, w_i8, a_scale, w_scale, bias, out_dtype)
+    return _int8_linear(x, pack_weight(w_i8.to(x.device)), a_scale,
+                        w_scale, bias, out_dtype)
 
 
 class Int8Linear(Layer):
     """Frozen int8 Linear executor: the int8 weight, its scales and the
-    bias are buffers, never parameters. The scales the kernel takes are
-    derived from the buffers once, and again only after a buffer changes
-    (a load writes them in place) or moves, not on every forward."""
+    bias are buffers, never parameters. What the kernel takes — the
+    scales and the weight packed (N, K16) — is derived from the buffers
+    once, and again only after a buffer changes (a load writes them in
+    place) or moves, not on every forward; the packed weight is a cache,
+    not state (``state_dict`` holds only the buffers). A ``"relu"``
+    layer runs its activation in the kernel's epilogue; any other
+    ``act`` runs after it."""
 
     def __init__(self, frozen_entry, bias=None, act=None):
         super().__init__()
@@ -90,29 +105,33 @@ class Int8Linear(Layer):
             self.register_buffer("linear_bias", buf(bias))
         self.has_bias = bias is not None
         self.act = act
-        self._scale_key = None
-        self._kernel_scales = None
+        self._operand_key = None
+        self._operands = None
 
-    def _scales(self):
-        bufs = (self.weight_scale, self.act_scale)
+    def _kernel_operands(self):
+        """(a_scale, w_scale, w_packed), derived again only when a buffer
+        was written or moved."""
+        bufs = (self.weight_int8, self.weight_scale, self.act_scale)
         # an inference tensor keeps no version counter: derive every time
         key = (None if any(b.is_inference() for b in bufs) else
                tuple((b.device, b.data_ptr(), b._version) for b in bufs))
-        if key is None or key != self._scale_key:
-            self._kernel_scales = _linear_scales(
-                self.act_scale, self.weight_scale,
-                self.weight_int8.shape[1], self.weight_int8.device)
-            self._scale_key = key
-        return self._kernel_scales
+        if key is None or key != self._operand_key:
+            w_i8 = _as_int8_weight(self.weight_int8)
+            self._operands = (*_linear_scales(
+                self.act_scale, self.weight_scale, w_i8.shape[1],
+                w_i8.device), pack_weight(w_i8))
+            self._operand_key = key
+        return self._operands
 
     def forward(self, x):
         from ..nn.layers import _apply_act  # the resolver nn.Linear uses
 
-        a_scale, w_scale = self._scales()
-        out = _int8_matmul(x, self.weight_int8, a_scale, w_scale,
+        a_scale, w_scale, w_packed = self._kernel_operands()
+        relu = self.act == "relu"
+        out = _int8_linear(x, w_packed, a_scale, w_scale,
                            self.linear_bias if self.has_bias else None,
-                           torch.float32)
-        return _apply_act(out, self.act)
+                           torch.float32, relu=relu)
+        return out if relu else _apply_act(out, self.act)
 
 
 def int8_swap(model, frozen) -> int:

@@ -187,7 +187,8 @@ def test_int8_paths_on_cpu_take_plain_versions_and_count_nothing():
     """The int8 decode and int8 matmul wrappers take their plain versions
     on CPU tensors; an int8 paged arena and a PTQ-swapped MnistMLP run
     end to end on the CPU with their launch counters unchanged."""
-    n = (K.decode_attention_paged_quant.launches, QM.quant_matmul.launches)
+    n = (K.decode_attention_paged_quant.launches, QM.quant_matmul.launches,
+         QM.quant_linear.launches)
     rng = np.random.default_rng(1)
     q = torch.from_numpy(rng.normal(size=(2, 1, 4, 64)).astype(np.float32))
     kq = torch.from_numpy(rng.integers(-127, 128, (4, 64, 2, 64)).astype(
@@ -216,6 +217,6 @@ def test_int8_paths_on_cpu_take_plain_versions_and_count_nothing():
     assert quant.int8_swap(mlp, quant.freeze(mlp)) == 3
     assert mlp(torch.randn(6, 784)).shape == (6, 10)
     assert (K.decode_attention_paged_quant.launches,
-            QM.quant_matmul.launches) == n
+            QM.quant_matmul.launches, QM.quant_linear.launches) == n
     if not torch.cuda.is_available():
-        assert n == (0, 0)
+        assert n == (0, 0, 0)

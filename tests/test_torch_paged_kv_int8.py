@@ -14,7 +14,9 @@ Tolerances and why:
 - the int8 decode plain version against JAX ``flash_decode_paged(
   k_scale=, v_scale=)`` run in interpret mode: atol 2e-5, as the float
   decode kernels' parity (the same masked softmax in float32 over the
-  same dequantized keys; only the order of sums differs, ~1e-6).
+  same dequantized keys; only the order of sums differs, ~1e-6). The
+  same holds for the plain split walk (``_attend_plain_split``, the
+  kernels' per-chunk partials and merge) over the dequantized pages.
 
 The test marked ``gpu`` holds the CUDA kernel against its plain version
 on the card and skips here:
@@ -158,6 +160,33 @@ def test_quant_decode_plain_matches_pallas(h, kv, window):
                                rtol=0)
 
 
+@pytest.mark.parametrize("window", [None, 40])
+@pytest.mark.parametrize("t", [(255, 256, 512), (257, 0, 300)],
+                         ids=["edge_parked", "beyond_edge"])
+def test_quant_split_walk_matches_pallas(t, window):
+    """Two 256-position chunks over int8 pools (n_log 8): cursors on and
+    beside the chunk edge, a parked row, an empty chunk, a window across
+    the edge."""
+    from paddle_tpu.ops.pallas.flash_decode import flash_decode_paged
+
+    jnp, _ = _jax()
+    q, kq, ks, vq, vs, table = _decode_inputs(8, 2, seed=sum(t), nlog=8,
+                                              pages=32)
+    tt = np.asarray(t, np.int32)
+    want = flash_decode_paged(
+        jnp.asarray(q), jnp.asarray(kq), jnp.asarray(vq),
+        jnp.asarray(table), jnp.asarray(tt), k_scale=jnp.asarray(ks),
+        v_scale=jnp.asarray(vs), window=window, interpret=True)
+    tab = torch.from_numpy(table)
+    got = K._attend_plain_split(
+        torch.from_numpy(q),
+        K.dequantize_pages(torch.from_numpy(kq), torch.from_numpy(ks), tab),
+        K.dequantize_pages(torch.from_numpy(vq), torch.from_numpy(vs), tab),
+        torch.from_numpy(tt), window, D ** -0.5)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5,
+                               rtol=0)
+
+
 def test_quant_decode_scalar_cursor_and_gather_oracle():
     """A scalar cursor broadcasts; the plain version also equals
     attention over ``gather_rows``' dequantized cache (the attend
@@ -257,6 +286,9 @@ def test_cuda_int8_decode_kernel_matches_plain():
     pages = b * cap // PS + 8
     t = torch.tensor([0, 63, 64, 65, 1000, 2047, 2048, 5000],
                      dtype=torch.int32, device=dev)
+    # on and beside the split's chunk edges (256 positions a chunk)
+    t_edges = torch.tensor([255, 256, 257, 511, 512, 513, 1279, 2048],
+                           dtype=torch.int32, device=dev)
     kq, ks = absmax_encode(torch.randn(pages, PS, kv, D, generator=gen,
                                        device=dev), axis=-1)
     vq, vs = absmax_encode(torch.randn(pages, PS, kv, D, generator=gen,
@@ -268,12 +300,13 @@ def test_cuda_int8_decode_kernel_matches_plain():
     table[1, 1:] = -7
     for dtype, atol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
         q = torch.randn(b, 1, h, D, generator=gen, device=dev).to(dtype)
-        for window in (None, 256):
+        for window, tt in ((None, t), (256, t), (None, t_edges),
+                           (100, t_edges)):
             n0 = K.decode_attention_paged_quant.launches
             got = K.decode_attention_paged_quant(q, kq, ks, vq, vs, table,
-                                                 t, window=window)
+                                                 tt, window=window)
             want = K.decode_attention_paged_quant_plain(
-                q, kq, ks, vq, vs, table, t, window)
+                q, kq, ks, vq, vs, table, tt, window)
             torch.cuda.synchronize()
             assert K.decode_attention_paged_quant.launches == n0 + 1
             assert got.dtype == dtype

@@ -16,11 +16,17 @@ Tolerances and why:
   add and ReLU between layers are the same operations).
 - the int8 model against its fake-quant float model: relative error
   < 0.1, the JAX package's bound (tests/test_quant_matmul.py).
+- the fused form's plain version ``quant_linear_plain`` (encode, product,
+  bias, ReLU) against JAX ``int8_linear`` followed by ReLU on the same
+  frozen entries: exactly equal (the same float32 operations in the same
+  order); the fused and the unfused port paths: exactly equal.
 
-The test marked ``gpu`` holds the CUDA kernel against its plain version
-on the card (exactly) and skips here:
+The test marked ``gpu`` holds the CUDA kernel, in both forms, against its
+plain versions on the card (exactly) and skips here:
 ``python3 -m pytest --noconftest -m gpu tests/test_torch_quant_matmul.py``
 (JAX is imported inside the CPU tests only)."""
+
+import itertools
 
 import numpy as np
 import pytest
@@ -240,6 +246,100 @@ def test_sequential_qat_gradients_match_jax():
                                    rtol=1e-5, err_msg=name)
 
 
+def test_quant_linear_plain_matches_jax_int8_linear_and_relu():
+    """Each frozen layer of a PTQ'd MnistMLP(64, 32): JAX int8_linear
+    (encode, quant_matmul, bias) then ReLU, against quant_linear_plain on
+    the packed weight with relu=True, exactly; without relu, against
+    int8_linear alone."""
+    import jax
+    import jax.numpy as jnp
+
+    from paddle_tpu import quant as JQ
+    from paddle_tpu_torch.quant.int8 import _linear_scales
+
+    batches = _batches(4, 784, seed=12)
+    _, params, jfrozen = _jax_ptq(64, 32, batches)
+    rng = np.random.default_rng(13)
+    for path, je in jfrozen.items():
+        w = np.array(je["weight_int8"])
+        x = rng.normal(0, 2, (16, w.shape[0])).astype(np.float32)
+        bias = np.array(params[f"{path}.inner.bias"])
+        want = JQ.int8_linear(jnp.asarray(x), je, bias=jnp.asarray(bias))
+        a_scale, w_scale = _linear_scales(
+            torch.from_numpy(np.array(je["act_scale"])),
+            torch.from_numpy(np.array(je["weight_scale"])), w.shape[1],
+            "cpu")
+        w_packed = QM.pack_weight(torch.from_numpy(w))
+        for relu in (False, True):
+            got = QM.quant_linear_plain(torch.from_numpy(x), w_packed,
+                                        a_scale, w_scale,
+                                        torch.from_numpy(bias), relu)
+            np.testing.assert_array_equal(
+                got.numpy(), np.asarray(jax.nn.relu(want) if relu else want))
+
+
+@pytest.mark.parametrize("k", [16, 20, 7], ids=["k16", "k20", "k7"])
+def test_pack_weight_and_quant_linear_compose_the_unfused_path(k):
+    """pack_weight lays the (K, N) weight out (N, K16), K16 = K rounded
+    up to 16 with zero columns; quant_linear equals the unfused path
+    (encode, quant_matmul, bias, ReLU) exactly, in float32 and bfloat16
+    out; a packed weight of another K is refused."""
+    from paddle_tpu_torch.quant.ops import _encode_at
+
+    rng = np.random.default_rng(k)
+    w = torch.from_numpy(rng.integers(-127, 128, (k, 5)).astype(np.int8))
+    packed = QM.pack_weight(w)
+    k16 = -(-k // 16) * 16
+    assert packed.shape == (5, k16) and packed.is_contiguous()
+    assert torch.equal(packed[:, :k], w.t())
+    assert not packed[:, k:].any()
+    x = torch.from_numpy(rng.normal(0, 3, (9, k)).astype(np.float32))
+    sa, sb = torch.tensor(0.04), torch.from_numpy(
+        rng.uniform(0.001, 0.1, 5).astype(np.float32))
+    bias = torch.from_numpy(rng.normal(size=5).astype(np.float32))
+    unfused = torch.relu(QM.quant_matmul(_encode_at(x, sa), w, sa, sb)
+                         + bias)
+    assert torch.equal(QM.quant_linear(x, packed, sa, sb, bias, True),
+                       unfused)
+    assert torch.equal(QM.quant_linear(x, packed, sa, sb, bias, True,
+                                       out_dtype=torch.bfloat16),
+                       unfused.to(torch.bfloat16))
+    assert torch.equal(QM.quant_linear(x, packed, sa, sb),
+                       QM.quant_matmul(_encode_at(x, sa), w, sa, sb))
+    with pytest.raises(Exception, match="pack_weight"):
+        QM.quant_linear(torch.zeros((2, 40)), packed, sa, sb)
+
+
+def test_quant_linear_zero_sized_rows():
+    packed = QM.pack_weight(torch.ones((4, 3), dtype=torch.int8))
+    out = QM.quant_linear(torch.zeros((0, 4)), packed, 1.0, 1.0,
+                          torch.ones(3), True)
+    assert out.shape == (0, 3) and out.dtype == torch.float32
+
+
+def test_int8_mlp_fused_forward_equals_unfused_entry_points():
+    """A swapped MnistMLP's forward (Int8Linear: one quant_linear per
+    layer) equals the same layers through the unfused public entry
+    points (encode, quant_matmul, bias, ReLU), as chip_smoke.py's
+    [int8:mnist] phase checks on the card."""
+    from paddle_tpu_torch.quant.ops import _encode_at
+
+    tm = quant.quantize_model(MnistMLP(64, 32, device="cpu"))
+    quant.calibrate(tm, [torch.from_numpy(x)
+                         for x in _batches(2, 784, seed=14)])
+    assert quant.int8_swap(tm, quant.freeze(tm)) == 3
+    x = torch.from_numpy(_batches(1, 784, seed=15)[0])
+    h = x
+    for layer in (tm.fc1, tm.fc2, tm.fc3):
+        a_scale, w_scale, _ = layer._kernel_operands()
+        h = QM.quant_matmul(_encode_at(h, a_scale), layer.weight_int8,
+                            a_scale, w_scale) + layer.linear_bias
+        if layer.act == "relu":
+            h = torch.relu(h)
+    with torch.no_grad():
+        assert torch.equal(tm(x), h)
+
+
 def test_int8_linear_takes_2d_only():
     entry = {"weight_int8": torch.zeros((4, 3), dtype=torch.int8),
              "weight_scale": torch.ones(3), "act_scale": torch.tensor(1.0)}
@@ -251,9 +351,10 @@ def test_int8_linear_takes_2d_only():
 
 
 def test_int8_linear_follows_its_buffers():
-    """Int8Linear derives its kernel scales once, and again after a load
-    writes its buffers in place: the forward then equals int8_linear on
-    the new entry exactly."""
+    """Int8Linear derives its kernel scales and its packed weight once,
+    and again after a load writes its buffers in place (the scales, then
+    the int8 weight alone): the forward then equals int8_linear on the
+    new entry exactly."""
     rng = np.random.default_rng(4)
     entry = {"weight_int8": torch.from_numpy(
                  rng.integers(-127, 128, (16, 8)).astype(np.int8)),
@@ -268,6 +369,16 @@ def test_int8_linear_follows_its_buffers():
     load_numpy_state(layer, {k: new[k].numpy()
                              for k in ("weight_scale", "act_scale")})
     assert torch.equal(layer(x), quant.int8_linear(x, new))
+    # a load into weight_int8 alone: the packed copy follows it
+    new = dict(new, weight_int8=torch.from_numpy(
+        rng.integers(-127, 128, (16, 8)).astype(np.int8)))
+    load_numpy_state(layer, {"weight_int8": new["weight_int8"].numpy()})
+    assert torch.equal(layer._kernel_operands()[2],
+                       QM.pack_weight(new["weight_int8"]))
+    assert torch.equal(layer(x), quant.int8_linear(x, new))
+    # the packed weight is a cache, not state
+    assert sorted(layer.state_dict()) == ["act_scale", "weight_int8",
+                                          "weight_scale"]
 
 
 def test_int8_swap_reports_non_linear_layers(capsys):
@@ -293,9 +404,10 @@ def test_int8_swap_reports_non_linear_layers(capsys):
 
 @pytest.mark.gpu
 def test_cuda_kernel_matches_plain_exactly():
-    """On the card: the kernel against its plain version, exactly, at
-    MNIST's layer shapes and odd ones, per-tensor and per-channel
-    scales, float32 and bfloat16 out."""
+    """On the card: quant_matmul and quant_linear against their plain
+    versions, exactly, at MNIST's layer shapes and odd ones, per-tensor
+    and per-channel scales, with and without bias and ReLU, float32 and
+    bfloat16 out; one launch per call."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -315,3 +427,16 @@ def test_cuda_kernel_matches_plain_exactly():
                 torch.cuda.synchronize()
                 assert QM.quant_matmul.launches == n0 + 1
                 assert torch.equal(got, want), (m, k, n, dt)
+        # the fused form: float x encoded in the prologue, bias and ReLU
+        x = torch.randn(m, k, generator=gen, device="cuda") * 2
+        bias = torch.randn(n, generator=gen, device="cuda")
+        packed = QM.pack_weight(b)
+        for bb, relu, dt in itertools.product(
+                (None, bias), (False, True), (torch.float32, torch.bfloat16)):
+            n0 = QM.quant_linear.launches
+            got = QM.quant_linear(x, packed, sa, sb, bb, relu, out_dtype=dt)
+            want = QM.quant_linear_plain(x, packed, sa, sb, bb, relu,
+                                         out_dtype=dt)
+            torch.cuda.synchronize()
+            assert QM.quant_linear.launches == n0 + 1
+            assert torch.equal(got, want), (m, k, n, bb is None, relu, dt)
