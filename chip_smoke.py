@@ -88,7 +88,9 @@ Phases, each printed as it runs:
 9. timing of the flash kernels at the training shape (float32, L2
    flushed): kernel and plain ms, the operation/byte bound, and torch's
    scaled_dot_product_attention forward (and its backward alone, on a
-   kept graph) as the yardstick.
+   kept graph) as the yardstick; then the whole backward (delta, dq and
+   dk/dv, as the training step runs it) beside that SDPA backward, on a
+   line of its own.
 
 Any failure exits non-zero. The line before the last is the kernels'
 JSON record; the last line is
@@ -107,6 +109,11 @@ from concurrent.futures import ThreadPoolExecutor
 # outside the tensor cores, bf16 on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+# the flash rows' float32 bound: a float32-accurate product can run as
+# three TF32 products on the tensor cores (3 x flops at 495 TFLOP/s, a
+# third of the TF32 rate, 165 TFLOP/s of float32 work); the CUDA cores'
+# 67 TFLOP/s is the bound of a kernel that does not use them
+TF32_FLOPS, TF32_PASSES = 495e12, 3
 B, CAP, H, HKV, D, PS = 8, 2048, 12, 4, 64, 64
 PAGES = B * CAP // PS + 8
 T_CONTIG = [0, 63, 64, 700, 1023, 1024, 1777, 2047]
@@ -154,7 +161,9 @@ FLASH_ROWS = {
 # the training path: bench_gpt (bench.py:411-440) at full width
 TB, TT, TH, THKV = 8, 1024, 12, 4
 # (B, Tq, Tk, H, Hkv, D, causal, window, kv_mask): the training shape
-# first, then each option the flash gate admits
+# first, then each option the flash gate admits, query lengths that are
+# not a multiple of the D=64 dq block's 128 rows, and the training shape
+# at four times the length (dk/dv's longest walk, 3 x 4096 query rows)
 FLASH_CASES = [
     (TB, TT, TT, TH, THKV, D, True, None, False),
     (2, 512, 512, 12, 4, 64, False, None, False),
@@ -164,12 +173,19 @@ FLASH_CASES = [
     (2, 512, 512, 4, 2, 64, False, 256, False),
     (3, 512, 512, 4, 2, 64, True, None, True),
     (2, 512, 1024, 4, 2, 64, True, None, False),
+    (2, 192, 320, 4, 2, 64, True, None, False),
+    (2, 192, 256, 4, 2, 64, False, None, False),
+    (2, 64, 192, 4, 2, 64, True, None, False),
+    (2, 64, 128, 4, 2, 64, False, None, True),
+    (1, 4096, 4096, TH, THKV, D, True, None, False),
     (2, 256, 256, 4, 2, 128, True, None, True),
     (2, 256, 256, 4, 2, 256, True, 100, False),
 ]
 # float32: the forward's online softmax rescales in another order than
-# the plain whole-row softmax (the backward recomputes from the same lse);
-# bfloat16: one bf16 rounding of an output of magnitude < 4 is <= 1.6e-2
+# the plain whole-row softmax, and the backward pair sums in another order
+# on the tensor cores (the plain version's own float32 error, up to 4.6e-5
+# from float64, is most of their gap); bfloat16: one bf16
+# rounding of an output of magnitude < 4 is <= 1.6e-2
 FLASH_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # the training check step, kernels against plain attention on the same
 # weights: the loss at atol 1e-4 (float32 sums over 8192 rows of ~10.4),
@@ -997,7 +1013,8 @@ def phase_flash_timing(torch, FK, err, launches, per_step):
         plain_ms = time_ms(torch, plain, flush, n=5)
         lib_ms = time_ms(torch, lib, flush, n=20)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = live * flops_per_score / PEAK_FLOPS["float32"] * 1e3
+        t_ops = (TF32_PASSES * live * flops_per_score / TF32_FLOPS
+                 * 1e3)
         bound_ms = max(t_bytes, t_ops)
         bound_by = "bytes" if t_bytes >= t_ops else "operations"
         log(f"[time] {name} float32 {case[:6]} causal: kernel {ms:.4f} ms, "
@@ -1011,6 +1028,17 @@ def phase_flash_timing(torch, FK, err, launches, per_step):
                          launches=launches[name], max_abs_err=err[name],
                          ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                          bound_by=bound_by, library_ms=lib_ms))
+
+    def whole_bwd():
+        dl = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+        FK.flash_attention_dq(q, k, v, do, lse, dl, **kw)
+        FK.flash_attention_dkv(q, k, v, do, lse, dl, **kw)
+
+    bwd_ms = time_ms(torch, whole_bwd, flush, n=20)
+    lib_ms = time_ms(torch, sdpa_bwd, flush, n=20)
+    log(f"[time] whole backward (delta + dq + dk/dv) float32 "
+        f"{case[:6]} causal: {bwd_ms:.4f} ms; SDPA backward {lib_ms:.4f} "
+        f"ms ({bwd_ms / lib_ms:.3f}x)")
     return rows
 
 

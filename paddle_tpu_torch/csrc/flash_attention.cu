@@ -25,24 +25,72 @@
 // What bounds it: operations. At the training shape (B=8, T=1024, H=12,
 // Hkv=4, D=64, causal) the live scores number B*H*T*(T+1)/2 = 50.4 M and
 // each costs 4*D flops forward, 6*D for dq and 8*D for dk/dv, against
-// about 67 MB of operands; the float32 CUDA-core rate, not memory, is the
-// limit.
+// about 67 MB of operands. On the CUDA cores (float32, 67 TFLOP/s) that
+// is 0.19 / 0.29 / 0.39 ms; as float32-accurate tensor-core work (three
+// TF32 passes at 495 TFLOP/s, 165 TFLOP/s of float32 work) 0.08 / 0.12 /
+// 0.16 ms, still well above the bytes' time (0.02-0.03 ms).
 //
-// Design (simple first). One thread block of 256 threads owns BR rows: BR
-// query rows (forward, dq) or BR key rows (dk/dv), with BR = 64, or 32 at
-// D = 256 so that the tiles fit in shared memory. It walks, in a loop that
-// takes the place of the TPU's sequential grid axis, only the 64-wide
-// tiles of the other side that can hold a live entry (the block-skipping
-// rule of _block_should_run, so a window costs O(T * window)). Tiles sit
-// in shared memory as float32, rows padded to D + 1 floats so that the 16
-// lanes reading 16 different rows hit 16 banks. Each thread owns a
-// (BR/16) x 4 patch of the score tile and a (BR/16) x (D/16) patch of the
-// output, both in registers; a row's 16 owners are 16 lanes of one warp,
-// so row max and row sum reduce with shuffles. dk/dv loop over the G query
-// heads inside the block and accumulate in registers, so no atomics and no
-// per-head copies are needed, and the result is deterministic. Left for a
-// later change: tensor cores (mma/wgmma), cp.async or TMA double
-// buffering, and vectorised shared-memory reads.
+// The forward (simple first, unchanged since it was ported). One block
+// of 256 threads owns BR = 64 query rows (32 at D = 256) and walks, in a
+// loop that takes the place of the TPU's sequential grid axis, only the
+// 64-wide key tiles that can hold a live entry (the block-skipping rule
+// of _block_should_run, so a window costs O(T * window)). Tiles sit in
+// shared memory as float32, rows padded to D + 1 floats; each thread owns
+// a (BR/16) x 4 patch of the score tile and a (BR/16) x (D/16) patch of
+// the output and sums on the CUDA cores; row max and sum reduce with
+// shuffles. Left for a later change: everything the backward below has.
+//
+// The backward pair, on the tensor cores. dq: one block per (b, h, 128
+// query rows; the last block runs short when Tq is not a multiple of
+// 128); dk/dv: one block per (b, kv head, 64 key rows), looping over the
+// G query heads of the group (tiles by head_dim below). Each warp owns 16
+// rows, and every product is a warp-wide mma.sync: s = q.k^T and dp =
+// do.v^T (dk/dv: their transposes k.q^T and v.do^T) into accumulator
+// fragments, p and ds made there on the CUDA cores from the same
+// fragments (the masks through the one keep() rule, skipped for tiles
+// that are wholly live), then dq += ds.k (dv += p^T.do, dk += ds^T.q)
+// with p and ds read as the next product's A operand straight from the
+// registers: no trip through shared memory. float32 takes three TF32
+// products of a hi/lo split of each operand ("3xTF32", see struct Mma),
+// split in registers as the fragments load, because one TF32 pass keeps
+// three decimal digits and the training path's float32 contract (1e-4
+// against the plain version) needs float32's; each 8-deep step's passes
+// are summed apart and added to the product's sum with a rounded float32
+// add (Mma::step), which keeps the pair about as close to a float64
+// reference as the plain float32 version. bfloat16: one bf16 product. dk
+// and dv sum over the group in registers: no atomics, the same bits on
+// every run. The walked tiles (k and v for dq; q, do, lse and delta for
+// dk/dv) are double-buffered: 16-byte cp.async copies of tile j+1 are in
+// flight while tile j is computed (commit/wait groups, no mbarrier, so a
+// wait cannot hang). Tiles keep their input type in shared memory with
+// rows padded by 16 bytes, which makes every fragment load
+// conflict-free. Under causal the blocks with the most live tiles start
+// first: the row tile is the slowest-varying part of a flat block id,
+// reversed for dq (the last query tiles see the most keys) and in order
+// for dk/dv (the first key tiles are seen the most).
+//
+// Tiles and residency (float32, D = 64, the training shape; -Xptxas -v
+// and the shared-memory sizes below, H100). dq: blocks of 128 query rows
+// (8 warps) walk 32-key tiles; 128 registers a thread (a launch bound of
+// two blocks an SM; ptxas spills under 100 bytes), 104,704 bytes of
+// shared memory, 2 blocks (16 warps) an SM, 768 blocks (2.9 waves on 132
+// SMs). dk/dv: blocks of 64 key rows (4 warps) walk 32-query tiles; 255
+// registers, 70,144 bytes, 2 blocks (8 warps) an SM, held by registers,
+// 512 blocks (1.9 waves). Capping dk/dv at 168 registers for a third
+// block spilled and ran slower; without ldmatrix the 128-row dq needs
+// more than 128 registers and one block fits. D = 128 and 256 (off the
+// training path) take 64- and 32-row blocks with 32-wide walks and spill
+// some registers; D = 256 dk/dv runs two passes. What bounds them here:
+// latency, not the tensor cores' rate (about a sixth of the 3xTF32
+// bound at the training shape). Few
+// warps an SM hide the mma.sync and ldmatrix latencies, and each float32
+// step also spends CUDA-core work on the split (three operations an
+// operand element) and the rounded add.
+//
+// Left for a later change: wgmma and TMA (wgmma takes TF32 only K-major,
+// and three of the four products want a transposed operand), a fused
+// backward with dq summed by atomics (saves one recompute, gives up
+// determinism), delta folded into a kernel.
 //
 // Plain C interface for ctypes: each entry takes a FlashArgs by pointer
 // and returns cudaGetLastError() (or a negative code for arguments the
@@ -180,16 +228,6 @@ __host__ __device__ constexpr int fwd_smem_floats() {
   return BR * (D + 1) + kTile * (D + 1) + kTile * D + BR * (kTile + 1) +
          kTile;
 }
-template <int D, int BR>
-__host__ __device__ constexpr int dq_smem_floats() {
-  return 2 * BR * (D + 1) + 2 * kTile * (D + 1) + BR * (kTile + 1) + kTile;
-}
-template <int D, int BR>
-__host__ __device__ constexpr int dkv_smem_floats() {
-  return 2 * BR * (D + 1) + 2 * kTile * (D + 1) + 2 * BR * (kTile + 1) + BR +
-         2 * kTile;
-}
-
 // ----- forward ------------------------------------------------------------
 
 template <typename T, int D, int BR>
@@ -310,22 +348,389 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(FlashArgs a) {
   }
 }
 
+// ----- backward: tensor-core building blocks -------------------------------
+
+// Tile shapes of the backward kernels, by head_dim: the rows a block owns
+// (16 per warp), the width of the tiles it walks, and the passes over
+// them (D = 256 accumulates dv, then dk, in two passes: both at once would
+// need 256 accumulator registers a thread). The D = 64 shapes were timed
+// on the card against 64-row dq blocks and 16- and 64-wide walks.
+template <int D>
+struct BwdTiles {
+  static constexpr int dq_rows = D == 256 ? 32 : D == 64 ? 128 : 64;
+  static constexpr int dkv_rows = D == 256 ? 32 : 64;
+  static constexpr int dq_walk = 32;
+  // the dq launch bound's blocks an SM: two 256-thread blocks at D = 64
+  // need at most 128 registers a thread
+  static constexpr int dq_blocks = D == 64 ? 2 : 1;
+  static constexpr int dkv_walk = 32;
+  static constexpr int passes = D == 256 ? 2 : 1;
+};
+
+// Tiles in shared memory keep their input type, rows padded by 16 bytes
+// (D + 4 floats, D + 8 bfloat16): every fragment load below, whether it
+// walks a tile along its rows or down its columns, then hits 32 banks.
+template <typename T, int D>
+__host__ __device__ constexpr int padded() {
+  return D + 16 / (int)sizeof(T);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// four 8x8 matrices of 16-bit elements (8 rows of 16 bytes each, row
+// addresses from lanes 8m..8m+7 for matrix m); lane 4r+c gets row r's
+// 32-bit word c of each (.trans: the transposed 8x8 of 16-bit elements)
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// rows x D elements of a (B, T, heads, D) tensor, from element `base`
+// with row stride `rs`, into a padded tile: 16-byte cp.async copies, the
+// caller commits. The wrapper guarantees 16-byte aligned rows.
+template <typename T, int D, int NT>
+__device__ __forceinline__ void copy_rows_async(T* dst, const T* src,
+                                                long long base, long long rs,
+                                                int rows) {
+  constexpr int kVec = 16 / sizeof(T);
+  constexpr int kPerRow = D / kVec;
+  constexpr int LD = padded<T, D>();
+  for (int i = threadIdx.x; i < rows * kPerRow; i += NT) {
+    const int r = i / kPerRow;
+    const int c = (i - r * kPerRow) * kVec;
+    cp_async16(dst + r * LD + c, src + base + r * rs + c);
+  }
+}
+
+__device__ __forceinline__ uint32_t tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+__device__ __forceinline__ uint32_t bits16(__nv_bfloat16 x) {
+  return (uint32_t)__bfloat16_as_ushort(x);
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  return bits16(__float2bfloat16(lo)) | (bits16(__float2bfloat16(hi)) << 16);
+}
+
+// Per-lane offsets (in 16-byte units: row, column) of the ldmatrix row
+// addresses: an A fragment (16 x K: rows 0-7 / 8-15 by lane bit 3, the
+// K halves by lane bit 4), and a pair of B fragments stored n-major (8n x
+// K: n-tiles by lane bit 4, K halves by lane bit 3).
+__device__ __forceinline__ int a_row(int lane) {
+  return (lane & 7) + ((lane >> 3) & 1) * 8;
+}
+__device__ __forceinline__ int b_row(int lane) {
+  return (lane & 7) + (lane >> 4) * 8;
+}
+
+// One warp-wide product step D(16x8) += A(16xK) . B(Kx8) on the tensor
+// cores, with the fragment layouts of mma.sync: lane = 4 * gr + tg holds
+// accumulator entries (gr, 2tg), (gr, 2tg+1), (gr+8, 2tg), (gr+8, 2tg+1).
+//
+// float32: "3xTF32". Each operand x is split as hi = tf32(x), lo =
+// tf32(x - hi), and lo.hi + hi.lo + hi.hi go into a float32 accumulator
+// through three m16n8k8 TF32 products. hi and lo carry 22 of float32's
+// 24 significand bits, so a product is exact to ~2^-22 relative where one
+// TF32 pass keeps ~2^-11 (three decimal digits): the float32 result, at a
+// third of the TF32 rate. The split is made at fragment load, in
+// registers, so tiles stay single float32 copies in shared memory.
+// bfloat16: one m16n8k16 product on bf16 operands.
+//
+// step() sums the step's passes in a zeroed fragment and adds that to
+// the product's sum with a rounded float32 add; every product takes it.
+// The tensor cores add into a float32 accumulator after aligning to its
+// exponent and truncating, so mma() straight into a sum drifts by up to
+// an ulp of the sum per pass: on the card that left dv past the 1e-4
+// tolerance over a walk of 3072 query rows, and the scores' D/8 steps
+// alone put dq, and dk at D = 256, several times further from a float64
+// reference than the plain float32 version (tools/torch_flash_accuracy.py
+// measures the pair against float64).
+template <typename T>
+struct Mma;
+
+template <>
+struct Mma<float> {
+  static constexpr int K = 8;
+  struct A {
+    uint32_t hi[4], lo[4];
+  };
+  struct B {
+    uint32_t hi[2], lo[2];
+  };
+  static __device__ __forceinline__ void split(uint32_t x, uint32_t& hi,
+                                               uint32_t& lo) {
+    hi = tf32(__uint_as_float(x));
+    lo = tf32(__uint_as_float(x) - __uint_as_float(hi));
+  }
+  static __device__ __forceinline__ A a(uint32_t x0, uint32_t x1,
+                                        uint32_t x2, uint32_t x3) {
+    A r;
+    split(x0, r.hi[0], r.lo[0]);
+    split(x1, r.hi[1], r.lo[1]);
+    split(x2, r.hi[2], r.lo[2]);
+    split(x3, r.hi[3], r.lo[3]);
+    return r;
+  }
+  static __device__ __forceinline__ B b(uint32_t x0, uint32_t x1) {
+    B r;
+    split(x0, r.hi[0], r.lo[0]);
+    split(x1, r.hi[1], r.lo[1]);
+    return r;
+  }
+  static __device__ __forceinline__ void pass(float (&c)[4],
+                                              const uint32_t (&a)[4],
+                                              const uint32_t (&b)[2]) {
+    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]),
+          "r"(b[1]));
+  }
+  static __device__ __forceinline__ void mma(float (&c)[4], const A& a,
+                                             const B& b) {
+    pass(c, a.lo, b.hi);
+    pass(c, a.hi, b.lo);
+    pass(c, a.hi, b.hi);
+  }
+  static __device__ __forceinline__ void step(float (&c)[4], const A& a,
+                                              const B& b) {
+    float t[4] = {0.f, 0.f, 0.f, 0.f};
+    mma(t, a, b);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) c[i] += t[i];
+  }
+  static __device__ __forceinline__ uint32_t u32(const float* p) {
+    return __float_as_uint(*p);
+  }
+  // A(16x8) from the tile whose row (a_row(lane), k half lane >> 4)
+  // this lane's p points at (k contiguous)
+  static __device__ __forceinline__ A load_a(const float* p) {
+    uint32_t r[4];
+    ldsm4(r, p);
+    return a(r[0], r[1], r[2], r[3]);
+  }
+  // B(8x8) of n-tiles 0 and 1 with B(k, n) = s[n * ld + k]; this lane's p
+  // points at row b_row(lane), k half (lane >> 3) & 1
+  static __device__ __forceinline__ void load_b_nk(B& b0, B& b1,
+                                                   const float* p) {
+    uint32_t r[4];
+    ldsm4(r, p);
+    b0 = b(r[0], r[1]);
+    b1 = b(r[2], r[3]);
+  }
+  // B(8x8) of n-tiles 0 and 1 with B(k, n) = s[k * ld + n], the k order
+  // permuted (slot tg is row 2tg, slot tg+4 row 2tg+1) to match a_from_c;
+  // 32-bit elements have no ldmatrix transpose, so plain loads from the
+  // tile's corner s
+  static __device__ __forceinline__ void load_b_kn(B& b0, B& b1,
+                                                   const float* s,
+                                                   const float* p, int ld,
+                                                   int lane) {
+    const float* q = s + 2 * (lane & 3) * ld + (lane >> 2);
+    b0 = b(u32(q), u32(q + ld));
+    b1 = b(u32(q + 8), u32(q + ld + 8));
+  }
+  // the accumulator tile j (16x8) of a product read as the A operand of
+  // the next: the entries stay in their lanes, k permuted as above
+  template <int N>
+  static __device__ __forceinline__ A a_from_c(const float (&c)[N][4],
+                                               int j) {
+    return a(__float_as_uint(c[j][0]), __float_as_uint(c[j][2]),
+             __float_as_uint(c[j][1]), __float_as_uint(c[j][3]));
+  }
+};
+
+template <>
+struct Mma<__nv_bfloat16> {
+  static constexpr int K = 16;
+  struct A {
+    uint32_t x[4];
+  };
+  struct B {
+    uint32_t x[2];
+  };
+  static __device__ __forceinline__ void mma(float (&c)[4], const A& a,
+                                             const B& b) {
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a.x[0]), "r"(a.x[1]), "r"(a.x[2]), "r"(a.x[3]),
+          "r"(b.x[0]), "r"(b.x[1]));
+  }
+  // one product per step: the drift of a long walk stays far below a
+  // bfloat16 rounding
+  static __device__ __forceinline__ void step(float (&c)[4], const A& a,
+                                              const B& b) {
+    mma(c, a, b);
+  }
+  static __device__ __forceinline__ A load_a(const __nv_bfloat16* p) {
+    A r;
+    ldsm4(r.x, p);
+    return r;
+  }
+  static __device__ __forceinline__ void load_b_nk(B& b0, B& b1,
+                                                   const __nv_bfloat16* p) {
+    uint32_t r[4];
+    ldsm4(r, p);
+    b0.x[0] = r[0], b0.x[1] = r[1], b1.x[0] = r[2], b1.x[1] = r[3];
+  }
+  // this lane's p points at row a_row(lane), n half lane >> 4: the
+  // transposed ldmatrix gives the pairs down the columns
+  static __device__ __forceinline__ void load_b_kn(B& b0, B& b1,
+                                                   const __nv_bfloat16* s,
+                                                   const __nv_bfloat16* p,
+                                                   int ld, int lane) {
+    uint32_t r[4];
+    ldsm4_t(r, p);
+    b0.x[0] = r[0], b0.x[1] = r[1], b1.x[0] = r[2], b1.x[1] = r[3];
+  }
+  // accumulator tiles 2j and 2j+1 as A(16x16), rounded to bfloat16 (the
+  // TPU kernels' cast of p and ds)
+  template <int N>
+  static __device__ __forceinline__ A a_from_c(const float (&c)[N][4],
+                                               int j) {
+    A r;
+    r.x[0] = pack_bf16(c[2 * j][0], c[2 * j][1]);
+    r.x[1] = pack_bf16(c[2 * j][2], c[2 * j][3]);
+    r.x[2] = pack_bf16(c[2 * j + 1][0], c[2 * j + 1][1]);
+    r.x[3] = pack_bf16(c[2 * j + 1][2], c[2 * j + 1][3]);
+    return r;
+  }
+};
+
+__device__ __forceinline__ void st2(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+__device__ __forceinline__ void st2(__nv_bfloat16* p, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
+
+// Whether every entry of query positions [p0, p1] x keys [c0, c1] is
+// live: the live set is an intersection of half-planes, so its corners
+// decide. A key-padding mask is checked per entry.
+__device__ __forceinline__ bool tile_full(const FlashArgs& a, int p0, int p1,
+                                          int c0, int c1) {
+  return !a.kv_mask && keep(p0, c0, a.causal, a.window) &&
+         keep(p0, c1, a.causal, a.window) &&
+         keep(p1, c0, a.causal, a.window) && keep(p1, c1, a.causal, a.window);
+}
+
+// S(16 x 8*NS) = X(16 x D) . Y(8*NS x D)^T for one warp's 16 rows: X's
+// rows at xs, Y's at ys, both padded tiles.
+template <typename T, int D, int NS>
+__device__ __forceinline__ void product_nt(float (&s)[NS][4], const T* xs,
+                                           const T* ys, int lane) {
+  using M = Mma<T>;
+  constexpr int LD = padded<T, D>(), V = 16 / sizeof(T);
+  const T* xp = xs + a_row(lane) * LD + (lane >> 4) * V;
+  const T* yp = ys + b_row(lane) * LD + ((lane >> 3) & 1) * V;
+#pragma unroll
+  for (int n = 0; n < NS; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D; kk += M::K) {
+    const typename M::A xa = M::load_a(xp + kk);
+#pragma unroll
+    for (int n = 0; n < NS; n += 2) {
+      typename M::B b0, b1;
+      M::load_b_nk(b0, b1, yp + n * 8 * LD + kk);
+      M::step(s[n], xa, b0);
+      M::step(s[n + 1], xa, b1);
+    }
+  }
+}
+
+// acc(16 x D) += P(16 x 8*NS) . Y(8*NS x D), P in accumulator fragments,
+// Y's rows (the walked tile) at ys.
+template <typename T, int D, int NS>
+__device__ __forceinline__ void product_acc(float (&acc)[D / 8][4],
+                                            const float (&p)[NS][4],
+                                            const T* ys, int lane) {
+  using M = Mma<T>;
+  constexpr int LD = padded<T, D>(), V = 16 / sizeof(T);
+  const T* yp = ys + a_row(lane) * LD + (lane >> 4) * V;
+#pragma unroll
+  for (int j = 0; j < NS * 8 / M::K; ++j) {
+    const typename M::A pa = M::template a_from_c<NS>(p, j);
+#pragma unroll
+    for (int n = 0; n < D / 8; n += 2) {
+      typename M::B b0, b1;
+      M::load_b_kn(b0, b1, ys + j * M::K * LD + n * 8,
+                   yp + j * M::K * LD + n * 8, LD, lane);
+      M::step(acc[n], pa, b0);
+      M::step(acc[n + 1], pa, b1);
+    }
+  }
+}
+
 // ----- dq -----------------------------------------------------------------
 
-template <typename T, int D, int BR>
-__global__ void __launch_bounds__(kThreads) flash_dq_kernel(FlashArgs a) {
-  constexpr int RR = BR / 16, CC = kTile / 16, DC = D / 16, LD = D + 1,
-                LP = kTile + 1;
-  extern __shared__ float smem[];
-  float* q_s = smem;                // BR x LD
-  float* do_s = q_s + BR * LD;      // BR x LD
-  float* k_s = do_s + BR * LD;      // kTile x LD
-  float* v_s = k_s + kTile * LD;    // kTile x LD
-  float* ds_s = v_s + kTile * LD;   // BR x LP
-  float* km_s = ds_s + BR * LP;     // kTile
+template <typename T, int D>
+__host__ __device__ constexpr size_t dq_smem_bytes() {
+  constexpr int BR = BwdTiles<D>::dq_rows, KT = BwdTiles<D>::dq_walk;
+  return sizeof(T) * (2 * BR + 4 * KT) * padded<T, D>() + 2 * KT * 4;
+}
 
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int r0 = blockIdx.x * BR, h = blockIdx.y, b = blockIdx.z;
+// One block per (b, h, BR query rows), 16 rows a warp. It walks the live
+// key tiles (KT keys each) double-buffered: while tile j is computed,
+// tile j+1 is in flight. s = q.k^T and dp = do.v^T land in accumulator
+// fragments; p and ds are made there on the CUDA cores; dq += ds.k reads
+// ds straight from those registers.
+template <typename T, int D>
+__global__ void __launch_bounds__(BwdTiles<D>::dq_rows * 2,
+                                  BwdTiles<D>::dq_blocks)
+    flash_dq_kernel(FlashArgs a) {
+  constexpr int BR = BwdTiles<D>::dq_rows, KT = BwdTiles<D>::dq_walk;
+  constexpr int NT = BR * 2, LD = padded<T, D>(), NS = KT / 8;
+  extern __shared__ __align__(16) unsigned char bwd_smem[];
+  T* q_s = reinterpret_cast<T*>(bwd_smem);  // BR x LD
+  T* do_s = q_s + BR * LD;              // BR x LD
+  T* k_s = do_s + BR * LD;              // 2 x KT x LD
+  T* v_s = k_s + 2 * KT * LD;           // 2 x KT x LD
+  float* km_s = reinterpret_cast<float*>(v_s + 2 * KT * LD);  // 2 x KT
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gr = lane >> 2, tg = lane & 3;
+  // longest blocks first: the tile index is the slowest-varying part of
+  // the block id, and under causal the last query tiles see the most keys
+  const int hb = a.H * a.B;
+  int tile = blockIdx.x / hb;
+  const int h = (blockIdx.x - tile * hb) % a.H;
+  const int b = (blockIdx.x - tile * hb) / a.H;
+  if (a.causal) tile = (a.Tq + BR - 1) / BR - 1 - tile;
+  const int r0 = tile * BR;
+  // Tq is a multiple of 64, not always of BR: the last tile may hold
+  // fewer rows (a multiple of 16). The rows past Tq are zeros in shared
+  // memory; their warps compute on them like the others and store nothing.
+  const int rows = min(BR, a.Tq - r0);
   const int hk = h / (a.H / a.Hkv);
   const int off = a.Tk - a.Tq;
   const T* q = static_cast<const T*>(a.q);
@@ -333,119 +738,129 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(FlashArgs a) {
   const T* v = static_cast<const T*>(a.v);
   const T* dout = static_cast<const T*>(a.dout);
 
-  load_rows<T, D>(q_s, LD, q, b * a.q_sb + r0 * a.q_st + h * a.q_sh, a.q_st,
-                  BR);
-  load_rows<T, D>(do_s, LD, dout, b * a.do_sb + r0 * a.do_st + h * a.do_sh,
-                  a.do_st, BR);
-  float acc[RR][DC], lse[RR], delta[RR];
-#pragma unroll
-  for (int i = 0; i < RR; ++i) {
-    const long long row = ((long long)b * a.H + h) * a.Tq + r0 + ty * RR + i;
-    lse[i] = a.lse[row];
-    delta[i] = a.delta[row];
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
+  copy_rows_async<T, D, NT>(q_s, q, b * a.q_sb + r0 * a.q_st + h * a.q_sh,
+                            a.q_st, rows);
+  copy_rows_async<T, D, NT>(do_s, dout,
+                            b * a.do_sb + r0 * a.do_st + h * a.do_sh,
+                            a.do_st, rows);
+  for (int i = rows * LD + threadIdx.x; i < BR * LD; i += NT) {
+    st(q_s + i, 0.f);
+    st(do_s + i, 0.f);
   }
   int j_lo, j_hi;
-  key_tiles(a, r0, r0 + BR - 1, kTile, &j_lo, &j_hi);
+  key_tiles(a, r0, r0 + rows - 1, KT, &j_lo, &j_hi);
+  auto fetch = [&](int j, int buf) {
+    const int c0 = j * KT;
+    copy_rows_async<T, D, NT>(k_s + buf * KT * LD, k,
+                              b * a.k_sb + c0 * a.k_st + hk * a.k_sh, a.k_st,
+                              KT);
+    copy_rows_async<T, D, NT>(v_s + buf * KT * LD, v,
+                              b * a.v_sb + c0 * a.v_st + hk * a.v_sh, a.v_st,
+                              KT);
+    if (a.kv_mask)
+      for (int i = threadIdx.x; i < KT; i += NT)
+        km_s[buf * KT + i] = (float)a.kv_mask[(long long)b * a.Tk + c0 + i];
+  };
+  if (j_lo <= j_hi) fetch(j_lo, 0);
+  cp_async_commit();
+
+  // this lane's two rows: warp * 16 + gr and + 8
+  const int rl = warp * 16 + gr;
+  float lse[2], delta[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const long long row =
+        ((long long)b * a.H + h) * a.Tq + min(r0 + rl + 8 * i, a.Tq - 1);
+    lse[i] = a.lse[row];
+    delta[i] = a.delta[row];
+  }
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
 
   for (int j = j_lo; j <= j_hi; ++j) {
-    const int c0 = j * kTile;
+    const int buf = (j - j_lo) & 1;
+    if (j < j_hi) fetch(j + 1, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // tile j (and q, do) have landed
     __syncthreads();
-    load_rows<T, D>(k_s, LD, k, b * a.k_sb + c0 * a.k_st + hk * a.k_sh,
-                    a.k_st, kTile);
-    load_rows<T, D>(v_s, LD, v, b * a.v_sb + c0 * a.v_st + hk * a.v_sh,
-                    a.v_st, kTile);
-    if (threadIdx.x < kTile)
-      km_s[threadIdx.x] =
-          a.kv_mask ? (float)a.kv_mask[(long long)b * a.Tk + c0 + threadIdx.x]
-                    : 1.f;
-    __syncthreads();
+    const T* ks = k_s + buf * KT * LD;
+    const int c0 = j * KT;
 
-    float s[RR][CC], dp[RR][CC];
+    float s[NS][4], dp[NS][4];
+    product_nt<T, D, NS>(s, q_s + warp * 16 * LD, ks, lane);
+    product_nt<T, D, NS>(dp, do_s + warp * 16 * LD, v_s + buf * KT * LD,
+                         lane);
+    const int p0 = r0 + warp * 16 + off;
+    const bool full = tile_full(a, p0, p0 + 15, c0, c0 + KT - 1);
 #pragma unroll
-    for (int i = 0; i < RR; ++i)
+    for (int n = 0; n < NS; ++n)
 #pragma unroll
-      for (int c = 0; c < CC; ++c) s[i][c] = dp[i][c] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qv[RR], dov[RR], kv[CC], vv[CC];
-#pragma unroll
-      for (int i = 0; i < RR; ++i) {
-        qv[i] = q_s[(ty * RR + i) * LD + d];
-        dov[i] = do_s[(ty * RR + i) * LD + d];
-      }
-#pragma unroll
-      for (int c = 0; c < CC; ++c) {
-        kv[c] = k_s[(tx + 16 * c) * LD + d];
-        vv[c] = v_s[(tx + 16 * c) * LD + d];
-      }
-#pragma unroll
-      for (int i = 0; i < RR; ++i)
-#pragma unroll
-        for (int c = 0; c < CC; ++c) {
-          s[i][c] = fmaf(qv[i], kv[c], s[i][c]);
-          dp[i][c] = fmaf(dov[i], vv[c], dp[i][c]);
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < RR; ++i) {
-      const int pos = r0 + ty * RR + i + off;
-#pragma unroll
-      for (int c = 0; c < CC; ++c) {
-        const int cl = tx + 16 * c;
-        float x = s[i][c] * a.scale;
-        if (!keep(pos, c0 + cl, a.causal, a.window) || km_s[cl] == 0.f)
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1, cl = n * 8 + 2 * tg + (e & 1);
+        float x = s[n][e] * a.scale;
+        if (!full && (!keep(p0 + gr + 8 * i, c0 + cl, a.causal, a.window) ||
+                      (a.kv_mask && km_s[buf * KT + cl] == 0.f)))
           x = kNegInf;
         const float p = x <= kDead ? 0.f : expf(x - lse[i]);
-        ds_s[(ty * RR + i) * LP + cl] =
-            rnd<T>(p * (dp[i][c] - delta[i]) * a.scale);
+        s[n][e] = rnd<T>(p * (dp[n][e] - delta[i]) * a.scale);  // ds
       }
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int jj = 0; jj < kTile; ++jj) {
-      float dsv[RR], kv[DC];
-#pragma unroll
-      for (int i = 0; i < RR; ++i) dsv[i] = ds_s[(ty * RR + i) * LP + jj];
-#pragma unroll
-      for (int c = 0; c < DC; ++c) kv[c] = k_s[jj * LD + tx + 16 * c];
-#pragma unroll
-      for (int i = 0; i < RR; ++i)
-#pragma unroll
-        for (int c = 0; c < DC; ++c) acc[i][c] = fmaf(dsv[i], kv[c], acc[i][c]);
-    }
+    product_acc<T, D, NS>(acc, s, ks, lane);
+    __syncthreads();  // buf is refilled by the next iteration but one
   }
+  cp_async_wait<0>();  // a block with no live tile leaves nothing in flight
 
+  if (warp * 16 >= rows) return;
   T* dq = static_cast<T*>(a.dq);
 #pragma unroll
-  for (int i = 0; i < RR; ++i) {
-    const long long base =
-        (((long long)b * a.Tq + r0 + ty * RR + i) * a.H + h) * D;
+  for (int i = 0; i < 2; ++i) {
+    T* o = dq + (((long long)b * a.Tq + r0 + rl + 8 * i) * a.H + h) * D +
+           2 * tg;
 #pragma unroll
-    for (int c = 0; c < DC; ++c) st(dq + base + tx + 16 * c, acc[i][c]);
+    for (int n = 0; n < D / 8; ++n)
+      st2(o + n * 8, acc[n][2 * i], acc[n][2 * i + 1]);
   }
 }
 
 // ----- dk, dv -------------------------------------------------------------
 
-template <typename T, int D, int BR>
-__global__ void __launch_bounds__(kThreads) flash_dkv_kernel(FlashArgs a) {
-  constexpr int RR = BR / 16, CC = kTile / 16, DC = D / 16, LD = D + 1,
-                LP = kTile + 1;
-  extern __shared__ float smem[];
-  float* k_s = smem;                // BR x LD (this block's keys)
-  float* v_s = k_s + BR * LD;       // BR x LD
-  float* q_s = v_s + BR * LD;       // kTile x LD (the walked query rows)
-  float* do_s = q_s + kTile * LD;   // kTile x LD
-  float* pt_s = do_s + kTile * LD;  // BR x LP: p^T
-  float* dst_s = pt_s + BR * LP;    // BR x LP: ds^T
-  float* km_s = dst_s + BR * LP;    // BR
-  float* lse_s = km_s + BR;         // kTile
-  float* delta_s = lse_s + kTile;   // kTile
+template <typename T, int D>
+__host__ __device__ constexpr size_t dkv_smem_bytes() {
+  constexpr int BC = BwdTiles<D>::dkv_rows, QT = BwdTiles<D>::dkv_walk;
+  return sizeof(T) * (2 * BC + 4 * QT) * padded<T, D>() + 4 * QT * 4;
+}
 
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int c0 = blockIdx.x * BR, hk = blockIdx.y, b = blockIdx.z;
+// One block per (b, kv head, BC key rows), 16 key rows a warp. It walks
+// the G query heads of the group and, for each, the live query tiles (QT
+// rows each), double-buffered with their lse and delta. s^T = k.q^T and
+// dp^T = v.do^T land in accumulator fragments, p^T and ds^T are made
+// there, and dv += p^T.do and dk += ds^T.q read them from the registers.
+// dk and dv are summed over the group in registers: no atomics, and the
+// same order on every run.
+template <typename T, int D>
+__global__ void __launch_bounds__(BwdTiles<D>::dkv_rows * 2, 1)
+    flash_dkv_kernel(FlashArgs a) {
+  constexpr int BC = BwdTiles<D>::dkv_rows, QT = BwdTiles<D>::dkv_walk;
+  constexpr int NT = BC * 2, LD = padded<T, D>(), NS = QT / 8;
+  constexpr int NPASS = BwdTiles<D>::passes;
+  extern __shared__ __align__(16) unsigned char bwd_smem[];
+  T* k_s = reinterpret_cast<T*>(bwd_smem);  // BC x LD (this block's keys)
+  T* v_s = k_s + BC * LD;               // BC x LD
+  T* q_s = v_s + BC * LD;               // 2 x QT x LD (walked query rows)
+  T* do_s = q_s + 2 * QT * LD;          // 2 x QT x LD
+  float* lse_s = reinterpret_cast<float*>(do_s + 2 * QT * LD);  // 2 x QT
+  float* delta_s = lse_s + 2 * QT;                              // 2 x QT
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gr = lane >> 2, tg = lane & 3;
+  // longest blocks first: under causal the first key tiles are seen by
+  // the most query rows, and the tile is the slowest part of the block id
+  const int hb = a.Hkv * a.B;
+  const int tile = blockIdx.x / hb;
+  const int hk = (blockIdx.x - tile * hb) % a.Hkv;
+  const int b = (blockIdx.x - tile * hb) / a.Hkv;
+  const int c0 = tile * BC;
   const int G = a.H / a.Hkv;
   const int off = a.Tk - a.Tq;
   const T* q = static_cast<const T*>(a.q);
@@ -453,118 +868,109 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(FlashArgs a) {
   const T* v = static_cast<const T*>(a.v);
   const T* dout = static_cast<const T*>(a.dout);
 
-  load_rows<T, D>(k_s, LD, k, b * a.k_sb + c0 * a.k_st + hk * a.k_sh, a.k_st,
-                  BR);
-  load_rows<T, D>(v_s, LD, v, b * a.v_sb + c0 * a.v_st + hk * a.v_sh, a.v_st,
-                  BR);
-  if (threadIdx.x < BR)
-    km_s[threadIdx.x] =
-        a.kv_mask ? (float)a.kv_mask[(long long)b * a.Tk + c0 + threadIdx.x]
-                  : 1.f;
-  float dk[RR][DC], dv[RR][DC];
+  copy_rows_async<T, D, NT>(k_s, k, b * a.k_sb + c0 * a.k_st + hk * a.k_sh,
+                            a.k_st, BC);
+  copy_rows_async<T, D, NT>(v_s, v, b * a.v_sb + c0 * a.v_st + hk * a.v_sh,
+                            a.v_st, BC);
+  // this lane's two key rows: warp * 16 + gr and + 8
+  const int kl = warp * 16 + gr;
+  bool kmask[2];
 #pragma unroll
-  for (int i = 0; i < RR; ++i)
-#pragma unroll
-    for (int c = 0; c < DC; ++c) dk[i][c] = dv[i][c] = 0.f;
+  for (int i = 0; i < 2; ++i)
+    kmask[i] = !a.kv_mask ||
+               a.kv_mask[(long long)b * a.Tk + c0 + kl + 8 * i] != 0;
   int i_lo, i_hi;
-  query_tiles(a, c0, c0 + BR - 1, kTile, &i_lo, &i_hi);
-
-  for (int g = 0; g < G; ++g) {
-    const int h = hk * G + g;
-    for (int it = i_lo; it <= i_hi; ++it) {
-      const int r0 = it * kTile;
-      __syncthreads();
-      load_rows<T, D>(q_s, LD, q, b * a.q_sb + r0 * a.q_st + h * a.q_sh,
-                      a.q_st, kTile);
-      load_rows<T, D>(do_s, LD, dout,
-                      b * a.do_sb + r0 * a.do_st + h * a.do_sh, a.do_st,
-                      kTile);
-      if (threadIdx.x < kTile) {
-        const long long row = ((long long)b * a.H + h) * a.Tq + r0 +
-                              threadIdx.x;
-        lse_s[threadIdx.x] = a.lse[row];
-        delta_s[threadIdx.x] = a.delta[row];
-      }
-      __syncthreads();
-
-      // transposed tiles: s[i][c] = k_(key i) . q_(query c)
-      float s[RR][CC], dp[RR][CC];
-#pragma unroll
-      for (int i = 0; i < RR; ++i)
-#pragma unroll
-        for (int c = 0; c < CC; ++c) s[i][c] = dp[i][c] = 0.f;
-#pragma unroll 4
-      for (int d = 0; d < D; ++d) {
-        float kv[RR], vv[RR], qv[CC], dov[CC];
-#pragma unroll
-        for (int i = 0; i < RR; ++i) {
-          kv[i] = k_s[(ty * RR + i) * LD + d];
-          vv[i] = v_s[(ty * RR + i) * LD + d];
-        }
-#pragma unroll
-        for (int c = 0; c < CC; ++c) {
-          qv[c] = q_s[(tx + 16 * c) * LD + d];
-          dov[c] = do_s[(tx + 16 * c) * LD + d];
-        }
-#pragma unroll
-        for (int i = 0; i < RR; ++i)
-#pragma unroll
-          for (int c = 0; c < CC; ++c) {
-            s[i][c] = fmaf(kv[i], qv[c], s[i][c]);
-            dp[i][c] = fmaf(vv[i], dov[c], dp[i][c]);
-          }
-      }
-#pragma unroll
-      for (int i = 0; i < RR; ++i) {
-        const int kl = ty * RR + i;
-#pragma unroll
-        for (int c = 0; c < CC; ++c) {
-          const int ql = tx + 16 * c;
-          float x = s[i][c] * a.scale;
-          if (!keep(r0 + ql + off, c0 + kl, a.causal, a.window) ||
-              km_s[kl] == 0.f)
-            x = kNegInf;
-          const float p = x <= kDead ? 0.f : expf(x - lse_s[ql]);
-          pt_s[kl * LP + ql] = rnd<T>(p);
-          dst_s[kl * LP + ql] =
-              rnd<T>(p * (dp[i][c] - delta_s[ql]) * a.scale);
-        }
-      }
-      __syncthreads();
-#pragma unroll 4
-      for (int qq = 0; qq < kTile; ++qq) {
-        float pv[RR], dsv[RR], dov[DC], qv[DC];
-#pragma unroll
-        for (int i = 0; i < RR; ++i) {
-          pv[i] = pt_s[(ty * RR + i) * LP + qq];
-          dsv[i] = dst_s[(ty * RR + i) * LP + qq];
-        }
-#pragma unroll
-        for (int c = 0; c < DC; ++c) {
-          dov[c] = do_s[qq * LD + tx + 16 * c];
-          qv[c] = q_s[qq * LD + tx + 16 * c];
-        }
-#pragma unroll
-        for (int i = 0; i < RR; ++i)
-#pragma unroll
-          for (int c = 0; c < DC; ++c) {
-            dv[i][c] = fmaf(pv[i], dov[c], dv[i][c]);
-            dk[i][c] = fmaf(dsv[i], qv[c], dk[i][c]);
-          }
-      }
+  query_tiles(a, c0, c0 + BC - 1, QT, &i_lo, &i_hi);
+  const int nq = i_hi - i_lo + 1;
+  const int steps = nq > 0 ? G * nq : 0;
+  // step -> (query head h, first query row r0)
+  auto fetch = [&](int step, int buf) {
+    const int gg = step / nq;
+    const int h = hk * G + gg;
+    const int r0 = (i_lo + step - gg * nq) * QT;
+    copy_rows_async<T, D, NT>(q_s + buf * QT * LD, q,
+                              b * a.q_sb + r0 * a.q_st + h * a.q_sh, a.q_st,
+                              QT);
+    copy_rows_async<T, D, NT>(do_s + buf * QT * LD, dout,
+                              b * a.do_sb + r0 * a.do_st + h * a.do_sh,
+                              a.do_st, QT);
+    const long long row = ((long long)b * a.H + h) * a.Tq + r0;
+    for (int i = threadIdx.x; i < QT; i += NT) {
+      cp_async4(lse_s + buf * QT + i, a.lse + row + i);
+      cp_async4(delta_s + buf * QT + i, a.delta + row + i);
     }
-  }
+  };
 
+  // acc[0] is dv; acc[NACC - 1] is dk (the same array with two passes)
+  constexpr int NACC = NPASS == 1 ? 2 : 1;
+  float acc[NACC][D / 8][4];
   T* dk_o = static_cast<T*>(a.dk);
   T* dv_o = static_cast<T*>(a.dv);
 #pragma unroll
-  for (int i = 0; i < RR; ++i) {
-    const long long base =
-        (((long long)b * a.Tk + c0 + ty * RR + i) * a.Hkv + hk) * D;
+  for (int pass = 0; pass < NPASS; ++pass) {
+    const bool want_dv = NPASS == 1 || pass == 0;
+    const bool want_dk = NPASS == 1 || pass == 1;
 #pragma unroll
-    for (int c = 0; c < DC; ++c) {
-      st(dk_o + base + tx + 16 * c, dk[i][c]);
-      st(dv_o + base + tx + 16 * c, dv[i][c]);
+    for (int x = 0; x < NACC; ++x)
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+        acc[x][n][0] = acc[x][n][1] = acc[x][n][2] = acc[x][n][3] = 0.f;
+    if (steps > 0) fetch(0, 0);
+    cp_async_commit();
+
+    for (int step = 0; step < steps; ++step) {
+      const int buf = step & 1;
+      if (step + 1 < steps) fetch(step + 1, buf ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();  // this step's tiles (and k, v) have landed
+      __syncthreads();
+      const T* qs = q_s + buf * QT * LD;
+      const T* dos = do_s + buf * QT * LD;
+      const float* lses = lse_s + buf * QT;
+      const float* deltas = delta_s + buf * QT;
+      const int gg = step / nq;
+      const int r0 = (i_lo + step - gg * nq) * QT;
+
+      float s[NS][4], dp[NS][4];
+      product_nt<T, D, NS>(s, k_s + warp * 16 * LD, qs, lane);
+      if (want_dk)
+        product_nt<T, D, NS>(dp, v_s + warp * 16 * LD, dos, lane);
+      const int ck = c0 + warp * 16;
+      const bool full =
+          tile_full(a, r0 + off, r0 + QT - 1 + off, ck, ck + 15);
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1, ql = n * 8 + 2 * tg + (e & 1);
+          float x = s[n][e] * a.scale;
+          if (!full && (!keep(r0 + ql + off, ck + gr + 8 * i, a.causal,
+                              a.window) ||
+                        !kmask[i]))
+            x = kNegInf;
+          const float p = x <= kDead ? 0.f : expf(x - lses[ql]);
+          s[n][e] = p;  // p^T
+          if (want_dk)  // ds^T
+            dp[n][e] = rnd<T>(p * (dp[n][e] - deltas[ql]) * a.scale);
+        }
+      if (want_dv) product_acc<T, D, NS>(acc[0], s, dos, lane);
+      if (want_dk) product_acc<T, D, NS>(acc[NACC - 1], dp, qs, lane);
+      __syncthreads();  // buf is refilled by the next step but one
+    }
+    cp_async_wait<0>();
+
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const long long base =
+          (((long long)b * a.Tk + c0 + kl + 8 * i) * a.Hkv + hk) * D + 2 * tg;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        if (want_dv)
+          st2(dv_o + base + n * 8, acc[0][n][2 * i], acc[0][n][2 * i + 1]);
+        if (want_dk)
+          st2(dk_o + base + n * 8, acc[NACC - 1][n][2 * i],
+              acc[NACC - 1][n][2 * i + 1]);
+      }
     }
   }
 }
@@ -573,26 +979,33 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(FlashArgs a) {
 
 enum Kind { kFwd = 0, kDq = 1, kDkv = 2 };
 
-template <int D, int BR>
-constexpr size_t smem_bytes(int kind) {
-  return sizeof(float) * (kind == kFwd  ? fwd_smem_floats<D, BR>()
-                          : kind == kDq ? dq_smem_floats<D, BR>()
-                                        : dkv_smem_floats<D, BR>());
-}
-
 template <typename T, int D>
 int launch(int kind, const FlashArgs& a, cudaStream_t stream) {
-  constexpr int BR = D == 256 ? 32 : 64;
-  void (*kernel)(FlashArgs) = kind == kFwd  ? flash_fwd_kernel<T, D, BR>
-                              : kind == kDq ? flash_dq_kernel<T, D, BR>
-                                            : flash_dkv_kernel<T, D, BR>;
-  const size_t smem = smem_bytes<D, BR>(kind);
+  void (*kernel)(FlashArgs);
+  size_t smem;
+  dim3 grid, block;
+  if (kind == kFwd) {
+    constexpr int BR = D == 256 ? 32 : 64;
+    kernel = flash_fwd_kernel<T, D, BR>;
+    smem = sizeof(float) * fwd_smem_floats<D, BR>();
+    grid = dim3(a.Tq / BR, a.H, a.B);
+    block = dim3(kThreads);
+  } else {
+    // one flat grid, the row tile slowest (see the kernels)
+    const bool dq = kind == kDq;
+    const int rows = dq ? BwdTiles<D>::dq_rows : BwdTiles<D>::dkv_rows;
+    kernel = dq ? flash_dq_kernel<T, D> : flash_dkv_kernel<T, D>;
+    smem = dq ? dq_smem_bytes<T, D>() : dkv_smem_bytes<T, D>();
+    // dq: the last row tile may be short (see flash_dq_kernel); Tk is a
+    // multiple of every dk/dv tile
+    grid = dim3((dq ? (a.Tq + rows - 1) / rows * a.H : a.Tk / rows * a.Hkv) *
+                a.B);
+    block = dim3(2 * rows);
+  }
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(kind == kDkv ? a.Tk / BR : a.Tq / BR,
-                  kind == kDkv ? a.Hkv : a.H, a.B);
-  kernel<<<grid, kThreads, smem, stream>>>(a);
+  kernel<<<grid, block, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 

@@ -9,9 +9,16 @@ the sums differs, observed ~1e-6). lse is held against a float64
 logsumexp of the masked scores at atol 1e-5 (float32 rounding of scores
 of magnitude ~30).
 
-The test marked ``gpu`` holds the three CUDA kernels against their plain
+The float32 backward kernels run their products as "3xTF32" on the
+tensor cores; ``test_split_tf32_products_keep_float32_accuracy`` models
+that arithmetic on the CPU, the tensor core's truncating accumulate
+included, and the card cases (the longest walk among them) check it.
+
+The tests marked ``gpu`` hold the three CUDA kernels against their plain
 versions on the card (float32 atol 1e-4, bfloat16 compared in float32
-atol 2e-2; reasons at CARD_TOL) and skips here; JAX is imported only by
+atol 2e-2; reasons at CARD_TOL), check that the backward pair gives the
+same bits on every run and exact zeros where no key is live, and skip
+here; JAX is imported only by
 the tests that use it, so that it also runs where JAX is not installed:
 ``python3 -m pytest --noconftest -m gpu tests/test_torch_flash_attention.py``
 (the suite's conftest imports JAX)."""
@@ -153,7 +160,10 @@ def test_wrappers_check_shapes():
 
 def _card_cases():
     """(B, Tq, Tk, H, Hkv, D, causal, window, kv_mask) on the card: the
-    training shape, then each option the gate admits."""
+    training shape, then each option the gate admits, query lengths that
+    are not a multiple of the D=64 dq block's 128 rows (the last block
+    runs short), and the training shape at four times the length (the
+    longest walk: dk/dv sum over 3 x 4096 query rows)."""
     return [
         (8, 1024, 1024, 12, 4, 64, True, None, False),
         (2, 512, 512, 12, 4, 64, False, None, False),
@@ -163,6 +173,11 @@ def _card_cases():
         (2, 512, 512, 4, 2, 64, False, 256, False),
         (3, 512, 512, 4, 2, 64, True, None, True),
         (2, 512, 1024, 4, 2, 64, True, None, False),
+        (2, 192, 320, 4, 2, 64, True, None, False),
+        (2, 192, 256, 4, 2, 64, False, None, False),
+        (2, 64, 192, 4, 2, 64, True, None, False),
+        (2, 64, 128, 4, 2, 64, False, None, True),
+        (1, 4096, 4096, 12, 4, 64, True, None, False),
         (2, 256, 256, 4, 2, 128, True, None, True),
         (2, 256, 256, 4, 2, 256, True, 100, False),
     ]
@@ -206,9 +221,14 @@ def kernel_errors(case, dtype, gen):
 
 
 # float32: the forward's online softmax rescales in another order than
-# the plain whole-row softmax (observed <= 1e-6; the backward recomputes
-# from the same lse and agrees to 0); bfloat16, compared in float32: one
-# bf16 rounding of an output of magnitude < 4 is up to 1.6e-2
+# the plain whole-row softmax (observed <= 1e-6). The backward pair sums
+# in another order too (3xTF32 on the tensor cores, each 8-deep step
+# rounded into its sum): on the card it is within 1.3e-5 of a float64
+# reference in every case, where the plain version itself is up to
+# 4.6e-5 from it (dv over 3 x 4096 query rows), and the two differ by up
+# to 5.2e-5 (tools/torch_flash_accuracy.py). bfloat16, compared in
+# float32: one bf16 rounding of an output of magnitude < 4 is up to
+# 1.6e-2
 CARD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 
@@ -242,3 +262,174 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take():
     q = torch.zeros((1, 64, 2, 64), device="cuda", dtype=torch.float16)
     with pytest.raises(InvalidArgumentError, match="float32 or bfloat16"):
         K.flash_attention_fwd(q, q, q, causal=True, scale=1.0)
+
+
+# ----- the float32 backward's arithmetic: 3xTF32 ---------------------------
+
+def _tf32(x):
+    """float32 -> the nearest TF32 value (10 stored significand bits),
+    ties away from zero: the card's cvt.rna.tf32.f32."""
+    x = np.asarray(x, np.float32)
+    return ((x.view(np.int32) + 0x1000) & -0x2000).view(np.float32)
+
+
+def _rz32(x):
+    """float64 -> float32, rounded toward zero (held in float64)."""
+    _, e = np.frexp(x)
+    quantum = np.ldexp(1.0, e - 24)
+    return np.trunc(x / quantum) * quantum
+
+
+def _mma(c, prods):
+    """One tensor-core accumulate c + sum(prods) over the last axis, as
+    modelled here: the products are exact (a TF32 pair has 22 significand
+    bits); they and the float32 accumulator are aligned to the largest
+    exponent among them and truncated there to 24 bits, summed, and the
+    sum is cut to float32 toward zero. NVIDIA does not document the
+    accumulate, so this is an assumption (no extra alignment bits); the
+    card cases are the check of it."""
+    t = np.concatenate([c[..., None], prods], -1)
+    _, e = np.frexp(np.abs(t).max(-1, keepdims=True))
+    quantum = np.ldexp(1.0, e - 24)
+    return _rz32((np.trunc(t / quantum) * quantum).sum(-1))
+
+
+def _tf32_dot(a, b, passes, rounded_add=True):
+    """Dot products over the last axis as the backward kernels take them:
+    8-deep steps (m16n8k8). passes=3: lo.hi, hi.lo and hi.hi of the split
+    x = hi + lo, hi = tf32(x), lo = tf32(x - hi); passes=1: one TF32
+    product. rounded_add: each step's passes go into a zeroed fragment,
+    added to the running sum with a float32 add rounded to nearest (the
+    kernels' Mma::step, in every product); else every pass accumulates
+    into the running sum on the tensor core."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    ah, bh, al, bl = (x.astype(np.float64) for x in (ah, bh, al, bl))
+    pairs = [(al, bh), (ah, bl), (ah, bh)] if passes == 3 else [(ah, bh)]
+    acc = np.zeros(a.shape[:-1])
+    for i in range(0, a.shape[-1], 8):
+        s = slice(i, i + 8)
+        t = np.zeros_like(acc) if rounded_add else acc
+        for x, y in pairs:
+            t = _mma(t, x[..., s] * y[..., s])
+        acc = np.float32(acc + t).astype(np.float64) if rounded_add else t
+    return acc
+
+
+def _sequential_dot(a, b):
+    """The float32 sum the CUDA-core kernels took, one term at a time."""
+    acc = np.zeros(a.shape[:-1], np.float32)
+    for i in range(a.shape[-1]):
+        acc = np.float32(acc + a[..., i] * b[..., i])
+    return acc
+
+
+@pytest.mark.parametrize("n", [64, 128, 256, 1024, 12288])
+def test_split_tf32_products_keep_float32_accuracy(n):
+    """The float32 backward's dots against float64, in the model above,
+    on data shaped as the kernels see it: n = D (64/128/256) is a score
+    q.k * D^-0.5 with unit normal q and k; n = 1024 a p-weighted sum over
+    the keys (p >= 0 summing to 1 along the row, as dq = ds.k weighs
+    them); n = 12288 dv's longest walk on the card, p^T.do over 3 heads x
+    4096 query rows (row r sees r + 1 keys, so p of the key they share
+    falls as 1/r). The kernels' scheme (3xTF32, each step added with a
+    rounded add) stays within 1e-5, ten times inside the card tolerance
+    CARD_TOL (1e-4), and no worse than twice the CUDA-core kernels'
+    sequential float32 sum. Accumulating every pass on the tensor core
+    drifts with each truncation (over three times the error here; on
+    the card dv missed 1e-4 that way), and one TF32 pass leaves 1e-4
+    (three decimal digits), which is why float32 takes three. The card
+    cases, the longest walk among them, are the check of the model."""
+    rng = np.random.default_rng(n)
+    rows = 256 if n > 1024 else 2048
+    a, b = rng.normal(size=(2, rows, n))
+    if n == 1024:
+        z = rng.normal(size=(rows, n)) * 2
+        p = np.exp(z - z.max(-1, keepdims=True))
+        a = a * p / p.sum(-1, keepdims=True)
+    elif n > 1024:
+        r = np.tile(np.arange(n // 3), 3)
+        e = np.exp(rng.normal(size=(rows, n)))
+        a = e / (e + r * np.exp(0.5))
+    else:
+        b = b * n ** -0.5
+    a, b = a.astype(np.float32), b.astype(np.float32)
+    want = (a.astype(np.float64) * b).sum(-1)
+
+    def err(x):
+        return np.abs(x - want).max()
+
+    three = err(_tf32_dot(a, b, 3))
+    direct = err(_tf32_dot(a, b, 3, rounded_add=False))
+    one = err(_tf32_dot(a, b, 1))
+    sequential = err(_sequential_dot(a, b))
+    tol = CARD_TOL[torch.float32]
+    assert three <= tol / 10, (three, tol)
+    assert three <= 2 * sequential, (three, sequential)
+    assert direct > 3 * three, (direct, three)
+    assert one > tol, (one, tol)
+
+
+def test_tf32_rounding_model():
+    """The model's rounding: 10 stored bits, to nearest, ties away; and
+    the accumulate's truncation toward zero."""
+    x = np.array([1.0, 1.0 + 2 ** -11, 1.0 + 2 ** -10 + 2 ** -11,
+                  -(1.0 + 2 ** -11), 3.0 + 2 ** -12], np.float32)
+    want = [1.0, 1.0 + 2 ** -10, 1.0 + 2 ** -9, -(1.0 + 2 ** -10), 3.0]
+    assert _tf32(x).tolist() == want
+    assert _rz32(np.array([1.0 + 2 ** -24, -(1.0 + 2 ** -24)])).tolist() \
+        == [1.0, -1.0]
+    # 1 + 2^-25 x 8: every product falls below the quantum of the sum's
+    # largest term and is cut
+    got = _mma(np.array([1.0]), np.full((1, 8), 2.0 ** -25))
+    assert got.tolist() == [1.0]
+
+
+# ----- the backward pair on the card --------------------------------------
+
+def _backward(case, dtype, seed):
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    q, k, v, do, km = card_inputs(case, dtype, gen)
+    kw = dict(causal=case[6], scale=case[5] ** -0.5, window=case[7],
+              kv_mask=km)
+    o, lse = K.flash_attention_fwd(q, k, v, **kw)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    return (q, k, v, do, lse, delta), kw
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_backward_pair_gives_the_same_bits_every_run(dtype):
+    """No atomics and a fixed order of sums: two launches on the same
+    inputs give bit-identical dq, dk and dv."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    args, kw = _backward(_card_cases()[0], getattr(torch, dtype), seed=2)
+    first = (K.flash_attention_dq(*args, **kw),
+             *K.flash_attention_dkv(*args, **kw))
+    second = (K.flash_attention_dq(*args, **kw),
+              *K.flash_attention_dkv(*args, **kw))
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_backward_pair_is_exactly_zero_where_no_key_is_live(dtype):
+    """Causal with Tq = 2 Tk: query rows 0..Tk-1 sit before every key;
+    a kv_mask leaves batch row 1 with no live key and row 0 with a padded
+    tail. dq of those query rows, and dk/dv of row 1 and of the padded
+    keys, are exactly 0 (p = 0 there, so every term of their sums is)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    case = (2, 512, 256, 4, 2, 64, True, None, True)
+    args, kw = _backward(case, getattr(torch, dtype), seed=3)
+    dq = K.flash_attention_dq(*args, **kw)
+    dk, dv = K.flash_attention_dkv(*args, **kw)
+    torch.cuda.synchronize()
+    assert not dq[:, :256].abs().max() and not dq[1].abs().max()
+    for g in (dk, dv):
+        assert not g[1].abs().max() and not g[0, 256 - 100:].abs().max()
+    # and the live part is not trivially zero
+    assert dq[0, 256:].abs().max() > 0 and dk[0, :100].abs().max() > 0

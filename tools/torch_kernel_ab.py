@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""Times the decode-attention and int8 kernels, the serving arenas and the
-int8 MnistMLP forward of the ``paddle_tpu_torch`` package found in one
-checkout, on the CUDA card, so that two checkouts (a commit and its
-parent, say, unpacked with ``git archive``) can be compared inside one
-run on the same card. Run each tree in its own process, in the order
-parent, change, change, parent:
+"""Times the decode-attention, int8 and flash-attention kernels, the
+serving arenas and the int8 MnistMLP forward of the ``paddle_tpu_torch``
+package found in one checkout, on the CUDA card, so that two checkouts
+(a commit and its parent, say, unpacked with ``git archive``) can be
+compared inside one run on the same card. Run each tree in its own
+process, in the order parent, change, change, parent:
 
     python3 tools/torch_kernel_ab.py --tree path/to/parent
     python3 tools/torch_kernel_ab.py            # this checkout
@@ -35,7 +35,13 @@ Measured, each at the shapes chip_smoke.py uses:
   tokens), max_new 32: tokens/s, ms per tick and a digest of the tokens,
   for each of --serve-repeats runs;
 - the host time per decode-wrapper call: --iters calls queued back to
-  back with no synchronize between them.
+  back with no synchronize between them;
+- the flash-attention kernels at the training shape (B=8, T=1024, H=12,
+  Hkv=4, D=64, causal), float32 and bfloat16: the forward, dq, dk/dv and
+  the whole backward as the training step runs it (delta = rowsum(do *
+  o), dq, dk/dv), beside torch's scaled_dot_product_attention backward
+  alone on a kept graph (a yardstick the port never calls), and the
+  kernels' max abs error against their plain versions.
 
 Prints one line per number and, last, one JSON object of them all.
 """
@@ -187,6 +193,70 @@ def mlp_rows(torch, flush, n, out):
                   f"{out[key]['sleep']:.4f} ms", flush=True)
 
 
+def flash_rows(torch, flush, n, out):
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops.kernels import flash_attention as FK
+
+    b, t, h, hkv, d = 8, 1024, 12, 4, 64
+    kw = dict(causal=True, scale=d ** -0.5, window=None, kv_mask=None)
+    for dtype in (torch.float32, torch.bfloat16):
+        gen = torch.Generator(device="cuda").manual_seed(7)
+
+        def rand(*shape):
+            return torch.randn(*shape, generator=gen, device="cuda").to(
+                dtype)
+
+        q, k, v = rand(b, t, h, d), rand(b, t, hkv, d), rand(b, t, hkv, d)
+        do = rand(b, t, h, d)
+        o, lse = FK.flash_attention_fwd(q, k, v, **kw)
+
+        def delta():
+            return (do.float() * o.float()).sum(-1).transpose(
+                1, 2).contiguous()
+
+        dl = delta()
+
+        def whole_bwd():
+            dl = delta()
+            FK.flash_attention_dq(q, k, v, do, lse, dl, **kw)
+            FK.flash_attention_dkv(q, k, v, do, lse, dl, **kw)
+
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                  enable_gqa=True)
+        dot = do.transpose(1, 2)
+        cases = {
+            "flash_attention_fwd": lambda: FK.flash_attention_fwd(q, k, v,
+                                                                  **kw),
+            "flash_attention_dq": lambda: FK.flash_attention_dq(
+                q, k, v, do, lse, dl, **kw),
+            "flash_attention_dkv": lambda: FK.flash_attention_dkv(
+                q, k, v, do, lse, dl, **kw),
+            "flash_backward": whole_bwd,
+            "sdpa_backward": lambda: torch.autograd.grad(
+                sdpa_out, (qt, kt, vt), dot, retain_graph=True),
+        }
+        dname = str(dtype).split(".")[-1]
+        for name, fn in cases.items():
+            key = f"{name}@{dname}"
+            out[key] = both(torch, fn, flush, n)
+            print(f"[ab] {key}: flush {out[key]['flush']:.4f} ms, sleep "
+                  f"{out[key]['sleep']:.4f} ms", flush=True)
+        dq = FK.flash_attention_dq(q, k, v, do, lse, dl, **kw)
+        dk, dv = FK.flash_attention_dkv(q, k, v, do, lse, dl, **kw)
+        dq_p = FK.flash_attention_dq_plain(q, k, v, do, lse, dl, **kw)
+        dk_p, dv_p = FK.flash_attention_dkv_plain(q, k, v, do, lse, dl,
+                                                  **kw)
+        err = max((x.float() - y.float()).abs().max().item()
+                  for x, y in ((dq, dq_p), (dk, dk_p), (dv, dv_p)))
+        out[f"flash_backward_err@{dname}"] = err
+        print(f"[ab] flash_backward_err@{dname}: dq/dk/dv max abs err "
+              f"against the plain versions {err:.3e}", flush=True)
+        del sdpa_out
+
+
 def serving_rows(torch, out, repeats):
     from paddle_tpu_torch.models import gpt
     from paddle_tpu_torch.serving import BatchedDecoder
@@ -245,8 +315,9 @@ def main() -> int:
     ap.add_argument("--iters", type=int, default=50)
     ap.add_argument("--serve-repeats", type=int, default=1,
                     help="served runs of each arena and prompt set")
-    ap.add_argument("--sections", default="decode,gemm,mlp,serve",
-                    help="comma-separated subset of decode,gemm,mlp,serve")
+    ap.add_argument("--sections", default="decode,gemm,mlp,serve,flash",
+                    help="comma-separated subset of decode,gemm,mlp,serve,"
+                    "flash")
     args = ap.parse_args()
     sections = set(args.sections.split(","))
     tree = os.path.abspath(args.tree)
@@ -277,6 +348,8 @@ def main() -> int:
         mlp_rows(torch, flush, args.iters, out)
     if "serve" in sections:
         serving_rows(torch, out, args.serve_repeats)
+    if "flash" in sections:
+        flash_rows(torch, flush, args.iters, out)
     print(json.dumps(out))
     return 0
 
