@@ -74,7 +74,8 @@ Phases, each printed as it runs:
    shape (B=8, T=1024, H=12, Hkv=4, D=64, causal) and at each option the
    gate admits (non-causal; Hkv 12 and 1; window 256; a kv_mask with a
    padded tail and a row with no live key; Tq=512 against Tk=1024;
-   D=128 and D=256);
+   Tq=64 and 192, where the 128-row blocks of the forward and dq run a
+   short last tile; T=4096; D=128 and D=256);
 8. the training slice at full width, bench_gpt's configuration:
    GPTConfig.small() with remat, max_position=1024, float32, seeded
    weights, one (8, 1024) batch of seeded ids, Adam(1e-3) through
@@ -501,7 +502,7 @@ def phase_int8_logits(torch, model):
 
     def mint(kv_dtype):
         al = PagedKVPool(2, PS, attn0.num_kv_heads, attn0.head_dim,
-                         kv_dtype=kv_dtype, device=dev)
+                         arrays=False, kv_dtype=kv_dtype, device=dev)
         table = torch.as_tensor(al.alloc(2), device=dev)[None]
         return [(al.empty_pool(), al.empty_pool()) for _ in model.blocks], \
             table
@@ -1103,7 +1104,8 @@ def main() -> int:
                       dict(paged, kv_dtype="int8"))
     attn0 = model.blocks[0].self_attn
     float_bytes = PagedKVPool(paged["pages"], PS, attn0.num_kv_heads,
-                              attn0.head_dim, device="cuda").pool_nbytes
+                              attn0.head_dim, arrays=False,
+                              device="cuda").pool_nbytes
     int8_bytes = dec_q._allocator.pool_nbytes
     del dec_q
     agree = sum(int((a == b).all()) for a, b in zip(outs_p, outs_q))

@@ -25,71 +25,79 @@
 // What bounds it: operations. At the training shape (B=8, T=1024, H=12,
 // Hkv=4, D=64, causal) the live scores number B*H*T*(T+1)/2 = 50.4 M and
 // each costs 4*D flops forward, 6*D for dq and 8*D for dk/dv, against
-// about 67 MB of operands. On the CUDA cores (float32, 67 TFLOP/s) that
-// is 0.19 / 0.29 / 0.39 ms; as float32-accurate tensor-core work (three
-// TF32 passes at 495 TFLOP/s, 165 TFLOP/s of float32 work) 0.08 / 0.12 /
-// 0.16 ms, still well above the bytes' time (0.02-0.03 ms).
+// about 67 MB of operands. As float32-accurate tensor-core work (three
+// TF32 passes at 495 TFLOP/s, 165 TFLOP/s of float32 work) that is 0.08
+// / 0.12 / 0.16 ms, well above the bytes' time (0.02-0.03 ms).
 //
-// The forward (simple first, unchanged since it was ported). One block
-// of 256 threads owns BR = 64 query rows (32 at D = 256) and walks, in a
-// loop that takes the place of the TPU's sequential grid axis, only the
-// 64-wide key tiles that can hold a live entry (the block-skipping rule
-// of _block_should_run, so a window costs O(T * window)). Tiles sit in
-// shared memory as float32, rows padded to D + 1 floats; each thread owns
-// a (BR/16) x 4 patch of the score tile and a (BR/16) x (D/16) patch of
-// the output and sums on the CUDA cores; row max and sum reduce with
-// shuffles. Left for a later change: everything the backward below has.
+// All three kernels run on the tensor cores. A block owns a tile of rows
+// (query rows for the forward and dq, 128 at D = 64, the last block
+// short when Tq is not a multiple of 128; key rows for dk/dv, 64, looping
+// over the G query heads of the group) and walks, in a loop that takes
+// the place of the TPU's sequential grid axis, only the tiles of the
+// other side that hold a live entry (the block-skipping rule of
+// _block_should_run, so a window costs O(T * window)). Each warp owns 16
+// rows, and every product is a warp-wide mma.sync: s = q.k^T (and dp =
+// do.v^T; dk/dv: their transposes k.q^T and v.do^T) into accumulator
+// fragments; the forward's online softmax, p and ds made there on the
+// CUDA cores from the same fragments (the masks through the one keep()
+// rule, skipped for tiles that are wholly live); then acc += p.v (dq +=
+// ds.k; dv += p^T.do, dk += ds^T.q) with p and ds read as the next
+// product's A operand straight from the registers: no trip through
+// shared memory. In the forward a row's entries sit on the four lanes of
+// a quad: its running max reduces with two shuffles a tile, and each lane
+// keeps its own part of the running sum (a compensated sum: lse feeds the
+// backward), reduced once at the end.
+// float32 takes three TF32 products of a hi/lo split of each operand
+// ("3xTF32", see struct Mma), because one TF32 pass keeps three decimal
+// digits and the training path's float32 contract (1e-4 against the
+// plain version) needs float32's; each 8-deep step's passes are summed
+// apart and added to the product's sum with a rounded float32 add
+// (Mma::step), which keeps the kernels about as close to a float64
+// reference as the plain float32 versions. The backward splits in
+// registers as its fragments load; the forward splits each landed k and
+// v tile once for the block into hi and lo planes (its eight warps all
+// read every tile, so that is an eighth of the splits). bfloat16: one
+// bf16 product. dk and dv sum over the group in registers: no atomics,
+// the same bits on every run. The walked tiles (k and v for the forward
+// and dq; q, do, lse and delta for dk/dv) are double-buffered: 16-byte
+// cp.async copies of tile j+1 are in flight while tile j is computed
+// (commit/wait groups, no mbarrier, so a wait cannot hang). Tiles keep
+// their input type in shared memory with rows padded by 16 bytes, which
+// makes every fragment load conflict-free. Under causal the blocks with
+// the most live tiles start first: the row tile is the slowest-varying
+// part of a flat block id, reversed for the forward and dq (the last
+// query tiles see the most keys) and in order for dk/dv (the first key
+// tiles are seen the most).
 //
-// The backward pair, on the tensor cores. dq: one block per (b, h, 128
-// query rows; the last block runs short when Tq is not a multiple of
-// 128); dk/dv: one block per (b, kv head, 64 key rows), looping over the
-// G query heads of the group (tiles by head_dim below). Each warp owns 16
-// rows, and every product is a warp-wide mma.sync: s = q.k^T and dp =
-// do.v^T (dk/dv: their transposes k.q^T and v.do^T) into accumulator
-// fragments, p and ds made there on the CUDA cores from the same
-// fragments (the masks through the one keep() rule, skipped for tiles
-// that are wholly live), then dq += ds.k (dv += p^T.do, dk += ds^T.q)
-// with p and ds read as the next product's A operand straight from the
-// registers: no trip through shared memory. float32 takes three TF32
-// products of a hi/lo split of each operand ("3xTF32", see struct Mma),
-// split in registers as the fragments load, because one TF32 pass keeps
-// three decimal digits and the training path's float32 contract (1e-4
-// against the plain version) needs float32's; each 8-deep step's passes
-// are summed apart and added to the product's sum with a rounded float32
-// add (Mma::step), which keeps the pair about as close to a float64
-// reference as the plain float32 version. bfloat16: one bf16 product. dk
-// and dv sum over the group in registers: no atomics, the same bits on
-// every run. The walked tiles (k and v for dq; q, do, lse and delta for
-// dk/dv) are double-buffered: 16-byte cp.async copies of tile j+1 are in
-// flight while tile j is computed (commit/wait groups, no mbarrier, so a
-// wait cannot hang). Tiles keep their input type in shared memory with
-// rows padded by 16 bytes, which makes every fragment load
-// conflict-free. Under causal the blocks with the most live tiles start
-// first: the row tile is the slowest-varying part of a flat block id,
-// reversed for dq (the last query tiles see the most keys) and in order
-// for dk/dv (the first key tiles are seen the most).
-//
-// Tiles and residency (float32, D = 64, the training shape; -Xptxas -v
-// and the shared-memory sizes below, H100). dq: blocks of 128 query rows
-// (8 warps) walk 32-key tiles; 128 registers a thread (a launch bound of
-// two blocks an SM; ptxas spills under 100 bytes), 104,704 bytes of
-// shared memory, 2 blocks (16 warps) an SM, 768 blocks (2.9 waves on 132
-// SMs). dk/dv: blocks of 64 key rows (4 warps) walk 32-query tiles; 255
-// registers, 70,144 bytes, 2 blocks (8 warps) an SM, held by registers,
-// 512 blocks (1.9 waves). Capping dk/dv at 168 registers for a third
-// block spilled and ran slower; without ldmatrix the 128-row dq needs
-// more than 128 registers and one block fits. D = 128 and 256 (off the
-// training path) take 64- and 32-row blocks with 32-wide walks and spill
+// Tiles and residency (D = 64, the training shape; -Xptxas -v and the
+// shared-memory sizes below, H100). Forward: blocks of 128 query rows (8
+// warps); float32 walks 32-key tiles, 128 registers a thread (a launch
+// bound of two blocks an SM; ptxas spills 76 bytes), 87,296 bytes of
+// shared memory; bfloat16 walks 64-key tiles, 128 registers, no spill,
+// 55,808 bytes; 2 blocks (16 warps) an SM, 768 blocks (2.9 waves on 132
+// SMs). Timed on the card (tools/torch_flash_tiles.py) against 64-row
+// blocks, 64-key float32 and 32-key bfloat16 walks, three tiles in
+// flight, splitting per warp and splitting q once too: float32's split
+// planes gain about a tenth over the per-warp split, bfloat16's 64-key
+// walks about an eighth, the rest is equal or slower. dq: blocks of 128
+// query rows walk 32-key tiles; 128 registers (a launch bound of two
+// blocks an SM; ptxas spills under 100 bytes), 104,704 bytes, 2 blocks
+// an SM, 768 blocks. dk/dv: blocks of 64 key rows (4 warps) walk 32-query
+// tiles; 255 registers, 70,144 bytes, 2 blocks (8 warps) an SM, held by
+// registers, 512 blocks (1.9 waves). Capping dk/dv at 168 registers for a
+// third block spilled and ran slower; without ldmatrix the 128-row dq
+// needs more than 128 registers and one block fits. D = 128 and 256 (off
+// the training path) take 64- and 32-row blocks (the forward's float32
+// walks 16 keys at D = 256, to stay inside a block's 227 KB) and spill
 // some registers; D = 256 dk/dv runs two passes. What bounds them here:
-// latency, not the tensor cores' rate (about a sixth of the 3xTF32
-// bound at the training shape). Few
-// warps an SM hide the mma.sync and ldmatrix latencies, and each float32
-// step also spends CUDA-core work on the split (three operations an
-// operand element) and the rounded add.
+// latency, not the tensor cores' rate (a fifth to a sixth of the 3xTF32
+// bound at the training shape). Few warps an SM hide the mma.sync and
+// ldmatrix latencies, and each float32 step also spends CUDA-core work on
+// the split (three operations an operand element) and the rounded add.
 //
 // Left for a later change: wgmma and TMA (wgmma takes TF32 only K-major,
-// and three of the four products want a transposed operand), a fused
-// backward with dq summed by atomics (saves one recompute, gives up
+// and three of the four backward products want a transposed operand), a
+// fused backward with dq summed by atomics (saves one recompute, gives up
 // determinism), delta folded into a kernel.
 //
 // Plain C interface for ctypes: each entry takes a FlashArgs by pointer
@@ -132,15 +140,10 @@ struct FlashArgs {
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTile = 64;  // width of the walked tiles
+constexpr int kSeqStep = 64;  // Tq and Tk are multiples of this
 constexpr float kNegInf = -1e30f;
 constexpr float kDead = -5e29f;
 
-__device__ __forceinline__ float ld(const float* p) { return *p; }
-__device__ __forceinline__ float ld(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
 __device__ __forceinline__ void st(float* p, float x) { *p = x; }
 __device__ __forceinline__ void st(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
@@ -198,157 +201,23 @@ __device__ __forceinline__ void query_tiles(const FlashArgs& a, int c0, int c1,
   *hi = r_hi < r_lo ? *lo - 1 : r_hi / tile;
 }
 
-// rows x D elements of a (B, T, heads, D) tensor, starting at element
-// `base` with row stride `rs`, into shared memory with row stride `ld_s`.
+// ----- tensor-core building blocks ----------------------------------------
+
+// Tile shapes of the forward, by input type and head_dim: the query rows
+// a block owns (16 per warp), the width of the key tiles it walks, the
+// blocks an SM its launch bound asks for (two 256-thread blocks at D = 64
+// hold it at 128 registers a thread) and the key tiles in shared memory
+// at once (one computed while the next loads). At D = 64 it is dq's block
+// (see BwdTiles); bfloat16 walks 64 keys, float32 32, since its split
+// planes (see flash_fwd_kernel) at 64 would leave one block an SM, and 16
+// at D = 256 keeps float32 under the 227 KB a block can have.
 template <typename T, int D>
-__device__ __forceinline__ void load_rows(float* dst, int ld_s, const T* src,
-                                          long long base, long long rs,
-                                          int rows) {
-  for (int i = threadIdx.x; i < rows * D; i += kThreads) {
-    const int r = i / D;
-    const int d = i - r * D;
-    dst[r * ld_s + d] = ld(src + base + r * rs + d);
-  }
-}
-
-__device__ __forceinline__ float row_max16(float x) {
-  for (int w = 8; w > 0; w >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, w));
-  return x;
-}
-
-__device__ __forceinline__ float row_sum16(float x) {
-  for (int w = 8; w > 0; w >>= 1) x += __shfl_xor_sync(0xffffffffu, x, w);
-  return x;
-}
-
-// Shared memory of each kernel, in floats.
-template <int D, int BR>
-__host__ __device__ constexpr int fwd_smem_floats() {
-  return BR * (D + 1) + kTile * (D + 1) + kTile * D + BR * (kTile + 1) +
-         kTile;
-}
-// ----- forward ------------------------------------------------------------
-
-template <typename T, int D, int BR>
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(FlashArgs a) {
-  constexpr int RR = BR / 16, CC = kTile / 16, DC = D / 16, LD = D + 1,
-                LP = kTile + 1;
-  extern __shared__ float smem[];
-  float* q_s = smem;                // BR x LD
-  float* k_s = q_s + BR * LD;       // kTile x LD
-  float* v_s = k_s + kTile * LD;    // kTile x D
-  float* p_s = v_s + kTile * D;     // BR x LP
-  float* km_s = p_s + BR * LP;      // kTile
-
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int r0 = blockIdx.x * BR, h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (a.H / a.Hkv);
-  const int off = a.Tk - a.Tq;
-  const T* q = static_cast<const T*>(a.q);
-  const T* k = static_cast<const T*>(a.k);
-  const T* v = static_cast<const T*>(a.v);
-
-  load_rows<T, D>(q_s, LD, q, b * a.q_sb + r0 * a.q_st + h * a.q_sh, a.q_st,
-                  BR);
-  float acc[RR][DC], m[RR], l[RR];
-#pragma unroll
-  for (int i = 0; i < RR; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
-  }
-  int j_lo, j_hi;
-  key_tiles(a, r0, r0 + BR - 1, kTile, &j_lo, &j_hi);
-
-  for (int j = j_lo; j <= j_hi; ++j) {
-    const int c0 = j * kTile;
-    __syncthreads();  // the last tile's readers are done
-    load_rows<T, D>(k_s, LD, k, b * a.k_sb + c0 * a.k_st + hk * a.k_sh,
-                    a.k_st, kTile);
-    load_rows<T, D>(v_s, D, v, b * a.v_sb + c0 * a.v_st + hk * a.v_sh,
-                    a.v_st, kTile);
-    if (threadIdx.x < kTile)
-      km_s[threadIdx.x] =
-          a.kv_mask ? (float)a.kv_mask[(long long)b * a.Tk + c0 + threadIdx.x]
-                    : 1.f;
-    __syncthreads();
-
-    float s[RR][CC];
-#pragma unroll
-    for (int i = 0; i < RR; ++i)
-#pragma unroll
-      for (int c = 0; c < CC; ++c) s[i][c] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qv[RR], kv[CC];
-#pragma unroll
-      for (int i = 0; i < RR; ++i) qv[i] = q_s[(ty * RR + i) * LD + d];
-#pragma unroll
-      for (int c = 0; c < CC; ++c) kv[c] = k_s[(tx + 16 * c) * LD + d];
-#pragma unroll
-      for (int i = 0; i < RR; ++i)
-#pragma unroll
-        for (int c = 0; c < CC; ++c) s[i][c] = fmaf(qv[i], kv[c], s[i][c]);
-    }
-#pragma unroll
-    for (int i = 0; i < RR; ++i) {
-      const int pos = r0 + ty * RR + i + off;
-      float mx = kNegInf;
-#pragma unroll
-      for (int c = 0; c < CC; ++c) {
-        const int cl = tx + 16 * c;
-        float x = s[i][c] * a.scale;
-        if (!keep(pos, c0 + cl, a.causal, a.window) || km_s[cl] == 0.f)
-          x = kNegInf;
-        s[i][c] = x;
-        mx = fmaxf(mx, x);
-      }
-      const float m_new = fmaxf(m[i], row_max16(mx));
-      float sum = 0.f;
-#pragma unroll
-      for (int c = 0; c < CC; ++c) {
-        const float p = s[i][c] <= kDead ? 0.f : expf(s[i][c] - m_new);
-        sum += p;
-        p_s[(ty * RR + i) * LP + tx + 16 * c] = rnd<T>(p);
-      }
-      const float alpha = expf(m[i] - m_new);
-      l[i] = alpha * l[i] + row_sum16(sum);
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < DC; ++c) acc[i][c] *= alpha;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int jj = 0; jj < kTile; ++jj) {
-      float pv[RR], vv[DC];
-#pragma unroll
-      for (int i = 0; i < RR; ++i) pv[i] = p_s[(ty * RR + i) * LP + jj];
-#pragma unroll
-      for (int c = 0; c < DC; ++c) vv[c] = v_s[jj * D + tx + 16 * c];
-#pragma unroll
-      for (int i = 0; i < RR; ++i)
-#pragma unroll
-        for (int c = 0; c < DC; ++c) acc[i][c] = fmaf(pv[i], vv[c], acc[i][c]);
-    }
-  }
-
-  T* o = static_cast<T*>(a.o);
-#pragma unroll
-  for (int i = 0; i < RR; ++i) {
-    const int r = r0 + ty * RR + i;
-    const float lv = l[i] == 0.f ? 1.f : l[i];
-    const long long base = (((long long)b * a.Tq + r) * a.H + h) * D;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) st(o + base + tx + 16 * c, acc[i][c] / lv);
-    if (tx == 0)
-      a.lse_out[((long long)b * a.H + h) * a.Tq + r] =
-          m[i] + logf(fmaxf(lv, 1e-37f));
-  }
-}
-
-// ----- backward: tensor-core building blocks -------------------------------
+struct FwdTiles {
+  static constexpr int rows = D == 256 ? 32 : D == 64 ? 128 : 64;
+  static constexpr int walk = D == 256 ? 16 : sizeof(T) == 2 ? 64 : 32;
+  static constexpr int blocks = D == 64 ? 2 : 1;
+  static constexpr int stages = 2;
+};
 
 // Tile shapes of the backward kernels, by head_dim: the rows a block owns
 // (16 per warp), the width of the tiles it walks, and the passes over
@@ -691,6 +560,280 @@ __device__ __forceinline__ void product_acc(float (&acc)[D / 8][4],
   }
 }
 
+// ----- forward ------------------------------------------------------------
+
+// float32 only: x (rows x D, padded rows) overwritten with its TF32 hi
+// parts and its lo parts written to lo, by the block's NT threads, four
+// entries a thread at a time
+template <int D, int NT>
+__device__ __forceinline__ void split_planes(float* x, float* lo, int rows) {
+  constexpr int LD = padded<float, D>(), V = D / 4;
+  for (int i = threadIdx.x; i < rows * V; i += NT) {
+    const int r = i / V, c = (i - r * V) * 4;
+    float4* px = reinterpret_cast<float4*>(x + r * LD + c);
+    float4 h = *px, l;
+    uint32_t hi, lw;
+    Mma<float>::split(__float_as_uint(h.x), hi, lw);
+    h.x = __uint_as_float(hi), l.x = __uint_as_float(lw);
+    Mma<float>::split(__float_as_uint(h.y), hi, lw);
+    h.y = __uint_as_float(hi), l.y = __uint_as_float(lw);
+    Mma<float>::split(__float_as_uint(h.z), hi, lw);
+    h.z = __uint_as_float(hi), l.z = __uint_as_float(lw);
+    Mma<float>::split(__float_as_uint(h.w), hi, lw);
+    h.w = __uint_as_float(hi), l.w = __uint_as_float(lw);
+    *px = h;
+    *reinterpret_cast<float4*>(lo + r * LD + c) = l;
+  }
+}
+
+// product_nt for float32 with Y already split into hi and lo planes (yh,
+// yl; same layout): the B fragments load split
+template <int D, int NS>
+__device__ __forceinline__ void product_nt_planes(float (&s)[NS][4],
+                                                  const float* xs,
+                                                  const float* yh,
+                                                  const float* yl, int lane) {
+  using M = Mma<float>;
+  constexpr int LD = padded<float, D>();
+  const float* xp = xs + a_row(lane) * LD + (lane >> 4) * 4;
+  const int yo = b_row(lane) * LD + ((lane >> 3) & 1) * 4;
+#pragma unroll
+  for (int n = 0; n < NS; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D; kk += M::K) {
+    const M::A xa = M::load_a(xp + kk);
+#pragma unroll
+    for (int n = 0; n < NS; n += 2) {
+      uint32_t h[4], l[4];
+      ldsm4(h, yh + yo + n * 8 * LD + kk);
+      ldsm4(l, yl + yo + n * 8 * LD + kk);
+      const M::B b0 = {{h[0], h[1]}, {l[0], l[1]}};
+      const M::B b1 = {{h[2], h[3]}, {l[2], l[3]}};
+      M::step(s[n], xa, b0);
+      M::step(s[n + 1], xa, b1);
+    }
+  }
+}
+
+// product_acc for float32 with Y split into hi and lo planes, B loaded
+// as load_b_kn does
+template <int D, int NS>
+__device__ __forceinline__ void product_acc_planes(float (&acc)[D / 8][4],
+                                                   const float (&p)[NS][4],
+                                                   const float* yh,
+                                                   const float* yl,
+                                                   int lane) {
+  using M = Mma<float>;
+  constexpr int LD = padded<float, D>();
+  const int yo = 2 * (lane & 3) * LD + (lane >> 2);
+#pragma unroll
+  for (int j = 0; j < NS; ++j) {
+    const M::A pa = M::template a_from_c<NS>(p, j);
+#pragma unroll
+    for (int n = 0; n < D / 8; n += 2) {
+      const float* qh = yh + j * 8 * LD + n * 8 + yo;
+      const float* ql = yl + j * 8 * LD + n * 8 + yo;
+      const M::B b0 = {{M::u32(qh), M::u32(qh + LD)},
+                       {M::u32(ql), M::u32(ql + LD)}};
+      const M::B b1 = {{M::u32(qh + 8), M::u32(qh + LD + 8)},
+                       {M::u32(ql + 8), M::u32(ql + LD + 8)}};
+      M::step(acc[n], pa, b0);
+      M::step(acc[n + 1], pa, b1);
+    }
+  }
+}
+
+template <typename T, int D>
+__host__ __device__ constexpr size_t fwd_smem_bytes() {
+  using F = FwdTiles<T, D>;
+  constexpr int LD = padded<T, D>();
+  return sizeof(T) * (F::rows + 2 * F::stages * F::walk) * LD +
+         F::stages * F::walk * 4 +
+         (sizeof(T) == 4 ? 2 * F::walk * LD * 4 : 0);  // lo planes
+}
+
+// One block per (b, h, BR query rows), 16 rows a warp: dq's block with an
+// online softmax where dq makes ds. It walks the live key tiles (KT keys
+// each), S - 1 in flight while one is computed. s = q.k^T lands in
+// accumulator fragments, where each lane holds two rows' entries (rows gr
+// and gr + 8 of its warp's 16) and the four lanes of a quad share a row:
+// the running max m reduces over the quad with two shuffles per tile, and
+// each lane keeps its own part of the running sum l (each tile's p
+// summed, then added with a compensated add), reduced once at the end.
+// p = exp(s - m) replaces s in the same registers, acc and l are
+// rescaled by exp(m_old - m_new), and acc += p.v reads p as the A operand
+// straight from those registers. float32 splits each landed k and v tile
+// into TF32 hi and lo once for the block (hi in place, lo to one more k
+// and v tile), where the backward's warps each split as they load: eight
+// warps read every k and v tile, so this does an eighth of the splits.
+template <typename T, int D>
+__global__ void __launch_bounds__(FwdTiles<T, D>::rows * 2,
+                                  FwdTiles<T, D>::blocks)
+    flash_fwd_kernel(FlashArgs a) {
+  using F = FwdTiles<T, D>;
+  constexpr int BR = F::rows, KT = F::walk, S = F::stages;
+  constexpr int NT = BR * 2, LD = padded<T, D>(), NS = KT / 8;
+  constexpr bool kSplit = sizeof(T) == 4;
+  extern __shared__ __align__(16) unsigned char fwd_smem[];
+  T* q_s = reinterpret_cast<T*>(fwd_smem);  // BR x LD
+  T* k_s = q_s + BR * LD;                   // S x KT x LD
+  T* v_s = k_s + S * KT * LD;               // S x KT x LD
+  float* km_s = reinterpret_cast<float*>(v_s + S * KT * LD);  // S x KT
+  float* kl_s = km_s + S * KT;  // float32: lo planes, KT x LD each
+  float* vl_s = kl_s + KT * LD;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gr = lane >> 2, tg = lane & 3;
+  // longest blocks first, as in dq: under causal the last query tiles
+  // see the most keys
+  const int hb = a.H * a.B;
+  int tile = blockIdx.x / hb;
+  const int h = (blockIdx.x - tile * hb) % a.H;
+  const int b = (blockIdx.x - tile * hb) / a.H;
+  if (a.causal) tile = (a.Tq + BR - 1) / BR - 1 - tile;
+  const int r0 = tile * BR;
+  // Tq is a multiple of 64, not always of BR: the rows of a short last
+  // tile past Tq are zeros in shared memory, computed on and not stored
+  const int rows = min(BR, a.Tq - r0);
+  const int hk = h / (a.H / a.Hkv);
+  const int off = a.Tk - a.Tq;
+  const T* q = static_cast<const T*>(a.q);
+  const T* k = static_cast<const T*>(a.k);
+  const T* v = static_cast<const T*>(a.v);
+
+  copy_rows_async<T, D, NT>(q_s, q, b * a.q_sb + r0 * a.q_st + h * a.q_sh,
+                            a.q_st, rows);
+  for (int i = rows * LD + threadIdx.x; i < BR * LD; i += NT) st(q_s + i, 0.f);
+  int j_lo, j_hi;
+  key_tiles(a, r0, r0 + rows - 1, KT, &j_lo, &j_hi);
+  auto fetch = [&](int j, int buf) {
+    const int c0 = j * KT;
+    copy_rows_async<T, D, NT>(k_s + buf * KT * LD, k,
+                              b * a.k_sb + c0 * a.k_st + hk * a.k_sh, a.k_st,
+                              KT);
+    copy_rows_async<T, D, NT>(v_s + buf * KT * LD, v,
+                              b * a.v_sb + c0 * a.v_st + hk * a.v_sh, a.v_st,
+                              KT);
+    if (a.kv_mask)
+      for (int i = threadIdx.x; i < KT; i += NT)
+        km_s[buf * KT + i] = (float)a.kv_mask[(long long)b * a.Tk + c0 + i];
+  };
+  // S - 1 tiles in flight ahead of the one computed (q lands with the
+  // first group)
+#pragma unroll
+  for (int i = 0; i < S - 1; ++i) {
+    if (j_lo + i <= j_hi) fetch(j_lo + i, i);
+    cp_async_commit();
+  }
+
+  // this lane's two rows: warp * 16 + gr and + 8. A row with no live key
+  // so far keeps m = -1e30: its p are 0 and its rescale exp(0) = 1, so
+  // acc and l stay 0 until a live key arrives (then the rescale is 0).
+  // Each tile's p add into l as one sum, compensated (lc holds the
+  // rounding error, Kahan's way): lse feeds the backward's p, and a long
+  // row adds thousands of p into l.
+  float acc[D / 8][4], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f},
+                       lc[2] = {0.f, 0.f};
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  for (int j = j_lo; j <= j_hi; ++j) {
+    cp_async_wait<S - 2>();  // tile j (and q) have landed
+    // ... for every thread, and every warp is done with tile j - 1,
+    // whose buffer (and lo planes) are rewritten next
+    __syncthreads();
+    if (j + S - 1 <= j_hi) fetch(j + S - 1, (j + S - 1 - j_lo) % S);
+    cp_async_commit();
+    const int buf = (j - j_lo) % S, c0 = j * KT;
+    T* ks = k_s + buf * KT * LD;
+    T* vs = v_s + buf * KT * LD;
+
+    float s[NS][4];
+    if constexpr (kSplit) {
+      split_planes<D, NT>(ks, kl_s, KT);
+      split_planes<D, NT>(vs, vl_s, KT);
+      __syncthreads();
+      product_nt_planes<D, NS>(s, q_s + warp * 16 * LD, ks, kl_s, lane);
+    } else {
+      product_nt<T, D, NS>(s, q_s + warp * 16 * LD, ks, lane);
+    }
+    const int p0 = r0 + warp * 16 + off;
+    const bool full = tile_full(a, p0, p0 + 15, c0, c0 + KT - 1);
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1, cl = n * 8 + 2 * tg + (e & 1);
+        float x = s[n][e] * a.scale;
+        if (!full && (!keep(p0 + gr + 8 * i, c0 + cl, a.causal, a.window) ||
+                      (a.kv_mask && km_s[buf * KT + cl] == 0.f)))
+          x = kNegInf;
+        s[n][e] = x;
+        mx[i] = fmaxf(mx[i], x);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      alpha[i] = expf(m[i] - mx[i]);
+      m[i] = mx[i];
+    }
+    float ts[2] = {0.f, 0.f};
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        const float p = s[n][e] <= kDead ? 0.f : expf(s[n][e] - m[i]);
+        s[n][e] = p;
+        ts[i] += p;
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      l[i] *= alpha[i];
+      lc[i] *= alpha[i];
+      const float y = ts[i] - lc[i];
+      const float t = l[i] + y;
+      lc[i] = (t - l[i]) - y;
+      l[i] = t;
+    }
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      acc[n][0] *= alpha[0];
+      acc[n][1] *= alpha[0];
+      acc[n][2] *= alpha[1];
+      acc[n][3] *= alpha[1];
+    }
+    if constexpr (kSplit)
+      product_acc_planes<D, NS>(acc, s, vs, vl_s, lane);
+    else
+      product_acc<T, D, NS>(acc, s, vs, lane);
+  }
+  cp_async_wait<0>();  // a block with no live tile leaves nothing in flight
+
+  if (warp * 16 >= rows) return;
+  T* o = static_cast<T*>(a.o);
+  const int rl = warp * 16 + gr;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] -= lc[i];
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    const float lv = l[i] == 0.f ? 1.f : l[i];
+    const int r = r0 + rl + 8 * i;
+    T* orow = o + (((long long)b * a.Tq + r) * a.H + h) * D + 2 * tg;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      st2(orow + n * 8, acc[n][2 * i] / lv, acc[n][2 * i + 1] / lv);
+    if (tg == 0)
+      a.lse_out[((long long)b * a.H + h) * a.Tq + r] =
+          m[i] + logf(fmaxf(lv, 1e-37f));
+  }
+}
+
 // ----- dq -----------------------------------------------------------------
 
 template <typename T, int D>
@@ -981,31 +1124,32 @@ enum Kind { kFwd = 0, kDq = 1, kDkv = 2 };
 
 template <typename T, int D>
 int launch(int kind, const FlashArgs& a, cudaStream_t stream) {
+  // one flat grid, the row tile slowest (see the kernels); the forward's
+  // and dq's last row tile may be short, and Tk is a multiple of every
+  // dk/dv tile
   void (*kernel)(FlashArgs);
   size_t smem;
-  dim3 grid, block;
+  int rows, tiles;
   if (kind == kFwd) {
-    constexpr int BR = D == 256 ? 32 : 64;
-    kernel = flash_fwd_kernel<T, D, BR>;
-    smem = sizeof(float) * fwd_smem_floats<D, BR>();
-    grid = dim3(a.Tq / BR, a.H, a.B);
-    block = dim3(kThreads);
+    kernel = flash_fwd_kernel<T, D>;
+    smem = fwd_smem_bytes<T, D>();
+    rows = FwdTiles<T, D>::rows;
+    tiles = (a.Tq + rows - 1) / rows * a.H;
+  } else if (kind == kDq) {
+    kernel = flash_dq_kernel<T, D>;
+    smem = dq_smem_bytes<T, D>();
+    rows = BwdTiles<D>::dq_rows;
+    tiles = (a.Tq + rows - 1) / rows * a.H;
   } else {
-    // one flat grid, the row tile slowest (see the kernels)
-    const bool dq = kind == kDq;
-    const int rows = dq ? BwdTiles<D>::dq_rows : BwdTiles<D>::dkv_rows;
-    kernel = dq ? flash_dq_kernel<T, D> : flash_dkv_kernel<T, D>;
-    smem = dq ? dq_smem_bytes<T, D>() : dkv_smem_bytes<T, D>();
-    // dq: the last row tile may be short (see flash_dq_kernel); Tk is a
-    // multiple of every dk/dv tile
-    grid = dim3((dq ? (a.Tq + rows - 1) / rows * a.H : a.Tk / rows * a.Hkv) *
-                a.B);
-    block = dim3(2 * rows);
+    kernel = flash_dkv_kernel<T, D>;
+    smem = dkv_smem_bytes<T, D>();
+    rows = BwdTiles<D>::dkv_rows;
+    tiles = a.Tk / rows * a.Hkv;
   }
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<grid, block, smem, stream>>>(a);
+  kernel<<<dim3(tiles * a.B), dim3(2 * rows), smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -1023,8 +1167,8 @@ int launch_d(int kind, const FlashArgs& a, cudaStream_t stream) {
 }
 
 int dispatch(int kind, int dtype, const FlashArgs* a, void* stream) {
-  if (a->B <= 0 || a->Hkv <= 0 || a->H % a->Hkv != 0 || a->Tq % kTile ||
-      a->Tk % kTile || a->Tq <= 0 || a->Tk <= 0)
+  if (a->B <= 0 || a->Hkv <= 0 || a->H % a->Hkv != 0 || a->Tq % kSeqStep ||
+      a->Tk % kSeqStep || a->Tq <= 0 || a->Tk <= 0)
     return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_d<float>(kind, *a, s);

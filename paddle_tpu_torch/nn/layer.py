@@ -23,7 +23,12 @@ from ..core.places import DeviceLike, resolve_device
 
 
 class Layer(nn.Module):
-    """Base class for all network modules of the port."""
+    """Base class for all network modules of the port. ``name_scope`` is
+    accepted for the JAX package's signature, which stores nothing of it
+    either."""
+
+    def __init__(self, name_scope: Optional[str] = None):
+        super().__init__()
 
     def create_parameter(self, name: str, shape, dtype=None,
                          initializer: Optional[Callable] = None,
@@ -46,6 +51,9 @@ class Layer(nn.Module):
 
 class LayerList(nn.ModuleList):
     """reference: dygraph LayerList — children named "0", "1", ..."""
+
+    def __init__(self, layers=()):
+        super().__init__(layers)
 
 
 class Sequential(nn.Sequential):

@@ -13,45 +13,46 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 
 from .. import initializer as I
 from ..core.dtypes import to_dtype
 from ..core.enforce import UnimplementedError, enforce
 from ..core.places import resolve_device
 from ..ops import nn as ON
+from ..ops.math import activation
 from .layer import Layer
 
 
 def _apply_act(x, act: Optional[str]):
-    """The activation named ``act`` (None = identity), resolved in
-    ``torch.nn.functional`` and then ``torch`` (the JAX package resolves
-    ``ops.math`` and then ``jax.nn``; ``ops.math`` comes with ROADMAP
-    queue 1 item 9)."""
+    """The activation named ``act`` (None = identity), resolved as the
+    JAX package resolves it (``ops/math.py`` :func:`activation`); an
+    unknown name raises :class:`InvalidArgumentError`."""
     if act is None:
         return x
-    fn = getattr(F, act, None) or getattr(torch, act, None)
-    enforce(callable(fn), "unknown activation %s", act)
-    return fn(x)
+    return activation(act)(x)
 
 
 class Linear(Layer):
-    """FC layer: ``act(x @ weight (+ bias))``, weight (in, out)."""
+    """FC layer: ``act(x @ weight (+ bias))``, weight (in, out).
+    ``weight_init``/``bias_init``: initializers of the port's
+    ``initializer`` module (default XavierUniform and Constant(0))."""
 
     def __init__(self, in_features: int, out_features: int,
                  bias_attr: bool = True, act: Optional[str] = None,
-                 dtype=None, *, device=None, generator=None):
+                 weight_init=None, bias_init=None, dtype=None, *,
+                 device=None, generator=None):
         super().__init__()
         self.in_features, self.out_features = in_features, out_features
         self.act = act
         self.create_parameter("weight", (in_features, out_features), dtype,
-                              I.XavierUniform(), device=device,
-                              generator=generator)
+                              weight_init or I.XavierUniform(),
+                              device=device, generator=generator)
         self.has_bias = bias_attr
         if bias_attr:
             self.create_parameter("bias", (out_features,), dtype,
-                                  I.Constant(0.0), is_bias=True,
-                                  device=device, generator=generator)
+                                  bias_init or I.Constant(0.0),
+                                  is_bias=True, device=device,
+                                  generator=generator)
 
     def forward(self, x):
         out = torch.matmul(x, self.weight)
@@ -73,15 +74,24 @@ class RMSNorm(Layer):
 
 
 class Embedding(Layer):
-    """Lookup table (num_embeddings, embedding_dim)."""
+    """Lookup table (num_embeddings, embedding_dim); ``weight_init``
+    defaults to XavierNormal. ``is_sparse=True`` (row-sparse updates
+    through ``optimizer/sparse.py``) is not ported yet and raises."""
 
     def __init__(self, num_embeddings: int, embedding_dim: int,
-                 padding_idx: Optional[int] = None, dtype=None, *,
-                 device=None, generator=None):
+                 padding_idx: Optional[int] = None, weight_init=None,
+                 dtype=None, is_sparse: bool = False, *, device=None,
+                 generator=None):
         super().__init__()
+        if is_sparse:
+            raise UnimplementedError(
+                "Embedding is_sparse=True (row-sparse updates with "
+                "optimizer/sparse.py) is not ported yet: ROADMAP queue 1 "
+                "item 2")
         self.padding_idx = padding_idx
+        self.is_sparse = is_sparse
         self.create_parameter("weight", (num_embeddings, embedding_dim),
-                              dtype, I.XavierNormal(),
+                              dtype, weight_init or I.XavierNormal(),
                               device=device, generator=generator)
 
     def forward(self, ids):
@@ -89,16 +99,23 @@ class Embedding(Layer):
 
 
 class Dropout(Layer):
-    """Dropout: a no-op in eval mode or at p == 0 (what the serving and
-    training slices run). Training-mode dropout with p > 0 is not ported
-    yet."""
+    """Dropout: the identity in eval mode or at p == 0, except that
+    ``mode="downgrade_in_infer"`` scales by 1 - p in eval mode (the
+    reference's dropout_implementation). Training-mode dropout with p > 0
+    is not ported yet and raises."""
 
-    def __init__(self, p: float = 0.5):
+    def __init__(self, p: float = 0.5, mode: str = "upscale_in_train"):
         super().__init__()
-        self.p = p
+        enforce(mode in ("upscale_in_train", "downgrade_in_infer"),
+                "Dropout mode must be upscale_in_train or "
+                "downgrade_in_infer, got %s", mode)
+        self.p, self.mode = p, mode
 
     def forward(self, x):
-        if self.p == 0.0 or not self.training:
+        if not self.training:
+            return x * (1.0 - self.p) if self.mode == "downgrade_in_infer" \
+                else x
+        if self.p == 0.0:
             return x
         raise UnimplementedError(
             "training-mode dropout with p > 0 is not ported yet: ROADMAP "
@@ -125,32 +142,29 @@ class _MHADecodeMixin:
                                        self.head_dim)
         return k, v
 
-    def attend_kv(self, query, k, v, q_positions, window=None,
-                  decode_kernel: bool = False):
-        """Attention of ``query`` (B, Tq, D) against pre-projected k/v,
-        each query at its absolute cache position (``q_positions``: (Tq,)
-        or (B, 1)) keeping the cache positions at or before its own (and
-        inside ``window``). Rotary queries rotate by the same positions.
-        With ``decode_kernel`` and one query per row, the decode wrapper
-        runs, whatever the shape, and applies that mask itself (on the
-        card it launches the kernel or raises); every other call builds
-        the mask here for the plain path."""
-        from ..ops.attention import (cache_keep_mask, rotary_embedding,
+    def attend_kv(self, query, k, v, attn_mask=None, q_positions=None,
+                  decode_t=None, window=None):
+        """Attention of ``query`` (B, Tq, D) against pre-projected k/v.
+        ``q_positions``: the absolute positions rotary queries rotate by
+        (the cached K was rotated when it was written). ``decode_t``
+        (with one query per row): the cache cursors, a scalar or (B,);
+        then the decode wrapper runs, whatever the shape, and applies the
+        ``pos <= decode_t`` (and ``window``) mask itself (on the card it
+        launches the kernel or raises). Otherwise attention runs under
+        ``attn_mask`` (callers pass both, as in the JAX package)."""
+        from ..ops.attention import (rotary_embedding,
                                      scaled_dot_product_attention)
         from ..ops.kernels.decode_attention import decode_attention
 
         b, tq, d = query.shape
         q = self.q_proj(query).reshape(b, tq, self.num_heads, self.head_dim)
-        if self.rotary:
+        if q_positions is not None:
             q = rotary_embedding(q, q_positions, theta=self.rotary_theta)
-        if decode_kernel and tq == 1 and self.use_flash:
-            out = decode_attention(q, k, v, q_positions.reshape(-1),
-                                   window=window)
+        if decode_t is not None and tq == 1 and self.use_flash:
+            out = decode_attention(q, k, v, decode_t, window=window)
         else:
-            out = scaled_dot_product_attention(
-                q, k, v, mask=cache_keep_mask(q_positions, k.shape[1],
-                                              window),
-                use_flash=self.use_flash)
+            out = scaled_dot_product_attention(q, k, v, mask=attn_mask,
+                                               use_flash=self.use_flash)
         return self.out_proj(out.reshape(b, tq, d))
 
     def forward_chunk(self, x_chunk, cache_k, cache_v, t0, window=None,
@@ -159,6 +173,8 @@ class _MHADecodeMixin:
         at [t0, t0+S) (in place) and attend position i over cache
         positions <= t0+i. The write start clamps to cap-S, as JAX's
         dynamic_update_slice does. Returns (out, cache_k, cache_v)."""
+        from ..ops.attention import cache_keep_mask
+
         b, s, _ = x_chunk.shape
         cap = cache_k.shape[1]
         t0 = int(t0)
@@ -170,8 +186,14 @@ class _MHADecodeMixin:
         start = min(max(t0, 0), cap - s)
         cache_k[:, start:start + s] = k_c.to(cache_k.dtype)
         cache_v[:, start:start + s] = v_c.to(cache_v.dtype)
-        out = self.attend_kv(x_chunk, cache_k, cache_v, pos_chunk,
-                             window=window, decode_kernel=decode_kernel)
+        # the decode wrapper masks by its cursor: it needs no keep-mask
+        decode = decode_kernel and s == 1 and self.use_flash
+        out = self.attend_kv(
+            x_chunk, cache_k, cache_v,
+            attn_mask=None if decode else cache_keep_mask(pos_chunk, cap,
+                                                          window),
+            q_positions=pos_chunk if self.rotary else None,
+            decode_t=t0 if decode else None, window=window)
         return out, cache_k, cache_v
 
     def _project_kv_t(self, x_t, positions):
@@ -253,6 +275,8 @@ class _MHADecodeMixin:
         (B,) — the continuous-batching step. Each row's K/V lands at its
         own index (in place; the index clamps to [0, cap-1] as JAX's
         per-row dynamic_update_slice does). ``x_t``: (B, 1, D)."""
+        from ..ops.attention import cache_keep_mask
+
         b = x_t.shape[0]
         cap = cache_k.shape[1]
         pos_rows = t_rows.to(torch.int32)[:, None]            # (B, 1)
@@ -261,8 +285,13 @@ class _MHADecodeMixin:
         idx = pos_rows[:, 0].long().clamp(0, cap - 1)
         cache_k[rows, idx] = k_t[:, 0].to(cache_k.dtype)
         cache_v[rows, idx] = v_t[:, 0].to(cache_v.dtype)
-        out = self.attend_kv(x_t, cache_k, cache_v, pos_rows, window=window,
-                             decode_kernel=decode_kernel)
+        decode = decode_kernel and self.use_flash
+        out = self.attend_kv(
+            x_t, cache_k, cache_v,
+            attn_mask=None if decode else cache_keep_mask(pos_rows, cap,
+                                                          window),
+            q_positions=pos_rows if self.rotary else None,
+            decode_t=pos_rows[:, 0] if decode else None, window=window)
         return out, cache_k, cache_v
 
 
@@ -270,11 +299,18 @@ class MultiHeadAttention(_MHADecodeMixin, Layer):
     """Transformer attention with GQA and rotary embeddings."""
 
     def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0,
-                 bias: bool = True, use_flash: bool = True, dtype=None,
+                 bias: bool = True, use_flash: bool = True,
+                 seq_parallel: Optional[str] = None, dtype=None,
                  num_kv_heads: Optional[int] = None,
                  rotary: bool = False, rotary_theta: float = 10000.0, *,
                  device=None, generator=None):
         super().__init__()
+        if seq_parallel is not None:
+            raise UnimplementedError(
+                f"MultiHeadAttention seq_parallel={seq_parallel!r} (context "
+                "parallelism) is not ported yet: ROADMAP queue 1 item 11 "
+                "(distributed)")
+        self.seq_parallel = seq_parallel
         enforce(embed_dim % num_heads == 0,
                 "embed_dim %s not divisible by heads %s", embed_dim,
                 num_heads)
@@ -298,7 +334,8 @@ class MultiHeadAttention(_MHADecodeMixin, Layer):
         self.out_proj = Linear(embed_dim, embed_dim, **kw)
 
     def forward(self, query, key=None, value=None, attn_mask=None,
-                causal: bool = False, window: Optional[int] = None):
+                causal: bool = False, segment_ids=None,
+                window: Optional[int] = None):
         from ..ops.attention import (rotary_embedding,
                                      scaled_dot_product_attention)
 
@@ -317,5 +354,6 @@ class MultiHeadAttention(_MHADecodeMixin, Layer):
         out = scaled_dot_product_attention(
             q, k, v, mask=attn_mask, causal=causal,
             dropout_p=self.dropout_p if self.training else 0.0,
-            use_flash=self.use_flash, window=window)
+            use_flash=self.use_flash, segment_ids=segment_ids,
+            window=window)
         return self.out_proj(out.reshape(b, tq, d))

@@ -25,7 +25,7 @@ _FLASH_HEAD_DIMS = (64, 128, 256)
 
 
 def scaled_dot_product_attention(q, k, v, mask=None, causal: bool = False,
-                                 dropout_p: float = 0.0,
+                                 dropout_p: float = 0.0, dropout_key=None,
                                  scale: Optional[float] = None,
                                  use_flash: bool = True,
                                  segment_ids=None,
@@ -34,13 +34,13 @@ def scaled_dot_product_attention(q, k, v, mask=None, causal: bool = False,
 
     mask: broadcastable to (B, H, Tq, Tk); True = keep. window: sliding
     window (lookback-only when causal, a symmetric band otherwise).
-    Attention dropout and packed-batch ``segment_ids`` are not ported
-    and raise."""
+    Attention dropout (``dropout_p``, ``dropout_key``) and packed-batch
+    ``segment_ids`` are not ported and raise."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     enforce(window is None or window >= 1,
             "window must be >= 1, got %s", window)
-    _check_unported(segment_ids, dropout_p)
+    _check_unported(segment_ids, dropout_p, dropout_key)
     if use_flash:
         kv_mask = _as_kv_mask(mask, q.shape[0], k.shape[1])
         if (mask is None or kv_mask is not None) and _flash_ok(q, k):
@@ -50,12 +50,12 @@ def scaled_dot_product_attention(q, k, v, mask=None, causal: bool = False,
                          window=window)
 
 
-def _check_unported(segment_ids, dropout_p):
+def _check_unported(segment_ids, dropout_p, dropout_key=None):
     if segment_ids is not None:
         raise UnimplementedError(
             "packed-batch segment_ids are not ported yet: ROADMAP queue 2 "
             "item 1 (flash-attention options)")
-    if dropout_p != 0.0:
+    if dropout_p != 0.0 or dropout_key is not None:
         raise UnimplementedError(
             "attention dropout is not ported yet: ROADMAP queue 1 item 3 "
             "(training-mode dropout) and queue 2 item 1 (the in-kernel "
@@ -123,11 +123,14 @@ def _as_kv_mask(mask, b: int, tk: int):
 
 
 def xla_attention(q, k, v, mask=None, causal: bool = False,
-                  scale: Optional[float] = None,
+                  dropout_p: float = 0.0, dropout_key=None,
+                  scale: Optional[float] = None, segment_ids=None,
                   window: Optional[int] = None):
     """The plain path — materializes (B, H, Tq, Tk) scores. Masked
     logits take ``finfo.min``; rows with no valid key output zeros (the
-    flash-kernel convention), not a uniform average of V."""
+    flash-kernel convention), not a uniform average of V. Dropout and
+    ``segment_ids`` are not ported and raise."""
+    _check_unported(segment_ids, dropout_p, dropout_key)
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if k.shape[2] != q.shape[2]:
@@ -207,8 +210,11 @@ def _flash_ok(q, k) -> bool:
                                         q.shape[-1])
 
 
-def flash_shape_ok(tq: int, tk: int, d: int) -> bool:
+def flash_shape_ok(tq: int, tk: int, d: int, causal: bool = False,
+                   window=None) -> bool:
     """The flash kernels' shape rule: 64-divisible sequence lengths and
-    a supported head dim; every shape it admits runs on the kernels (the
-    TPU's tuned verdicts are not read)."""
+    a supported head dim; every shape it admits runs on the kernels.
+    ``causal`` and ``window`` only pick the JAX package's tuned verdict
+    for a shape; the port has no tuned table (ROADMAP queue 1 item 4), so
+    its answer is the JAX package's where no verdict is recorded."""
     return tq % 64 == 0 and tk % 64 == 0 and d in _FLASH_HEAD_DIMS

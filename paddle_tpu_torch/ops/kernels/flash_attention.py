@@ -12,20 +12,22 @@ Bound: operations. The live scores (B*H*T*(T+1)/2 when causal) cost 4*D
 flops each forward, 6*D for dq and 8*D for dk/dv, against a few tens of
 MB of operands at the training shape. Design: each thread block owns a
 tile of rows (query rows for the forward and dq, key rows for dk/dv) and
-walks only the tiles that hold a live entry. The forward keeps its tiles
-in shared memory and sums on the CUDA cores. The backward pair runs its
-four products on the tensor cores (``mma.sync``): bfloat16 operands
-directly, float32 as three TF32 products of a hi/lo split of each
-operand ("3xTF32", where one TF32 pass keeps three decimal digits), each
-8-deep step summed apart and added to its sum with a rounded float32
-add, since the tensor core truncates as it accumulates: the pair is
-about as close to float64 as the plain float32 version; p and ds stay in
-the accumulator registers between the products, the walked tiles are
-double-buffered with 16-byte ``cp.async`` copies, and under causal the
-blocks with the most live tiles start first. dk/dv loop over the GQA
-group inside the block, so they come back summed onto the kv heads, with
-no atomics: two runs give the same bits. The source file gives the tile
-shapes, the residency and what is left for a later change.
+walks only the tiles that hold a live entry. All three run their
+products on the tensor cores (``mma.sync``): bfloat16 operands directly,
+float32 as three TF32 products of a hi/lo split of each operand
+("3xTF32", where one TF32 pass keeps three decimal digits), each 8-deep
+step summed apart and added to its sum with a rounded float32 add, since
+the tensor core truncates as it accumulates: the kernels are about as
+close to float64 as the plain float32 versions. Scores, p and ds stay
+in the accumulator registers between the products; the forward's online
+softmax runs there too (the row max over the four lanes that hold a
+row). The walked tiles are double-buffered with 16-byte ``cp.async``
+copies; the float32 forward splits each landed k and v tile once for
+the block. Under causal the blocks with the most live tiles start first.
+dk/dv loop over the GQA group inside the block, so they come back summed
+onto the kv heads, with no atomics: two runs give the same bits. The
+source file gives the tile shapes, the residency and what is left for a
+later change.
 
 Layout at these functions: q (B, Tq, H, D); k, v (B, Tk, Hkv, D); lse
 and delta (B, H, Tq) float32; kv_mask (B, Tk) bool, True = attend. Tq
@@ -254,8 +256,8 @@ def _args(q, k, v, do, causal, scale, window, kv_mask, **ptrs):
 
 
 def _rows16(x):
-    """``x`` when its rows start on 16-byte boundaries, which the backward
-    kernels' 16-byte ``cp.async`` copies need; else a contiguous copy."""
+    """``x`` when its rows start on 16-byte boundaries, which the kernels'
+    16-byte ``cp.async`` copies need; else a contiguous copy."""
     item = x.element_size()
     if x.data_ptr() % 16 == 0 and all(
             st * item % 16 == 0 for st in x.stride()[:3]):
@@ -290,6 +292,7 @@ def flash_attention_fwd(q, k, v, *, causal: bool, scale: float,
                                          scale=scale, window=window,
                                          kv_mask=kv_mask)
     b, tq, h, d = q.shape
+    q, k, v = (_rows16(x) for x in (q, k, v))
     o = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
     kvm = _mask_u8(kv_mask, q.device)

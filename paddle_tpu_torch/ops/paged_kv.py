@@ -138,15 +138,17 @@ def write_chunk(kpool, vpool, table_row, t0: int, k_c, v_c,
     return kpool, vpool
 
 
-def gather_rows(pool, table, upto: Optional[int] = None):
+def gather_rows(pool, table, upto: Optional[int] = None,
+                full: bool = False):
     """Each row's logical cache: (B, n_cols * page_size, kv, hd). ``upto``
     bounds the live positions (prefill): only the first
-    ceil(upto / page_size) table columns are gathered. Page ids clamp
-    into the pool, as JAX's gather clamps. A :class:`QuantizedPool`
-    dequantizes here, only the gathered rows, to float32."""
+    ceil(upto / page_size) table columns are gathered; ``full=True``
+    gathers the whole view all the same. Page ids clamp into the pool,
+    as JAX's gather clamps. A :class:`QuantizedPool` dequantizes here,
+    only the gathered rows, to float32."""
     from .kernels.decode_attention import dequantize_pages, gather_pages
 
-    if upto is not None:
+    if upto is not None and not full:
         n_cols = max(1, -(-int(upto) // pool.shape[1]))
         table = table[:, :min(table.shape[1], n_cols)]
     if isinstance(pool, QuantizedPool):

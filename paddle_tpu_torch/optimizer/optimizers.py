@@ -79,12 +79,17 @@ class SGD(Optimizer):
 
 class Adam(Optimizer):
     """reference: optimizers/adam_op.cc. The bias corrections use t =
-    step + 1 in float32, and epsilon is added outside sqrt(vhat)."""
+    step + 1 in float32, and epsilon is added outside sqrt(vhat).
+    ``lazy_mode`` (update only the rows a sparse gradient touches) has
+    no effect on dense gradients, the only kind the port's optimizers
+    take, as in the JAX package's dense path."""
 
     def __init__(self, learning_rate=0.001, beta1: float = 0.9,
-                 beta2: float = 0.999, epsilon: float = 1e-8, **kw):
+                 beta2: float = 0.999, epsilon: float = 1e-8,
+                 lazy_mode: bool = False, **kw):
         super().__init__(learning_rate, **kw)
         self.beta1, self.beta2, self.epsilon = beta1, beta2, epsilon
+        self.lazy_mode = lazy_mode
 
     def init_leaf(self, p):
         return {"m": torch.zeros_like(p), "v": torch.zeros_like(p)}

@@ -31,10 +31,14 @@ class Trainer:
     :class:`UnimplementedError` naming their ROADMAP item."""
 
     def __init__(self, model: torch.nn.Module, optimizer: Optimizer,
-                 loss_builder: Callable, mesh=None, param_spec=None,
-                 opt_state_rules=None, amp: Optional[str] = None,
-                 grad_accum_steps: int = 1, plan=None,
-                 grad_compression: Optional[str] = None):
+                 loss_builder: Callable, mesh=None, build_strategy=None,
+                 param_spec=None, opt_state_rules=None,
+                 amp: Optional[str] = None, grad_accum_steps: int = 1,
+                 plan=None, grad_compression: Optional[str] = None):
+        if build_strategy is not None:
+            raise UnimplementedError(
+                "Trainer build_strategy= (core/config.py BuildStrategy) is "
+                "not ported yet: ROADMAP queue 1 item 1")
         for name, value in (("mesh", mesh), ("plan", plan),
                             ("param_spec", param_spec),
                             ("opt_state_rules", opt_state_rules),
@@ -95,9 +99,19 @@ class Trainer:
     @classmethod
     def supervised(cls, model: torch.nn.Module, optimizer: Optimizer,
                    loss_fn: Callable, metrics_fn: Optional[Callable] = None,
-                   **kw) -> "Trainer":
+                   mesh=None, aux_loss_weight: float = 0.0,
+                   router_z_loss_weight: float = 0.0, **kw) -> "Trainer":
         """For (x, label) batches: ``dict(x=..., label=...)`` or a tuple
-        ``(x, label)``; loss = ``loss_fn(model(x), label)``."""
+        ``(x, label)``; loss = ``loss_fn(model(x), label)``. The MoE loss
+        terms (``aux_loss_weight``, ``router_z_loss_weight``) come with
+        the MoE layers and raise until then."""
+        for name, value in (("aux_loss_weight", aux_loss_weight),
+                            ("router_z_loss_weight", router_z_loss_weight)):
+            if value:
+                raise UnimplementedError(
+                    f"Trainer.supervised {name}= (the MoE loss terms of "
+                    "nn/moe.py) is not ported yet: ROADMAP queue 1 item 9 "
+                    "(gpt-moe)")
 
         def loss_builder(model, batch, generator):
             if isinstance(batch, dict):
@@ -109,7 +123,7 @@ class Trainer:
             metrics = metrics_fn(out, label) if metrics_fn else {}
             return loss, metrics
 
-        return cls(model, optimizer, loss_builder, **kw)
+        return cls(model, optimizer, loss_builder, mesh=mesh, **kw)
 
 
 def _detach(tree):

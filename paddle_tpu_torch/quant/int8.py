@@ -17,7 +17,8 @@ import sys
 
 import torch
 
-from ..core.enforce import InvalidArgumentError, enforce
+from ..core.enforce import (InvalidArgumentError, UnimplementedError,
+                            enforce)
 from ..nn.layer import Layer
 from ..ops.kernels.quant_matmul import pack_weight, quant_linear
 from .ops import _absmax_scale
@@ -64,12 +65,19 @@ def _int8_linear(x, w_packed, a_scale, w_scale, bias, out_dtype,
     return torch.relu(out) if relu else out
 
 
-def int8_linear(x, frozen_entry, bias=None, *, out_dtype=torch.float32):
+def int8_linear(x, frozen_entry, bias=None, *, out_dtype=torch.float32,
+                use_pallas=None, interpret: bool = False):
     """Run a frozen Linear layer in int8: ``x`` (N, D) float;
     ``frozen_entry`` is one value of ``quant.freeze()``'s dict
     (``weight_int8`` (D, O), ``weight_scale`` (O,), ``act_scale``
     scalar). The weight is packed for the kernel on every call; an
-    :class:`Int8Linear` packs it once."""
+    :class:`Int8Linear` packs it once. The JAX package's kernel choices
+    (``use_pallas``, ``interpret``) are not ported and raise unless left
+    at their defaults."""
+    if use_pallas is not None or interpret:
+        raise UnimplementedError(
+            "int8_linear use_pallas=/interpret= (the kernel's tile and "
+            "dispatch arguments) are not ported yet: ROADMAP queue 2 item 3")
     w_i8 = _as_int8_weight(frozen_entry["weight_int8"])
     a_scale, w_scale = _linear_scales(frozen_entry["act_scale"],
                                       frozen_entry["weight_scale"],

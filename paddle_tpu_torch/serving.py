@@ -44,15 +44,17 @@ class PagedKVPool:
     """Shared page pool for paged-KV attention: K and V live in
     (pages, page_size, kv_heads, head_dim) pools shared by all requests;
     each request owns a row of the page table. Host-side alloc/free
-    here; the decoder keeps its own per-block pools, minted with
-    :meth:`empty_pool` (the JAX package's ``arrays=False`` form).
+    here; ``arrays=True`` also mints one K and one V pool (``kpool``,
+    ``vpool``), while the decoder passes ``arrays=False`` and keeps its
+    own per-block pools, minted with :meth:`empty_pool`.
     ``kv_dtype="int8"`` mints ``ops.paged_kv.QuantizedPool`` pools:
     (1 + 4 / head_dim) bytes per cached element instead of the float
     itemsize, which is what sets the sessions a fixed pool budget
     holds."""
 
     def __init__(self, pages: int, page_size: int, kv_heads: int,
-                 head_dim: int, dtype=None, *, kv_dtype=None, device=None):
+                 head_dim: int, dtype=None, arrays: bool = True,
+                 kv_dtype=None, *, device=None):
         enforce(page_size in (64, 128, 256),
                 "page_size must be one of (64, 128, 256), got %s",
                 page_size)
@@ -68,6 +70,8 @@ class PagedKVPool:
         self.pages = pages
         self._free = list(range(pages - 1, -1, -1))
         self._free_set = set(self._free)
+        self.kpool = self.empty_pool() if arrays else None
+        self.vpool = self.empty_pool() if arrays else None
 
     @property
     def free_pages(self) -> int:
@@ -207,8 +211,8 @@ class BatchedDecoder:
             attn0 = model.blocks[0].self_attn
             self._allocator = PagedKVPool(
                 pages, page_size, attn0.num_kv_heads, attn0.head_dim,
-                dtype=attn0.k_proj.weight.dtype, kv_dtype=kv_dtype,
-                device=self.device)
+                dtype=attn0.k_proj.weight.dtype, arrays=False,
+                kv_dtype=kv_dtype, device=self.device)
             self.page_size = page_size
             self.n_log = capacity // page_size
             al = self._allocator

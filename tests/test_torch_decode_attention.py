@@ -209,6 +209,7 @@ def test_layer_decode_takes_the_wrapper_at_any_shape(monkeypatch, embed,
     typed error, never the plain path), and equals the layer's masked
     plain path to 1e-5."""
     from paddle_tpu_torch.nn.layers import MultiHeadAttention
+    from paddle_tpu_torch.ops.attention import cache_keep_mask
 
     calls = []
     real = K.decode_attention
@@ -226,8 +227,8 @@ def test_layer_decode_takes_the_wrapper_at_any_shape(monkeypatch, embed,
     v = torch.randn(B, cap, heads // 2, embed // heads, generator=gen)
     pos = torch.tensor([[0], [cap // 2], [cap - 1]], dtype=torch.int32)
     with torch.no_grad():
-        got = attn.attend_kv(x, k, v, pos, decode_kernel=True)
-        want = attn.attend_kv(x, k, v, pos)
+        got = attn.attend_kv(x, k, v, decode_t=pos[:, 0])
+        want = attn.attend_kv(x, k, v, attn_mask=cache_keep_mask(pos, cap))
     assert calls == [1]
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5,
                                rtol=0)

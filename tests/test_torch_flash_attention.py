@@ -9,15 +9,16 @@ the sums differs, observed ~1e-6). lse is held against a float64
 logsumexp of the masked scores at atol 1e-5 (float32 rounding of scores
 of magnitude ~30).
 
-The float32 backward kernels run their products as "3xTF32" on the
-tensor cores; ``test_split_tf32_products_keep_float32_accuracy`` models
-that arithmetic on the CPU, the tensor core's truncating accumulate
-included, and the card cases (the longest walk among them) check it.
+The float32 kernels run their products as "3xTF32" on the tensor
+cores; ``test_split_tf32_products_keep_float32_accuracy`` models that
+arithmetic on the CPU, the tensor core's truncating accumulate included,
+and the card cases (the longest walk among them) check it.
 
 The tests marked ``gpu`` hold the three CUDA kernels against their plain
 versions on the card (float32 atol 1e-4, bfloat16 compared in float32
-atol 2e-2; reasons at CARD_TOL), check that the backward pair gives the
-same bits on every run and exact zeros where no key is live, and skip
+atol 2e-2; reasons at CARD_TOL), check that all three give the same bits
+on every run and exact zeros (lse exactly -1e30) where no key is live,
+that the forward copies rows that are not 16-byte aligned, and skip
 here; JAX is imported only by
 the tests that use it, so that it also runs where JAX is not installed:
 ``python3 -m pytest --noconftest -m gpu tests/test_torch_flash_attention.py``
@@ -221,7 +222,8 @@ def kernel_errors(case, dtype, gen):
 
 
 # float32: the forward's online softmax rescales in another order than
-# the plain whole-row softmax (observed <= 1e-6). The backward pair sums
+# the plain whole-row softmax and runs its products on the tensor cores
+# (observed <= 1.9e-6). The backward pair sums
 # in another order too (3xTF32 on the tensor cores, each 8-deep step
 # rounded into its sum): on the card it is within 1.3e-5 of a float64
 # reference in every case, where the plain version itself is up to
@@ -262,6 +264,27 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take():
     q = torch.zeros((1, 64, 2, 64), device="cuda", dtype=torch.float16)
     with pytest.raises(InvalidArgumentError, match="float32 or bfloat16"):
         K.flash_attention_fwd(q, q, q, causal=True, scale=1.0)
+    # rows that do not start on 16-byte boundaries (a head_dim slice of
+    # wider rows, and a base one element off) are copied for the kernel's
+    # 16-byte cp.async, not refused and not misread
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    for dtype in (torch.float32, torch.bfloat16):
+        wide = torch.randn((2, 128, 4, 72), generator=gen,
+                           device="cuda").to(dtype)
+        flat = torch.randn(2 * 128 * 2 * 64 + 1, generator=gen,
+                           device="cuda").to(dtype)
+        q = wide[..., :64]
+        k = flat[1:].view(2, 128, 2, 64)
+        v = torch.randn((2, 128, 2, 64), generator=gen,
+                        device="cuda").to(dtype)
+        o, lse = K.flash_attention_fwd(q, k, v, causal=True, scale=0.125)
+        o_c, lse_c = K.flash_attention_fwd(q.contiguous(), k.contiguous(),
+                                           v, causal=True, scale=0.125)
+        assert torch.equal(o, o_c) and torch.equal(lse, lse_c)
+        o_p, _ = K.flash_attention_fwd_plain(q, k, v, causal=True,
+                                             scale=0.125)
+        assert (o.float() - o_p.float()).abs().max() <= CARD_TOL[dtype]
 
 
 # ----- the float32 backward's arithmetic: 3xTF32 ---------------------------
@@ -402,13 +425,15 @@ def _backward(case, dtype, seed):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_backward_pair_gives_the_same_bits_every_run(dtype):
     """No atomics and a fixed order of sums: two launches on the same
-    inputs give bit-identical dq, dk and dv."""
+    inputs give bit-identical o, lse, dq, dk and dv."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     args, kw = _backward(_card_cases()[0], getattr(torch, dtype), seed=2)
-    first = (K.flash_attention_dq(*args, **kw),
+    first = (*K.flash_attention_fwd(*args[:3], **kw),
+             K.flash_attention_dq(*args, **kw),
              *K.flash_attention_dkv(*args, **kw))
-    second = (K.flash_attention_dq(*args, **kw),
+    second = (*K.flash_attention_fwd(*args[:3], **kw),
+              K.flash_attention_dq(*args, **kw),
               *K.flash_attention_dkv(*args, **kw))
     for a, b in zip(first, second):
         assert torch.equal(a, b)
@@ -419,15 +444,23 @@ def test_backward_pair_gives_the_same_bits_every_run(dtype):
 def test_backward_pair_is_exactly_zero_where_no_key_is_live(dtype):
     """Causal with Tq = 2 Tk: query rows 0..Tk-1 sit before every key;
     a kv_mask leaves batch row 1 with no live key and row 0 with a padded
-    tail. dq of those query rows, and dk/dv of row 1 and of the padded
+    tail. The forward's o of those query rows is exactly 0 and their lse
+    exactly -1e30; dq of those rows, and dk/dv of row 1 and of the padded
     keys, are exactly 0 (p = 0 there, so every term of their sums is)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     case = (2, 512, 256, 4, 2, 64, True, None, True)
     args, kw = _backward(case, getattr(torch, dtype), seed=3)
+    o, lse = K.flash_attention_fwd(*args[:3], **kw)
     dq = K.flash_attention_dq(*args, **kw)
     dk, dv = K.flash_attention_dkv(*args, **kw)
     torch.cuda.synchronize()
+    # the forward: o exactly 0 and lse exactly -1e30 on the dead rows
+    for dead_o, dead_lse in ((o[:, :256], lse[:, :, :256]), (o[1], lse[1])):
+        assert not dead_o.abs().max()
+        assert torch.all(dead_lse == torch.tensor(K.NEG_INF,
+                                                  dtype=torch.float32))
+    assert o[0, 256:].abs().max() > 0 and lse[0, :, 256:].max() > -1e29
     assert not dq[:, :256].abs().max() and not dq[1].abs().max()
     for g in (dk, dv):
         assert not g[1].abs().max() and not g[0, 256 - 100:].abs().max()

@@ -289,7 +289,7 @@ def _mint(model, kv_dtype, jax_side):
         table = jnp.asarray(al.alloc(2))[None]
     else:
         al = PagedKVPool(2, 64, attn0.num_kv_heads, attn0.head_dim,
-                         kv_dtype=kv_dtype, device="cpu")
+                         arrays=False, kv_dtype=kv_dtype, device="cpu")
         table = torch.from_numpy(al.alloc(2))[None]
     return [(al.empty_pool(), al.empty_pool()) for _ in model.blocks], table
 

@@ -1,0 +1,255 @@
+"""Every public callable the port shares with the JAX package accepts the
+JAX package's arguments.
+
+For each module of ``paddle_tpu_torch`` with a counterpart at the same
+path under ``paddle_tpu``, each public function or class defined there
+whose name the counterpart also has is compared by ``inspect.signature``:
+a function as it is, a class by ``__init__`` and by each public method
+that a class of the port defines (methods the port's layers inherit from
+``torch.nn.Module`` are the intended ``nn.Module``-style difference and
+are not compared). A test fails on a parameter of the JAX package's that
+the port lacks, or on shared positional parameters in another order;
+``INTENDED`` lists the differences that are kept, each with its reason.
+
+Then one case per argument that this check made the port accept: its
+ported effect (against the JAX package where it computes something), or
+the typed ``UnimplementedError`` naming its ROADMAP item."""
+
+import importlib
+import inspect
+import pkgutil
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import paddle_tpu as pt
+import paddle_tpu_torch
+from paddle_tpu_torch import initializer as I
+from paddle_tpu_torch import nn as tnn
+from paddle_tpu_torch import optimizer as topt
+from paddle_tpu_torch.core import UnimplementedError
+from paddle_tpu_torch.ops import attention as TA
+from paddle_tpu_torch.ops import paged_kv as TP
+from paddle_tpu_torch.parallel import Trainer
+from paddle_tpu_torch.quant import int8_linear
+from paddle_tpu_torch.serving import PagedKVPool
+
+# "module:qualname" -> {JAX parameter: the port's parameter in its place}.
+# key -> generator: a torch.Generator stands for the JAX PRNG key (the two
+# give different numbers from one seed, so sampled tokens compare in
+# distribution only)
+INTENDED = {
+    "models.gpt:GPTForCausalLM.generate": {"key": "generator"},
+    "ops.sampling:sample_from_logits": {"key": "generator"},
+    "serving:BatchedDecoder.__init__": {"key": "generator"},
+}
+_POSITIONAL = (inspect.Parameter.POSITIONAL_ONLY,
+               inspect.Parameter.POSITIONAL_OR_KEYWORD)
+
+
+def _shared_callables():
+    """(label, port callable, JAX callable) for every shared name."""
+    out = []
+    for info in pkgutil.walk_packages(paddle_tpu_torch.__path__,
+                                      "paddle_tpu_torch."):
+        mod = importlib.import_module(info.name)
+        rest = info.name[len("paddle_tpu_torch."):]
+        try:
+            ref = importlib.import_module("paddle_tpu." + rest)
+        except ModuleNotFoundError:
+            continue         # a port-only module (ops.kernels, ...)
+        for name, obj in sorted(vars(mod).items()):
+            if name.startswith("_") or getattr(obj, "__module__", None) \
+                    != info.name or not (inspect.isfunction(obj)
+                                         or inspect.isclass(obj)):
+                continue
+            robj = getattr(ref, name, None)
+            if robj is None:
+                continue
+            if inspect.isfunction(obj):
+                out.append((f"{rest}:{name}", obj, robj))
+                continue
+            out.append((f"{rest}:{name}.__init__", obj.__init__,
+                        robj.__init__))
+            for meth in sorted(dir(obj)):
+                owner = next((c for c in obj.__mro__ if meth in vars(c)),
+                             None)
+                if meth.startswith("_") or owner is None or not \
+                        owner.__module__.startswith("paddle_tpu_torch."):
+                    continue
+                fn, rfn = getattr(obj, meth), getattr(robj, meth, None)
+                if callable(fn) and callable(rfn):
+                    out.append((f"{rest}:{name}.{meth}", fn, rfn))
+    return out
+
+
+SHARED = _shared_callables()
+
+
+def test_the_comparison_sees_the_shared_surface():
+    labels = {label for label, _, _ in SHARED}
+    for want in ("nn.layers:Linear.__init__", "optimizer.optimizers:Adam."
+                 "__init__", "ops.attention:xla_attention",
+                 "parallel.api:Trainer.supervised", "serving:PagedKVPool."
+                 "__init__", "nn.layers:MultiHeadAttention.attend_kv"):
+        assert want in labels
+    assert set(INTENDED) <= labels
+
+
+@pytest.mark.parametrize("label,port,ref", SHARED,
+                         ids=[label for label, _, _ in SHARED])
+def test_port_takes_every_reference_argument(label, port, ref):
+    ps, rs = inspect.signature(port), inspect.signature(ref)
+    intended = INTENDED.get(label, {})
+    assert all(n in ps.parameters for n in intended.values()), label
+    missing = [n for n, p in rs.parameters.items()
+               if p.kind not in (p.VAR_POSITIONAL, p.VAR_KEYWORD)
+               and n not in ps.parameters and n not in intended]
+    assert not missing, f"{label}: the port lacks {missing}"
+    pos = [n for n, p in ps.parameters.items() if p.kind in _POSITIONAL
+           and n not in intended.values()]
+    rpos = [n for n, p in rs.parameters.items() if p.kind in _POSITIONAL
+            and n not in intended]
+    n = min(len(pos), len(rpos))
+    assert pos[:n] == rpos[:n], f"{label}: positional {pos} != {rpos}"
+
+
+# ----- what each newly accepted argument does ------------------------------
+
+def test_adam_lazy_mode_steps_like_the_dense_rule():
+    rng = np.random.default_rng(0)
+    p0 = rng.normal(size=(4, 3)).astype(np.float32)
+    grads = [rng.normal(size=(4, 3)).astype(np.float32) for _ in range(3)]
+    out = []
+    for lazy in (False, True):
+        p = {"w": torch.from_numpy(p0.copy())}
+        opt = topt.Adam(1e-2, lazy_mode=lazy)
+        state = opt.init(p)
+        for g in grads:
+            opt.apply(p, {"w": torch.from_numpy(g)}, state)
+        out.append(p["w"])
+    assert torch.equal(out[0], out[1])
+
+
+def test_gather_rows_full_keeps_the_whole_view():
+    from paddle_tpu.ops import paged_kv as JP
+
+    rng = np.random.default_rng(1)
+    pool = rng.normal(size=(6, 64, 2, 8)).astype(np.float32)
+    table = np.array([[4, 1, 3], [0, 5, 2]], np.int32)
+    short = TP.gather_rows(torch.from_numpy(pool), torch.from_numpy(table),
+                           upto=64)
+    full = TP.gather_rows(torch.from_numpy(pool), torch.from_numpy(table),
+                          upto=64, full=True)
+    assert short.shape[1] == 64 and full.shape[1] == 3 * 64
+    want = JP.gather_rows(jnp.asarray(pool), jnp.asarray(table), upto=64,
+                          full=True)
+    np.testing.assert_array_equal(full.numpy(), np.asarray(want))
+
+
+def test_linear_and_embedding_initializers():
+    from paddle_tpu import initializer as JI
+
+    tl = tnn.Linear(5, 3, weight_init=I.Constant(0.5),
+                    bias_init=I.Constant(0.25), device="cpu")
+    jl = pt.nn.Linear(5, 3, weight_init=JI.Constant(0.5),
+                      bias_init=JI.Constant(0.25))
+    x = np.random.default_rng(2).normal(size=(2, 5)).astype(np.float32)
+    np.testing.assert_allclose(tl(torch.from_numpy(x)).detach().numpy(),
+                               np.asarray(jl(jnp.asarray(x))), atol=1e-6)
+    te = tnn.Embedding(7, 4, weight_init=I.Constant(-1.5), device="cpu")
+    assert torch.all(te.weight == -1.5)
+
+
+def test_dropout_mode_downgrade_in_infer():
+    x = np.random.default_rng(3).normal(size=(3, 4)).astype(np.float32)
+    for mode in ("upscale_in_train", "downgrade_in_infer"):
+        td = tnn.Dropout(0.3, mode=mode).eval()
+        jd = pt.nn.Dropout(0.3, mode=mode)
+        jd.eval()
+        np.testing.assert_allclose(td(torch.from_numpy(x)).numpy(),
+                                   np.asarray(jd(jnp.asarray(x))),
+                                   atol=1e-7)
+
+
+def test_paged_pool_arrays_and_layer_list_layers():
+    al = PagedKVPool(4, 64, 2, 8, device="cpu")
+    assert al.kpool.shape == al.vpool.shape == (4, 64, 2, 8)
+    assert not al.kpool.any()
+    al = PagedKVPool(4, 64, 2, 8, arrays=False, device="cpu")
+    assert al.kpool is None and al.vpool is None
+    layers = tnn.LayerList(layers=[tnn.Linear(2, 2, device="cpu")
+                                   for _ in range(2)])
+    assert [n for n, _ in layers.named_children()] == ["0", "1"]
+    assert isinstance(tnn.Layer(name_scope="block"), torch.nn.Module)
+
+
+def test_flash_shape_ok_takes_causal_and_window():
+    for shape in ((128, 128, 64), (128, 96, 64), (64, 64, 32)):
+        want = TA.flash_shape_ok(*shape)
+        assert TA.flash_shape_ok(*shape, causal=True, window=32) == want
+
+
+def test_attend_kv_masks_by_decode_t_or_attn_mask():
+    """The reference's attend_kv call shape: with ``decode_t`` the decode
+    wrapper masks by the cursors, with ``attn_mask`` the plain path does;
+    both give the same attention."""
+    torch.manual_seed(0)
+    mha = tnn.MultiHeadAttention(32, 4, num_kv_heads=2, rotary=True,
+                                 device="cpu").eval()
+    k, v = torch.randn(2, 16, 2, 8), torch.randn(2, 16, 2, 8)
+    x = torch.randn(2, 1, 32)
+    t = torch.tensor([5, 11], dtype=torch.int32)
+    pos = t[:, None]
+    by_cursor = mha.attend_kv(x, k, v, q_positions=pos, decode_t=t)
+    by_mask = mha.attend_kv(x, k, v, attn_mask=TA.cache_keep_mask(pos, 16),
+                            q_positions=pos)
+    torch.testing.assert_close(by_cursor, by_mask, atol=1e-6, rtol=0)
+
+
+def _raises(item, fn, *args, **kw):
+    with pytest.raises(UnimplementedError, match=item):
+        fn(*args, **kw)
+
+
+def test_unported_arguments_raise_naming_their_item():
+    q = torch.zeros((1, 64, 2, 64))
+    cpu = dict(device="cpu")
+    _raises("queue 1 item 2", tnn.Embedding, 8, 4, is_sparse=True, **cpu)
+    _raises("queue 1 item 11", tnn.MultiHeadAttention, 32, 4,
+            seq_parallel="ring", **cpu)
+    mha = tnn.MultiHeadAttention(32, 4, **cpu)
+    _raises("queue 2 item 1", mha, torch.zeros(1, 4, 32),
+            segment_ids=torch.zeros(1, 4))
+    _raises("queue 2 item 1", TA.scaled_dot_product_attention, q, q, q,
+            dropout_key=object())
+    _raises("queue 2 item 1", TA.xla_attention, q, q, q,
+            segment_ids=torch.zeros((1, 64)))
+    _raises("queue 1 item 3", TA.xla_attention, q, q, q, dropout_p=0.1)
+    _raises("queue 2 item 1", TA.xla_attention, q, q, q,
+            dropout_key=object())
+    model = tnn.Linear(2, 2, device="cpu")
+    opt = topt.Adam(1e-3)
+    _raises("queue 1 item 1", Trainer, model, opt, lambda *a: None,
+            build_strategy=object())
+    _raises("queue 1 item 11", Trainer.supervised, model, opt,
+            lambda o, y: o.sum(), mesh=object())
+    _raises("queue 1 item 9", Trainer.supervised, model, opt,
+            lambda o, y: o.sum(), aux_loss_weight=0.01)
+    _raises("queue 1 item 9", Trainer.supervised, model, opt,
+            lambda o, y: o.sum(), router_z_loss_weight=1e-3)
+    entry = {"weight_int8": torch.zeros((4, 2), dtype=torch.int8),
+             "weight_scale": torch.ones(2), "act_scale": torch.tensor(1.0)}
+    _raises("queue 2 item 3", int8_linear, torch.zeros(3, 4), entry,
+            use_pallas=True)
+    _raises("queue 2 item 3", int8_linear, torch.zeros(3, 4), entry,
+            interpret=True)
+    # at their defaults they change nothing
+    assert Trainer.supervised(model, opt, lambda o, y: o.sum(), mesh=None,
+                              aux_loss_weight=0.0,
+                              router_z_loss_weight=0.0) is not None
+    torch.testing.assert_close(
+        TA.xla_attention(q, q, q, dropout_p=0.0, dropout_key=None,
+                         segment_ids=None), TA.xla_attention(q, q, q))

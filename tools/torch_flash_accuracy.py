@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
-"""Float32 accuracy of the flash-attention backward pair on the CUDA
-card, against a float64 reference. For each of chip_smoke.py's flash
-cases, and a longer walk (B=1, T=2048, H=12, Hkv=1: dk/dv sum over 12 x
-2048 query rows), the same inputs, lse and delta go through the kernels
-(``flash_attention_dq``, ``flash_attention_dkv``), their plain versions
-and a float64 version of the same formulas. Printed per case: the max
-abs error of dq, dk and dv for kernel against float64, plain against
-float64, and kernel against plain (what chip_smoke.py holds to 1e-4),
-with the largest |dv|; last, each output's worst ratio of the kernel's
-error to the plain version's.
+"""Float32 accuracy of the flash-attention kernels on the CUDA card,
+against a float64 reference. For each of chip_smoke.py's flash cases,
+and a longer walk (B=1, T=2048, H=12, Hkv=1: dk/dv sum over 12 x 2048
+query rows), the same inputs go through the forward
+(``flash_attention_fwd``: o and lse), its plain version and a float64
+version of the same formulas; then the kernel's lse and delta go
+through the backward pair (``flash_attention_dq``,
+``flash_attention_dkv``), their plain versions and the float64 formulas.
+Printed per case: the max abs error of o, lse, dq, dk and dv for kernel
+against float64, plain against float64, and kernel against plain (what
+chip_smoke.py holds to 1e-4), with the largest |dv|; last, each
+output's worst ratio of the kernel's error to the plain version's.
 
     python3 tools/torch_flash_accuracy.py [--tree DIR]
 
@@ -26,6 +28,33 @@ import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LONG_WALK = (1, 2048, 2048, 12, 1, 64, True, None, False)
+
+
+def forward64(FK, q, k, v, kw):
+    """o and lse in float64 from the forward's formulas: the masked
+    softmax over the live keys; a row with none gets o = 0 and lse equal
+    to the kernels' float32 -1e30."""
+    import torch
+
+    b, tq, h, d = q.shape
+    tk, hkv = k.shape[1], k.shape[2]
+    g = h // hkv
+    q5 = q.double().reshape(b, tq, hkv, g, d)
+    s = torch.einsum("bqkgd,btkd->bkgqt", q5, k.double()) * kw["scale"]
+    keep = FK._keep(b, tq, tk, kw["causal"], kw["window"], kw["kv_mask"],
+                    q.device)
+    s = torch.where(keep, s, -torch.inf)
+    m = s.amax(-1, keepdim=True)
+    live = torch.isfinite(m)
+    p = torch.exp(s - torch.where(live, m, 0.0))
+    l = p.sum(-1, keepdim=True)
+    o = torch.einsum("bkgqt,btkd->bkgqd", p, v.double()) / torch.where(
+        live, l, 1.0)
+    o = o.permute(0, 3, 1, 2, 4).reshape(b, tq, h, d)
+    dead = torch.tensor(FK.NEG_INF, dtype=torch.float32).double()
+    lse = torch.where(live, m + torch.log(torch.where(live, l, 1.0)),
+                      dead)[..., 0]
+    return o, lse.reshape(b, h, tq)
 
 
 def reference64(FK, q, k, v, do, lse, delta, kw):
@@ -88,19 +117,21 @@ def main() -> int:
     print(f"[card] {smi}; tree {tree}", flush=True)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(args.seed)
-    names = ("dq", "dk", "dv")
+    names = ("o", "lse", "dq", "dk", "dv")
     worst = dict.fromkeys(names, 0.0)
     for case in CS.FLASH_CASES + [LONG_WALK]:
         q, k, v, do, km = CS.flash_inputs(torch, case, torch.float32, gen)
         kw = CS.flash_kw(case, km)
         o, lse = FK.flash_attention_fwd(q, k, v, **kw)
+        fwd_plain = FK.flash_attention_fwd_plain(q, k, v, **kw)
+        fwd_ref = forward64(FK, q, k, v, kw)
         delta = (do * o).sum(-1).transpose(1, 2).contiguous()
         args_ = (q, k, v, do, lse, delta)
-        kern = (FK.flash_attention_dq(*args_, **kw),
+        kern = (o, lse, FK.flash_attention_dq(*args_, **kw),
                 *FK.flash_attention_dkv(*args_, **kw))
-        plain = (FK.flash_attention_dq_plain(*args_, **kw),
+        plain = (*fwd_plain, FK.flash_attention_dq_plain(*args_, **kw),
                  *FK.flash_attention_dkv_plain(*args_, **kw))
-        ref = reference64(FK, *args_, kw)
+        ref = (*fwd_ref, *reference64(FK, *args_, kw))
 
         def err(xs, ys):
             return [(x.double() - y.double()).abs().max().item()
@@ -115,8 +146,9 @@ def main() -> int:
 
         print(f"[acc] {case}: kernel-f64 {fmt(ek)} | plain-f64 {fmt(ep)} "
               f"| kernel-plain {fmt(ekp)} | max |dv| "
-              f"{ref[2].abs().max().item():.2f}", flush=True)
-        del args_, kern, plain, ref, q, k, v, do, o, lse, delta
+              f"{ref[4].abs().max().item():.2f}", flush=True)
+        del args_, kern, plain, ref, fwd_plain, fwd_ref, q, k, v, do, o, \
+            lse, delta
         torch.cuda.empty_cache()
     print("[acc] worst kernel-f64 / plain-f64: " + " ".join(
         f"{n} {r:.2f}" for n, r in worst.items()), flush=True)

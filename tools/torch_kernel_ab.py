@@ -41,7 +41,8 @@ Measured, each at the shapes chip_smoke.py uses:
   the whole backward as the training step runs it (delta = rowsum(do *
   o), dq, dk/dv), beside torch's scaled_dot_product_attention backward
   alone on a kept graph (a yardstick the port never calls), and the
-  kernels' max abs error against their plain versions.
+  kernels' max abs error against their plain versions (the forward's o
+  and lse, the backward's dq, dk and dv).
 
 Prints one line per number and, last, one JSON object of them all.
 """
@@ -244,6 +245,13 @@ def flash_rows(torch, flush, n, out):
             out[key] = both(torch, fn, flush, n)
             print(f"[ab] {key}: flush {out[key]['flush']:.4f} ms, sleep "
                   f"{out[key]['sleep']:.4f} ms", flush=True)
+        o_p, lse_p = FK.flash_attention_fwd_plain(q, k, v, **kw)
+        err = max((o.float() - o_p.float()).abs().max().item(),
+                  (lse - lse_p).abs().max().item())
+        out[f"flash_forward_err@{dname}"] = err
+        print(f"[ab] flash_forward_err@{dname}: o/lse max abs err against "
+              f"the plain version {err:.3e}", flush=True)
+        del o_p, lse_p
         dq = FK.flash_attention_dq(q, k, v, do, lse, dl, **kw)
         dk, dv = FK.flash_attention_dkv(q, k, v, do, lse, dl, **kw)
         dq_p = FK.flash_attention_dq_plain(q, k, v, do, lse, dl, **kw)
