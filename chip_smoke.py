@@ -77,21 +77,36 @@ Phases, each printed as it runs:
    Tq=64 and 192, where the 128-row blocks of the forward and dq run a
    short last tile; T=4096; D=128 and D=256);
 8. the training slice at full width, bench_gpt's configuration:
-   GPTConfig.small() with remat, max_position=1024, float32, seeded
-   weights, one (8, 1024) batch of seeded ids, Adam(1e-3) through
-   Trainer. First one forward_loss backward on the kernel path is held
-   against the same weights with use_flash=False (plain attention on the
-   card); then, with the launch counters set to 0, one training step must
-   launch the flash forward 24 times (12 blocks + 12 remat recomputes),
-   dq 12 and dk/dv 12 times; then 5 more steps, every loss finite and
+   GPTConfig.small() with remat, max_position=1024, seeded weights (seed
+   5, built anew for each policy), one (8, 1024) batch of seeded ids
+   (seed 6), Adam(1e-3) through Trainer, under each mixed-precision
+   policy in turn: float32 (``[train]``), mixed_bf16, bfloat16 and
+   mixed_fp16 (``[train:<policy>]``; mixed_fp16 through
+   amp.decorate(Adam), which scales the loss). First one forward_loss
+   backward on the kernel path is held against the same weights with
+   use_flash=False (plain attention on the card, in float32 on the
+   operands the policy gives it), both under the policy with backward()
+   after its scope (mixed_fp16 on the loss times the default 2^15 scale)
+   (float32: loss 1e-4, grads 1e-3 of each parameter's largest; the half
+   policies 2e-2 for both; under "bfloat16" the bfloat16 plain path's
+   distance is reported too); then,
+   with the launch counters set to 0, one training step must launch the
+   flash forward 24 times (12 blocks + 12 remat recomputes), dq 12 and
+   dk/dv 12 times, every launch in the policy's flash dtype (bfloat16
+   under "bfloat16", float32 under the others, whose Linears cast their
+   outputs back to float32); then 5 more steps, every loss finite and
    the last below the first, timed on the host clock after a
-   synchronize;
-9. timing of the flash kernels at the training shape (float32, L2
-   flushed): kernel and plain ms, the operation/byte bound, and torch's
-   scaled_dot_product_attention forward (and its backward alone, on a
-   kept graph) as the yardstick; then the whole backward (delta, dq and
-   dk/dv, as the training step runs it) beside that SDPA backward, on a
-   line of its own.
+   synchronize, with peak memory, each half policy's distance from the
+   float32 losses (reported), and mixed_fp16's final scale and skipped
+   steps;
+9. timing of the flash kernels at the training shape in float32 and in
+   bfloat16 (L2 flushed): kernel and plain ms, the operation/byte bound
+   (float32 as three TF32 passes, bfloat16 at the dense bf16 rate), and
+   torch's scaled_dot_product_attention forward (and its backward alone,
+   on a kept graph) as the yardstick; then the whole backward (delta, dq
+   and dk/dv, as the training step runs it) beside that SDPA backward,
+   on a line of its own. The float32 rows take their launches from the
+   float32 step, the bfloat16 rows from the "bfloat16" policy's.
 
 Any failure exits non-zero. The line before the last is the kernels'
 JSON record; the last line is
@@ -188,12 +203,17 @@ FLASH_CASES = [
 # from float64, is most of their gap); bfloat16: one bf16
 # rounding of an output of magnitude < 4 is <= 1.6e-2
 FLASH_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+FLASH_DTYPES = ("float32", "bfloat16")
 # the training check step, kernels against plain attention on the same
-# weights: the loss at atol 1e-4 (float32 sums over 8192 rows of ~10.4),
-# each gradient within 1e-3 of its parameter's largest plain-grad entry
-# (float32 attention summed in another order, carried back through 12
-# blocks)
-LOSS_ATOL, GRAD_RTOL = 1e-4, 1e-3
+# weights, as (loss atol, each gradient's limit relative to its
+# parameter's largest plain-grad entry). float32: 1e-4 (float32 sums over
+# 8192 rows of ~10.4) and 1e-3 (float32 attention summed in another
+# order, carried back through 12 blocks). The half policies: 2e-2 for
+# both, the bfloat16 tolerance: the attention difference can flip a half
+# rounding in a Linear after it, which the float32 limits are too tight
+# for
+TRAIN_TOL = {"float32": (1e-4, 1e-3), "mixed_bf16": (2e-2, 2e-2),
+             "bfloat16": (2e-2, 2e-2), "mixed_fp16": (2e-2, 2e-2)}
 
 
 def log(*a):
@@ -822,13 +842,14 @@ def flash_kw(case, km):
 
 
 def phase_flash_kernels(torch, FK):
-    """Each flash kernel against its plain version; returns the float32
-    max abs error per kernel over every case."""
+    """Each flash kernel against its plain version; returns the max abs
+    error per dtype and kernel over every case."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(4)
-    err = {name: 0.0 for name in FLASH_ROWS}
+    err = {dname: {name: 0.0 for name in FLASH_ROWS}
+           for dname in FLASH_DTYPES}
     for case in FLASH_CASES:
-        for dname in ("float32", "bfloat16"):
+        for dname in FLASH_DTYPES:
             q, k, v, do, km = flash_inputs(torch, case, getattr(torch, dname),
                                            gen)
             kw = flash_kw(case, km)
@@ -855,28 +876,45 @@ def phase_flash_kernels(torch, FK):
             if not ok:
                 raise SystemExit(f"a flash kernel disagrees with its plain "
                                  f"version at {case} {dname}")
-            if dname == "float32":
-                for name, x in (("flash_attention_fwd",
-                                 max(e["o"], e["lse"])),
-                                ("flash_attention_dq", e["dq"]),
-                                ("flash_attention_dkv",
-                                 max(e["dk"], e["dv"]))):
-                    err[name] = max(err[name], x)
+            for name, x in (("flash_attention_fwd", max(e["o"], e["lse"])),
+                            ("flash_attention_dq", e["dq"]),
+                            ("flash_attention_dkv", max(e["dk"], e["dv"]))):
+                err[dname][name] = max(err[dname][name], x)
     return err
 
 
-def flash_counts(FK):
-    return {name: getattr(FK, name).launches for name in FLASH_ROWS}
+def flash_counts(FK, dtype=None):
+    """Launches per flash wrapper: all of them, or those of the ``dtype``
+    instance."""
+    return {name: (getattr(FK, name).launches if dtype is None else
+                   getattr(FK, name).dtype_launches.get(dtype, 0))
+            for name in FLASH_ROWS}
 
 
-def phase_training(torch, FK):
-    """bench_gpt's step at full width: the kernel path against plain
-    attention, exact launch counts, then 5 Adam steps. Returns the
-    launches of the training run and the steps' numbers."""
-    from paddle_tpu_torch import optimizer
+def reset_flash_counts(FK):
+    for name in FLASH_ROWS:
+        getattr(FK, name).launches = 0
+        getattr(FK, name).dtype_launches.clear()
+
+
+def phase_training(torch, FK, policy="float32", f32_losses=None):
+    """bench_gpt's step at full width under the mixed-precision
+    ``policy``: the kernel path against plain attention on the same
+    weights (both under the policy, backward() after the scope has
+    closed), exact launch counts of the policy's flash instances in one
+    step, then 5 Adam steps through Trainer(amp=policy) (mixed_fp16:
+    amp.decorate(Adam), scaled). Returns the launches of the 6 steps by
+    dtype, those of the counted step, and the 5 losses."""
+    from paddle_tpu_torch import amp, optimizer
+    from paddle_tpu_torch.core import policy_scope, set_policy
     from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.ops import attention as TA
     from paddle_tpu_torch.parallel import Trainer
 
+    tag = "[train]" if policy == "float32" else f"[train:{policy}]"
+    flash_dtype = (torch.bfloat16 if policy == "bfloat16"
+                   else torch.float32)
+    loss_atol, grad_rtol = TRAIN_TOL[policy]
     cfg = gpt.GPTConfig.small()
     cfg.max_position, cfg.remat = TT, True
     gen = torch.Generator(device="cuda")
@@ -886,91 +924,150 @@ def phase_training(torch, FK):
                         generator=torch.Generator().manual_seed(6))
     ids = ids.to("cuda")
     params = dict(model.named_parameters())
-    log(f"[train] GPTConfig.small() remat, max_position {TT}, float32, "
-        f"{sum(p.numel() for p in params.values())} parameters; batch "
-        f"({TB}, {TT})")
+    torch.cuda.reset_peak_memory_stats()
+    log(f"{tag} GPTConfig.small() remat, max_position {TT}, policy "
+        f"{policy} (flash operands {flash_dtype}), "
+        f"{sum(p.numel() for p in params.values())} float32 parameters; "
+        f"batch ({TB}, {TT})")
 
-    # 1. the kernel path against plain attention on the same weights
+    # 1. the kernel path against plain attention on the same weights. The
+    # plain attention computes in float32 on the operands the policy
+    # gives it and returns their dtype, as the kernels do: under
+    # "bfloat16" the port's plain path (the JAX package's xla_attention)
+    # rounds its scores, softmax and their grads to bfloat16 and sits
+    # further from that than the kernels; its distance is reported
     model.train()
-    grads, losses = [], []
-    for use_flash in (True, False):
-        for blk in model.blocks:
-            blk.self_attn.use_flash = use_flash
-        n0 = flash_counts(FK)
-        loss = model.forward_loss(ids)
-        loss.backward()
-        launched = {k: v - n0[k] for k, v in flash_counts(FK).items()}
-        if (min(launched.values()) == 0 if use_flash
-                else max(launched.values()) > 0):
-            raise SystemExit(f"check step use_flash={use_flash}: flash "
-                             f"launches {launched}")
-        losses.append(loss.item())
-        grads.append({n: p.grad for n, p in params.items()})
-        for p in params.values():
-            p.grad = None
+    xla = TA.xla_attention
+
+    def plain_f32(q, k, v, **kw):
+        return xla(q.float(), k.float(), v.float(), **kw).to(q.dtype)
+
+    # float16 grads underflow without the loss scale (the Linears' output
+    # grads are ~1e-6 here, below float16's normal range), so the
+    # mixed_fp16 check scales as its trainer does; the ratios below do
+    # not depend on the scale
+    scale = 2.0 ** 15 if policy == "mixed_fp16" else 1.0  # decorate's
+    passes = [("kernels", True, xla), ("plain", False, plain_f32)]
+    if policy == "bfloat16":
+        passes.append(("plain bfloat16", False, xla))
+    grads, losses = {}, {}
+    try:
+        for name, use_flash, attention in passes:
+            TA.xla_attention = attention
+            for blk in model.blocks:
+                blk.self_attn.use_flash = use_flash
+            n0 = flash_counts(FK)
+            with policy_scope(policy):
+                loss = model.forward_loss(ids)
+            (loss * scale).backward()
+            launched = {k: v - n0[k] for k, v in flash_counts(FK).items()}
+            if (min(launched.values()) == 0 if use_flash
+                    else max(launched.values()) > 0):
+                raise SystemExit(f"{tag} check step {name}: flash "
+                                 f"launches {launched}")
+            losses[name] = loss.item()
+            grads[name] = {n: p.grad for n, p in params.items()}
+            for p in params.values():
+                p.grad = None
+    finally:
+        TA.xla_attention = xla
     for blk in model.blocks:
         blk.self_attn.use_flash = True
-    worst = max((grads[0][n] - grads[1][n]).abs().max().item()
-                / max(grads[1][n].abs().max().item(), 1e-30)
-                for n in params)
-    dloss = abs(losses[0] - losses[1])
-    log(f"[train] check step: loss kernels {losses[0]:.6f}, plain "
-        f"{losses[1]:.6f} (|diff| {dloss:.3e}, atol {LOSS_ATOL}); worst "
-        f"grad diff / the parameter's max plain grad {worst:.3e} (limit "
-        f"{GRAD_RTOL})")
-    if not (dloss <= LOSS_ATOL and worst <= GRAD_RTOL):
-        raise SystemExit("the kernel path's loss or grads disagree with "
-                         "plain attention")
+
+    def distance(a, b):
+        """|loss a - loss b|, and the worst over parameters of max |grad
+        a - grad b| / max |grad b|, with that parameter's name."""
+        worst = max(((grads[a][n] - grads[b][n]).abs().max().item()
+                     / max(grads[b][n].abs().max().item(), 1e-30), n)
+                    for n in params)
+        return abs(losses[a] - losses[b]), worst[0], worst[1]
+
+    dloss, worst, where = distance("kernels", "plain")
+    log(f"{tag} check step: loss kernels {losses['kernels']:.6f}, plain "
+        f"{losses['plain']:.6f} (|diff| {dloss:.3e}, atol {loss_atol}); "
+        f"worst grad diff / the parameter's max plain grad {worst:.3e} "
+        f"({where}; limit {grad_rtol})")
+    if "plain bfloat16" in grads:
+        log(f"{tag} reported, not gated: the bfloat16 plain path against "
+            f"the kernels (loss, worst grad) "
+            f"{'%.3e, %.3e (%s)' % distance('kernels', 'plain bfloat16')}; "
+            f"against the float32 plain path "
+            f"{'%.3e, %.3e (%s)' % distance('plain bfloat16', 'plain')}")
+    if not (dloss <= loss_atol and worst <= grad_rtol):
+        raise SystemExit(f"{tag} the kernel path's loss or grads disagree "
+                         "with plain attention")
     del grads
 
     # 2. launch counts of one step, 3. five more steps
-    trainer = Trainer(model, optimizer.Adam(1e-3),
-                      lambda m, batch, g: (m.forward_loss(batch), {}))
+    if policy == "mixed_fp16":
+        opt = amp.decorate(optimizer.Adam(1e-3))     # sets the policy too
+    else:
+        opt = optimizer.Adam(1e-3)
+    trainer = Trainer(model, opt,
+                      lambda m, batch, g: (m.forward_loss(batch), {}),
+                      amp=None if policy == "float32" else policy)
     torch.cuda.synchronize()
-    for name in FLASH_ROWS:
-        getattr(FK, name).launches = 0
+    reset_flash_counts(FK)
     trainer.train_step(ids)
     torch.cuda.synchronize()
     per_step = flash_counts(FK)
+    of_dtype = flash_counts(FK, flash_dtype)
     want = {"flash_attention_fwd": 2 * cfg.num_layers,
             "flash_attention_dq": cfg.num_layers,
             "flash_attention_dkv": cfg.num_layers}
-    log(f"[train] launches in one step: {per_step} (want {want})")
-    if per_step != want:
-        raise SystemExit("a training step launched the flash kernels "
-                         "another number of times")
+    log(f"{tag} launches in one step: {per_step}, of them "
+        f"{str(flash_dtype)[6:]} {of_dtype} (want {want}, all "
+        f"{str(flash_dtype)[6:]})")
+    if per_step != want or of_dtype != want:
+        raise SystemExit(f"{tag} a training step launched the flash "
+                         f"kernels another number of times or in another "
+                         f"dtype")
     losses, secs = [], []
     for _ in range(5):
         t0 = time.perf_counter()
         loss, _ = trainer.train_step(ids)
         losses.append(loss.item())             # synchronises
         secs.append(time.perf_counter() - t0)
-    launches = flash_counts(FK)
+    set_policy("float32")                      # amp.decorate's global set
+    launches = {d: flash_counts(FK, getattr(torch, d))
+                for d in FLASH_DTYPES}
     ms = 1e3 * sum(secs) / len(secs)
-    log(f"[train] 5 Adam steps: losses {[round(x, 6) for x in losses]}; "
+    log(f"{tag} 5 Adam steps: losses {[round(x, 6) for x in losses]}; "
         f"ms per step {[round(1e3 * x, 3) for x in secs]}, mean "
         f"{ms:.3f} ms, {TB * TT / (ms / 1e3):.1f} tokens/s; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; launches "
         f"over the 6 steps {launches}")
+    if f32_losses is not None:
+        log(f"{tag} distance from the float32 run's 5 losses (reported, "
+            f"not gated): max "
+            f"{max(abs(a - b) for a, b in zip(losses, f32_losses)):.3e}, "
+            f"last {losses[-1] - f32_losses[-1]:+.3e}")
+    if policy == "mixed_fp16":
+        skipped = 6 - trainer.opt_state["inner"]["step"]
+        log(f"{tag} final loss scale "
+            f"{opt.current_scale(trainer.opt_state).item()}, skipped "
+            f"steps {skipped} of 6")
     if not (all(math.isfinite(x) for x in losses)
             and losses[-1] < losses[0]):
-        raise SystemExit(f"training losses not finite and falling: "
+        raise SystemExit(f"{tag} training losses not finite and falling: "
                          f"{losses}")
-    return launches, per_step
+    return launches, per_step, losses
 
 
-def phase_flash_timing(torch, FK, err, launches, per_step):
-    """The three flash kernels at the training shape, float32."""
+def phase_flash_timing(torch, FK, err, launches, per_step, dname):
+    """The three flash kernels at the training shape in ``dname``
+    (float32 or bfloat16): kernel, plain and SDPA ms, and the bound."""
     import torch.nn.functional as F
 
     case = FLASH_CASES[0]
     b, t, _, h, hkv, d = case[:6]
+    dtype = getattr(torch, dname)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(7)
-    q, k, v, do, _ = flash_inputs(torch, case, torch.float32, gen)
+    q, k, v, do, _ = flash_inputs(torch, case, dtype, gen)
     kw = flash_kw(case, None)
     o, lse = FK.flash_attention_fwd(q, k, v, **kw)
-    delta = (do * o).sum(-1).transpose(1, 2).contiguous()
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
 
     # the yardstick, never called by the port: one SDPA call, and its
@@ -989,9 +1086,15 @@ def phase_flash_timing(torch, FK, err, launches, per_step):
         torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)
 
     live = b * h * t * (t + 1) // 2          # causal, Tq == Tk
-    qo = b * t * h * d * 4                   # one (B, T, H, D) float32
-    kv = b * t * hkv * d * 4
-    row = b * h * t * 4                      # lse or delta
+    item = q.element_size()
+    qo = b * t * h * d * item                # one (B, T, H, D) operand
+    kv = b * t * hkv * d * item
+    row = b * h * t * 4                      # lse or delta, float32
+    # float32: three TF32 passes at the TF32 rate; bfloat16: one pass at
+    # the dense bf16 tensor-core rate
+    passes, rate = ((TF32_PASSES, TF32_FLOPS) if dname == "float32"
+                    else (1, PEAK_FLOPS["bfloat16"]))
+    suffix = "" if dname == "float32" else f"[{dname}]"
     cases = {
         "flash_attention_fwd": (
             lambda: FK.flash_attention_fwd(q, k, v, **kw),
@@ -1014,16 +1117,15 @@ def phase_flash_timing(torch, FK, err, launches, per_step):
         plain_ms = time_ms(torch, plain, flush, n=5)
         lib_ms = time_ms(torch, lib, flush, n=20)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = (TF32_PASSES * live * flops_per_score / TF32_FLOPS
-                 * 1e3)
+        t_ops = passes * live * flops_per_score / rate * 1e3
         bound_ms = max(t_bytes, t_ops)
         bound_by = "bytes" if t_bytes >= t_ops else "operations"
-        log(f"[time] {name} float32 {case[:6]} causal: kernel {ms:.4f} ms, "
+        log(f"[time] {name} {dname} {case[:6]} causal: kernel {ms:.4f} ms, "
             f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms; "
             f"{live * flops_per_score} flops, {nbytes} bytes, bound "
             f"{bound_ms:.4f} ms ({bound_by}), {100 * bound_ms / ms:.1f}% of "
             f"the bound; {per_step[name]} launches per training step")
-        rows.append(dict(name=name, route="cuda",
+        rows.append(dict(name=name + suffix, route="cuda",
                          source="paddle_tpu_torch/csrc/flash_attention.cu",
                          replaces=FLASH_ROWS[name]["replaces"],
                          launches=launches[name], max_abs_err=err[name],
@@ -1037,7 +1139,7 @@ def phase_flash_timing(torch, FK, err, launches, per_step):
 
     bwd_ms = time_ms(torch, whole_bwd, flush, n=20)
     lib_ms = time_ms(torch, sdpa_bwd, flush, n=20)
-    log(f"[time] whole backward (delta + dq + dk/dv) float32 "
+    log(f"[time] whole backward (delta + dq + dk/dv) {dname} "
         f"{case[:6]} causal: {bwd_ms:.4f} ms; SDPA backward {lib_ms:.4f} "
         f"ms ({bwd_ms / lib_ms:.3f}x)")
     return rows
@@ -1055,9 +1157,12 @@ def main() -> int:
     from paddle_tpu_torch.ops.kernels import quant_matmul as QM
     from paddle_tpu_torch.serving import PagedKVPool
 
-    # float32 matmuls in full float32 (no TF32), stated and set
+    # float32 matmuls in full float32 (no TF32), and half-precision
+    # matmuls that reduce in float32 (XLA's accumulation), stated and set
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
     log(f"[device] {kind} x{count}; torch {torch.__version__}, CUDA "
@@ -1129,9 +1234,18 @@ def main() -> int:
                              qmm_launches)
 
     flash_err = phase_flash_kernels(torch, FK)
-    flash_launches, per_step = phase_training(torch, FK)
-    rows += phase_flash_timing(torch, FK, flash_err, flash_launches,
-                               per_step)
+    # the float32 step's flash launches make the float32 rows' record,
+    # the "bfloat16" policy's step the bfloat16 rows'
+    f32_launches, f32_step, f32_losses = phase_training(torch, FK)
+    phase_training(torch, FK, "mixed_bf16", f32_losses)
+    bf16_launches, bf16_step, _ = phase_training(torch, FK, "bfloat16",
+                                                 f32_losses)
+    phase_training(torch, FK, "mixed_fp16", f32_losses)
+    rows += phase_flash_timing(torch, FK, flash_err["float32"],
+                               f32_launches["float32"], f32_step, "float32")
+    rows += phase_flash_timing(torch, FK, flash_err["bfloat16"],
+                               bf16_launches["bfloat16"], bf16_step,
+                               "bfloat16")
     log(f"[card] {smi}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -11,9 +11,9 @@ CUDA card unless the caller passes ``device="cpu"``.
 
 __version__ = "0.1.0"
 
-from . import core
+from . import amp, core
 from .core import (EnforceError, UnimplementedError, make_generator,
                    resolve_device)
 
-__all__ = ["core", "EnforceError", "UnimplementedError", "make_generator",
-           "resolve_device"]
+__all__ = ["amp", "core", "EnforceError", "UnimplementedError",
+           "make_generator", "resolve_device"]

@@ -1,6 +1,8 @@
-"""Core runtime of the port: errors, dtypes, devices, random streams."""
+"""Core runtime of the port: errors, dtypes and the mixed-precision
+policy, devices, random streams."""
 
-from .dtypes import default_dtype, to_dtype
+from .dtypes import (Policy, default_dtype, get_policy, policy_scope,
+                     set_policy, to_dtype)
 from .enforce import (DeviceUnavailableError, EnforceError,
                       InvalidArgumentError, KernelCompileError,
                       KernelLaunchError, UnimplementedError, enforce)
@@ -8,7 +10,8 @@ from .places import resolve_device
 from .random import make_generator
 
 __all__ = [
-    "default_dtype", "to_dtype",
+    "Policy", "default_dtype", "get_policy", "policy_scope", "set_policy",
+    "to_dtype",
     "DeviceUnavailableError", "EnforceError", "InvalidArgumentError",
     "KernelCompileError", "KernelLaunchError", "UnimplementedError",
     "enforce", "resolve_device", "make_generator",

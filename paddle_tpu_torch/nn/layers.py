@@ -15,7 +15,7 @@ from typing import Optional
 import torch
 
 from .. import initializer as I
-from ..core.dtypes import to_dtype
+from ..core.dtypes import get_policy, to_dtype
 from ..core.enforce import UnimplementedError, enforce
 from ..core.places import resolve_device
 from ..ops import nn as ON
@@ -33,7 +33,8 @@ def _apply_act(x, act: Optional[str]):
 
 
 class Linear(Layer):
-    """FC layer: ``act(x @ weight (+ bias))``, weight (in, out).
+    """FC layer: ``act(x @ weight (+ bias))``, weight (in, out), under
+    the current mixed-precision policy.
     ``weight_init``/``bias_init``: initializers of the port's
     ``initializer`` module (default XavierUniform and Constant(0))."""
 
@@ -55,10 +56,15 @@ class Linear(Layer):
                                   generator=generator)
 
     def forward(self, x):
-        out = torch.matmul(x, self.weight)
+        # the policy's casts (core/dtypes.py): x, weight and bias to the
+        # compute dtype, the product and bias add there, the result to
+        # the output dtype before ``act``; the parameters stay masters
+        pol = get_policy()
+        out = torch.matmul(pol.cast_to_compute(x),
+                           pol.cast_to_compute(self.weight))
         if self.has_bias:
-            out = out + self.bias
-        return _apply_act(out, self.act)
+            out = out + pol.cast_to_compute(self.bias)
+        return _apply_act(pol.cast_to_output(out), self.act)
 
 
 class RMSNorm(Layer):

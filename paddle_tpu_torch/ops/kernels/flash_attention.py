@@ -37,7 +37,8 @@ r + Tk - Tq (bottom-right causal alignment).
 
 Dispatch: a wrapper takes the plain version only for tensors on the CPU.
 For a CUDA tensor it launches the kernel or raises; there is no
-fallback. Each wrapper counts its launches in ``.launches``.
+fallback. Each wrapper counts its launches in ``.launches``, and those of
+each dtype instance in ``.dtype_launches`` ({torch dtype: count}).
 
 Types: float32 and bfloat16. As in the TPU kernels, p is rounded to the
 input type before p.v and p^T.do, ds before ds.k and ds^T.q, and every
@@ -188,7 +189,8 @@ def _lib():
 
 
 def _check(q, k, v, window, kv_mask, *extra):
-    """Shapes for every caller; device, dtype and strides for the card."""
+    """Shapes and q's dtype for every caller; device, the other operands'
+    dtypes and strides for the card."""
     b, tq, h, d = q.shape
     tk, kv_h = k.shape[1], k.shape[2]
     enforce(tuple(k.shape) == tuple(v.shape) and k.shape[0] == b
@@ -202,6 +204,11 @@ def _check(q, k, v, window, kv_mask, *extra):
     enforce(kv_mask is None or tuple(kv_mask.shape) == (b, tk),
             "kv_mask must be (B, Tk) = (%s, %s), got %s", b, tk,
             None if kv_mask is None else tuple(kv_mask.shape))
+    if q.dtype not in _DTYPE_CODE:
+        # the plain versions stand in for the kernels on the CPU, so they
+        # refuse what the kernels refuse (float16 among them)
+        raise InvalidArgumentError(
+            f"the flash kernels take float32 or bfloat16, got {q.dtype}")
     if q.device.type == "cpu":
         return
     enforce(q.is_cuda, "flash attention runs on cuda or cpu, got %s",
@@ -222,9 +229,6 @@ def _check(q, k, v, window, kv_mask, *extra):
         if x.stride(-1) != 1:
             raise InvalidArgumentError(
                 "flash attention operands need a unit head_dim stride")
-    if q.dtype not in _DTYPE_CODE:
-        raise InvalidArgumentError(
-            f"the flash kernels take float32 or bfloat16, got {q.dtype}")
 
 
 def _row_stats(x, b, h, tq):
@@ -281,6 +285,13 @@ def _launch(fn_name, q, a):
             f"{fn_name} launch failed: cudaGetLastError() = {rc}")
 
 
+def _count(wrapper, dtype):
+    """One launch of ``wrapper``'s kernel: its count, and the count of
+    its ``dtype`` instance in ``.dtype_launches``."""
+    wrapper.launches += 1
+    wrapper.dtype_launches[dtype] = wrapper.dtype_launches.get(dtype, 0) + 1
+
+
 def flash_attention_fwd(q, k, v, *, causal: bool, scale: float,
                         window: Optional[int] = None, kv_mask=None):
     """Attention of q (B, Tq, H, D) over k/v (B, Tk, Hkv, D). Returns
@@ -298,11 +309,12 @@ def flash_attention_fwd(q, k, v, *, causal: bool, scale: float,
     kvm = _mask_u8(kv_mask, q.device)
     _launch("pt_flash_fwd", q, _args(q, k, v, None, causal, scale, window,
                                      kvm, o=o, lse_out=lse))
-    flash_attention_fwd.launches += 1
+    _count(flash_attention_fwd, q.dtype)
     return o, lse
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.dtype_launches = {}
 
 
 def flash_attention_dq(q, k, v, do, lse, delta, *, causal: bool,
@@ -322,11 +334,12 @@ def flash_attention_dq(q, k, v, do, lse, delta, *, causal: bool,
     kvm = _mask_u8(kv_mask, q.device)
     _launch("pt_flash_dq", q, _args(q, k, v, do, causal, scale, window, kvm,
                                     lse=lse, delta=delta, dq=dq))
-    flash_attention_dq.launches += 1
+    _count(flash_attention_dq, q.dtype)
     return dq
 
 
 flash_attention_dq.launches = 0
+flash_attention_dq.dtype_launches = {}
 
 
 def flash_attention_dkv(q, k, v, do, lse, delta, *, causal: bool,
@@ -348,8 +361,9 @@ def flash_attention_dkv(q, k, v, do, lse, delta, *, causal: bool,
     _launch("pt_flash_dkv", q, _args(q, k, v, do, causal, scale, window,
                                      kvm, lse=lse, delta=delta, dk=dk,
                                      dv=dv))
-    flash_attention_dkv.launches += 1
+    _count(flash_attention_dkv, q.dtype)
     return dk, dv
 
 
 flash_attention_dkv.launches = 0
+flash_attention_dkv.dtype_launches = {}

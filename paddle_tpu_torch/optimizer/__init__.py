@@ -1,7 +1,8 @@
-"""Optimizers and learning-rate schedules of the port (counterpart of
-paddle_tpu/optimizer)."""
+"""Optimizers, learning-rate schedules and the loss scaler of the port
+(counterpart of paddle_tpu/optimizer)."""
 
 from . import lr_scheduler
+from .loss_scaler import DynamicLossScaler
 from .lr_scheduler import (Constant, CosineDecay, ExponentialDecay,
                            InverseTimeDecay, LinearWarmup, LRSchedule,
                            NaturalExpDecay, NoamDecay, PiecewiseDecay,
@@ -9,8 +10,8 @@ from .lr_scheduler import (Constant, CosineDecay, ExponentialDecay,
 from .optimizers import SGD, Adam, AdamW, Optimizer
 
 __all__ = [
-    "lr_scheduler", "Constant", "CosineDecay", "ExponentialDecay",
-    "InverseTimeDecay", "LinearWarmup", "LRSchedule", "NaturalExpDecay",
-    "NoamDecay", "PiecewiseDecay", "PolynomialDecay", "make_schedule",
-    "SGD", "Adam", "AdamW", "Optimizer",
+    "lr_scheduler", "DynamicLossScaler", "Constant", "CosineDecay",
+    "ExponentialDecay", "InverseTimeDecay", "LinearWarmup", "LRSchedule",
+    "NaturalExpDecay", "NoamDecay", "PiecewiseDecay", "PolynomialDecay",
+    "make_schedule", "SGD", "Adam", "AdamW", "Optimizer",
 ]

@@ -5,14 +5,26 @@ The JAX Trainer owns functional (params, buffers, opt_state) and a
 jitted step. Here the model's own parameters are the state: a step runs
 the loss builder, ``backward()``, and the optimizer's in-place update.
 PyTorch runs eagerly, so there is nothing to compile; ``train_steps`` is
-a Python loop."""
+a Python loop.
+
+``amp=`` names a mixed-precision policy (core/dtypes.py) that the loss
+builder runs under; ``backward()`` runs after the scope has closed, as
+the JAX Trainer's gradient is taken outside its trace-time scope (the
+model's remat recompute re-enters the policy itself). With a
+``MixedPrecisionOptimizer`` (amp.decorate) the backward runs on the
+scaled loss and the step returns the unscaled one. ``grad_accum_steps``
+= k > 1 adds each micro-step's grads to an accumulator and applies the
+optimizer to accumulator / k on the k-th."""
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
+from ..amp import MixedPrecisionOptimizer
+from ..core.dtypes import POLICIES, policy_scope
 from ..core.enforce import UnimplementedError, enforce
 from ..core.random import make_generator
 from ..optimizer.optimizers import Optimizer
@@ -45,53 +57,82 @@ class Trainer:
                             ("grad_compression", grad_compression)):
             if value is not None:
                 raise UnimplementedError(f"Trainer {name}= {_MULTI_DEVICE}")
-        if amp is not None:
-            raise UnimplementedError(
-                "Trainer amp= is not ported yet: ROADMAP queue 1 item 3 "
-                "(amp.py)")
+        if isinstance(amp, str):
+            enforce(amp in POLICIES, "unknown amp policy %s (one of %s)",
+                    amp, sorted(POLICIES))
         enforce(grad_accum_steps >= 1, "grad_accum_steps must be >= 1")
-        if grad_accum_steps > 1:
-            raise UnimplementedError(
-                "Trainer grad_accum_steps > 1 is not ported yet: ROADMAP "
-                "queue 1 item 3")
         self.model = model
         self.optimizer = optimizer
         self.loss_builder = loss_builder
+        self.amp_policy = amp
+        self.grad_accum_steps = grad_accum_steps
         self.params: Dict[str, torch.nn.Parameter] = dict(
             model.named_parameters())
         self.opt_state = optimizer.init(self.params)
-        self._generator = make_generator(
-            0, next(iter(self.params.values())).device)
+        device = next(iter(self.params.values())).device
+        self._generator = make_generator(0, device)
+        if grad_accum_steps > 1:
+            self._accum = {name: torch.zeros_like(p)
+                           for name, p in self.params.items()}
+            self._accum_count = 0
+
+    def _scope(self):
+        return (policy_scope(self.amp_policy) if self.amp_policy
+                else contextlib.nullcontext())
 
     def train_step(self, batch) -> Tuple[torch.Tensor, Dict[str, Any]]:
-        """One update: loss, backward, optimizer. Returns the loss
-        (detached, on the device: reading it syncs) and the metrics."""
+        """One micro-step: loss, backward, and the optimizer's update (on
+        every k-th micro-step when accumulating). Returns the (unscaled)
+        loss, detached, on the device (reading it syncs), and the
+        metrics."""
         self.model.train()
         for p in self.params.values():
             p.grad = None
-        loss, metrics = self.loss_builder(self.model, batch,
-                                          self._generator)
-        loss.backward()
+        with self._scope():
+            loss, metrics = self.loss_builder(self.model, batch,
+                                              self._generator)
+        if isinstance(self.optimizer, MixedPrecisionOptimizer):
+            self.optimizer.scale_loss(loss, self.opt_state).backward()
+        else:
+            loss.backward()
         grads = {name: (p.grad if p.grad is not None
                         else torch.zeros_like(p))
                  for name, p in self.params.items()}
-        self.optimizer.apply(self.params, grads, self.opt_state)
+        k = self.grad_accum_steps
+        if k == 1:
+            self.optimizer.apply(self.params, grads, self.opt_state)
+        else:
+            with torch.no_grad():
+                for name, g in grads.items():
+                    self._accum[name].add_(g)
+            self._accum_count += 1
+            if self._accum_count >= k:
+                mean = {name: a / k for name, a in self._accum.items()}
+                self.optimizer.apply(self.params, mean, self.opt_state)
+                for a in self._accum.values():
+                    a.zero_()
+                self._accum_count = 0
         return loss.detach(), _detach(metrics)
 
     def train_steps(self, batch, n: int):
         """``n`` updates on the same batch; returns the last step's
-        (loss, metrics)."""
+        (loss, metrics). Plain steps only: gradient accumulation goes
+        through ``train_step``."""
+        enforce(self.grad_accum_steps == 1,
+                "train_steps composes with plain steps only (use "
+                "train_step for gradient merge)")
         enforce(n >= 1, "train_steps needs n >= 1, got %s", n)
         for _ in range(n):
             out = self.train_step(batch)
         return out
 
     def eval_step(self, batch):
-        """(loss, metrics) in eval mode, without gradients."""
+        """(loss, metrics) in eval mode, without gradients, under the
+        trainer's policy."""
         was_training = self.model.training
         self.model.eval()
         try:
-            with torch.no_grad():
+            with torch.no_grad(), self._scope():
                 return self.loss_builder(self.model, batch, None)
         finally:
             self.model.train(was_training)

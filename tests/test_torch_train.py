@@ -17,7 +17,20 @@ batch 2, T=64.
   the losses at atol 1e-4. Adam divides each moment by sqrt of the second
   moment, so a parameter whose gradient is near zero moves by about lr
   whatever its sign noise; the losses, not single parameters, are the
-  stable quantity to hold."""
+  stable quantity to hold.
+- Mixed precision: ``forward_loss`` and every grad under ``mixed_bf16``
+  and ``"bfloat16"``, remat off and on, with the flash paths as above and
+  ``backward()`` called after the policy scope has closed (the remat
+  recompute must re-enter the policy). Loss at atol 2e-2, each grad
+  within 2e-2 of its parameter's largest JAX grad entry: bfloat16 keeps 8
+  bits, so each product rounds by up to 2^-8 of its magnitude, and the
+  two frameworks round different partial results. A 3-step
+  ``Trainer(amp="mixed_bf16")`` Adam trajectory: losses at 2e-2.
+- Gradient accumulation (``grad_accum_steps=2``) against the JAX
+  Trainer's: SGD parameters after 2 and 4 micro-steps (and unchanged
+  after 1 and 3) at 1e-5 in float32; with ``amp.decorate`` and
+  ``"mixed_fp16"``, at 1e-3 of each parameter's largest entry (float16
+  keeps 11 bits) and the loss-scale state exactly."""
 
 import jax
 import jax.numpy as jnp
@@ -26,12 +39,16 @@ import pytest
 import torch
 
 import paddle_tpu as pt
+from paddle_tpu import amp as JAMP
 from paddle_tpu import optimizer as JO
 from paddle_tpu import parallel as JP
 from paddle_tpu.models import gpt as JG
 from paddle_tpu.ops import attention as JA
+from paddle_tpu.core import dtypes as JD
+from paddle_tpu_torch import amp as TAMP
 from paddle_tpu_torch import optimizer as TO
-from paddle_tpu_torch.core import UnimplementedError
+from paddle_tpu_torch.core import EnforceError, UnimplementedError
+from paddle_tpu_torch.core import dtypes as TD
 from paddle_tpu_torch.models import gpt as TG
 from paddle_tpu_torch.ops import attention as TA
 from paddle_tpu_torch.parallel import Trainer
@@ -65,14 +82,21 @@ def _close(got, want, atol):
 @pytest.fixture
 def flash_on_cpu(monkeypatch):
     """Open the port's flash gate for CPU tensors, as it is on the card,
-    and count the calls."""
+    and record the dtype of q at each call."""
     calls = []
     real = TA.flash_attention
     monkeypatch.setattr(TA, "_flash_ok", lambda q, k: TA.flash_shape_ok(
         q.shape[1], k.shape[1], q.shape[-1]))
-    monkeypatch.setattr(TA, "flash_attention",
-                        lambda *a, **kw: calls.append(1) or real(*a, **kw))
+    monkeypatch.setattr(TA, "flash_attention", lambda *a, **kw: calls.append(
+        a[0].dtype) or real(*a, **kw))
     return calls
+
+
+@pytest.fixture(autouse=True)
+def float32_policy():
+    yield
+    TD.set_policy("float32")
+    JD.set_policy("float32")
 
 
 @pytest.mark.parametrize("remat", [False, True])
@@ -122,19 +146,19 @@ def test_loss_fn_matches_jax():
            JG.loss_fn(jnp.asarray(logits), jnp.asarray(labels)), 1e-6)
 
 
-def _jax_trainer(jm, opt):
+def _jax_trainer(jm, opt, **kw):
     def loss_builder(params, buffers, rng, batch):
         out, nb = jm.functional_call(params, batch, buffers=buffers,
                                      rng=rng, training=rng is not None,
                                      method="forward_loss")
         return out, ({}, nb)
 
-    return JP.Trainer(jm, opt, loss_builder)
+    return JP.Trainer(jm, opt, loss_builder, **kw)
 
 
-def _torch_trainer(tm, opt):
+def _torch_trainer(tm, opt, **kw):
     return Trainer(tm, opt, lambda model, batch, gen: (
-        model.forward_loss(batch), {}))
+        model.forward_loss(batch), {}), **kw)
 
 
 def test_trainer_sgd_trajectory_matches_jax():
@@ -185,11 +209,127 @@ def test_train_steps_runs_n_updates_and_supervised():
     (dict(mesh=object()), "item 11"), (dict(plan=object()), "item 11"),
     (dict(param_spec={}), "item 11"), (dict(opt_state_rules=object()),
                                        "item 11"),
-    (dict(grad_compression="int8"), "item 11"), (dict(amp="bf16"),
-                                                 "item 3"),
-    (dict(grad_accum_steps=2), "item 3"),
+    (dict(grad_compression="int8"), "item 11"),
 ])
 def test_trainer_unported_arguments_raise(kw, item):
     _, tm = _pair(12)
     with pytest.raises(UnimplementedError, match=item):
         Trainer(tm, TO.SGD(0.1), lambda *a: None, **kw)
+
+
+def test_trainer_unknown_amp_policy_raises():
+    _, tm = _pair(12)
+    with pytest.raises(EnforceError, match="unknown amp policy bf16"):
+        Trainer(tm, TO.SGD(0.1), lambda *a: None, amp="bf16")
+    with pytest.raises(EnforceError, match="grad_accum_steps"):
+        Trainer(tm, TO.SGD(0.1), lambda *a: None, grad_accum_steps=0)
+
+
+# ----- mixed precision ------------------------------------------------------
+
+BF16_TOL = 2e-2
+
+
+@pytest.mark.parametrize("remat", [False, True])
+@pytest.mark.parametrize("policy", ["mixed_bf16", "bfloat16"])
+def test_forward_loss_and_grads_match_jax_under_policy(policy, remat,
+                                                       flash_on_cpu):
+    jm, tm = _pair(13, remat=remat)
+    ids = _ids(14)
+
+    def jloss(p):
+        with JD.policy_scope(policy):
+            out, _ = jm.functional_call(p, jnp.asarray(ids), training=True,
+                                        vocab_chunk=96,
+                                        method="forward_loss")
+        return out
+
+    with JA.force_flash():
+        want, want_g = jax.jit(jax.value_and_grad(jloss))(
+            jm.named_parameters())
+    tm.train()
+    with TD.policy_scope(policy):
+        got = tm.forward_loss(torch.from_numpy(ids), vocab_chunk=96)
+    got.backward()                      # the scope has closed
+    # q reaches the flash kernels in the Linears' output dtype, in the
+    # forward and in each remat recompute
+    q_dtype = torch.bfloat16 if policy == "bfloat16" else torch.float32
+    assert flash_on_cpu == [q_dtype] * (CFG["num_layers"]
+                                        * (2 if remat else 1))
+    assert got.dtype == torch.float32
+    _close(got.detach(), want, BF16_TOL)
+    for name, p in tm.named_parameters():
+        assert p.grad.dtype == torch.float32, name
+        ref = np.abs(np.asarray(want_g[name], np.float32)).max()
+        _close(p.grad, np.asarray(want_g[name], np.float32), BF16_TOL * ref)
+
+
+def test_remat_equals_no_remat_under_mixed_bf16():
+    """The recompute re-enters the forward's policy: with remat the loss
+    and grads are those without it, though backward() runs outside the
+    scope."""
+    _, plain = _pair(15)
+    _, remat = _pair(15, remat=True)
+    ids = torch.from_numpy(_ids(16))
+    for m in (plain, remat):
+        m.train()
+        with TD.policy_scope("mixed_bf16"):
+            loss = m.forward_loss(ids)
+        loss.backward()
+        m.loss = loss.detach()
+    assert torch.equal(plain.loss, remat.loss)
+    for (name, p), q in zip(plain.named_parameters(), remat.parameters()):
+        torch.testing.assert_close(q.grad, p.grad, atol=1e-6, rtol=0,
+                                   msg=name)
+
+
+def test_trainer_mixed_bf16_adam_losses_match_jax():
+    jm, tm = _pair(17)
+    jt = _jax_trainer(jm, JO.Adam(1e-3), amp="mixed_bf16")
+    tt = _torch_trainer(tm, TO.Adam(1e-3), amp="mixed_bf16")
+    ids = _ids(18)
+    losses = []
+    for _ in range(3):
+        jl, _ = jt.train_step(jnp.asarray(ids))
+        tl, _ = tt.train_step(torch.from_numpy(ids))
+        _close(tl, jl, BF16_TOL)
+        losses.append(float(tl))
+    assert losses[-1] < losses[0], losses
+    assert TD.get_policy() == TD.POLICIES["float32"]
+    for p in tm.parameters():
+        assert p.dtype == torch.float32
+
+
+@pytest.mark.parametrize("amp", [None, "mixed_fp16"])
+def test_grad_accum_sgd_matches_jax(amp):
+    jm, tm = _pair(19)
+    if amp is None:
+        jopt, topt = JO.SGD(0.5), TO.SGD(0.5)
+    else:
+        jopt = JAMP.decorate(JO.SGD(0.5), init_loss_scaling=2.0 ** 12)
+        topt = TAMP.decorate(TO.SGD(0.5), init_loss_scaling=2.0 ** 12)
+    jt = _jax_trainer(jm, jopt, amp=amp, grad_accum_steps=2)
+    tt = _torch_trainer(tm, topt, amp=amp, grad_accum_steps=2)
+    before = {n: p.detach().clone() for n, p in tm.named_parameters()}
+    for micro in range(4):
+        ids = _ids(20 + micro)
+        jl, _ = jt.train_step(jnp.asarray(ids))
+        tl, _ = tt.train_step(torch.from_numpy(ids))
+        _close(tl, jl, 1e-5 if amp is None else 1e-3)
+        for name, p in tm.named_parameters():
+            if micro % 2 == 0:          # accumulated, not applied yet
+                assert torch.equal(p.detach(), before[name]), name
+                continue
+            want = np.asarray(jt.params[name])
+            atol = 1e-5 if amp is None else 1e-3 * np.abs(want).max()
+            _close(p.detach(), want, atol)
+        before = {n: p.detach().clone() for n, p in tm.named_parameters()}
+    if amp is None:
+        assert tt.opt_state["step"] == 2
+    else:
+        assert tt.opt_state["inner"]["step"] == 2
+        for key in ("scale", "good_steps", "bad_steps"):
+            assert tt.opt_state["scaler"][key].item() == np.asarray(
+                jt.opt_state["scaler"][key]).item(), key
+    with pytest.raises(EnforceError, match="plain steps only"):
+        tt.train_steps(torch.from_numpy(_ids(24)), 2)

@@ -1,8 +1,11 @@
 #!/usr/bin/env python3
 """Where a training step of the port spends its time, on the CUDA card:
 bench_gpt's configuration (bench.py:411-440) — GPTConfig.small() with
-remat, max_position 1024, float32 (TF32 off), seeded random weights, one
-(8, 1024) batch of seeded ids — under Trainer with Adam(1e-3).
+remat, max_position 1024, seeded random weights, one (8, 1024) batch of
+seeded ids — under Trainer with Adam(1e-3) and the mixed-precision
+policy ``--amp`` (float32 by default; TF32 off, and half-precision
+matmuls reduce in float32). Each policy named runs in turn, in one
+process.
 
 It runs two warm-up steps, times ``--steps`` steps on the host clock with
 the profiler off (each ends in a synchronize), then profiles as many more
@@ -14,6 +17,7 @@ kernels, GEMMs, everything else), and the kernels with the most device
 time.
 
     python3 tools/torch_train_profile.py [--steps 5]
+        [--amp float32 mixed_bf16 bfloat16]
 """
 
 import argparse
@@ -28,7 +32,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 KINDS = (("flash forward", ("flash_fwd_kernel",)),
          ("flash dq", ("flash_dq_kernel",)),
          ("flash dk/dv", ("flash_dkv_kernel",)),
-         ("GEMM", ("gemm", "xmma", "cutlass", "splitKreduce")))
+         # cuBLAS 12.x on Hopper names many GEMMs nvjet_* (bf16 ones too)
+         ("GEMM", ("gemm", "xmma", "cutlass", "splitKreduce", "nvjet")))
 
 
 def kind_of(name: str) -> str:
@@ -47,17 +52,28 @@ def main() -> int:
         return 2
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--amp", nargs="+", default=["float32"],
+                    choices=["float32", "mixed_bf16", "bfloat16"])
     args = ap.parse_args()
-    from paddle_tpu_torch import optimizer
-    from paddle_tpu_torch.models import gpt
-    from paddle_tpu_torch.parallel import Trainer
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)
     print(f"[card] {smi.stdout.strip()}")
+    for policy in args.amp:
+        profile_step(torch, profile, ProfilerActivity, policy, args.steps)
+    return 0
+
+
+def profile_step(torch, profile, ProfilerActivity, policy, n):
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.parallel import Trainer
+
     cfg = gpt.GPTConfig.small()
     cfg.max_position, cfg.remat = 1024, True
     model = gpt.GPTForCausalLM(
@@ -65,26 +81,27 @@ def main() -> int:
     ids = torch.randint(0, cfg.vocab_size, (8, 1024),
                         generator=torch.Generator().manual_seed(6)).cuda()
     trainer = Trainer(model, optimizer.Adam(1e-3),
-                      lambda m, batch, g: (m.forward_loss(batch), {}))
+                      lambda m, batch, g: (m.forward_loss(batch), {}),
+                      amp=policy)
 
-    def run(n):
+    def run(k):
         t0 = time.perf_counter()
-        for _ in range(n):
+        for _ in range(k):
             trainer.train_step(ids)
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
     run(2)                                          # warm-up
-    plain_wall = run(args.steps)
+    plain_wall = run(n)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        wall = run(args.steps)
-    n = args.steps
+        wall = run(n)
+    tag = f"[train:{policy}]"
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in events)
     ops = sum(e.count for e in events)
-    print(f"[train] {n} steps: host wall {1e3 * plain_wall / n:.3f} ms per "
+    print(f"{tag} {n} steps: host wall {1e3 * plain_wall / n:.3f} ms per "
           f"step (profiler on: {1e3 * wall / n:.3f}), device busy "
           f"{busy_us / 1e3 / n:.3f} ms per step, device idle share "
           f"{1 - busy_us / 1e6 / plain_wall:.3f}, {ops / n:.1f} device ops "
@@ -95,12 +112,13 @@ def main() -> int:
         t, c = by_kind.get(k, (0.0, 0))
         by_kind[k] = (t + e.self_device_time_total, c + e.count)
     for k, (t, c) in sorted(by_kind.items(), key=lambda kv: -kv[1][0]):
-        print(f"[train]   {t / 1e3 / n:9.3f} ms/step ({100 * t / busy_us:5.1f}"
+        print(f"{tag}   {t / 1e3 / n:9.3f} ms/step ({100 * t / busy_us:5.1f}"
               f"%) x{c // n:5d}  {k}")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
-        print(f"[train]   {e.self_device_time_total / 1e3 / n:9.3f} ms/step "
-              f"x{e.count // n:4d}  {e.key[:90]}")
-    return 0
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:16]:
+        print(f"{tag}   {e.self_device_time_total / 1e3 / n:9.3f} ms/step "
+              f"x{e.count // n:4d}  {kind_of(e.key)[:5]:5s} {e.key[:90]}")
+    del trainer, model
+    torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":
