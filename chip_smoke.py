@@ -75,7 +75,12 @@ Phases, each printed as it runs:
    gate admits (non-causal; Hkv 12 and 1; window 256; a kv_mask with a
    padded tail and a row with no live key; Tq=512 against Tk=1024;
    Tq=64 and 192, where the 128-row blocks of the forward and dq run a
-   short last tile; T=4096; D=128 and D=256);
+   short last tile; T=4096; D=128 and D=256); then with the options of
+   packed rows and attention dropout (FLASH_OPTION_CASES: segment ids of
+   rows packed with 16-T-token documents and a padding tail, dropout at
+   p 0.1 and 0.5 from seeded (B, H) seeds, both with a kv_mask, causal
+   and not, GQA, D 64 and 128), the same tolerances, both sides on the
+   same seeds;
 8. the training slice at full width, bench_gpt's configuration:
    GPTConfig.small() with remat, max_position=1024, seeded weights (seed
    5, built anew for each policy), one (8, 1024) batch of seeded ids
@@ -106,7 +111,36 @@ Phases, each printed as it runs:
    on a kept graph) as the yardstick; then the whole backward (delta, dq
    and dk/dv, as the training step runs it) beside that SDPA backward,
    on a line of its own. The float32 rows take their launches from the
-   float32 step, the bfloat16 rows from the "bfloat16" policy's.
+   float32 step, the bfloat16 rows from the "bfloat16" policy's;
+10. BERT-base pretraining at full width, BASELINE config 3
+   (``[train:bert_base]``, bench.py:354, and ``[train:bert_packed]``,
+   bench.py:560): BertConfig.base() (12 layers, hidden 768, 12 heads,
+   vocab 30522, dropout 0.1), seeded weights (seed 15), batch 32,
+   sequence 128, mixed_bf16, Adam(1e-3) through Trainer. bert_base's
+   batch is bench.py's (numpy seed 0: ids over every position, MLM
+   labels = the ids, NSP labels) through forward_fused_loss;
+   bert_packed's packs documents of 16-128 tokens (numpy seed 0) with
+   pack_sequences and runs forward_packed_loss with their segment ids.
+   Check steps under mixed_bf16 and float32: the kernels against plain
+   attention on the same weights and, the generator re-seeded before
+   each pass, the same layer-dropout masks and attention seeds (the
+   loss, and each grad relative to its parameter's largest plain grad;
+   float32 within 1e-4 and 1e-3; mixed_bf16 within 2e-2, or within twice
+   the distance of a second plain pass, attention in float64, from the
+   first where that is larger: the bf16 Linears turn float32-rounding
+   differences in attention into ~2e-2 in the q/k projections' grads,
+   the noise floor of two correct computations; the key projections'
+   biases, whose gradient is 0 in exact arithmetic, are reported, not
+   gated); one step launches each flash kernel exactly 12 times, all
+   float32; then 5 Adam steps, finite and falling, with ms per step,
+   samples/s, tokens/s (packed: real tokens too) and peak memory;
+11. the three flash kernels timed at BERT's shape (B=32, T=128, H=12,
+   D=64, non-causal, p=0.1, the packed batch's segment ids; float32 as
+   under mixed_bf16): kernel, plain and SDPA ms (SDPA with the
+   block-diagonal boolean mask and dropout 0.1, a yardstick that draws
+   its own masks), and the bound from this batch's live (same-segment)
+   scores; the rows ``<kernel>[segments+dropout]`` take their launches
+   from bert_packed's counted step.
 
 Any failure exits non-zero. The line before the last is the kernels'
 JSON record; the last line is
@@ -214,6 +248,24 @@ FLASH_DTYPES = ("float32", "bfloat16")
 # for
 TRAIN_TOL = {"float32": (1e-4, 1e-3), "mixed_bf16": (2e-2, 2e-2),
              "bfloat16": (2e-2, 2e-2), "mixed_fp16": (2e-2, 2e-2)}
+# the flash options on the card, (B, T, H, Hkv, D, causal, segments,
+# dropout_p, kv_mask): segments, dropout at 0.1 and 0.5, both with a
+# kv_mask, causal and not, GQA, D 64 and 128; the first is BERT's shape
+FLASH_OPTION_CASES = [
+    (32, 128, 12, 12, 64, False, True, 0.1, False),
+    (4, 256, 12, 4, 64, True, True, 0.0, False),
+    (4, 256, 12, 12, 64, False, False, 0.5, False),
+    (4, 256, 12, 4, 64, True, False, 0.1, False),
+    (4, 192, 8, 2, 64, False, True, 0.1, True),
+    (4, 256, 12, 12, 64, True, True, 0.5, True),
+    (3, 256, 8, 2, 128, True, True, 0.5, True),
+    (3, 256, 8, 8, 128, False, True, 0.1, False),
+]
+OPT = "[segments+dropout]"
+# BERT pretraining, BASELINE config 3 (bench.py:354 bench_bert_base and
+# :560 bench_bert_packed): BertConfig.base(), batch 32, sequence 128,
+# mixed_bf16 (bench.py:2962), Adam(1e-3)
+BB, BT, BERT_POLICY = 32, 128, "mixed_bf16"
 
 
 def log(*a):
@@ -880,7 +932,78 @@ def phase_flash_kernels(torch, FK):
                             ("flash_attention_dq", e["dq"]),
                             ("flash_attention_dkv", max(e["dk"], e["dv"]))):
                 err[dname][name] = max(err[dname][name], x)
+    for case in FLASH_OPTION_CASES:
+        for dname in FLASH_DTYPES:
+            e = option_errors(torch, FK, case, getattr(torch, dname), gen)
+            ok = max(e.values()) <= FLASH_TOL[dname]
+            log(f"[flash] options {case} {dname}: max abs err "
+                + ", ".join(f"{n} {x:.3e}" for n, x in e.items())
+                + f" (atol {FLASH_TOL[dname]}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"a flash kernel disagrees with its plain "
+                                 f"version at {case} {dname}")
+            for name, x in (("flash_attention_fwd", max(e["o"], e["lse"])),
+                            ("flash_attention_dq", e["dq"]),
+                            ("flash_attention_dkv", max(e["dk"], e["dv"]))):
+                err[dname][name + OPT] = max(
+                    err[dname].get(name + OPT, 0.0), x)
     return err
+
+
+def packed_segments(torch, b, t, gen):
+    """(b, t) int32 segment ids of rows packed with documents of 16-t
+    tokens, the last 5 positions a padding tail (segment 0)."""
+    lens = torch.randint(16, t + 1, (b, t), generator=gen, device="cuda")
+    ends = torch.cumsum(lens, 1)
+    pos = torch.arange(t, device="cuda")
+    seg = (pos[None, :, None] >= ends[:, None, :]).sum(-1) + 1
+    seg[:, t - 5:] = 0
+    return seg.to(torch.int32)
+
+
+def flash_option_inputs(torch, case, dtype, gen, seg=None):
+    """q, k, v, do and the keyword arguments of one option case, on the
+    card (``seg``: these segment ids instead of fresh ones)."""
+    b, t, h, hkv, d, causal, segs, p, mask = case
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    q, k, v, do = (rand(b, t, h, d), rand(b, t, hkv, d), rand(b, t, hkv, d),
+                   rand(b, t, h, d))
+    km = seeds = None
+    if segs and seg is None:
+        seg = packed_segments(torch, b, t, gen)
+    if mask:
+        km = torch.ones((b, t), dtype=torch.bool, device="cuda")
+        km[0, t - 50:] = False
+    if p:
+        seeds = torch.randint(-2 ** 31, 2 ** 31 - 1, (b, h), generator=gen,
+                              device="cuda", dtype=torch.int32)
+    return q, k, v, do, dict(causal=causal, scale=d ** -0.5, kv_mask=km,
+                             segment_ids=seg if segs else None, seeds=seeds,
+                             dropout_p=p)
+
+
+def option_errors(torch, FK, case, dtype, gen):
+    """Max abs difference, in float32, of o, lse, dq, dk, dv between each
+    kernel and its plain version on the same inputs and seeds."""
+    q, k, v, do, kw = flash_option_inputs(torch, case, dtype, gen)
+    o, lse = FK.flash_attention_fwd(q, k, v, **kw)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    dq = FK.flash_attention_dq(q, k, v, do, lse, delta, **kw)
+    dk, dv = FK.flash_attention_dkv(q, k, v, do, lse, delta, **kw)
+    o_p, lse_p = FK.flash_attention_fwd_plain(q, k, v, **kw)
+    dq_p = FK.flash_attention_dq_plain(q, k, v, do, lse, delta, **kw)
+    dk_p, dv_p = FK.flash_attention_dkv_plain(q, k, v, do, lse, delta, **kw)
+    torch.cuda.synchronize()
+    for x in (o, dq, dk, dv):
+        if not bool(torch.isfinite(x).all()):
+            raise SystemExit(f"non-finite flash output at {case}")
+    return {n: (a.float() - b.float()).abs().max().item()
+            for n, a, b in (("o", o, o_p), ("lse", lse, lse_p),
+                            ("dq", dq, dq_p), ("dk", dk, dk_p),
+                            ("dv", dv, dv_p))}
 
 
 def flash_counts(FK, dtype=None):
@@ -1052,6 +1175,285 @@ def phase_training(torch, FK, policy="float32", f32_losses=None):
         raise SystemExit(f"{tag} training losses not finite and falling: "
                          f"{losses}")
     return launches, per_step, losses
+
+
+def bert_batch(torch, cfg, packed):
+    """bench.py's batches, from numpy seed 0: bert_base (:380-387) ids
+    over every position, MLM labels = the ids, NSP labels; bert_packed
+    (:582-593) rows that pack_sequences fills with documents of 16-128
+    tokens, the tokens their own MLM labels. Returns (the loss builder's
+    batch tuple, the segment ids or None, the real tokens)."""
+    import numpy as np
+
+    from paddle_tpu_torch.data import pack_sequences
+
+    rng = np.random.default_rng(0)
+
+    def dev(x):
+        return torch.as_tensor(np.asarray(x), dtype=torch.long,
+                               device="cuda")
+
+    if not packed:
+        ids = dev(rng.integers(0, cfg.vocab_size, (BB, BT)))
+        nsp = dev(rng.integers(0, 2, (BB,)))
+        return (ids, ids, nsp), None, BB * BT
+
+    def docs():
+        while True:
+            n = int(rng.integers(16, BT + 1))
+            yield rng.integers(3, cfg.vocab_size, n)
+
+    b = next(iter(pack_sequences(docs, capacity=BT, batch_size=BB)()))
+    tokens = dev(b["tokens"])
+    seg = torch.as_tensor(b["segment_ids"], device="cuda")
+    return ((tokens, dev(b["positions"]), seg, tokens), seg,
+            int((seg > 0).sum()))
+
+
+def bert_loss(model, batch, packed):
+    return (model.forward_packed_loss(*batch) if packed
+            else model.forward_fused_loss(*batch))
+
+
+# a key projection's bias has a gradient of 0 in exact arithmetic (a
+# bias added to every key shifts a softmax row, which cancels): what a
+# run computes there is rounding noise, reported and not gated
+ZERO_GRAD = "self_attn.k_proj.bias"
+
+
+def grad_distance(grads, params, a, b):
+    """The worst over parameters of max |grad a - grad b| / the
+    parameter's largest grad in ``b``, with that parameter's name, for
+    the gated parameters and for the ZERO_GRAD ones."""
+    def worst(names):
+        return max(((grads[a][n] - grads[b][n]).abs().max().item()
+                    / max(grads[b][n].abs().max().item(), 1e-30), n)
+                   for n in names)
+
+    return (worst([n for n in params if not n.endswith(ZERO_GRAD)]),
+            worst([n for n in params if n.endswith(ZERO_GRAD)]))
+
+
+def phase_bert(torch, FK, packed):
+    """BERT-base pretraining at full width through Trainer: the kernel
+    path against plain attention on the same weights and the same
+    dropout masks (the generator re-seeded before each pass) under
+    mixed_bf16 and float32, the exact launches of one step, then 5 Adam
+    steps. Returns the launches of the counted step and the segment ids
+    (packed) or None."""
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.core import policy_scope, rng_scope
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.ops import attention as TA
+    from paddle_tpu_torch.parallel import Trainer
+
+    tag = "[train:bert_packed]" if packed else "[train:bert_base]"
+    cfg = bert.BertConfig.base()
+    model = bert.BertForPretraining(
+        cfg, device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(15))
+    batch, seg, real = bert_batch(torch, cfg, packed)
+    params = dict(model.named_parameters())
+    mhas = [layer.self_attn for layer in model.bert.encoder.layers]
+    torch.cuda.reset_peak_memory_stats()
+    docs = ("" if seg is None else
+            f", {int(seg.max(dim=1).values.sum())} documents, "
+            f"{real} real tokens of {BB * BT}")
+    log(f"{tag} BertConfig.base() ({cfg.num_layers} layers, hidden "
+        f"{cfg.hidden_size}, {cfg.num_heads} heads, vocab {cfg.vocab_size}, "
+        f"dropout {cfg.dropout}), "
+        f"{sum(p.numel() for p in params.values())} float32 parameters; "
+        f"batch ({BB}, {BT}){docs}; policy {BERT_POLICY}")
+
+    # 1. check steps: kernels against plain attention (xla_attention,
+    # which hashes the same seeds), dropout on, the same masks. Under
+    # mixed_bf16 a second plain pass computes attention in float64: two
+    # correct computations whose attention differs only in float32
+    # rounding, whose distance is the noise floor that the bf16 Linears
+    # make of any such difference (on an H100 at 700 W it tops 2e-2 in
+    # the q/k projections' grads at this configuration)
+    model.train()
+    xla = TA.xla_attention
+
+    def plain64(q, k, v, **kw):
+        return xla(q.double(), k.double(), v.double(), **kw).to(q.dtype)
+
+    for policy in (BERT_POLICY, "float32"):
+        loss_atol, grad_rtol = TRAIN_TOL[policy]
+        passes = [("kernels", True, xla), ("plain", False, xla)]
+        if policy != "float32":
+            passes.append(("plain64", False, plain64))
+        grads, losses = {}, {}
+        for name, use_flash, attention in passes:
+            TA.xla_attention = attention
+            for mha in mhas:
+                mha.use_flash = use_flash
+            n0 = flash_counts(FK)
+            gen = torch.Generator(device="cuda").manual_seed(16)
+            try:
+                with policy_scope(policy), rng_scope(gen):
+                    loss = bert_loss(model, batch, packed)
+            finally:
+                TA.xla_attention = xla
+            loss.backward()
+            launched = {k: v - n0[k] for k, v in flash_counts(FK).items()}
+            if (min(launched.values()) == 0 if use_flash
+                    else max(launched.values()) > 0):
+                raise SystemExit(f"{tag} check step {name}: flash launches "
+                                 f"{launched}")
+            losses[name] = loss.item()
+            grads[name] = {n: (torch.zeros_like(p) if p.grad is None
+                               else p.grad) for n, p in params.items()}
+            for p in params.values():
+                p.grad = None
+        for mha in mhas:
+            mha.use_flash = True
+        (worst, where), (noise, nwhere) = grad_distance(
+            grads, params, "kernels", "plain")
+        dloss = abs(losses["kernels"] - losses["plain"])
+        floor = ""
+        if "plain64" in grads:
+            # the limits: 2e-2, or twice the plain passes' own distance
+            # where that is larger
+            (f_worst, f_where), _ = grad_distance(grads, params, "plain64",
+                                                  "plain")
+            f_loss = abs(losses["plain64"] - losses["plain"])
+            loss_atol = max(loss_atol, 2 * f_loss)
+            grad_rtol = max(grad_rtol, 2 * f_worst)
+            floor = (f"; the noise floor, plain float64 attention against "
+                     f"plain: loss {f_loss:.3e}, worst grad {f_worst:.3e} "
+                     f"({f_where}); limits max(2e-2, twice the floor)")
+        log(f"{tag} check step {policy}: loss kernels "
+            f"{losses['kernels']:.6f}, plain {losses['plain']:.6f} (|diff| "
+            f"{dloss:.3e}, atol {loss_atol:.3e}); worst grad diff / the "
+            f"parameter's max plain grad {worst:.3e} ({where}; limit "
+            f"{grad_rtol:.3e}){floor}; the key biases, whose gradient is 0 "
+            f"in exact arithmetic (reported, not gated): {noise:.3e} "
+            f"({nwhere})")
+        if not (dloss <= loss_atol and worst <= grad_rtol
+                and math.isfinite(losses["kernels"])):
+            raise SystemExit(f"{tag} the kernel path's loss or grads "
+                             f"disagree with plain attention ({policy})")
+        del grads
+
+    # 2. launches of one step, 3. five more steps
+    trainer = Trainer(model, optimizer.Adam(1e-3),
+                      lambda m, b, g: (bert_loss(m, b, packed), {}),
+                      amp=BERT_POLICY)
+    torch.cuda.synchronize()
+    reset_flash_counts(FK)
+    trainer.train_step(batch)
+    torch.cuda.synchronize()
+    per_step = flash_counts(FK)
+    f32 = flash_counts(FK, torch.float32)
+    want = {name: cfg.num_layers for name in FLASH_ROWS}
+    log(f"{tag} launches in one step: {per_step}, of them float32 {f32} "
+        f"(want {want}, all float32)")
+    if per_step != want or f32 != want:
+        raise SystemExit(f"{tag} a training step launched the flash kernels "
+                         f"another number of times or in another dtype")
+    losses, secs = [], []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        loss, _ = trainer.train_step(batch)
+        losses.append(loss.item())             # synchronises
+        secs.append(time.perf_counter() - t0)
+    ms = 1e3 * sum(secs) / len(secs)
+    real_rate = ("" if seg is None else
+                 f", {real / (ms / 1e3):.1f} real tokens/s")
+    log(f"{tag} 5 Adam steps: losses {[round(x, 6) for x in losses]}; ms "
+        f"per step {[round(1e3 * x, 3) for x in secs]}, mean {ms:.3f} ms, "
+        f"{BB / (ms / 1e3):.1f} samples/s, {BB * BT / (ms / 1e3):.1f} "
+        f"tokens/s{real_rate}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    if not (all(math.isfinite(x) for x in losses)
+            and losses[-1] < losses[0]):
+        raise SystemExit(f"{tag} training losses not finite and falling: "
+                         f"{losses}")
+    del trainer, model
+    torch.cuda.empty_cache()
+    return per_step, seg
+
+
+def phase_flash_option_timing(torch, FK, err, launches, seg):
+    """The three flash kernels at BERT's shape with the packed batch's
+    segment ids and dropout 0.1 (float32, as under mixed_bf16): kernel,
+    plain and SDPA ms, and the bound from the live (same-segment)
+    scores."""
+    import torch.nn.functional as F
+
+    case = (BB, BT, 12, 12, 64, False, True, 0.1, False)
+    b, t, h, _, d = case[:5]
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    q, k, v, do, kw = flash_option_inputs(torch, case, torch.float32, gen,
+                                          seg=seg)
+    o, lse = FK.flash_attention_fwd(q, k, v, **kw)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+
+    # the yardstick, never called by the port: SDPA with the
+    # block-diagonal mask and its own dropout (its masks differ; the work
+    # is the same)
+    same = (seg[:, None, :, None] == seg[:, None, None, :])
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=same,
+                                         dropout_p=0.1)
+    dot = do.transpose(1, 2)
+
+    def sdpa_fwd():
+        F.scaled_dot_product_attention(qt, kt, vt, attn_mask=same,
+                                       dropout_p=0.1)
+
+    def sdpa_bwd():
+        torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)
+
+    # live scores: same-segment pairs of this batch, every head
+    live = int(same.sum().item()) * h
+    opnd = b * t * h * d * 4                 # one (B, T, H, D) float32
+    row = b * h * t * 4
+    extra = b * t * 4 + b * h * 4            # segment ids, seeds
+    cases = {
+        "flash_attention_fwd": (
+            lambda: FK.flash_attention_fwd(q, k, v, **kw),
+            lambda: FK.flash_attention_fwd_plain(q, k, v, **kw), sdpa_fwd,
+            4 * d, 4 * opnd + row + extra),
+        "flash_attention_dq": (
+            lambda: FK.flash_attention_dq(q, k, v, do, lse, delta, **kw),
+            lambda: FK.flash_attention_dq_plain(q, k, v, do, lse, delta,
+                                                **kw), sdpa_bwd,
+            6 * d, 5 * opnd + 2 * row + extra),
+        "flash_attention_dkv": (
+            lambda: FK.flash_attention_dkv(q, k, v, do, lse, delta, **kw),
+            lambda: FK.flash_attention_dkv_plain(q, k, v, do, lse, delta,
+                                                 **kw), sdpa_bwd,
+            8 * d, 6 * opnd + 2 * row + extra),
+    }
+    rows = []
+    for name, (kern, plain, lib, flops_per_score, nbytes) in cases.items():
+        ms = time_ms(torch, kern, flush, n=20)
+        plain_ms = time_ms(torch, plain, flush, n=5)
+        lib_ms = time_ms(torch, lib, flush, n=20)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = TF32_PASSES * live * flops_per_score / TF32_FLOPS * 1e3
+        bound_ms = max(t_bytes, t_ops)
+        bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        log(f"[time] {name}{OPT} float32 (B={b}, T={t}, H={h}, D={d}, "
+            f"non-causal, p=0.1, packed segments: {live} live scores of "
+            f"{b * h * t * t}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"SDPA with the block-diagonal mask and dropout 0.1 (a "
+            f"yardstick: its own masks) {lib_ms:.4f} ms; "
+            f"{live * flops_per_score} flops, {nbytes} bytes, bound "
+            f"{bound_ms:.4f} ms ({bound_by}), {100 * bound_ms / ms:.1f}% of "
+            f"the bound; {launches[name]} launches per training step")
+        rows.append(dict(name=name + OPT, route="cuda",
+                         source="paddle_tpu_torch/csrc/flash_attention.cu",
+                         replaces=FLASH_ROWS[name]["replaces"]
+                         + " with has_segs and dropout_p > 0",
+                         launches=launches[name], max_abs_err=err[name + OPT],
+                         ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, library_ms=lib_ms))
+    return rows
 
 
 def phase_flash_timing(torch, FK, err, launches, per_step, dname):
@@ -1246,6 +1648,10 @@ def main() -> int:
     rows += phase_flash_timing(torch, FK, flash_err["bfloat16"],
                                bf16_launches["bfloat16"], bf16_step,
                                "bfloat16")
+    phase_bert(torch, FK, packed=False)
+    packed_step, seg = phase_bert(torch, FK, packed=True)
+    rows += phase_flash_option_timing(torch, FK, flash_err["float32"],
+                                      packed_step, seg)
     log(f"[card] {smi}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -7,12 +7,13 @@ from .enforce import (DeviceUnavailableError, EnforceError,
                       InvalidArgumentError, KernelCompileError,
                       KernelLaunchError, UnimplementedError, enforce)
 from .places import resolve_device
-from .random import make_generator
+from .random import current_generator, make_generator, rng_scope
 
 __all__ = [
     "Policy", "default_dtype", "get_policy", "policy_scope", "set_policy",
     "to_dtype",
     "DeviceUnavailableError", "EnforceError", "InvalidArgumentError",
     "KernelCompileError", "KernelLaunchError", "UnimplementedError",
-    "enforce", "resolve_device", "make_generator",
+    "enforce", "resolve_device", "current_generator", "make_generator",
+    "rng_scope",
 ]

@@ -10,14 +10,21 @@
 // aligned) of head h sees key c of kv head h / G (GQA is kv-major, G =
 // H / Hkv) iff keep(r, c): c <= pos when causal; pos - c < window and,
 // without causal, c - pos < window when a window is set; kv_mask[b, c]
-// when a key-padding mask is given. Scores are (q . k) * scale in float32
-// and dead ones take the finite -1e30. The forward keeps a running max m
-// and sum l per row, writes o = acc / l (l == 0 read as 1, so a row with
-// no live key outputs zeros) and lse = m + log(max(l, 1e-37)), which is
-// -1e30 for such a row. The backward recomputes p = exp(s - lse) with
-// p = 0 where s <= -5e29 (without that guard a dead row would give
-// exp(0) = 1), ds = p * (dp - delta) * scale with dp = do . v and delta
-// = rowsum(do * o) computed by the caller. dk and dv come back already
+// when a key-padding mask is given; seg[b, r] == seg[b, c] when the
+// segment ids of packed rows are given (Tq == Tk; segment 0, the padding
+// tail, attends within itself like any other). Scores are (q . k) * scale
+// in float32 and dead ones take the finite -1e30. The forward keeps a
+// running max m and sum l per row, writes o = acc / l (l == 0 read as 1,
+// so a row with no live key outputs zeros) and lse = m + log(max(l,
+// 1e-37)), which is -1e30 for such a row. The backward recomputes p =
+// exp(s - lse) with p = 0 where s <= -5e29 (without that guard a dead row
+// would give exp(0) = 1), ds = p * (dp - delta) * scale with dp = do . v
+// and delta = rowsum(do * o) computed by the caller. Attention dropout
+// (dropout_p > 0): entry (pos, c) of head h is kept where the TPU kernels'
+// counter-based hash of (seeds[b, h], pos, c) says so (dropout_keep, bit
+// for bit, so the backward rebuilds the forward's mask with nothing
+// stored); l sums the undropped p, acc the kept p times 1 / (1 - p); the
+// backward drops dp with the same mask (and dv takes the dropped p). dk and dv come back already
 // summed over the G query heads of each kv head. In bfloat16, p is
 // rounded to bfloat16 before p.v and p^T.do, and ds before ds.k and
 // ds^T.q, as the TPU kernels cast them; every sum is float32.
@@ -126,6 +133,8 @@ struct FlashArgs {
   void* dq;
   void* dk;
   void* dv;
+  const int* seg;    // (B, T) int32 segment ids of packed rows, or null
+  const int* seeds;  // (B, H) int32 dropout seeds; read when dropout_p > 0
   long long q_sb, q_st, q_sh;
   long long k_sb, k_st, k_sh;
   long long v_sb, v_st, v_sh;
@@ -134,6 +143,8 @@ struct FlashArgs {
   int causal;
   int window;  // <= 0: no window
   float scale;
+  float dropout_p;      // 0: no dropout
+  float dropout_scale;  // 1 / (1 - dropout_p), rounded to float32
 };
 
 }  // extern "C"
@@ -167,6 +178,30 @@ __device__ __forceinline__ bool keep(int pos, int c, int causal, int window) {
     if (!causal && c - pos >= window) return false;
   }
   return true;
+}
+
+// The dropout keep decision of the TPU kernels' counter-based hash
+// (_dropout_keep) for query position `row` and key `col` under `seed`, bit
+// for bit: the int32 products wrap there, so they are taken in uint32 here
+// (signed overflow is undefined in C++), the shifts are arithmetic on the
+// int32, and u = (x & 0x7fffffff) * 2^-31 is compared in float32.
+__device__ __forceinline__ uint32_t xsr(uint32_t x, int k) {
+  return x ^ (uint32_t)((int)x >> k);
+}
+__device__ __forceinline__ bool dropout_keep(int seed, int row, int col,
+                                             float p) {
+  uint32_t x = (uint32_t)row * 0x9E3779B9u + (uint32_t)seed;
+  x = xsr(x, 16);
+  x *= 0x85EBCA77u;
+  x = xsr(x, 13);
+  x += (uint32_t)col * 0xC2B2AE3Du;
+  x = xsr(x, 16);
+  x *= 0xBD4286FFu;
+  x = xsr(x, 15);
+  x *= 0x9E3779B9u;
+  x = xsr(x, 16);
+  const float u = (float)(int)(x & 0x7fffffffu) * (1.0f / 2147483648.0f);
+  return u >= p;
 }
 
 // Tiles of width `tile` over keys that query rows [r0, r1] can see.
@@ -505,10 +540,12 @@ __device__ __forceinline__ void st2(__nv_bfloat16* p, float x, float y) {
 
 // Whether every entry of query positions [p0, p1] x keys [c0, c1] is
 // live: the live set is an intersection of half-planes, so its corners
-// decide. A key-padding mask is checked per entry.
+// decide. A key-padding mask and segment ids are checked per entry (with
+// either, no tile counts as full: packed rows would otherwise attend
+// across documents).
 __device__ __forceinline__ bool tile_full(const FlashArgs& a, int p0, int p1,
                                           int c0, int c1) {
-  return !a.kv_mask && keep(p0, c0, a.causal, a.window) &&
+  return !a.kv_mask && !a.seg && keep(p0, c0, a.causal, a.window) &&
          keep(p0, c1, a.causal, a.window) &&
          keep(p1, c0, a.causal, a.window) && keep(p1, c1, a.causal, a.window);
 }
@@ -648,7 +685,7 @@ __host__ __device__ constexpr size_t fwd_smem_bytes() {
   using F = FwdTiles<T, D>;
   constexpr int LD = padded<T, D>();
   return sizeof(T) * (F::rows + 2 * F::stages * F::walk) * LD +
-         F::stages * F::walk * 4 +
+         2 * F::stages * F::walk * 4 +  // key mask and segment ids
          (sizeof(T) == 4 ? 2 * F::walk * LD * 4 : 0);  // lo planes
 }
 
@@ -666,7 +703,7 @@ __host__ __device__ constexpr size_t fwd_smem_bytes() {
 // into TF32 hi and lo once for the block (hi in place, lo to one more k
 // and v tile), where the backward's warps each split as they load: eight
 // warps read every k and v tile, so this does an eighth of the splits.
-template <typename T, int D>
+template <typename T, int D, bool kOpt>
 __global__ void __launch_bounds__(FwdTiles<T, D>::rows * 2,
                                   FwdTiles<T, D>::blocks)
     flash_fwd_kernel(FlashArgs a) {
@@ -679,10 +716,14 @@ __global__ void __launch_bounds__(FwdTiles<T, D>::rows * 2,
   T* k_s = q_s + BR * LD;                   // S x KT x LD
   T* v_s = k_s + S * KT * LD;               // S x KT x LD
   float* km_s = reinterpret_cast<float*>(v_s + S * KT * LD);  // S x KT
-  float* kl_s = km_s + S * KT;  // float32: lo planes, KT x LD each
+  int* sg_s = reinterpret_cast<int*>(km_s + S * KT);           // S x KT
+  // float32: lo planes, KT x LD each
+  float* kl_s = reinterpret_cast<float*>(sg_s + S * KT);
   float* vl_s = kl_s + KT * LD;
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // the options, compiled out of the instances that run without them
+  const int* seg = kOpt ? a.seg : nullptr;
   const int gr = lane >> 2, tg = lane & 3;
   // longest blocks first, as in dq: under causal the last query tiles
   // see the most keys
@@ -717,6 +758,9 @@ __global__ void __launch_bounds__(FwdTiles<T, D>::rows * 2,
     if (a.kv_mask)
       for (int i = threadIdx.x; i < KT; i += NT)
         km_s[buf * KT + i] = (float)a.kv_mask[(long long)b * a.Tk + c0 + i];
+    if (seg)
+      for (int i = threadIdx.x; i < KT; i += NT)
+        sg_s[buf * KT + i] = seg[(long long)b * a.Tk + c0 + i];
   };
   // S - 1 tiles in flight ahead of the one computed (q lands with the
   // first group)
@@ -726,7 +770,16 @@ __global__ void __launch_bounds__(FwdTiles<T, D>::rows * 2,
     cp_async_commit();
   }
 
-  // this lane's two rows: warp * 16 + gr and + 8. A row with no live key
+  // this lane's two rows: warp * 16 + gr and + 8, their segments, and the
+  // dropout seed of (b, h)
+  const int rl = warp * 16 + gr;
+  int qseg[2] = {0, 0};
+  if (seg)
+    for (int i = 0; i < 2; ++i)
+      qseg[i] = seg[(long long)b * a.Tq + min(r0 + rl + 8 * i, a.Tq - 1)];
+  const bool drop = kOpt && a.dropout_p > 0.f;
+  const int seed = drop ? a.seeds[b * a.H + h] : 0;
+  // A row with no live key
   // so far keeps m = -1e30: its p are 0 and its rescale exp(0) = 1, so
   // acc and l stay 0 until a live key arrives (then the rescale is 0).
   // Each tile's p add into l as one sum, compensated (lc holds the
@@ -768,7 +821,8 @@ __global__ void __launch_bounds__(FwdTiles<T, D>::rows * 2,
         const int i = e >> 1, cl = n * 8 + 2 * tg + (e & 1);
         float x = s[n][e] * a.scale;
         if (!full && (!keep(p0 + gr + 8 * i, c0 + cl, a.causal, a.window) ||
-                      (a.kv_mask && km_s[buf * KT + cl] == 0.f)))
+                      (a.kv_mask && km_s[buf * KT + cl] == 0.f) ||
+                      (seg && sg_s[buf * KT + cl] != qseg[i])))
           x = kNegInf;
         s[n][e] = x;
         mx[i] = fmaxf(mx[i], x);
@@ -788,8 +842,14 @@ __global__ void __launch_bounds__(FwdTiles<T, D>::rows * 2,
       for (int e = 0; e < 4; ++e) {
         const int i = e >> 1;
         const float p = s[n][e] <= kDead ? 0.f : expf(s[n][e] - m[i]);
-        s[n][e] = p;
+        // l sums the undropped p; p.v takes the dropped ones, scaled (and,
+        // in bfloat16, rounded after the scaling, as a_from_c reads them)
         ts[i] += p;
+        s[n][e] = !drop ? p
+                  : dropout_keep(seed, p0 + gr + 8 * i,
+                                 c0 + n * 8 + 2 * tg + (e & 1), a.dropout_p)
+                      ? p * a.dropout_scale
+                      : 0.f;
       }
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -816,7 +876,6 @@ __global__ void __launch_bounds__(FwdTiles<T, D>::rows * 2,
 
   if (warp * 16 >= rows) return;
   T* o = static_cast<T*>(a.o);
-  const int rl = warp * 16 + gr;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     l[i] -= lc[i];
@@ -839,7 +898,7 @@ __global__ void __launch_bounds__(FwdTiles<T, D>::rows * 2,
 template <typename T, int D>
 __host__ __device__ constexpr size_t dq_smem_bytes() {
   constexpr int BR = BwdTiles<D>::dq_rows, KT = BwdTiles<D>::dq_walk;
-  return sizeof(T) * (2 * BR + 4 * KT) * padded<T, D>() + 2 * KT * 4;
+  return sizeof(T) * (2 * BR + 4 * KT) * padded<T, D>() + 4 * KT * 4;
 }
 
 // One block per (b, h, BR query rows), 16 rows a warp. It walks the live
@@ -847,7 +906,7 @@ __host__ __device__ constexpr size_t dq_smem_bytes() {
 // tile j+1 is in flight. s = q.k^T and dp = do.v^T land in accumulator
 // fragments; p and ds are made there on the CUDA cores; dq += ds.k reads
 // ds straight from those registers.
-template <typename T, int D>
+template <typename T, int D, bool kOpt>
 __global__ void __launch_bounds__(BwdTiles<D>::dq_rows * 2,
                                   BwdTiles<D>::dq_blocks)
     flash_dq_kernel(FlashArgs a) {
@@ -859,8 +918,11 @@ __global__ void __launch_bounds__(BwdTiles<D>::dq_rows * 2,
   T* k_s = do_s + BR * LD;              // 2 x KT x LD
   T* v_s = k_s + 2 * KT * LD;           // 2 x KT x LD
   float* km_s = reinterpret_cast<float*>(v_s + 2 * KT * LD);  // 2 x KT
+  int* sg_s = reinterpret_cast<int*>(km_s + 2 * KT);           // 2 x KT
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // the options, compiled out of the instances that run without them
+  const int* seg = kOpt ? a.seg : nullptr;
   const int gr = lane >> 2, tg = lane & 3;
   // longest blocks first: the tile index is the slowest-varying part of
   // the block id, and under causal the last query tiles see the most keys
@@ -903,20 +965,28 @@ __global__ void __launch_bounds__(BwdTiles<D>::dq_rows * 2,
     if (a.kv_mask)
       for (int i = threadIdx.x; i < KT; i += NT)
         km_s[buf * KT + i] = (float)a.kv_mask[(long long)b * a.Tk + c0 + i];
+    if (seg)
+      for (int i = threadIdx.x; i < KT; i += NT)
+        sg_s[buf * KT + i] = seg[(long long)b * a.Tk + c0 + i];
   };
   if (j_lo <= j_hi) fetch(j_lo, 0);
   cp_async_commit();
 
-  // this lane's two rows: warp * 16 + gr and + 8
+  // this lane's two rows: warp * 16 + gr and + 8, their segments, and the
+  // dropout seed of (b, h)
   const int rl = warp * 16 + gr;
   float lse[2], delta[2];
+  int qseg[2] = {0, 0};
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const long long row =
-        ((long long)b * a.H + h) * a.Tq + min(r0 + rl + 8 * i, a.Tq - 1);
+    const int r = min(r0 + rl + 8 * i, a.Tq - 1);
+    const long long row = ((long long)b * a.H + h) * a.Tq + r;
     lse[i] = a.lse[row];
     delta[i] = a.delta[row];
+    if (seg) qseg[i] = seg[(long long)b * a.Tq + r];
   }
+  const bool drop = kOpt && a.dropout_p > 0.f;
+  const int seed = drop ? a.seeds[b * a.H + h] : 0;
   float acc[D / 8][4];
 #pragma unroll
   for (int n = 0; n < D / 8; ++n)
@@ -944,10 +1014,17 @@ __global__ void __launch_bounds__(BwdTiles<D>::dq_rows * 2,
         const int i = e >> 1, cl = n * 8 + 2 * tg + (e & 1);
         float x = s[n][e] * a.scale;
         if (!full && (!keep(p0 + gr + 8 * i, c0 + cl, a.causal, a.window) ||
-                      (a.kv_mask && km_s[buf * KT + cl] == 0.f)))
+                      (a.kv_mask && km_s[buf * KT + cl] == 0.f) ||
+                      (seg && sg_s[buf * KT + cl] != qseg[i])))
           x = kNegInf;
         const float p = x <= kDead ? 0.f : expf(x - lse[i]);
-        s[n][e] = rnd<T>(p * (dp[n][e] - delta[i]) * a.scale);  // ds
+        // dp dropped as the forward dropped p: o = (keep * p / (1 - p)).v
+        float d = dp[n][e];
+        if (drop)
+          d = dropout_keep(seed, p0 + gr + 8 * i, c0 + cl, a.dropout_p)
+                  ? d * a.dropout_scale
+                  : 0.f;
+        s[n][e] = rnd<T>(p * (d - delta[i]) * a.scale);  // ds
       }
     product_acc<T, D, NS>(acc, s, ks, lane);
     __syncthreads();  // buf is refilled by the next iteration but one
@@ -971,7 +1048,7 @@ __global__ void __launch_bounds__(BwdTiles<D>::dq_rows * 2,
 template <typename T, int D>
 __host__ __device__ constexpr size_t dkv_smem_bytes() {
   constexpr int BC = BwdTiles<D>::dkv_rows, QT = BwdTiles<D>::dkv_walk;
-  return sizeof(T) * (2 * BC + 4 * QT) * padded<T, D>() + 4 * QT * 4;
+  return sizeof(T) * (2 * BC + 4 * QT) * padded<T, D>() + 6 * QT * 4;
 }
 
 // One block per (b, kv head, BC key rows), 16 key rows a warp. It walks
@@ -981,7 +1058,7 @@ __host__ __device__ constexpr size_t dkv_smem_bytes() {
 // there, and dv += p^T.do and dk += ds^T.q read them from the registers.
 // dk and dv are summed over the group in registers: no atomics, and the
 // same order on every run.
-template <typename T, int D>
+template <typename T, int D, bool kOpt>
 __global__ void __launch_bounds__(BwdTiles<D>::dkv_rows * 2, 1)
     flash_dkv_kernel(FlashArgs a) {
   constexpr int BC = BwdTiles<D>::dkv_rows, QT = BwdTiles<D>::dkv_walk;
@@ -994,8 +1071,11 @@ __global__ void __launch_bounds__(BwdTiles<D>::dkv_rows * 2, 1)
   T* do_s = q_s + 2 * QT * LD;          // 2 x QT x LD
   float* lse_s = reinterpret_cast<float*>(do_s + 2 * QT * LD);  // 2 x QT
   float* delta_s = lse_s + 2 * QT;                              // 2 x QT
+  int* qsg_s = reinterpret_cast<int*>(delta_s + 2 * QT);         // 2 x QT
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // the options, compiled out of the instances that run without them
+  const int* seg = kOpt ? a.seg : nullptr;
   const int gr = lane >> 2, tg = lane & 3;
   // longest blocks first: under causal the first key tiles are seen by
   // the most query rows, and the tile is the slowest part of the block id
@@ -1018,10 +1098,14 @@ __global__ void __launch_bounds__(BwdTiles<D>::dkv_rows * 2, 1)
   // this lane's two key rows: warp * 16 + gr and + 8
   const int kl = warp * 16 + gr;
   bool kmask[2];
+  int kseg[2] = {0, 0};
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int i = 0; i < 2; ++i) {
     kmask[i] = !a.kv_mask ||
                a.kv_mask[(long long)b * a.Tk + c0 + kl + 8 * i] != 0;
+    if (seg) kseg[i] = seg[(long long)b * a.Tk + c0 + kl + 8 * i];
+  }
+  const bool drop = kOpt && a.dropout_p > 0.f;
   int i_lo, i_hi;
   query_tiles(a, c0, c0 + BC - 1, QT, &i_lo, &i_hi);
   const int nq = i_hi - i_lo + 1;
@@ -1041,6 +1125,8 @@ __global__ void __launch_bounds__(BwdTiles<D>::dkv_rows * 2, 1)
     for (int i = threadIdx.x; i < QT; i += NT) {
       cp_async4(lse_s + buf * QT + i, a.lse + row + i);
       cp_async4(delta_s + buf * QT + i, a.delta + row + i);
+      if (seg)
+        cp_async4(qsg_s + buf * QT + i, seg + (long long)b * a.Tq + r0 + i);
     }
   };
 
@@ -1071,8 +1157,11 @@ __global__ void __launch_bounds__(BwdTiles<D>::dkv_rows * 2, 1)
       const T* dos = do_s + buf * QT * LD;
       const float* lses = lse_s + buf * QT;
       const float* deltas = delta_s + buf * QT;
+      const int* qsegs = qsg_s + buf * QT;
       const int gg = step / nq;
       const int r0 = (i_lo + step - gg * nq) * QT;
+      // each query head of the group has its own dropout seed
+      const int seed = drop ? a.seeds[b * a.H + hk * G + gg] : 0;
 
       float s[NS][4], dp[NS][4];
       product_nt<T, D, NS>(s, k_s + warp * 16 * LD, qs, lane);
@@ -1089,12 +1178,19 @@ __global__ void __launch_bounds__(BwdTiles<D>::dkv_rows * 2, 1)
           float x = s[n][e] * a.scale;
           if (!full && (!keep(r0 + ql + off, ck + gr + 8 * i, a.causal,
                               a.window) ||
-                        !kmask[i]))
+                        !kmask[i] || (seg && qsegs[ql] != kseg[i])))
             x = kNegInf;
           const float p = x <= kDead ? 0.f : expf(x - lses[ql]);
-          s[n][e] = p;  // p^T
-          if (want_dk)  // ds^T
-            dp[n][e] = rnd<T>(p * (dp[n][e] - deltas[ql]) * a.scale);
+          const bool kept =
+              !drop || dropout_keep(seed, r0 + ql + off, ck + gr + 8 * i,
+                                    a.dropout_p);
+          // p^T, dropped for dv += p^T.do
+          s[n][e] = !drop ? p : kept ? p * a.dropout_scale : 0.f;
+          if (want_dk) {  // ds^T from the undropped p and the dropped dp
+            float d = dp[n][e];
+            if (drop) d = kept ? d * a.dropout_scale : 0.f;
+            dp[n][e] = rnd<T>(p * (d - deltas[ql]) * a.scale);
+          }
         }
       if (want_dv) product_acc<T, D, NS>(acc[0], s, dos, lane);
       if (want_dk) product_acc<T, D, NS>(acc[NACC - 1], dp, qs, lane);
@@ -1122,7 +1218,7 @@ __global__ void __launch_bounds__(BwdTiles<D>::dkv_rows * 2, 1)
 
 enum Kind { kFwd = 0, kDq = 1, kDkv = 2 };
 
-template <typename T, int D>
+template <typename T, int D, bool kOpt>
 int launch(int kind, const FlashArgs& a, cudaStream_t stream) {
   // one flat grid, the row tile slowest (see the kernels); the forward's
   // and dq's last row tile may be short, and Tk is a multiple of every
@@ -1131,17 +1227,17 @@ int launch(int kind, const FlashArgs& a, cudaStream_t stream) {
   size_t smem;
   int rows, tiles;
   if (kind == kFwd) {
-    kernel = flash_fwd_kernel<T, D>;
+    kernel = flash_fwd_kernel<T, D, kOpt>;
     smem = fwd_smem_bytes<T, D>();
     rows = FwdTiles<T, D>::rows;
     tiles = (a.Tq + rows - 1) / rows * a.H;
   } else if (kind == kDq) {
-    kernel = flash_dq_kernel<T, D>;
+    kernel = flash_dq_kernel<T, D, kOpt>;
     smem = dq_smem_bytes<T, D>();
     rows = BwdTiles<D>::dq_rows;
     tiles = (a.Tq + rows - 1) / rows * a.H;
   } else {
-    kernel = flash_dkv_kernel<T, D>;
+    kernel = flash_dkv_kernel<T, D, kOpt>;
     smem = dkv_smem_bytes<T, D>();
     rows = BwdTiles<D>::dkv_rows;
     tiles = a.Tk / rows * a.Hkv;
@@ -1153,17 +1249,27 @@ int launch(int kind, const FlashArgs& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+// Segment ids and dropout run in their own instances (kOpt): in the
+// others their per-entry work compiles out. As runtime branches in one
+// instance they made the option-free bfloat16 kernels 7-25% slower
+// (tools/torch_kernel_ab.py --sections flash, H100 SXM at 700 W).
+template <typename T, bool kOpt>
 int launch_d(int kind, const FlashArgs& a, cudaStream_t stream) {
   switch (a.D) {
     case 64:
-      return launch<T, 64>(kind, a, stream);
+      return launch<T, 64, kOpt>(kind, a, stream);
     case 128:
-      return launch<T, 128>(kind, a, stream);
+      return launch<T, 128, kOpt>(kind, a, stream);
     case 256:
-      return launch<T, 256>(kind, a, stream);
+      return launch<T, 256, kOpt>(kind, a, stream);
   }
   return -3;
+}
+
+template <typename T>
+int launch_o(int kind, const FlashArgs& a, cudaStream_t stream) {
+  return a.seg || a.dropout_p > 0.f ? launch_d<T, true>(kind, a, stream)
+                                    : launch_d<T, false>(kind, a, stream);
 }
 
 int dispatch(int kind, int dtype, const FlashArgs* a, void* stream) {
@@ -1171,8 +1277,8 @@ int dispatch(int kind, int dtype, const FlashArgs* a, void* stream) {
       a->Tk % kSeqStep || a->Tq <= 0 || a->Tk <= 0)
     return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_d<float>(kind, *a, s);
-  if (dtype == 1) return launch_d<__nv_bfloat16>(kind, *a, s);
+  if (dtype == 0) return launch_o<float>(kind, *a, s);
+  if (dtype == 1) return launch_o<__nv_bfloat16>(kind, *a, s);
   return -2;
 }
 

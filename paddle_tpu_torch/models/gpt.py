@@ -16,15 +16,13 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from .. import initializer as I
 from .. import nn
-from ..core.dtypes import get_policy, policy_scope
 from ..core.enforce import UnimplementedError, enforce
 from ..core.places import resolve_device
 from ..core.random import make_generator
-from ..nn.layer import Layer
+from ..nn.layer import Layer, remat_call
 
 
 @dataclasses.dataclass
@@ -71,15 +69,6 @@ def _check_supported(cfg: GPTConfig):
         raise UnimplementedError(
             f"seq_parallel={cfg.seq_parallel!r} is not ported yet: ROADMAP "
             "queue 1 item 11 (distributed)")
-
-
-def _under_policy(fn, policy):
-    """``fn`` run under ``policy``, whatever the current one is then."""
-    def run(*args, **kwargs):
-        with policy_scope(policy):
-            return fn(*args, **kwargs)
-
-    return run
 
 
 class _SwiGLU(Layer):
@@ -169,15 +158,10 @@ class GPTForCausalLM(Layer):
         remat = self.cfg.remat and torch.is_grad_enabled()
         for blk in self.blocks:
             if remat:
-                # per-block recompute (jax.checkpoint in the JAX package):
-                # the block's activations are dropped after the forward
-                # and recomputed, flash forward included, in the backward.
-                # The recompute runs inside backward(), after the caller's
-                # policy_scope has closed, so it re-enters the policy the
-                # forward ran under (jax.checkpoint traces it under that
-                # scope)
-                x = checkpoint(_under_policy(blk, get_policy()), x,
-                               kv_mask=kv_mask, use_reentrant=False)
+                # per-block recompute, flash forward included, under the
+                # forward's policy and dropout masks (nn/layer.py
+                # remat_call)
+                x = remat_call(blk, x, kv_mask=kv_mask)
             else:
                 x = blk(x, kv_mask=kv_mask)
         return self.norm_f(x)

@@ -1,8 +1,8 @@
 """Layers of the port (counterpart of paddle_tpu/nn)."""
 
 from .layer import Layer, LayerList, Sequential
-from .layers import (Dropout, Embedding, Linear, MultiHeadAttention,
-                     RMSNorm)
+from .layers import (Dropout, Embedding, LayerNorm, Linear,
+                     MultiHeadAttention, RMSNorm)
 
 __all__ = ["Layer", "LayerList", "Sequential", "Dropout", "Embedding",
-           "Linear", "MultiHeadAttention", "RMSNorm"]
+           "LayerNorm", "Linear", "MultiHeadAttention", "RMSNorm"]

@@ -18,8 +18,10 @@ from typing import Callable, Optional
 import torch
 from torch import nn
 
-from ..core.dtypes import default_dtype, to_dtype
+from ..core.dtypes import default_dtype, get_policy, policy_scope, to_dtype
+from ..core.enforce import enforce
 from ..core.places import DeviceLike, resolve_device
+from ..core.random import current_generator, rng_scope
 
 
 class Layer(nn.Module):
@@ -59,3 +61,59 @@ class LayerList(nn.ModuleList):
 class Sequential(nn.Sequential):
     """reference: dygraph Sequential — children named "0", "1", ..., so
     parameter names match the JAX package's."""
+
+
+def remat_call(fn: Callable, *args, remat_policy: Optional[str] = None,
+               **kwargs):
+    """``fn(*args, **kwargs)`` under ``torch.utils.checkpoint`` (the JAX
+    package's ``jax.checkpoint`` per block): its activations are dropped
+    after the forward and recomputed in the backward. ``remat_policy``:
+    None recomputes everything; ``"dots"`` keeps the outputs of the
+    matrix products without batch dims (the Linears' ``mm``/``addmm``,
+    the JAX package's ``dots_with_no_batch_dims_saveable``) and
+    recomputes the rest. The recompute runs
+    inside ``backward()``, after the caller's scopes have closed, so it
+    re-enters the mixed-precision policy and the :func:`rng_scope` the
+    forward ran under (``jax.checkpoint`` traces it under them). It also
+    replays the current generator from its state before the forward, so
+    the recompute draws the forward's dropout masks again:
+    ``torch.utils.checkpoint``'s ``preserve_rng_state`` saves the
+    default generators, not an explicit ``torch.Generator``, and without
+    the replay the recompute would drop other entries and give wrong
+    gradients without an error. The generator is left where the backward
+    found it."""
+    import functools
+
+    from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                        create_selective_checkpoint_contexts)
+
+    enforce(remat_policy in (None, "dots"),
+            "remat_policy must be None or 'dots', got %r", remat_policy)
+    ckpt_kw = {}
+    if remat_policy == "dots":
+        saved = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+        def keep_dots(ctx, op, *a, **kw):
+            return (CheckpointPolicy.MUST_SAVE if op in saved
+                    else CheckpointPolicy.PREFER_RECOMPUTE)
+
+        ckpt_kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, keep_dots)
+    policy, gen = get_policy(), current_generator()
+    state = gen.get_state() if gen is not None else None
+    calls = []
+
+    def run(*a, **kw):
+        replay = gen is not None and bool(calls)
+        calls.append(None)
+        with policy_scope(policy), rng_scope(gen):
+            if not replay:
+                return fn(*a, **kw)
+            now = gen.get_state()
+            gen.set_state(state)
+            try:
+                return fn(*a, **kw)
+            finally:
+                gen.set_state(now)
+
+    return checkpoint(run, *args, use_reentrant=False, **ckpt_kw, **kwargs)

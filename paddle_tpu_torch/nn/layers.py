@@ -1,6 +1,7 @@
 """Layers of the port (counterpart of paddle_tpu/nn/layers.py):
-Linear (with its ``act=``), Embedding, RMSNorm, Dropout and
-MultiHeadAttention with its KV-cache decode mixin.
+Linear (with its ``act=``), Embedding, RMSNorm, LayerNorm, Dropout and
+MultiHeadAttention (attention dropout and packed-row segment ids) with
+its KV-cache decode mixin.
 
 Linear weights are (in, out), as in the JAX package, so parameters move
 across by name without transposes. The JAX package returns new cache
@@ -18,6 +19,7 @@ from .. import initializer as I
 from ..core.dtypes import get_policy, to_dtype
 from ..core.enforce import UnimplementedError, enforce
 from ..core.places import resolve_device
+from ..core.random import current_generator
 from ..ops import nn as ON
 from ..ops.math import activation
 from .layer import Layer
@@ -104,11 +106,44 @@ class Embedding(Layer):
         return ON.embedding(ids, self.weight, self.padding_idx)
 
 
+class LayerNorm(Layer):
+    """Layer normalisation over the trailing ``normalized_shape`` dims,
+    with the JAX package's parameters ``weight`` (ones) and ``bias``
+    (zeros); ``scale``/``shift`` False leave either out."""
+
+    def __init__(self, normalized_shape, epsilon: float = 1e-5,
+                 scale: bool = True, shift: bool = True, dtype=None, *,
+                 device=None, generator=None):
+        super().__init__()
+        if isinstance(normalized_shape, int):
+            normalized_shape = (normalized_shape,)
+        self.normalized_shape = tuple(normalized_shape)
+        self.epsilon = epsilon
+        self.has_scale, self.has_shift = scale, shift
+        if scale:
+            self.create_parameter("weight", self.normalized_shape, dtype,
+                                  I.Constant(1.0), device=device,
+                                  generator=generator)
+        if shift:
+            self.create_parameter("bias", self.normalized_shape, dtype,
+                                  I.Constant(0.0), is_bias=True,
+                                  device=device, generator=generator)
+
+    def forward(self, x):
+        begin = x.ndim - len(self.normalized_shape)
+        return ON.layer_norm(
+            x, self.weight if self.has_scale else None,
+            self.bias if self.has_shift else None,
+            begin_norm_axis=begin, epsilon=self.epsilon)
+
+
 class Dropout(Layer):
-    """Dropout: the identity in eval mode or at p == 0, except that
-    ``mode="downgrade_in_infer"`` scales by 1 - p in eval mode (the
-    reference's dropout_implementation). Training-mode dropout with p > 0
-    is not ported yet and raises."""
+    """Dropout (ops/nn.py :func:`dropout`): the identity in eval mode or
+    at p == 0, except that ``mode="downgrade_in_infer"`` scales by 1 - p
+    in eval mode. In training its mask is drawn from the current
+    generator (core/random.py :func:`rng_scope`, which
+    ``Trainer.train_step`` opens); with none, a training forward raises
+    :class:`EnforceError`."""
 
     def __init__(self, p: float = 0.5, mode: str = "upscale_in_train"):
         super().__init__()
@@ -118,14 +153,10 @@ class Dropout(Layer):
         self.p, self.mode = p, mode
 
     def forward(self, x):
-        if not self.training:
-            return x * (1.0 - self.p) if self.mode == "downgrade_in_infer" \
-                else x
-        if self.p == 0.0:
-            return x
-        raise UnimplementedError(
-            "training-mode dropout with p > 0 is not ported yet: ROADMAP "
-            "queue 1 item 3; call .eval() to serve")
+        if not self.training or self.p == 0.0:
+            return ON.dropout(x, self.p, training=False, mode=self.mode)
+        return ON.dropout(x, self.p, current_generator(), training=True,
+                          mode=self.mode)
 
 
 class _MHADecodeMixin:
@@ -357,9 +388,11 @@ class MultiHeadAttention(_MHADecodeMixin, Layer):
             pos = torch.arange(tq, device=query.device)
             q = rotary_embedding(q, pos, theta=self.rotary_theta)
             k = rotary_embedding(k, pos, theta=self.rotary_theta)
+        dropping = self.training and self.dropout_p > 0
         out = scaled_dot_product_attention(
             q, k, v, mask=attn_mask, causal=causal,
-            dropout_p=self.dropout_p if self.training else 0.0,
+            dropout_p=self.dropout_p if dropping else 0.0,
+            dropout_key=current_generator() if dropping else None,
             use_flash=self.use_flash, segment_ids=segment_ids,
             window=window)
         return self.out_proj(out.reshape(b, tq, d))

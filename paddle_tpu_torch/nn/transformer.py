@@ -1,0 +1,147 @@
+"""Transformer encoder layers (counterpart of paddle_tpu/nn/transformer.py):
+the position-wise FFN, the encoder block in its post-norm (BERT) and
+pre-norm forms, and the encoder stack.
+
+Parameter names are the JAX package's (``layers.<i>.self_attn.q_proj``,
+``ffn.fc1``, ``norm1``, ...), so weights cross with
+utils/convert.load_numpy_state. Training-mode dropout draws from the
+current generator (core/random.py ``rng_scope``); attention dropout
+runs inside the flash kernels. The decoder side
+(``TransformerDecoderLayer``, ``TransformerDecoder``,
+``PositionalEncoding``) comes with the NMT model."""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ..core.enforce import UnimplementedError, enforce
+from .layer import Layer, LayerList, remat_call
+from .layers import Dropout, LayerNorm, Linear, MultiHeadAttention
+
+
+class FeedForward(Layer):
+    """Position-wise FFN: Linear -> act -> dropout -> Linear."""
+
+    def __init__(self, d_model: int, dim_feedforward: int,
+                 dropout: float = 0.1, activation: str = "gelu", *,
+                 device=None, generator=None):
+        super().__init__()
+        kw = dict(device=device, generator=generator)
+        self.fc1 = Linear(d_model, dim_feedforward, act=activation, **kw)
+        self.fc2 = Linear(dim_feedforward, d_model, **kw)
+        self.drop = Dropout(dropout)
+
+    def forward(self, x):
+        return self.fc2(self.drop(self.fc1(x)))
+
+
+def _check_supported(seq_parallel, moe_experts):
+    """Options of later slices raise, naming their ROADMAP.md item."""
+    if moe_experts:
+        raise UnimplementedError(
+            "moe_experts > 0 (Switch-MoE FFN, nn/moe.py) is not ported yet: "
+            "ROADMAP queue 1 item 9 (gpt-moe)")
+    if seq_parallel is not None:
+        raise UnimplementedError(
+            f"seq_parallel={seq_parallel!r} is not ported yet: ROADMAP queue "
+            "1 item 11 (distributed)")
+
+
+class TransformerEncoderLayer(Layer):
+    """Self-attention and FFN, each with dropout on its residual branch:
+    pre-norm (``normalize_before``) or post-norm (BERT's). The Switch-MoE
+    FFN (``moe_experts > 0``) and ``seq_parallel`` raise, naming their
+    ROADMAP items."""
+
+    def __init__(self, d_model: int, nhead: int, dim_feedforward: int,
+                 dropout: float = 0.1, activation: str = "gelu",
+                 normalize_before: bool = True, use_flash: bool = True,
+                 seq_parallel=None, attn_window=None,
+                 moe_experts: int = 0,
+                 moe_capacity_factor: float = 1.25, *, device=None,
+                 generator=None):
+        super().__init__()
+        _check_supported(seq_parallel, moe_experts)
+        kw = dict(device=device, generator=generator)
+        self.normalize_before = normalize_before
+        self.attn_window = attn_window
+        self.self_attn = MultiHeadAttention(d_model, nhead, dropout=dropout,
+                                            use_flash=use_flash, **kw)
+        self.ffn = FeedForward(d_model, dim_feedforward, dropout,
+                               activation, **kw)
+        self.norm1 = LayerNorm(d_model, **kw)
+        self.norm2 = LayerNorm(d_model, **kw)
+        self.drop1 = Dropout(dropout)
+        self.drop2 = Dropout(dropout)
+
+    def forward(self, x, mask=None, segment_ids=None):
+        if self.normalize_before:
+            x = x + self.drop1(self.self_attn(self.norm1(x), attn_mask=mask,
+                                              segment_ids=segment_ids,
+                                              window=self.attn_window))
+            x = x + self.drop2(self.ffn(self.norm2(x)))
+        else:
+            x = self.norm1(x + self.drop1(self.self_attn(
+                x, attn_mask=mask, segment_ids=segment_ids,
+                window=self.attn_window)))
+            x = self.norm2(x + self.drop2(self.ffn(x)))
+        return x
+
+
+class TransformerEncoder(Layer):
+    """``num_layers`` encoder blocks, with a final LayerNorm in the
+    pre-norm form. ``remat=True`` recomputes each block in the backward
+    (nn/layer.py :func:`remat_call`: under the forward's policy and
+    dropout masks; ``remat_policy="dots"`` keeps the Linears' products).
+    ``scan_layers=True`` is the JAX package's ``lax.scan`` over stacked
+    layers, whose reason is compile size; PyTorch runs eagerly, so here
+    it runs the same per-layer loop, which is the same math, and keeps
+    the JAX rule that dropout be 0 in training."""
+
+    def __init__(self, num_layers: int, d_model: int, nhead: int,
+                 dim_feedforward: int, dropout: float = 0.1,
+                 activation: str = "gelu", normalize_before: bool = True,
+                 use_flash: bool = True, seq_parallel=None,
+                 remat: bool = False, scan_layers: bool = False,
+                 attn_window=None, remat_policy: Optional[str] = None,
+                 moe_experts: int = 0, moe_capacity_factor: float = 1.25,
+                 *, device=None, generator=None):
+        super().__init__()
+        kw = dict(device=device, generator=generator)
+        self.layers = LayerList([
+            TransformerEncoderLayer(d_model, nhead, dim_feedforward, dropout,
+                                    activation, normalize_before, use_flash,
+                                    seq_parallel, attn_window=attn_window,
+                                    moe_experts=moe_experts,
+                                    moe_capacity_factor=moe_capacity_factor,
+                                    **kw)
+            for _ in range(num_layers)])
+        self.final_norm = (LayerNorm(d_model, **kw) if normalize_before
+                           else None)
+        self.remat = remat
+        enforce(remat_policy in (None, "dots"),
+                "remat_policy must be None or 'dots', got %r", remat_policy)
+        enforce(remat_policy is None or remat,
+                "remat_policy=%r requires remat=True", remat_policy)
+        self.remat_policy = remat_policy
+        self._dropout_p = dropout
+        self.scan_layers = scan_layers
+
+    def forward(self, x, mask=None, segment_ids=None):
+        if self.scan_layers and len(self.layers) > 1:
+            enforce(self._dropout_p == 0.0 or not self.training,
+                    "scan_layers needs dropout == 0 in training (one "
+                    "traced body would reuse its RNG across layers); "
+                    "unroll instead")
+        remat = self.remat and torch.is_grad_enabled()
+        for layer in self.layers:
+            if remat:
+                x = remat_call(layer, x, mask=mask, segment_ids=segment_ids,
+                               remat_policy=self.remat_policy)
+            else:
+                x = layer(x, mask=mask, segment_ids=segment_ids)
+        if self.final_norm is not None:
+            x = self.final_norm(x)
+        return x

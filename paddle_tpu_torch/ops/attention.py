@@ -9,7 +9,8 @@ mask and always takes it, as in the JAX package. On a CUDA tensor whose
 shape the flash gate accepts, with no mask or a key-padding mask,
 :func:`scaled_dot_product_attention` runs :func:`flash_attention`: the
 forward and recompute-backward CUDA kernels of
-``ops/kernels/flash_attention.py``."""
+``ops/kernels/flash_attention.py``, packed-row segment ids and attention
+dropout included."""
 
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ from typing import Optional
 
 import torch
 
-from ..core.enforce import UnimplementedError, enforce
+from ..core.enforce import enforce
 
 # head dims the training kernels' dispatch gate admits
 # (ops/attention.py:152 in the JAX package)
@@ -34,46 +35,63 @@ def scaled_dot_product_attention(q, k, v, mask=None, causal: bool = False,
 
     mask: broadcastable to (B, H, Tq, Tk); True = keep. window: sliding
     window (lookback-only when causal, a symmetric band otherwise).
-    Attention dropout (``dropout_p``, ``dropout_key``) and packed-batch
-    ``segment_ids`` are not ported and raise."""
+    segment_ids: (B, T) ids of packed rows (self-attention only);
+    positions attend within their own segment. dropout_p / dropout_key:
+    attention-probability dropout, its masks drawn from the
+    ``torch.Generator`` ``dropout_key`` (see :func:`flash_attention`).
+    Both ride the flash kernels on the card."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
+    enforce(segment_ids is None or q.shape[1] == k.shape[1],
+            "segment_ids requires self-attention shapes (tq=%s != tk=%s)",
+            q.shape[1], k.shape[1])
     enforce(window is None or window >= 1,
             "window must be >= 1, got %s", window)
-    _check_unported(segment_ids, dropout_p, dropout_key)
-    if use_flash:
+    if use_flash and (dropout_p == 0.0 or dropout_key is not None):
         kv_mask = _as_kv_mask(mask, q.shape[0], k.shape[1])
         if (mask is None or kv_mask is not None) and _flash_ok(q, k):
             return flash_attention(q, k, v, causal=causal, scale=scale,
-                                   kv_mask=kv_mask, window=window)
-    return xla_attention(q, k, v, mask=mask, causal=causal, scale=scale,
+                                   kv_mask=kv_mask, segment_ids=segment_ids,
+                                   window=window, dropout_p=dropout_p,
+                                   dropout_key=dropout_key)
+    return xla_attention(q, k, v, mask=mask, causal=causal,
+                         dropout_p=dropout_p, dropout_key=dropout_key,
+                         scale=scale, segment_ids=segment_ids,
                          window=window)
 
 
-def _check_unported(segment_ids, dropout_p, dropout_key=None):
-    if segment_ids is not None:
-        raise UnimplementedError(
-            "packed-batch segment_ids are not ported yet: ROADMAP queue 2 "
-            "item 1 (flash-attention options)")
-    if dropout_p != 0.0 or dropout_key is not None:
-        raise UnimplementedError(
-            "attention dropout is not ported yet: ROADMAP queue 1 item 3 "
-            "(training-mode dropout) and queue 2 item 1 (the in-kernel "
-            "dropout hash)")
+def _dropout_seeds(generator: torch.Generator, b: int, h: int, device):
+    """One int32 dropout seed per (batch, head), drawn from ``generator``
+    over the JAX package's range (its ``flash_attention``:
+    ``jax.random.randint(key, (b, h), -2**31, 2**31 - 1)``), on
+    ``device``. The kernels and the plain path hash these seeds with the
+    global (row, column) of each score."""
+    enforce(isinstance(generator, torch.Generator),
+            "dropout_key must be a torch.Generator, got %s",
+            type(generator).__name__)
+    seeds = torch.randint(-2 ** 31, 2 ** 31 - 1, (b, h),
+                          generator=generator, device=generator.device,
+                          dtype=torch.int32)
+    return seeds.to(device)
 
 
 class _FlashAttention(torch.autograd.Function):
     """Forward kernel; backward = delta = rowsum(do * o) in float32, then
-    the dq kernel and the dk/dv kernel (the JAX package's custom VJP)."""
+    the dq kernel and the dk/dv kernel (the JAX package's custom VJP).
+    The mask, segment ids and seeds carry no gradient."""
 
     @staticmethod
-    def forward(ctx, q, k, v, kv_mask, causal, scale, window):
+    def forward(ctx, q, k, v, kv_mask, segment_ids, seeds, causal, scale,
+                window, dropout_p):
         from .kernels.flash_attention import flash_attention_fwd
 
-        o, lse = flash_attention_fwd(q, k, v, causal=causal, scale=scale,
-                                     window=window, kv_mask=kv_mask)
-        ctx.save_for_backward(q, k, v, o, lse, kv_mask)
-        ctx.opts = dict(causal=causal, scale=scale, window=window)
+        opts = dict(causal=causal, scale=scale, window=window,
+                    dropout_p=dropout_p)
+        o, lse = flash_attention_fwd(q, k, v, kv_mask=kv_mask,
+                                     segment_ids=segment_ids, seeds=seeds,
+                                     **opts)
+        ctx.save_for_backward(q, k, v, o, lse, kv_mask, segment_ids, seeds)
+        ctx.opts = opts
         return o
 
     @staticmethod
@@ -81,33 +99,53 @@ class _FlashAttention(torch.autograd.Function):
         from .kernels.flash_attention import (flash_attention_dkv,
                                               flash_attention_dq)
 
-        q, k, v, o, lse, kv_mask = ctx.saved_tensors
+        q, k, v, o, lse, kv_mask, segment_ids, seeds = ctx.saved_tensors
         do = do.contiguous()
         delta = (do.float() * o.float()).sum(-1).transpose(1, 2)
         delta = delta.contiguous()
-        dq = flash_attention_dq(q, k, v, do, lse, delta, kv_mask=kv_mask,
-                                **ctx.opts)
-        dk, dv = flash_attention_dkv(q, k, v, do, lse, delta,
-                                     kv_mask=kv_mask, **ctx.opts)
-        return dq, dk, dv, None, None, None, None
+        kw = dict(kv_mask=kv_mask, segment_ids=segment_ids, seeds=seeds,
+                  **ctx.opts)
+        dq = flash_attention_dq(q, k, v, do, lse, delta, **kw)
+        dk, dv = flash_attention_dkv(q, k, v, do, lse, delta, **kw)
+        return dq, dk, dv, None, None, None, None, None, None, None
 
 
 def flash_attention(q, k, v, causal: bool = False,
                     scale: Optional[float] = None, kv_mask=None,
-                    window: Optional[int] = None, segment_ids=None,
-                    dropout_p: float = 0.0):
+                    segment_ids=None, window: Optional[int] = None,
+                    dropout_p: float = 0.0, dropout_key=None):
     """Blockwise attention over q (B, Tq, H, D) and k/v (B, Tk, Hkv, D),
     differentiable by the recompute backward (counterpart of
     paddle_tpu/ops/pallas/flash_attention.py ``flash_attention``).
     ``kv_mask``: (B, Tk) keep-mask; a row with no live key outputs zeros.
-    On CUDA tensors the three kernels run; on CPU tensors their plain
-    versions."""
-    _check_unported(segment_ids, dropout_p)
+    ``segment_ids``: (B, T) ids of packed rows (Tq == Tk); a position
+    attends within its own segment. ``dropout_p`` > 0 drops attention
+    probabilities inside the kernels; ``dropout_key``, a
+    ``torch.Generator`` in place of the JAX PRNG key, gives one int32
+    seed per (batch, head) for each call, and the backward rebuilds the
+    forward's mask from them. On CUDA tensors the three kernels run; on
+    CPU tensors their plain versions."""
+    b, tq, h, _ = q.shape
+    enforce(0.0 <= dropout_p < 1.0, "dropout_p must be in [0, 1), got %s",
+            dropout_p)
+    seeds = None
+    if dropout_p > 0.0:
+        enforce(dropout_key is not None, "dropout_p > 0 requires "
+                "dropout_key, a torch.Generator (core.rng_scope makes one "
+                "current for the layers, as Trainer.train_step does)")
+        seeds = _dropout_seeds(dropout_key, b, h, q.device)
+    if segment_ids is not None:
+        enforce(tq == k.shape[1], "segment_ids requires self-attention "
+                "shapes (tq=%s != tk=%s)", tq, k.shape[1])
+        enforce(tuple(segment_ids.shape) == (b, tq),
+                "segment_ids must be (batch, t) = (%s, %s), got %s", b, tq,
+                tuple(segment_ids.shape))
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    return _FlashAttention.apply(q, k, v, kv_mask, bool(causal),
-                                 float(scale),
-                                 None if window is None else int(window))
+    return _FlashAttention.apply(q, k, v, kv_mask, segment_ids, seeds,
+                                 bool(causal), float(scale),
+                                 None if window is None else int(window),
+                                 float(dropout_p))
 
 
 def _as_kv_mask(mask, b: int, tk: int):
@@ -128,11 +166,19 @@ def xla_attention(q, k, v, mask=None, causal: bool = False,
                   window: Optional[int] = None):
     """The plain path — materializes (B, H, Tq, Tk) scores. Masked
     logits take ``finfo.min``; rows with no valid key output zeros (the
-    flash-kernel convention), not a uniform average of V. Dropout and
-    ``segment_ids`` are not ported and raise."""
-    _check_unported(segment_ids, dropout_p, dropout_key)
+    flash-kernel convention), not a uniform average of V.
+    ``segment_ids`` (B, T): the segment-equality mask of packed rows.
+    Dropout draws the same (B, H) seeds from ``dropout_key`` as
+    :func:`flash_attention` and keeps an entry where the flash kernels'
+    counter-based hash does (``ops.kernels.flash_attention.hash_keep``),
+    not with a Bernoulli draw as the JAX package's XLA path: that draw
+    could match the kernels only in distribution, while the hash makes
+    this path and the kernels compute one function, so a check can hold
+    one against the other with dropout on."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
+    b, tq, h, _ = q.shape
+    tk = k.shape[1]
     if k.shape[2] != q.shape[2]:
         # GQA/MQA: kv-major — head h reads kv head h // group
         group = q.shape[2] // k.shape[2]
@@ -141,18 +187,22 @@ def xla_attention(q, k, v, mask=None, causal: bool = False,
     dev = q.device
     if window is not None:
         enforce(window >= 1, "window must be >= 1, got %s", window)
-        tq, tk = q.shape[1], k.shape[1]
         rows = torch.arange(tq, device=dev)[:, None] + (tk - tq)
         cols = torch.arange(tk, device=dev)[None, :]
         band = rows - cols < window
         if not causal:
             band = band & (cols - rows < window)
         mask = band if mask is None else (mask.bool() & band)
+    if segment_ids is not None:
+        enforce(tq == tk, "segment_ids requires self-attention shapes "
+                "(tq=%s != tk=%s)", tq, tk)
+        ids = segment_ids.to(dev)
+        seg = ids[:, None, :, None] == ids[:, None, None, :]
+        mask = seg if mask is None else (mask.bool() & seg)
     logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
     neg = torch.finfo(logits.dtype).min
     keep = None
     if causal:
-        tq, tk = logits.shape[-2], logits.shape[-1]
         keep = torch.ones((tq, tk), dtype=torch.bool,
                           device=dev).tril(tk - tq)
         logits = logits.masked_fill(~keep, neg)
@@ -164,6 +214,19 @@ def xla_attention(q, k, v, mask=None, causal: bool = False,
     if keep is not None:
         any_valid = keep.expand(logits.shape).any(-1, keepdim=True)
         probs = torch.where(any_valid, probs, 0.0)
+    if dropout_p > 0.0:
+        from .kernels.flash_attention import hash_keep, keep_scale
+
+        enforce(dropout_key is not None, "attention dropout requires "
+                "dropout_key, a torch.Generator (core.rng_scope makes one "
+                "current for the layers, as Trainer.train_step does)")
+        seeds = _dropout_seeds(dropout_key, b, h, dev)
+        rows = torch.arange(tq, device=dev)[:, None] + (tk - tq)
+        cols = torch.arange(tk, device=dev)[None, :]
+        drop_keep = hash_keep(seeds[:, :, None, None], rows, cols,
+                              dropout_p)
+        probs = torch.where(drop_keep, probs * keep_scale(dropout_p),
+                            0.0).to(probs.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 

@@ -26,7 +26,7 @@ import torch
 from ..amp import MixedPrecisionOptimizer
 from ..core.dtypes import POLICIES, policy_scope
 from ..core.enforce import UnimplementedError, enforce
-from ..core.random import make_generator
+from ..core.random import make_generator, rng_scope
 from ..optimizer.optimizers import Optimizer
 
 _MULTI_DEVICE = "is not ported yet: ROADMAP queue 1 item 11 (distributed)"
@@ -38,7 +38,9 @@ class Trainer:
     ``loss_builder(model, batch, generator) -> (loss, metrics)``: the
     PyTorch form of the JAX package's ``(params, buffers, rng, batch)``.
     ``generator`` is the trainer's ``torch.Generator`` (seed 0, on the
-    parameters' device) in a training step and None in ``eval_step``.
+    parameters' device) in a training step and None in ``eval_step``; a
+    training step also makes it the current generator
+    (core/random.py ``rng_scope``), from which dropout draws.
     Arguments of the JAX Trainer that this slice does not carry raise
     :class:`UnimplementedError` naming their ROADMAP item."""
 
@@ -88,7 +90,7 @@ class Trainer:
         self.model.train()
         for p in self.params.values():
             p.grad = None
-        with self._scope():
+        with self._scope(), rng_scope(self._generator):
             loss, metrics = self.loss_builder(self.model, batch,
                                               self._generator)
         if isinstance(self.optimizer, MixedPrecisionOptimizer):

@@ -28,7 +28,7 @@ import numpy as np
 import pytest
 import torch
 
-from paddle_tpu_torch.core import InvalidArgumentError, UnimplementedError
+from paddle_tpu_torch.core import EnforceError, InvalidArgumentError
 from paddle_tpu_torch.ops import attention as TA
 from paddle_tpu_torch.ops.kernels import flash_attention as K
 
@@ -141,11 +141,25 @@ def test_sdpa_routes_gate_passing_shapes_to_flash(monkeypatch):
 
 
 def test_unported_options_raise():
+    """Segment ids and dropout are ported (tests/test_torch_flash_options.py
+    holds them against the Pallas kernels); what they refuse raises,
+    typed, as the JAX package's checks do."""
     q = torch.zeros((1, 64, 2, 64))
-    with pytest.raises(UnimplementedError, match="queue 2 item 1"):
-        TA.flash_attention(q, q, q, segment_ids=torch.zeros((1, 64)))
-    with pytest.raises(UnimplementedError, match="queue 2 item 1"):
-        TA.scaled_dot_product_attention(q, q, q, dropout_p=0.1)
+    with pytest.raises(EnforceError, match="dropout_key"):
+        TA.flash_attention(q, q, q, dropout_p=0.1)
+    with pytest.raises(EnforceError, match="dropout_p must be in"):
+        TA.flash_attention(q, q, q, dropout_p=1.0,
+                           dropout_key=torch.Generator())
+    with pytest.raises(EnforceError, match="segment_ids must be"):
+        TA.flash_attention(q, q, q, segment_ids=torch.zeros((1, 32)))
+    with pytest.raises(EnforceError, match="self-attention"):
+        TA.scaled_dot_product_attention(q[:, :32], q, q,
+                                        segment_ids=torch.zeros((1, 64)))
+    with pytest.raises(EnforceError, match="torch.Generator"):
+        TA.xla_attention(q, q, q, dropout_p=0.1, dropout_key=object())
+    with pytest.raises(EnforceError, match="seeds"):
+        K.flash_attention_fwd(q, q, q, causal=False, scale=1.0,
+                              dropout_p=0.1)
 
 
 def test_wrappers_check_shapes():

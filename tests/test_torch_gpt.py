@@ -129,12 +129,10 @@ def test_generate_sampled_needs_generator(pair):
 @pytest.mark.parametrize("over,item", [
     (dict(moe_experts=4), "item 9"),
     (dict(seq_parallel="ring"), "item 11"),
-    (dict(dropout=0.1), "item 3"),
 ])
 def test_later_slice_configs_raise(over, item):
-    """Options of later slices raise when built or, for dropout, when a
-    training-mode forward reaches them (remat is ported: test_torch_train
-    runs it)."""
+    """Options of later slices raise when built (remat and dropout are
+    ported: test_torch_train runs them)."""
     with pytest.raises(UnimplementedError, match=item):
         model = TG.GPTForCausalLM(TG.GPTConfig(**dict(CFG, **over)),
                                   device="cpu")

@@ -107,6 +107,18 @@ def test_model_without_device_raises_without_cuda(no_cuda):
         TG.GPTForCausalLM(TG.GPTConfig.tiny())
 
 
+def test_bert_without_device_raises_without_cuda(no_cuda):
+    from paddle_tpu_torch.models import bert as TB
+
+    cfg = TB.BertConfig.tiny()
+    with pytest.raises(DeviceUnavailableError):
+        TB.BertForPretraining(cfg)
+    with pytest.raises(DeviceUnavailableError):
+        TB.BertModel(cfg)
+    model = TB.BertForPretraining(cfg, device="cpu")
+    assert model.mlm_decoder.weight.device.type == "cpu"
+
+
 def test_mnist_without_device_raises_without_cuda(no_cuda):
     with pytest.raises(DeviceUnavailableError):
         MnistMLP()

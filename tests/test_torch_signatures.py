@@ -42,6 +42,7 @@ from paddle_tpu_torch.serving import PagedKVPool
 # distribution only)
 INTENDED = {
     "models.gpt:GPTForCausalLM.generate": {"key": "generator"},
+    "ops.nn:dropout": {"key": "generator"},
     "ops.sampling:sample_from_logits": {"key": "generator"},
     "serving:BatchedDecoder.__init__": {"key": "generator"},
 }
@@ -220,16 +221,6 @@ def test_unported_arguments_raise_naming_their_item():
     _raises("queue 1 item 2", tnn.Embedding, 8, 4, is_sparse=True, **cpu)
     _raises("queue 1 item 11", tnn.MultiHeadAttention, 32, 4,
             seq_parallel="ring", **cpu)
-    mha = tnn.MultiHeadAttention(32, 4, **cpu)
-    _raises("queue 2 item 1", mha, torch.zeros(1, 4, 32),
-            segment_ids=torch.zeros(1, 4))
-    _raises("queue 2 item 1", TA.scaled_dot_product_attention, q, q, q,
-            dropout_key=object())
-    _raises("queue 2 item 1", TA.xla_attention, q, q, q,
-            segment_ids=torch.zeros((1, 64)))
-    _raises("queue 1 item 3", TA.xla_attention, q, q, q, dropout_p=0.1)
-    _raises("queue 2 item 1", TA.xla_attention, q, q, q,
-            dropout_key=object())
     model = tnn.Linear(2, 2, device="cpu")
     opt = topt.Adam(1e-3)
     _raises("queue 1 item 1", Trainer, model, opt, lambda *a: None,

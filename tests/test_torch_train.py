@@ -30,7 +30,10 @@ batch 2, T=64.
   Trainer's: SGD parameters after 2 and 4 micro-steps (and unchanged
   after 1 and 3) at 1e-5 in float32; with ``amp.decorate`` and
   ``"mixed_fp16"``, at 1e-3 of each parameter's largest entry (float16
-  keeps 11 bits) and the loss-scale state exactly."""
+  keeps 11 bits) and the loss-scale state exactly.
+- Dropout 0.1 under remat: grads equal to no remat within 1e-6 (the
+  recompute replays the generator), three Adam steps finite and
+  falling."""
 
 import jax
 import jax.numpy as jnp
@@ -333,3 +336,27 @@ def test_grad_accum_sgd_matches_jax(amp):
                 jt.opt_state["scaler"][key]).item(), key
     with pytest.raises(EnforceError, match="plain steps only"):
         tt.train_steps(torch.from_numpy(_ids(24)), 2)
+
+
+def test_gpt_with_dropout_remat_equals_no_remat_and_trains(flash_on_cpu):
+    """GPTConfig(dropout=0.1) (it raised before dropout was ported) under
+    remat: the recompute replays the generator, so the grads equal those
+    without remat within 1e-6, and three Adam steps train."""
+    ids = torch.from_numpy(np.random.default_rng(13).integers(
+        1, 512, (B, T)))
+    grads, losses = [], []
+    for remat in (False, True):
+        model = TG.GPTForCausalLM(
+            TG.GPTConfig(**dict(CFG, dropout=0.1, remat=remat)),
+            device="cpu", generator=torch.Generator().manual_seed(14))
+        trainer = Trainer(model, TO.Adam(1e-3),
+                          lambda m, b, g: (m.forward_loss(b), {}))
+        run = [float(trainer.train_step(ids)[0])]
+        grads.append({n: p.grad.clone() for n, p in model.named_parameters()})
+        run += [float(trainer.train_step(ids)[0]) for _ in range(2)]
+        losses.append(run)
+    np.testing.assert_allclose(losses[1], losses[0], atol=1e-6, rtol=0)
+    assert all(np.isfinite(losses[0])) and losses[0][-1] < losses[0][0]
+    for name in grads[0]:
+        torch.testing.assert_close(grads[1][name], grads[0][name],
+                                   atol=1e-6, rtol=0, msg=name)

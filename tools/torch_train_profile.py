@@ -1,11 +1,20 @@
 #!/usr/bin/env python3
-"""Where a training step of the port spends its time, on the CUDA card:
-bench_gpt's configuration (bench.py:411-440) — GPTConfig.small() with
-remat, max_position 1024, seeded random weights, one (8, 1024) batch of
-seeded ids — under Trainer with Adam(1e-3) and the mixed-precision
-policy ``--amp`` (float32 by default; TF32 off, and half-precision
-matmuls reduce in float32). Each policy named runs in turn, in one
-process.
+"""Where a training step of the port spends its time, on the CUDA card,
+under Trainer with Adam(1e-3) and the mixed-precision policy ``--amp``
+(float32 by default; TF32 off, and half-precision matmuls reduce in
+float32). ``--model``:
+
+- ``gpt`` (the default): bench_gpt's configuration (bench.py:411-440),
+  GPTConfig.small() with remat, max_position 1024, seeded random
+  weights, one (8, 1024) batch of seeded ids;
+- ``bert_base``: BERT-base pretraining (bench.py:354), BertConfig.base()
+  with dropout 0.1, seeded weights, one (32, 128) batch as bench.py
+  makes it (numpy seed 0), forward_fused_loss (MLM + NSP);
+- ``bert_packed``: the same model over rows pack_sequences fills with
+  documents of 16-128 tokens (bench.py:560), forward_packed_loss with
+  their segment ids.
+
+Each model and policy named runs in turn, in one process.
 
 It runs two warm-up steps, times ``--steps`` steps on the host clock with
 the profiler off (each ends in a synchronize), then profiles as many more
@@ -18,6 +27,7 @@ time.
 
     python3 tools/torch_train_profile.py [--steps 5]
         [--amp float32 mixed_bf16 bfloat16]
+        [--model gpt bert_base bert_packed]
 """
 
 import argparse
@@ -54,6 +64,8 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--amp", nargs="+", default=["float32"],
                     choices=["float32", "mixed_bf16", "bfloat16"])
+    ap.add_argument("--model", nargs="+", default=["gpt"],
+                    choices=["gpt", "bert_base", "bert_packed"])
     args = ap.parse_args()
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -64,15 +76,16 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)
     print(f"[card] {smi.stdout.strip()}")
-    for policy in args.amp:
-        profile_step(torch, profile, ProfilerActivity, policy, args.steps)
+    for name in args.model:
+        for policy in args.amp:
+            profile_step(torch, profile, ProfilerActivity, name, policy,
+                         args.steps)
     return 0
 
 
-def profile_step(torch, profile, ProfilerActivity, policy, n):
-    from paddle_tpu_torch import optimizer
+def gpt_setup(torch):
+    """bench_gpt's model, batch and loss builder; the batch's tokens."""
     from paddle_tpu_torch.models import gpt
-    from paddle_tpu_torch.parallel import Trainer
 
     cfg = gpt.GPTConfig.small()
     cfg.max_position, cfg.remat = 1024, True
@@ -80,14 +93,63 @@ def profile_step(torch, profile, ProfilerActivity, policy, n):
         cfg, generator=torch.Generator(device="cuda").manual_seed(5))
     ids = torch.randint(0, cfg.vocab_size, (8, 1024),
                         generator=torch.Generator().manual_seed(6)).cuda()
-    trainer = Trainer(model, optimizer.Adam(1e-3),
-                      lambda m, batch, g: (m.forward_loss(batch), {}),
+    return (model, ids, lambda m, batch, g: (m.forward_loss(batch), {}),
+            8 * 1024, None)
+
+
+def bert_setup(torch, packed):
+    """BERT-base, bench.py's batch (numpy seed 0) and loss builder; the
+    batch's tokens and, packed, its real (segment > 0) tokens."""
+    import numpy as np
+
+    from paddle_tpu_torch.data import pack_sequences
+    from paddle_tpu_torch.models import bert
+
+    cfg = bert.BertConfig.base()
+    model = bert.BertForPretraining(
+        cfg, device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(15))
+    rng = np.random.default_rng(0)
+    b, t = 32, 128
+
+    def dev(x):
+        return torch.as_tensor(np.asarray(x), dtype=torch.long,
+                               device="cuda")
+
+    if not packed:
+        ids = dev(rng.integers(0, cfg.vocab_size, (b, t)))
+        nsp = dev(rng.integers(0, 2, (b,)))
+        return (model, (ids, ids, nsp),
+                lambda m, batch, g: (m.forward_fused_loss(*batch), {}),
+                b * t, None)
+
+    def docs():
+        while True:
+            yield rng.integers(3, cfg.vocab_size, int(rng.integers(16,
+                                                                   t + 1)))
+
+    pk = next(iter(pack_sequences(docs, capacity=t, batch_size=b)()))
+    tokens = dev(pk["tokens"])
+    seg = torch.as_tensor(pk["segment_ids"], device="cuda")
+    return (model, (tokens, dev(pk["positions"]), seg, tokens),
+            lambda m, batch, g: (m.forward_packed_loss(*batch), {}),
+            b * t, int((seg > 0).sum()))
+
+
+def profile_step(torch, profile, ProfilerActivity, name, policy, n):
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.parallel import Trainer
+
+    model, batch, loss_builder, tokens, real = (
+        gpt_setup(torch) if name == "gpt"
+        else bert_setup(torch, name == "bert_packed"))
+    trainer = Trainer(model, optimizer.Adam(1e-3), loss_builder,
                       amp=policy)
 
     def run(k):
         t0 = time.perf_counter()
         for _ in range(k):
-            trainer.train_step(ids)
+            trainer.train_step(batch)
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
@@ -96,7 +158,8 @@ def profile_step(torch, profile, ProfilerActivity, policy, n):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         wall = run(n)
-    tag = f"[train:{policy}]"
+    tag = (f"[train:{policy}]" if name == "gpt"
+           else f"[train:{name}:{policy}]")
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in events)
@@ -105,7 +168,9 @@ def profile_step(torch, profile, ProfilerActivity, policy, n):
           f"step (profiler on: {1e3 * wall / n:.3f}), device busy "
           f"{busy_us / 1e3 / n:.3f} ms per step, device idle share "
           f"{1 - busy_us / 1e6 / plain_wall:.3f}, {ops / n:.1f} device ops "
-          f"per step, {8 * 1024 * n / plain_wall:.1f} tokens/s")
+          f"per step, {tokens * n / plain_wall:.1f} tokens/s"
+          + ("" if real is None else
+             f", {real * n / plain_wall:.1f} real tokens/s"))
     by_kind = {}
     for e in events:
         k = kind_of(e.key)
