@@ -140,7 +140,33 @@ Phases, each printed as it runs:
    block-diagonal boolean mask and dropout 0.1, a yardstick that draws
    its own masks), and the bound from this batch's live (same-segment)
    scores; the rows ``<kernel>[segments+dropout]`` take their launches
-   from bert_packed's counted step.
+   from bert_packed's counted step;
+12. the checkpointed loop at bench_gpt's full width (``[train:loop]``):
+   GPTConfig.small() with remat, batch (8, 1024), mixed_bf16, Adam(1e-3),
+   weights seed 5, one seeded batch a step, through TrainLoop with
+   checkpoint_every=2 and max_to_keep=2 in a temporary directory
+   (removed at the end). First two trainers of one seed take the same
+   two steps: a step is bit-deterministic on the card when every state
+   leaf and loss agree, and the resume gates are then equality (else
+   twice the loss distance seen). Run A takes 6 steps; run B 4 steps,
+   keeps a host copy of its state and is dropped; run C, a model of
+   another seed, resumes B's checkpoint and runs to 6. Gates: C resumes
+   at step 4 with a state equal to B's step-4 state bit for bit, B's
+   losses and C's steps 5-6 meet the gate against A's, exactly 2
+   committed steps are on disk, and every loop step launches the flash
+   kernels 24/12/12 times, all float32. Printed: the checkpoint's bytes
+   against 12 x the parameter count and its checksum algorithm, each
+   periodic save's blocking ms, the snapshot and whole-write ms of three
+   timed saves, bare train_step host ms without and with an async save
+   in flight, resume_restore_ms, and TrainLoop's host ms per step with
+   no periodic save and with prefetch=2 (its host wait per step), their
+   losses gated against A's;
+13. BERT-base resumed mid-run (``[train:bert_resume]``): the bert_base
+   configuration of phase 10 (dropout 0.1, mixed_bf16) through
+   TrainLoop, 4 steps uninterrupted, and 2 steps, a checkpoint and a
+   model of another seed resuming to 4; the same determinism check and
+   gate on the losses at steps 3-4 (the key restores, and the in-kernel
+   dropout seeds follow it), 12/12/12 float32 launches a loop step.
 
 Any failure exits non-zero. The line before the last is the kernels'
 JSON record; the last line is
@@ -266,6 +292,8 @@ OPT = "[segments+dropout]"
 # :560 bench_bert_packed): BertConfig.base(), batch 32, sequence 128,
 # mixed_bf16 (bench.py:2962), Adam(1e-3)
 BB, BT, BERT_POLICY = 32, 128, "mixed_bf16"
+# the checkpointed loop: bench_gpt's default policy (bench.py:2962)
+LOOP_POLICY = "mixed_bf16"
 
 
 def log(*a):
@@ -1547,6 +1575,317 @@ def phase_flash_timing(torch, FK, err, launches, per_step, dname):
     return rows
 
 
+def state_on_host(torch, trainer):
+    """{path: host copy} of a trainer's whole state (checkpoint paths)."""
+    import numpy as np
+
+    from paddle_tpu_torch.checkpoint import _flatten
+
+    return {path: (x.detach().to("cpu", copy=True) if torch.is_tensor(x)
+                   else np.array(x))
+            for path, x in _flatten(trainer.state())}
+
+
+def states_equal(torch, a, b):
+    """Paths whose values differ, bit for bit, between two host states."""
+    import numpy as np
+
+    if a.keys() != b.keys():
+        return sorted(set(a) ^ set(b))
+    return [p for p in a if not (
+        torch.equal(a[p], b[p]) if torch.is_tensor(a[p])
+        else np.array_equal(a[p], b[p]))]
+
+
+def dir_bytes(path):
+    import os
+
+    return sum(os.path.getsize(os.path.join(root, f))
+               for root, _, files in os.walk(path) for f in files)
+
+
+def step_determinism(torch, make, batches, tag):
+    """Two trainers from the same seed take the same two steps: whether a
+    step is bit-deterministic on the card (the losses and every state
+    leaf equal), and otherwise the largest loss distance, whose double is
+    the resume gates' limit."""
+    runs, states = [], []
+    for _ in range(2):
+        trainer = make(None)
+        runs.append([trainer.train_step(b)[0].item() for b in batches[:2]])
+        states.append(state_on_host(torch, trainer))
+        del trainer
+        torch.cuda.empty_cache()
+    diff = states_equal(torch, *states)
+    dist = max(abs(a - b) for a, b in zip(*runs))
+    exact = not diff and dist == 0.0
+    log(f"{tag} determinism: two runs of 2 steps from one state: losses "
+        f"{runs[0]} and {runs[1]}; state leaves that differ {len(diff)}"
+        f"{' (' + ', '.join(diff[:3]) + ', ...)' if diff else ''}; "
+        f"{'bit-deterministic: the resume gates are equality' if exact else 'not bit-deterministic: the resume gates are twice %.3e' % dist}")
+    return 0.0 if exact else 2 * dist
+
+
+def loop_counter(torch, FK, want, tag):
+    """An on_step callback that records each step's loss, host ms (since
+    the previous step's callback) and flash launches, all float32."""
+    rec = {"losses": [], "ms": [], "bad": []}
+    prev = {"t": time.perf_counter(), "n": flash_counts(FK),
+            "f": flash_counts(FK, torch.float32)}
+
+    def on_step(step, loss, metrics):
+        now = time.perf_counter()
+        n, f = flash_counts(FK), flash_counts(FK, torch.float32)
+        per = {k: n[k] - prev["n"][k] for k in n}
+        per32 = {k: f[k] - prev["f"][k] for k in f}
+        if per != want or per32 != want:
+            rec["bad"].append((step, per, per32))
+        rec["losses"].append(loss.item())
+        rec["ms"].append(1e3 * (now - prev["t"]))
+        prev.update(t=time.perf_counter(), n=n, f=f)
+
+    return rec, on_step
+
+
+def check_losses(tag, what, got, want, gate):
+    far = max(abs(a - b) for a, b in zip(got, want))
+    log(f"{tag} {what}: {got} against {want} (max distance {far:.3e}, "
+        f"limit {gate:.3e})")
+    if not far <= gate:
+        raise SystemExit(f"{tag} {what} disagree")
+
+
+def phase_train_loop(torch, FK):
+    """bench_gpt's configuration at full width through TrainLoop with
+    checkpoints: run A 6 steps, run B 4 steps then dropped, run C a fresh
+    model of another seed resuming B's step 4 to 6; the resume gates, the
+    retention, the launches per loop step; then the checkpoint's size
+    and times, the loop's overhead and prefetch."""
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.checkpoint import save_state
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.parallel import Trainer
+    from paddle_tpu_torch.train_loop import TrainLoop
+
+    tag = "[train:loop]"
+    cfg = gpt.GPTConfig.small()
+    cfg.max_position, cfg.remat = TT, True
+    host = [torch.randint(0, cfg.vocab_size, (TB, TT),
+                          generator=torch.Generator().manual_seed(60 + i))
+            for i in range(6)]
+    data = [b.to("cuda") for b in host]
+
+    def make(seed):
+        model = gpt.GPTForCausalLM(cfg, device="cuda", generator=torch.Generator(
+            device="cuda").manual_seed(5 if seed is None else seed))
+        return Trainer(model, optimizer.Adam(1e-3),
+                       lambda m, batch, g: (m.forward_loss(batch), {}),
+                       amp=LOOP_POLICY)
+
+    want = {"flash_attention_fwd": 2 * cfg.num_layers,
+            "flash_attention_dq": cfg.num_layers,
+            "flash_attention_dkv": cfg.num_layers}
+    gate = step_determinism(torch, make, data, tag)
+    root = tempfile.mkdtemp(prefix="pt_smoke_ckpt_")
+    try:
+        # run A: 6 steps uninterrupted, checkpoints every 2, keep 2
+        trainer = make(None)
+        n_params = sum(p.numel() for p in trainer.params.values())
+        rec_a, on_step = loop_counter(torch, FK, want, tag)
+        loop_a = TrainLoop(trainer, f"{root}/a", checkpoint_every=2,
+                           max_to_keep=2)
+        # the blocking part of each periodic save, as the loop calls it
+        blocking, save = [], loop_a.manager.save
+
+        def timed_save(step, tree, **kw):
+            t0 = time.perf_counter()
+            save(step, tree, **kw)
+            blocking.append((step, round(1e3 * (time.perf_counter() - t0),
+                                         3)))
+
+        loop_a.manager.save = timed_save
+        loop_a.run(iter(data), on_step=on_step)
+        kept = loop_a.manager.committed_steps()
+        ck_bytes = dir_bytes(f"{root}/a/step_6")
+        with open(f"{root}/a/step_6/manifest.json") as f:
+            algo = next(iter(json.load(f)["checksums"].values())).split(
+                ":")[0]
+        log(f"{tag} GPTConfig.small() remat, {n_params} float32 "
+            f"parameters, policy {LOOP_POLICY}, batch ({TB}, {TT}), one "
+            f"seeded batch a step; run A: losses {rec_a['losses']}; host "
+            f"ms per loop step {[round(x, 3) for x in rec_a['ms']]} (a "
+            f"save after steps 2, 4, 6; each save's blocking ms (step, "
+            f"ms) {blocking}); committed steps on disk {kept} "
+            f"(max_to_keep 2)")
+        log(f"{tag} checkpoint bytes {ck_bytes} (parameters and Adam's two "
+            f"moments: 3 x 4 x {n_params} = {12 * n_params}); checksums "
+            f"{algo}")
+        if rec_a["bad"] or kept != [4, 6]:
+            raise SystemExit(f"{tag} run A: launches {rec_a['bad']} or "
+                             f"committed steps {kept}")
+
+        # the save's blocking part (the host snapshot) and the whole write
+        snap, total = [], []
+        for i in range(3):
+            t0 = time.perf_counter()
+            handle = save_state(f"{root}/timed_{i}", trainer.state(),
+                                async_save=True)
+            snap.append(1e3 * (time.perf_counter() - t0))
+            handle.join()
+            total.append(1e3 * (time.perf_counter() - t0))
+            shutil.rmtree(f"{root}/timed_{i}")
+        # host ms per bare step, then with an async save in flight
+        bare, busy = [], []
+        for runs, saving in ((bare, False), (busy, True)):
+            handle = (save_state(f"{root}/inflight", trainer.state(),
+                                 async_save=True) if saving else None)
+            for b in data[:3]:
+                t0 = time.perf_counter()
+                trainer.train_step(b)[0].item()
+                runs.append(1e3 * (time.perf_counter() - t0))
+            if handle is not None:
+                handle.join()
+        log(f"{tag} save: blocking snapshot ms {[round(x, 3) for x in snap]}"
+            f", whole write ms {[round(x, 3) for x in total]}; bare "
+            f"train_step host ms {[round(x, 3) for x in bare]}, with an "
+            f"async save in flight {[round(x, 3) for x in busy]}")
+        del trainer, loop_a
+        shutil.rmtree(f"{root}/a")
+        shutil.rmtree(f"{root}/inflight")
+        torch.cuda.empty_cache()
+
+        # run B: 4 steps, then a host copy of its state, then dropped
+        trainer = make(None)
+        rec_b, on_step = loop_counter(torch, FK, want, tag)
+        TrainLoop(trainer, f"{root}/b", checkpoint_every=2,
+                  max_to_keep=2).run(iter(data[:4]), on_step=on_step)
+        saved = state_on_host(torch, trainer)
+        del trainer
+        torch.cuda.empty_cache()
+        check_losses(tag, "run B's losses at steps 1-4 against run A's",
+                     rec_b["losses"], rec_a["losses"][:4], gate)
+
+        # run C: a model of another seed resumes step 4 and runs to 6
+        trainer = make(7)
+        loop_c = TrainLoop(trainer, f"{root}/b", checkpoint_every=2,
+                           max_to_keep=2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        resumed = loop_c.maybe_resume()
+        torch.cuda.synchronize()
+        restore_ms = 1e3 * (time.perf_counter() - t0)
+        diff = states_equal(torch, state_on_host(torch, trainer), saved)
+        rec_c, on_step = loop_counter(torch, FK, want, tag)
+        loop_c.run(iter(data[4:]), num_steps=6, resume=False,
+                   on_step=on_step)
+        kept = loop_c.manager.committed_steps()
+        log(f"{tag} run C: resumed_from {resumed}, resume_restore_ms "
+            f"{restore_ms:.3f}; state leaves differing from B's step-4 "
+            f"state {len(diff)} of {len(saved)}; committed steps {kept}")
+        if resumed != 4 or diff or rec_b["bad"] or rec_c["bad"] or \
+                kept != [4, 6]:
+            raise SystemExit(f"{tag} resume: resumed_from {resumed}, "
+                             f"differing {diff[:5]}, launches "
+                             f"{rec_b['bad'] + rec_c['bad']}, kept {kept}")
+        check_losses(tag, "run C's losses at steps 5-6 against run A's",
+                     rec_c["losses"], rec_a["losses"][4:], gate)
+        del trainer, loop_c, saved
+        shutil.rmtree(f"{root}/b")
+        torch.cuda.empty_cache()
+
+        # the loop with no periodic save against the bare steps, then
+        # prefetch=2 from host batches: the same losses as run A
+        for name, batches, kw in (("no save", data, {}),
+                                  ("prefetch=2", host, {"prefetch": 2})):
+            trainer = make(None)
+            rec_d, on_step = loop_counter(torch, FK, want, tag)
+            loop_d = TrainLoop(trainer, f"{root}/d", checkpoint_every=0)
+            loop_d.run(iter(batches), on_step=on_step, **kw)
+            pf = loop_d.prefetcher
+            steady = rec_d["ms"][1:]
+            log(f"{tag} TrainLoop, {name}: host ms per loop step "
+                f"{[round(x, 3) for x in rec_d['ms']]}; steps 2-6 mean "
+                f"{sum(steady) / len(steady):.3f} against the bare "
+                f"train_step's {sum(bare) / len(bare):.3f}"
+                + ("" if pf is None else
+                   f"; host wait per step "
+                   f"{1e3 * pf.host_wait_s / pf.batches_staged:.3f} ms "
+                   f"over {pf.batches_staged} batches"))
+            check_losses(tag, f"{name} losses against run A's",
+                         rec_d["losses"], rec_a["losses"], gate)
+            if rec_d["bad"]:
+                raise SystemExit(f"{tag} {name} launches {rec_d['bad']}")
+            del trainer, loop_d
+            shutil.rmtree(f"{root}/d")
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
+def phase_bert_resume(torch, FK):
+    """bert_base (dropout 0.1, mixed_bf16) through TrainLoop: 4 steps
+    uninterrupted, and 2 steps, a checkpoint, a model of another seed
+    resuming to 4: the losses at steps 3-4 meet the determinism gate (the
+    key restores, and the in-kernel dropout seeds follow it)."""
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.parallel import Trainer
+    from paddle_tpu_torch.train_loop import TrainLoop
+
+    tag = "[train:bert_resume]"
+    cfg = bert.BertConfig.base()
+    batch, _, _ = bert_batch(torch, cfg, packed=False)
+    data = [batch] * 4
+
+    def make(seed):
+        model = bert.BertForPretraining(
+            cfg, device="cuda", generator=torch.Generator(
+                device="cuda").manual_seed(15 if seed is None else seed))
+        return Trainer(model, optimizer.Adam(1e-3),
+                       lambda m, b, g: (bert_loss(m, b, False), {}),
+                       amp=BERT_POLICY)
+
+    want = {name: cfg.num_layers for name in FLASH_ROWS}
+    gate = step_determinism(torch, make, data, tag)
+    root = tempfile.mkdtemp(prefix="pt_smoke_bert_")
+    try:
+        rec_x, on_step = loop_counter(torch, FK, want, tag)
+        TrainLoop(make(None), f"{root}/x", checkpoint_every=0).run(
+            iter(data), on_step=on_step)
+        torch.cuda.empty_cache()
+        rec_y, on_step = loop_counter(torch, FK, want, tag)
+        TrainLoop(make(None), f"{root}/y", checkpoint_every=2).run(
+            iter(data[:2]), on_step=on_step)
+        torch.cuda.empty_cache()
+        rec_z, on_step = loop_counter(torch, FK, want, tag)
+        loop_z = TrainLoop(make(16), f"{root}/y", checkpoint_every=2)
+        loop_z.run(iter(data[2:]), num_steps=4, on_step=on_step)
+        log(f"{tag} BertConfig.base(), batch ({BB}, {BT}), dropout "
+            f"{cfg.dropout}, {BERT_POLICY}: uninterrupted losses "
+            f"{rec_x['losses']}; resumed_from "
+            f"{loop_z.history['resumed_from']}; host ms per loop step "
+            f"{[round(x, 3) for x in rec_x['ms']]}")
+        bad = rec_x["bad"] + rec_y["bad"] + rec_z["bad"]
+        if loop_z.history["resumed_from"] != 2 or bad:
+            raise SystemExit(f"{tag} resumed_from "
+                             f"{loop_z.history['resumed_from']}, launches "
+                             f"{bad}")
+        check_losses(tag, "resumed losses at steps 3-4 against the "
+                     "uninterrupted run's", rec_z["losses"],
+                     rec_x["losses"][2:], gate)
+        del loop_z
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -1652,6 +1991,8 @@ def main() -> int:
     packed_step, seg = phase_bert(torch, FK, packed=True)
     rows += phase_flash_option_timing(torch, FK, flash_err["float32"],
                                       packed_step, seg)
+    phase_train_loop(torch, FK)
+    phase_bert_resume(torch, FK)
     log(f"[card] {smi}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -23,8 +23,13 @@ def tree_map(f, *trees):
 
 
 def tree_leaves(tree):
+    """The leaves of ``tree`` in the JAX package's order: a dict's in
+    sorted-key order (``jax.tree_util`` flattens dicts so), a list's or
+    tuple's in order. Optimizer state is indexed by this order, so its
+    i-th entry belongs to the i-th parameter by sorted name in both
+    packages."""
     if isinstance(tree, dict):
-        return [x for v in tree.values() for x in tree_leaves(v)]
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
     if isinstance(tree, (list, tuple)):
         return [x for v in tree for x in tree_leaves(v)]
     return [tree]

@@ -4,13 +4,20 @@ The JAX package splits keys off a global seed; the port hands an
 explicit ``torch.Generator`` to every initialiser and sampler instead,
 and a scope (:func:`rng_scope`) makes one current for the layers that
 draw during a forward (dropout). The two frameworks draw different
-numbers from the same seed: only distributions match."""
+numbers from the same seed: only distributions match.
+
+The trainer's key is the JAX package's: threefry key data (uint32[2]),
+split once a step as the JAX Trainer splits its key (:func:`split_key`
+is ``jax.random.split`` bit for bit), so it moves between the packages
+in a checkpoint; :func:`seed_generator` makes a step's generator from
+it."""
 
 from __future__ import annotations
 
 import contextlib
 from typing import List, Optional
 
+import numpy as np
 import torch
 
 from .places import DeviceLike, resolve_device
@@ -48,3 +55,56 @@ def rng_scope(generator: Optional[torch.Generator]):
 def current_generator() -> Optional[torch.Generator]:
     """The generator of the innermost :func:`rng_scope`, or None."""
     return _SCOPES[-1] if _SCOPES else None
+
+
+# --- the trainer's key (the JAX package's threefry key data) ---------------
+
+_MASK = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def make_key(seed: int = 0) -> np.ndarray:
+    """The key data of ``jax.random.key(seed)`` for the default threefry
+    key: uint32[2], the seed's high and low 32 bits."""
+    seed = int(seed)
+    return np.array([(seed >> 32) & _MASK, seed & _MASK], np.uint32)
+
+
+def _threefry2x32(k1: int, k2: int, x0: int, x1: int):
+    """Threefry-2x32 (20 rounds) of the counter pair (x0, x1) under the
+    key (k1, k2), in Python ints mod 2^32: the block function of the JAX
+    package's default key."""
+    def rotl(v, r):
+        return ((v << r) | (v >> (32 - r))) & _MASK
+
+    ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
+    x = [(x0 + ks[0]) & _MASK, (x1 + ks[1]) & _MASK]
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x[0] = (x[0] + x[1]) & _MASK
+            x[1] = rotl(x[1], r) ^ x[0]
+        x[0] = (x[0] + ks[(i + 1) % 3]) & _MASK
+        x[1] = (x[1] + ks[(i + 2) % 3] + i + 1) & _MASK
+    return x[0], x[1]
+
+
+def split_key(key, num: int = 2) -> np.ndarray:
+    """``jax.random.split(key, num)`` on key data (uint32[2] ->
+    uint32[num, 2]), bit for bit, with the partitionable threefry the
+    JAX package runs: key i is the block function of the counter i."""
+    k1, k2 = (int(v) for v in np.asarray(key, np.uint32).reshape(2))
+    return np.array([_threefry2x32(k1, k2, i >> 32, i & _MASK)
+                     for i in range(num)], np.uint32)
+
+
+def seed_generator(generator: torch.Generator, key) -> torch.Generator:
+    """Seed ``generator`` from key data, deterministically: its 64-bit
+    seed is the key's two words. ``Trainer.train_step`` seeds its step's
+    generator so from a key it splits once a step, as the JAX Trainer
+    splits its key; a run resumed with the key in its checkpoint draws
+    the same dropout masks (layer and in-kernel attention dropout) as an
+    uninterrupted one. The two frameworks draw different numbers from
+    the same key."""
+    k = np.asarray(key, np.uint32).reshape(2)
+    generator.manual_seed((int(k[0]) << 32) | int(k[1]))
+    return generator

@@ -1,7 +1,8 @@
-"""Sequence packing (counterpart of paddle_tpu/data/bucketing.py
-``pack_sequences``): numpy only, copied here so that the port never
-imports the JAX package. The rest of that module (length bucketing)
-comes with the data layer, ROADMAP queue 1 item 12."""
+"""Sequence packing and bucket boundaries (counterpart of
+paddle_tpu/data/bucketing.py ``pack_sequences`` and ``round_to_bucket``):
+numpy only, copied here so that the port never imports the JAX package.
+The rest of that module (length bucketing) comes with the data layer,
+ROADMAP queue 1 item 12."""
 
 from __future__ import annotations
 
@@ -10,6 +11,23 @@ from typing import Callable, Iterator, List
 import numpy as np
 
 from ..core.enforce import enforce
+
+
+def round_to_bucket(n: int, buckets) -> int:
+    """Round a length up to its bucket boundary: "pow2" -> the next
+    power of two; an ascending list -> the first boundary >= n; beyond
+    the last boundary, n unchanged."""
+    if buckets is None:
+        return n
+    if buckets == "pow2":
+        b = 1
+        while b < n:
+            b *= 2
+        return b
+    for bound in buckets:
+        if n <= bound:
+            return int(bound)
+    return n
 
 
 def pack_sequences(reader: Callable[[], Iterator], capacity: int,

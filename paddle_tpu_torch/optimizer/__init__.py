@@ -7,11 +7,17 @@ from .lr_scheduler import (Constant, CosineDecay, ExponentialDecay,
                            InverseTimeDecay, LinearWarmup, LRSchedule,
                            NaturalExpDecay, NoamDecay, PiecewiseDecay,
                            PolynomialDecay, make_schedule)
-from .optimizers import SGD, Adam, AdamW, Optimizer
+from .optimizers import (SGD, Adadelta, Adagrad, Adam, Adamax, AdamW,
+                         DecayedAdagrad, ExponentialMovingAverage, Ftrl,
+                         Lamb, LarsMomentum, Momentum, Optimizer,
+                         ProximalAdagrad, ProximalGD, RMSProp)
 
 __all__ = [
     "lr_scheduler", "DynamicLossScaler", "Constant", "CosineDecay",
     "ExponentialDecay", "InverseTimeDecay", "LinearWarmup", "LRSchedule",
     "NaturalExpDecay", "NoamDecay", "PiecewiseDecay", "PolynomialDecay",
-    "make_schedule", "SGD", "Adam", "AdamW", "Optimizer",
+    "make_schedule", "SGD", "Adadelta", "Adagrad", "Adam", "Adamax",
+    "AdamW", "DecayedAdagrad", "ExponentialMovingAverage", "Ftrl", "Lamb",
+    "LarsMomentum", "Momentum", "Optimizer", "ProximalAdagrad",
+    "ProximalGD", "RMSProp",
 ]

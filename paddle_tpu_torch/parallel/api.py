@@ -7,6 +7,14 @@ the loss builder, ``backward()``, and the optimizer's in-place update.
 PyTorch runs eagerly, so there is nothing to compile; ``train_steps`` is
 a Python loop.
 
+The trainer keeps the JAX Trainer's key (threefry key data, uint32[2])
+and splits it once a step as the JAX Trainer does; the step's
+generator is seeded from the split-off key (core/random.py), so the
+key in a checkpoint fixes every later dropout mask. ``state()`` has the
+JAX Trainer's keys and on-disk dtypes, and ``restore_checkpoint`` copies
+a checkpoint of either package into the live parameters and optimizer
+state in place.
+
 ``amp=`` names a mixed-precision policy (core/dtypes.py) that the loss
 builder runs under; ``backward()`` runs after the scope has closed, as
 the JAX Trainer's gradient is taken outside its trace-time scope (the
@@ -21,12 +29,14 @@ from __future__ import annotations
 import contextlib
 from typing import Any, Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..amp import MixedPrecisionOptimizer
 from ..core.dtypes import POLICIES, policy_scope
 from ..core.enforce import UnimplementedError, enforce
-from ..core.random import make_generator, rng_scope
+from ..core.random import (make_generator, make_key, rng_scope,
+                           seed_generator, split_key)
 from ..optimizer.optimizers import Optimizer
 
 _MULTI_DEVICE = "is not ported yet: ROADMAP queue 1 item 11 (distributed)"
@@ -37,10 +47,11 @@ class Trainer:
 
     ``loss_builder(model, batch, generator) -> (loss, metrics)``: the
     PyTorch form of the JAX package's ``(params, buffers, rng, batch)``.
-    ``generator`` is the trainer's ``torch.Generator`` (seed 0, on the
-    parameters' device) in a training step and None in ``eval_step``; a
-    training step also makes it the current generator
-    (core/random.py ``rng_scope``), from which dropout draws.
+    ``generator`` is the trainer's ``torch.Generator`` (on the
+    parameters' device, seeded each step from the trainer's key) in a
+    training step and None in ``eval_step``; a training step also makes
+    it the current generator (core/random.py ``rng_scope``), from which
+    dropout draws.
     Arguments of the JAX Trainer that this slice does not carry raise
     :class:`UnimplementedError` naming their ROADMAP item."""
 
@@ -71,8 +82,9 @@ class Trainer:
         self.params: Dict[str, torch.nn.Parameter] = dict(
             model.named_parameters())
         self.opt_state = optimizer.init(self.params)
-        device = next(iter(self.params.values())).device
-        self._generator = make_generator(0, device)
+        self.device = next(iter(self.params.values())).device
+        self._generator = make_generator(0, self.device)
+        self._key = make_key(0)
         if grad_accum_steps > 1:
             self._accum = {name: torch.zeros_like(p)
                            for name, p in self.params.items()}
@@ -90,6 +102,8 @@ class Trainer:
         self.model.train()
         for p in self.params.values():
             p.grad = None
+        self._key, sub = split_key(self._key)
+        seed_generator(self._generator, sub)
         with self._scope(), rng_scope(self._generator):
             loss, metrics = self.loss_builder(self.model, batch,
                                               self._generator)
@@ -139,6 +153,87 @@ class Trainer:
         finally:
             self.model.train(was_training)
 
+    def sync_model(self) -> torch.nn.Module:
+        """The model: its parameters are the trainer's state already."""
+        return self.model
+
+    # --- checkpoint/resume ---------------------------------------------------
+
+    def _buffers(self) -> Dict[str, torch.Tensor]:
+        """The model's persistent buffers, by name."""
+        params = set(self.params)
+        keep = set(self.model.state_dict(keep_vars=True)) - params
+        return {n: b for n, b in self.model.named_buffers() if n in keep}
+
+    def state(self) -> Dict[str, Any]:
+        """The whole resumable state with the JAX Trainer's keys:
+        ``params``, ``buffers``, ``opt_state``, ``rng`` (the key data)
+        and, when accumulating, ``grad_accum`` (``accum``, ``count``).
+        The live tensors, except the step counts, which are Python ints
+        in memory and 0-dim int32 tensors here, as the JAX package holds
+        them."""
+        st = {"params": self.params, "buffers": self._buffers(),
+              "opt_state": _ints_to_int32(self.opt_state),
+              "rng": self._key.copy()}
+        if self.grad_accum_steps > 1:
+            st["grad_accum"] = {
+                "accum": self._accum,
+                "count": torch.tensor(self._accum_count, dtype=torch.int32)}
+        return st
+
+    def save_checkpoint(self, manager_or_dir, step: Optional[int] = None):
+        """Save ``state()`` into a CheckpointManager (``step`` needed) or
+        a directory."""
+        from ..checkpoint import CheckpointManager, save_state
+
+        if isinstance(manager_or_dir, CheckpointManager):
+            enforce(step is not None,
+                    "save_checkpoint(manager) needs a step number")
+            manager_or_dir.save(step, self.state())
+        else:
+            save_state(manager_or_dir, self.state())
+
+    def restore_checkpoint(self, manager_or_dir,
+                           step: Optional[int] = None) -> None:
+        """Restore a checkpoint (of either package) in place: every
+        leaf's shape and dtype is checked against ``state()``, and the
+        tree against the live one, before anything is copied; then the
+        values are copied into the existing parameters, buffers and
+        optimizer tensors on the trainer's device, so the model and the
+        optimizer keep their storage. A manager restores ``step``, or
+        with None its newest committed step that verifies."""
+        from ..checkpoint import CheckpointManager, _flatten, restore_state
+
+        target = self.state()
+        if isinstance(manager_or_dir, CheckpointManager):
+            st = manager_or_dir.restore(step, target=target)
+        else:
+            st = restore_state(manager_or_dir, target=target)
+        live = {"params": self.params, "buffers": target["buffers"],
+                "opt_state": self.opt_state}
+        if self.grad_accum_steps > 1 and "grad_accum" in st:
+            live["grad_accum"] = {"accum": self._accum}
+        saved = {k: st.get(k) for k in live}
+        if "grad_accum" in live:
+            saved["grad_accum"] = {"accum": st["grad_accum"]["accum"]}
+        values = dict(_flatten(saved))
+        slots = dict(_leaf_slots(live))
+        enforce(values.keys() == slots.keys(),
+                "checkpoint state does not match the trainer's: only in "
+                "the checkpoint %s, only in the trainer %s",
+                sorted(values.keys() - slots.keys()),
+                sorted(slots.keys() - values.keys()))
+        with torch.no_grad():
+            for path, (box, key) in slots.items():
+                if torch.is_tensor(box[key]):
+                    box[key].copy_(values[path])
+                else:
+                    box[key] = int(values[path])
+        if "grad_accum" in live:
+            self._accum_count = int(st["grad_accum"]["count"])
+        self._key = np.asarray(st["rng"], dtype=np.uint32).reshape(
+            self._key.shape).copy()
+
     @classmethod
     def supervised(cls, model: torch.nn.Module, optimizer: Optimizer,
                    loss_fn: Callable, metrics_fn: Optional[Callable] = None,
@@ -167,6 +262,31 @@ class Trainer:
             return loss, metrics
 
         return cls(model, optimizer, loss_builder, mesh=mesh, **kw)
+
+
+def _ints_to_int32(tree):
+    """``tree`` with its Python int leaves as 0-dim int32 tensors."""
+    if isinstance(tree, dict):
+        return {k: _ints_to_int32(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_ints_to_int32(v) for v in tree)
+    if isinstance(tree, int) and not isinstance(tree, bool):
+        return torch.tensor(tree, dtype=torch.int32)
+    return tree
+
+
+def _leaf_slots(tree, path=()):
+    """[(path, (container, key))] of a live tree's leaves, by the
+    checkpoint's '/'-joined paths, so each can be written in place."""
+    out = []
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    for k, v in items:
+        p = path + (str(k),)
+        if isinstance(v, (dict, list, tuple)):
+            out += _leaf_slots(v, p)
+        elif v is not None:
+            out.append(("/".join(p), (tree, k)))
+    return out
 
 
 def _detach(tree):

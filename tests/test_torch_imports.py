@@ -1,7 +1,8 @@
 """Import hygiene and device rules of the port (paddle_tpu_torch):
 
-- no module of the package, and not chip_smoke.py, imports jax or the
-  JAX package;
+- no module of the package, and not chip_smoke.py, imports jax, the
+  JAX package or ml_dtypes (which comes with JAX: the checkpoint's
+  bfloat16 leaves are viewed through torch);
 - the package imports with no triton and no nvcc;
 - with no CUDA, entry points called without ``device=`` raise a typed
   error instead of carrying on on the CPU;
@@ -32,7 +33,12 @@ from paddle_tpu_torch.serving import BatchedDecoder
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "paddle_tpu_torch"
 SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "paddle_tpu")
+FORBIDDEN = ("jax", "jaxlib", "paddle_tpu", "ml_dtypes")
+# the modules of the checkpoint-and-loop slice, each checked by name
+RESILIENCE_SLICE = ("checkpoint", "train_loop", "resilience",
+                    "resilience.faults", "resilience.integrity",
+                    "resilience.preemption", "resilience.retry",
+                    "utils.atomic", "core.config", "data.device_loader")
 
 
 def _imported(path):
@@ -61,7 +67,7 @@ def test_package_imports_without_triton_nvcc_or_jax():
         "for m in pkgutil.walk_packages(paddle_tpu_torch.__path__, "
         "'paddle_tpu_torch.'):\n"
         "    __import__(m.name)\n"
-        "bad = [m for m in ('jax', 'paddle_tpu', 'triton') "
+        "bad = [m for m in ('jax', 'paddle_tpu', 'triton', 'ml_dtypes') "
         "if m in sys.modules]\n"
         "assert not bad, bad\n"
         "print('ok')\n")
@@ -69,6 +75,30 @@ def test_package_imports_without_triton_nvcc_or_jax():
                          env={"PATH": "", "PYTHONPATH": str(ROOT)},
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0 and "ok" in out.stdout, out.stderr
+
+
+@pytest.mark.parametrize("name", RESILIENCE_SLICE)
+def test_checkpoint_slice_modules_are_jax_free(name):
+    path = PKG / (name.replace(".", "/") + ".py")
+    if not path.exists():
+        path = PKG / name.replace(".", "/") / "__init__.py"
+    assert path in SOURCES
+    bad = [m for m in _imported(path) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, (name, bad)
+
+
+def test_prefetcher_and_trainer_devices_without_cuda(no_cuda, tmp_path):
+    """The prefetcher stages onto the card unless asked for the CPU; a
+    checkpoint of CPU tensors needs no card."""
+    from paddle_tpu_torch.checkpoint import restore_state, save_state
+    from paddle_tpu_torch.data.device_loader import DevicePrefetcher
+
+    with pytest.raises(DeviceUnavailableError):
+        DevicePrefetcher([])
+    assert DevicePrefetcher([], device="cpu").device.type == "cpu"
+    save_state(str(tmp_path / "c"), {"x": torch.ones(2)})
+    assert torch.equal(restore_state(str(tmp_path / "c"))["x"],
+                       torch.ones(2))
 
 
 def test_build_without_nvcc_raises_typed(monkeypatch, tmp_path):

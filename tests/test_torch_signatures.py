@@ -94,7 +94,23 @@ def test_the_comparison_sees_the_shared_surface():
     for want in ("nn.layers:Linear.__init__", "optimizer.optimizers:Adam."
                  "__init__", "ops.attention:xla_attention",
                  "parallel.api:Trainer.supervised", "serving:PagedKVPool."
-                 "__init__", "nn.layers:MultiHeadAttention.attend_kv"):
+                 "__init__", "nn.layers:MultiHeadAttention.attend_kv",
+                 "checkpoint:save_state", "checkpoint:restore_state",
+                 "checkpoint:CheckpointManager.__init__",
+                 "checkpoint:CheckpointManager.restore",
+                 "train_loop:TrainLoop.run", "train_loop:TrainLoop.__init__",
+                 "data.device_loader:DevicePrefetcher.__init__",
+                 "data.device_loader:BucketPadder.__init__",
+                 "resilience.faults:FaultInjector.on",
+                 "resilience.retry:retry_io",
+                 "resilience.preemption:PreemptionHandler.__init__",
+                 "resilience.integrity:verify_bytes",
+                 "utils.atomic:atomic_write_bytes",
+                 "core.config:FlagRegistry.define",
+                 "parallel.api:Trainer.restore_checkpoint",
+                 "parallel.api:Trainer.state",
+                 "optimizer.optimizers:Lamb.__init__",
+                 "optimizer.optimizers:ExponentialMovingAverage.update"):
         assert want in labels
     assert set(INTENDED) <= labels
 
@@ -244,3 +260,35 @@ def test_unported_arguments_raise_naming_their_item():
     torch.testing.assert_close(
         TA.xla_attention(q, q, q, dropout_p=0.0, dropout_key=None,
                          segment_ids=None), TA.xla_attention(q, q, q))
+
+
+def test_checkpoint_slice_arguments_raise_naming_their_item(tmp_path):
+    """The checkpoint-and-loop slice's arguments that come with later
+    items: at any value but the default they raise naming the item; at
+    the default they change nothing."""
+    from paddle_tpu_torch import checkpoint as C
+    from paddle_tpu_torch.data.device_loader import DevicePrefetcher
+    from paddle_tpu_torch.train_loop import TrainLoop
+
+    d = str(tmp_path / "c")
+    _raises("queue 1 item 11", C.save_state, d, {"x": torch.zeros(1)},
+            per_host=True)
+    C.save_state(d, {"x": torch.zeros(1)}, per_host=None)
+    _raises("queue 1 item 11", C.restore_state, d, mesh=object())
+    _raises("queue 1 item 11", C.restore_state, d, shardings={})
+    assert C.restore_state(d, mesh=None, shardings=None)["x"].shape == (1,)
+    _raises("queue 1 item 11", C.CheckpointManager, str(tmp_path / "m"),
+            coordinator=object())
+    _raises("queue 1 item 11", C.load, d, mesh=object())
+    for kw in (dict(mesh=object()), dict(sharding=object()),
+               dict(stage_per_shard=True)):
+        _raises("queue 1 item 11", DevicePrefetcher, [], device="cpu", **kw)
+    model = tnn.Linear(2, 2, device="cpu")
+    trainer = Trainer(model, topt.SGD(0.1), lambda *a: None)
+    loop = TrainLoop(trainer, str(tmp_path / "loop"))
+    _raises("queue 1 item 8", loop.run, [], debug_port=0)
+    _raises("queue 1 item 8", loop.run, [], flight_recorder=object())
+    _raises("queue 1 item 11", loop.run, [], controller=object())
+    _raises("queue 1 item 12", topt.Momentum().apply_gradients, [])
+    assert loop.run([], debug_port=None, flight_recorder=None,
+                    controller=None, preemption=None) == 0
