@@ -45,7 +45,33 @@ Phases, each printed as it runs:
    both arms (int8 >= 3.5x smaller) and the outputs that agree with the
    float paged run (reported; untrained-model argmax ties); its gate is
    the JAX package's logit parity: a 37-token prefill and 6
-   teacher-forced steps within 0.05 x the float pools' logit spread;
+   teacher-forced steps within 0.05 x the float pools' logit spread.
+   Every arena is warmed through ``warm_step()`` and counted on its
+   own; each run prints tokens/s, ms per tick, tokens per tick and host
+   ms per tick token. Then the serving options at the same width, greedy,
+   every float run held to the teacher-forced check and every run to its
+   decode kernel's launches (at least layers x decode steps, no other
+   decode kernel): ``[serve:multistep]`` decode_steps=4, contiguous and
+   paged (tokens against the k=1 arena's, with the logit gap at a first
+   difference; host syncs in each of 4 ticks counted with torch's sync
+   debug mode, exactly one, the read of the token block, at k=4);
+   ``[serve:prefix]`` prefix_cache=True, paged, float and int8: the 16
+   prompts behind a shared 192-token prefix, against a cold run (at
+   least 8 hits; no page leaked); ``[serve:chunked]`` prefill_chunk=64,
+   contiguous and paged, the 8 long prompts interleaved with 8 short
+   ones, against monolithic prefill (the longest gap between two tokens
+   of a request); ``[serve:spec]`` gamma=4, contiguous and paged, the
+   target as its own draft (acceptance > 0.7 per drafted token) and a
+   2-layer draft of its width (seed 7); the draft's steps run the
+   contiguous decode kernel, a paged target's admissions the paged one;
+   ``[serve:handoff]`` prefill_export -> to_bytes -> from_bytes ->
+   inject_prefilled, float and int8, 6 short and 2 long prompts, tokens
+   equal to the same requests served directly; ``[serve:stream]`` 4
+   requests with TokenStreams, one consumer reading nothing until the
+   end (tokens equal the results); ``[serve:w8a16]``
+   apply_weight_only_int8 on a copy of the model, its teacher-forced
+   logits against the float model's within the JAX package's bound
+   (relative norm < 0.03, argmax agreement > 0.9);
 5. timing with CUDA events at the phase-3 shapes (float32, L2 flushed
    before each launch, as a decode tick finds the cache cold): kernel
    ms, plain-version ms, bytes and the memory/compute bound, and, as a
@@ -512,48 +538,61 @@ def phase_paged_write(torch):
             "row dropped, live rows exact")
 
 
+def teacher_logits(torch, model, prompt, out):
+    """Logits at the positions that predicted ``out`` when prompt + out
+    re-run through _chunk_logits on a fresh cache: (len(out), V)."""
+    seq = torch.as_tensor(list(prompt) + [int(x) for x in out],
+                          device=model.device)
+    caches = [blk.self_attn.init_cache(1, -(-len(seq) // 128) * 128)
+              for blk in model.blocks]
+    logits, _ = model._chunk_logits(seq[None], caches, 0)
+    return logits[0, len(prompt) - 1:len(prompt) - 1 + len(out)].float()
+
+
 def teacher_forced_check(torch, model, prompts, outs):
     """Every emitted token must be within 1e-3 of the max logit at its
     position when prompt + output re-run through _chunk_logits."""
     worst = 0.0
-    for p, o in zip(prompts, outs):
-        seq = torch.as_tensor(list(p) + [int(x) for x in o],
-                              device=model.device)
-        caches = [blk.self_attn.init_cache(1, -(-len(seq) // 128) * 128)
-                  for blk in model.blocks]
-        logits, _ = model._chunk_logits(seq[None], caches, 0)
-        rows = logits[0, len(p) - 1:len(p) - 1 + len(o)].float()
-        if not bool(torch.isfinite(rows).all()):
-            raise SystemExit("non-finite logits in the teacher-forced run")
-        picked = rows[torch.arange(len(o)), torch.as_tensor(
-            [int(x) for x in o], device=rows.device)]
-        gap = (rows.max(dim=-1).values - picked).max().item()
-        worst = max(worst, gap)
+    with torch.inference_mode():
+        for p, o in zip(prompts, outs):
+            rows = teacher_logits(torch, model, p, o)
+            if not bool(torch.isfinite(rows).all()):
+                raise SystemExit("non-finite logits in the teacher-forced "
+                                 "run")
+            picked = rows[torch.arange(len(o)), torch.as_tensor(
+                [int(x) for x in o], device=rows.device)]
+            worst = max(worst, (rows.max(dim=-1).values - picked).max()
+                        .item())
     if worst > 1e-3:
         raise SystemExit(f"teacher-forced check failed: an emitted token "
                          f"sits {worst:.3e} below its position's max logit")
     return worst
 
 
-def phase_serving(torch, K, model, prompts, mode, kw, max_new=32):
-    """Serve the prompts through one arena with the launch counters at 0:
-    its decode kernel must launch at least once per layer per tick, the
-    other decode kernels never. Float arenas also hold every token to
-    the teacher-forced check. Returns the outputs, the kernel's launches,
-    the ticks and the decoder."""
+def decode_counts(K):
+    return {name: getattr(K, name).launches for name in KERNEL_ROWS}
+
+
+def mode_kernel(kw):
+    return ("decode_attention_paged_quant" if kw.get("kv_dtype")
+            else "decode_attention_paged" if kw.get("pages")
+            else "decode_attention")
+
+
+def serve(torch, K, model, prompts, max_new=32, streams=None, **kw):
+    """One counted run through BatchedDecoder(slots=8, capacity=2048,
+    **kw): warmed through warm_step(), the launch counters set to 0 just
+    before run() and read just after. Returns a dict: dec, outs, reqs
+    (the Request objects, for their token stamps), wall, launches."""
     from paddle_tpu_torch.serving import BatchedDecoder
 
-    kernel = ("decode_attention_paged_quant" if kw.get("kv_dtype")
-              else "decode_attention_paged" if kw else "decode_attention")
-    # warm-up (library handles, allocator) outside the measured run
-    warm = BatchedDecoder(model, slots=8, capacity=CAP,
-                          device=model.device, **kw)
-    warm.submit(prompts[0], 2)
-    warm.run()
-    del warm
     dec = BatchedDecoder(model, slots=8, capacity=CAP, device=model.device,
                          **kw)
-    rids = [dec.submit(p, max_new) for p in prompts]
+    dec.warm_step()
+    streams = streams or [None] * len(prompts)
+    rids = [dec.submit(p, max_new, stream=s)
+            for p, s in zip(prompts, streams)]
+    reqs = list(dec.queue)
     torch.cuda.synchronize()
     for name in KERNEL_ROWS:
         getattr(K, name).launches = 0
@@ -561,33 +600,403 @@ def phase_serving(torch, K, model, prompts, mode, kw, max_new=32):
     outs = dec.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {name: getattr(K, name).launches for name in KERNEL_ROWS}
+    launches = decode_counts(K)
     outs = [outs[r] for r in rids]
-    if launches[kernel] < model.cfg.num_layers * dec.tick_count:
-        raise SystemExit(f"{mode}: {kernel} launched {launches[kernel]} "
-                         f"times in {dec.tick_count} ticks")
-    if any(n for name, n in launches.items() if name != kernel):
-        raise SystemExit(f"{mode}: another decode kernel launched: "
-                         f"{launches}")
     for o in outs:
         if o.shape != (max_new,) or o.min() < 0 or o.max() >= 32000:
-            raise SystemExit(f"{mode}: malformed output {o}")
+            raise SystemExit(f"malformed output {o}")
+    return dict(dec=dec, outs=outs, reqs=reqs, wall=wall,
+                launches=launches)
+
+
+def decode_steps_of(dec):
+    """Decode steps the run's plain ticks took (a tick of k steps counts
+    k), from the decoder's own tick accounting."""
+    return dec.tick_capacity // dec.slots
+
+
+def check_launches(tag, launches, need):
+    """``need``: kernel -> least launches; every other decode kernel 0."""
+    for name, n in launches.items():
+        if n < need.get(name, 0) or (name not in need and n):
+            raise SystemExit(f"{tag}: decode launches {launches}, needed "
+                             f"{need} and no other decode kernel")
+
+
+def run_line(run):
+    """tokens/s, ms per tick, tokens per tick, host ms per tick-token."""
+    dec = run["dec"]
+    toks = sum(len(o) for o in run["outs"])
+    return (f"{toks} tokens in {run['wall']:.3f} s: "
+            f"{toks / run['wall']:.1f} tokens/s; {dec.tick_count} ticks, "
+            f"{1e3 * dec.tick_seconds / dec.tick_count:.3f} ms per tick, "
+            f"{dec.tick_tokens / dec.tick_count:.2f} tokens per tick, "
+            f"{1e3 * dec.tick_seconds / dec.tick_tokens:.4f} host ms per "
+            f"tick token")
+
+
+def ms_per_token(dec):
+    return 1e3 * dec.tick_seconds / dec.tick_tokens
+
+
+def phase_serving(torch, K, model, prompts, mode, kw, max_new=32):
+    """Serve the prompts through one arena with the launch counters at 0:
+    its decode kernel must launch at least once per layer per tick, the
+    other decode kernels never. Float arenas also hold every token to
+    the teacher-forced check. Returns the outputs, the kernel's launches,
+    the ticks and the run."""
+    kernel = mode_kernel(kw)
+    run = serve(torch, K, model, prompts, max_new, **kw)
+    dec, outs, launches = run["dec"], run["outs"], run["launches"]
+    check_launches(f"[serve:{mode}]", launches,
+                   {kernel: model.cfg.num_layers * dec.tick_count})
     gap = ""
     if not kw.get("kv_dtype"):
-        with torch.inference_mode():
-            gap = (f"; teacher-forced worst gap "
-                   f"{teacher_forced_check(torch, model, prompts, outs):.2e}")
-    toks = sum(len(o) for o in outs)
+        gap = (f"; teacher-forced worst gap "
+               f"{teacher_forced_check(torch, model, prompts, outs):.2e}")
     lens = [len(p) for p in prompts]
     lo, hi = min(lens), max(lens) + max_new - 1
     split = ("every" if lo >= 256 and len(prompts) <= dec.slots
              else "no" if hi < 256 else "some")
-    log(f"[serve:{mode}] {len(outs)} requests, {toks} tokens in "
-        f"{wall:.3f} s: {toks / wall:.1f} tokens/s; {dec.tick_count} "
-        f"decode ticks, {1e3 * dec.tick_seconds / dec.tick_count:.3f} ms "
-        f"per tick; launches {launches}{gap}; live keys per row "
-        f"{lo}-{hi}: {split} decode call has a row of 256 or more")
-    return outs, launches[kernel], dec.tick_count, dec
+    log(f"[serve:{mode}] {len(outs)} requests, {run_line(run)}; launches "
+        f"{launches}{gap}; live keys per row {lo}-{hi}: {split} decode "
+        f"call has a row of 256 or more")
+    return outs, launches[kernel], dec.tick_count, run
+
+
+def host_syncs_per_tick(torch, model, prompts, kw, k, ticks=4):
+    """Synchronizing CUDA calls in each of ``ticks`` decode ticks of a full
+    arena at decode_steps=k (torch's sync debug mode, counted as
+    warnings): the tick's one host read of its token block is one."""
+    import warnings
+
+    from paddle_tpu_torch.serving import BatchedDecoder
+
+    dec = BatchedDecoder(model, slots=8, capacity=CAP, device=model.device,
+                         decode_steps=k, **kw)
+    dec.warm_step()
+    for p in prompts[:8]:
+        dec.submit(p, 32)
+    counts = []
+    with torch.inference_mode():
+        dec._admit()
+        torch.cuda.synchronize()
+        for _ in range(ticks):
+            with warnings.catch_warnings(record=True) as got:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    dec._step()
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            counts.append(sum("synchroniz" in str(w.message) for w in got))
+    return counts
+
+
+def phase_multistep(torch, K, model, prompts, base):
+    """decode_steps=4, contiguous and paged: launches >= 4 x 12 a tick,
+    teacher-forced, one host read a tick; tokens against the k=1 arena
+    (``base``: mode -> (outs, run)), ms per token against k=1."""
+    L = model.cfg.num_layers
+    paged = dict(pages=B * 32 + 8, page_size=PS)
+    for mode, kw in (("contiguous", {}), ("paged", paged)):
+        tag = f"[serve:multistep] {mode}"
+        outs1, run1 = base[mode]
+        run = serve(torch, K, model, prompts, decode_steps=4, **kw)
+        dec, outs = run["dec"], run["outs"]
+        steps = decode_steps_of(dec)
+        check_launches(tag, run["launches"], {mode_kernel(kw): L * steps})
+        if run["launches"][mode_kernel(kw)] < 4 * L * dec.tick_count:
+            raise SystemExit(f"{tag}: fewer than 4 x {L} launches a tick")
+        gap = teacher_forced_check(torch, model, prompts, outs)
+        same, diffs = 0, []
+        with torch.inference_mode():
+            for p, a, b in zip(prompts, outs1, outs):
+                d = (a != b).nonzero()[0]
+                if not len(d):
+                    same += 1
+                    continue
+                i = int(d[0])
+                rows = teacher_logits(torch, model, p, a[:i + 1])
+                diffs.append((i, (rows[i, int(a[i])] - rows[i, int(b[i])])
+                              .item()))
+        syncs = {k: host_syncs_per_tick(torch, model, prompts, kw, k)
+                 for k in (1, 4)}
+        d1 = run1["dec"]
+        log(f"{tag} 16 requests, {run_line(run)}; launches "
+            f"{run['launches']} ({steps} decode steps); teacher-forced "
+            f"worst gap {gap:.2e}; {same}/16 requests equal the k=1 "
+            f"arena's (first differing position and k=1 - k=4 token logit "
+            f"gap there: {diffs}); tick_tokens/tick_capacity "
+            f"{dec.tick_tokens / dec.tick_capacity:.4f} (k=1 "
+            f"{d1.tick_tokens / d1.tick_capacity:.4f}); host ms per tick "
+            f"token {ms_per_token(dec):.4f} against k=1's "
+            f"{ms_per_token(d1):.4f} ({ms_per_token(dec) / ms_per_token(d1):.3f}"
+            f"x); host syncs per tick k=1 {syncs[1]}, k=4 {syncs[4]}")
+        if syncs[4] != [1] * len(syncs[4]):
+            raise SystemExit(f"{tag}: a k=4 tick made {syncs[4]} host "
+                             "syncs, not the one read of its token block")
+        del run, dec
+
+
+def phase_prefix(torch, K, model, prompts):
+    """prefix_cache=True, paged, float and int8: 16 requests of a shared
+    192-token prefix plus the 8-48-token suffixes, against a cold run."""
+    L = model.cfg.num_layers
+    shared = torch.randint(1, 32000, (192,),
+                           generator=torch.Generator().manual_seed(2))
+    pp = [shared.tolist() + list(p) for p in prompts]
+    pages = B * 32 + 8
+    for kv in (None, "int8"):
+        tag = f"[serve:prefix] {kv or 'float32'}"
+        kw = dict(pages=pages, page_size=PS, kv_dtype=kv)
+        cold = serve(torch, K, model, pp, **kw)
+        hot = serve(torch, K, model, pp, prefix_cache=True, **kw)
+        dec = hot["dec"]
+        for run in (cold, hot):
+            check_launches(tag, run["launches"], {
+                mode_kernel(kw): L * decode_steps_of(run["dec"])})
+        held = {int(i) for v in dec._prefix_registry.values() for i in v}
+        free = dec._allocator.free_pages
+        if free + len(held) != pages:
+            raise SystemExit(f"{tag}: pages leaked: {free} free + "
+                             f"{len(held)} held by the registry != {pages}")
+        if dec.prefix_hits < 8:
+            raise SystemExit(f"{tag}: {dec.prefix_hits} prefix hits of "
+                             f"{dec.prefix_lookups} lookups, fewer than 8")
+        gap = ""
+        if kv is None:
+            gap = (f"; teacher-forced worst gap "
+                   f"{teacher_forced_check(torch, model, pp, hot['outs']):.2e}")
+        same = sum(int((a == b).all()) for a, b in zip(cold["outs"],
+                                                        hot["outs"]))
+        log(f"{tag} prefix hits {dec.prefix_hits}/{dec.prefix_lookups} "
+            f"lookups; {same}/16 requests equal the cold run's (near ties "
+            f"reported, not gated); no page leaked ({len(held)} held by the "
+            f"registry); hot: {run_line(hot)}; cold: {run_line(cold)}; "
+            f"launches hot {hot['launches']}{gap}")
+        del cold, hot, dec
+
+
+def longest_gap(reqs):
+    """The longest wait between two tokens of one request (s)."""
+    return max(max(b - a for a, b in zip(r.t_tokens, r.t_tokens[1:]))
+               for r in reqs)
+
+
+def phase_chunked(torch, K, model, prompts, long_prompts):
+    """prefill_chunk=64, contiguous and paged: the 8 long prompts
+    interleaved with 8 short ones, against monolithic prefill."""
+    L = model.cfg.num_layers
+    mixed = [p for pair in zip(long_prompts, prompts[:8]) for p in pair]
+    paged = dict(pages=B * 32 + 8, page_size=PS)
+    for mode, kw in (("contiguous", {}), ("paged", paged)):
+        tag = f"[serve:chunked] {mode}"
+        mono = serve(torch, K, model, mixed, **kw)
+        chunk = serve(torch, K, model, mixed, prefill_chunk=64, **kw)
+        for run in (mono, chunk):
+            check_launches(tag, run["launches"], {
+                mode_kernel(kw): L * decode_steps_of(run["dec"])})
+        gap = teacher_forced_check(torch, model, mixed, chunk["outs"])
+        teacher_forced_check(torch, model, mixed, mono["outs"])
+        same = sum(int((a == b).all()) for a, b in zip(mono["outs"],
+                                                        chunk["outs"]))
+        log(f"{tag} 16 requests (8 of {min(map(len, long_prompts))}-"
+            f"{max(map(len, long_prompts))} prompt tokens); longest "
+            f"inter-token gap of a request {1e3 * longest_gap(chunk['reqs']):.1f}"
+            f" ms chunked against {1e3 * longest_gap(mono['reqs']):.1f} ms "
+            f"monolithic; chunked: {run_line(chunk)}; monolithic: "
+            f"{run_line(mono)}; {same}/16 equal; teacher-forced worst gap "
+            f"{gap:.2e}; launches {chunk['launches']}")
+        del mono, chunk
+
+
+def phase_spec(torch, K, model, prompts, plain):
+    """gamma=4, contiguous and paged, with the target as its own draft
+    (A) and with a 2-layer GPTConfig.small()-width draft of seed 7 (B).
+    The draft steps run the contiguous decode kernel (the draft's arena
+    is contiguous); a paged target re-steps each prompt's last token
+    through the paged kernel at admission."""
+    import dataclasses
+
+    from paddle_tpu_torch.models import gpt
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    small = gpt.GPTConfig.small()
+    draft_b = gpt.GPTForCausalLM(dataclasses.replace(small, num_layers=2),
+                                 device=model.device, generator=gen).eval()
+    L, gamma = model.cfg.num_layers, 4
+    paged = dict(pages=B * 32 + 8, page_size=PS)
+    for dname, draft in (("self-draft", model), ("2-layer draft", draft_b)):
+        for mode, kw in (("contiguous", {}), ("paged", paged)):
+            tag = f"[serve:spec] {dname} {mode}"
+            run = serve(torch, K, model, prompts, draft=draft, gamma=gamma,
+                        **kw)
+            dec = run["dec"]
+            need = {"decode_attention": draft.cfg.num_layers * (gamma + 1)
+                    * dec.spec_rounds}
+            if kw:
+                need["decode_attention_paged"] = L * len(prompts)
+            check_launches(tag, run["launches"], need)
+            gap = teacher_forced_check(torch, model, prompts, run["outs"])
+            rate = dec.spec_accepted / (dec.spec_row_rounds * gamma)
+            per_round = dec.spec_accepted / dec.spec_row_rounds
+            if draft is model and rate <= 0.7:
+                raise SystemExit(f"{tag}: self-draft acceptance {rate:.3f}"
+                                 " <= 0.7 per drafted token")
+            same = sum(int((a == b).all())
+                       for a, b in zip(plain[mode][0], run["outs"]))
+            log(f"{tag} {dec.spec_rounds} rounds, {dec.spec_row_rounds} row "
+                f"rounds; acceptance {rate:.4f} per drafted token, "
+                f"{per_round:.3f} accepted per round, "
+                f"{1 + per_round:.3f} tokens per target call; "
+                f"{run_line(run)}; host ms per tick token against the plain"
+                f" arena's {ms_per_token(plain[mode][1]['dec']):.4f}; "
+                f"{same}/16 requests equal the plain arena's; "
+                f"teacher-forced worst gap {gap:.2e}; launches "
+                f"{run['launches']}")
+            del run, dec
+    del draft_b
+
+
+def phase_handoff(torch, K, model, prompts, long_prompts):
+    """prefill_export on one paged decoder -> to_bytes -> from_bytes ->
+    inject_prefilled into another, float and int8, against the same
+    requests served directly by a decoder with the same options."""
+    from paddle_tpu_torch.serving import BatchedDecoder, KVHandoff
+
+    L = model.cfg.num_layers
+    hp = list(prompts[:6]) + list(long_prompts[:2])
+    for kv in (None, "int8"):
+        tag = f"[serve:handoff] {kv or 'float32'}"
+        kw = dict(pages=B * 32 + 8, page_size=PS, kv_dtype=kv)
+        worker = BatchedDecoder(model, slots=8, capacity=CAP,
+                                device=model.device, **kw)
+        worker.warm_step()
+        export_ms, wire, nbytes, handoffs = [], [], [], []
+        for p in hp:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            h = worker.prefill_export(p)
+            export_ms.append(1e3 * (time.perf_counter() - t0))
+            data = h.to_bytes()
+            wire.append(len(data))
+            nbytes.append(h.nbytes)
+            handoffs.append(KVHandoff.from_bytes(data))
+        del worker
+        dec = BatchedDecoder(model, slots=8, capacity=CAP,
+                             device=model.device, **kw)
+        dec.warm_step()
+        inject_ms = []
+        plain_import = dec._import_handoff
+
+        def timed_import(s, r):
+            t0 = time.perf_counter()
+            plain_import(s, r)
+            torch.cuda.synchronize()
+            inject_ms.append(1e3 * (time.perf_counter() - t0))
+
+        dec._import_handoff = timed_import
+        rids = [dec.inject_prefilled(h, 32) for h in handoffs]
+        torch.cuda.synchronize()
+        for name in KERNEL_ROWS:
+            getattr(K, name).launches = 0
+        got = dec.run()
+        launches = decode_counts(K)
+        got = [got[r] for r in rids]
+        check_launches(tag, launches,
+                       {mode_kernel(kw): L * decode_steps_of(dec)})
+        direct = serve(torch, K, model, hp, **kw)["outs"]
+        same = sum(int((a == b).all()) for a, b in zip(got, direct))
+        if same != len(hp):
+            raise SystemExit(f"{tag}: {same}/{len(hp)} injected requests "
+                             "equal the directly served ones")
+        gap = ""
+        if kv is None:
+            gap = (f"; teacher-forced worst gap "
+                   f"{teacher_forced_check(torch, model, hp, got):.2e}")
+        log(f"{tag} {len(hp)} prompts of {[len(p) for p in hp]} tokens: "
+            f"{same}/{len(hp)} injected requests equal the directly served "
+            f"ones; handoff nbytes {nbytes}, wire bytes {wire}; export ms "
+            f"{[round(x, 3) for x in export_ms]}; inject (import at "
+            f"admission) ms {[round(x, 3) for x in inject_ms]}; launches "
+            f"{launches}{gap}")
+        del dec, handoffs
+
+
+def phase_stream(torch, K, model, prompts):
+    """4 requests with TokenStreams: three consumers read as tokens
+    arrive, the fourth (a 4-record buffer) reads nothing until run()
+    has returned."""
+    import threading
+
+    from paddle_tpu_torch.serving import TokenStream
+
+    streams = [TokenStream() for _ in range(3)] + [TokenStream(maxlen=4)]
+    got = [None] * 4
+
+    def consume(i):
+        got[i] = [r["tok"] for r in streams[i] if "i" in r]
+
+    threads = [threading.Thread(target=consume, args=(i,))
+               for i in range(3)]
+    for th in threads:
+        th.start()
+    kw = dict(pages=B * 32 + 8, page_size=PS)
+    run = serve(torch, K, model, prompts[:4], streams=streams, **kw)
+    for th in threads:
+        th.join(timeout=60)
+    consume(3)
+    check_launches("[serve:stream]", run["launches"], {
+        mode_kernel(kw): model.cfg.num_layers * decode_steps_of(run["dec"])})
+    for i, (g, o) in enumerate(zip(got, run["outs"])):
+        if g != o.tolist():
+            raise SystemExit(f"[serve:stream] stream {i} delivered {g}, "
+                             f"the result is {o.tolist()}")
+    gap = teacher_forced_check(torch, model, prompts[:4], run["outs"])
+    log(f"[serve:stream] 4 streams equal their results; the stalled "
+        f"consumer's stream stalled {streams[3].stalled_s:.4f} s while the "
+        f"arena ran on; {run_line(run)}; teacher-forced worst gap "
+        f"{gap:.2e}; launches {run['launches']}")
+
+
+def phase_w8a16(torch, K, model, prompts, float_run):
+    """apply_weight_only_int8 on a copy of the model, served contiguous;
+    its logits against the float model's on the float run's sequences."""
+    import copy
+
+    from paddle_tpu_torch.quant import apply_weight_only_int8
+
+    wm = copy.deepcopy(model)
+    wrapped = apply_weight_only_int8(wm)
+    run = serve(torch, K, wm, prompts)
+    check_launches("[serve:w8a16]", run["launches"], {
+        "decode_attention": wm.cfg.num_layers * decode_steps_of(run["dec"])})
+    gap = teacher_forced_check(torch, wm, prompts, run["outs"])
+    num = den = 0.0
+    agree = total = 0
+    with torch.inference_mode():
+        for p, o in zip(prompts, float_run["outs"]):
+            f = teacher_logits(torch, model, p, o)
+            w = teacher_logits(torch, wm, p, o)
+            num += ((w - f) ** 2).sum().item()
+            den += (f ** 2).sum().item()
+            agree += int((w.argmax(-1) == f.argmax(-1)).sum())
+            total += len(o)
+    rel, frac = math.sqrt(num / den), agree / total
+    toks = sum(len(o) for o in run["outs"])
+    ftoks = sum(len(o) for o in float_run["outs"])
+    log(f"[serve:w8a16] {len(wrapped)} Linears W8A16; {run_line(run)}; "
+        f"{toks / run['wall']:.1f} tokens/s against float32's "
+        f"{ftoks / float_run['wall']:.1f}; teacher-forced logits against "
+        f"the float model: relative norm {rel:.5f} (limit 0.03), argmax "
+        f"agreement {frac:.4f} (limit 0.9); teacher-forced worst gap "
+        f"(against itself) {gap:.2e}; launches {run['launches']}")
+    if rel >= 0.03 or frac <= 0.9:
+        raise SystemExit("[serve:w8a16] logits leave the JAX package's "
+                         "W8A16 bound")
+    del wm, run
 
 
 def phase_int8_logits(torch, model):
@@ -1929,10 +2338,10 @@ def main() -> int:
                for n in lens]
     launches = {}
     paged = dict(pages=B * 32 + 8, page_size=PS)
-    outs_c, launches["decode_attention"], ticks_c, _ = phase_serving(
+    outs_c, launches["decode_attention"], ticks_c, run_c = phase_serving(
         torch, K, model, prompts, "contiguous", {})
-    outs_p, launches["decode_attention_paged"], ticks_p, _ = phase_serving(
-        torch, K, model, prompts, "paged", paged)
+    outs_p, launches["decode_attention_paged"], ticks_p, run_p = \
+        phase_serving(torch, K, model, prompts, "paged", paged)
     # the same paged path at long contexts, where the split walks more
     # than one live chunk per row (its launches stay out of the record)
     long_lens = torch.randint(1200, 1901, (8,), generator=rng).tolist()
@@ -1945,9 +2354,10 @@ def main() -> int:
         f"{launches['decode_attention'] / ticks_c:.2f}, paged "
         f"{launches['decode_attention_paged'] / ticks_p:.2f} (paged "
         f"includes one B=1 launch per layer per prefill)")
-    outs_q, launches["decode_attention_paged_quant"], ticks_q, dec_q = \
+    outs_q, launches["decode_attention_paged_quant"], ticks_q, run_q = \
         phase_serving(torch, K, model, prompts, "paged-int8",
                       dict(paged, kv_dtype="int8"))
+    dec_q = run_q.pop("dec")
     attn0 = model.blocks[0].self_attn
     float_bytes = PagedKVPool(paged["pages"], PS, attn0.num_kv_heads,
                               attn0.head_dim, arrays=False,
@@ -1964,6 +2374,17 @@ def main() -> int:
     if ratio < 3.5:
         raise SystemExit("the int8 pool is not >= 3.5x smaller")
     phase_int8_logits(torch, model)
+    # the serving options at the same width, each run counted on its own
+    base = {"contiguous": (outs_c, run_c), "paged": (outs_p, run_p)}
+    phase_multistep(torch, K, model, prompts, base)
+    phase_prefix(torch, K, model, prompts)
+    phase_chunked(torch, K, model, prompts, long_prompts)
+    phase_spec(torch, K, model, prompts, base)
+    phase_handoff(torch, K, model, prompts, long_prompts)
+    phase_stream(torch, K, model, prompts)
+    phase_w8a16(torch, K, model, prompts, run_c)
+    del base, run_c, run_p
+    torch.cuda.empty_cache()
 
     rows = phase_timing(torch, K, err, launches)
     del model

@@ -232,6 +232,24 @@ class GPTForCausalLM(Layer):
                 decode_kernel=decode_kernel))
         return logits[:, 0], caches
 
+    def _chunk_logits_rows(self, toks, caches, t0_rows):
+        """S KV-cached positions per row at per-row chunk starts
+        ``t0_rows`` (B,), the arena's speculative verify: every slot
+        scores its gamma+1 candidates at its own cursor in one pass.
+        ``toks`` (B, S) -> ((B, S, V) logits, caches)."""
+        return self._cached_blocks(
+            self.embed(toks), caches,
+            lambda sa, h, ck, cv: sa.forward_chunk_rows(
+                h, ck, cv, t0_rows, window=self.cfg.attn_window))
+
+    def _chunk_logits_paged_rows(self, toks, pools, table, t0_rows):
+        """S positions per row against paged caches at per-row chunk
+        starts (see :meth:`_chunk_logits_rows`). ``toks`` (B, S)."""
+        return self._cached_blocks(
+            self.embed(toks), pools,
+            lambda sa, h, kp, vp: sa.forward_chunk_paged_rows(
+                h, kp, vp, table, t0_rows, window=self.cfg.attn_window))
+
     def _step_logits_paged(self, tok, pools, table, t_rows):
         """One position per row against paged caches: ``pools`` is the
         per-block [(kpool, vpool), ...] list, ``table`` the (B, n_log)

@@ -16,7 +16,7 @@ from typing import Optional
 import torch
 
 from .. import initializer as I
-from ..core.dtypes import get_policy, to_dtype
+from ..core.dtypes import default_dtype, get_policy, to_dtype
 from ..core.enforce import UnimplementedError, enforce
 from ..core.places import resolve_device
 from ..core.random import current_generator
@@ -162,14 +162,22 @@ class Dropout(Layer):
 class _MHADecodeMixin:
     """Incremental-decode pieces for MultiHeadAttention (KV cache)."""
 
+    def cache_home(self):
+        """(dtype, device) of the K/V the layer caches: the K
+        projection's floating-point weight's, or the default dtype on its
+        device when the weight is stored otherwise (W8A16's int8)."""
+        w = next(iter(self.k_proj.state_dict(keep_vars=True).values()))
+        return (w.dtype if w.is_floating_point() else default_dtype(),
+                w.device)
+
     def init_cache(self, batch: int, capacity: int, dtype=None):
         """Zeroed (B, capacity, h_kv, hd) K and V caches on the layer's
         device, in the projection dtype unless ``dtype`` is given."""
-        w = self.k_proj.weight
-        dt = to_dtype(dtype) if dtype is not None else w.dtype
+        dt, dev = self.cache_home()
+        dt = to_dtype(dtype) if dtype is not None else dt
         shape = (batch, capacity, self.num_kv_heads, self.head_dim)
-        return (torch.zeros(shape, dtype=dt, device=w.device),
-                torch.zeros(shape, dtype=dt, device=w.device))
+        return (torch.zeros(shape, dtype=dt, device=dev),
+                torch.zeros(shape, dtype=dt, device=dev))
 
     def project_kv(self, key, value=None):
         value = key if value is None else value
@@ -330,6 +338,59 @@ class _MHADecodeMixin:
             q_positions=pos_rows if self.rotary else None,
             decode_t=pos_rows[:, 0] if decode else None, window=window)
         return out, cache_k, cache_v
+
+    def forward_chunk_rows(self, x_chunk, cache_k, cache_v, t0_rows,
+                           window=None):
+        """S positions per row at per-row chunk starts ``t0_rows`` (B,),
+        the speculative verify chunk over an arena (each slot scores its
+        candidates at its own cursor): row b's chunk lands at
+        [t0_b, t0_b+S) (in place; the start clamps to [0, cap-S], as
+        JAX's per-row dynamic_update_slice does) and position i attends
+        cache positions <= t0_b+i on the masked plain path.
+        ``x_chunk``: (B, S, D); returns (out, cache_k, cache_v)."""
+        from ..ops.attention import cache_keep_mask
+
+        b, s, _ = x_chunk.shape
+        cap = cache_k.shape[1]
+        steps = torch.arange(s, dtype=torch.int32, device=x_chunk.device)
+        pos_chunk = t0_rows.to(torch.int32)[:, None] + steps[None, :]
+        k_c, v_c = self._project_kv_t(x_chunk, pos_chunk)
+        start = t0_rows.long().clamp(0, cap - s)
+        rows = torch.arange(b, device=x_chunk.device)[:, None]
+        idx = start[:, None] + steps.long()[None, :]
+        cache_k[rows, idx] = k_c.to(cache_k.dtype)
+        cache_v[rows, idx] = v_c.to(cache_v.dtype)
+        out = self.attend_kv(
+            x_chunk, cache_k, cache_v,
+            attn_mask=cache_keep_mask(pos_chunk, cap, window),
+            q_positions=pos_chunk if self.rotary else None, window=window)
+        return out, cache_k, cache_v
+
+    def forward_chunk_paged_rows(self, x_chunk, kpool, vpool, table,
+                                 t0_rows, window=None):
+        """S positions per row against the paged cache at per-row chunk
+        starts (the paged arena's speculative verify chunk): every row's
+        candidates are written at its own logical offset (in place;
+        parked rows drop), then attend over the row's gathered pages on
+        the masked plain path (S is gamma+1, small; the paged decode
+        kernel stays the S=1 path). ``x_chunk``: (B, S, D)."""
+        from ..ops import paged_kv
+        from ..ops.attention import (cache_keep_mask,
+                                     scaled_dot_product_attention)
+
+        b, s, d = x_chunk.shape
+        steps = torch.arange(s, dtype=torch.int32, device=x_chunk.device)
+        pos_chunk = t0_rows.to(torch.int32)[:, None] + steps[None, :]
+        k_c, v_c = self._project_kv_t(x_chunk, pos_chunk)
+        paged_kv.write_chunk_rows(kpool, vpool, table, t0_rows, k_c, v_c,
+                                  kpool.shape[1])
+        k = paged_kv.gather_rows(kpool, table)
+        v = paged_kv.gather_rows(vpool, table)
+        out = scaled_dot_product_attention(
+            self._rotated_q(x_chunk, pos_chunk), k, v,
+            mask=cache_keep_mask(pos_chunk, k.shape[1], window),
+            use_flash=False)
+        return self.out_proj(out.reshape(b, s, d)), kpool, vpool
 
 
 class MultiHeadAttention(_MHADecodeMixin, Layer):

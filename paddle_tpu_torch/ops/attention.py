@@ -242,8 +242,10 @@ def rotary_embedding(x, positions, theta: float = 10000.0):
     half = d // 2
     dev = x.device
     expo = -torch.arange(0, half, dtype=torch.float32, device=dev) / half
-    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32, device=dev),
-                      expo)
+    # a Python-scalar base: a tensor made on the card from theta would be
+    # a host-to-device copy, which waits for the card (a host sync in
+    # every decode step); the float32 pow is the same
+    freqs = torch.pow(float(theta), expo)
     ang = positions.to(device=dev, dtype=torch.float32)[..., None] * freqs
     # (T, half) broadcasts over batch and heads, (B, T, half) over heads
     cos = torch.cos(ang)[..., None, :]

@@ -17,12 +17,17 @@ nothing. Torch has no drop mode, and boolean indexing would copy a
 count to the host on every write, so a dropped row is sent to a place
 another row writes with that row's value (see ``_drop_index``) — a
 clamped write of its own value would corrupt another request's page.
-An int8 pool writes its value and scale planes with the same indices."""
+An int8 pool writes its value and scale planes with the same indices.
+
+``write_chunk_rows`` writes S positions per row at per-row cursors (the
+speculative verify chunk); ``export_pages``/``import_pages`` copy whole
+pages out of and into a pool in its storage form (the KV handoff)."""
 
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 
@@ -172,3 +177,70 @@ def attend(q, kpool, vpool, table, t_rows, window: Optional[int] = None):
             window=window)
     return decode_attention_paged(q, kpool, vpool, table, t_rows,
                                   window=window)
+
+
+def write_chunk_rows(kpool, vpool, table, t0_rows, k_c, v_c,
+                     page_size: int):
+    """S consecutive positions per row from per-row logical cursors
+    ``t0_rows`` (B,): k_c/v_c (B, S, kv, hd), the speculative verify
+    chunk's write (every row lands its candidates at its own offset).
+    Positions past the table capacity drop."""
+    b, s = k_c.shape[:2]
+    n_log = table.shape[1]
+    pos = (t0_rows.long()[:, None]
+           + torch.arange(s, device=k_c.device)[None, :]).reshape(-1)
+    rows = torch.arange(b, device=k_c.device).repeat_interleave(s)
+    col = (pos // page_size).clamp(0, n_log - 1)
+    idx, valid, j = _drop_index(table[rows, col].long(), pos % page_size,
+                                (pos >= 0) & (pos < n_log * page_size),
+                                kpool.shape[0])
+    _pool_write(kpool, idx, valid, j, k_c.reshape(b * s, *k_c.shape[2:]))
+    _pool_write(vpool, idx, valid, j, v_c.reshape(b * s, *v_c.shape[2:]))
+    return kpool, vpool
+
+
+def export_pages(pool, ids):
+    """The contents of pages ``ids`` (n,), the KV handoff's payload:
+    (n, page_size, kv_heads, head_dim) values for a float pool, a
+    ``(q, scale)`` pair for a :class:`QuantizedPool` (the int8 values and
+    their scales travel together, never dequantized). A gather on the
+    pool's device; the caller copies it to the host."""
+    ids = torch.as_tensor(ids, device=pool.q.device if isinstance(
+        pool, QuantizedPool) else pool.device).long()
+    if isinstance(pool, QuantizedPool):
+        return pool.q[ids], pool.scale[ids]
+    return pool[ids]
+
+
+def _on(x, device, dtype):
+    """A payload array (numpy, possibly read-only, or a tensor) as a
+    ``dtype`` tensor on ``device``."""
+    if not torch.is_tensor(x):
+        x = torch.from_numpy(np.array(x))
+    return x.to(device=device, dtype=dtype)
+
+
+def import_pages(pool, ids, payload):
+    """Write an :func:`export_pages` payload into pages ``ids`` of
+    ``pool``, in place (the decode side of the KV handoff). The storage
+    forms must match: a quantized payload lands only in a quantized pool
+    and a float payload only in a float pool, since converting either way
+    would change the cached values; a mismatch is a typed error."""
+    from ..core.enforce import enforce
+
+    if isinstance(pool, QuantizedPool):
+        enforce(isinstance(payload, tuple) and len(payload) == 2,
+                "quantized pool needs a (q, scale) payload, got %s",
+                type(payload).__name__)
+        dev = pool.q.device
+        ids = torch.as_tensor(ids, device=dev).long()
+        q, scale = payload
+        pool.q[ids] = _on(q, dev, torch.int8)
+        pool.scale[ids] = _on(scale, dev, torch.float32)
+        return pool
+    enforce(not isinstance(payload, tuple),
+            "float pool cannot import a quantized (q, scale) payload "
+            "— kv_dtype must match across the handoff")
+    ids = torch.as_tensor(ids, device=pool.device).long()
+    pool[ids] = _on(payload, pool.device, pool.dtype)
+    return pool

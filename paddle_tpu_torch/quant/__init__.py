@@ -1,7 +1,8 @@
 """Quantization of the port (counterpart of paddle_tpu/quant): fake
 quantization and the shared abs-max int8 encode/decode (``ops``),
-QAT/PTQ by layer rewrite (``qat``), and int8 execution of frozen Linear
-layers on the int8 matrix-product kernel (``int8``)."""
+QAT/PTQ by layer rewrite (``qat``), int8 execution of frozen Linear
+layers on the int8 matrix-product kernel (``int8``), and weight-only
+int8 Linears, W8A16 (``weight_only``)."""
 
 from .int8 import Int8Linear, int8_linear, int8_swap
 from .ops import (MovingAverageState, abs_max_scale, absmax_decode,
@@ -12,6 +13,7 @@ from .ops import (MovingAverageState, abs_max_scale, absmax_decode,
                   moving_average_abs_max_scale, moving_average_state_init,
                   quantize_dequantize, quantize_to_int)
 from .qat import QuantConfig, QuantedLayer, calibrate, freeze, quantize_model
+from .weight_only import WeightOnlyLinear, apply_weight_only_int8
 
 __all__ = [
     "Int8Linear", "int8_linear", "int8_swap",
@@ -21,4 +23,5 @@ __all__ = [
     "moving_average_abs_max_scale", "moving_average_state_init",
     "quantize_dequantize", "quantize_to_int",
     "QuantConfig", "QuantedLayer", "calibrate", "freeze", "quantize_model",
+    "WeightOnlyLinear", "apply_weight_only_int8",
 ]

@@ -69,7 +69,9 @@ def _serve(dec, prompts):
 
 class _Forced(BatchedDecoder):
     """The port's arena, teacher-forced along given token sequences: every
-    pick returns the reference token and records the row's logits."""
+    pick returns the reference token and records the row's logits. A
+    pick's position says which token of its request it is (position
+    plen + i is the i-th generated token)."""
 
     def __init__(self, *args, forced, **kw):
         super().__init__(*args, **kw)
@@ -78,21 +80,20 @@ class _Forced(BatchedDecoder):
         self._admitting = None
 
     def _activate(self, s, r, logits, plen):
-        self._admitting = r.rid
+        self._admitting = s
         super()._activate(s, r, logits, plen)
 
-    def _pick(self, logits):
-        out = super()._pick(logits)
-        if self._admitting is not None:
-            rid, self._admitting = self._admitting, None
-            self.logits[rid].append(logits[0].numpy())
-            return np.asarray([self.forced[rid][0]], np.int32)
-        for s in range(self.slots):
-            if self.active[s]:
-                r = self.owner[s]
-                i = len(self.emitted[s])
-                self.logits[r.rid].append(logits[s].numpy())
-                out[s] = self.forced[r.rid][i]
+    def _pick(self, logits, gens, poss, salt=0):
+        out = super()._pick(logits, gens, poss, salt)
+        if self._admitting is not None:        # one row: the new slot
+            pairs, self._admitting = [(0, self._admitting)], None
+        else:                                  # a tick: row = slot
+            pairs = [(s, s) for s in range(self.slots) if self.active[s]]
+        for row, s in pairs:
+            r = self.owner[s]
+            i = int(poss[row]) - len(r.prompt)
+            self.logits[r.rid].append(logits[row].numpy())
+            out[row] = self.forced[r.rid][i]
         return out
 
 
@@ -243,19 +244,6 @@ def test_page_pool_alloc_free():
         al.free([9])
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(prefix_cache=True), "item 7"),
-    (dict(prefill_chunk=16), "item 7"),
-    (dict(draft=object()), "item 7"),
-    (dict(gamma=2), "item 7"),
-    (dict(decode_steps=2), "item 6"),
-])
-def test_later_slice_options_raise(setup, kw, item):
-    _, tm, _, _ = setup
-    with pytest.raises(UnimplementedError, match=item):
-        BatchedDecoder(tm, slots=2, capacity=128, device="cpu", **kw)
-
-
 def test_int8_kv_requires_paged_mode(setup):
     _, tm, _, _ = setup
     with pytest.raises(EnforceError, match="paged mode"):
@@ -367,7 +355,7 @@ def test_submit_checks(setup):
         dec.submit(prompts[0], 0)
     with pytest.raises(EnforceError, match="capacity"):
         dec.submit(prompts[1], 10)
-    with pytest.raises(UnimplementedError, match="item 6"):
+    with pytest.raises(EnforceError, match="TokenStream"):
         dec.submit(prompts[0], 2, stream=object())
     with pytest.raises(EnforceError, match="torch.Generator"):
         BatchedDecoder(tm, slots=1, capacity=64, device="cpu",

@@ -42,6 +42,7 @@ from paddle_tpu_torch.serving import PagedKVPool
 # distribution only)
 INTENDED = {
     "models.gpt:GPTForCausalLM.generate": {"key": "generator"},
+    "models.speculative:speculative_generate": {"key": "generator"},
     "ops.nn:dropout": {"key": "generator"},
     "ops.sampling:sample_from_logits": {"key": "generator"},
     "serving:BatchedDecoder.__init__": {"key": "generator"},
@@ -110,7 +111,21 @@ def test_the_comparison_sees_the_shared_surface():
                  "parallel.api:Trainer.restore_checkpoint",
                  "parallel.api:Trainer.state",
                  "optimizer.optimizers:Lamb.__init__",
-                 "optimizer.optimizers:ExponentialMovingAverage.update"):
+                 "optimizer.optimizers:ExponentialMovingAverage.update",
+                 "serving:BatchedDecoder.warm_step",
+                 "serving:BatchedDecoder.set_degraded",
+                 "serving:BatchedDecoder.prefill_export",
+                 "serving:BatchedDecoder.inject_prefilled",
+                 "serving:KVHandoff.__init__", "serving:KVHandoff.from_bytes",
+                 "serving:TokenStream.offer", "serving:TokenStream.put",
+                 "serving:PagedKVPool.share",
+                 "nn.layers:MultiHeadAttention.forward_chunk_rows",
+                 "nn.layers:MultiHeadAttention.forward_chunk_paged_rows",
+                 "ops.paged_kv:write_chunk_rows", "ops.paged_kv:import_pages",
+                 "models.speculative:speculative_generate",
+                 "nn.rewrite:rewrite_linears",
+                 "quant.weight_only:WeightOnlyLinear.__init__",
+                 "quant.weight_only:apply_weight_only_int8"):
         assert want in labels
     assert set(INTENDED) <= labels
 
