@@ -82,8 +82,8 @@ Phases, each printed as it runs:
    quantize_model, calibrate on 4 seeded (8, 784) batches, freeze and
    int8_swap (3 layers); with the counters at 0, one batch-8192 forward
    launches the fused quant_linear 3 times and nothing else (the
-   kernels' record takes both counts from this run, so quant_matmul's
-   is 0: no path of the port calls it); then, with the counters at 0
+   kernels' record takes quant_linear's count from this run, and
+   quant_matmul's from the int8 ResNet-50 below); then, with the counters at 0
    again, a check run sends the same batch through the public unfused
    entry points per layer (absmax_encode, quant_matmul, bias, ReLU: the
    JAX int8_linear's composition), which launches quant_matmul 3 times
@@ -93,7 +93,21 @@ Phases, each printed as it runs:
    MnistMLP's; then both kernels
    timed at MNIST's three layer shapes against their plain versions and
    the yardsticks torch._int_mm plus the same scaling (and, for the
-   fused form, the encode before it and bias and ReLU after it);
+   fused form, the encode before it and bias and ReLU after it). Then
+   ``[int8:resnet50]``: resnet50(1000), NHWC, seeded weights, through
+   quantize_model, calibrate on 4 seeded (8, 3, 224, 224) batches,
+   freeze and int8_swap (53 Conv2D and the head); with every counter at
+   0, one batch-32 forward launches quant_matmul exactly 53 times (one
+   per conv: its activations encoded, im2col in int8 into K16 columns,
+   the weight packed once), quant_linear once and no other kernel, and
+   equals the same forward on the plain versions exactly; its distance
+   to the fake-quant model and its ms beside the float model's are
+   printed. quant_matmul is checked exactly and timed at three of its
+   im2col shapes (CONV_SHAPES: the stem 401408x147x64, a layer1 3x3
+   100352x576x64, a layer4 3x3 1568x4608x512) against its plain version
+   and torch._int_mm plus the same scaling, and its record rows are
+   those (the first with the kernel's 53 launches, the others with
+   their launches at their shape);
 7. the three flash-attention kernels (forward, dq, dk/dv) against their
    plain versions on the card: o, lse, dq, dk and dv in float32 (atol
    1e-4) and bfloat16 compared in float32 (atol 2e-2), at the training
@@ -192,7 +206,27 @@ Phases, each printed as it runs:
    TrainLoop, 4 steps uninterrupted, and 2 steps, a checkpoint and a
    model of another seed resuming to 4; the same determinism check and
    gate on the losses at steps 3-4 (the key restores, and the in-kernel
-   dropout seeds follow it), 12/12/12 float32 launches a loop step.
+   dropout seeds follow it), 12/12/12 float32 launches a loop step;
+14. ``[train:mnist]``, BASELINE config 1 (bench.py:45-110): MnistMLP(512,
+   256) at batch 8192 through Trainer.train_steps(batch, 8) (the key
+   split once a call, then 8 ways, as the JAX scan), and MnistCNN at
+   batch 128 through train_step, Adam(1e-3), 5 calls each on one seeded
+   batch: losses finite and falling, ms per step and examples/s;
+15. ``[train:resnet50]``, BASELINE config 2 (bench.py:327-352): a check
+   step of resnet50(1000) at B=2, 224 px, NHWC and NCHW, the card
+   against the CPU on the same weights and batch, in float64 (loss 1e-4,
+   each grad within 1e-3 of its parameter's largest CPU-grad entry, the
+   BN buffers after the forward 1e-4) and in float32 (the same loss and
+   buffer limits; each grad's distance from the float64 pass within
+   twice the CPU float32's worst, at least 1e-3: pre-activations within
+   float32's rounding of zero flip their ReLU masks between any two
+   float32 passes, and float32 grads sit up to ~0.2 of a parameter's
+   largest entry from float64 on either device; cuDNN with TF32 off);
+   then the bench
+   cell, b128, 224 px, all-zero labels, Adam(1e-3), mixed_bf16, 2 warm-up
+   and 5 timed steps (each ending in a synchronize) in NHWC, then NCHW:
+   losses finite and falling, ms per step, images/s and peak memory.
+   Each of the new phases prints its seconds.
 
 Any failure exits non-zero. The line before the last is the kernels'
 JSON record; the last line is
@@ -246,6 +280,18 @@ INT8_PEAK_OPS = 1979e12       # H100 SXM dense int8 tensor-core peak
 MNIST_BATCH = 8192
 MNIST_SHAPES = [(MNIST_BATCH, 784, 512), (MNIST_BATCH, 512, 256),
                 (MNIST_BATCH, 256, 10)]
+# ResNet-50's int8 im2col GEMMs at batch 32, 224 px, as (name, M, K, N):
+# the stem (7x7x3 taps, K 147 padded to 160 for the kernel), a layer1
+# 3x3 conv and a layer4 3x3 conv
+CONV_BATCH = 32
+CONV_SHAPES = [("stem", CONV_BATCH * 112 * 112, 147, 64),
+               ("layer1_3x3", CONV_BATCH * 56 * 56, 576, 64),
+               ("layer4_3x3", CONV_BATCH * 7 * 7, 4608, 512)]
+# the convolutional training cells (bench.py:327-352 bench_resnet50; the
+# MNIST cell, bench.py:45-110, at its steps_per_call)
+RESNET_BATCH, RESNET_PX, RESNET_POLICY = 128, 224, "mixed_bf16"
+RESNET_CHECK_TOL = (1e-4, 1e-3, 1e-4)      # loss, grads, BN buffers
+MNIST_STEPS_PER_CALL, CNN_BATCH = 8, 128
 # the JAX package's int8-vs-float logit contract (tests/test_serving.py)
 # and its int8-vs-fake-quant bound (tests/test_quant_matmul.py)
 INT8_KV_SPREAD, INT8_MLP_REL = 0.05, 0.1
@@ -451,6 +497,30 @@ def phase_qmm_kernels(torch, QM):
     seen for each (0.0)."""
     gen = torch.Generator(device="cuda").manual_seed(8)
     worst = worst_lin = 0.0
+    for _, m, k, n in CONV_SHAPES:
+        # the int8 conv's entry: the weight packed once, the im2col
+        # already in K16 columns (the stem's 147 -> 160, zeros past K)
+        a, b, sa = qmm_operands(torch, m, k, n, gen)
+        k16 = -(-k // 16) * 16
+        a16 = torch.zeros((m, k16), dtype=torch.int8, device="cuda")
+        a16[:, :k] = a
+        sb = torch.rand((n,), generator=gen, device="cuda") * 0.01
+        w_packed = QM.pack_weight(b)
+        want = QM.quant_matmul_plain(a, b, sa, sb)
+        for what, got in (("quant_matmul", QM.quant_matmul(a, b, sa, sb)),
+                          ("quant_matmul_packed", QM.quant_matmul_packed(
+                              a16, w_packed, sa, sb))):
+            torch.cuda.synchronize()
+            ok = torch.equal(got, want)
+            e = (got - want).abs().max().item()
+            log(f"[kernels] {what} {m}x{k}x{n} (conv im2col, K padded to "
+                f"{k16}) per-channel float32: max abs diff {e:.3e} (exact "
+                f"required) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"{what} disagrees with its plain version "
+                                 f"at a conv shape")
+            worst = max(worst, e)
+        del a, a16, want
     for m, k, n in MNIST_SHAPES + [(33, 100, 17)]:
         a, b, sa = qmm_operands(torch, m, k, n, gen)
         for sb in (torch.rand((), generator=gen, device="cuda") * 0.01,
@@ -2295,6 +2365,332 @@ def phase_bert_resume(torch, FK):
     torch.cuda.empty_cache()
 
 
+def phase_int8_resnet50(torch, QM, K, FK):
+    """PTQ of resnet50(1000), NHWC, on the card: quantize_model, calibrate
+    on 4 seeded (8, 3, 224, 224) batches, freeze, int8_swap (53 Conv2D
+    and the head); with every counter at 0, one batch-32 forward must
+    launch quant_matmul 53 times, quant_linear once and nothing else, and
+    equal the same forward on the plain versions exactly. Returns the
+    wrapper's launches and the launches at each shape of CONV_SHAPES."""
+    import collections
+
+    from paddle_tpu_torch import quant
+    from paddle_tpu_torch.models import resnet
+    from paddle_tpu_torch.quant import int8 as int8_mod
+
+    def net():
+        return resnet.resnet50(1000, data_format="NHWC", device="cuda",
+                               generator=torch.Generator(
+                                   device="cuda").manual_seed(12))
+
+    fmodel, model = net().eval(), quant.quantize_model(net())
+    rng = torch.Generator(device="cuda").manual_seed(13)
+    calib = [torch.randn(8, 3, 224, 224, generator=rng, device="cuda")
+             for _ in range(4)]
+    x = torch.randn(CONV_BATCH, 3, 224, 224, generator=rng, device="cuda")
+    quant.calibrate(model, calib)
+    shapes = collections.Counter()
+    real = int8_mod.quant_matmul_packed
+
+    def spy(a, w, *args, **kw):
+        shapes[(a.shape[0], a.shape[1], w.shape[0])] += 1
+        return real(a, w, *args, **kw)
+
+    with torch.no_grad():
+        ref = model(x)                       # fake-quant float, eval
+        swapped = quant.int8_swap(model, quant.freeze(model))
+        if swapped != 54:
+            raise SystemExit(f"int8_swap swapped {swapped} layers, not 53 "
+                             "convs and the head")
+        model(x)                             # packs the weights once
+        torch.cuda.synchronize()
+        # the main path: the swapped model's forward
+        QM.quant_matmul.launches = QM.quant_linear.launches = 0
+        for name in KERNEL_ROWS:
+            getattr(K, name).launches = 0
+        reset_flash_counts(FK)
+        int8_mod.quant_matmul_packed = spy
+        try:
+            out = model(x)
+            torch.cuda.synchronize()
+        finally:
+            int8_mod.quant_matmul_packed = real
+        launches = {"quant_matmul": QM.quant_matmul.launches,
+                    "quant_linear": QM.quant_linear.launches}
+        others = (sum(decode_counts(K).values())
+                  + sum(flash_counts(FK).values()))
+        # the same forward on the plain versions (a check, not a path)
+        int8_mod.quant_matmul_packed = lambda a, w, *r, **kw: \
+            QM.quant_matmul_plain(a, w[:, :a.shape[1]].t(), *r, **kw)
+        int8_mod.quant_linear = QM.quant_linear_plain
+        try:
+            plain = model(x)
+        finally:
+            int8_mod.quant_matmul_packed = real
+            int8_mod.quant_linear = QM.quant_linear
+        exact = torch.equal(out, plain)
+        rel = ((out - ref).abs().max() / ref.abs().max()).item()
+        flush = torch.empty(64 * 2 ** 20, dtype=torch.float32,
+                            device="cuda")
+        int8_ms = time_ms(torch, lambda: model(x), flush, n=10)
+        float_ms = time_ms(torch, lambda: fmodel(x), flush, n=10)
+    per_shape = {name: shapes[(m, -(-k // 16) * 16, n)]
+                 for name, m, k, n in CONV_SHAPES}
+    log(f"[int8:resnet50] resnet50(1000) NHWC PTQ: {swapped} layers "
+        f"swapped; batch {CONV_BATCH} forward launched quant_matmul "
+        f"{launches['quant_matmul']} times over {len(shapes)} shapes (at "
+        f"{per_shape}), quant_linear {launches['quant_linear']}, other "
+        f"kernels {others}; equals the plain-version forward: {exact}; "
+        f"max |int8 - fake-quant| / max |fake-quant| {rel:.3e} (reported: "
+        f"53 quantized layers at random weights); forward {int8_ms:.3f} ms "
+        f"int8, {float_ms:.3f} ms float32 (CUDA events, L2 flushed, mean "
+        f"of 10)")
+    if not (launches == {"quant_matmul": 53, "quant_linear": 1}
+            and others == 0 and exact and sum(shapes.values()) == 53
+            and all(per_shape.values())
+            and bool(torch.isfinite(out).all())
+            and out.shape == (CONV_BATCH, 1000)):
+        raise SystemExit("the int8 ResNet-50 forward failed its checks")
+    return launches, per_shape
+
+
+def phase_qmm_conv_timing(torch, QM, err, total, per_shape):
+    """quant_matmul at ResNet-50's im2col shapes (CONV_SHAPES, per-channel
+    scales, float32 out), through the int8 conv's entry (the weight
+    packed once, A in K16 columns): kernel, plain version and the
+    yardstick torch._int_mm plus the same scaling. The first row carries
+    the kernel's name and its launches on the int8 ResNet-50 path; the
+    others their shape and their launches at it."""
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    rows = []
+    for i, (name, m, k, n) in enumerate(CONV_SHAPES):
+        a, b, sa = qmm_operands(torch, m, k, n, gen)
+        sa = sa.reshape(1)
+        sb = torch.rand((n,), generator=gen, device="cuda") * 0.01
+        k16 = -(-k // 16) * 16
+        a16 = torch.zeros((m, k16), dtype=torch.int8, device="cuda")
+        a16[:, :k] = a
+        w_packed = QM.pack_weight(b)
+        b16 = torch.zeros((k16, n), dtype=torch.int8, device="cuda")
+        b16[:k] = b
+
+        def kern():
+            return QM.quant_matmul_packed(a16, w_packed, sa, sb)
+
+        def plain():
+            return QM.quant_matmul_plain(a, b, sa, sb)
+
+        def library():
+            return torch._int_mm(a16, b16).float() * (sa * sb)[None, :]
+
+        if not torch.equal(library(), kern()):
+            raise SystemExit("the conv quant_matmul yardstick computes "
+                             "another function")
+        ms = time_ms(torch, kern, flush)
+        plain_ms = time_ms(torch, plain, flush, n=10)
+        lib_ms = time_ms(torch, library, flush)
+        bound_ms, bound_by, nbytes = gemm_bound(m, k, n, 1, 0)
+        log(f"[time] quant_matmul conv {name} {m}x{k}x{n} (K16 {k16}) "
+            f"per-channel, float32 out: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, yardstick _int_mm {lib_ms:.4f} ms; "
+            f"{2 * m * n * k} int8 ops, {nbytes} bytes, bound "
+            f"{bound_ms:.4f} ms ({bound_by}), {100 * bound_ms / ms:.1f}% of "
+            f"the bound")
+        rows.append(dict(
+            name="quant_matmul" if i == 0 else f"quant_matmul@{name}",
+            route="cuda", source="paddle_tpu_torch/csrc/quant_matmul.cu",
+            replaces=QMM_REPLACES,
+            launches=total if i == 0 else per_shape[name],
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by=bound_by, library_ms=lib_ms))
+        del a, a16, b16
+    return rows
+
+
+def finite_and_falling(losses):
+    return (all(math.isfinite(v) for v in losses)
+            and losses[-1] < losses[0])
+
+
+def phase_train_mnist(torch):
+    """BASELINE config 1 on the card: MnistMLP(512, 256) at batch 8192
+    through train_steps(batch, 8), bench.py's steps_per_call (the key
+    split once a call, then 8 ways), and MnistCNN at batch 128, each with
+    Adam(1e-3) over 5 calls on one seeded batch; losses finite and
+    falling."""
+    from paddle_tpu_torch import optimizer as TO
+    from paddle_tpu_torch.models import mnist as M
+    from paddle_tpu_torch.parallel import Trainer
+
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    cases = (
+        ("MnistMLP(512, 256)", M.MnistMLP(512, 256, device="cuda",
+                                          generator=gen),
+         MNIST_BATCH, (784,), MNIST_STEPS_PER_CALL),
+        ("MnistCNN", M.MnistCNN(device="cuda", generator=gen), CNN_BATCH,
+         (1, 28, 28), 1))
+    for name, model, bs, shape, k in cases:
+        tr = Trainer.supervised(model, TO.Adam(1e-3), M.loss_fn)
+        batch = {"x": torch.randn((bs,) + shape, generator=gen,
+                                  device="cuda"),
+                 "label": torch.randint(0, 10, (bs,), generator=gen,
+                                        device="cuda")}
+        losses, secs = [], []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, _ = (tr.train_steps(batch, k) if k > 1
+                       else tr.train_step(batch))
+            losses.append(float(loss))       # syncs
+            secs.append((time.perf_counter() - t0) / k)
+        ms = 1e3 * sorted(secs[1:])[len(secs[1:]) // 2]
+        log(f"[train:mnist] {name} batch {bs}, Adam(1e-3), "
+            f"{'train_steps(batch, %d)' % k if k > 1 else 'train_step'} x 5:"
+            f" losses {[round(v, 6) for v in losses]}; ms per step "
+            f"{[round(1e3 * v, 3) for v in secs]}, median after the first "
+            f"{ms:.3f} ms, {bs / (ms / 1e3):.1f} examples/s; key "
+            f"{tr._key.tolist()}")
+        if not finite_and_falling(losses):
+            raise SystemExit(f"[train:mnist] {name}: losses not finite and "
+                             "falling")
+
+
+def grads_and_buffers(torch, model, x, y):
+    """Train-mode loss, every gradient and the BN buffers after the
+    forward, as float64 CPU tensors."""
+    from paddle_tpu_torch.models import resnet
+
+    model.train()
+    loss = resnet.loss_fn(model(x), y)
+    loss.backward()
+    grads = {n: p.grad.detach().double().cpu()
+             for n, p in model.named_parameters()}
+    bufs = {n: b.detach().double().cpu() for n, b in model.named_buffers()}
+    return float(loss.detach()), grads, bufs
+
+
+def rel_distance(a, b):
+    """{name: max |a - b| / max |b|} over the gradients of two passes."""
+    return {n: ((a[n] - g).abs().max() / g.abs().max().clamp_min(1e-30)
+                ).item() for n, g in b.items()}
+
+
+def phase_train_resnet50(torch):
+    """BASELINE config 2 on the card. A check step at B=2, 224 px in both
+    layouts, the port on the card against the port on the CPU with the
+    same weights and batch, in float64 and in float32. float64 is held to
+    loss 1e-4, BN buffers 1e-4 and each grad within 1e-3 of its
+    parameter's largest CPU-grad entry. float32 to the same loss and
+    buffer limits; its grads cannot be: a pre-activation within
+    float32's rounding of zero flips its ReLU mask between any two
+    float32 passes, and each flip moves that gradient entry by its whole
+    size (block15's entries by up to 0.84 of the largest), which every
+    earlier layer inherits: the CPU's own float32 grads sit up to ~0.2
+    of a parameter's largest entry from float64. So each float32
+    grad's distance from the float64 pass is held to twice the CPU's
+    worst (at least 1e-3): the card must be as accurate as the CPU. Then
+    the JAX bench's cell:
+    resnet50(1000), b128, 224 px, all-zero labels, Adam(1e-3),
+    mixed_bf16, 2 warm-up and 5 timed steps, NHWC and NCHW; losses finite
+    and falling."""
+    import copy
+
+    from paddle_tpu_torch import optimizer as TO
+    from paddle_tpu_torch.core.dtypes import Policy, policy_scope
+    from paddle_tpu_torch.models import resnet
+    from paddle_tpu_torch.parallel import Trainer
+
+    tol_loss, tol_grad, tol_buf = RESNET_CHECK_TOL
+    f64 = Policy("float64", "float64", "float64")
+    for fmt in ("NHWC", "NCHW"):
+        cpu_gen = torch.Generator().manual_seed(21)
+        cpu = resnet.resnet50(1000, data_format=fmt, device="cpu",
+                              generator=cpu_gen)
+        x = torch.randn(2, 3, 224, 224, generator=cpu_gen)
+        y = torch.randint(0, 1000, (2,), generator=cpu_gen)
+        runs = {}
+        for dtype in ("float32", "float64"):
+            for dev in ("cpu", "cuda"):
+                model = copy.deepcopy(cpu).to(dev, getattr(torch, dtype))
+                with policy_scope(f64 if dtype == "float64" else "float32"):
+                    runs[dtype, dev] = grads_and_buffers(
+                        torch, model, x.to(dev, getattr(torch, dtype)),
+                        y.to(dev))
+                del model
+        ok, lines = True, []
+        for dtype in ("float64", "float32"):
+            got, want = runs[dtype, "cuda"], runs[dtype, "cpu"]
+            dloss = abs(got[0] - want[0])
+            dbuf = max((got[2][n] - b).abs().max().item()
+                       for n, b in want[2].items())
+            if dtype == "float64":
+                d = rel_distance(got[1], want[1])
+                worst = max(d, key=d.get)
+                limit, what = tol_grad, f"{d[worst]:.3e} from the CPU's"
+            else:
+                exact = runs["float64", "cpu"][1]
+                d = rel_distance(got[1], exact)
+                cpu_d = max(rel_distance(want[1], exact).values())
+                worst = max(d, key=d.get)
+                limit = max(tol_grad, 2 * cpu_d)
+                what = (f"{d[worst]:.3e} from float64 (the CPU's worst "
+                        f"{cpu_d:.3e})")
+            good = (dloss <= tol_loss and dbuf <= tol_buf
+                    and d[worst] <= limit)
+            ok &= good
+            lines.append(
+                f"{dtype}: loss {got[0]:.6f} vs {want[0]:.6f} (|diff| "
+                f"{dloss:.3e}, limit {tol_loss}); worst grad {worst} "
+                f"{what}, limit {limit:.3e}; worst BN buffer {dbuf:.3e} "
+                f"(limit {tol_buf}) {'ok' if good else 'FAIL'}")
+        log(f"[train:resnet50] check step {fmt} B=2 224 px, card against "
+            f"CPU: " + "; ".join(lines))
+        if not ok:
+            raise SystemExit(f"[train:resnet50] {fmt} check step failed")
+        del cpu, runs
+    torch.cuda.empty_cache()
+    for fmt in ("NHWC", "NCHW"):
+        gen = torch.Generator(device="cuda").manual_seed(22)
+        model = resnet.resnet50(1000, data_format=fmt, device="cuda",
+                                generator=gen)
+        tr = Trainer.supervised(model, TO.Adam(1e-3), resnet.loss_fn,
+                                amp=RESNET_POLICY)
+        batch = {"x": torch.randn(RESNET_BATCH, 3, RESNET_PX, RESNET_PX,
+                                  generator=gen, device="cuda"),
+                 "label": torch.zeros(RESNET_BATCH, dtype=torch.long,
+                                      device="cuda")}
+        torch.cuda.reset_peak_memory_stats()
+        losses, secs = [], []
+        for i in range(7):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, _ = tr.train_step(batch)
+            torch.cuda.synchronize()
+            if i >= 2:
+                secs.append(time.perf_counter() - t0)
+            losses.append(float(loss))
+        ms = 1e3 * sum(secs) / len(secs)
+        log(f"[train:resnet50] {fmt} b{RESNET_BATCH} {RESNET_PX} px "
+            f"{RESNET_POLICY} Adam(1e-3), all-zero labels: losses "
+            f"{[round(v, 6) for v in losses]}; ms per timed step "
+            f"{[round(1e3 * v, 3) for v in secs]}, mean {ms:.3f} ms, "
+            f"{RESNET_BATCH / (ms / 1e3):.1f} images/s; peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+        if not finite_and_falling(losses):
+            raise SystemExit(f"[train:resnet50] {fmt}: losses not finite "
+                             "and falling")
+        del tr, model, batch
+        torch.cuda.empty_cache()
+
+
+def timed_phase(tag, fn, *args):
+    t0 = time.perf_counter()
+    out = fn(*args)
+    log(f"{tag} phase seconds {time.perf_counter() - t0:.1f}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2316,7 +2712,9 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
     log(f"[device] {kind} x{count}; torch {torch.__version__}, CUDA "
-        f"{torch.version.cuda}")
+        f"{torch.version.cuda}; cudnn.benchmark "
+        f"{torch.backends.cudnn.benchmark}, cudnn.allow_tf32 "
+        f"{torch.backends.cudnn.allow_tf32}")
     smi = nvidia_smi_line()
     log(smi)
 
@@ -2391,9 +2789,17 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     qmm_launches = phase_int8_mnist(torch, QM)
-    rows += phase_qmm_timing(torch, QM, {"quant_matmul": qmm_err,
-                                         "quant_linear": qlin_err},
-                             qmm_launches)
+    conv_launches, per_shape = timed_phase(
+        "[int8:resnet50]", phase_int8_resnet50, torch, QM, K, FK)
+    torch.cuda.empty_cache()
+    # quant_matmul's record is the int8 ResNet-50 path's, at its shapes
+    # (the MNIST shapes are timed and logged beside them)
+    qmm_rows = phase_qmm_timing(torch, QM, {"quant_matmul": qmm_err,
+                                            "quant_linear": qlin_err},
+                                qmm_launches)
+    rows += phase_qmm_conv_timing(torch, QM, qmm_err,
+                                  conv_launches["quant_matmul"], per_shape)
+    rows += [r for r in qmm_rows if r["name"] == "quant_linear"]
 
     flash_err = phase_flash_kernels(torch, FK)
     # the float32 step's flash launches make the float32 rows' record,
@@ -2414,6 +2820,9 @@ def main() -> int:
                                       packed_step, seg)
     phase_train_loop(torch, FK)
     phase_bert_resume(torch, FK)
+    torch.cuda.empty_cache()
+    timed_phase("[train:mnist]", phase_train_mnist, torch)
+    timed_phase("[train:resnet50]", phase_train_resnet50, torch)
     log(f"[card] {smi}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

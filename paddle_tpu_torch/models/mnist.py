@@ -1,7 +1,7 @@
-"""MNIST models (counterpart of paddle_tpu/models/mnist.py): the MLP,
-which carries the int8 inference path (``quant`` PTQ, then
-``int8_swap``). ``MnistCNN``, ``loss_fn`` and ``eval_metrics`` come with
-the model-zoo slice (ROADMAP queue 1 item 9)."""
+"""MNIST models, BASELINE config 1 (counterpart of
+paddle_tpu/models/mnist.py): the MLP, which also carries the int8
+inference path (``quant`` PTQ, then ``int8_swap``), the CNN (conv-pool
+twice, then a Linear), ``loss_fn`` and ``eval_metrics``."""
 
 from __future__ import annotations
 
@@ -12,6 +12,8 @@ import torch
 from .. import nn
 from ..core.places import resolve_device
 from ..core.random import make_generator
+from ..metrics import accuracy
+from ..ops import loss as L
 
 
 class MnistMLP(nn.Layer):
@@ -34,3 +36,39 @@ class MnistMLP(nn.Layer):
 
     def forward(self, x):
         return self.fc3(self.fc2(self.fc1(x)))
+
+
+class MnistCNN(nn.Layer):
+    """conv(1->20, 5) ReLU, 2x2 max pool, conv(20->50, 5) ReLU, 2x2 max
+    pool, Linear(800, 10); parameters named as in the JAX package. Takes
+    (N, 1, 28, 28) or flat (N, 784) images. ``device`` and ``generator``
+    as for :class:`MnistMLP`."""
+
+    def __init__(self, *, device=None, dtype=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        device = resolve_device(device)
+        if generator is None:
+            generator = make_generator(0, device)
+        kw = dict(dtype=dtype, device=device, generator=generator)
+        self.conv1 = nn.Conv2D(1, 20, 5, act="relu", **kw)
+        self.pool1 = nn.Pool2D(2, "max", stride=2)
+        self.conv2 = nn.Conv2D(20, 50, 5, act="relu", **kw)
+        self.pool2 = nn.Pool2D(2, "max", stride=2)
+        self.fc = nn.Linear(50 * 4 * 4, 10, **kw)
+
+    def forward(self, x):
+        if x.ndim == 2:
+            x = x.reshape(-1, 1, 28, 28)
+        h = self.pool1(self.conv1(x))
+        h = self.pool2(self.conv2(h))
+        return self.fc(h.reshape(h.shape[0], -1))
+
+
+def loss_fn(logits, label):
+    """Mean softmax cross-entropy."""
+    return torch.mean(L.softmax_with_cross_entropy(logits, label))
+
+
+def eval_metrics(logits, label):
+    return {"acc": accuracy(logits, label)}

@@ -1,8 +1,13 @@
 """Layers of the port (counterpart of paddle_tpu/nn)."""
 
 from .layer import Layer, LayerList, Sequential
-from .layers import (Dropout, Embedding, LayerNorm, Linear,
-                     MultiHeadAttention, RMSNorm)
+from .layers import (GELU, BatchNorm, Conv2D, Conv2DTranspose, Dropout,
+                     Embedding, Flatten, GroupNorm, LayerNorm, Linear,
+                     MultiHeadAttention, Pool2D, PRelu, ReLU, RMSNorm,
+                     Sigmoid, Softmax, Tanh)
 
-__all__ = ["Layer", "LayerList", "Sequential", "Dropout", "Embedding",
-           "LayerNorm", "Linear", "MultiHeadAttention", "RMSNorm"]
+__all__ = ["Layer", "LayerList", "Sequential", "BatchNorm", "Conv2D",
+           "Conv2DTranspose", "Dropout", "Embedding", "Flatten", "GELU",
+           "GroupNorm", "LayerNorm", "Linear", "MultiHeadAttention",
+           "Pool2D", "PRelu", "ReLU", "RMSNorm", "Sigmoid", "Softmax",
+           "Tanh"]

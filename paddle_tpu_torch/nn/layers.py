@@ -1,7 +1,9 @@
 """Layers of the port (counterpart of paddle_tpu/nn/layers.py):
 Linear (with its ``act=``), Embedding, RMSNorm, LayerNorm, Dropout and
 MultiHeadAttention (attention dropout and packed-row segment ids) with
-its KV-cache decode mixin.
+its KV-cache decode mixin; the convolutional layers Conv2D,
+Conv2DTranspose, Pool2D, BatchNorm, GroupNorm, PRelu and Flatten, and
+the activation layers ReLU, GELU, Sigmoid, Tanh and Softmax.
 
 Linear weights are (in, out), as in the JAX package, so parameters move
 across by name without transposes. The JAX package returns new cache
@@ -11,7 +13,7 @@ returned, so the call shapes stay those of the JAX methods."""
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence, Union
 
 import torch
 
@@ -20,6 +22,7 @@ from ..core.dtypes import default_dtype, get_policy, to_dtype
 from ..core.enforce import UnimplementedError, enforce
 from ..core.places import resolve_device
 from ..core.random import current_generator
+from ..ops import math as OM
 from ..ops import nn as ON
 from ..ops.math import activation
 from .layer import Layer
@@ -67,6 +70,187 @@ class Linear(Layer):
         if self.has_bias:
             out = out + pol.cast_to_compute(self.bias)
         return _apply_act(pol.cast_to_output(out), self.act)
+
+
+def _kernel(kernel_size):
+    return ((kernel_size,) * 2 if isinstance(kernel_size, int)
+            else tuple(kernel_size))
+
+
+class Conv2D(Layer):
+    """2-D convolution, weight OIHW (out, in / groups, kh, kw), default
+    initializer MSRA(uniform=False), bias zeros, under the current
+    mixed-precision policy as Linear is (x, weight and bias cast to the
+    compute dtype, the result to the output dtype, then ``act``).
+    ``data_format="NHWC"`` takes and returns NHWC activations (the weight
+    stays OIHW); cuDNN then runs its channels-last kernels."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: Union[int, Sequence[int]], stride=1,
+                 padding=0, dilation=1, groups: int = 1,
+                 bias_attr: bool = True, act: Optional[str] = None,
+                 weight_init=None, dtype=None, data_format: str = "NCHW", *,
+                 device=None, generator=None):
+        super().__init__()
+        self.stride, self.padding = stride, padding
+        self.dilation, self.groups = dilation, groups
+        self.act = act
+        self.data_format = data_format
+        self.create_parameter(
+            "weight", (out_channels, in_channels // groups)
+            + _kernel(kernel_size), dtype,
+            weight_init or I.MSRA(uniform=False), device=device,
+            generator=generator)
+        self.has_bias = bias_attr
+        if bias_attr:
+            self.create_parameter("bias", (out_channels,), dtype,
+                                  I.Constant(0.0), is_bias=True,
+                                  device=device, generator=generator)
+
+    def forward(self, x):
+        pol = get_policy()
+        out = ON.conv2d(pol.cast_to_compute(x),
+                        pol.cast_to_compute(self.weight), self.stride,
+                        self.padding, self.dilation, self.groups,
+                        data_format=self.data_format)
+        if self.has_bias:
+            bshape = ((1, -1, 1, 1) if self.data_format == "NCHW"
+                      else (1, 1, 1, -1))
+            out = out + pol.cast_to_compute(self.bias).reshape(bshape)
+        return _apply_act(pol.cast_to_output(out), self.act)
+
+
+class Conv2DTranspose(Layer):
+    """NCHW transposed convolution, weight IOHW (in, out / groups, kh,
+    kw), default initializer XavierUniform, under the mixed-precision
+    policy as Conv2D."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size,
+                 stride=1, padding=0, dilation=1, groups: int = 1,
+                 bias_attr: bool = True, act: Optional[str] = None,
+                 dtype=None, *, device=None, generator=None):
+        super().__init__()
+        self.stride, self.padding = stride, padding
+        self.dilation, self.groups = dilation, groups
+        self.act = act
+        self.create_parameter(
+            "weight", (in_channels, out_channels // groups)
+            + _kernel(kernel_size), dtype, I.XavierUniform(), device=device,
+            generator=generator)
+        self.has_bias = bias_attr
+        if bias_attr:
+            self.create_parameter("bias", (out_channels,), dtype,
+                                  I.Constant(0.0), is_bias=True,
+                                  device=device, generator=generator)
+
+    def forward(self, x):
+        pol = get_policy()
+        out = ON.conv2d_transpose(pol.cast_to_compute(x),
+                                  pol.cast_to_compute(self.weight),
+                                  self.stride, self.padding,
+                                  self.dilation, self.groups)
+        if self.has_bias:
+            out = out + pol.cast_to_compute(self.bias).reshape(1, -1, 1, 1)
+        return _apply_act(pol.cast_to_output(out), self.act)
+
+
+class Pool2D(Layer):
+    """Max or average pooling (ops/nn.py :func:`pool2d`, the JAX
+    package's ceil mode and padding)."""
+
+    def __init__(self, kernel_size, pool_type: str = "max", stride=None,
+                 padding=0, global_pooling: bool = False,
+                 ceil_mode: bool = False, data_format: str = "NCHW"):
+        super().__init__()
+        self.kernel_size, self.pool_type = kernel_size, pool_type
+        self.stride, self.padding = stride, padding
+        self.global_pooling, self.ceil_mode = global_pooling, ceil_mode
+        self.data_format = data_format
+
+    def forward(self, x):
+        return ON.pool2d(x, self.kernel_size, self.pool_type, self.stride,
+                         self.padding, ceil_mode=self.ceil_mode,
+                         global_pooling=self.global_pooling,
+                         data_format=self.data_format)
+
+
+class BatchNorm(Layer):
+    """Batch normalisation with parameters ``weight`` (ones) and ``bias``
+    (zeros) and the running statistics as float32 buffers ``mean``
+    (zeros) and ``variance`` (ones), the JAX package's names, so the
+    Trainer's state and checkpoints carry them by name. In training the
+    batch's statistics normalise and the buffers move as
+    ``momentum * old + (1 - momentum) * batch`` (biased variance), in
+    place; in eval mode the buffers normalise. No policy cast, as in the
+    JAX package."""
+
+    def __init__(self, num_channels: int, momentum: float = 0.9,
+                 epsilon: float = 1e-5, act: Optional[str] = None,
+                 data_layout: str = "NCHW", dtype=None, *, device=None,
+                 generator=None):
+        super().__init__()
+        self.momentum, self.epsilon = momentum, epsilon
+        self.act, self.data_layout = act, data_layout
+        self.create_parameter("weight", (num_channels,), dtype,
+                              I.Constant(1.0), device=device,
+                              generator=generator)
+        self.create_parameter("bias", (num_channels,), dtype,
+                              I.Constant(0.0), is_bias=True, device=device,
+                              generator=generator)
+        device = resolve_device(device)
+        self.register_buffer("mean", torch.zeros(
+            (num_channels,), dtype=torch.float32, device=device))
+        self.register_buffer("variance", torch.ones(
+            (num_channels,), dtype=torch.float32, device=device))
+
+    def forward(self, x):
+        y, new_mean, new_var = ON.batch_norm(
+            x, self.weight, self.bias, self.mean, self.variance,
+            training=self.training, momentum=self.momentum,
+            epsilon=self.epsilon, data_layout=self.data_layout)
+        if self.training:
+            with torch.no_grad():
+                self.mean.copy_(new_mean)
+                self.variance.copy_(new_var)
+        return _apply_act(y, self.act)
+
+
+class GroupNorm(Layer):
+    """Group normalisation over axis 1, parameters ``weight`` (ones) and
+    ``bias`` (zeros)."""
+
+    def __init__(self, num_groups: int, num_channels: int,
+                 epsilon: float = 1e-5, dtype=None, *, device=None,
+                 generator=None):
+        super().__init__()
+        self.num_groups, self.epsilon = num_groups, epsilon
+        self.create_parameter("weight", (num_channels,), dtype,
+                              I.Constant(1.0), device=device,
+                              generator=generator)
+        self.create_parameter("bias", (num_channels,), dtype,
+                              I.Constant(0.0), is_bias=True, device=device,
+                              generator=generator)
+
+    def forward(self, x):
+        return ON.group_norm(x, self.weight, self.bias,
+                             groups=self.num_groups, epsilon=self.epsilon)
+
+
+class PRelu(Layer):
+    """Parametric ReLU, ``alpha`` (1,) for ``mode="all"``, (channel,)
+    otherwise, initialised to ``init``."""
+
+    def __init__(self, mode: str = "all", channel: Optional[int] = None,
+                 init: float = 0.25, dtype=None, *, device=None,
+                 generator=None):
+        super().__init__()
+        self.mode = mode
+        shape = (1,) if mode == "all" else (channel,)
+        self.create_parameter("alpha", shape, dtype, I.Constant(init),
+                              device=device, generator=generator)
+
+    def forward(self, x):
+        return OM.prelu(x, self.alpha, self.mode)
 
 
 class RMSNorm(Layer):
@@ -457,3 +641,49 @@ class MultiHeadAttention(_MHADecodeMixin, Layer):
             use_flash=self.use_flash, segment_ids=segment_ids,
             window=window)
         return self.out_proj(out.reshape(b, tq, d))
+
+
+class ReLU(Layer):
+    def forward(self, x):
+        return OM.relu(x)
+
+
+class GELU(Layer):
+    def __init__(self, approximate: bool = False):
+        super().__init__()
+        self.approximate = approximate
+
+    def forward(self, x):
+        return OM.gelu(x, self.approximate)
+
+
+class Sigmoid(Layer):
+    def forward(self, x):
+        return OM.sigmoid(x)
+
+
+class Tanh(Layer):
+    def forward(self, x):
+        return OM.tanh(x)
+
+
+class Softmax(Layer):
+    def __init__(self, axis: int = -1):
+        super().__init__()
+        self.axis = axis
+
+    def forward(self, x):
+        return ON.softmax(x, self.axis)
+
+
+class Flatten(Layer):
+    """Collapse to 2-D at ``start_axis`` (ops/tensor.py :func:`flatten`)."""
+
+    def __init__(self, start_axis: int = 1):
+        super().__init__()
+        self.start_axis = start_axis
+
+    def forward(self, x):
+        from ..ops.tensor import flatten
+
+        return flatten(x, self.start_axis)

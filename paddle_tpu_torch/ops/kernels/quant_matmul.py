@@ -29,6 +29,11 @@ tensor-core peak. Design: see the source's header. The JAX knobs
 ``tile_*``, ``use_pallas`` and ``interpret`` pick TPU tiles and the
 Pallas route and are not accepted.
 
+``quant_matmul_packed`` is ``quant_matmul`` with the weight packed once
+(the int8 convolution's entry, ``quant/int8.py`` ``Int8Conv2D``: its
+activations come im2col'd into K16 columns, so a launch copies
+nothing).
+
 Dispatch: the plain versions only for CPU tensors; a CUDA tensor
 launches the kernel or raises. Zero-sized M, N or K return the empty or
 zero result without a launch. ``quant_matmul.launches`` and
@@ -145,8 +150,9 @@ def quant_matmul(a_i8, b_i8, a_scale, b_scale, *,
     ``a_scale``; b_i8 (K, N) int8 with a scalar or per-channel (N,)
     ``b_scale``. Returns (M, N) ``out_dtype`` (float32 or bfloat16).
     On the card b is packed for the kernel on every call
-    (:func:`pack_weight`); a layer that reuses its weight packs it once
-    and calls :func:`quant_linear`."""
+    (:func:`pack_weight`); a caller that reuses its weight packs it once
+    and calls :func:`quant_matmul_packed` (or, for a Linear layer,
+    :func:`quant_linear`)."""
     enforce(a_i8.ndim == 2 and b_i8.ndim == 2,
             "quant_matmul takes 2-D operands, got %s and %s",
             tuple(a_i8.shape), tuple(b_i8.shape))
@@ -160,17 +166,43 @@ def quant_matmul(a_i8, b_i8, a_scale, b_scale, *,
     if a_i8.device.type == "cpu":
         return quant_matmul_plain(a_i8, b_i8, a_scale, b_scale,
                                   out_dtype=out_dtype)
-    enforce(a_i8.is_cuda and b_i8.device == a_i8.device,
+    return quant_matmul_packed(a_i8, pack_weight(b_i8), a_scale, b_scale,
+                               out_dtype=out_dtype)
+
+
+def quant_matmul_packed(a_i8, w_packed, a_scale, b_scale, *,
+                        out_dtype=torch.float32):
+    """:func:`quant_matmul` with the weight packed beforehand by
+    :func:`pack_weight`: a_i8 (M, K) int8, ``w_packed`` (N, K16) int8
+    with K16 = K rounded up to 16 (an ``a_i8`` that already has K16
+    columns, the last ones zero, takes no padding copy). Returns (M, N)
+    ``out_dtype``. One launch of the same kernel, counted in
+    ``quant_matmul.launches``; on CPU tensors the plain version."""
+    enforce(a_i8.ndim == 2 and w_packed.ndim == 2,
+            "quant_matmul_packed takes 2-D a and a packed (N, K16) weight, "
+            "got %s and %s", tuple(a_i8.shape), tuple(w_packed.shape))
+    enforce(a_i8.dtype == torch.int8 and w_packed.dtype == torch.int8,
+            "quant_matmul_packed takes int8 operands, got %s/%s",
+            a_i8.dtype, w_packed.dtype)
+    m, ka = a_i8.shape
+    n, k = w_packed.shape
+    enforce(k == _round16(ka),
+            "the packed weight (N, %s) does not fit a's K = %s (want K "
+            "rounded up to 16: pack_weight)", k, ka)
+    _check_out_dtype(out_dtype, "quant_matmul_packed")
+    if a_i8.device.type == "cpu":
+        return quant_matmul_plain(a_i8, w_packed[:, :ka].t(), a_scale,
+                                  b_scale, out_dtype=out_dtype)
+    enforce(a_i8.is_cuda and w_packed.device == a_i8.device,
             "quant_matmul operands must share one cuda device, got %s and "
-            "%s", a_i8.device, b_i8.device)
+            "%s", a_i8.device, w_packed.device)
     sa, sb = _scales(a_scale, b_scale, n, a_i8.device)
     if min(m, n, ka) == 0:
         acc = torch.zeros((m, n), dtype=torch.int32, device=a_i8.device)
         return _epilogue(acc, sa, sb, out_dtype)
-    k = _round16(ka)
     out = torch.empty((m, n), dtype=out_dtype, device=a_i8.device)
-    _launch(0, _pad_cols(a_i8, k), pack_weight(b_i8), sa, sb, None, out, k,
-            False, "quant_matmul")
+    _launch(0, _pad_cols(a_i8, k), _pad_cols(w_packed, k), sa, sb, None,
+            out, k, False, "quant_matmul")
     quant_matmul.launches += 1
     return out
 

@@ -173,6 +173,15 @@ def selu(x, scale: float = 1.0507009873554805,
     return scale * torch.where(x >= 0, x, alpha * (torch.exp(x) - 1.0))
 
 
+def prelu(x, alpha, mode: str = "all"):
+    """``x`` where x >= 0, else ``alpha * x``; ``mode="channel"``: alpha
+    (C,) over axis 1 of (N, C, ...); ``"all"`` and ``"element"``: alpha
+    broadcasts as it is. Not an ``act=`` name: it takes a parameter."""
+    if mode == "channel":
+        alpha = alpha.reshape((1, -1) + (1,) * (x.ndim - 2))
+    return torch.where(x >= 0, x, alpha * x)
+
+
 # ----- jax.nn's activations that ops.math does not shadow -----------------
 
 

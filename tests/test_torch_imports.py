@@ -39,6 +39,10 @@ RESILIENCE_SLICE = ("checkpoint", "train_loop", "resilience",
                     "resilience.faults", "resilience.integrity",
                     "resilience.preemption", "resilience.retry",
                     "utils.atomic", "core.config", "data.device_loader")
+# the modules of the convolutional slice
+CONV_SLICE = ("initializer", "ops.nn", "ops.math", "ops.tensor",
+              "nn.layers", "models.mnist", "models.resnet", "quant.int8",
+              "ops.kernels.quant_matmul")
 
 
 def _imported(path):
@@ -77,7 +81,7 @@ def test_package_imports_without_triton_nvcc_or_jax():
     assert out.returncode == 0 and "ok" in out.stdout, out.stderr
 
 
-@pytest.mark.parametrize("name", RESILIENCE_SLICE)
+@pytest.mark.parametrize("name", RESILIENCE_SLICE + CONV_SLICE)
 def test_checkpoint_slice_modules_are_jax_free(name):
     path = PKG / (name.replace(".", "/") + ".py")
     if not path.exists():
@@ -153,6 +157,40 @@ def test_mnist_without_device_raises_without_cuda(no_cuda):
     with pytest.raises(DeviceUnavailableError):
         MnistMLP()
     assert MnistMLP(device="cpu").fc1.weight.device.type == "cpu"
+
+
+def test_conv_models_without_device_raise_without_cuda(no_cuda):
+    from paddle_tpu_torch import nn as tnn
+    from paddle_tpu_torch.models import resnet as TR
+    from paddle_tpu_torch.models.mnist import MnistCNN
+
+    for make in (MnistCNN, TR.resnet20_cifar,
+                 lambda: tnn.Conv2D(3, 4, 3), lambda: tnn.BatchNorm(4)):
+        with pytest.raises(DeviceUnavailableError):
+            make()
+    model = TR.resnet20_cifar(device="cpu")
+    assert {b.device.type for b in model.buffers()} == {"cpu"}
+    assert MnistCNN(device="cpu").conv1.weight.device.type == "cpu"
+
+
+def test_int8_conv_on_cpu_takes_the_plain_version_and_counts_nothing():
+    """A PTQ-swapped CNN (a plain, a strided and a grouped conv) runs end
+    to end on the CPU through the plain quant_matmul, counting no
+    launch."""
+    from paddle_tpu_torch import nn as tnn
+
+    n = QM.quant_matmul.launches
+    model = tnn.Sequential(
+        tnn.Conv2D(3, 8, 3, padding=1, act="relu", device="cpu"),
+        tnn.Conv2D(8, 8, 3, stride=2, padding=1, device="cpu"),
+        tnn.Conv2D(8, 4, 3, groups=2, data_format="NCHW", device="cpu"))
+    q = quant.quantize_model(model)
+    quant.calibrate(q, [torch.randn(2, 3, 8, 8)])
+    assert quant.int8_swap(q, quant.freeze(q)) == 3
+    assert q(torch.randn(2, 3, 8, 8)).shape == (2, 4, 2, 2)
+    assert QM.quant_matmul.launches == n
+    if not torch.cuda.is_available():
+        assert n == 0
 
 
 def test_decoder_without_device_raises_without_cuda(no_cuda):

@@ -382,10 +382,11 @@ def test_int8_linear_follows_its_buffers():
 
 
 def test_int8_swap_reports_non_linear_layers(capsys):
-    """A quantized layer of a type with no int8 executor stays on the
+    """A quantized layer of a type with no int8 executor (a transposed
+    convolution: Conv2D has one since the convolution slice) stays on the
     fake-quant path and int8_swap says so, as the JAX version does."""
 
-    class Conv2D(torch.nn.Module):
+    class Conv2DTranspose(torch.nn.Module):
         def __init__(self):
             super().__init__()
             self.weight = torch.nn.Parameter(torch.ones(2, 2))
@@ -393,11 +394,13 @@ def test_int8_swap_reports_non_linear_layers(capsys):
         def forward(self, x):
             return x @ self.weight
 
-    model = Sequential(Conv2D(), Linear(2, 2, device="cpu"))
-    q = quant.quantize_model(model)
+    model = Sequential(Conv2DTranspose(), Linear(2, 2, device="cpu"))
+    q = quant.quantize_model(model, quant.QuantConfig(
+        quantizable=("Linear", "Conv2DTranspose")))
     quant.calibrate(q, [torch.ones(3, 2)])
     assert quant.int8_swap(q, quant.freeze(q)) == 1
-    assert "(Conv2D) has no int8 executor" in capsys.readouterr().err
+    assert "(Conv2DTranspose) has no int8 executor" in \
+        capsys.readouterr().err
     assert isinstance(q[0], quant.QuantedLayer)
     assert isinstance(q[1], quant.Int8Linear)
 

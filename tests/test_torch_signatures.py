@@ -125,7 +125,32 @@ def test_the_comparison_sees_the_shared_surface():
                  "models.speculative:speculative_generate",
                  "nn.rewrite:rewrite_linears",
                  "quant.weight_only:WeightOnlyLinear.__init__",
-                 "quant.weight_only:apply_weight_only_int8"):
+                 "quant.weight_only:apply_weight_only_int8",
+                 # the convolutional slice
+                 "nn.layers:Conv2D.__init__",
+                 "nn.layers:Conv2DTranspose.__init__",
+                 "nn.layers:Pool2D.__init__", "nn.layers:BatchNorm.__init__",
+                 "nn.layers:GroupNorm.__init__", "nn.layers:PRelu.__init__",
+                 "nn.layers:Flatten.__init__", "nn.layers:GELU.__init__",
+                 "nn.layers:Softmax.__init__", "ops.nn:conv2d",
+                 "ops.nn:depthwise_conv2d", "ops.nn:conv2d_transpose",
+                 "ops.nn:conv3d", "ops.nn:pool2d", "ops.nn:adaptive_pool2d",
+                 "ops.nn:batch_norm", "ops.nn:group_norm",
+                 "ops.nn:l2_normalize", "ops.nn:lrn", "ops.nn:softmax",
+                 "ops.nn:log_softmax", "ops.nn:one_hot", "ops.math:prelu",
+                 "ops.tensor:flatten", "initializer:Uniform.__init__",
+                 "initializer:Normal.__init__",
+                 "initializer:TruncatedNormal.__init__",
+                 "initializer:MSRA.__init__",
+                 "initializer:NumpyArray.__init__",
+                 "models.mnist:MnistCNN.__init__", "models.mnist:loss_fn",
+                 "models.mnist:eval_metrics", "models.resnet:ResNet.__init__",
+                 "models.resnet:BottleneckBlock.__init__",
+                 "models.resnet:BasicBlock.__init__",
+                 "models.resnet:resnet50", "models.resnet:resnet20_cifar",
+                 "models.resnet:loss_fn", "quant.int8:int8_conv2d",
+                 "quant.int8:Int8Conv2D.__init__",
+                 "parallel.api:Trainer.train_steps"):
         assert want in labels
     assert set(INTENDED) <= labels
 
@@ -307,3 +332,25 @@ def test_checkpoint_slice_arguments_raise_naming_their_item(tmp_path):
     _raises("queue 1 item 12", topt.Momentum().apply_gradients, [])
     assert loop.run([], debug_port=None, flight_recorder=None,
                     controller=None, preemption=None) == 0
+
+
+def test_convolution_slice_arguments():
+    """The convolutional slice's keyword arguments: ``int8_conv2d``'s
+    kernel choices raise naming their item; a Conv2D's ``weight_init``
+    and ``dtype`` and ``one_hot``'s ``dtype`` take effect."""
+    from paddle_tpu_torch.ops import nn as TN
+    from paddle_tpu_torch.quant import int8_conv2d
+
+    entry = {"weight_int8": torch.ones((2, 3, 1, 1), dtype=torch.int8),
+             "weight_scale": torch.ones(2), "act_scale": torch.tensor(1.0)}
+    x = torch.ones(1, 3, 2, 2)
+    _raises("queue 2 item 3", int8_conv2d, x, entry, use_pallas=False)
+    _raises("queue 2 item 3", int8_conv2d, x, entry, interpret=True)
+    assert int8_conv2d(x, entry, use_pallas=None,
+                       interpret=False).shape == (1, 2, 2, 2)
+    conv = tnn.Conv2D(3, 2, 1, weight_init=I.Constant(0.5), dtype="float32",
+                      device="cpu")
+    assert torch.all(conv.weight == 0.5)
+    assert torch.equal(conv(x), torch.full((1, 2, 2, 2), 1.5))
+    assert TN.one_hot(torch.tensor([1]), 3, dtype="int32").dtype == \
+        torch.int32

@@ -12,7 +12,11 @@ float32). ``--model``:
   makes it (numpy seed 0), forward_fused_loss (MLM + NSP);
 - ``bert_packed``: the same model over rows pack_sequences fills with
   documents of 16-128 tokens (bench.py:560), forward_packed_loss with
-  their segment ids.
+  their segment ids;
+- ``resnet50`` and ``resnet50_nchw``: BASELINE config 2 as bench.py
+  runs it (:327-352), resnet50(1000) in NHWC (the bench's layout) or
+  NCHW, seeded weights, one (128, 3, 224, 224) batch of seeded images,
+  all-zero labels; it prints images/s where the others print tokens/s.
 
 Each model and policy named runs in turn, in one process.
 
@@ -27,7 +31,7 @@ time.
 
     python3 tools/torch_train_profile.py [--steps 5]
         [--amp float32 mixed_bf16 bfloat16]
-        [--model gpt bert_base bert_packed]
+        [--model gpt bert_base bert_packed resnet50 resnet50_nchw]
 """
 
 import argparse
@@ -40,6 +44,10 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 KINDS = (("flash forward", ("flash_fwd_kernel",)),
+         # cuDNN's convolutions (implicit GEMMs, named before GEMM's keys)
+         ("conv", ("fprop", "dgrad", "wgrad", "conv2d", "convolution",
+                   "implicit_convolve", "winograd")),
+         ("batch norm", ("batch_norm", "bn_fw", "bn_bw", "batchnorm")),
          ("flash dq", ("flash_dq_kernel",)),
          ("flash dk/dv", ("flash_dkv_kernel",)),
          # cuBLAS 12.x on Hopper names many GEMMs nvjet_* (bf16 ones too)
@@ -65,7 +73,8 @@ def main() -> int:
     ap.add_argument("--amp", nargs="+", default=["float32"],
                     choices=["float32", "mixed_bf16", "bfloat16"])
     ap.add_argument("--model", nargs="+", default=["gpt"],
-                    choices=["gpt", "bert_base", "bert_packed"])
+                    choices=["gpt", "bert_base", "bert_packed", "resnet50",
+                             "resnet50_nchw"])
     args = ap.parse_args()
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -94,7 +103,22 @@ def gpt_setup(torch):
     ids = torch.randint(0, cfg.vocab_size, (8, 1024),
                         generator=torch.Generator().manual_seed(6)).cuda()
     return (model, ids, lambda m, batch, g: (m.forward_loss(batch), {}),
-            8 * 1024, None)
+            8 * 1024, None, "tokens")
+
+
+def resnet_setup(torch, fmt):
+    """bench.py's ResNet-50 cell: the model, one b128 224 px batch of
+    seeded images with all-zero labels, the loss builder."""
+    from paddle_tpu_torch.models import resnet
+
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    model = resnet.resnet50(1000, data_format=fmt, device="cuda",
+                            generator=gen)
+    x = torch.randn(128, 3, 224, 224, generator=gen, device="cuda")
+    label = torch.zeros(128, dtype=torch.long, device="cuda")
+    return (model, (x, label),
+            lambda m, batch, g: (resnet.loss_fn(m(batch[0]), batch[1]), {}),
+            128, None, "images")
 
 
 def bert_setup(torch, packed):
@@ -121,7 +145,7 @@ def bert_setup(torch, packed):
         nsp = dev(rng.integers(0, 2, (b,)))
         return (model, (ids, ids, nsp),
                 lambda m, batch, g: (m.forward_fused_loss(*batch), {}),
-                b * t, None)
+                b * t, None, "tokens")
 
     def docs():
         while True:
@@ -133,15 +157,17 @@ def bert_setup(torch, packed):
     seg = torch.as_tensor(pk["segment_ids"], device="cuda")
     return (model, (tokens, dev(pk["positions"]), seg, tokens),
             lambda m, batch, g: (m.forward_packed_loss(*batch), {}),
-            b * t, int((seg > 0).sum()))
+            b * t, int((seg > 0).sum()), "tokens")
 
 
 def profile_step(torch, profile, ProfilerActivity, name, policy, n):
     from paddle_tpu_torch import optimizer
     from paddle_tpu_torch.parallel import Trainer
 
-    model, batch, loss_builder, tokens, real = (
+    model, batch, loss_builder, tokens, real, unit = (
         gpt_setup(torch) if name == "gpt"
+        else resnet_setup(torch, "NCHW" if name.endswith("nchw") else "NHWC")
+        if name.startswith("resnet50")
         else bert_setup(torch, name == "bert_packed"))
     trainer = Trainer(model, optimizer.Adam(1e-3), loss_builder,
                       amp=policy)
@@ -168,7 +194,7 @@ def profile_step(torch, profile, ProfilerActivity, name, policy, n):
           f"step (profiler on: {1e3 * wall / n:.3f}), device busy "
           f"{busy_us / 1e3 / n:.3f} ms per step, device idle share "
           f"{1 - busy_us / 1e6 / plain_wall:.3f}, {ops / n:.1f} device ops "
-          f"per step, {tokens * n / plain_wall:.1f} tokens/s"
+          f"per step, {tokens * n / plain_wall:.1f} {unit}/s"
           + ("" if real is None else
              f", {real * n / plain_wall:.1f} real tokens/s"))
     by_kind = {}
