@@ -225,7 +225,27 @@ Phases, each printed as it runs:
    then the bench
    cell, b128, 224 px, all-zero labels, Adam(1e-3), mixed_bf16, 2 warm-up
    and 5 timed steps (each ending in a synchronize) in NHWC, then NCHW:
-   losses finite and falling, ms per step, images/s and peak memory.
+   losses finite and falling, ms per step, images/s and peak memory;
+16. ``[train:deepfm]``, BASELINE config 5 (bench.py:2197-2226 deepfm,
+   dense updates through Trainer, and :2106-2194 deepfm_sparse,
+   row-sparse updates through sparse_minimize_fn): 26 fields, 13 dense
+   features, embed 16, tower (400, 400, 400), batch 4096, the stream
+   seeded 0, ids uniform over the vocab and dense features normal
+   (numpy seed 0), labels ids[:, 0] % 2, Adam(1e-3). A check step at
+   V=100k, the card against the CPU on the same weights and batch, in
+   float64 (loss 1e-4, each grad within 1e-3 of its parameter's largest
+   CPU-grad entry) and float32 (reported); two sparse Adam steps
+   against two dense ones (Optimizer.minimize_fn) on the same ids, in
+   float32: every touched row and every dense parameter within 1e-5,
+   rows outside the batch bitwise unchanged in the parameters and both
+   Adam moments, merge_rows under torch's sync debug mode "error", and
+   whether two runs of one sparse step are bit-equal (reported). Then
+   the bench's cells under mixed_bf16, dense and sparse at V = 100k,
+   1M (DeepFMConfig.criteo()) and 10M: 3 warm-up and 5 timed steps
+   (each ending in a synchronize), losses finite and falling, ms per
+   step, examples/s, peak memory, the host syncs of one more step and
+   the AUC over the batch after it; then dense ms over sparse ms at
+   each vocab (the crossover, reported). DeepFM runs no hand kernel.
    Each of the new phases prints its seconds.
 
 Any failure exits non-zero. The line before the last is the kernels'
@@ -292,6 +312,16 @@ CONV_SHAPES = [("stem", CONV_BATCH * 112 * 112, 147, 64),
 RESNET_BATCH, RESNET_PX, RESNET_POLICY = 128, 224, "mixed_bf16"
 RESNET_CHECK_TOL = (1e-4, 1e-3, 1e-4)      # loss, grads, BN buffers
 MNIST_STEPS_PER_CALL, CNN_BATCH = 8, 128
+# DeepFM CTR training, BASELINE config 5 (bench.py:2197-2226 bench_deepfm,
+# dense updates through Trainer, and :2106-2194 bench_deepfm_sparse,
+# row-sparse updates through sparse_minimize_fn): 26 fields, 13 dense
+# features, embed 16, tower (400, 400, 400), batch 4096, Adam(1e-3),
+# mixed_bf16 (bench.py:2962); the vocab at the bench's default, at
+# DeepFMConfig.criteo() and at 10M, a sweep point of the bench's --vocab
+DEEPFM_BATCH, DEEPFM_POLICY = 4096, "mixed_bf16"
+DEEPFM_VOCABS = (100_000, 1_000_000, 10_000_000)
+DEEPFM_CHECK_TOL = (1e-4, 1e-3)     # float64 check step: loss, grads
+DEEPFM_SPARSE_TOL = 1e-5            # sparse against dense, float32
 # the JAX package's int8-vs-float logit contract (tests/test_serving.py)
 # and its int8-vs-fake-quant bound (tests/test_quant_matmul.py)
 INT8_KV_SPREAD, INT8_MLP_REL = 0.05, 0.1
@@ -2143,6 +2173,7 @@ def phase_train_loop(torch, FK):
     import shutil
     import tempfile
 
+    import paddle_tpu_torch
     from paddle_tpu_torch import optimizer
     from paddle_tpu_torch.checkpoint import save_state
     from paddle_tpu_torch.models import gpt
@@ -2158,6 +2189,9 @@ def phase_train_loop(torch, FK):
     data = [b.to("cuda") for b in host]
 
     def make(seed):
+        # the stream seeded as the weights are: a trainer's start key is
+        # the stream's next key, so two trainers of one seed start alike
+        paddle_tpu_torch.seed(5 if seed is None else seed)
         model = gpt.GPTForCausalLM(cfg, device="cuda", generator=torch.Generator(
             device="cuda").manual_seed(5 if seed is None else seed))
         return Trainer(model, optimizer.Adam(1e-3),
@@ -2313,6 +2347,7 @@ def phase_bert_resume(torch, FK):
     import shutil
     import tempfile
 
+    import paddle_tpu_torch
     from paddle_tpu_torch import optimizer
     from paddle_tpu_torch.models import bert
     from paddle_tpu_torch.parallel import Trainer
@@ -2324,6 +2359,7 @@ def phase_bert_resume(torch, FK):
     data = [batch] * 4
 
     def make(seed):
+        paddle_tpu_torch.seed(15 if seed is None else seed)
         model = bert.BertForPretraining(
             cfg, device="cuda", generator=torch.Generator(
                 device="cuda").manual_seed(15 if seed is None else seed))
@@ -2684,6 +2720,246 @@ def phase_train_resnet50(torch):
         torch.cuda.empty_cache()
 
 
+def deepfm_cell(torch, vocab, sparse, device="cuda"):
+    """bench.py's DeepFM at ``vocab`` (the stream seeded 0, as the bench
+    seeds it) and its batch (numpy seed 0: ids uniform over the vocab,
+    dense features normal; the labels are ids[:, 0] % 2)."""
+    import numpy as np
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models import deepfm as DF
+
+    ptt.seed(0)
+    cfg = DF.DeepFMConfig(total_vocab=vocab, num_fields=26, dense_dim=13,
+                          embed_dim=16, embedding_axis=None,
+                          sparse_grads=sparse)
+    model = DF.DeepFM(cfg, device=device)
+    rng = np.random.default_rng(0)
+    ids = torch.from_numpy(rng.integers(
+        0, vocab, (DEEPFM_BATCH, cfg.num_fields))).to(device)
+    dense = torch.from_numpy(rng.normal(
+        size=(DEEPFM_BATCH, cfg.dense_dim)).astype(np.float32)).to(device)
+    return model, ids, dense
+
+
+def deepfm_loss(model, ids, dense, params=None):
+    """The bench's loss: sigmoid BCE of the logits against ids[:, 0] % 2,
+    through ``functional_call`` when ``params`` are given."""
+    from paddle_tpu_torch.models import deepfm as DF
+
+    logits = (model(ids, dense) if params is None
+              else model.functional_call(params, ids, dense)[0])
+    return DF.loss_fn(logits, ids[:, 0] % 2)
+
+
+def deepfm_check_step(torch):
+    """The card against the CPU on the same weights and batch at the
+    bench's vocab, float64 (gated: loss 1e-4, each grad within 1e-3 of
+    its parameter's largest CPU-grad entry) and float32 (reported: the
+    tower's ReLU masks flip at float32 rounding)."""
+    import copy
+
+    from paddle_tpu_torch.core.dtypes import Policy, policy_scope
+
+    tol_loss, tol_grad = DEEPFM_CHECK_TOL
+    cpu, ids, dense = deepfm_cell(torch, DEEPFM_VOCABS[0], False, "cpu")
+    f64 = Policy("float64", "float64", "float64")
+    runs = {}
+    for dtype in ("float64", "float32"):
+        for dev in ("cpu", "cuda"):
+            model = copy.deepcopy(cpu).to(dev, getattr(torch, dtype))
+            with policy_scope(f64 if dtype == "float64" else "float32"):
+                loss = deepfm_loss(model, ids.to(dev),
+                                   dense.to(dev, getattr(torch, dtype)))
+            loss.backward()
+            runs[dtype, dev] = (float(loss.detach()), {
+                n: p.grad.detach().double().cpu()
+                for n, p in model.named_parameters()})
+            del model
+    lines, ok = [], True
+    for dtype in ("float64", "float32"):
+        (gl, gg), (wl, wg) = runs[dtype, "cuda"], runs[dtype, "cpu"]
+        d = rel_distance(gg, wg)
+        worst = max(d, key=d.get)
+        line = (f"{dtype}: loss {gl:.8f} vs {wl:.8f} (|diff| "
+                f"{abs(gl - wl):.3e}), worst grad {worst} {d[worst]:.3e} "
+                f"of its largest CPU entry")
+        if dtype == "float64":
+            good = abs(gl - wl) <= tol_loss and d[worst] <= tol_grad
+            ok &= good
+            line += " ok" if good else " FAIL"
+        else:
+            line += " (reported)"
+        lines.append(line)
+    log(f"[train:deepfm] check step V={DEEPFM_VOCABS[0]} b{DEEPFM_BATCH}, "
+        f"card against CPU (limits: loss {tol_loss}, grads {tol_grad}): "
+        + "; ".join(lines))
+    if not ok:
+        raise SystemExit("[train:deepfm] float64 check step failed")
+
+
+def sync_count(torch, fn):
+    """(fn(), the synchronizing CUDA calls it made): torch's sync debug
+    mode, counted as warnings."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as got:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message) for w in got)
+
+
+def deepfm_sparse_against_dense(torch):
+    """sparse_minimize_fn against the dense step (Optimizer.minimize_fn)
+    on the card, float32, from the same weights, two Adam(1e-3) steps on
+    the same ids: every touched row and every dense parameter within
+    1e-5; rows outside the batch bitwise unchanged in the parameters and
+    in both Adam moments. Reported: whether two runs of one sparse step
+    are bit-equal (the duplicate sums run through index_add_'s atomics).
+    Gated: merge_rows makes no host sync (sync debug mode "error")."""
+    from paddle_tpu_torch import optimizer as TO
+
+    model, ids, dense = deepfm_cell(torch, DEEPFM_VOCABS[0], True)
+    start = {n: p.detach().clone() for n, p in model.named_parameters()}
+
+    def fl(p, i, d):
+        return deepfm_loss(model, i, d, p)
+
+    init_fn, step_fn = TO.sparse_minimize_fn(model, fl, TO.Adam(1e-3))
+    dstep = TO.Adam(1e-3).minimize_fn(fl)
+    sp = {n: v.clone() for n, v in start.items()}
+    dp = {n: v.clone() for n, v in start.items()}
+    sst, dst = init_fn(sp), TO.Adam(1e-3).init(dp)
+    for _ in range(2):
+        step_fn(sp, sst, ids, dense)
+        dstep(dp, dst, ids, dense)
+    touched = torch.unique(ids)
+    untouched = torch.ones(model.cfg.total_vocab, dtype=torch.bool,
+                           device=ids.device)
+    untouched[touched] = False
+    worst, frozen = {}, True
+    for n in sp:
+        a, b = ((sp[n][touched], dp[n][touched]) if n in sst["sparse"]
+                else (sp[n], dp[n]))
+        worst[n] = (a - b).abs().max().item()
+        if n in sst["sparse"]:
+            frozen &= torch.equal(sp[n][untouched], start[n][untouched])
+            for leaf in sst["sparse"][n].values():
+                frozen &= not leaf[untouched].any().item()
+    name = max(worst, key=worst.get)
+    # two runs of one sparse step from the same state
+    outs = []
+    for _ in range(2):
+        p = {n: v.clone() for n, v in start.items()}
+        st = init_fn(p)
+        loss, _, _ = step_fn(p, st, ids, dense)
+        outs.append([loss] + list(p.values()) + [
+            leaf for t in st["sparse"].values() for leaf in t.values()])
+    bit_equal = all(torch.equal(a, b) for a, b in zip(*outs))
+    from paddle_tpu_torch.optimizer.sparse import merge_rows
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        uids, _ = merge_rows(ids, torch.ones(ids.shape + (16,),
+                                             device=ids.device),
+                             model.cfg.total_vocab)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    distinct = int((uids < model.cfg.total_vocab).sum())
+    log(f"[train:deepfm] sparse against dense, float32, 2 Adam(1e-3) steps "
+        f"on the same ids ({distinct} distinct of {ids.numel()}): worst "
+        f"{name} {worst[name]:.3e} (touched rows and dense parameters, "
+        f"limit {DEEPFM_SPARSE_TOL}); untouched rows "
+        f"{'bitwise unchanged' if frozen else 'MOVED'} in the parameters "
+        f"and both Adam moments; merge_rows made no host sync; two runs of "
+        f"one sparse step bit-equal: {bit_equal}")
+    if worst[name] > DEEPFM_SPARSE_TOL or not frozen:
+        raise SystemExit("[train:deepfm] sparse step disagrees with the "
+                         "dense step")
+
+
+def deepfm_timed_cell(torch, vocab, sparse):
+    """The bench's cell: 3 warm-up and 5 timed steps, each ending in a
+    synchronize; ms per step, examples/s, peak memory, the losses
+    (finite and falling), the host syncs of one more step and the AUC
+    over the batch after it."""
+    from paddle_tpu_torch import optimizer as TO
+    from paddle_tpu_torch.core.dtypes import policy_scope
+    from paddle_tpu_torch.metrics import Auc
+    from paddle_tpu_torch.parallel import Trainer
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model, ids, dense = deepfm_cell(torch, vocab, sparse)
+    if sparse:
+        def fl(p, i, d):
+            with policy_scope(DEEPFM_POLICY):
+                return deepfm_loss(model, i, d, p)
+
+        init_fn, step_fn = TO.sparse_minimize_fn(model, fl, TO.Adam(1e-3))
+        params = dict(model.named_parameters())
+        state = init_fn(params)
+
+        def step():
+            return step_fn(params, state, ids, dense)[0]
+    else:
+        tr = Trainer(model, TO.Adam(1e-3),
+                     lambda m, b, g: (deepfm_loss(m, *b), {}),
+                     amp=DEEPFM_POLICY)
+
+        def step():
+            return tr.train_step((ids, dense))[0]
+    losses, secs = [], []
+    for i in range(8):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step()
+        torch.cuda.synchronize()
+        if i >= 3:
+            secs.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    loss, syncs = sync_count(torch, step)
+    losses.append(float(loss))
+    with torch.no_grad(), policy_scope(DEEPFM_POLICY):
+        probs = torch.sigmoid(model(ids, dense))
+    auc = Auc()
+    auc.update(probs, ids[:, 0] % 2)
+    ms = 1e3 * sum(secs) / len(secs)
+    kind = "sparse" if sparse else "dense"
+    log(f"[train:deepfm] {kind} V={vocab} b{DEEPFM_BATCH} {DEEPFM_POLICY} "
+        f"Adam(1e-3): losses {[round(v, 6) for v in losses]}; ms per timed "
+        f"step {[round(1e3 * v, 3) for v in secs]}, mean {ms:.3f} ms, "
+        f"{DEEPFM_BATCH / (ms / 1e3):.1f} examples/s; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB; host syncs "
+        f"in one step {syncs}; AUC over the batch {auc.eval():.4f}")
+    if not finite_and_falling(losses):
+        raise SystemExit(f"[train:deepfm] {kind} V={vocab}: losses not "
+                         "finite and falling")
+    return ms
+
+
+def phase_train_deepfm(torch):
+    """BASELINE config 5 on the card: the float64 check step, the sparse
+    step against the dense one, then the six timed cells (dense and
+    sparse at each vocab) and the dense/sparse ratio at each vocab (the
+    crossover, reported)."""
+    deepfm_check_step(torch)
+    deepfm_sparse_against_dense(torch)
+    ratios = []
+    for vocab in DEEPFM_VOCABS:
+        d_ms = deepfm_timed_cell(torch, vocab, False)
+        s_ms = deepfm_timed_cell(torch, vocab, True)
+        ratios.append(f"V={vocab} {d_ms / s_ms:.3f}")
+    log("[train:deepfm] dense ms / sparse ms per step: " + ", ".join(ratios))
+    torch.cuda.empty_cache()
+
+
 def timed_phase(tag, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -2823,6 +3099,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     timed_phase("[train:mnist]", phase_train_mnist, torch)
     timed_phase("[train:resnet50]", phase_train_resnet50, torch)
+    timed_phase("[train:deepfm]", phase_train_deepfm, torch)
     log(f"[card] {smi}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

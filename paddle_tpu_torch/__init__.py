@@ -13,7 +13,7 @@ __version__ = "0.1.0"
 
 from . import amp, core
 from .core import (EnforceError, UnimplementedError, make_generator,
-                   resolve_device)
+                   resolve_device, seed)
 
 __all__ = ["amp", "core", "EnforceError", "UnimplementedError",
-           "make_generator", "resolve_device"]
+           "make_generator", "resolve_device", "seed"]

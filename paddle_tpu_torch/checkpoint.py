@@ -253,6 +253,7 @@ class _WriteHandle:
                 try:
                     fn()
                 except BaseException as e:  # re-raised at join()
+                    # pt-lint: disable=PT-RACE-401 join() reads _exc only after Thread.join returns (the happens-before edge)
                     self._exc = e
 
             self._thread = threading.Thread(target=run, daemon=True,

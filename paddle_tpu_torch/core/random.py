@@ -6,15 +6,22 @@ and a scope (:func:`rng_scope`) makes one current for the layers that
 draw during a forward (dropout). The two frameworks draw different
 numbers from the same seed: only distributions match.
 
-The trainer's key is the JAX package's: threefry key data (uint32[2]),
-split once a step as the JAX Trainer splits its key (:func:`split_key`
-is ``jax.random.split`` bit for bit), so it moves between the packages
-in a checkpoint; :func:`seed_generator` makes a step's generator from
-it."""
+Keys are the JAX package's: threefry key data (uint32[2]).
+:func:`split_key` is ``jax.random.split`` and :func:`fold_in`
+``jax.random.fold_in``, bit for bit. The global stream (:func:`seed`,
+:func:`next_key`, :func:`key_for`) is the JAX package's too: after
+``seed(s)`` the port draws the keys the JAX package draws, in the same
+order, so a model built the same way in both leaves the stream at the
+same key, and a fresh Trainer takes the JAX Trainer's start key. The
+trainer splits its key once a step as the JAX Trainer does, so the key
+moves between the packages in a checkpoint; :func:`seed_generator`
+makes a step's generator from it."""
 
 from __future__ import annotations
 
 import contextlib
+import threading
+import zlib
 from typing import List, Optional
 
 import numpy as np
@@ -65,9 +72,9 @@ _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 
 def make_key(seed: int = 0) -> np.ndarray:
     """The key data of ``jax.random.key(seed)`` for the default threefry
-    key: uint32[2], the seed's high and low 32 bits."""
-    seed = int(seed)
-    return np.array([(seed >> 32) & _MASK, seed & _MASK], np.uint32)
+    key as the JAX package makes it (64-bit mode off): uint32[2], a zero
+    high word and the seed's low 32 bits."""
+    return np.array([0, int(seed) & _MASK], np.uint32)
 
 
 def _threefry2x32(k1: int, k2: int, x0: int, x1: int):
@@ -95,6 +102,52 @@ def split_key(key, num: int = 2) -> np.ndarray:
     k1, k2 = (int(v) for v in np.asarray(key, np.uint32).reshape(2))
     return np.array([_threefry2x32(k1, k2, i >> 32, i & _MASK)
                      for i in range(num)], np.uint32)
+
+
+def fold_in(key, data: int) -> np.ndarray:
+    """``jax.random.fold_in(key, data)`` on key data, bit for bit: the
+    block function of the counter pair (0, data) under the key."""
+    k1, k2 = (int(v) for v in np.asarray(key, np.uint32).reshape(2))
+    return np.array(_threefry2x32(k1, k2, 0, int(data) & _MASK), np.uint32)
+
+
+# --- the global stream (the JAX package's core/random.py) -----------------
+
+_lock = threading.Lock()
+_seed: int = 0
+_key: Optional[np.ndarray] = None
+
+
+def seed(s: int) -> None:
+    """Set the global seed and restart the stream from ``make_key(s)``
+    (fluid's Program.random_seed analog)."""
+    global _seed, _key
+    with _lock:
+        _seed = int(s)
+        _key = make_key(_seed)
+
+
+def get_seed() -> int:
+    return _seed
+
+
+def next_key(n: int = 1):
+    """Split fresh key(s) off the global stream, as the JAX package's
+    ``next_key`` does: one key for ``n == 1``, else a list of ``n``."""
+    global _key
+    with _lock:
+        if _key is None:
+            _key = make_key(_seed)
+        keys = split_key(_key, n + 1)
+        _key, subs = keys[0], list(keys[1:])
+    return subs[0] if n == 1 else subs
+
+
+def key_for(name: str, base_key=None) -> np.ndarray:
+    """A key derived from ``name`` (its crc32, so every process derives
+    the same one) folded into ``base_key`` (the seed's key when None)."""
+    k = base_key if base_key is not None else make_key(_seed)
+    return fold_in(k, zlib.crc32(name.encode()) & 0x7FFFFFFF)
 
 
 def seed_generator(generator: torch.Generator, key) -> torch.Generator:

@@ -2,18 +2,27 @@
 
 The JAX package's Layer is a mutable container whose compiled entry
 points are functional. Here it is a ``torch.nn.Module``: PyTorch runs
-eagerly, so nothing has to be injected. What carries over is the naming
-— parameters are registered under the same dotted paths
+eagerly, and a layer's own parameters are its state. What carries over
+is the naming — parameters are registered under the same dotted paths
 (``blocks.0.self_attn.q_proj.weight``) and layouts, so a state moves
-between the packages by name (utils/convert.py).
+between the packages by name (utils/convert.py) — and the functional
+entry points (``functional_call``, ``apply_fn``, :func:`inject_state`),
+which run a layer on tensors the caller passes and leave the layer and
+those tensors as they were.
 
 Every layer takes an explicit ``device=`` (the CUDA card when None; see
 core/places.py) and ``generator=`` (a ``torch.Generator`` on that device,
-for its initial draws)."""
+for its initial draws). Creating a parameter draws one key off the
+global stream (core/random.py) whether or not a generator is given, as
+the JAX package's ``create_parameter`` does, so the stream stays in step
+with the JAX package's."""
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+import contextlib
+import itertools
+import zlib
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
 from torch import nn
@@ -21,7 +30,8 @@ from torch import nn
 from ..core.dtypes import default_dtype, get_policy, policy_scope, to_dtype
 from ..core.enforce import enforce
 from ..core.places import DeviceLike, resolve_device
-from ..core.random import current_generator, rng_scope
+from ..core.random import (current_generator, fold_in, key_for, make_key,
+                           next_key, rng_scope, seed_generator)
 
 
 class Layer(nn.Module):
@@ -38,17 +48,183 @@ class Layer(nn.Module):
                          device: DeviceLike = None,
                          generator: Optional[torch.Generator] = None):
         """Create, initialise and register parameter ``name``
-        (LayerHelper.create_parameter analog)."""
+        (LayerHelper.create_parameter analog). One key is drawn off the
+        global stream in any case; with no ``generator`` the values come
+        from a generator seeded from ``key_for("<Class>.<name>", key)``,
+        the JAX package's key for them (the two frameworks draw
+        different numbers from it: only the distribution matches)."""
         from ..initializer import Constant, XavierUniform
 
         dtype = to_dtype(dtype) if dtype is not None else default_dtype()
         if initializer is None:
             initializer = Constant(0.0) if is_bias else XavierUniform()
-        value = initializer(tuple(shape), dtype, resolve_device(device),
-                            generator)
+        device = resolve_device(device)
+        key = next_key()
+        if generator is None:
+            generator = seed_generator(torch.Generator(device=device),
+                                       key_for(f"{type(self).__name__}."
+                                               f"{name}", key))
+        value = initializer(tuple(shape), dtype, device, generator)
         param = nn.Parameter(value)
         self.register_parameter(name, param)
         return param
+
+    # --- rng ----------------------------------------------------------------
+
+    def rng(self, tag: str = "default"):
+        """Fresh key data for this layer during a functional call (the
+        call's key folded with a per-call count, then with ``tag``'s
+        crc32, as in the JAX package); outside one, the next key of the
+        global stream."""
+        ctx = _RNG_STACK[-1] if _RNG_STACK else None
+        if ctx is None:
+            return next_key()
+        ctx["count"] += 1
+        return fold_in(fold_in(ctx["key"], ctx["count"]), _stable_hash(tag))
+
+    # --- functional entry points --------------------------------------------
+
+    def functional_call(self, params: Dict[str, Any], *args,
+                        buffers: Optional[Dict[str, Any]] = None,
+                        rng=None, training: Optional[bool] = None,
+                        method: str = "forward", **kwargs):
+        """Run ``method`` (default forward) with ``params`` (and
+        ``buffers``) in place of the layer's own, by dotted name; returns
+        ``(output, new_buffers)``. Buffers run on copies, so a training
+        BatchNorm's running update lands in ``new_buffers`` and neither
+        the caller's tensors nor the layer's change; gradients flow to
+        the ``params`` tensors. ``rng`` (key data) keys ``Layer.rng``
+        and seeds the generator dropout draws from inside the call;
+        ``training`` sets the mode for the call only. The layer's own
+        parameter objects, buffers and modes are back in place after."""
+        with _bound(self, params, buffers), _modes(self, training):
+            ctx = {"key": rng if rng is not None else make_key(0),
+                   "count": 0}
+            _RNG_STACK.append(ctx)
+            try:
+                if rng is None:
+                    out = getattr(self, method)(*args, **kwargs)
+                else:
+                    gen = seed_generator(torch.Generator(
+                        device=_home(self)), rng)
+                    with rng_scope(gen):
+                        out = getattr(self, method)(*args, **kwargs)
+            finally:
+                _RNG_STACK.pop()
+            new_buffers = dict(self.named_buffers())
+        return out, new_buffers
+
+    def apply_fn(self) -> Callable:
+        """``f(params, *args, **kwargs) -> output``: functional_call
+        without the buffers, for loss closures over buffer-free
+        models."""
+
+        def f(params, *args, **kwargs):
+            out, _ = self.functional_call(params, *args, **kwargs)
+            return out
+
+        return f
+
+
+_RNG_STACK: List[Dict[str, Any]] = []
+
+
+def _stable_hash(s: str) -> int:
+    return zlib.crc32(s.encode()) & 0x7FFFFFFF
+
+
+def _home(module: nn.Module) -> torch.device:
+    """The device of the module's first parameter or buffer (the CPU for
+    a module with neither)."""
+    for t in itertools.chain(module.parameters(), module.buffers()):
+        return t.device
+    return torch.device("cpu")
+
+
+def _slot(module: nn.Module, name: str, kind: str):
+    """(owner module, attribute) of the dotted ``name``, which must be a
+    registered parameter or buffer (``kind``)."""
+    path, _, attr = name.rpartition(".")
+    try:
+        owner = module.get_submodule(path) if path else module
+    except AttributeError:
+        owner = None
+    table = getattr(owner, f"_{kind}s", {})
+    enforce(attr in table, "unknown %s %s on %s", kind, name,
+            type(module).__name__)
+    return owner, attr
+
+
+@contextlib.contextmanager
+def _bound(module: nn.Module, params, buffers):
+    """Put ``params`` (a dict by dotted name) in the module's slots for
+    the block, and copies of ``buffers`` and of its other buffers
+    (layers update running statistics in place); the original objects
+    go back after."""
+    saved = []
+    try:
+        for kind, flat in (("parameter", params), ("buffer", buffers)):
+            for name, value in (flat or {}).items():
+                owner, attr = _slot(module, name, kind)
+                table = getattr(owner, f"_{kind}s")
+                saved.append((table, attr, table[attr]))
+                if kind == "buffer":
+                    value = value.detach().clone()
+                table[attr] = value
+        for name, b in list(module.named_buffers()):
+            if name not in (buffers or {}):
+                owner, attr = _slot(module, name, "buffer")
+                saved.append((owner._buffers, attr, b))
+                owner._buffers[attr] = b.detach().clone()
+        yield
+    finally:
+        for table, attr, value in reversed(saved):
+            table[attr] = value
+
+
+@contextlib.contextmanager
+def _modes(module: nn.Module, training: Optional[bool]):
+    """Set every submodule's training mode for the block (when
+    ``training`` is given) and restore each one's own after."""
+    saved = [(m, m.training) for m in module.modules()]
+    try:
+        if training is not None:
+            module.train(training)
+        yield
+    finally:
+        for m, mode in saved:
+            m.training = mode
+
+
+@contextlib.contextmanager
+def inject_state(*bindings):
+    """Bind ``(model, params[, buffers])`` tuples for the block: the
+    multi-model sibling of ``Layer.functional_call`` (a speculative
+    decoder's target and draft, a pipeline of bound methods). Tensors
+    are put in the models' slots by dotted name (gradients flow to
+    them; buffers run on copies, so neither the caller's nor the
+    models' change), and the models' original ``nn.Parameter`` and
+    buffer objects are put back on exit, so a Trainer's or an optimizer
+    state's references stay valid."""
+    with contextlib.ExitStack() as stack:
+        for b in bindings:
+            stack.enter_context(_bound(b[0], b[1],
+                                       b[2] if len(b) > 2 else None))
+        yield
+
+
+def stacked_parameters(layers) -> Dict[str, torch.Tensor]:
+    """Stack the parameters of structurally identical layers along a new
+    leading axis (the uniform-block idiom of scan-over-layers encoders
+    and the GPipe pipeline); enforces matching parameter names."""
+    per = [dict(l.named_parameters()) for l in layers]
+    enforce(per, "stacked_parameters needs at least one layer")
+    names = sorted(per[0])
+    for i, p in enumerate(per[1:], 1):
+        enforce(sorted(p) == names,
+                "layer %s is not structurally identical to layer 0 "
+                "(params %s vs %s)", i, sorted(p), names)
+    return {k: torch.stack([p[k] for p in per]) for k in names}
 
 
 class LayerList(nn.ModuleList):

@@ -267,19 +267,21 @@ class RMSNorm(Layer):
 
 class Embedding(Layer):
     """Lookup table (num_embeddings, embedding_dim); ``weight_init``
-    defaults to XavierNormal. ``is_sparse=True`` (row-sparse updates
-    through ``optimizer/sparse.py``) is not ported yet and raises."""
+    defaults to XavierNormal.
+
+    ``is_sparse=True`` marks the table for row-sparse updates: inside a
+    step of :func:`paddle_tpu_torch.optimizer.sparse.sparse_minimize_fn`
+    the layer gathers its rows off the graph (``jnp.take``'s semantics,
+    ops/nn.py :func:`embedding`), records them as a leaf that requires
+    grad, and returns them (``padding_idx`` rows as zeros), so the step
+    differentiates with respect to the rows, not the table (see
+    nn/sparse.py). Outside such a step the flag is inert."""
 
     def __init__(self, num_embeddings: int, embedding_dim: int,
                  padding_idx: Optional[int] = None, weight_init=None,
                  dtype=None, is_sparse: bool = False, *, device=None,
                  generator=None):
         super().__init__()
-        if is_sparse:
-            raise UnimplementedError(
-                "Embedding is_sparse=True (row-sparse updates with "
-                "optimizer/sparse.py) is not ported yet: ROADMAP queue 1 "
-                "item 2")
         self.padding_idx = padding_idx
         self.is_sparse = is_sparse
         self.create_parameter("weight", (num_embeddings, embedding_dim),
@@ -287,6 +289,20 @@ class Embedding(Layer):
                               device=device, generator=generator)
 
     def forward(self, ids):
+        from .sparse import Capture, active
+
+        ctx = active()
+        if ctx is not None and ctx.handles(self):
+            if isinstance(ctx, Capture):
+                with torch.no_grad():
+                    rows = ON.embedding(ids, self.weight)
+                ctx.record(self, ids, rows.requires_grad_())
+            else:
+                rows = ctx.pop(self)
+            if self.padding_idx is not None:
+                rows = torch.where((ids == self.padding_idx)[..., None],
+                                   0.0, rows)
+            return rows
         return ON.embedding(ids, self.weight, self.padding_idx)
 
 

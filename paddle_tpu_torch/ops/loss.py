@@ -1,6 +1,6 @@
 """Loss ops (counterpart of paddle_tpu/ops/loss.py): the fused softmax
-cross-entropy BERT's NSP head takes. The fused linear-CE head is
-ops/fused_loss.py."""
+cross-entropy BERT's NSP head takes and the sigmoid cross-entropy of
+the CTR models. The fused linear-CE head is ops/fused_loss.py."""
 
 from __future__ import annotations
 
@@ -37,4 +37,20 @@ def softmax_with_cross_entropy(logits, label, soft_label: bool = False,
         loss = loss * valid.to(loss.dtype)
     if return_softmax:
         return loss, torch.exp(logp)
+    return loss
+
+
+def sigmoid_cross_entropy_with_logits(x, label, ignore_index: int = -100,
+                                      normalize: bool = False):
+    """Elementwise ``max(x, 0) - x * label + log1p(exp(-|x|))``; entries
+    whose label is ``ignore_index`` give 0, and ``normalize`` divides by
+    the count of the others (at least 1)
+    (reference: operators/sigmoid_cross_entropy_with_logits_op.cc)."""
+    # maximum, not clamp: its gradient at x == 0 is split, as jnp's is
+    loss = torch.maximum(x, x.new_zeros(())) - x * label + torch.log1p(
+        torch.exp(-torch.abs(x)))
+    mask = (label != ignore_index).to(loss.dtype)
+    loss = loss * mask
+    if normalize:
+        loss = loss / torch.clamp_min(torch.sum(mask), 1.0)
     return loss

@@ -15,7 +15,7 @@ between the packages leaf for leaf."""
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Callable, Dict, Tuple
 
 import torch
 
@@ -69,6 +69,29 @@ class Optimizer:
                 self.update_leaf(p, g, s, lr, step)
         state["step"] = step + 1
         return params, state
+
+    # --- high-level UX ------------------------------------------------------
+
+    def minimize_fn(self, loss_fn: Callable) -> Callable:
+        """``step_fn(params, state, *args, **kwargs) -> (loss, params,
+        state)`` (Optimizer.minimize analog): the gradient of
+        ``loss_fn(params, *args, **kwargs)`` with respect to each tensor
+        of the dict ``params``, then ``apply``, which updates them and
+        ``state`` in place; the loss comes back detached."""
+
+        def step_fn(params, state, *args, **kwargs):
+            # leaves that alias the caller's tensors, for the gradient
+            leaves = {k: v.detach().requires_grad_()
+                      for k, v in params.items()}
+            loss = loss_fn(leaves, *args, **kwargs)
+            grads = torch.autograd.grad(loss, list(leaves.values()),
+                                        allow_unused=True)
+            grads = {k: (g if g is not None else torch.zeros_like(v))
+                     for (k, v), g in zip(params.items(), grads)}
+            self.apply(params, grads, state)
+            return loss.detach(), params, state
+
+        return step_fn
 
     def current_lr(self, state) -> torch.Tensor:
         return self.schedule(state["step"])

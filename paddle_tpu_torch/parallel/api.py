@@ -7,10 +7,12 @@ the loss builder, ``backward()``, and the optimizer's in-place update.
 PyTorch runs eagerly, so there is nothing to compile; ``train_steps`` is
 a Python loop.
 
-The trainer keeps the JAX Trainer's key (threefry key data, uint32[2])
-and splits it once a step as the JAX Trainer does; the step's
-generator is seeded from the split-off key (core/random.py), so the
-key in a checkpoint fixes every later dropout mask. ``state()`` has the
+The trainer keeps the JAX Trainer's key (threefry key data, uint32[2]):
+a fresh trainer takes the next key of the global stream that ``seed``
+sets (core/random.py), as the JAX Trainer does, and splits it once a
+step as the JAX Trainer does; the step's generator is seeded from the
+split-off key, so the key in a checkpoint fixes every later dropout
+mask. ``state()`` has the
 JAX Trainer's keys and on-disk dtypes, and ``restore_checkpoint`` copies
 a checkpoint of either package into the live parameters and optimizer
 state in place.
@@ -33,9 +35,10 @@ import numpy as np
 import torch
 
 from ..amp import MixedPrecisionOptimizer
+from ..core.config import BuildStrategy
 from ..core.dtypes import POLICIES, policy_scope
 from ..core.enforce import UnimplementedError, enforce
-from ..core.random import (make_generator, make_key, rng_scope,
+from ..core.random import (make_generator, next_key, rng_scope,
                            seed_generator, split_key)
 from ..optimizer.optimizers import Optimizer
 
@@ -52,18 +55,22 @@ class Trainer:
     training step and None in ``eval_step``; a training step also makes
     it the current generator (core/random.py ``rng_scope``), from which
     dropout draws.
-    Arguments of the JAX Trainer that this slice does not carry raise
-    :class:`UnimplementedError` naming their ROADMAP item."""
+
+    ``build_strategy`` (core/config.py ``BuildStrategy``, default
+    ``BuildStrategy()``) is kept as ``self.strategy``. On one device
+    each field does what it does in the JAX Trainer on one device:
+    ``donate_inputs`` lets the JAX step update its state in place, which
+    the port's in-place updates always do, so it changes nothing here;
+    the reduce, gradient-scale and fusion fields concern the all-reduce
+    across devices, and ``remat_policy`` the JAX Trainer does not read.
+    The multi-device arguments raise :class:`UnimplementedError` naming
+    their ROADMAP item."""
 
     def __init__(self, model: torch.nn.Module, optimizer: Optimizer,
                  loss_builder: Callable, mesh=None, build_strategy=None,
                  param_spec=None, opt_state_rules=None,
                  amp: Optional[str] = None, grad_accum_steps: int = 1,
                  plan=None, grad_compression: Optional[str] = None):
-        if build_strategy is not None:
-            raise UnimplementedError(
-                "Trainer build_strategy= (core/config.py BuildStrategy) is "
-                "not ported yet: ROADMAP queue 1 item 1")
         for name, value in (("mesh", mesh), ("plan", plan),
                             ("param_spec", param_spec),
                             ("opt_state_rules", opt_state_rules),
@@ -77,6 +84,7 @@ class Trainer:
         self.model = model
         self.optimizer = optimizer
         self.loss_builder = loss_builder
+        self.strategy = build_strategy or BuildStrategy()
         self.amp_policy = amp
         self.grad_accum_steps = grad_accum_steps
         self.params: Dict[str, torch.nn.Parameter] = dict(
@@ -84,7 +92,7 @@ class Trainer:
         self.opt_state = optimizer.init(self.params)
         self.device = next(iter(self.params.values())).device
         self._generator = make_generator(0, self.device)
-        self._key = make_key(0)
+        self._key = next_key()
         if grad_accum_steps > 1:
             self._accum = {name: torch.zeros_like(p)
                            for name, p in self.params.items()}
@@ -140,10 +148,7 @@ class Trainer:
         through ``train_step``. The key evolves as the JAX Trainer's
         fused scan moves it: split once per call, the sub-key split ``n``
         ways, step i's generator seeded from the i-th, so a checkpoint
-        saved after ``train_steps`` carries the JAX package's key. (A
-        fresh trainer's start key is ``make_key(0)``, where the JAX
-        Trainer takes one off the global stream ``pt.seed`` sets, which
-        comes with ROADMAP queue 1 entry 2.)"""
+        saved after ``train_steps`` carries the JAX package's key."""
         enforce(self.grad_accum_steps == 1,
                 "train_steps composes with plain steps only (use "
                 "train_step for gradient merge)")

@@ -35,6 +35,7 @@ from paddle_tpu.core import dtypes as JD
 from paddle_tpu.data.bucketing import pack_sequences
 from paddle_tpu.models import bert as JB
 from paddle_tpu.ops import attention as JA
+import paddle_tpu_torch
 from paddle_tpu_torch import optimizer as TO
 from paddle_tpu_torch.core import dtypes as TD
 from paddle_tpu_torch.models import bert as TB
@@ -233,6 +234,8 @@ def test_pretrain_loss_and_metrics_match_jax():
 # ----- training --------------------------------------------------------------
 
 def _packed_trainer(seed):
+    # the stream seeded too: a trainer's start key is its next key
+    paddle_tpu_torch.seed(seed)
     gen = torch.Generator().manual_seed(seed)
     model = TB.BertForPretraining(TB.BertConfig(**dict(CFG, dropout=0.1)),
                                   device="cpu", generator=gen)
@@ -263,6 +266,7 @@ def test_bert_remat_equals_no_remat_under_dropout(flash_on_cpu,
     batch = (_t(tokens), _t(positions), torch.from_numpy(segs), _t(tokens))
     out = []
     for remat in (False, True):
+        paddle_tpu_torch.seed(12)     # the same start key for both trainers
         model = TB.BertForPretraining(
             TB.BertConfig(**dict(CFG, dropout=0.1, remat=remat,
                                  remat_policy=remat_policy if remat

@@ -5,7 +5,8 @@
   bfloat16 leaves are viewed through torch);
 - the package imports with no triton and no nvcc;
 - with no CUDA, entry points called without ``device=`` raise a typed
-  error instead of carrying on on the CPU;
+  error instead of carrying on on the CPU (DeepFM and the sparse
+  embedding too);
 - on CPU tensors the kernel wrappers run their plain versions and their
   launch counters stay at 0."""
 
@@ -43,6 +44,9 @@ RESILIENCE_SLICE = ("checkpoint", "train_loop", "resilience",
 CONV_SLICE = ("initializer", "ops.nn", "ops.math", "ops.tensor",
               "nn.layers", "models.mnist", "models.resnet", "quant.int8",
               "ops.kernels.quant_matmul")
+# the modules of the foundation and DeepFM slice
+DEEPFM_SLICE = ("core.random", "nn.layer", "nn.sparse", "optimizer.sparse",
+                "ops.loss", "metrics", "models.deepfm", "parallel.api")
 
 
 def _imported(path):
@@ -81,7 +85,8 @@ def test_package_imports_without_triton_nvcc_or_jax():
     assert out.returncode == 0 and "ok" in out.stdout, out.stderr
 
 
-@pytest.mark.parametrize("name", RESILIENCE_SLICE + CONV_SLICE)
+@pytest.mark.parametrize("name", RESILIENCE_SLICE + CONV_SLICE
+                         + DEEPFM_SLICE)
 def test_checkpoint_slice_modules_are_jax_free(name):
     path = PKG / (name.replace(".", "/") + ".py")
     if not path.exists():
@@ -171,6 +176,20 @@ def test_conv_models_without_device_raise_without_cuda(no_cuda):
     model = TR.resnet20_cifar(device="cpu")
     assert {b.device.type for b in model.buffers()} == {"cpu"}
     assert MnistCNN(device="cpu").conv1.weight.device.type == "cpu"
+
+
+def test_deepfm_without_device_raises_without_cuda(no_cuda):
+    from paddle_tpu_torch import nn as tnn
+    from paddle_tpu_torch.models import deepfm as TD
+
+    cfg = TD.DeepFMConfig.tiny()
+    cfg.embedding_axis = None
+    for make in (lambda: TD.DeepFM(cfg),
+                 lambda: tnn.Embedding(8, 4, is_sparse=True)):
+        with pytest.raises(DeviceUnavailableError):
+            make()
+    model = TD.DeepFM(cfg, device="cpu")
+    assert {p.device.type for p in model.parameters()} == {"cpu"}
 
 
 def test_int8_conv_on_cpu_takes_the_plain_version_and_counts_nothing():

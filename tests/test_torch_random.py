@@ -1,0 +1,194 @@
+"""The port's global random stream (``core/random.py``) against the JAX
+package's, bit for bit, on the CPU:
+
+- ``seed``, ``next_key``, ``key_for`` and ``fold_in`` give the key data
+  of ``jax.random`` (``make_key`` as ``jax.random.key`` with 64-bit mode
+  off, as the JAX package runs);
+- ``Layer.rng`` inside ``functional_call(rng=)`` folds the JAX
+  package's keys, and outside one takes the stream's next key;
+- after ``seed(s)`` and building the same model in both packages, a
+  fresh Trainer's start key is the JAX Trainer's, for GPT, BERT, ResNet,
+  MnistMLP and DeepFM at tiny sizes: the port draws one key per
+  parameter, in the JAX package's creation order. The JAX models are
+  built with their initializers returning zeros (an eager initializer
+  compiles a random kernel per shape, most of such a test's time); the
+  keys are drawn before an initializer runs, so the stream moves the
+  same.
+"""
+
+import zlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import paddle_tpu as pt
+import paddle_tpu_torch as ptt
+from paddle_tpu import initializer as JI
+from paddle_tpu import nn as jnn
+from paddle_tpu import optimizer as JO
+from paddle_tpu import parallel as JP
+from paddle_tpu.core import dtypes as JDT
+from paddle_tpu.core import random as JR
+from paddle_tpu.models import bert as JB
+from paddle_tpu.models import deepfm as JDF
+from paddle_tpu.models import gpt as JG
+from paddle_tpu.models import mnist as JM
+from paddle_tpu.models import resnet as JRN
+from paddle_tpu_torch import nn as tnn
+from paddle_tpu_torch import optimizer as TO
+from paddle_tpu_torch.core import dtypes as TDT
+from paddle_tpu_torch.core import random as TR
+from paddle_tpu_torch.models import bert as TB
+from paddle_tpu_torch.models import deepfm as TDF
+from paddle_tpu_torch.models import gpt as TG
+from paddle_tpu_torch.models import mnist as TM
+from paddle_tpu_torch.models import resnet as TRN
+from paddle_tpu_torch.parallel import Trainer
+
+SEEDS = [0, 7, 2 ** 31 + 5, 2 ** 40 + 3, -1]
+
+
+@pytest.fixture(autouse=True)
+def fresh_streams():
+    pt.seed(0)
+    ptt.seed(0)
+    JDT.set_policy("float32")
+    TDT.set_policy("float32")
+    yield
+    pt.seed(0)
+    ptt.seed(0)
+
+
+def _data(key):
+    return np.asarray(jax.random.key_data(key))
+
+
+@pytest.mark.parametrize("s", SEEDS)
+def test_stream_is_jax_bit_for_bit(s):
+    pt.seed(s)
+    ptt.seed(s)
+    assert ptt.core.get_seed() == pt.core.get_seed() == s
+    np.testing.assert_array_equal(TR.make_key(s), _data(jax.random.key(s)))
+    for n in (1, 3, 1, 2):
+        j, t = JR.next_key(n), TR.next_key(n)
+        if n == 1:
+            j, t = [j], [t]
+        assert len(t) == n
+        for a, b in zip(j, t):
+            np.testing.assert_array_equal(b, _data(a))
+    np.testing.assert_array_equal(TR.key_for("Linear.weight"),
+                                  _data(JR.key_for("Linear.weight")))
+    base_j, base_t = JR.next_key(), TR.next_key()
+    np.testing.assert_array_equal(TR.key_for("Conv2D.bias", base_t),
+                                  _data(JR.key_for("Conv2D.bias", base_j)))
+
+
+@pytest.mark.parametrize("data", [0, 1, 12345, 2 ** 31 - 1, 2 ** 32 - 1])
+def test_fold_in_is_jax_bit_for_bit(data):
+    for s in (0, 3, 99):
+        key = jax.random.key(s)
+        np.testing.assert_array_equal(
+            TR.fold_in(_data(key), data),
+            _data(jax.random.fold_in(key, np.uint32(data))))
+    crc = zlib.crc32(b"dropout") & 0x7FFFFFFF
+    np.testing.assert_array_equal(
+        TR.fold_in(TR.make_key(4), crc),
+        _data(jax.random.fold_in(jax.random.key(4), crc)))
+
+
+class _JKeys(jnn.Layer):
+    def forward(self, x):
+        return jnp.stack([jax.random.key_data(self.rng(t))
+                          for t in ("default", "drop", "default")])
+
+
+class _TKeys(tnn.Layer):
+    def forward(self, x):
+        return np.stack([self.rng(t) for t in ("default", "drop",
+                                               "default")])
+
+
+def test_layer_rng_folds_the_call_key_as_jax():
+    jl, tl = _JKeys(), _TKeys()
+    for s in (0, 11):
+        jout, _ = jl.functional_call({}, 0, rng=jax.random.key(s))
+        tout, _ = tl.functional_call({}, 0, rng=TR.make_key(s))
+        np.testing.assert_array_equal(tout, np.asarray(jout))
+    # without rng= the call key is key(0), as in the JAX package
+    jout, _ = jl.functional_call({}, 0)
+    tout, _ = tl.functional_call({}, 0)
+    np.testing.assert_array_equal(tout, np.asarray(jout))
+    # outside a functional call: the global stream's next key
+    pt.seed(5)
+    ptt.seed(5)
+    np.testing.assert_array_equal(tl.rng("x"), _data(jl.rng("x")))
+    np.testing.assert_array_equal(TR.next_key(), _data(JR.next_key()))
+
+
+def test_create_parameter_draws_from_the_stream():
+    """One key per parameter, generator or not; with none the values are
+    the same for the same stream position and differ from another."""
+    lin = tnn.Linear(4, 3, device="cpu")
+    jnn.Linear(4, 3)
+    np.testing.assert_array_equal(TR.next_key(), _data(JR.next_key()))
+    ptt.seed(0)
+    again = tnn.Linear(4, 3, device="cpu")
+    other = tnn.Linear(4, 3, device="cpu")
+    assert torch.equal(lin.weight, again.weight)
+    assert not torch.equal(lin.weight, other.weight)
+    ptt.seed(0)
+    pt.seed(0)
+    tnn.Linear(4, 3, device="cpu",
+               generator=torch.Generator().manual_seed(1))
+    jnn.Linear(4, 3)
+    np.testing.assert_array_equal(TR.next_key(), _data(JR.next_key()))
+
+
+GPT_CFG = dict(vocab_size=256, hidden_size=64, num_layers=2, num_heads=4,
+               num_kv_heads=2, intermediate_size=128, max_position=64)
+BERT_CFG = dict(vocab_size=256, hidden_size=64, num_layers=2, num_heads=2,
+                intermediate_size=128, max_position=64)
+
+
+def _deepfm_cfg(M):
+    cfg = M.DeepFMConfig.tiny()
+    cfg.embedding_axis = None
+    return cfg
+
+
+MODELS = {
+    "gpt": (lambda: JG.GPTForCausalLM(JG.GPTConfig(**GPT_CFG)),
+            lambda: TG.GPTForCausalLM(TG.GPTConfig(**GPT_CFG),
+                                      device="cpu")),
+    "bert": (lambda: JB.BertForPretraining(JB.BertConfig(**BERT_CFG)),
+             lambda: TB.BertForPretraining(TB.BertConfig(**BERT_CFG),
+                                           device="cpu")),
+    "resnet20": (lambda: JRN.resnet20_cifar(),
+                 lambda: TRN.resnet20_cifar(device="cpu")),
+    "mnist_mlp": (lambda: JM.MnistMLP(32, 16),
+                  lambda: TM.MnistMLP(32, 16, device="cpu")),
+    "deepfm": (lambda: JDF.DeepFM(_deepfm_cfg(JDF)),
+               lambda: TDF.DeepFM(_deepfm_cfg(TDF), device="cpu")),
+}
+
+
+@pytest.mark.parametrize("name", list(MODELS))
+@pytest.mark.parametrize("s", [0, 42])
+def test_fresh_trainer_key_is_the_jax_trainers(name, s, monkeypatch):
+    def zeros(self, key, shape, dtype=jnp.float32):
+        return jnp.zeros(shape, dtype)
+
+    for cls in (JI.Constant, JI.Uniform, JI.Normal, JI.TruncatedNormal,
+                JI.XavierUniform, JI.XavierNormal, JI.MSRA):
+        monkeypatch.setattr(cls, "__call__", zeros)
+    make_jax, make_port = MODELS[name]
+    pt.seed(s)
+    ptt.seed(s)
+    jt = JP.Trainer(make_jax(), JO.SGD(0.1), lambda *a: None)
+    tt = Trainer(make_port(), TO.SGD(0.1), lambda *a: None)
+    np.testing.assert_array_equal(tt._key, _data(jt._rng))
+    # and the streams stay together after the trainers
+    np.testing.assert_array_equal(TR.next_key(), _data(JR.next_key()))

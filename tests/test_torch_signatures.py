@@ -274,13 +274,10 @@ def _raises(item, fn, *args, **kw):
 def test_unported_arguments_raise_naming_their_item():
     q = torch.zeros((1, 64, 2, 64))
     cpu = dict(device="cpu")
-    _raises("queue 1 item 2", tnn.Embedding, 8, 4, is_sparse=True, **cpu)
     _raises("queue 1 item 11", tnn.MultiHeadAttention, 32, 4,
             seq_parallel="ring", **cpu)
     model = tnn.Linear(2, 2, device="cpu")
     opt = topt.Adam(1e-3)
-    _raises("queue 1 item 1", Trainer, model, opt, lambda *a: None,
-            build_strategy=object())
     _raises("queue 1 item 11", Trainer.supervised, model, opt,
             lambda o, y: o.sum(), mesh=object())
     _raises("queue 1 item 9", Trainer.supervised, model, opt,
@@ -300,6 +297,43 @@ def test_unported_arguments_raise_naming_their_item():
     torch.testing.assert_close(
         TA.xla_attention(q, q, q, dropout_p=0.0, dropout_key=None,
                          segment_ids=None), TA.xla_attention(q, q, q))
+
+
+def test_sparse_embedding_builds_and_trains():
+    """``Embedding(is_sparse=True)``: a plain layer outside a sparse step,
+    and inside ``sparse_minimize_fn``'s step its table moves on the
+    touched rows only."""
+    model = tnn.Embedding(16, 4, is_sparse=True, device="cpu")
+    ids = torch.tensor([[1, 3], [3, 5]])
+    torch.testing.assert_close(model(ids), model.weight[ids])
+    before = model.weight.detach().clone()
+    params = dict(model.named_parameters())
+    init_fn, step_fn = topt.sparse_minimize_fn(
+        model, lambda p, i: model.functional_call(p, i)[0].square().sum(),
+        topt.SGD(0.1))
+    state = init_fn(params)
+    losses = [float(step_fn(params, state, ids)[0]) for _ in range(3)]
+    assert losses[-1] < losses[0]
+    moved = (model.weight.detach() != before).any(dim=1)
+    assert moved.tolist() == [i in (1, 3, 5) for i in range(16)]
+
+
+def test_trainer_build_strategy_steps_and_is_stored():
+    """``Trainer(build_strategy=)`` keeps the strategy as ``strategy``
+    (a default one when None) and steps as without it."""
+    from paddle_tpu_torch.core.config import BuildStrategy
+
+    strategy = BuildStrategy(donate_inputs=False, remat_policy="dots")
+    model = tnn.Linear(2, 1, device="cpu")
+    batch = {"x": torch.ones(4, 2), "label": torch.zeros(4, 1)}
+    tr = Trainer.supervised(model, topt.SGD(0.1),
+                            lambda o, y: (o - y).square().mean(),
+                            build_strategy=strategy)
+    assert tr.strategy is strategy
+    losses = [float(tr.train_step(batch)[0]) for _ in range(3)]
+    assert losses[-1] < losses[0]
+    assert Trainer(model, topt.SGD(0.1), lambda *a: None).strategy == \
+        BuildStrategy()
 
 
 def test_checkpoint_slice_arguments_raise_naming_their_item(tmp_path):

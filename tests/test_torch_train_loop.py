@@ -29,6 +29,7 @@ import pytest
 import torch
 
 from paddle_tpu.data import device_loader as JDL
+import paddle_tpu_torch
 from paddle_tpu_torch import optimizer as TO
 from paddle_tpu_torch.core import EnforceError, UnimplementedError
 from paddle_tpu_torch.core.config import FLAGS
@@ -301,6 +302,9 @@ CFG = dict(vocab_size=512, hidden_size=256, num_layers=2, num_heads=4,
 
 
 def _gpt_trainer(seed):
+    # the stream seeded as the weights are: a trainer's start key is the
+    # stream's next key, so two trainers of one seed start alike
+    paddle_tpu_torch.seed(seed)
     model = TG.GPTForCausalLM(TG.GPTConfig(**CFG), device="cpu",
                               generator=torch.Generator().manual_seed(seed))
     return Trainer(model, TO.Adam(1e-3),

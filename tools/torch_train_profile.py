@@ -16,7 +16,14 @@ float32). ``--model``:
 - ``resnet50`` and ``resnet50_nchw``: BASELINE config 2 as bench.py
   runs it (:327-352), resnet50(1000) in NHWC (the bench's layout) or
   NCHW, seeded weights, one (128, 3, 224, 224) batch of seeded images,
-  all-zero labels; it prints images/s where the others print tokens/s.
+  all-zero labels; it prints images/s where the others print tokens/s;
+- ``deepfm`` and ``deepfm_sparse``: BASELINE config 5 as bench.py runs
+  it (:2197-2226 bench_deepfm, dense updates through Trainer; :2106-2194
+  bench_deepfm_sparse, row-sparse updates through sparse_minimize_fn):
+  26 fields, 13 dense features, embed 16, tower (400, 400, 400), batch
+  4096, the stream seeded 0, ids uniform over the vocab (numpy seed 0),
+  labels ids[:, 0] % 2, at each vocab of ``--vocab``; it prints
+  examples/s.
 
 Each model and policy named runs in turn, in one process.
 
@@ -31,7 +38,8 @@ time.
 
     python3 tools/torch_train_profile.py [--steps 5]
         [--amp float32 mixed_bf16 bfloat16]
-        [--model gpt bert_base bert_packed resnet50 resnet50_nchw]
+        [--model gpt bert_base bert_packed resnet50 resnet50_nchw
+                 deepfm deepfm_sparse] [--vocab 100000 10000000]
 """
 
 import argparse
@@ -74,7 +82,10 @@ def main() -> int:
                     choices=["float32", "mixed_bf16", "bfloat16"])
     ap.add_argument("--model", nargs="+", default=["gpt"],
                     choices=["gpt", "bert_base", "bert_packed", "resnet50",
-                             "resnet50_nchw"])
+                             "resnet50_nchw", "deepfm", "deepfm_sparse"])
+    ap.add_argument("--vocab", nargs="+", type=int,
+                    default=[100_000, 10_000_000],
+                    help="DeepFM's total vocab (the deepfm models only)")
     args = ap.parse_args()
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -87,8 +98,10 @@ def main() -> int:
     print(f"[card] {smi.stdout.strip()}")
     for name in args.model:
         for policy in args.amp:
-            profile_step(torch, profile, ProfilerActivity, name, policy,
-                         args.steps)
+            for vocab in (args.vocab if name.startswith("deepfm")
+                          else [None]):
+                profile_step(torch, profile, ProfilerActivity, name, policy,
+                             args.steps, vocab)
     return 0
 
 
@@ -160,7 +173,52 @@ def bert_setup(torch, packed):
             b * t, int((seg > 0).sum()), "tokens")
 
 
-def profile_step(torch, profile, ProfilerActivity, name, policy, n):
+def deepfm_setup(torch, vocab, sparse, policy):
+    """bench.py's DeepFM cell at ``vocab``: a step function (Trainer for
+    dense updates, sparse_minimize_fn for row-sparse ones, the loss under
+    ``policy``), the examples a step takes."""
+    import numpy as np
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.core.dtypes import policy_scope
+    from paddle_tpu_torch.models import deepfm as DF
+    from paddle_tpu_torch.parallel import Trainer
+
+    ptt.seed(0)
+    cfg = DF.DeepFMConfig(total_vocab=vocab, num_fields=26, dense_dim=13,
+                          embed_dim=16, embedding_axis=None,
+                          sparse_grads=sparse)
+    model = DF.DeepFM(cfg, device="cuda")
+    rng = np.random.default_rng(0)
+    ids = torch.from_numpy(rng.integers(0, vocab, (4096, 26))).cuda()
+    dense = torch.from_numpy(rng.normal(size=(4096, 13)).astype(
+        np.float32)).cuda()
+
+    def loss(p=None):
+        logits = (model(ids, dense) if p is None
+                  else model.functional_call(p, ids, dense)[0])
+        return DF.loss_fn(logits, ids[:, 0] % 2)
+
+    if not sparse:
+        trainer = Trainer(model, optimizer.Adam(1e-3),
+                          lambda m, b, g: (loss(), {}), amp=policy)
+        return lambda: trainer.train_step(None), 4096
+
+    def forward_loss(p):
+        with policy_scope(policy):
+            return loss(p)
+
+    init_fn, step_fn = optimizer.sparse_minimize_fn(
+        model, forward_loss, optimizer.Adam(1e-3))
+    params = dict(model.named_parameters())
+    state = init_fn(params)
+    return lambda: step_fn(params, state), 4096
+
+
+def trainer_setup(torch, name, policy):
+    """The Trainer step of the GPT, BERT or ResNet-50 model ``name``; the
+    tokens (or images) a step takes, its real tokens and the unit."""
     from paddle_tpu_torch import optimizer
     from paddle_tpu_torch.parallel import Trainer
 
@@ -171,11 +229,22 @@ def profile_step(torch, profile, ProfilerActivity, name, policy, n):
         else bert_setup(torch, name == "bert_packed"))
     trainer = Trainer(model, optimizer.Adam(1e-3), loss_builder,
                       amp=policy)
+    return lambda: trainer.train_step(batch), tokens, real, unit
+
+
+def profile_step(torch, profile, ProfilerActivity, name, policy, n,
+                 vocab=None):
+    if name.startswith("deepfm"):
+        step, tokens = deepfm_setup(torch, vocab, name == "deepfm_sparse",
+                                    policy)
+        real, unit = None, "examples"
+    else:
+        step, tokens, real, unit = trainer_setup(torch, name, policy)
 
     def run(k):
         t0 = time.perf_counter()
         for _ in range(k):
-            trainer.train_step(batch)
+            step()
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
@@ -185,7 +254,8 @@ def profile_step(torch, profile, ProfilerActivity, name, policy, n):
                              ProfilerActivity.CUDA]) as prof:
         wall = run(n)
     tag = (f"[train:{policy}]" if name == "gpt"
-           else f"[train:{name}:{policy}]")
+           else f"[train:{name}:{policy}]" if vocab is None
+           else f"[train:{name}:V={vocab}:{policy}]")
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in events)
@@ -208,7 +278,7 @@ def profile_step(torch, profile, ProfilerActivity, name, policy, n):
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:16]:
         print(f"{tag}   {e.self_device_time_total / 1e3 / n:9.3f} ms/step "
               f"x{e.count // n:4d}  {kind_of(e.key)[:5]:5s} {e.key[:90]}")
-    del trainer, model
+    del step
     torch.cuda.empty_cache()
 
 
