@@ -120,7 +120,11 @@ Phases, each printed as it runs:
    rows packed with 16-T-token documents and a padding tail, dropout at
    p 0.1 and 0.5 from seeded (B, H) seeds, both with a kv_mask, causal
    and not, GQA, D 64 and 128), the same tolerances, both sides on the
-   same seeds;
+   same seeds; then at Tq != Tk with dropout and a key mask
+   (FLASH_CROSS_CASES: the NMT's cross-attention, 64 queries against a
+   128-key memory with a padded tail and a row with no live key, p 0.1;
+   192 against 320 keys, causal, GQA, p 0.5), where the dropout hash
+   reads row i + (tk - tq);
 8. the training slice at full width, bench_gpt's configuration:
    GPTConfig.small() with remat, max_position=1024, seeded weights (seed
    5, built anew for each policy), one (8, 1024) batch of seeded ids
@@ -246,7 +250,45 @@ Phases, each printed as it runs:
    step, examples/s, peak memory, the host syncs of one more step and
    the AUC over the batch after it; then dense ms over sparse ms at
    each vocab (the crossover, reported). DeepFM runs no hand kernel.
-   Each of the new phases prints its seconds.
+   Each of the new phases prints its seconds;
+17. ``[train:nmt]``, BASELINE config 4 (bench.py:485-513):
+   NMTConfig.base() (6+6 layers, d_model 512, 8 heads, FFN 2048, vocab
+   32000, dropout 0.1, label smoothing 0.1), the stream seeded 0,
+   forward_fused_loss, Adam(1e-3), mixed_bf16. Check steps under
+   mixed_bf16 and float32 on a B=16 batch with 128-token sources with
+   padded tails (row 0 all pad) and 64-token targets, so cross-attention
+   runs the kernels at Tq != Tk with a key mask and dropout: the kernels
+   against plain attention, the generator re-seeded before each pass
+   (the limits of the BERT check steps; every pass of the kernels
+   launches each flash kernel 18 times, the plain passes none); one
+   bench step (B=64, src = tgt = 64, numpy seed 0) launches each flash
+   kernel exactly 18 times, all float32 (6 encoder self-attentions, 6
+   causal decoder self-attentions, 6 cross-attentions); 5 timed steps
+   (finite, falling), target tokens/s, peak memory and the device's idle
+   share (torch.profiler); B=256 reported;
+18. ``[serve:nmt]``, bench.py:599-648: the same model in eval mode,
+   greedy_decode_cached at B=32, src 64, max_len 64 in float32 launches
+   the contiguous decode kernel exactly 6 x 64 times, all float32, and
+   no paged kernel; each emitted token (up to a row's first eos) sits
+   within 1e-3 of its position's max logit when the output re-runs
+   teacher-forced through forward; a call makes no host sync (torch's
+   sync debug mode); under mixed_bf16 greedy_decode_cached and
+   greedy_decode (the bench's --no-kv-cache) are timed, their tokens
+   compared (reported); beam_decode_cached (B=8, beam 4, max_len 64,
+   float32): each returned score within 1e-3 of the teacher-forced sum
+   of its sequence's log-probabilities up to its first eos;
+19. ``[train:vit]``, bench.py:655 bench_vit: a check step of
+   ViTConfig.base() at B=2, 224 px, NHWC, the card against the CPU on
+   the same weights and images, float64 gated (loss 1e-4, each grad
+   1e-3 of its parameter's largest CPU entry; the key biases, 0 in exact
+   arithmetic, reported) and float32 reported; then b128, remat,
+   mixed_bf16, Adam(1e-3) in NHWC (2 warm-up and 5 timed steps) and
+   NCHW (1 and 3): losses finite and falling, images/s, peak memory; no
+   flash launch (197 tokens is not a multiple of 64);
+20. the three flash kernels timed at the NMT's training shape (B=64,
+   T=64, H=8, D=64, key mask, dropout 0.1, float32) beside their plain
+   versions and SDPA (printed only; the kernels' record keeps the GPT
+   and BERT shapes).
 
 Any failure exits non-zero. The line before the last is the kernels'
 JSON record; the last line is
@@ -390,6 +432,32 @@ FLASH_OPTION_CASES = [
     (3, 256, 8, 8, 128, False, True, 0.1, False),
 ]
 OPT = "[segments+dropout]"
+# the flash options at Tq != Tk, (B, Tq, Tk, H, Hkv, D, causal, dropout_p,
+# kv_mask): the NMT's cross-attention (64 queries against a padded
+# 128-key memory, with a padded tail and a row with no live key) and a
+# causal GQA case; both the causal mask and the dropout hash read row
+# i + (tk - tq)
+FLASH_CROSS_CASES = [
+    (8, 64, 128, 8, 8, 64, False, 0.1, True),
+    (4, 192, 320, 8, 2, 64, True, 0.5, True),
+]
+# the Transformer NMT, BASELINE config 4: bench.py:485-513 (training, B=64,
+# src = tgt = 64, mixed_bf16) and :599-648 (greedy decode, B=32, src 64,
+# max_len 64); B=256 is BASELINE.md:59's batch, reported as a card point.
+# The check steps: B=16, a 128-token source with padded tails (one row
+# fully padded) against a 64-token target, so that cross-attention runs
+# the kernels at Tq != Tk with a live key mask and dropout
+NMT_B, NMT_T, NMT_BIG_B, NMT_POLICY = 64, 64, 256, "mixed_bf16"
+NMT_CHECK_B, NMT_CHECK_SRC, NMT_CHECK_TGT = 16, 128, 64
+NMT_DECODE_B, NMT_BEAM_B, NMT_BEAM_K = 32, 8, 4
+# the decode kernel at the greedy decode's shape (cache capacity =
+# max_len 64), held against its plain version at these cursors
+NMT_DECODE_CAP, NMT_DECODE_T = 64, (0, 1, 63)
+# ViT-B/16, bench.py:655 bench_vit: b128, 224 px, remat, mixed_bf16; the
+# check step card against CPU in float64 (loss, each grad relative to its
+# parameter's largest CPU entry)
+VIT_B, VIT_POLICY = 128, "mixed_bf16"
+VIT_CHECK_TOL = (1e-4, 1e-3)
 # BERT pretraining, BASELINE config 3 (bench.py:354 bench_bert_base and
 # :560 bench_bert_packed): BertConfig.base(), batch 32, sequence 128,
 # mixed_bf16 (bench.py:2962), Adam(1e-3)
@@ -466,6 +534,19 @@ def phase_kernels(torch, K):
     """Each kernel against its plain version; returns the float32 max
     abs error per kernel."""
     err = {name: 0.0 for name in KERNEL_ROWS}
+
+    def hold(name, dname, what, got, want):
+        torch.cuda.synchronize()
+        e = (got.float() - want.float()).abs().max().item()
+        ok = e <= TOL[dname] and bool(torch.isfinite(got).all())
+        log(f"[kernels] {name} {dname} {what}: max abs err {e:.3e} (atol "
+            f"{TOL[dname]}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"{name} disagrees with its plain version "
+                             f"({dname}, {what})")
+        if dname == "float32":
+            err[name] = max(err[name], e)
+
     for dname, edges in itertools.product(("float32", "bfloat16"),
                                           (False, True)):
         x = kernel_inputs(torch, getattr(torch, dname))
@@ -496,19 +577,26 @@ def phase_kernels(torch, K):
                         x["q"], *quant_planes(x), x["table"], x["t_p"],
                         window)),
             }
-            torch.cuda.synchronize()
             for name, (got, want) in pairs.items():
-                e = (got.float() - want.float()).abs().max().item()
-                ok = e <= TOL[dname] and bool(torch.isfinite(got).all())
-                log(f"[kernels] {name} {dname} "
-                    f"{'chunk-edge' if edges else 'phase-3'} cursors "
-                    f"window={window}: max abs err {e:.3e} (atol "
-                    f"{TOL[dname]}) {'ok' if ok else 'FAIL'}")
-                if not ok:
-                    raise SystemExit(f"{name} disagrees with its plain "
-                                     f"version ({dname}, window={window})")
-                if dname == "float32":
-                    err[name] = max(err[name], e)
+                hold(name, dname, f"{'chunk-edge' if edges else 'phase-3'} "
+                     f"cursors window={window}", got, want)
+    # the NMT's greedy_decode_cached shape: one 256-key chunk; the cursor
+    # a Python int, as the model passes it, or one per row
+    b, cap, h, d = NMT_DECODE_B, NMT_DECODE_CAP, 8, 64
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rows = torch.tensor([NMT_DECODE_T[i % 3] for i in range(b)],
+                        dtype=torch.int32, device="cuda")
+    for dname in ("float32", "bfloat16"):
+        q, k, v = (torch.randn(*shape, generator=gen, device="cuda")
+                   .to(getattr(torch, dname))
+                   for shape in ((b, 1, h, d), (b, cap, h, d),
+                                 (b, cap, h, d)))
+        for t in (*NMT_DECODE_T, rows):
+            cursor = f"per row {NMT_DECODE_T}" if torch.is_tensor(t) else t
+            hold("decode_attention", dname, f"NMT shape (B={b}, cap={cap}, "
+                 f"H=Hkv={h}, D={d}) t={cursor}",
+                 K.decode_attention(q, k, v, t),
+                 K.decode_attention_plain(q, k, v, t))
     return err
 
 
@@ -764,6 +852,15 @@ def phase_serving(torch, K, model, prompts, mode, kw, max_new=32):
     return outs, launches[kernel], dec.tick_count, run
 
 
+def is_sync_warning(w) -> bool:
+    """A warning of torch's sync debug mode about a synchronizing call;
+    not the notice its first use in a process gives ("Synchronization
+    debug mode is a prototype feature ..."), which a count taken in the
+    first such window would otherwise include."""
+    msg = str(w.message)
+    return "synchroniz" in msg and "prototype feature" not in msg
+
+
 def host_syncs_per_tick(torch, model, prompts, kw, k, ticks=4):
     """Synchronizing CUDA calls in each of ``ticks`` decode ticks of a full
     arena at decode_steps=k (torch's sync debug mode, counted as
@@ -789,7 +886,7 @@ def host_syncs_per_tick(torch, model, prompts, kw, k, ticks=4):
                     dec._step()
                 finally:
                     torch.cuda.set_sync_debug_mode("default")
-            counts.append(sum("synchroniz" in str(w.message) for w in got))
+            counts.append(sum(map(is_sync_warning, got)))
     return counts
 
 
@@ -1484,6 +1581,22 @@ def phase_flash_kernels(torch, FK):
                             ("flash_attention_dkv", max(e["dk"], e["dv"]))):
                 err[dname][name + OPT] = max(
                     err[dname].get(name + OPT, 0.0), x)
+    # Tq != Tk with dropout and a key mask: the dropout hash's row offset
+    for case in FLASH_CROSS_CASES:
+        for dname in FLASH_DTYPES:
+            e = option_errors(torch, FK, case, getattr(torch, dname), gen,
+                              inputs=cross_option_inputs)
+            ok = max(e.values()) <= FLASH_TOL[dname]
+            log(f"[flash] Tq != Tk {case} {dname}: max abs err "
+                + ", ".join(f"{n} {x:.3e}" for n, x in e.items())
+                + f" (atol {FLASH_TOL[dname]}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"a flash kernel disagrees with its plain "
+                                 f"version at {case} {dname}")
+            for name, x in (("flash_attention_fwd", max(e["o"], e["lse"])),
+                            ("flash_attention_dq", e["dq"]),
+                            ("flash_attention_dkv", max(e["dk"], e["dv"]))):
+                err[dname][name] = max(err[dname][name], x)
     return err
 
 
@@ -1522,10 +1635,33 @@ def flash_option_inputs(torch, case, dtype, gen, seg=None):
                              dropout_p=p)
 
 
-def option_errors(torch, FK, case, dtype, gen):
+def cross_option_inputs(torch, case, dtype, gen):
+    """q, k, v, do and the keyword arguments of one FLASH_CROSS_CASES
+    case (Tq != Tk), on the card: the kv_mask pads row 0's last 50 keys
+    and all of row 1's."""
+    b, tq, tk, h, hkv, d, causal, p, mask = case
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    q, k, v, do = (rand(b, tq, h, d), rand(b, tk, hkv, d),
+                   rand(b, tk, hkv, d), rand(b, tq, h, d))
+    km = seeds = None
+    if mask:
+        km = torch.ones((b, tk), dtype=torch.bool, device="cuda")
+        km[0, tk - 50:] = False
+        km[1, :] = False
+    if p:
+        seeds = torch.randint(-2 ** 31, 2 ** 31 - 1, (b, h), generator=gen,
+                              device="cuda", dtype=torch.int32)
+    return q, k, v, do, dict(causal=causal, scale=d ** -0.5, kv_mask=km,
+                             segment_ids=None, seeds=seeds, dropout_p=p)
+
+
+def option_errors(torch, FK, case, dtype, gen, inputs=flash_option_inputs):
     """Max abs difference, in float32, of o, lse, dq, dk, dv between each
     kernel and its plain version on the same inputs and seeds."""
-    q, k, v, do, kw = flash_option_inputs(torch, case, dtype, gen)
+    q, k, v, do, kw = inputs(torch, case, dtype, gen)
     o, lse = FK.flash_attention_fwd(q, k, v, **kw)
     delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
     dq = FK.flash_attention_dq(q, k, v, do, lse, delta, **kw)
@@ -1752,10 +1888,11 @@ def bert_loss(model, batch, packed):
             else model.forward_fused_loss(*batch))
 
 
-# a key projection's bias has a gradient of 0 in exact arithmetic (a
-# bias added to every key shifts a softmax row, which cancels): what a
-# run computes there is rounding noise, reported and not gated
-ZERO_GRAD = "self_attn.k_proj.bias"
+# a key projection's bias (self- or cross-attention) has a gradient of 0
+# in exact arithmetic (a bias added to every key shifts a softmax row,
+# which cancels): what a run computes there is rounding noise, reported
+# and not gated
+ZERO_GRAD = "k_proj.bias"
 
 
 def grad_distance(grads, params, a, b):
@@ -1912,65 +2049,89 @@ def phase_bert(torch, FK, packed):
     return per_step, seg
 
 
-def phase_flash_option_timing(torch, FK, err, launches, seg):
-    """The three flash kernels at BERT's shape with the packed batch's
-    segment ids and dropout 0.1 (float32, as under mixed_bf16): kernel,
-    plain and SDPA ms, and the bound from the live (same-segment)
-    scores."""
+def flash_timed(torch, FK, case, seed, mask_of, seg=None):
+    """The three flash kernels on the inputs of one option case (float32,
+    as under mixed_bf16): each kernel held against its plain version at
+    FLASH_TOL, then kernel, plain and SDPA ms. SDPA, a yardstick never
+    called by the port, gets the boolean mask ``mask_of(kw)`` and its own
+    dropout (its masks differ; the work is the same); its backward rows
+    time SDPA's whole backward. Returns {name: (ms, plain_ms, lib_ms,
+    max abs err)}."""
     import torch.nn.functional as F
 
-    case = (BB, BT, 12, 12, 64, False, True, 0.1, False)
-    b, t, h, _, d = case[:5]
-    gen = torch.Generator(device="cuda").manual_seed(17)
+    p = case[7]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v, do, kw = flash_option_inputs(torch, case, torch.float32, gen,
                                           seg=seg)
     o, lse = FK.flash_attention_fwd(q, k, v, **kw)
     delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
-
-    # the yardstick, never called by the port: SDPA with the
-    # block-diagonal mask and its own dropout (its masks differ; the work
-    # is the same)
-    same = (seg[:, None, :, None] == seg[:, None, None, :])
+    mask = mask_of(kw)
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
                   for x in (q, k, v))
-    out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=same,
-                                         dropout_p=0.1)
+    out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                         dropout_p=p)
     dot = do.transpose(1, 2)
 
     def sdpa_fwd():
-        F.scaled_dot_product_attention(qt, kt, vt, attn_mask=same,
-                                       dropout_p=0.1)
+        F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                       dropout_p=p)
 
     def sdpa_bwd():
         torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)
 
+    cases = {
+        "flash_attention_fwd": (
+            lambda: FK.flash_attention_fwd(q, k, v, **kw),
+            lambda: FK.flash_attention_fwd_plain(q, k, v, **kw), sdpa_fwd),
+        "flash_attention_dq": (
+            lambda: FK.flash_attention_dq(q, k, v, do, lse, delta, **kw),
+            lambda: FK.flash_attention_dq_plain(q, k, v, do, lse, delta,
+                                                **kw), sdpa_bwd),
+        "flash_attention_dkv": (
+            lambda: FK.flash_attention_dkv(q, k, v, do, lse, delta, **kw),
+            lambda: FK.flash_attention_dkv_plain(q, k, v, do, lse, delta,
+                                                 **kw), sdpa_bwd),
+    }
+    res = {}
+    for name, (kern, plain, lib) in cases.items():
+        got, want = kern(), plain()
+        got, want = ((x if isinstance(x, tuple) else (x,))
+                     for x in (got, want))
+        torch.cuda.synchronize()
+        e = max((a.float() - b.float()).abs().max().item()
+                for a, b in zip(got, want))
+        if not (e <= FLASH_TOL["float32"]
+                and all(bool(torch.isfinite(a).all()) for a in got)):
+            raise SystemExit(f"{name} disagrees with its plain version at "
+                             f"{case}: max abs err {e:.3e} (atol "
+                             f"{FLASH_TOL['float32']})")
+        res[name] = (time_ms(torch, kern, flush, n=20),
+                     time_ms(torch, plain, flush, n=5),
+                     time_ms(torch, lib, flush, n=20), e)
+    return res
+
+
+def phase_flash_option_timing(torch, FK, err, launches, seg):
+    """The three flash kernels at BERT's shape with the packed batch's
+    segment ids and dropout 0.1 (float32, as under mixed_bf16): kernel,
+    plain and SDPA ms (SDPA with the block-diagonal mask), and the bound
+    from the live (same-segment) scores."""
+    case = (BB, BT, 12, 12, 64, False, True, 0.1, False)
+    b, t, h, _, d = case[:5]
+    same = (seg[:, None, :, None] == seg[:, None, None, :])
+    timed = flash_timed(torch, FK, case, 17, lambda kw: same, seg=seg)
     # live scores: same-segment pairs of this batch, every head
     live = int(same.sum().item()) * h
     opnd = b * t * h * d * 4                 # one (B, T, H, D) float32
     row = b * h * t * 4
     extra = b * t * 4 + b * h * 4            # segment ids, seeds
-    cases = {
-        "flash_attention_fwd": (
-            lambda: FK.flash_attention_fwd(q, k, v, **kw),
-            lambda: FK.flash_attention_fwd_plain(q, k, v, **kw), sdpa_fwd,
-            4 * d, 4 * opnd + row + extra),
-        "flash_attention_dq": (
-            lambda: FK.flash_attention_dq(q, k, v, do, lse, delta, **kw),
-            lambda: FK.flash_attention_dq_plain(q, k, v, do, lse, delta,
-                                                **kw), sdpa_bwd,
-            6 * d, 5 * opnd + 2 * row + extra),
-        "flash_attention_dkv": (
-            lambda: FK.flash_attention_dkv(q, k, v, do, lse, delta, **kw),
-            lambda: FK.flash_attention_dkv_plain(q, k, v, do, lse, delta,
-                                                 **kw), sdpa_bwd,
-            8 * d, 6 * opnd + 2 * row + extra),
-    }
+    work = {"flash_attention_fwd": (4 * d, 4 * opnd + row + extra),
+            "flash_attention_dq": (6 * d, 5 * opnd + 2 * row + extra),
+            "flash_attention_dkv": (8 * d, 6 * opnd + 2 * row + extra)}
     rows = []
-    for name, (kern, plain, lib, flops_per_score, nbytes) in cases.items():
-        ms = time_ms(torch, kern, flush, n=20)
-        plain_ms = time_ms(torch, plain, flush, n=5)
-        lib_ms = time_ms(torch, lib, flush, n=20)
+    for name, (flops_per_score, nbytes) in work.items():
+        ms, plain_ms, lib_ms, e = timed[name]
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = TF32_PASSES * live * flops_per_score / TF32_FLOPS * 1e3
         bound_ms = max(t_bytes, t_ops)
@@ -1982,7 +2143,8 @@ def phase_flash_option_timing(torch, FK, err, launches, seg):
             f"yardstick: its own masks) {lib_ms:.4f} ms; "
             f"{live * flops_per_score} flops, {nbytes} bytes, bound "
             f"{bound_ms:.4f} ms ({bound_by}), {100 * bound_ms / ms:.1f}% of "
-            f"the bound; {launches[name]} launches per training step")
+            f"the bound; kernel against plain here {e:.3e}; "
+            f"{launches[name]} launches per training step")
         rows.append(dict(name=name + OPT, route="cuda",
                          source="paddle_tpu_torch/csrc/flash_attention.cu",
                          replaces=FLASH_ROWS[name]["replaces"]
@@ -2544,6 +2706,43 @@ def phase_qmm_conv_timing(torch, QM, err, total, per_shape):
     return rows
 
 
+def step_profile(torch, step, wall_ms, n=3):
+    """Device busy ms per step (CUDA kernel and copy time under
+    torch.profiler) over ``n`` steps, and the idle share against the
+    profiler-off wall time ``wall_ms`` per step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy_ms = busy_us / 1e3 / n
+    return busy_ms, 1 - busy_ms / wall_ms
+
+
+def timed_steps(torch, step, warm, n):
+    """``warm`` untimed calls of ``step``, then ``n`` timed ones (each
+    ending in a synchronize); ``step`` returns a loss, a tuple led by
+    one, or None. Returns (every call's loss, the timed calls' ms)."""
+    losses, secs = [], []
+    for i in range(warm + n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step()
+        torch.cuda.synchronize()
+        if i >= warm:
+            secs.append(time.perf_counter() - t0)
+        if isinstance(out, tuple):
+            out = out[0]
+        if out is not None:
+            losses.append(float(out))
+    return losses, [1e3 * x for x in secs]
+
+
 def finite_and_falling(losses):
     return (all(math.isfinite(v) for v in losses)
             and losses[-1] < losses[0])
@@ -2697,20 +2896,13 @@ def phase_train_resnet50(torch):
                  "label": torch.zeros(RESNET_BATCH, dtype=torch.long,
                                       device="cuda")}
         torch.cuda.reset_peak_memory_stats()
-        losses, secs = [], []
-        for i in range(7):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            loss, _ = tr.train_step(batch)
-            torch.cuda.synchronize()
-            if i >= 2:
-                secs.append(time.perf_counter() - t0)
-            losses.append(float(loss))
-        ms = 1e3 * sum(secs) / len(secs)
+        losses, step_ms = timed_steps(torch, lambda: tr.train_step(batch),
+                                      2, 5)
+        ms = sum(step_ms) / len(step_ms)
         log(f"[train:resnet50] {fmt} b{RESNET_BATCH} {RESNET_PX} px "
             f"{RESNET_POLICY} Adam(1e-3), all-zero labels: losses "
             f"{[round(v, 6) for v in losses]}; ms per timed step "
-            f"{[round(1e3 * v, 3) for v in secs]}, mean {ms:.3f} ms, "
+            f"{[round(v, 3) for v in step_ms]}, mean {ms:.3f} ms, "
             f"{RESNET_BATCH / (ms / 1e3):.1f} images/s; peak memory "
             f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
         if not finite_and_falling(losses):
@@ -2811,7 +3003,7 @@ def sync_count(torch, fn):
             out = fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    return out, sum("synchroniz" in str(w.message) for w in got)
+    return out, sum(map(is_sync_warning, got))
 
 
 def deepfm_sparse_against_dense(torch):
@@ -2915,26 +3107,18 @@ def deepfm_timed_cell(torch, vocab, sparse):
 
         def step():
             return tr.train_step((ids, dense))[0]
-    losses, secs = [], []
-    for i in range(8):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        loss = step()
-        torch.cuda.synchronize()
-        if i >= 3:
-            secs.append(time.perf_counter() - t0)
-        losses.append(float(loss))
+    losses, step_ms = timed_steps(torch, step, 3, 5)
     loss, syncs = sync_count(torch, step)
     losses.append(float(loss))
     with torch.no_grad(), policy_scope(DEEPFM_POLICY):
         probs = torch.sigmoid(model(ids, dense))
     auc = Auc()
     auc.update(probs, ids[:, 0] % 2)
-    ms = 1e3 * sum(secs) / len(secs)
+    ms = sum(step_ms) / len(step_ms)
     kind = "sparse" if sparse else "dense"
     log(f"[train:deepfm] {kind} V={vocab} b{DEEPFM_BATCH} {DEEPFM_POLICY} "
         f"Adam(1e-3): losses {[round(v, 6) for v in losses]}; ms per timed "
-        f"step {[round(1e3 * v, 3) for v in secs]}, mean {ms:.3f} ms, "
+        f"step {[round(v, 3) for v in step_ms]}, mean {ms:.3f} ms, "
         f"{DEEPFM_BATCH / (ms / 1e3):.1f} examples/s; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB; host syncs "
         f"in one step {syncs}; AUC over the batch {auc.eval():.4f}")
@@ -2958,6 +3142,434 @@ def phase_train_deepfm(torch):
         ratios.append(f"V={vocab} {d_ms / s_ms:.3f}")
     log("[train:deepfm] dense ms / sparse ms per step: " + ", ".join(ratios))
     torch.cuda.empty_cache()
+
+
+def nmt_model(torch, seed=0):
+    """NMTConfig.base() on the card, its weights from the global stream
+    seeded ``seed`` (bench.py seeds 0)."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models import transformer as TR
+
+    ptt.seed(seed)
+    return TR.TransformerNMT(TR.NMTConfig.base(), device="cuda")
+
+
+def nmt_batch(torch, cfg, b, ts, tt, seed=0, padded=False):
+    """(src, tgt, labels) on the card from numpy seed ``seed``, ids in [3,
+    vocab) as bench.py draws them (src first, then tgt; the labels are
+    tgt). ``padded``: each source row keeps a random 25-100% prefix, the
+    rest pad_id, and row 0 is all pad."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    src = rng.integers(3, cfg.src_vocab, (b, ts))
+    tgt = rng.integers(3, cfg.tgt_vocab, (b, tt))
+    if padded:
+        lens = rng.integers(ts // 4, ts + 1, (b, 1))
+        src = np.where(np.arange(ts)[None, :] < lens, src, cfg.pad_id)
+        src[0, :] = cfg.pad_id
+    src, tgt = (torch.as_tensor(x, device="cuda") for x in (src, tgt))
+    return src, tgt, tgt
+
+
+def nmt_attentions(model):
+    """Every MultiHeadAttention of the NMT: the encoder's, then each
+    decoder block's self- and cross-attention."""
+    out = [layer.self_attn for layer in model.encoder.layers]
+    for layer in model.decoder.layers:
+        out += [layer.self_attn, layer.cross_attn]
+    return out
+
+
+def phase_train_nmt(torch, FK):
+    """BASELINE config 4 on the card: check steps (kernels against plain
+    attention, the same weights and dropout masks) on a padded 128-token
+    source against a 64-token target under mixed_bf16 and float32, the
+    exact launches of one bench step, 5 timed Adam steps at B=64 with the
+    device's idle share, and B=256 reported."""
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.core import policy_scope, rng_scope
+    from paddle_tpu_torch.ops import attention as TA
+    from paddle_tpu_torch.parallel import Trainer
+
+    tag = "[train:nmt]"
+    model = nmt_model(torch)
+    cfg = model.cfg
+    params = dict(model.named_parameters())
+    mhas = nmt_attentions(model)
+    log(f"{tag} NMTConfig.base() ({cfg.num_encoder_layers}+"
+        f"{cfg.num_decoder_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.num_heads} heads, FFN {cfg.dim_feedforward}, vocab "
+        f"{cfg.src_vocab}/{cfg.tgt_vocab}, dropout {cfg.dropout}, label "
+        f"smoothing {cfg.label_smooth}), "
+        f"{sum(p.numel() for p in params.values())} float32 parameters; "
+        f"forward_fused_loss, Adam(1e-3), policy {NMT_POLICY}")
+    # flash launches of one pass: every attention, forward and backward
+    want = {name: len(mhas) for name in FLASH_ROWS}
+
+    # 1. check steps, as [train:bert_base]'s: the generator re-seeded
+    # before each pass, so the layer dropouts and the attention seeds
+    # agree; under mixed_bf16 a plain pass in float64 gives the noise floor
+    batch = nmt_batch(torch, cfg, NMT_CHECK_B, NMT_CHECK_SRC, NMT_CHECK_TGT,
+                      seed=1, padded=True)
+    live = (batch[0] != cfg.pad_id).sum(1)
+    log(f"{tag} check batch ({NMT_CHECK_B}, src {NMT_CHECK_SRC}, tgt "
+        f"{NMT_CHECK_TGT}): live source tokens per row "
+        f"{live.tolist()} (row 0 all pad)")
+    model.train()
+    xla = TA.xla_attention
+
+    def plain64(q, k, v, **kw):
+        return xla(q.double(), k.double(), v.double(), **kw).to(q.dtype)
+
+    for policy in (NMT_POLICY, "float32"):
+        loss_atol, grad_rtol = TRAIN_TOL[policy]
+        passes = [("kernels", True, xla), ("plain", False, xla)]
+        if policy != "float32":
+            passes.append(("plain64", False, plain64))
+        grads, losses = {}, {}
+        for name, use_flash, attention in passes:
+            TA.xla_attention = attention
+            for mha in mhas:
+                mha.use_flash = use_flash
+            n0 = flash_counts(FK)
+            gen = torch.Generator(device="cuda").manual_seed(16)
+            try:
+                with policy_scope(policy), rng_scope(gen):
+                    loss = model.forward_fused_loss(*batch)
+            finally:
+                TA.xla_attention = xla
+            loss.backward()
+            launched = {k: v - n0[k] for k, v in flash_counts(FK).items()}
+            if launched != (want if use_flash else
+                            {k: 0 for k in FLASH_ROWS}):
+                raise SystemExit(f"{tag} check step {name}: flash launches "
+                                 f"{launched}")
+            losses[name] = loss.item()
+            grads[name] = {n: p.grad for n, p in params.items()}
+            for p in params.values():
+                p.grad = None
+        for mha in mhas:
+            mha.use_flash = True
+        (worst, where), (noise, nwhere) = grad_distance(
+            grads, params, "kernels", "plain")
+        dloss = abs(losses["kernels"] - losses["plain"])
+        floor = ""
+        if "plain64" in grads:
+            (f_worst, f_where), _ = grad_distance(grads, params, "plain64",
+                                                  "plain")
+            f_loss = abs(losses["plain64"] - losses["plain"])
+            loss_atol = max(loss_atol, 2 * f_loss)
+            grad_rtol = max(grad_rtol, 2 * f_worst)
+            floor = (f"; the noise floor, plain float64 attention against "
+                     f"plain: loss {f_loss:.3e}, worst grad {f_worst:.3e} "
+                     f"({f_where}); limits max(2e-2, twice the floor)")
+        log(f"{tag} check step {policy}: loss kernels "
+            f"{losses['kernels']:.6f}, plain {losses['plain']:.6f} (|diff| "
+            f"{dloss:.3e}, atol {loss_atol:.3e}); worst grad diff / the "
+            f"parameter's max plain grad {worst:.3e} ({where}; limit "
+            f"{grad_rtol:.3e}){floor}; the key biases (0 in exact "
+            f"arithmetic, reported): {noise:.3e} ({nwhere}); flash launches "
+            f"a pass {want}")
+        if not (dloss <= loss_atol and worst <= grad_rtol
+                and math.isfinite(losses["kernels"])):
+            raise SystemExit(f"{tag} the kernel path's loss or grads "
+                             f"disagree with plain attention ({policy})")
+        del grads
+
+    # 2. the launches of one bench step, 3. five timed steps
+    trainer = Trainer(model, optimizer.Adam(1e-3),
+                      lambda m, b, g: (m.forward_fused_loss(*b), {}),
+                      amp=NMT_POLICY)
+    batch = nmt_batch(torch, cfg, NMT_B, NMT_T, NMT_T)
+    torch.cuda.synchronize()
+    reset_flash_counts(FK)
+    trainer.train_step(batch)
+    torch.cuda.synchronize()
+    per_step = flash_counts(FK)
+    f32 = flash_counts(FK, torch.float32)
+    log(f"{tag} launches in one step: {per_step}, of them float32 {f32} "
+        f"(want {want}, all float32: {cfg.num_encoder_layers} encoder "
+        f"self-attentions, {cfg.num_decoder_layers} causal decoder "
+        f"self-attentions, {cfg.num_decoder_layers} cross-attentions)")
+    if per_step != want or f32 != want:
+        raise SystemExit(f"{tag} a training step launched the flash kernels "
+                         f"another number of times or in another dtype")
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = timed_steps(torch, lambda: trainer.train_step(batch), 0, 5)
+    mean = sum(ms) / len(ms)
+    busy, idle = step_profile(torch, lambda: trainer.train_step(batch), mean)
+    log(f"{tag} B={NMT_B} src={NMT_T} tgt={NMT_T}, 5 Adam steps: losses "
+        f"{[round(x, 6) for x in losses]}; ms per step "
+        f"{[round(x, 3) for x in ms]}, mean {mean:.3f} ms, "
+        f"{NMT_B * NMT_T / (mean / 1e3):.1f} target tokens/s; device busy "
+        f"{busy:.3f} ms per step, idle share {idle:.3f}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    if not finite_and_falling(losses):
+        raise SystemExit(f"{tag} training losses not finite and falling: "
+                         f"{losses}")
+    big = nmt_batch(torch, cfg, NMT_BIG_B, NMT_T, NMT_T, seed=2)
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = timed_steps(torch, lambda: trainer.train_step(big), 1, 3)
+    mean = sum(ms) / len(ms)
+    log(f"{tag} B={NMT_BIG_B} (reported): losses "
+        f"{[round(x, 6) for x in losses]}; ms per step "
+        f"{[round(x, 3) for x in ms]}, mean {mean:.3f} ms, "
+        f"{NMT_BIG_B * NMT_T / (mean / 1e3):.1f} target tokens/s; peak "
+        f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    if not all(math.isfinite(x) for x in losses):
+        raise SystemExit(f"{tag} B={NMT_BIG_B}: non-finite losses")
+    del trainer, model, big, batch
+    torch.cuda.empty_cache()
+    return per_step
+
+
+def shifted_input(torch, cfg, out):
+    """The decoder input that produced ``out`` (B, T): bos, then out
+    without its last token."""
+    bos = torch.full_like(out[:, :1], cfg.bos_id)
+    return torch.cat([bos, out[:, :-1]], dim=1)
+
+
+def upto_first_eos(torch, cfg, out):
+    """(B, T) bool: the positions up to and including each row's first
+    eos (all of them where a row has none)."""
+    is_end = out == cfg.eos_id
+    t = out.shape[1]
+    first = torch.where(is_end.any(1), torch.argmax(is_end.int(), 1), t - 1)
+    return torch.arange(t, device=out.device)[None, :] <= first[:, None]
+
+
+def phase_serve_nmt(torch, K, FK):
+    """nmt_decode on the card (bench.py:599-648): greedy_decode_cached at
+    B=32, src 64, max_len 64, held teacher-forced in float32 with exact
+    decode-kernel launches and no host sync; both decoders timed under
+    mixed_bf16; then beam_decode_cached (B=8, beam 4) with its scores
+    held to a teacher-forced rescoring."""
+    import numpy as np
+
+    from paddle_tpu_torch.core import policy_scope
+
+    tag = "[serve:nmt]"
+    model = nmt_model(torch).eval()
+    cfg = model.cfg
+    L = cfg.num_decoder_layers
+    rng = np.random.default_rng(0)
+    src = torch.as_tensor(rng.integers(3, cfg.src_vocab,
+                                       (NMT_DECODE_B, 64)), device="cuda")
+    names = ("decode_attention", "decode_attention_paged",
+             "decode_attention_paged_quant")
+
+    def reset():
+        for n in names:
+            getattr(K, n).launches = 0
+            getattr(K, n).dtype_launches.clear()
+        reset_flash_counts(FK)
+
+    # 1. float32: the launches of one call, the teacher-forced check
+    reset()
+    out = model.greedy_decode_cached(src, max_len=64)
+    torch.cuda.synchronize()
+    got = {n: getattr(K, n).launches for n in names}
+    f32 = K.decode_attention.dtype_launches.get(torch.float32, 0)
+    need = L * 64
+    log(f"{tag} greedy_decode_cached B={NMT_DECODE_B} src 64 max_len 64 "
+        f"float32: decode launches {got}, of them float32 {f32} (want "
+        f"{need} = {L} layers x 64 steps, no paged kernel); the encoder's "
+        f"flash forward launches {FK.flash_attention_fwd.launches}")
+    if (got["decode_attention"] != need or f32 != need
+            or got["decode_attention_paged"]
+            or got["decode_attention_paged_quant"]):
+        raise SystemExit(f"{tag} the cached decode launched the decode "
+                         f"kernels another number of times")
+    with torch.inference_mode():
+        logits = model(src, shifted_input(torch, cfg, out)).float()
+    if not bool(torch.isfinite(logits).all()):
+        raise SystemExit(f"{tag} non-finite teacher-forced logits")
+    picked = torch.gather(logits, 2, out[..., None])[..., 0]
+    gap = logits.max(-1).values - picked
+    live = upto_first_eos(torch, cfg, out)
+    worst = gap[live].max().item()
+    log(f"{tag} teacher-forced: the worst emitted token sits {worst:.3e} "
+        f"below its position's max logit (limit 1e-3) over "
+        f"{int(live.sum())} emitted positions; rows that emitted eos "
+        f"{int((out == cfg.eos_id).any(1).sum())}")
+    if worst > 1e-3:
+        raise SystemExit(f"{tag} teacher-forced check failed")
+    again, syncs = sync_count(
+        torch, lambda: model.greedy_decode_cached(src, max_len=64))
+    log(f"{tag} host syncs in one greedy_decode_cached call (encoder and "
+        f"64 steps): {syncs}; tokens equal to the first call's: "
+        f"{bool(torch.equal(again, out))}")
+    if syncs != 0:
+        raise SystemExit(f"{tag} the cached decode synchronises with the "
+                         f"host")
+
+    # 2. both decoders timed under mixed_bf16 (the bench's policy sweep);
+    # the caches take the memory's dtype, float32 under mixed_bf16 (the
+    # Linears' output dtype), so only the float32 decode instance runs
+    reset()
+    with policy_scope(NMT_POLICY):
+        runs = {}
+        for name, fn, n in (("cached", model.greedy_decode_cached, 5),
+                            ("no-kv-cache", model.greedy_decode, 3)):
+            outs = []
+            _, ms = timed_steps(
+                torch, lambda: outs.append(fn(src, max_len=64)), 1, n)
+            runs[name] = (outs[-1], sum(ms) / len(ms))
+            log(f"{tag} greedy {name} {NMT_POLICY} B={NMT_DECODE_B}: ms per "
+                f"call {[round(x, 3) for x in ms]}, mean "
+                f"{runs[name][1]:.3f} ms, "
+                f"{NMT_DECODE_B * 64 / (runs[name][1] / 1e3):.1f} tokens/s")
+    by_dtype = {str(k)[6:]: n for k, n in
+                K.decode_attention.dtype_launches.items()}
+    log(f"{tag} decode launches by dtype under {NMT_POLICY}: {by_dtype} "
+        f"(want float32 only, {6 * need} over the 6 cached calls)")
+    if by_dtype != {"float32": 6 * need}:
+        raise SystemExit(f"{tag} the cached decode under {NMT_POLICY} ran "
+                         f"another decode instance")
+    a, b = runs["cached"][0], runs["no-kv-cache"][0]
+    log(f"{tag} cached against no-kv-cache under {NMT_POLICY}: "
+        f"{(a == b).float().mean().item():.4f} of tokens and "
+        f"{int((a == b).all(1).sum())}/{NMT_DECODE_B} rows agree "
+        f"(reported); cached is "
+        f"{runs['no-kv-cache'][1] / runs['cached'][1]:.2f}x faster")
+
+    # 3. beam search, float32: each returned score against the
+    # teacher-forced sum of its sequence's log-probabilities
+    src8 = src[:NMT_BEAM_B]
+    k = NMT_BEAM_K
+    res = []
+    _, ms = timed_steps(torch, lambda: res.append(model.beam_decode_cached(
+        src8, max_len=64, beam_size=k)), 1, 2)
+    seqs, scores = res[-1]
+    flat = seqs.reshape(NMT_BEAM_B * k, 64)
+    with torch.inference_mode():
+        logp = torch.log_softmax(model(
+            src8.repeat_interleave(k, dim=0),
+            shifted_input(torch, cfg, flat)).float(), -1)
+    tok = torch.gather(logp, 2, flat[..., None])[..., 0]
+    rescored = (tok * upto_first_eos(torch, cfg, flat)).sum(1)
+    diff = (rescored.reshape(NMT_BEAM_B, k) - scores).abs().max().item()
+    log(f"{tag} beam_decode_cached B={NMT_BEAM_B} beam {k} max_len 64 "
+        f"float32: ms per call {[round(x, 3) for x in ms]}, mean "
+        f"{sum(ms) / len(ms):.3f} ms; scores {scores[0].tolist()} (row 0); "
+        f"worst |score - teacher-forced rescoring| {diff:.3e} (limit 1e-3)")
+    if not (diff <= 1e-3 and bool(torch.isfinite(scores).all())):
+        raise SystemExit(f"{tag} beam scores disagree with the "
+                         f"teacher-forced rescoring")
+    del model
+    torch.cuda.empty_cache()
+
+
+def phase_train_vit(torch, FK):
+    """bench_vit on the card (bench.py:655): a check step of
+    ViTConfig.base() at B=2, 224 px, NHWC, the card against the CPU on
+    the same weights and images, float64 gated and float32 reported;
+    then b128 with remat under mixed_bf16, NHWC (2 warm-up, 5 timed
+    steps) and NCHW (1 and 3); no flash launch anywhere (197 tokens)."""
+    import copy
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import optimizer as TO
+    from paddle_tpu_torch.core.dtypes import Policy, policy_scope
+    from paddle_tpu_torch.models import vit as V
+    from paddle_tpu_torch.parallel import Trainer
+
+    tag = "[train:vit]"
+    reset_flash_counts(FK)
+    tol_loss, tol_grad = VIT_CHECK_TOL
+    f64 = Policy("float64", "float64", "float64")
+    cpu_gen = torch.Generator().manual_seed(23)
+    cfg = V.ViTConfig.base()
+    cpu = V.ViT(cfg, device="cpu", generator=cpu_gen)
+    x = torch.randn(2, 224, 224, 3, generator=cpu_gen)
+    y = torch.randint(0, cfg.num_classes, (2,), generator=cpu_gen)
+    runs = {}
+    for dtype in ("float64", "float32"):
+        for dev in ("cpu", "cuda"):
+            model = copy.deepcopy(cpu).to(dev, getattr(torch, dtype))
+            with policy_scope(f64 if dtype == "float64" else "float32"):
+                loss = V.loss_fn(model(x.to(dev, getattr(torch, dtype))),
+                                 y.to(dev))
+            loss.backward()
+            runs[dtype, dev] = (loss.item(), {
+                n: p.grad.detach().double().cpu()
+                for n, p in model.named_parameters()})
+            del model
+    lines, ok = [], True
+    for dtype in ("float64", "float32"):
+        got, want = runs[dtype, "cuda"], runs[dtype, "cpu"]
+        ref = runs["float64", "cpu"][1]
+        d = rel_distance(got[1], ref)
+        gated = {n: v for n, v in d.items() if not n.endswith(ZERO_GRAD)}
+        worst = max(gated, key=gated.get)
+        noise = max(v for n, v in d.items() if n.endswith(ZERO_GRAD))
+        dloss = abs(got[0] - want[0])
+        good = dloss <= tol_loss and gated[worst] <= tol_grad
+        if dtype == "float64":
+            ok &= good
+        lines.append(
+            f"{dtype}: loss {got[0]:.6f} vs {want[0]:.6f} (|diff| "
+            f"{dloss:.3e}); worst grad {worst} {gated[worst]:.3e} from the "
+            f"CPU's float64; the key biases (0 in exact arithmetic) "
+            f"{noise:.3e}" + (f" {'ok' if good else 'FAIL'}" if dtype ==
+                              "float64" else " (reported)"))
+    log(f"{tag} check step ViT-B/16 B=2 224 px NHWC, card against CPU "
+        f"(float64 limits: loss {tol_loss}, grads {tol_grad}): "
+        + "; ".join(lines))
+    if not ok:
+        raise SystemExit(f"{tag} float64 check step failed")
+    del cpu, runs
+    torch.cuda.empty_cache()
+    for fmt, warm, n in (("NHWC", 2, 5), ("NCHW", 1, 3)):
+        ptt.seed(0)
+        cfg = V.ViTConfig.base()
+        cfg.remat, cfg.layout = True, fmt
+        model = V.ViT(cfg, device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(24)
+        shape = ((VIT_B, 224, 224, 3) if fmt == "NHWC"
+                 else (VIT_B, 3, 224, 224))
+        batch = (torch.randn(shape, generator=gen, device="cuda"),
+                 torch.arange(VIT_B, device="cuda") % cfg.num_classes)
+        tr = Trainer(model, TO.Adam(1e-3),
+                     lambda m, b, g: (V.loss_fn(m(b[0]), b[1]), {}),
+                     amp=VIT_POLICY)
+        torch.cuda.reset_peak_memory_stats()
+        losses, ms = timed_steps(torch, lambda: tr.train_step(batch), warm,
+                                 n)
+        mean = sum(ms) / len(ms)
+        log(f"{tag} {fmt} b{VIT_B} 224 px remat {VIT_POLICY} Adam(1e-3): "
+            f"losses {[round(v, 6) for v in losses]}; ms per timed step "
+            f"{[round(v, 3) for v in ms]}, mean {mean:.3f} ms, "
+            f"{VIT_B / (mean / 1e3):.1f} images/s; peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+        if not finite_and_falling(losses):
+            raise SystemExit(f"{tag} {fmt}: losses not finite and falling")
+        del tr, model, batch
+        torch.cuda.empty_cache()
+    launched = flash_counts(FK)
+    log(f"{tag} flash launches over the phase: {launched} (want 0: 197 "
+        f"tokens is not a multiple of 64)")
+    if max(launched.values()):
+        raise SystemExit(f"{tag} ViT's attention launched a flash kernel")
+
+
+def phase_nmt_flash_timing(torch, FK):
+    """The three flash kernels at the NMT's training shape (B=64, T=64,
+    H=8, D=64, non-causal, a key mask, dropout 0.1, float32 as under
+    mixed_bf16), each held against its plain version: kernel, plain and
+    SDPA ms; printed only."""
+    case = (NMT_B, NMT_T, 8, 8, 64, False, False, 0.1, True)
+    b, t, h, _, d = case[:5]
+    timed = flash_timed(torch, FK, case, 18,
+                        lambda kw: kw["kv_mask"][:, None, None, :])
+    for name, (ms, plain_ms, lib_ms, e) in timed.items():
+        log(f"[time:nmt] {name} float32 (B={b}, T={t}, H={h}, D={d}, "
+            f"non-causal, kv_mask, p=0.1): kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, SDPA with the mask and dropout 0.1 (the "
+            f"backward rows: SDPA's whole backward) {lib_ms:.4f} ms; "
+            f"kernel against plain {e:.3e} (atol {FLASH_TOL['float32']})")
 
 
 def timed_phase(tag, fn, *args):
@@ -3100,6 +3712,10 @@ def main() -> int:
     timed_phase("[train:mnist]", phase_train_mnist, torch)
     timed_phase("[train:resnet50]", phase_train_resnet50, torch)
     timed_phase("[train:deepfm]", phase_train_deepfm, torch)
+    timed_phase("[train:nmt]", phase_train_nmt, torch, FK)
+    timed_phase("[serve:nmt]", phase_serve_nmt, torch, K, FK)
+    timed_phase("[train:vit]", phase_train_vit, torch, FK)
+    phase_nmt_flash_timing(torch, FK)
     log(f"[card] {smi}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -5,9 +5,16 @@ from .layers import (GELU, BatchNorm, Conv2D, Conv2DTranspose, Dropout,
                      Embedding, Flatten, GroupNorm, LayerNorm, Linear,
                      MultiHeadAttention, Pool2D, PRelu, ReLU, RMSNorm,
                      Sigmoid, Softmax, Tanh)
+from .transformer import (FeedForward, LearnedPositionalEmbedding,
+                          PositionalEncoding, TransformerDecoder,
+                          TransformerDecoderLayer, TransformerEncoder,
+                          TransformerEncoderLayer)
 
 __all__ = ["Layer", "LayerList", "Sequential", "BatchNorm", "Conv2D",
            "Conv2DTranspose", "Dropout", "Embedding", "Flatten", "GELU",
            "GroupNorm", "LayerNorm", "Linear", "MultiHeadAttention",
            "Pool2D", "PRelu", "ReLU", "RMSNorm", "Sigmoid", "Softmax",
-           "Tanh"]
+           "Tanh", "FeedForward", "LearnedPositionalEmbedding",
+           "PositionalEncoding", "TransformerDecoder",
+           "TransformerDecoderLayer", "TransformerEncoder",
+           "TransformerEncoderLayer"]

@@ -26,7 +26,8 @@ scratch per call and keep the merge counters per device and stream.
 Dispatch: a wrapper takes the plain version only for tensors on the
 CPU. For a CUDA tensor it launches the kernel or raises — there is no
 fallback. Each wrapper counts its launches in ``.launches`` (a plain
-integer, bumped only where the kernel launches). The kernels copy K/V
+integer, bumped only where the kernel launches), and those of each dtype
+instance in ``.dtype_launches`` ({torch dtype: count}). The kernels copy K/V
 rows as 16-byte vectors: on the card, ``head_dim * itemsize`` must be a
 multiple of 16 and the planes 16-byte aligned, or the wrapper raises.
 
@@ -46,6 +47,7 @@ import torch
 
 from ...core.enforce import (InvalidArgumentError, KernelLaunchError,
                              enforce)
+from ._launches import count_launch
 
 # the TPU kernel's finite mask value (flash_attention.py _NEG_INF) and
 # its dead-score threshold (flash_decode.py: p = 0 where s <= -5e29)
@@ -296,11 +298,12 @@ def decode_attention(q, k, v, t, *, window: Optional[int] = None,
         cap, h, kv_h, d, window or 0,
         float(d ** -0.5 if scale is None else scale), splits, stream)
     _raise_on(rc, "decode_attention")
-    decode_attention.launches += 1
+    count_launch(decode_attention, q.dtype)
     return out
 
 
 decode_attention.launches = 0
+decode_attention.dtype_launches = {}
 
 
 def decode_attention_paged(q, kpool, vpool, table, t, *,
@@ -340,11 +343,12 @@ def decode_attention_paged(q, kpool, vpool, table, t, *,
         window or 0, float(d ** -0.5 if scale is None else scale), splits,
         stream)
     _raise_on(rc, "decode_attention_paged")
-    decode_attention_paged.launches += 1
+    count_launch(decode_attention_paged, q.dtype)
     return out
 
 
 decode_attention_paged.launches = 0
+decode_attention_paged.dtype_launches = {}
 
 
 def _check_quant_planes(q, kq, ks, vq, vs):
@@ -409,8 +413,9 @@ def decode_attention_paged_quant(q, kq, ks, vq, vs, table, t, *,
         n_log, h, kv_h, d, window or 0,
         float(d ** -0.5 if scale is None else scale), splits, stream)
     _raise_on(rc, "decode_attention_paged_quant")
-    decode_attention_paged_quant.launches += 1
+    count_launch(decode_attention_paged_quant, q.dtype)
     return out
 
 
 decode_attention_paged_quant.launches = 0
+decode_attention_paged_quant.dtype_launches = {}

@@ -62,6 +62,7 @@ import torch
 
 from ...core.enforce import (InvalidArgumentError, KernelLaunchError,
                              enforce)
+from ._launches import count_launch
 
 # the TPU kernels' finite mask value (flash_attention.py _NEG_INF); p = 0
 # where s <= NEG_INF / 2
@@ -427,13 +428,6 @@ def _launch(fn_name, q, a):
             f"{fn_name} launch failed: cudaGetLastError() = {rc}")
 
 
-def _count(wrapper, dtype):
-    """One launch of ``wrapper``'s kernel: its count, and the count of
-    its ``dtype`` instance in ``.dtype_launches``."""
-    wrapper.launches += 1
-    wrapper.dtype_launches[dtype] = wrapper.dtype_launches.get(dtype, 0) + 1
-
-
 def flash_attention_fwd(q, k, v, *, causal: bool, scale: float,
                         window: Optional[int] = None, kv_mask=None,
                         segment_ids=None, seeds=None,
@@ -458,7 +452,7 @@ def flash_attention_fwd(q, k, v, *, causal: bool, scale: float,
         q, k, v, None, causal, scale, window,
         **_options(q, kv_mask, segment_ids, seeds, dropout_p), o=o,
         lse_out=lse))
-    _count(flash_attention_fwd, q.dtype)
+    count_launch(flash_attention_fwd, q.dtype)
     return o, lse
 
 
@@ -486,7 +480,7 @@ def flash_attention_dq(q, k, v, do, lse, delta, *, causal: bool,
         q, k, v, do, causal, scale, window,
         **_options(q, kv_mask, segment_ids, seeds, dropout_p), lse=lse,
         delta=delta, dq=dq))
-    _count(flash_attention_dq, q.dtype)
+    count_launch(flash_attention_dq, q.dtype)
     return dq
 
 
@@ -514,7 +508,7 @@ def flash_attention_dkv(q, k, v, do, lse, delta, *, causal: bool,
         q, k, v, do, causal, scale, window,
         **_options(q, kv_mask, segment_ids, seeds, dropout_p), lse=lse,
         delta=delta, dk=dk, dv=dv))
-    _count(flash_attention_dkv, q.dtype)
+    count_launch(flash_attention_dkv, q.dtype)
     return dk, dv
 
 

@@ -1,6 +1,7 @@
 """Loss ops (counterpart of paddle_tpu/ops/loss.py): the fused softmax
-cross-entropy BERT's NSP head takes and the sigmoid cross-entropy of
-the CTR models. The fused linear-CE head is ops/fused_loss.py."""
+cross-entropy BERT's NSP head takes, the sigmoid cross-entropy of the
+CTR models and the NMT model's label smoothing. The fused linear-CE head
+is ops/fused_loss.py."""
 
 from __future__ import annotations
 
@@ -54,3 +55,13 @@ def sigmoid_cross_entropy_with_logits(x, label, ignore_index: int = -100,
     if normalize:
         loss = loss / torch.clamp_min(torch.sum(mask), 1.0)
     return loss
+
+
+def label_smooth(label, epsilon: float = 0.1, prior_dist=None):
+    """``(1 - epsilon) * label + epsilon * prior``: the uniform prior
+    ``1 / k`` over the last axis's k classes unless ``prior_dist`` is
+    given (reference: operators/label_smooth_op.cc)."""
+    k = label.shape[-1]
+    if prior_dist is not None:
+        return (1.0 - epsilon) * label + epsilon * prior_dist
+    return (1.0 - epsilon) * label + epsilon / k

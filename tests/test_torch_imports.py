@@ -6,9 +6,10 @@
 - the package imports with no triton and no nvcc;
 - with no CUDA, entry points called without ``device=`` raise a typed
   error instead of carrying on on the CPU (DeepFM and the sparse
-  embedding too);
+  embedding, the NMT, its decoder layers and ViT too);
 - on CPU tensors the kernel wrappers run their plain versions and their
-  launch counters stay at 0."""
+  launch counters stay at 0 (an NMT training step and cached greedy
+  decode among them)."""
 
 import ast
 import pathlib
@@ -47,6 +48,9 @@ CONV_SLICE = ("initializer", "ops.nn", "ops.math", "ops.tensor",
 # the modules of the foundation and DeepFM slice
 DEEPFM_SLICE = ("core.random", "nn.layer", "nn.sparse", "optimizer.sparse",
                 "ops.loss", "metrics", "models.deepfm", "parallel.api")
+# the modules of the NMT and ViT slice
+NMT_SLICE = ("nn.transformer", "ops.decode", "models.transformer",
+             "models.vit", "models", "nn")
 
 
 def _imported(path):
@@ -86,7 +90,7 @@ def test_package_imports_without_triton_nvcc_or_jax():
 
 
 @pytest.mark.parametrize("name", RESILIENCE_SLICE + CONV_SLICE
-                         + DEEPFM_SLICE)
+                         + DEEPFM_SLICE + NMT_SLICE)
 def test_checkpoint_slice_modules_are_jax_free(name):
     path = PKG / (name.replace(".", "/") + ".py")
     if not path.exists():
@@ -190,6 +194,44 @@ def test_deepfm_without_device_raises_without_cuda(no_cuda):
             make()
     model = TD.DeepFM(cfg, device="cpu")
     assert {p.device.type for p in model.parameters()} == {"cpu"}
+
+
+def test_nmt_and_vit_without_device_raise_without_cuda(no_cuda):
+    from paddle_tpu_torch import nn as tnn
+    from paddle_tpu_torch.models import transformer as TT
+    from paddle_tpu_torch.models import vit as TV
+
+    for make in (lambda: TT.TransformerNMT(TT.NMTConfig.tiny()),
+                 lambda: TV.ViT(TV.ViTConfig.tiny()),
+                 lambda: tnn.TransformerDecoder(1, 32, 4, 64),
+                 lambda: tnn.PositionalEncoding(32)):
+        with pytest.raises(DeviceUnavailableError):
+            make()
+    model = TT.TransformerNMT(TT.NMTConfig.tiny(), device="cpu")
+    assert {t.device.type for t in model.state_dict().values()} == {"cpu"}
+    assert TV.ViT(TV.ViTConfig.tiny(), device="cpu").pos_embed.is_cpu
+
+
+def test_nmt_decode_on_cpu_takes_the_plain_versions_and_counts_nothing():
+    """The NMT's training step and its cached greedy decode run end to
+    end on the CPU through the flash and decode wrappers' plain versions,
+    counting no launch."""
+    from paddle_tpu_torch.models import transformer as TT
+
+    cfg = TT.NMTConfig(src_vocab=64, tgt_vocab=64, d_model=128,
+                       num_heads=2, num_encoder_layers=1,
+                       num_decoder_layers=1, dim_feedforward=128,
+                       dropout=0.0, max_len=64)
+    model = TT.TransformerNMT(cfg, device="cpu")
+    n = (K.decode_attention.launches, FK.flash_attention_fwd.launches,
+         FK.flash_attention_dq.launches, FK.flash_attention_dkv.launches)
+    src = torch.randint(3, 64, (2, 64))
+    model.forward_fused_loss(src, src, src).backward()
+    out = model.eval().greedy_decode_cached(src, max_len=4)
+    assert out.shape == (2, 4)
+    assert (K.decode_attention.launches, FK.flash_attention_fwd.launches,
+            FK.flash_attention_dq.launches,
+            FK.flash_attention_dkv.launches) == n
 
 
 def test_int8_conv_on_cpu_takes_the_plain_version_and_counts_nothing():

@@ -8,7 +8,7 @@ package's, bit for bit, on the CPU:
   package's keys, and outside one takes the stream's next key;
 - after ``seed(s)`` and building the same model in both packages, a
   fresh Trainer's start key is the JAX Trainer's, for GPT, BERT, ResNet,
-  MnistMLP and DeepFM at tiny sizes: the port draws one key per
+  MnistMLP, DeepFM, the Transformer NMT and ViT at tiny sizes: the port draws one key per
   parameter, in the JAX package's creation order. The JAX models are
   built with their initializers returning zeros (an eager initializer
   compiles a random kernel per shape, most of such a test's time); the
@@ -37,6 +37,8 @@ from paddle_tpu.models import deepfm as JDF
 from paddle_tpu.models import gpt as JG
 from paddle_tpu.models import mnist as JM
 from paddle_tpu.models import resnet as JRN
+from paddle_tpu.models import transformer as JNMT
+from paddle_tpu.models import vit as JV
 from paddle_tpu_torch import nn as tnn
 from paddle_tpu_torch import optimizer as TO
 from paddle_tpu_torch.core import dtypes as TDT
@@ -46,6 +48,8 @@ from paddle_tpu_torch.models import deepfm as TDF
 from paddle_tpu_torch.models import gpt as TG
 from paddle_tpu_torch.models import mnist as TM
 from paddle_tpu_torch.models import resnet as TRN
+from paddle_tpu_torch.models import transformer as TNMT
+from paddle_tpu_torch.models import vit as TV
 from paddle_tpu_torch.parallel import Trainer
 
 SEEDS = [0, 7, 2 ** 31 + 5, 2 ** 40 + 3, -1]
@@ -172,6 +176,11 @@ MODELS = {
                   lambda: TM.MnistMLP(32, 16, device="cpu")),
     "deepfm": (lambda: JDF.DeepFM(_deepfm_cfg(JDF)),
                lambda: TDF.DeepFM(_deepfm_cfg(TDF), device="cpu")),
+    "nmt": (lambda: JNMT.TransformerNMT(JNMT.NMTConfig.tiny()),
+            lambda: TNMT.TransformerNMT(TNMT.NMTConfig.tiny(),
+                                        device="cpu")),
+    "vit": (lambda: JV.ViT(JV.ViTConfig.tiny()),
+            lambda: TV.ViT(TV.ViTConfig.tiny(), device="cpu")),
 }
 
 

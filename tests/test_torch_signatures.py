@@ -150,7 +150,29 @@ def test_the_comparison_sees_the_shared_surface():
                  "models.resnet:resnet50", "models.resnet:resnet20_cifar",
                  "models.resnet:loss_fn", "quant.int8:int8_conv2d",
                  "quant.int8:Int8Conv2D.__init__",
-                 "parallel.api:Trainer.train_steps"):
+                 "parallel.api:Trainer.train_steps",
+                 # the NMT and ViT slice
+                 "nn.transformer:TransformerDecoderLayer.__init__",
+                 "nn.transformer:TransformerDecoder.forward",
+                 "nn.transformer:PositionalEncoding.__init__",
+                 "nn.transformer:LearnedPositionalEmbedding.__init__",
+                 "nn.transformer:decoder_layer_step", "ops.loss:label_smooth",
+                 "ops.decode:ctc_loss", "ops.decode:ctc_align",
+                 "ops.decode:ctc_greedy_decode",
+                 "ops.decode:beam_search_step", "ops.decode:beam_search",
+                 "ops.decode:beam_search_decode",
+                 "ops.decode:beam_search_batch_step",
+                 "ops.decode:beam_search_decode_lod",
+                 "ops.decode:gather_beams", "ops.decode:linear_chain_crf",
+                 "ops.decode:crf_decoding", "ops.decode:edit_distance",
+                 "models.transformer:TransformerNMT.__init__",
+                 "models.transformer:TransformerNMT.forward_fused_loss",
+                 "models.transformer:TransformerNMT.greedy_decode_cached",
+                 "models.transformer:TransformerNMT.beam_decode_cached",
+                 "models.transformer:nmt_loss",
+                 "models.transformer:nmt_metrics",
+                 "models.vit:ViT.__init__", "models.vit:ViT.forward",
+                 "models.vit:loss_fn"):
         assert want in labels
     assert set(INTENDED) <= labels
 

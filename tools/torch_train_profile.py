@@ -23,7 +23,14 @@ float32). ``--model``:
   26 fields, 13 dense features, embed 16, tower (400, 400, 400), batch
   4096, the stream seeded 0, ids uniform over the vocab (numpy seed 0),
   labels ids[:, 0] % 2, at each vocab of ``--vocab``; it prints
-  examples/s.
+  examples/s;
+- ``nmt``: the Transformer NMT, BASELINE config 4 as bench.py runs it
+  (:485-513), NMTConfig.base() (dropout 0.1, label smoothing 0.1), the
+  stream seeded 0, one (64, 64) source and target batch (numpy seed 0,
+  ids in [3, vocab)), forward_fused_loss; tokens/s counts target tokens;
+- ``vit``: ViT-B/16 as bench.py runs it (:655), ViTConfig.base() with
+  remat, NHWC, the stream seeded 0, one (128, 224, 224, 3) batch of
+  seeded images, labels arange(128) % 1000; it prints images/s.
 
 Each model and policy named runs in turn, in one process.
 
@@ -39,7 +46,7 @@ time.
     python3 tools/torch_train_profile.py [--steps 5]
         [--amp float32 mixed_bf16 bfloat16]
         [--model gpt bert_base bert_packed resnet50 resnet50_nchw
-                 deepfm deepfm_sparse] [--vocab 100000 10000000]
+                 deepfm deepfm_sparse nmt vit] [--vocab 100000 10000000]
 """
 
 import argparse
@@ -82,7 +89,8 @@ def main() -> int:
                     choices=["float32", "mixed_bf16", "bfloat16"])
     ap.add_argument("--model", nargs="+", default=["gpt"],
                     choices=["gpt", "bert_base", "bert_packed", "resnet50",
-                             "resnet50_nchw", "deepfm", "deepfm_sparse"])
+                             "resnet50_nchw", "deepfm", "deepfm_sparse",
+                             "nmt", "vit"])
     ap.add_argument("--vocab", nargs="+", type=int,
                     default=[100_000, 10_000_000],
                     help="DeepFM's total vocab (the deepfm models only)")
@@ -173,6 +181,46 @@ def bert_setup(torch, packed):
             b * t, int((seg > 0).sum()), "tokens")
 
 
+def nmt_setup(torch):
+    """bench.py's NMT cell: the model, one (64, 64) batch (numpy seed 0)
+    and the fused-loss builder; the batch's target tokens."""
+    import numpy as np
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models import transformer as TR
+
+    ptt.seed(0)
+    cfg = TR.NMTConfig.base()
+    model = TR.TransformerNMT(cfg, device="cuda")
+    rng = np.random.default_rng(0)
+    src = torch.as_tensor(rng.integers(3, cfg.src_vocab, (64, 64)),
+                          device="cuda")
+    tgt = torch.as_tensor(rng.integers(3, cfg.tgt_vocab, (64, 64)),
+                          device="cuda")
+    return (model, (src, tgt, tgt),
+            lambda m, batch, g: (m.forward_fused_loss(*batch), {}),
+            64 * 64, None, "tokens")
+
+
+def vit_setup(torch):
+    """bench.py's ViT-B/16 cell: the model (remat, NHWC), one b128 224 px
+    batch of seeded images, labels arange(128) % 1000, the loss
+    builder."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models import vit
+
+    ptt.seed(0)
+    cfg = vit.ViTConfig.base()
+    cfg.remat = True
+    model = vit.ViT(cfg, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    x = torch.randn(128, 224, 224, 3, generator=gen, device="cuda")
+    label = torch.arange(128, device="cuda") % cfg.num_classes
+    return (model, (x, label),
+            lambda m, batch, g: (vit.loss_fn(m(batch[0]), batch[1]), {}),
+            128, None, "images")
+
+
 def deepfm_setup(torch, vocab, sparse, policy):
     """bench.py's DeepFM cell at ``vocab``: a step function (Trainer for
     dense updates, sparse_minimize_fn for row-sparse ones, the loss under
@@ -217,8 +265,9 @@ def deepfm_setup(torch, vocab, sparse, policy):
 
 
 def trainer_setup(torch, name, policy):
-    """The Trainer step of the GPT, BERT or ResNet-50 model ``name``; the
-    tokens (or images) a step takes, its real tokens and the unit."""
+    """The Trainer step of the GPT, BERT, ResNet-50, NMT or ViT model
+    ``name``; the tokens (or images) a step takes, its real tokens and
+    the unit."""
     from paddle_tpu_torch import optimizer
     from paddle_tpu_torch.parallel import Trainer
 
@@ -226,6 +275,8 @@ def trainer_setup(torch, name, policy):
         gpt_setup(torch) if name == "gpt"
         else resnet_setup(torch, "NCHW" if name.endswith("nchw") else "NHWC")
         if name.startswith("resnet50")
+        else nmt_setup(torch) if name == "nmt"
+        else vit_setup(torch) if name == "vit"
         else bert_setup(torch, name == "bert_packed"))
     trainer = Trainer(model, optimizer.Adam(1e-3), loss_builder,
                       amp=policy)
