@@ -288,13 +288,57 @@ Phases, each printed as it runs:
 20. the three flash kernels timed at the NMT's training shape (B=64,
    T=64, H=8, D=64, key mask, dropout 0.1, float32) beside their plain
    versions and SDPA (printed only; the kernels' record keeps the GPT
-   and BERT shapes).
+   and BERT shapes);
+21. ``[train:bert_moe]``, bench.py:443-483 bench_bert_moe:
+   BertConfig.base() with dropout 0 and an 8-expert top-1 Switch FFN
+   (capacity factor 1.25), the stream seeded 0, B=16, T=128, bench's
+   make_batch (numpy seed 0), mixed_bf16, Adam(1e-3), the loss + 0.01 x
+   the layers' aux losses. Check steps under mixed_bf16 and float32:
+   the kernels against plain attention on the same weights, every pass
+   routed as the plain pass routed (the tokens a pass would have sent
+   elsewhere, its routing flips, counted with their largest
+   router-probability gap), at BERT's limits (float32 1e-4 and 1e-3;
+   mixed_bf16 2e-2 or twice the float64 noise floor); one step launches
+   each flash kernel exactly 12 times, all float32; 5 timed steps,
+   finite and falling, examples/s, idle share, peak memory and each
+   layer's kept_fraction; B=32 (BASELINE.md:56's row) reported;
+22. ``[train:gpt_moe]``: GPTConfig.small() with 8 experts (capacity
+   factor 1.25, no remat: MoE with remat=True must raise
+   InvalidArgumentError) at bench_gpt's (8, 1024), the same loss, policy
+   and gates as 21 (check steps at B=4), 12/12/12 float32 flash
+   launches a step;
+23. ``[serve:moe]``: that model (float32, seed 0) serving the GPT
+   serving cell's 16 requests through the contiguous and the paged
+   arena: each arena's decode kernel launches at least layers x ticks,
+   no other decode kernel; tokens/s and ms per tick; then the same arena
+   recorded on the card and on the CPU (same weights, prompts, slots and
+   admission order, so every tick routes the same tokens at the same
+   capacity): every logit row within 1e-3 of the CPU's up to the first
+   divergence, which must be a routing flip at a router-probability gap
+   below 1e-4 or a differing token whose two candidates' CPU logits are
+   within 2e-3 (near ties); the share of identical tokens and
+   kept_fraction over the decode ticks reported;
+24. ``[train:zoo]``, bench.py:2259-2365: vgg16 b64, alexnet b256,
+   googlenet b128 (its aux heads in the loss) and se_resnext50 b64 NHWC
+   (and an NCHW point), 224 px, 1000 classes, mixed_bf16, Adam(1e-3),
+   all-zero labels: each model's check step at B=2, card against CPU
+   (dropout at 0), float64 gated (loss 1e-4, each grad 1e-3 of its
+   parameter's largest CPU entry) and float32 reported; 2 warm-up and 5
+   timed steps, finite and falling, images/s and peak memory; no hand
+   kernel launches;
+25. ``[train:stacked_lstm]``, bench.py:2227-2256: vocab 5149, embed and
+   hidden 512, 3 layers, T=100, lengths in [50, 100], labels
+   ids[:, 0] % 2; the float64 check step at B=4 with padded rows, then
+   B=64 and B=512 under mixed_bf16: finite and falling, examples/s, ms
+   per step, device ops per step and the idle share (the loop over time
+   is host-paced).
 
 Any failure exits non-zero. The line before the last is the kernels'
 JSON record; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
+import contextlib
 import itertools
 import json
 import math
@@ -464,6 +508,26 @@ VIT_CHECK_TOL = (1e-4, 1e-3)
 BB, BT, BERT_POLICY = 32, 128, "mixed_bf16"
 # the checkpointed loop: bench_gpt's default policy (bench.py:2962)
 LOOP_POLICY = "mixed_bf16"
+# the Switch-MoE FFN: bench.py:443-483 bench_bert_moe (BertConfig.base(),
+# dropout 0, 8 experts top-1, capacity factor 1.25, T=128, B=16 the
+# bench's _cap and B=32 BASELINE.md:56's row) and gpt-moe
+# (GPTConfig.small() with 8 experts, no remat, bench_gpt's (8, 1024); its
+# check steps at B=4), mixed_bf16, Adam(1e-3), the loss + 0.01 x the
+# layers' aux losses; [serve:moe] holds the card's arena to the CPU's
+# logits within MOE_SERVE_TOL, and a routing flip to a router-probability
+# gap below MOE_FLIP_GAP (a near tie)
+MOE_EXPERTS, MOE_AUX, MOE_POLICY = 8, 0.01, "mixed_bf16"
+BERT_MOE_B, BERT_MOE_BIG_B, BERT_MOE_T, GPT_MOE_CHECK_B = 16, 32, 128, 4
+MOE_SERVE_TOL, MOE_FLIP_GAP = 1e-3, 1e-4
+# the zoo, bench.py:2259-2365 (224 px, 1000 classes, the bench's batches
+# and layouts, mixed_bf16), and the stacked LSTM, bench.py:2227-2256; the
+# float64 check steps card against CPU: loss, grads (ResNet-50's rule)
+ZOO_CELLS = (("vgg16", 64, "NCHW"), ("alexnet", 256, "NCHW"),
+             ("googlenet", 128, "NCHW"), ("se_resnext50", 64, "NHWC"))
+ZOO_POLICY = "mixed_bf16"
+CHECK_TOL = (1e-4, 1e-3)
+LSTM_VOCAB, LSTM_WIDTH, LSTM_LAYERS, LSTM_T = 5149, 512, 3, 100
+LSTM_BATCHES, LSTM_CHECK_B, LSTM_POLICY = (64, 512), 4, "mixed_bf16"
 
 
 def log(*a):
@@ -1902,7 +1966,7 @@ def grad_distance(grads, params, a, b):
     def worst(names):
         return max(((grads[a][n] - grads[b][n]).abs().max().item()
                     / max(grads[b][n].abs().max().item(), 1e-30), n)
-                   for n in names)
+                   for n in names) if names else (0.0, "none")
 
     return (worst([n for n in params if not n.endswith(ZERO_GRAD)]),
             worst([n for n in params if n.endswith(ZERO_GRAD)]))
@@ -2708,8 +2772,9 @@ def phase_qmm_conv_timing(torch, QM, err, total, per_shape):
 
 def step_profile(torch, step, wall_ms, n=3):
     """Device busy ms per step (CUDA kernel and copy time under
-    torch.profiler) over ``n`` steps, and the idle share against the
-    profiler-off wall time ``wall_ms`` per step."""
+    torch.profiler) over ``n`` steps, the idle share against the
+    profiler-off wall time ``wall_ms`` per step, and the device ops per
+    step."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -2718,10 +2783,10 @@ def step_profile(torch, step, wall_ms, n=3):
         for _ in range(n):
             step()
         torch.cuda.synchronize()
-    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA)
-    busy_ms = busy_us / 1e3 / n
-    return busy_ms, 1 - busy_ms / wall_ms
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3 / n
+    return busy_ms, 1 - busy_ms / wall_ms, sum(e.count for e in events) / n
 
 
 def timed_steps(torch, step, warm, n):
@@ -3298,7 +3363,8 @@ def phase_train_nmt(torch, FK):
     torch.cuda.reset_peak_memory_stats()
     losses, ms = timed_steps(torch, lambda: trainer.train_step(batch), 0, 5)
     mean = sum(ms) / len(ms)
-    busy, idle = step_profile(torch, lambda: trainer.train_step(batch), mean)
+    busy, idle, _ = step_profile(torch, lambda: trainer.train_step(batch),
+                                 mean)
     log(f"{tag} B={NMT_B} src={NMT_T} tgt={NMT_T}, 5 Adam steps: losses "
         f"{[round(x, 6) for x in losses]}; ms per step "
         f"{[round(x, 3) for x in ms]}, mean {mean:.3f} ms, "
@@ -3572,6 +3638,639 @@ def phase_nmt_flash_timing(torch, FK):
             f"kernel against plain {e:.3e} (atol {FLASH_TOL['float32']})")
 
 
+# ----- the Switch-MoE FFN, the CNN zoo and the stacked LSTM ----------------
+
+@contextlib.contextmanager
+def forced_routes(torch, record=None, forced=None):
+    """Wrap the Switch FFN's router (paddle_tpu_torch/nn/moe.py
+    ``_route``) for the block: each call's experts and, per token, the
+    gap between its two largest router probabilities go to ``record``;
+    with ``forced`` (an earlier pass's record, call by call) each call
+    takes the forced experts, so that two passes route alike. Yields
+    the list of (tokens whose own choice differed from the forced one,
+    their gaps), one entry a call."""
+    from paddle_tpu_torch.nn import moe
+
+    orig = moe._route
+    calls = None if forced is None else iter(forced)
+    flips = []
+
+    def route(x, router_w, top_k):
+        logits, probs, top_i = orig(x, router_w, top_k)
+        with torch.no_grad():
+            top2 = torch.topk(probs, 2, dim=-1).values
+            gap = top2[:, 0] - top2[:, 1]
+        if record is not None:
+            record.append((top_i.detach(), gap))
+        if calls is not None:
+            want, _ = next(calls)
+            flips.append(((top_i != want).any(-1), gap))
+            top_i = want
+        return logits, probs, top_i
+
+    moe._route = route
+    try:
+        yield flips
+    finally:
+        moe._route = orig
+
+
+def flip_summary(flips):
+    """(tokens flipped over every call, the largest router-probability
+    gap among them)."""
+    n = sum(int(m.sum()) for m, _ in flips)
+    gap = max((float(g[m].max()) for m, g in flips if bool(m.any())),
+              default=0.0)
+    return n, gap
+
+
+def moe_aux(model):
+    """MOE_AUX x the sum of the Switch FFNs' recorded aux losses."""
+    return MOE_AUX * sum(v for k, v in model.named_buffers()
+                         if k.endswith("ffn.aux_loss"))
+
+
+def moe_check_steps(torch, FK, tag, model, mhas, loss_of):
+    """The kernel path against plain attention on the same weights, under
+    MOE_POLICY and float32, the routing of every pass forced to the
+    plain pass's (so the gated distance is the attention's alone; the
+    tokens each pass would have routed elsewhere, its routing flips, are
+    counted and reported with their largest router-probability gap).
+    Under MOE_POLICY a second plain pass, attention in float64, gives
+    the noise floor: the limits are BERT's, 2e-2 or twice the floor
+    where that is larger; float32's 1e-4 (loss) and 1e-3 (grads)."""
+    from paddle_tpu_torch.core import policy_scope
+    from paddle_tpu_torch.nn.layer import detach_buffers
+    from paddle_tpu_torch.ops import attention as TA
+
+    params = dict(model.named_parameters())
+    xla = TA.xla_attention
+
+    def plain64(q, k, v, **kw):
+        return xla(q.double(), k.double(), v.double(), **kw).to(q.dtype)
+
+    model.train()
+    for policy in (MOE_POLICY, "float32"):
+        loss_atol, grad_rtol = TRAIN_TOL[policy]
+        passes = [("plain", False, xla), ("kernels", True, xla)]
+        if policy != "float32":
+            passes.append(("plain64", False, plain64))
+        grads, losses, flips, routes = {}, {}, {}, []
+        for name, use_flash, attention in passes:
+            TA.xla_attention = attention
+            for mha in mhas:
+                mha.use_flash = use_flash
+            n0 = flash_counts(FK)
+            first = name == "plain"
+            try:
+                with forced_routes(torch, routes if first else None,
+                                   None if first else routes) as fl, \
+                        policy_scope(policy):
+                    loss = loss_of(model)
+            finally:
+                TA.xla_attention = xla
+            loss.backward()
+            detach_buffers(model)
+            launched = {k: v - n0[k] for k, v in flash_counts(FK).items()}
+            if (min(launched.values()) == 0 if use_flash
+                    else max(launched.values()) > 0):
+                raise SystemExit(f"{tag} check step {name}: flash launches "
+                                 f"{launched}")
+            losses[name] = loss.item()
+            grads[name] = {n: (torch.zeros_like(p) if p.grad is None
+                               else p.grad) for n, p in params.items()}
+            flips[name] = flip_summary(fl)
+            for p in params.values():
+                p.grad = None
+        for mha in mhas:
+            mha.use_flash = True
+        (worst, where), (noise, nwhere) = grad_distance(
+            grads, params, "kernels", "plain")
+        dloss = abs(losses["kernels"] - losses["plain"])
+        floor = ""
+        if "plain64" in grads:
+            (f_worst, f_where), _ = grad_distance(grads, params, "plain64",
+                                                  "plain")
+            f_loss = abs(losses["plain64"] - losses["plain"])
+            loss_atol = max(loss_atol, 2 * f_loss)
+            grad_rtol = max(grad_rtol, 2 * f_worst)
+            floor = (f"; the noise floor, plain float64 attention against "
+                     f"plain: loss {f_loss:.3e}, worst grad {f_worst:.3e} "
+                     f"({f_where}), routing flips {flips['plain64'][0]} "
+                     f"(largest gap {flips['plain64'][1]:.3e}); limits "
+                     f"max(2e-2, twice the floor)")
+        log(f"{tag} check step {policy} (routing forced to the plain "
+            f"pass's): loss kernels {losses['kernels']:.6f}, plain "
+            f"{losses['plain']:.6f} (|diff| {dloss:.3e}, atol "
+            f"{loss_atol:.3e}); worst grad diff / the parameter's max plain "
+            f"grad {worst:.3e} ({where}; limit {grad_rtol:.3e}); routing "
+            f"flips of the kernel pass {flips['kernels'][0]} tokens over "
+            f"{len(routes)} layers (largest router-probability gap among "
+            f"them {flips['kernels'][1]:.3e}){floor}; the key biases "
+            f"(reported): {noise:.3e} ({nwhere})")
+        if not (dloss <= loss_atol and worst <= grad_rtol
+                and math.isfinite(losses["kernels"])):
+            raise SystemExit(f"{tag} the kernel path's loss or grads "
+                             f"disagree with plain attention ({policy})")
+        del grads, routes
+
+
+def moe_train_cell(torch, FK, tag, model, batch, loss_of, per_example,
+                   unit, layers, warm=0, n=5, counted=True):
+    """Trainer(amp=MOE_POLICY) with Adam(1e-3) on ``batch``: with
+    ``counted``, one step's flash launches (``layers`` of each, all
+    float32), then ``warm`` + ``n`` timed steps (finite, falling when
+    counted), the device's idle share, peak memory and each layer's
+    kept_fraction after the last step."""
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.parallel import Trainer
+
+    trainer = Trainer(model, optimizer.Adam(1e-3),
+                      lambda m, b, g: (loss_of(m, b), {}), amp=MOE_POLICY)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    per_step = None
+    if counted:
+        reset_flash_counts(FK)
+        trainer.train_step(batch)
+        torch.cuda.synchronize()
+        per_step = flash_counts(FK)
+        f32 = flash_counts(FK, torch.float32)
+        want = {name: layers for name in FLASH_ROWS}
+        log(f"{tag} launches in one step: {per_step}, of them float32 {f32} "
+            f"(want {want}, all float32)")
+        if per_step != want or f32 != want:
+            raise SystemExit(f"{tag} a training step launched the flash "
+                             f"kernels another number of times or in "
+                             f"another dtype")
+    losses, ms = timed_steps(torch, lambda: trainer.train_step(batch), warm,
+                             n)
+    mean = sum(ms) / len(ms)
+    busy, idle, ops = step_profile(torch, lambda: trainer.train_step(batch),
+                                   mean, n=2)
+    kept = [round(float(m.kept_fraction), 4) for m in model.modules()
+            if type(m).__name__ == "SwitchFFN"]
+    log(f"{tag} {n} Adam steps: losses {[round(x, 6) for x in losses]}; ms "
+        f"per step {[round(x, 3) for x in ms]}, mean {mean:.3f} ms, "
+        f"{per_example / (mean / 1e3):.1f} {unit}/s; device busy "
+        f"{busy:.3f} ms per step, idle share {idle:.3f}, {ops:.0f} device "
+        f"ops per step; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
+        f"kept_fraction per layer {kept}")
+    if not (all(math.isfinite(x) for x in losses)
+            and (not counted or losses[-1] < losses[0])):
+        raise SystemExit(f"{tag} training losses not finite and falling: "
+                         f"{losses}")
+    return per_step
+
+
+def bert_moe_batch(torch, cfg, b):
+    """bench_bert_moe's make_batch (numpy seed 0): ids, MLM labels (15%
+    random ids, the rest -100), NSP labels."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, cfg.vocab_size, (b, BERT_MOE_T))
+    mlm = np.where(rng.random((b, BERT_MOE_T)) < 0.15,
+                   rng.integers(0, cfg.vocab_size, (b, BERT_MOE_T)), -100)
+    nsp = rng.integers(0, 2, (b,))
+    return tuple(torch.as_tensor(a, device="cuda") for a in (ids, mlm, nsp))
+
+
+def phase_train_bert_moe(torch, FK):
+    """bench_bert_moe at full width: check steps at B=16, one counted
+    step (12/12/12 float32 flash launches), 5 timed steps; B=32
+    reported."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models import bert
+
+    tag = "[train:bert_moe]"
+    ptt.seed(0)
+    cfg = bert.BertConfig.base()
+    cfg.dropout, cfg.moe_experts = 0.0, MOE_EXPERTS
+    model = bert.BertForPretraining(cfg, device="cuda")
+    ffn = model.bert.encoder.layers[0].ffn
+    log(f"{tag} BertConfig.base(), dropout 0, {MOE_EXPERTS} experts top-1, "
+        f"capacity factor {ffn.capacity_factor} (capacity "
+        f"{ffn.capacity(BERT_MOE_B * BERT_MOE_T)} of "
+        f"{BERT_MOE_B * BERT_MOE_T} tokens), "
+        f"{sum(p.numel() for p in model.parameters())} float32 parameters; "
+        f"batch ({BERT_MOE_B}, {BERT_MOE_T}); policy {MOE_POLICY}; loss + "
+        f"{MOE_AUX} x the aux losses")
+    batch = bert_moe_batch(torch, cfg, BERT_MOE_B)
+
+    def loss_of(m, b=batch):
+        return m.forward_fused_loss(*b) + moe_aux(m)
+
+    mhas = [layer.self_attn for layer in model.bert.encoder.layers]
+    moe_check_steps(torch, FK, tag, model, mhas, loss_of)
+    per_step = moe_train_cell(torch, FK, tag, model, batch, loss_of,
+                              BERT_MOE_B, "examples", cfg.num_layers)
+    big = bert_moe_batch(torch, cfg, BERT_MOE_BIG_B)
+    moe_train_cell(torch, FK, f"{tag} B={BERT_MOE_BIG_B}", model, big,
+                   loss_of, BERT_MOE_BIG_B, "examples", cfg.num_layers,
+                   warm=1, n=3, counted=False)
+    del model, batch, big
+    torch.cuda.empty_cache()
+    return per_step
+
+
+def phase_train_gpt_moe(torch, FK):
+    """GPTConfig.small() with 8 experts at bench_gpt's (8, 1024): MoE
+    with remat raises the typed error; check steps at B=4; one counted
+    step (12/12/12 float32 flash launches); 5 timed steps."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.core import InvalidArgumentError
+    from paddle_tpu_torch.models import gpt
+
+    tag = "[train:gpt_moe]"
+    cfg = gpt.GPTConfig.small()
+    cfg.max_position, cfg.moe_experts, cfg.remat = TT, MOE_EXPERTS, True
+    try:
+        gpt.GPTForCausalLM(cfg, device="cuda")
+    except InvalidArgumentError as e:
+        log(f"{tag} moe_experts with remat=True raises "
+            f"InvalidArgumentError: {e}")
+    else:
+        raise SystemExit(f"{tag} moe_experts with remat=True did not raise")
+    cfg.remat = False
+    ptt.seed(0)
+    model = gpt.GPTForCausalLM(cfg, device="cuda")
+    ffn = model.blocks[0].ffn
+    s = TB * TT
+    log(f"{tag} GPTConfig.small(), {MOE_EXPERTS} experts top-1, capacity "
+        f"factor {ffn.capacity_factor}, no remat, "
+        f"{sum(p.numel() for p in model.parameters())} float32 parameters; "
+        f"batch ({TB}, {TT}): {s} tokens a layer, capacity "
+        f"{ffn.capacity(s)}, dispatch/combine tensors ({s}, {MOE_EXPERTS}, "
+        f"{ffn.capacity(s)}); policy {MOE_POLICY}; loss + {MOE_AUX} x the "
+        f"aux losses; check steps at B={GPT_MOE_CHECK_B}")
+    ids = torch.randint(0, cfg.vocab_size, (TB, TT),
+                        generator=torch.Generator().manual_seed(6)).cuda()
+
+    def loss_of(m, b=ids[:GPT_MOE_CHECK_B]):
+        return m.forward_loss(b) + moe_aux(m)
+
+    mhas = [blk.self_attn for blk in model.blocks]
+    moe_check_steps(torch, FK, tag, model, mhas, loss_of)
+    per_step = moe_train_cell(torch, FK, tag, model, ids, loss_of, s,
+                              "tokens", cfg.num_layers)
+    del model, ids
+    torch.cuda.empty_cache()
+    return per_step
+
+
+@contextlib.contextmanager
+def arena_trace(torch, events):
+    """Each Switch FFN call of the block appends ("route", each token's
+    expert, the gap between its two largest router probabilities, the
+    call's tokens, its kept fraction) to ``events``, on the host."""
+    from paddle_tpu_torch.nn import moe
+
+    orig = moe.switch_moe
+
+    def traced(x, router_w, *a, **kw):
+        out = orig(x, router_w, *a, **kw)
+        _, probs, top_i = moe._route(x, router_w, 1)
+        top2 = torch.topk(probs, 2, dim=-1).values
+        events.append(("route", top_i[:, 0].cpu(),
+                       (top2[:, 0] - top2[:, 1]).cpu(), x.shape[0],
+                       float(out[3])))
+        return out
+
+    moe.switch_moe = traced
+    try:
+        yield
+    finally:
+        moe.switch_moe = orig
+
+
+def recorded_arena(torch, model, prompts, kw, events):
+    """Serve ``prompts`` through BatchedDecoder(slots=8, capacity=CAP) on
+    the model's device, appending each Switch FFN call (arena_trace) and
+    each emitted token's ("pick", request, index, logit row, token) to
+    ``events`` in order. Returns the outputs."""
+    from paddle_tpu_torch.serving import BatchedDecoder
+
+    class Recorder(BatchedDecoder):
+        _admitting = None
+
+        def _activate(self, s, r, logits, plen):
+            self._admitting = s
+            super()._activate(s, r, logits, plen)
+
+        def _pick(self, logits, gens, poss, salt=0):
+            out = super()._pick(logits, gens, poss, salt)
+            if self._admitting is not None:    # one row: the new slot
+                pairs, self._admitting = [(0, self._admitting)], None
+            else:                              # a tick: row = slot
+                pairs = [(s, s) for s in range(self.slots) if self.active[s]]
+            rows, toks, pos = logits.float().cpu(), out.cpu(), poss.cpu()
+            for row, s in pairs:
+                r = self.owner[s]
+                events.append(("pick", r.rid, int(pos[row]) - len(r.prompt),
+                               rows[row], int(toks[row])))
+            return out
+
+    dec = Recorder(model, slots=8, capacity=CAP, device=model.device, **kw)
+    rids = [dec.submit(p, 32) for p in prompts]
+    with torch.inference_mode(), arena_trace(torch, events):
+        outs = dec.run()
+    return [outs[r] for r in rids]
+
+
+def compare_arenas(cpu, card):
+    """Walk the two runs' events while they agree: every logit row within
+    MOE_SERVE_TOL of the CPU's, until the first routing flip (a token
+    whose expert differs: its CPU router-probability gap must be below
+    MOE_FLIP_GAP, a near tie) or the first differing token (its two
+    candidates' CPU logits within 2 x MOE_SERVE_TOL: a near tie).
+    Returns (rows compared, their worst distance, what ended the walk)."""
+    rows, worst = 0, 0.0
+    for i, (a, b) in enumerate(zip(cpu, card)):
+        if a[0] != b[0] or (a[0] == "pick" and a[1:3] != b[1:3]):
+            raise SystemExit(f"[serve:moe] the runs' events differ at {i}: "
+                             f"{a[:3]} against {b[:3]}")
+        if a[0] == "route":
+            flipped = a[1] != b[1]
+            if bool(flipped.any()):
+                gap = float(a[2][flipped].max())
+                if gap > MOE_FLIP_GAP:
+                    raise SystemExit(f"[serve:moe] a routing flip at a "
+                                     f"router-probability gap {gap:.3e}")
+                return rows, worst, (f"a routing flip at event {i} "
+                                     f"({int(flipped.sum())} tokens, "
+                                     f"largest router-probability gap "
+                                     f"{gap:.3e}: a near tie)")
+            continue
+        d = float((a[3] - b[3]).abs().max())
+        worst, rows = max(worst, d), rows + 1
+        if d > MOE_SERVE_TOL:
+            raise SystemExit(f"[serve:moe] request {a[1]} token {a[2]}: "
+                             f"logits {d:.3e} from the CPU run's")
+        if a[4] != b[4]:
+            gap = float(abs(a[3][a[4]] - a[3][b[4]]))
+            return rows, worst, (f"request {a[1]} token {a[2]} at event {i} "
+                                 f"(the CPU's logits of the two tokens "
+                                 f"{gap:.3e} apart: a near tie)")
+    return rows, worst, "none: every event agrees"
+
+
+def phase_serve_moe(torch, K, prompts):
+    """The gpt-moe model (seed 0, float32) served contiguous and paged:
+    each arena's decode kernel launches at least layers x ticks, no
+    other decode kernel; tokens/s and ms per tick from that run; then the
+    same arena recorded on the card and on the CPU (the same weights,
+    prompts, slots and admission order), compared by compare_arenas; the
+    share of identical tokens and each differing request's first
+    difference reported; kept_fraction per decode tick."""
+    import copy
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models import gpt
+
+    ptt.seed(0)
+    cfg = gpt.GPTConfig.small()
+    cfg.moe_experts = MOE_EXPERTS
+    model = gpt.GPTForCausalLM(cfg, device="cuda").eval()
+    cpu_model = copy.deepcopy(model).cpu()
+    layers = cfg.num_layers
+    ffn = model.blocks[0].ffn
+    log(f"[serve:moe] GPTConfig.small() with {MOE_EXPERTS} experts, "
+        f"capacity factor {ffn.capacity_factor} (a decode tick routes 8 "
+        f"slots' tokens at capacity {ffn.capacity(8)}), float32, "
+        f"{sum(p.numel() for p in model.parameters())} parameters; "
+        f"{len(prompts)} requests, max_new 32, 8 slots")
+    for mode, kw in (("contiguous", {}),
+                     ("paged", dict(pages=B * 32 + 8, page_size=PS))):
+        tag = f"[serve:moe:{mode}]"
+        run = serve(torch, K, model, prompts, **kw)
+        check_launches(tag, run["launches"],
+                       {mode_kernel(kw): layers * run["dec"].tick_count})
+        log(f"{tag} {run_line(run)}; launches {run['launches']}")
+        ev_card, ev_cpu = [], []
+        card = recorded_arena(torch, model, prompts, kw, ev_card)
+        t0 = time.perf_counter()
+        host = recorded_arena(torch, cpu_model, prompts, kw, ev_cpu)
+        cpu_s = time.perf_counter() - t0
+        same_run = all(bool((a == b).all())
+                       for a, b in zip(card, run["outs"]))
+        rows, worst, end = compare_arenas(ev_cpu, ev_card)
+        same = sum(int((a == b).sum()) for a, b in zip(card, host))
+        total = sum(len(o) for o in card)
+        firsts = []
+        for rid, (a, b) in enumerate(zip(card, host)):
+            diff = (a != b).nonzero()[0]
+            if len(diff):
+                firsts.append(f"{rid}@{int(diff[0])}")
+        ticks = [e[4] for e in ev_card if e[0] == "route" and e[3] == 8]
+        log(f"{tag} against the CPU run of the same arena ({cpu_s:.1f} s): "
+            f"{rows} logit rows compared before the first divergence, "
+            f"worst {worst:.3e} (limit {MOE_SERVE_TOL}); first divergence: "
+            f"{end}; identical tokens {same}/{total} "
+            f"({same / total:.3f}); requests differing (request@first "
+            f"token) {firsts or 'none'}; the recorded card run equals the "
+            f"counted one: {same_run}; kept_fraction over {len(ticks)} "
+            f"decode-tick calls: mean {sum(ticks) / len(ticks):.4f}, min "
+            f"{min(ticks):.4f}, {sum(k < 1 for k in ticks)} calls dropped "
+            f"tokens")
+        del run
+    del model, cpu_model
+    torch.cuda.empty_cache()
+
+
+def zoo_model(name, fmt, device, generator):
+    """(module, model) of a zoo cell at 1000 classes."""
+    from paddle_tpu_torch.models import alexnet, googlenet, se_resnext, vgg
+
+    kw = dict(device=device, generator=generator)
+    if name == "vgg16":
+        return vgg, vgg.vgg16(1000, **kw)
+    if name == "alexnet":
+        return alexnet, alexnet.alexnet(1000, **kw)
+    if name == "googlenet":
+        return googlenet, googlenet.googlenet(1000, **kw)
+    return se_resnext, se_resnext.se_resnext50(1000, data_format=fmt, **kw)
+
+
+def loss_and_grads(torch, loss_of, model):
+    """Train-mode loss and every gradient, as float64 CPU tensors."""
+    model.train()
+    loss = loss_of(model)
+    loss.backward()
+    return float(loss.detach()), {
+        n: (torch.zeros_like(p) if p.grad is None else p.grad).detach()
+        .double().cpu() for n, p in model.named_parameters()}
+
+
+def card_against_cpu(torch, tag, cpu_model, loss_of, inputs):
+    """A check step by the ResNet-50 phase's rule: ``cpu_model`` copied
+    to the card and to the CPU in float64 (gated: loss CHECK_TOL[0], each
+    grad within CHECK_TOL[1] of its parameter's largest CPU entry) and
+    float32 (reported), ``loss_of(model, *inputs)`` on each."""
+    import copy
+
+    from paddle_tpu_torch.core.dtypes import Policy, policy_scope
+
+    tol_loss, tol_grad = CHECK_TOL
+    f64 = Policy("float64", "float64", "float64")
+    runs = {}
+    for dtype in ("float64", "float32"):
+        dt = getattr(torch, dtype)
+        for dev in ("cpu", "cuda"):
+            model = copy.deepcopy(cpu_model).to(dev, dt)
+            args = [a.to(dev, dt) if a.is_floating_point() else a.to(dev)
+                    for a in inputs]
+            with policy_scope(f64 if dtype == "float64" else "float32"):
+                runs[dtype, dev] = loss_and_grads(
+                    torch, lambda m: loss_of(m, *args), model)
+            del model
+    lines, ok = [], True
+    for dtype in ("float64", "float32"):
+        got, want = runs[dtype, "cuda"], runs[dtype, "cpu"]
+        dloss = abs(got[0] - want[0])
+        d = rel_distance(got[1], want[1])
+        worst = max(d, key=d.get)
+        good = dloss <= tol_loss and d[worst] <= tol_grad
+        if dtype == "float64":
+            ok = good
+        lines.append(f"{dtype}: loss {got[0]:.6f} vs {want[0]:.6f} (|diff| "
+                     f"{dloss:.3e}), worst grad {worst} {d[worst]:.3e} of "
+                     f"its largest CPU entry "
+                     + (f"(limits {tol_loss}, {tol_grad}) "
+                        f"{'ok' if good else 'FAIL'}" if dtype == "float64"
+                        else "(reported)"))
+    log(f"{tag} check step, card against CPU: " + "; ".join(lines))
+    if not ok:
+        raise SystemExit(f"{tag} float64 check step failed")
+
+
+def all_launches(FK, K, QM):
+    return (sum(flash_counts(FK).values()) + sum(decode_counts(K).values())
+            + QM.quant_matmul.launches + QM.quant_linear.launches)
+
+
+def phase_train_zoo(torch, FK, K, QM):
+    """bench.py's zoo cells: each model's check step at B=2, 224 px
+    (dropout at 0: the two devices' generators draw different masks),
+    then b64/256/128/64 under ZOO_POLICY, 2 warm-up and 5 timed steps,
+    all-zero labels (se_resnext50 NHWC, and an NCHW point); no hand
+    kernel launches."""
+    from paddle_tpu_torch import optimizer as TO
+    from paddle_tpu_torch.parallel import Trainer
+
+    n0 = all_launches(FK, K, QM)
+    for name, b, fmt in ZOO_CELLS:
+        tag = f"[train:zoo:{name}]"
+        gen = torch.Generator().manual_seed(30)
+        mod, cpu = zoo_model(name, fmt, "cpu", gen)
+        for m in cpu.modules():
+            if type(m).__name__ == "Dropout":
+                m.p = 0.0
+        x = torch.randn(2, 3, 224, 224, generator=gen)
+        y = torch.randint(0, 1000, (2,), generator=gen)
+        t0 = time.perf_counter()
+        card_against_cpu(torch, f"{tag} {fmt} B=2 224 px", cpu,
+                         lambda m, x, y: mod.loss_fn(m(x), y), [x, y])
+        log(f"{tag} check step seconds {time.perf_counter() - t0:.1f}")
+        del cpu
+        for layout, warm, n in ((fmt, 2, 5),) + (
+                (("NCHW", 1, 3),) if fmt == "NHWC" else ()):
+            gen = torch.Generator(device="cuda").manual_seed(31)
+            _, model = zoo_model(name, layout, "cuda", gen)
+            tr = Trainer.supervised(model, TO.Adam(1e-3), mod.loss_fn,
+                                    amp=ZOO_POLICY)
+            batch = {"x": torch.randn(b, 3, 224, 224, generator=gen,
+                                      device="cuda"),
+                     "label": torch.zeros(b, dtype=torch.long,
+                                          device="cuda")}
+            torch.cuda.reset_peak_memory_stats()
+            losses, ms = timed_steps(torch, lambda: tr.train_step(batch),
+                                     warm, n)
+            mean = sum(ms) / len(ms)
+            log(f"{tag} {layout} b{b} 224 px {ZOO_POLICY} Adam(1e-3), "
+                f"all-zero labels: losses {[round(v, 6) for v in losses]}; "
+                f"ms per timed step {[round(v, 3) for v in ms]}, mean "
+                f"{mean:.3f} ms, {b / (mean / 1e3):.1f} images/s; peak "
+                f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} "
+                f"GiB")
+            if not finite_and_falling(losses):
+                raise SystemExit(f"{tag} losses not finite and falling")
+            del tr, model, batch
+            torch.cuda.empty_cache()
+    launched = all_launches(FK, K, QM) - n0
+    log(f"[train:zoo] hand-kernel launches over the zoo: {launched} "
+        f"(want 0)")
+    if launched:
+        raise SystemExit("[train:zoo] a hand kernel launched on the zoo")
+
+
+def lstm_batch(torch, b, device, seed=0):
+    """bench_stacked_lstm's make_batch (numpy ``seed``): ids, lengths in
+    [T/2, T], labels ids[:, 0] % 2."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    ids = torch.as_tensor(rng.integers(0, LSTM_VOCAB, (b, LSTM_T)),
+                          device=device)
+    lengths = torch.as_tensor(rng.integers(LSTM_T // 2, LSTM_T + 1, (b,)),
+                              device=device)
+    return ids, lengths, ids[:, 0] % 2
+
+
+def phase_train_stacked_lstm(torch, FK, K, QM):
+    """bench model 6 at full width: the float64 check step at B=4 (padded
+    rows), then B=64 and B=512 under LSTM_POLICY, 2 warm-up and 5 timed
+    steps, with the device's idle share and ops per step."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import optimizer as TO
+    from paddle_tpu_torch.models import stacked_lstm as SL
+    from paddle_tpu_torch.parallel import Trainer
+
+    tag = "[train:stacked_lstm]"
+    n0 = all_launches(FK, K, QM)
+    gen = torch.Generator().manual_seed(32)
+    cpu = SL.StackedLSTM(LSTM_VOCAB, LSTM_WIDTH, LSTM_WIDTH, LSTM_LAYERS,
+                         device="cpu", generator=gen)
+    ids, lengths, label = lstm_batch(torch, LSTM_CHECK_B, "cpu", seed=1)
+    log(f"{tag} vocab {LSTM_VOCAB}, embed and hidden {LSTM_WIDTH}, "
+        f"{LSTM_LAYERS} layers, T={LSTM_T}; check step lengths "
+        f"{lengths.tolist()}")
+    if not bool((lengths < LSTM_T).any()):
+        raise SystemExit(f"{tag} the check batch has no padded row")
+    card_against_cpu(torch, f"{tag} B={LSTM_CHECK_B}", cpu,
+                     lambda m, i, n, y: SL.loss_fn(m(i, n), y),
+                     [ids, lengths, label])
+    del cpu
+    for b in LSTM_BATCHES:
+        ptt.seed(0)
+        model = SL.StackedLSTM(LSTM_VOCAB, LSTM_WIDTH, LSTM_WIDTH,
+                               LSTM_LAYERS, device="cuda")
+        batch = lstm_batch(torch, b, "cuda")
+        tr = Trainer(model, TO.Adam(1e-3),
+                     lambda m, bt, g: (SL.loss_fn(m(bt[0], bt[1]), bt[2]),
+                                       {}), amp=LSTM_POLICY)
+        torch.cuda.reset_peak_memory_stats()
+        losses, ms = timed_steps(torch, lambda: tr.train_step(batch), 2, 5)
+        mean = sum(ms) / len(ms)
+        busy, idle, ops = step_profile(torch, lambda: tr.train_step(batch),
+                                       mean, n=2)
+        log(f"{tag} B={b} {LSTM_POLICY} Adam(1e-3): losses "
+            f"{[round(v, 6) for v in losses]}; ms per timed step "
+            f"{[round(v, 3) for v in ms]}, mean {mean:.3f} ms, "
+            f"{b / (mean / 1e3):.1f} examples/s; device busy {busy:.3f} ms "
+            f"per step, idle share {idle:.3f} (host-paced by "
+            f"{mean / max(busy, 1e-9):.1f}x), {ops:.0f} device ops per step; "
+            f"peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} "
+            f"GiB")
+        if not finite_and_falling(losses):
+            raise SystemExit(f"{tag} B={b}: losses not finite and falling")
+        del tr, model, batch
+        torch.cuda.empty_cache()
+    if all_launches(FK, K, QM) != n0:
+        raise SystemExit(f"{tag} a hand kernel launched on the LSTM")
+
+
 def timed_phase(tag, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -3716,6 +4415,12 @@ def main() -> int:
     timed_phase("[serve:nmt]", phase_serve_nmt, torch, K, FK)
     timed_phase("[train:vit]", phase_train_vit, torch, FK)
     phase_nmt_flash_timing(torch, FK)
+    timed_phase("[train:bert_moe]", phase_train_bert_moe, torch, FK)
+    timed_phase("[train:gpt_moe]", phase_train_gpt_moe, torch, FK)
+    timed_phase("[serve:moe]", phase_serve_moe, torch, K, prompts)
+    timed_phase("[train:zoo]", phase_train_zoo, torch, FK, K, QM)
+    timed_phase("[train:stacked_lstm]", phase_train_stacked_lstm, torch, FK,
+                K, QM)
     log(f"[card] {smi}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

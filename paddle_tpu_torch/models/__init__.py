@@ -1,7 +1,8 @@
 """Models of the port (counterpart of paddle_tpu/models)."""
 
-from . import (bert, deepfm, gpt, mnist, resnet, speculative, transformer,
-               vit)
+from . import (alexnet, bert, deepfm, googlenet, gpt, mnist, resnet,
+               se_resnext, speculative, stacked_lstm, transformer, vgg, vit)
 
-__all__ = ["bert", "deepfm", "gpt", "mnist", "resnet", "speculative",
-           "transformer", "vit"]
+__all__ = ["alexnet", "bert", "deepfm", "googlenet", "gpt", "mnist",
+           "resnet", "se_resnext", "speculative", "stacked_lstm",
+           "transformer", "vgg", "vit"]

@@ -44,7 +44,9 @@ class BertConfig:
     attn_window: Optional[int] = None   # sliding-window attention width
     scan_layers: bool = False  # the same per-layer loop (needs dropout
     #                            == 0 while training, as in JAX)
-    moe_experts: int = 0       # raises: ROADMAP queue 1 item 9
+    # > 0: each block's FFN is a Switch-MoE FFN (nn/moe.py); the
+    # per-layer aux terms ride its buffers (*.ffn.aux_loss)
+    moe_experts: int = 0
     moe_capacity_factor: float = 1.25
 
     @classmethod
@@ -59,8 +61,8 @@ class BertConfig:
 
     @classmethod
     def moe_smoke(cls, layers: int = 4):
-        """The JAX package's bert_moe smoke configuration (its MoE FFN is
-        not ported: a model built from it raises)."""
+        """The JAX package's bert_moe smoke configuration (capacity 2.0
+        keeps routing drops out of loss-match tolerances)."""
         return cls(vocab_size=256, hidden_size=64, num_layers=layers,
                    num_heads=4, intermediate_size=128, max_position=32,
                    dropout=0.0, moe_experts=4, moe_capacity_factor=2.0)

@@ -1,7 +1,7 @@
 """Decoder-only causal LM, GPT/Llama-style (counterpart of
 paddle_tpu/models/gpt.py): RoPE, GQA attention, RMSNorm pre-norm blocks,
-SwiGLU FFNs, a tied LM head, KV-cached decoding and the fused
-linear-CE training head.
+SwiGLU FFNs (or Switch-MoE FFNs), a tied LM head, KV-cached decoding
+and the fused linear-CE training head.
 
 Parameter names and layouts are the JAX package's
 (``blocks.<i>.self_attn.q_proj.weight``, Linear weights (in, out), the
@@ -19,7 +19,7 @@ import torch.nn.functional as F
 
 from .. import initializer as I
 from .. import nn
-from ..core.enforce import UnimplementedError, enforce
+from ..core.enforce import InvalidArgumentError, UnimplementedError, enforce
 from ..core.places import resolve_device
 from ..core.random import make_generator
 from ..nn.layer import Layer, remat_call
@@ -60,11 +60,15 @@ class GPTConfig:
 
 
 def _check_supported(cfg: GPTConfig):
-    """Options of later slices raise, naming their ROADMAP.md item."""
-    if cfg.moe_experts:
-        raise UnimplementedError(
-            "moe_experts > 0 (Switch-MoE FFN) is not ported yet: ROADMAP "
-            "queue 1 item 9 (gpt-moe)")
+    """Options of later slices raise, naming their ROADMAP.md item;
+    ``moe_experts`` with ``remat`` raises :class:`InvalidArgumentError`:
+    the JAX reference cannot run it (the Switch FFN's buffer write inside
+    ``jax.checkpoint`` raises ``UnexpectedTracerError``)."""
+    if cfg.moe_experts and cfg.remat:
+        raise InvalidArgumentError(
+            "GPTConfig(moe_experts > 0, remat=True): the JAX reference "
+            "cannot run it (the Switch FFN's buffer write inside "
+            "jax.checkpoint raises UnexpectedTracerError); use remat=False")
     if cfg.seq_parallel is not None:
         raise UnimplementedError(
             f"seq_parallel={cfg.seq_parallel!r} is not ported yet: ROADMAP "
@@ -89,7 +93,10 @@ class _SwiGLU(Layer):
 
 
 class GPTBlock(Layer):
-    """Pre-norm decoder block: x + attn(rms(x)); x + ffn(rms(x))."""
+    """Pre-norm decoder block: x + attn(rms(x)); x + ffn(rms(x)). The
+    FFN is SwiGLU, or with ``moe_experts > 0`` a Switch-MoE FFN
+    (nn/moe.py) that routes each call's tokens at that call's
+    capacity."""
 
     def __init__(self, cfg: GPTConfig, *, dtype=None, device=None,
                  generator=None):
@@ -103,8 +110,13 @@ class GPTBlock(Layer):
             num_kv_heads=cfg.num_kv_heads or cfg.num_heads,
             rotary=True, rotary_theta=cfg.rope_theta, **kw)
         self.norm2 = nn.RMSNorm(cfg.hidden_size, **kw)
-        self.ffn = _SwiGLU(cfg.hidden_size, cfg.intermediate_size,
-                           cfg.dropout, **kw)
+        if cfg.moe_experts:
+            self.ffn = nn.SwitchFFN(
+                cfg.hidden_size, cfg.intermediate_size, cfg.moe_experts,
+                capacity_factor=cfg.moe_capacity_factor, **kw)
+        else:
+            self.ffn = _SwiGLU(cfg.hidden_size, cfg.intermediate_size,
+                               cfg.dropout, **kw)
         self.drop = nn.Dropout(cfg.dropout)
 
     def forward(self, x, kv_mask=None):
@@ -154,6 +166,7 @@ class GPTForCausalLM(Layer):
                 else self.lm_head)
 
     def _trunk(self, ids, kv_mask=None):
+        _check_supported(self.cfg)
         x = self.embed(ids)
         remat = self.cfg.remat and torch.is_grad_enabled()
         for blk in self.blocks:

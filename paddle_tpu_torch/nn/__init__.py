@@ -1,10 +1,12 @@
 """Layers of the port (counterpart of paddle_tpu/nn)."""
 
 from .layer import Layer, LayerList, Sequential
-from .layers import (GELU, BatchNorm, Conv2D, Conv2DTranspose, Dropout,
-                     Embedding, Flatten, GroupNorm, LayerNorm, Linear,
-                     MultiHeadAttention, Pool2D, PRelu, ReLU, RMSNorm,
-                     Sigmoid, Softmax, Tanh)
+from .layers import (GELU, RNN, BatchNorm, Conv2D, Conv2DTranspose, Dropout,
+                     Embedding, Flatten, GroupNorm, GRUCell, LayerNorm,
+                     Linear, LSTMCell, MultiHeadAttention, Pool2D, PRelu,
+                     ReLU, RMSNorm, Sigmoid, Softmax, Tanh)
+from .moe import SwitchFFN
+from .rnn_layers import GRU, LSTM
 from .transformer import (FeedForward, LearnedPositionalEmbedding,
                           PositionalEncoding, TransformerDecoder,
                           TransformerDecoderLayer, TransformerEncoder,
@@ -14,7 +16,8 @@ __all__ = ["Layer", "LayerList", "Sequential", "BatchNorm", "Conv2D",
            "Conv2DTranspose", "Dropout", "Embedding", "Flatten", "GELU",
            "GroupNorm", "LayerNorm", "Linear", "MultiHeadAttention",
            "Pool2D", "PRelu", "ReLU", "RMSNorm", "Sigmoid", "Softmax",
-           "Tanh", "FeedForward", "LearnedPositionalEmbedding",
+           "Tanh", "GRUCell", "LSTMCell", "RNN", "GRU", "LSTM",
+           "SwitchFFN", "FeedForward", "LearnedPositionalEmbedding",
            "PositionalEncoding", "TransformerDecoder",
            "TransformerDecoderLayer", "TransformerEncoder",
            "TransformerEncoderLayer"]

@@ -227,6 +227,16 @@ def stacked_parameters(layers) -> Dict[str, torch.Tensor]:
     return {k: torch.stack([p[k] for p in per]) for k in names}
 
 
+def detach_buffers(module: nn.Module) -> None:
+    """Replace each buffer of ``module`` that carries an autograd graph
+    (a SwitchFFN's aux terms recorded in a training forward, nn/moe.py)
+    by its detached value, so that no graph outlives the step."""
+    for m in module.modules():
+        for name, b in m._buffers.items():
+            if b is not None and b.requires_grad:
+                m._buffers[name] = b.detach()
+
+
 class LayerList(nn.ModuleList):
     """reference: dygraph LayerList — children named "0", "1", ..."""
 

@@ -2,8 +2,9 @@
 Linear (with its ``act=``), Embedding, RMSNorm, LayerNorm, Dropout and
 MultiHeadAttention (attention dropout and packed-row segment ids) with
 its KV-cache decode mixin; the convolutional layers Conv2D,
-Conv2DTranspose, Pool2D, BatchNorm, GroupNorm, PRelu and Flatten, and
-the activation layers ReLU, GELU, Sigmoid, Tanh and Softmax.
+Conv2DTranspose, Pool2D, BatchNorm, GroupNorm, PRelu and Flatten, the
+activation layers ReLU, GELU, Sigmoid, Tanh and Softmax, and the
+recurrent GRUCell, LSTMCell and RNN (a cell over time).
 
 Linear weights are (in, out), as in the JAX package, so parameters move
 across by name without transposes. The JAX package returns new cache
@@ -703,3 +704,82 @@ class Flatten(Layer):
         from ..ops.tensor import flatten
 
         return flatten(x, self.start_axis)
+
+
+class GRUCell(Layer):
+    """One GRU step (reference: dygraph/nn.py GRUUnit):
+    ``forward(x, h) -> (new_h, new_h)``, gates r, z, n with z * h +
+    (1 - z) * n, parameters ``w_ih`` (in, 3H), ``w_hh`` (H, 3H),
+    ``bias`` (3H,)."""
+
+    def __init__(self, input_size: int, hidden_size: int, dtype=None, *,
+                 device=None, generator=None):
+        super().__init__()
+        self.hidden_size = hidden_size
+        kw = dict(device=device, generator=generator)
+        self.create_parameter("w_ih", (input_size, 3 * hidden_size), dtype,
+                              I.XavierUniform(), **kw)
+        self.create_parameter("w_hh", (hidden_size, 3 * hidden_size), dtype,
+                              I.XavierUniform(), **kw)
+        self.create_parameter("bias", (3 * hidden_size,), dtype,
+                              I.Constant(0.0), is_bias=True, **kw)
+
+    def forward(self, x, h):
+        gates = x @ self.w_ih + self.bias
+        hh = h @ self.w_hh
+        hs = self.hidden_size
+        r = torch.sigmoid(gates[..., :hs] + hh[..., :hs])
+        z = torch.sigmoid(gates[..., hs:2 * hs] + hh[..., hs:2 * hs])
+        n = torch.tanh(gates[..., 2 * hs:] + r * hh[..., 2 * hs:])
+        new_h = (1.0 - z) * n + z * h
+        return new_h, new_h
+
+
+class LSTMCell(Layer):
+    """One LSTM step: ``forward(x, (h, c)) -> (new_h, (new_h, new_c))``,
+    gates i, f, g, o, ``forget_bias`` added to f before its sigmoid;
+    parameters ``w_ih`` (in, 4H), ``w_hh`` (H, 4H), ``bias`` (4H,)."""
+
+    def __init__(self, input_size: int, hidden_size: int,
+                 forget_bias: float = 1.0, dtype=None, *, device=None,
+                 generator=None):
+        super().__init__()
+        self.hidden_size, self.forget_bias = hidden_size, forget_bias
+        kw = dict(device=device, generator=generator)
+        self.create_parameter("w_ih", (input_size, 4 * hidden_size), dtype,
+                              I.XavierUniform(), **kw)
+        self.create_parameter("w_hh", (hidden_size, 4 * hidden_size), dtype,
+                              I.XavierUniform(), **kw)
+        self.create_parameter("bias", (4 * hidden_size,), dtype,
+                              I.Constant(0.0), is_bias=True, **kw)
+
+    def forward(self, x, state):
+        h, c = state
+        gates = x @ self.w_ih + h @ self.w_hh + self.bias
+        i, f, g, o = torch.chunk(gates, 4, dim=-1)
+        new_c = (torch.sigmoid(f + self.forget_bias) * c
+                 + torch.sigmoid(i) * torch.tanh(g))
+        new_h = torch.sigmoid(o) * torch.tanh(new_c)
+        return new_h, (new_h, new_c)
+
+
+class RNN(Layer):
+    """A cell run over time (the reference's recurrent_op / DynamicRNN on
+    padded batches): ``forward(x, initial_state, lengths=None) -> (outs,
+    final_state)``; with ``lengths`` a padded step freezes the state
+    and outputs zeros. ``time_major``: x is (T, B, ...)."""
+
+    def __init__(self, cell: Layer, time_major: bool = False):
+        super().__init__()
+        self.cell = cell
+        self.time_major = time_major
+
+    def forward(self, x, initial_state, lengths=None):
+        from ..ops.rnn import dynamic_rnn
+
+        if self.time_major:
+            x = x.transpose(0, 1)
+        outs, final = dynamic_rnn(self.cell, x, initial_state, lengths)
+        if self.time_major:
+            outs = outs.transpose(0, 1)
+        return outs, final

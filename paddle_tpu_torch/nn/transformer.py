@@ -1,7 +1,8 @@
 """Transformer layers (counterpart of paddle_tpu/nn/transformer.py): the
 position-wise FFN, the encoder and decoder blocks in their post-norm
 (BERT) and pre-norm forms, the two stacks, the sinusoidal and learned
-position signals, and the cached decode step of a decoder block.
+position signals, and the cached decode step of a decoder block; the
+encoder's FFN may be the Switch-MoE FFN of nn/moe.py.
 
 Parameter names are the JAX package's (``layers.<i>.self_attn.q_proj``,
 ``ffn.fc1``, ``norm1``, ...), so weights cross with
@@ -13,16 +14,18 @@ key-padding mask)."""
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
 import numpy as np
 import torch
 
-from ..core.enforce import UnimplementedError, enforce
+from ..core.enforce import InvalidArgumentError, UnimplementedError, enforce
 from ..core.places import resolve_device
 from .layer import Layer, LayerList, remat_call
 from .layers import Dropout, Embedding, LayerNorm, Linear, MultiHeadAttention
+from .moe import SwitchFFN, not_recording
 
 
 class FeedForward(Layer):
@@ -41,12 +44,8 @@ class FeedForward(Layer):
         return self.fc2(self.drop(self.fc1(x)))
 
 
-def _check_supported(seq_parallel, moe_experts):
+def _check_supported(seq_parallel):
     """Options of later slices raise, naming their ROADMAP.md item."""
-    if moe_experts:
-        raise UnimplementedError(
-            "moe_experts > 0 (Switch-MoE FFN, nn/moe.py) is not ported yet: "
-            "ROADMAP queue 1 item 9 (gpt-moe)")
     if seq_parallel is not None:
         raise UnimplementedError(
             f"seq_parallel={seq_parallel!r} is not ported yet: ROADMAP queue "
@@ -55,9 +54,12 @@ def _check_supported(seq_parallel, moe_experts):
 
 class TransformerEncoderLayer(Layer):
     """Self-attention and FFN, each with dropout on its residual branch:
-    pre-norm (``normalize_before``) or post-norm (BERT's). The Switch-MoE
-    FFN (``moe_experts > 0``) and ``seq_parallel`` raise, naming their
-    ROADMAP items."""
+    pre-norm (``normalize_before``) or post-norm (BERT's).
+    ``moe_experts > 0`` makes the FFN a Switch-MoE FFN (nn/moe.py
+    ``SwitchFFN``, default tanh GELU whatever ``activation`` says, as in
+    the JAX package), whose aux terms ride its buffers
+    (``*.ffn.aux_loss``). ``seq_parallel`` raises, naming its ROADMAP
+    item."""
 
     def __init__(self, d_model: int, nhead: int, dim_feedforward: int,
                  dropout: float = 0.1, activation: str = "gelu",
@@ -67,14 +69,18 @@ class TransformerEncoderLayer(Layer):
                  moe_capacity_factor: float = 1.25, *, device=None,
                  generator=None):
         super().__init__()
-        _check_supported(seq_parallel, moe_experts)
+        _check_supported(seq_parallel)
         kw = dict(device=device, generator=generator)
         self.normalize_before = normalize_before
         self.attn_window = attn_window
         self.self_attn = MultiHeadAttention(d_model, nhead, dropout=dropout,
                                             use_flash=use_flash, **kw)
-        self.ffn = FeedForward(d_model, dim_feedforward, dropout,
-                               activation, **kw)
+        if moe_experts:
+            self.ffn = SwitchFFN(d_model, dim_feedforward, moe_experts,
+                                 capacity_factor=moe_capacity_factor, **kw)
+        else:
+            self.ffn = FeedForward(d_model, dim_feedforward, dropout,
+                                   activation, **kw)
         self.norm1 = LayerNorm(d_model, **kw)
         self.norm2 = LayerNorm(d_model, **kw)
         self.drop1 = Dropout(dropout)
@@ -102,7 +108,12 @@ class TransformerEncoder(Layer):
     ``scan_layers=True`` is the JAX package's ``lax.scan`` over stacked
     layers, whose reason is compile size; PyTorch runs eagerly, so here
     it runs the same per-layer loop, which is the same math, and keeps
-    the JAX rule that dropout be 0 in training."""
+    the JAX rule that dropout be 0 in training; the JAX scan drops what
+    a Switch-MoE FFN records, so its buffers are not recorded there
+    either. ``moe_experts`` with ``remat`` and no ``scan_layers`` raises
+    :class:`InvalidArgumentError`: the JAX encoder cannot run it (the
+    FFN's buffer write inside ``jax.checkpoint`` raises
+    ``UnexpectedTracerError``)."""
 
     def __init__(self, num_layers: int, d_model: int, nhead: int,
                  dim_feedforward: int, dropout: float = 0.1,
@@ -132,23 +143,45 @@ class TransformerEncoder(Layer):
         self.remat_policy = remat_policy
         self._dropout_p = dropout
         self.scan_layers = scan_layers
+        self.moe = bool(moe_experts)
+        self._check_moe_remat()
+
+    def _check_moe_remat(self):
+        scan = self.scan_layers and len(self.layers) > 1
+        if self.moe and self.remat and not scan:
+            raise InvalidArgumentError(
+                "moe_experts with remat=True (unrolled layers): the JAX "
+                "reference cannot run it (the Switch FFN's buffer write "
+                "inside jax.checkpoint raises UnexpectedTracerError); use "
+                "remat=False")
 
     def forward(self, x, mask=None, segment_ids=None):
-        if self.scan_layers and len(self.layers) > 1:
+        scan = self.scan_layers and len(self.layers) > 1
+        if scan:
             enforce(self._dropout_p == 0.0 or not self.training,
                     "scan_layers needs dropout == 0 in training (one "
                     "traced body would reuse its RNG across layers); "
                     "unroll instead")
+        self._check_moe_remat()
         remat = self.remat and torch.is_grad_enabled()
         for layer in self.layers:
+            fn = functools.partial(_unrecorded, layer) if scan else layer
             if remat:
-                x = remat_call(layer, x, mask=mask, segment_ids=segment_ids,
+                x = remat_call(fn, x, mask=mask, segment_ids=segment_ids,
                                remat_policy=self.remat_policy)
             else:
-                x = layer(x, mask=mask, segment_ids=segment_ids)
+                x = fn(x, mask=mask, segment_ids=segment_ids)
         if self.final_norm is not None:
             x = self.final_norm(x)
         return x
+
+
+def _unrecorded(layer, *args, **kwargs):
+    """``layer(*args, **kwargs)`` with its Switch FFN's buffers not
+    recorded, in a remat recompute too: the JAX package's scan over
+    stacked layers drops them."""
+    with not_recording(layer):
+        return layer(*args, **kwargs)
 
 
 class TransformerDecoderLayer(Layer):
@@ -163,7 +196,7 @@ class TransformerDecoderLayer(Layer):
                  seq_parallel=None, attn_window=None, *, device=None,
                  generator=None):
         super().__init__()
-        _check_supported(seq_parallel, 0)
+        _check_supported(seq_parallel)
         kw = dict(device=device, generator=generator)
         self.normalize_before = normalize_before
         self.attn_window = attn_window

@@ -40,6 +40,7 @@ from ..core.dtypes import POLICIES, policy_scope
 from ..core.enforce import UnimplementedError, enforce
 from ..core.random import (make_generator, next_key, rng_scope,
                            seed_generator, split_key)
+from ..nn.layer import detach_buffers
 from ..optimizer.optimizers import Optimizer
 
 _MULTI_DEVICE = "is not ported yet: ROADMAP queue 1 item 11 (distributed)"
@@ -123,6 +124,7 @@ class Trainer:
             self.optimizer.scale_loss(loss, self.opt_state).backward()
         else:
             loss.backward()
+        detach_buffers(self.model)
         grads = {name: (p.grad if p.grad is not None
                         else torch.zeros_like(p))
                  for name, p in self.params.items()}
@@ -256,16 +258,12 @@ class Trainer:
                    mesh=None, aux_loss_weight: float = 0.0,
                    router_z_loss_weight: float = 0.0, **kw) -> "Trainer":
         """For (x, label) batches: ``dict(x=..., label=...)`` or a tuple
-        ``(x, label)``; loss = ``loss_fn(model(x), label)``. The MoE loss
-        terms (``aux_loss_weight``, ``router_z_loss_weight``) come with
-        the MoE layers and raise until then."""
-        for name, value in (("aux_loss_weight", aux_loss_weight),
-                            ("router_z_loss_weight", router_z_loss_weight)):
-            if value:
-                raise UnimplementedError(
-                    f"Trainer.supervised {name}= (the MoE loss terms of "
-                    "nn/moe.py) is not ported yet: ROADMAP queue 1 item 9 "
-                    "(gpt-moe)")
+        ``(x, label)``; loss = ``loss_fn(model(x), label)``.
+        ``aux_loss_weight`` and ``router_z_loss_weight`` add those
+        multiples of the sum of every buffer named ``*aux_loss`` and
+        ``*router_z_loss`` (the MoE terms a SwitchFFN records in its
+        forward, nn/moe.py) to the training loss; ``eval_step`` reports
+        the task loss alone, as in the JAX Trainer."""
 
         def loss_builder(model, batch, generator):
             if isinstance(batch, dict):
@@ -275,6 +273,15 @@ class Trainer:
             out = model(x)
             loss = loss_fn(out, label)
             metrics = metrics_fn(out, label) if metrics_fn else {}
+            if generator is not None:
+                buffers = dict(model.named_buffers())
+                for weight, suffix in ((aux_loss_weight, "aux_loss"),
+                                       (router_z_loss_weight,
+                                        "router_z_loss")):
+                    if weight:
+                        loss = loss + weight * sum(
+                            v for k, v in buffers.items()
+                            if k.endswith(suffix))
             return loss, metrics
 
         return cls(model, optimizer, loss_builder, mesh=mesh, **kw)

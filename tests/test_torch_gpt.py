@@ -132,7 +132,19 @@ def test_generate_sampled_needs_generator(pair):
 ])
 def test_later_slice_configs_raise(over, item):
     """Options of later slices raise when built (remat and dropout are
-    ported: test_torch_train runs them)."""
+    ported: test_torch_train runs them). The Switch-MoE FFN (item 9) is
+    ported: a MoE GPT's logits match the JAX model's (its training,
+    serving and remat error: tests/test_torch_moe.py)."""
+    if "moe_experts" in over:
+        jm, tm = _pair(**over)
+        ids = _ids((2, 12), 9)
+        with torch.no_grad():
+            got = tm(torch.from_numpy(ids).long())
+        _close(got, jm(jnp.asarray(ids)))
+        assert [n for n, _ in tm.named_buffers()][:3] == [
+            "blocks.0.ffn.aux_loss", "blocks.0.ffn.router_z_loss",
+            "blocks.0.ffn.kept_fraction"]
+        return
     with pytest.raises(UnimplementedError, match=item):
         model = TG.GPTForCausalLM(TG.GPTConfig(**dict(CFG, **over)),
                                   device="cpu")

@@ -51,6 +51,10 @@ DEEPFM_SLICE = ("core.random", "nn.layer", "nn.sparse", "optimizer.sparse",
 # the modules of the NMT and ViT slice
 NMT_SLICE = ("nn.transformer", "ops.decode", "models.transformer",
              "models.vit", "models", "nn")
+# the modules of the MoE, CNN-zoo and recurrent slice
+MOE_ZOO_RNN_SLICE = ("nn.moe", "nn.rnn_layers", "ops.rnn", "ops.sequence",
+                     "models.vgg", "models.alexnet", "models.googlenet",
+                     "models.se_resnext", "models.stacked_lstm")
 
 
 def _imported(path):
@@ -90,7 +94,7 @@ def test_package_imports_without_triton_nvcc_or_jax():
 
 
 @pytest.mark.parametrize("name", RESILIENCE_SLICE + CONV_SLICE
-                         + DEEPFM_SLICE + NMT_SLICE)
+                         + DEEPFM_SLICE + NMT_SLICE + MOE_ZOO_RNN_SLICE)
 def test_checkpoint_slice_modules_are_jax_free(name):
     path = PKG / (name.replace(".", "/") + ".py")
     if not path.exists():
@@ -210,6 +214,50 @@ def test_nmt_and_vit_without_device_raise_without_cuda(no_cuda):
     model = TT.TransformerNMT(TT.NMTConfig.tiny(), device="cpu")
     assert {t.device.type for t in model.state_dict().values()} == {"cpu"}
     assert TV.ViT(TV.ViTConfig.tiny(), device="cpu").pos_embed.is_cpu
+
+
+def test_moe_zoo_and_rnn_without_device_raise_without_cuda(no_cuda):
+    from paddle_tpu_torch import nn as tnn
+    from paddle_tpu_torch.models import (alexnet, bert, googlenet,
+                                         se_resnext, stacked_lstm, vgg)
+
+    moe_gpt = TG.GPTConfig.tiny()
+    moe_gpt.moe_experts = 4
+    for make in (lambda: TG.GPTForCausalLM(moe_gpt),
+                 lambda: bert.BertForPretraining(bert.BertConfig.moe_smoke()),
+                 lambda: tnn.SwitchFFN(8, 16, 4),
+                 lambda: vgg.vgg16(10, image_size=32),
+                 lambda: alexnet.alexnet(10),
+                 lambda: googlenet.googlenet(10),
+                 lambda: se_resnext.SEResNeXt((1, 1, 1, 1), 10),
+                 lambda: stacked_lstm.StackedLSTM(64, 16, 16, 1),
+                 lambda: tnn.LSTM(4, 8), lambda: tnn.GRU(4, 8),
+                 lambda: tnn.LSTMCell(4, 8), lambda: tnn.GRUCell(4, 8)):
+        with pytest.raises(DeviceUnavailableError):
+            make()
+    model = TG.GPTForCausalLM(moe_gpt, device="cpu")
+    assert {t.device.type for t in model.state_dict().values()} == {"cpu"}
+    model = stacked_lstm.StackedLSTM(64, 16, 16, 1, device="cpu")
+    assert {p.device.type for p in model.parameters()} == {"cpu"}
+
+
+def test_moe_gpt_on_cpu_takes_the_plain_versions_and_counts_nothing():
+    """A MoE GPT's training step and arena run end to end on the CPU
+    through the flash and decode wrappers' plain versions, counting no
+    launch."""
+    cfg = TG.GPTConfig(vocab_size=64, hidden_size=128, num_layers=1,
+                       num_heads=2, num_kv_heads=1, intermediate_size=128,
+                       max_position=128, moe_experts=4)
+    model = TG.GPTForCausalLM(cfg, device="cpu")
+    n = (K.decode_attention.launches, FK.flash_attention_fwd.launches,
+         FK.flash_attention_dq.launches, FK.flash_attention_dkv.launches)
+    model.forward_loss(torch.randint(1, 64, (2, 64))).backward()
+    dec = BatchedDecoder(model.eval(), slots=2, capacity=128, device="cpu")
+    rid = dec.submit([1, 2, 3], 4)
+    assert dec.run()[rid].shape == (4,)
+    assert (K.decode_attention.launches, FK.flash_attention_fwd.launches,
+            FK.flash_attention_dq.launches,
+            FK.flash_attention_dkv.launches) == n
 
 
 def test_nmt_decode_on_cpu_takes_the_plain_versions_and_counts_nothing():

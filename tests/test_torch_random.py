@@ -8,7 +8,8 @@ package's, bit for bit, on the CPU:
   package's keys, and outside one takes the stream's next key;
 - after ``seed(s)`` and building the same model in both packages, a
   fresh Trainer's start key is the JAX Trainer's, for GPT, BERT, ResNet,
-  MnistMLP, DeepFM, the Transformer NMT and ViT at tiny sizes: the port draws one key per
+  MnistMLP, DeepFM, the Transformer NMT, ViT, GPT-moe, BERT-moe,
+  SE-ResNeXt and StackedLSTM at tiny sizes: the port draws one key per
   parameter, in the JAX package's creation order. The JAX models are
   built with their initializers returning zeros (an eager initializer
   compiles a random kernel per shape, most of such a test's time); the
@@ -37,6 +38,8 @@ from paddle_tpu.models import deepfm as JDF
 from paddle_tpu.models import gpt as JG
 from paddle_tpu.models import mnist as JM
 from paddle_tpu.models import resnet as JRN
+from paddle_tpu.models import se_resnext as JSX
+from paddle_tpu.models import stacked_lstm as JSL
 from paddle_tpu.models import transformer as JNMT
 from paddle_tpu.models import vit as JV
 from paddle_tpu_torch import nn as tnn
@@ -48,6 +51,8 @@ from paddle_tpu_torch.models import deepfm as TDF
 from paddle_tpu_torch.models import gpt as TG
 from paddle_tpu_torch.models import mnist as TM
 from paddle_tpu_torch.models import resnet as TRN
+from paddle_tpu_torch.models import se_resnext as TSX
+from paddle_tpu_torch.models import stacked_lstm as TSL
 from paddle_tpu_torch.models import transformer as TNMT
 from paddle_tpu_torch.models import vit as TV
 from paddle_tpu_torch.parallel import Trainer
@@ -153,6 +158,7 @@ def test_create_parameter_draws_from_the_stream():
 
 GPT_CFG = dict(vocab_size=256, hidden_size=64, num_layers=2, num_heads=4,
                num_kv_heads=2, intermediate_size=128, max_position=64)
+GPT_MOE_CFG = dict(GPT_CFG, moe_experts=4)
 BERT_CFG = dict(vocab_size=256, hidden_size=64, num_layers=2, num_heads=2,
                 intermediate_size=128, max_position=64)
 
@@ -181,6 +187,16 @@ MODELS = {
                                         device="cpu")),
     "vit": (lambda: JV.ViT(JV.ViTConfig.tiny()),
             lambda: TV.ViT(TV.ViTConfig.tiny(), device="cpu")),
+    "gpt_moe": (lambda: JG.GPTForCausalLM(JG.GPTConfig(**GPT_MOE_CFG)),
+                lambda: TG.GPTForCausalLM(TG.GPTConfig(**GPT_MOE_CFG),
+                                          device="cpu")),
+    "bert_moe": (lambda: JB.BertForPretraining(JB.BertConfig.moe_smoke(2)),
+                 lambda: TB.BertForPretraining(TB.BertConfig.moe_smoke(2),
+                                               device="cpu")),
+    "se_resnext": (lambda: JSX.SEResNeXt((1, 1, 1, 1), 10),
+                   lambda: TSX.SEResNeXt((1, 1, 1, 1), 10, device="cpu")),
+    "stacked_lstm": (lambda: JSL.StackedLSTM(64, 16, 16, 2),
+                     lambda: TSL.StackedLSTM(64, 16, 16, 2, device="cpu")),
 }
 
 

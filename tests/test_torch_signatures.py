@@ -172,7 +172,34 @@ def test_the_comparison_sees_the_shared_surface():
                  "models.transformer:nmt_loss",
                  "models.transformer:nmt_metrics",
                  "models.vit:ViT.__init__", "models.vit:ViT.forward",
-                 "models.vit:loss_fn"):
+                 "models.vit:loss_fn",
+                 # the MoE, CNN-zoo and recurrent slice
+                 "nn.moe:switch_moe", "nn.moe:SwitchFFN.__init__",
+                 "nn.moe:SwitchFFN.capacity", "nn.moe:SwitchFFN.forward",
+                 "nn.rnn_layers:LSTM.__init__", "nn.rnn_layers:GRU.forward",
+                 "nn.layers:GRUCell.__init__", "nn.layers:LSTMCell.forward",
+                 "nn.layers:RNN.__init__", "nn.layers:RNN.forward",
+                 "ops.rnn:lstm_unit", "ops.rnn:gru_unit", "ops.rnn:lstm",
+                 "ops.rnn:gru", "ops.rnn:lstmp", "ops.rnn:row_conv",
+                 "ops.rnn:conv_shift", "ops.rnn:sequence_conv",
+                 "ops.rnn:dynamic_rnn", "ops.sequence:sequence_mask",
+                 "models.vgg:VGG.__init__", "models.vgg:vgg16",
+                 "models.vgg:loss_fn", "models.alexnet:AlexNet.__init__",
+                 "models.alexnet:alexnet", "models.alexnet:loss_fn",
+                 "models.googlenet:GoogLeNet.__init__",
+                 "models.googlenet:Inception.__init__",
+                 "models.googlenet:AuxHead.__init__",
+                 "models.googlenet:googlenet", "models.googlenet:loss_fn",
+                 "models.se_resnext:SEResNeXt.__init__",
+                 "models.se_resnext:SEBottleneck.__init__",
+                 "models.se_resnext:SEBlock.__init__",
+                 "models.se_resnext:se_resnext50",
+                 "models.se_resnext:loss_fn",
+                 "models.stacked_lstm:StackedLSTM.__init__",
+                 "models.stacked_lstm:StackedLSTM.forward",
+                 "models.stacked_lstm:loss_fn",
+                 "models.stacked_lstm:eval_metrics",
+                 "parallel.api:Trainer.supervised"):
         assert want in labels
     assert set(INTENDED) <= labels
 
@@ -302,10 +329,22 @@ def test_unported_arguments_raise_naming_their_item():
     opt = topt.Adam(1e-3)
     _raises("queue 1 item 11", Trainer.supervised, model, opt,
             lambda o, y: o.sum(), mesh=object())
-    _raises("queue 1 item 9", Trainer.supervised, model, opt,
-            lambda o, y: o.sum(), aux_loss_weight=0.01)
-    _raises("queue 1 item 9", Trainer.supervised, model, opt,
-            lambda o, y: o.sum(), router_z_loss_weight=1e-3)
+    # the MoE loss terms are ported (tests/test_torch_moe.py holds them
+    # against the JAX Trainer): a training step adds weight x the Switch
+    # FFN's recorded term, eval_step reports the task loss
+    moe = tnn.SwitchFFN(4, 8, 2, device="cpu")
+    x = torch.randn(2, 3, 4, generator=torch.Generator().manual_seed(0))
+    for name in ("aux_loss", "router_z_loss"):
+        weight = {"aux_loss": "aux_loss_weight",
+                  "router_z_loss": "router_z_loss_weight"}[name]
+        tr = Trainer.supervised(moe, topt.SGD(0.0), lambda o, y: o.sum(),
+                                **{weight: 0.5})
+        loss, _ = tr.train_step((x, None))
+        task, _ = tr.eval_step((x, None))
+        term = getattr(moe, name)
+        assert float(term) > 0 and not term.requires_grad
+        torch.testing.assert_close(loss, task + 0.5 * term, atol=1e-5,
+                                   rtol=0)
     entry = {"weight_int8": torch.zeros((4, 2), dtype=torch.int8),
              "weight_scale": torch.ones(2), "act_scale": torch.tensor(1.0)}
     _raises("queue 2 item 3", int8_linear, torch.zeros(3, 4), entry,

@@ -171,8 +171,17 @@ def test_packed_segments_are_isolated():
 def test_encoder_options_of_later_slices_raise():
     from paddle_tpu_torch.core import UnimplementedError
 
-    with pytest.raises(UnimplementedError, match="item 9"):
-        TT.TransformerEncoder(moe_experts=4, device="cpu", **ENC)
+    from paddle_tpu_torch.core import InvalidArgumentError
+
+    # the Switch-MoE FFN (item 9) is ported (tests/test_torch_moe.py
+    # holds it against the JAX encoder); with unrolled remat it raises
+    # a typed error, as the JAX encoder cannot run it
+    enc = TT.TransformerEncoder(moe_experts=4, device="cpu", **ENC)
+    assert type(enc.layers[0].ffn).__name__ == "SwitchFFN"
+    assert enc(torch.zeros(1, 8, 128)).shape == (1, 8, 128)
+    with pytest.raises(InvalidArgumentError, match="remat"):
+        TT.TransformerEncoder(moe_experts=4, remat=True, device="cpu",
+                              **ENC)
     with pytest.raises(UnimplementedError, match="item 11"):
         TT.TransformerEncoder(seq_parallel="ring", device="cpu", **ENC)
     enc = TT.TransformerEncoder(scan_layers=True, device="cpu",

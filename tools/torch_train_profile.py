@@ -30,7 +30,23 @@ float32). ``--model``:
   ids in [3, vocab)), forward_fused_loss; tokens/s counts target tokens;
 - ``vit``: ViT-B/16 as bench.py runs it (:655), ViTConfig.base() with
   remat, NHWC, the stream seeded 0, one (128, 224, 224, 3) batch of
-  seeded images, labels arange(128) % 1000; it prints images/s.
+  seeded images, labels arange(128) % 1000; it prints images/s;
+- ``bert_moe``: bench.py's bench_bert_moe (:443-483), BertConfig.base()
+  with dropout 0 and an 8-expert top-1 Switch FFN (capacity factor
+  1.25), the stream seeded 0, one (16, 128) batch as bench.py makes it
+  (numpy seed 0, 15% MLM labels), forward_fused_loss + 0.01 x the
+  layers' aux losses;
+- ``gpt_moe``: GPTConfig.small() with 8 experts, capacity factor 1.25,
+  no remat, max_position 1024, the stream seeded 0, one (8, 1024) batch
+  of seeded ids, forward_loss + 0.01 x the aux losses;
+- ``vgg16``, ``alexnet``, ``googlenet``, ``se_resnext50`` (NHWC) and
+  ``se_resnext50_nchw``: the bench's zoo cells (bench.py:2259-2365), 224
+  px, 1000 classes, batch 64, 256, 128, 64 and 64, the stream seeded 0,
+  seeded images, all-zero labels (googlenet's aux heads in its loss);
+  images/s;
+- ``stacked_lstm``: bench model 6 (bench.py:2227-2256), vocab 5149,
+  embed and hidden 512, 3 layers, T=100, batch 64, lengths in [50, 100]
+  (numpy seed 0), labels ids[:, 0] % 2; examples/s.
 
 Each model and policy named runs in turn, in one process.
 
@@ -46,7 +62,9 @@ time.
     python3 tools/torch_train_profile.py [--steps 5]
         [--amp float32 mixed_bf16 bfloat16]
         [--model gpt bert_base bert_packed resnet50 resnet50_nchw
-                 deepfm deepfm_sparse nmt vit] [--vocab 100000 10000000]
+                 deepfm deepfm_sparse nmt vit bert_moe gpt_moe vgg16
+                 alexnet googlenet se_resnext50 se_resnext50_nchw
+                 stacked_lstm] [--vocab 100000 10000000]
 """
 
 import argparse
@@ -67,6 +85,12 @@ KINDS = (("flash forward", ("flash_fwd_kernel",)),
          ("flash dk/dv", ("flash_dkv_kernel",)),
          # cuBLAS 12.x on Hopper names many GEMMs nvjet_* (bf16 ones too)
          ("GEMM", ("gemm", "xmma", "cutlass", "splitKreduce", "nvjet")))
+
+
+# bench.py's zoo cells: (constructor, batch, data format)
+ZOO = ["vgg16", "alexnet", "googlenet", "se_resnext50", "se_resnext50_nchw"]
+ZOO_BATCH = {"vgg16": 64, "alexnet": 256, "googlenet": 128,
+             "se_resnext50": 64, "se_resnext50_nchw": 64}
 
 
 def kind_of(name: str) -> str:
@@ -90,7 +114,8 @@ def main() -> int:
     ap.add_argument("--model", nargs="+", default=["gpt"],
                     choices=["gpt", "bert_base", "bert_packed", "resnet50",
                              "resnet50_nchw", "deepfm", "deepfm_sparse",
-                             "nmt", "vit"])
+                             "nmt", "vit", "bert_moe", "gpt_moe"] + ZOO
+                    + ["stacked_lstm"])
     ap.add_argument("--vocab", nargs="+", type=int,
                     default=[100_000, 10_000_000],
                     help="DeepFM's total vocab (the deepfm models only)")
@@ -221,6 +246,101 @@ def vit_setup(torch):
             128, None, "images")
 
 
+def moe_aux(model):
+    """0.01 x the sum of the Switch FFNs' aux losses (the bench's
+    weight)."""
+    return 0.01 * sum(v for k, v in model.named_buffers()
+                      if k.endswith("ffn.aux_loss"))
+
+
+def bert_moe_setup(torch):
+    """bench_bert_moe's model, one (16, 128) batch (numpy seed 0) and the
+    fused loss + 0.01 x aux."""
+    import numpy as np
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models import bert
+
+    ptt.seed(0)
+    cfg = bert.BertConfig.base()
+    cfg.dropout, cfg.moe_experts = 0.0, 8
+    model = bert.BertForPretraining(cfg, device="cuda")
+    rng = np.random.default_rng(0)
+    b, t = 16, 128
+    ids = rng.integers(0, cfg.vocab_size, (b, t))
+    mlm = np.where(rng.random((b, t)) < 0.15,
+                   rng.integers(0, cfg.vocab_size, (b, t)), -100)
+    nsp = rng.integers(0, 2, (b,))
+    batch = tuple(torch.as_tensor(a, device="cuda") for a in (ids, mlm, nsp))
+    return (model, batch,
+            lambda m, bt, g: (m.forward_fused_loss(*bt) + moe_aux(m), {}),
+            b * t, None, "tokens")
+
+
+def gpt_moe_setup(torch):
+    """GPTConfig.small() with 8 experts (no remat), one (8, 1024) batch
+    of seeded ids, forward_loss + 0.01 x aux."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models import gpt
+
+    ptt.seed(0)
+    cfg = gpt.GPTConfig.small()
+    cfg.max_position, cfg.moe_experts = 1024, 8
+    model = gpt.GPTForCausalLM(cfg, device="cuda")
+    ids = torch.randint(0, cfg.vocab_size, (8, 1024),
+                        generator=torch.Generator().manual_seed(6)).cuda()
+    return (model, ids,
+            lambda m, bt, g: (m.forward_loss(bt) + moe_aux(m), {}),
+            8 * 1024, None, "tokens")
+
+
+def zoo_setup(torch, name):
+    """A zoo cell as bench.py runs it: 224 px seeded images, all-zero
+    labels, the model's loss_fn."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models import alexnet, googlenet, se_resnext, vgg
+
+    ptt.seed(0)
+    b = ZOO_BATCH[name]
+    mod, model = {
+        "vgg16": (vgg, lambda: vgg.vgg16(1000, device="cuda")),
+        "alexnet": (alexnet, lambda: alexnet.alexnet(1000, device="cuda")),
+        "googlenet": (googlenet,
+                      lambda: googlenet.googlenet(1000, device="cuda")),
+        "se_resnext50": (se_resnext, lambda: se_resnext.se_resnext50(
+            1000, data_format="NHWC", device="cuda")),
+        "se_resnext50_nchw": (se_resnext, lambda: se_resnext.se_resnext50(
+            1000, data_format="NCHW", device="cuda")),
+    }[name]
+    model = model()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(b, 3, 224, 224, generator=gen, device="cuda")
+    label = torch.zeros(b, dtype=torch.long, device="cuda")
+    return (model, (x, label),
+            lambda m, bt, g: (mod.loss_fn(m(bt[0]), bt[1]), {}),
+            b, None, "images")
+
+
+def stacked_lstm_setup(torch):
+    """bench_stacked_lstm's cell: ids and lengths (numpy seed 0), labels
+    ids[:, 0] % 2."""
+    import numpy as np
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models import stacked_lstm as SL
+
+    ptt.seed(0)
+    b, t = 64, 100
+    model = SL.StackedLSTM(5149, 512, 512, 3, device="cuda")
+    rng = np.random.default_rng(0)
+    ids = torch.as_tensor(rng.integers(0, 5149, (b, t)), device="cuda")
+    lengths = torch.as_tensor(rng.integers(t // 2, t + 1, (b,)),
+                              device="cuda")
+    return (model, (ids, lengths),
+            lambda m, bt, g: (SL.loss_fn(m(*bt), bt[0][:, 0] % 2), {}),
+            b, None, "examples")
+
+
 def deepfm_setup(torch, vocab, sparse, policy):
     """bench.py's DeepFM cell at ``vocab``: a step function (Trainer for
     dense updates, sparse_minimize_fn for row-sparse ones, the loss under
@@ -265,14 +385,18 @@ def deepfm_setup(torch, vocab, sparse, policy):
 
 
 def trainer_setup(torch, name, policy):
-    """The Trainer step of the GPT, BERT, ResNet-50, NMT or ViT model
-    ``name``; the tokens (or images) a step takes, its real tokens and
-    the unit."""
+    """The Trainer step of the model ``name``; the tokens (or images,
+    examples) a step takes, its real tokens and the unit."""
     from paddle_tpu_torch import optimizer
     from paddle_tpu_torch.parallel import Trainer
 
     model, batch, loss_builder, tokens, real, unit = (
         gpt_setup(torch) if name == "gpt"
+        else gpt_moe_setup(torch) if name == "gpt_moe"
+        else bert_moe_setup(torch) if name == "bert_moe"
+        else zoo_setup(torch, name) if name in ZOO
+        else stacked_lstm_setup(torch)
+        if name == "stacked_lstm"
         else resnet_setup(torch, "NCHW" if name.endswith("nchw") else "NHWC")
         if name.startswith("resnet50")
         else nmt_setup(torch) if name == "nmt"
