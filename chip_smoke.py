@@ -331,7 +331,51 @@ Phases, each printed as it runs:
    ids[:, 0] % 2; the float64 check step at B=4 with padded rows, then
    B=64 and B=512 under mixed_bf16: finite and falling, examples/s, ms
    per step, device ops per step and the idle share (the loop over time
-   is host-paced).
+   is host-paced);
+26. ``[train:recommender]``, the recommender book model at MovieLens-1M's
+   widths (6041 users, 3953 movies, 2 genders, 7 ages, 21 jobs, 19
+   categories, embed 32, fc 200) on synthetic batches from numpy
+   (ratings uniform in [1, 5], 3 category ids a row): a check step at
+   B=4, card against CPU, float64 gated (loss 1e-4, each grad 1e-3 of
+   its parameter's largest CPU entry) and float32 reported; then B=256
+   and B=8192 in float32, Adam(5e-3), 20 steps (2 untimed): losses
+   finite and falling, |pred| <= 5 (up to float32 rounding, 5 x (1 +
+   1e-6)), samples/s, ms per step, device ops per step and the idle
+   share; no hand kernel launches;
+27. ``[train:lora]``, bench_gpt's shape (GPTConfig.small(), remat,
+   max_position 1024, one (8, 1024) batch, mixed_bf16, weights seed 5):
+   the full-parameter step, then apply_lora(r=8, alpha=16,
+   targets=("q_proj", "v_proj")) on a fresh model of the same seed with
+   every other parameter frozen, Adam(5e-3) through Trainer on the
+   adapters only, 10 steps. Gates: one LoRA step launches the flash
+   forward, dq and dk/dv as often as the full-parameter step; every
+   frozen weight bitwise unchanged; no frozen weight has a gradient and
+   the optimizer holds state for the adapters only; a lora_b off zero;
+   losses finite and falling. Printed: ms per step and peak memory of
+   both. Then merge_lora: the merged model's logits (2 x 128 tokens,
+   float32) within 2 x the adapted model's distance from a float64 CPU
+   forward of it, plus 2e-5 (the JAX test's bound), of the adapted
+   model's; the merged model serves 8 requests through the paged
+   BatchedDecoder, the paged kernel launching exactly layers x (ticks +
+   admissions) times and no other kernel, every token held to the
+   teacher-forced check;
+28. ``[train:word2vec]``, the NCE book model (tests/test_book_models.py:
+   86-99): the mean of 4 context embeddings into NCE(log_uniform, 5
+   negatives) at PTB's 10000-word vocabulary, embed 32, B=4096, target
+   = sum of the context mod the vocabulary (numpy seed 0): a check step
+   with custom_neg (exact), card against CPU, float64 gated and float32
+   reported; then 20 Adam(5e-2) steps with keyed negatives: finite and
+   falling, samples/s;
+29. ``[ops:library]``: each family of the op library (tensor, math,
+   reduction, loss, sampling, sequence, control flow, metrics) on the
+   card against the same call on the CPU at small shapes (floats within
+   1e-5 + 1e-5 relative, integers equal): gather, gather_nd, scatter
+   (set and add), scatter_nd_add and multiplex with indices out of range
+   (the JAX fill, clamp and drop results) and top_k and argsort on ties,
+   all under torch's sync debug mode "error" (no host read, no device
+   assert); a while_loop, scan, static_rnn, TensorArray and chunk_eval.
+   Printed: the count of ops checked and the host syncs of the ops whose
+   sizes or predicates are read from the data.
 
 Any failure exits non-zero. The line before the last is the kernels'
 JSON record; the last line is
@@ -528,6 +572,14 @@ ZOO_POLICY = "mixed_bf16"
 CHECK_TOL = (1e-4, 1e-3)
 LSTM_VOCAB, LSTM_WIDTH, LSTM_LAYERS, LSTM_T = 5149, 512, 3, 100
 LSTM_BATCHES, LSTM_CHECK_B, LSTM_POLICY = (64, 512), 4, "mixed_bf16"
+# MovieLens-1M's widths (RecommenderNet's defaults), in field order
+REC_FIELDS = (6041, 2, 7, 21, 3953, 19)
+REC_BATCHES, REC_STEPS, REC_CHECK_B = (256, 8192), 20, 4
+LORA_RANK, LORA_ALPHA, LORA_TARGETS = 8, 16, ("q_proj", "v_proj")
+LORA_POLICY, LORA_STEPS = "mixed_bf16", 10
+# word2vec at PTB's vocabulary
+W2V_VOCAB, W2V_EMBED, W2V_CTX, W2V_NEG = 10000, 32, 4, 5
+W2V_BATCH, W2V_CHECK_B, W2V_STEPS = 4096, 8, 20
 
 
 def log(*a):
@@ -4271,6 +4323,548 @@ def phase_train_stacked_lstm(torch, FK, K, QM):
         raise SystemExit(f"{tag} a hand kernel launched on the LSTM")
 
 
+def rec_batch(torch, b, device, seed=0):
+    """A MovieLens-1M-shaped batch from numpy ``seed``: user, gender, age,
+    job and movie ids over REC_FIELDS, 3 category ids a row (0, the pad,
+    is a real category and is summed), ratings uniform in [1, 5]."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    shapes = (b,) * 5 + ((b, 3),)
+    feats = [torch.as_tensor(rng.integers(0, n, shape), device=device)
+             for n, shape in zip(REC_FIELDS, shapes)]
+    rating = torch.as_tensor(rng.uniform(1.0, 5.0, b).astype(np.float32),
+                             device=device)
+    return feats, rating
+
+
+def phase_train_recommender(torch, FK, K, QM):
+    """The recommender at MovieLens-1M's widths: the float64 check step at
+    B=4, then B=256 and B=8192 in float32, Adam(5e-3), 20 steps each,
+    with |pred| <= 5, the device's idle share and ops per step."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import optimizer as TO
+    from paddle_tpu_torch.models import recommender as RM
+    from paddle_tpu_torch.parallel import Trainer
+
+    tag = "[train:recommender]"
+    n0 = all_launches(FK, K, QM)
+    cpu = RM.RecommenderNet(device="cpu",
+                            generator=torch.Generator().manual_seed(40))
+    log(f"{tag} RecommenderNet() at MovieLens-1M widths {REC_FIELDS}, "
+        f"embed 32, fc 200: {sum(p.numel() for p in cpu.parameters())} "
+        f"parameters")
+    feats, rating = rec_batch(torch, REC_CHECK_B, "cpu", seed=1)
+    card_against_cpu(torch, f"{tag} B={REC_CHECK_B}", cpu,
+                     lambda m, *a: RM.loss_fn(m(*a[:6]), a[6]),
+                     feats + [rating])
+    del cpu
+    for b in REC_BATCHES:
+        ptt.seed(0)
+        model = RM.RecommenderNet(device="cuda")
+        batch = rec_batch(torch, b, "cuda")
+        tr = Trainer(model, TO.Adam(5e-3),
+                     lambda m, bt, g: (RM.loss_fn(m(*bt[0]), bt[1]), {}))
+        losses, ms = timed_steps(torch, lambda: tr.train_step(batch), 2,
+                                 REC_STEPS - 2)
+        mean = sum(ms) / len(ms)
+        busy, idle, ops = step_profile(torch, lambda: tr.train_step(batch),
+                                       mean, n=2)
+        with torch.no_grad():
+            top = float(model(*batch[0]).abs().max())
+        log(f"{tag} B={b} float32 Adam(5e-3), {REC_STEPS} steps: losses "
+            f"{[round(v, 6) for v in losses]}; ms per timed step "
+            f"{[round(v, 3) for v in ms]}, mean {mean:.3f} ms, "
+            f"{b / (mean / 1e3):.1f} samples/s; device busy {busy:.3f} ms "
+            f"per step, idle share {idle:.3f} (host-paced by "
+            f"{mean / max(busy, 1e-9):.1f}x), {ops:.0f} device ops per "
+            f"step; max |pred| after training {top:.6f}")
+        if not finite_and_falling(losses):
+            raise SystemExit(f"{tag} B={b}: losses not finite and falling")
+        if not top <= 5.0 * (1 + 1e-6):
+            raise SystemExit(f"{tag} B={b}: a prediction beyond 5")
+        del tr, model, batch
+        torch.cuda.empty_cache()
+    if all_launches(FK, K, QM) != n0:
+        raise SystemExit(f"{tag} a hand kernel launched on the recommender")
+
+
+def lora_step_run(torch, FK, trainer, ids, n):
+    """One counted step (the flash launches of a step), then ``n`` timed
+    steps with peak memory. Returns (launches of the counted step, the
+    n + 1 losses, the timed ms, peak GiB)."""
+    torch.cuda.synchronize()
+    reset_flash_counts(FK)
+    first, _ = trainer.train_step(ids)
+    torch.cuda.synchronize()
+    per_step = flash_counts(FK)
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = timed_steps(torch, lambda: trainer.train_step(ids), 0, n)
+    return (per_step, [float(first)] + losses, ms,
+            torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def phase_train_lora(torch, FK, K, QM, prompts):
+    """LoRA fine-tuning at bench_gpt's shape against the full-parameter
+    step of the same model, then merge_lora: logits against a float64
+    CPU forward, and the merged model served paged (see the module
+    docstring, phase 27)."""
+    import copy
+
+    from paddle_tpu_torch import nn as tnn
+    from paddle_tpu_torch import optimizer as TO
+    from paddle_tpu_torch.core.dtypes import Policy, policy_scope
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.parallel import Trainer
+
+    tag = "[train:lora]"
+    cfg = gpt.GPTConfig.small()
+    cfg.max_position, cfg.remat = TT, True
+    ids = torch.randint(0, cfg.vocab_size, (TB, TT),
+                        generator=torch.Generator().manual_seed(6)).to("cuda")
+
+    def model_of_seed_5():
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(5)
+        return gpt.GPTForCausalLM(cfg, generator=gen)
+
+    def builder(m, batch, g):
+        return m.forward_loss(batch), {}
+
+    # the full-parameter step at the same shape, for the launches, ms and
+    # memory to hold the LoRA step against
+    model = model_of_seed_5()
+    tr = Trainer(model, TO.Adam(5e-3), builder, amp=LORA_POLICY)
+    full_step, full_losses, full_ms, full_peak = lora_step_run(
+        torch, FK, tr, ids, 5)
+    del tr, model
+    torch.cuda.empty_cache()
+
+    model = model_of_seed_5()
+    paths = tnn.apply_lora(model, r=LORA_RANK, alpha=LORA_ALPHA,
+                           targets=LORA_TARGETS)
+    lora = tnn.lora_parameters(model)
+    for name, p in model.named_parameters():
+        p.requires_grad_(name in lora)
+    frozen = {k: v.detach().clone() for k, v in model.state_dict().items()
+              if k not in lora}
+    n_frozen = sum(v.numel() for v in frozen.values())
+    n_lora = sum(p.numel() for p in lora.values())
+    log(f"{tag} GPTConfig.small() remat, ({TB}, {TT}), {LORA_POLICY}: "
+        f"apply_lora(r={LORA_RANK}, alpha={LORA_ALPHA}, "
+        f"targets={LORA_TARGETS}) wrapped {len(paths)} projections; "
+        f"{n_lora} adapter values train, {n_frozen} frozen")
+    tr = Trainer(model, TO.Adam(5e-3), builder, amp=LORA_POLICY)
+    per_step, losses, ms, peak = lora_step_run(torch, FK, tr, ids,
+                                               LORA_STEPS - 1)
+    mean, full_mean = sum(ms) / len(ms), sum(full_ms) / len(full_ms)
+    log(f"{tag} launches in one step: LoRA {per_step}, full-parameter "
+        f"{full_step}")
+    log(f"{tag} {LORA_STEPS} Adam(5e-3) steps on the adapters: losses "
+        f"{[round(v, 6) for v in losses]}; ms per timed step "
+        f"{[round(v, 3) for v in ms]}, mean {mean:.3f} ms "
+        f"({TB * TT / (mean / 1e3):.1f} tokens/s), peak memory "
+        f"{peak:.2f} GiB; the full-parameter step: mean {full_mean:.3f} ms, "
+        f"peak memory {full_peak:.2f} GiB, losses "
+        f"{[round(v, 6) for v in full_losses]}")
+    moved = max(float(p.detach().abs().max()) for k, p in lora.items()
+                if k.endswith("lora_b"))
+    changed = [k for k, v in model.state_dict().items()
+               if k in frozen and not torch.equal(v, frozen[k])]
+    graded = [n for n, p in model.named_parameters()
+              if n not in lora and p.grad is not None]
+    slots = tr.opt_state["leaf"]
+    log(f"{tag} frozen weights changed: {len(changed)}; frozen weights "
+        f"with a grad: {len(graded)}; optimizer slots {len(slots)} for "
+        f"{len(lora)} adapters; largest |lora_b| {moved:.3e}")
+    if per_step != full_step or min(per_step.values()) == 0:
+        raise SystemExit(f"{tag} a LoRA step launched the flash kernels "
+                         f"another number of times than the full step")
+    if changed or graded or set(tr.params) != set(lora) or len(slots) != \
+            len(lora):
+        raise SystemExit(f"{tag} a frozen weight moved, took a grad or "
+                         f"holds optimizer state")
+    if not (moved > 0 and finite_and_falling(losses)):
+        raise SystemExit(f"{tag} the adapters did not train")
+    del tr, frozen
+    torch.cuda.empty_cache()
+
+    # merge_lora: the merged logits against the adapted ones, each held
+    # to a float64 CPU forward of the adapted model
+    model.eval()
+    x = ids[:2, :128]
+    f64 = Policy("float64", "float64", "float64")
+    with torch.no_grad():
+        adapted = model(x).float()
+        ref_model = copy.deepcopy(model).to("cpu", torch.float64)
+        with policy_scope(f64):
+            ref = ref_model(x.cpu()).to("cuda")
+        del ref_model
+        merged = tnn.merge_lora(model)
+        got = model(x).float()
+    d_adapt = (adapted.double() - ref).abs().max().item()
+    d_merge = (got.double() - ref).abs().max().item()
+    d = (got - adapted).abs().max().item()
+    bound = 2 * d_adapt + 2e-5
+    log(f"{tag} merge_lora folded {len(merged)} adapters; logits of 2 x "
+        f"128 tokens: merged against adapted {d:.3e}, adapted against "
+        f"float64 CPU {d_adapt:.3e}, merged against float64 CPU "
+        f"{d_merge:.3e} (bound 2 x {d_adapt:.3e} + 2e-5 = {bound:.3e})")
+    if not (len(merged) == len(paths) and d <= bound and d_merge <= bound):
+        raise SystemExit(f"{tag} the merged model's logits are off")
+    serve_merged(torch, FK, K, QM, model, prompts[:8], tag)
+    del model
+    torch.cuda.empty_cache()
+
+
+def serve_merged(torch, FK, K, QM, model, prompts, tag):
+    """The merged model served paged: every counter at 0 just before
+    run(), the paged kernel exactly layers x (ticks + admissions), no
+    other kernel; tokens held to the teacher-forced check."""
+    from paddle_tpu_torch.serving import BatchedDecoder
+
+    dec = BatchedDecoder(model, slots=8, capacity=CAP, device=model.device,
+                         pages=B * 32 + 8, page_size=PS)
+    dec.warm_step()
+    rids = [dec.submit(p, 32) for p in prompts]
+    torch.cuda.synchronize()
+    for name in KERNEL_ROWS:
+        getattr(K, name).launches = 0
+    reset_flash_counts(FK)
+    QM.quant_matmul.launches = QM.quant_linear.launches = 0
+    t0 = time.perf_counter()
+    outs = dec.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = decode_counts(K)
+    others = dict(flash_counts(FK), quant_matmul=QM.quant_matmul.launches,
+                  quant_linear=QM.quant_linear.launches)
+    outs = [outs[r] for r in rids]
+    want = model.cfg.num_layers * (dec.tick_count + len(rids))
+    gap = teacher_forced_check(torch, model, prompts, outs)
+    toks = sum(len(o) for o in outs)
+    log(f"{tag} merged model served {len(outs)} requests paged: {toks} "
+        f"tokens in {wall:.3f} s ({toks / wall:.1f} tokens/s), "
+        f"{dec.tick_count} ticks; launches {launches}, other kernels "
+        f"{others} (want decode_attention_paged = {model.cfg.num_layers} x "
+        f"({dec.tick_count} ticks + {len(rids)} admissions) = {want}, the "
+        f"rest 0); teacher-forced worst gap {gap:.2e}")
+    if launches["decode_attention_paged"] != want or any(
+            n for k, n in launches.items() if k != "decode_attention_paged") \
+            or any(others.values()):
+        raise SystemExit(f"{tag} serving the merged model launched another "
+                         f"kernel or another number of times")
+
+
+def w2v_model(torch, device, generator=None):
+    """The word2vec book model: the mean of the context embeddings into
+    NCE(log_uniform, W2V_NEG negatives); forward -> the mean cost."""
+    from paddle_tpu_torch import nn as tnn
+
+    class W2V(tnn.Layer):
+        def __init__(self):
+            super().__init__()
+            kw = dict(device=device, generator=generator)
+            self.emb = tnn.Embedding(W2V_VOCAB, W2V_EMBED, **kw)
+            self.nce = tnn.NCE(W2V_EMBED, W2V_VOCAB, num_neg_samples=W2V_NEG,
+                               sampler="log_uniform", **kw)
+
+        def forward(self, context, target, custom_neg=None):
+            h = torch.mean(self.emb(context), dim=1)
+            return torch.mean(self.nce(h, target, custom_neg=custom_neg))
+
+    return W2V()
+
+
+def w2v_batch(torch, b, device, seed=0):
+    """Context ids uniform over the vocabulary (numpy ``seed``), the
+    target their sum mod the vocabulary (the book test's corpus)."""
+    import numpy as np
+
+    ctx = np.random.default_rng(seed).integers(0, W2V_VOCAB, (b, W2V_CTX))
+    return (torch.as_tensor(ctx, device=device),
+            torch.as_tensor(ctx.sum(1) % W2V_VOCAB, device=device))
+
+
+def phase_train_word2vec(torch, FK, K, QM):
+    """word2vec with NCE at PTB's vocabulary: the exact check step
+    (custom_neg), then 20 keyed steps at B=4096."""
+    import numpy as np
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import optimizer as TO
+    from paddle_tpu_torch.parallel import Trainer
+
+    tag = "[train:word2vec]"
+    n0 = all_launches(FK, K, QM)
+    cpu = w2v_model(torch, "cpu", torch.Generator().manual_seed(41))
+    ctx, tgt = w2v_batch(torch, W2V_CHECK_B, "cpu", seed=1)
+    neg = torch.as_tensor(np.random.default_rng(2).integers(
+        0, W2V_VOCAB, (W2V_CHECK_B, W2V_NEG)))
+    log(f"{tag} vocabulary {W2V_VOCAB}, embed {W2V_EMBED}, context "
+        f"{W2V_CTX}, NCE(log_uniform, {W2V_NEG} negatives)")
+    card_against_cpu(torch, f"{tag} B={W2V_CHECK_B} custom_neg", cpu,
+                     lambda m, c, t, n: m(c, t, custom_neg=n),
+                     [ctx, tgt, neg])
+    del cpu
+    ptt.seed(0)
+    model = w2v_model(torch, "cuda")
+    batch = w2v_batch(torch, W2V_BATCH, "cuda")
+    tr = Trainer(model, TO.Adam(5e-2), lambda m, bt, g: (m(*bt), {}))
+    losses, ms = timed_steps(torch, lambda: tr.train_step(batch), 2,
+                             W2V_STEPS - 2)
+    mean = sum(ms) / len(ms)
+    log(f"{tag} B={W2V_BATCH} float32 Adam(5e-2), {W2V_STEPS} steps with "
+        f"keyed negatives: losses {[round(v, 6) for v in losses]}; ms per "
+        f"timed step {[round(v, 3) for v in ms]}, mean {mean:.3f} ms, "
+        f"{W2V_BATCH / (mean / 1e3):.1f} samples/s")
+    if not finite_and_falling(losses):
+        raise SystemExit(f"{tag} losses not finite and falling")
+    if all_launches(FK, K, QM) != n0:
+        raise SystemExit(f"{tag} a hand kernel launched on word2vec")
+    del tr, model, batch
+    torch.cuda.empty_cache()
+
+
+def ops_library_cases(torch):
+    """The [ops:library] checks at small shapes from numpy seed 7: the
+    indexing and search family as (name, fn, CPU inputs), run on the card
+    under sync debug "error" on inputs moved there beforehand; the other
+    families as (family, name, fn), ``fn(dev)`` the call on inputs moved
+    by ``dev`` (``dev.device`` for the creation ops)."""
+    import numpy as np
+
+    from paddle_tpu_torch import metrics as MT
+    from paddle_tpu_torch import ops as O
+
+    rng = np.random.default_rng(7)
+
+    def f32(*shape):
+        return torch.as_tensor(rng.normal(size=shape).astype(np.float32))
+
+    def i64(*vals):
+        return torch.tensor(vals)
+
+    x53, lens = f32(5, 3), i64(6, 3, 0, 4)
+    ties = torch.tensor([[1.0, 3.0, 3.0, 2.0, 3.0, 1.0],
+                         [0.0, 0.0, 5.0, 5.0, 0.0, -1.0]])
+    tags = torch.as_tensor(rng.integers(0, 5, (3, 8)))
+    tags2 = torch.where(torch.as_tensor(rng.random((3, 8)) < 0.7), tags,
+                        torch.as_tensor(rng.integers(0, 5, (3, 8))))
+    key = np.array([0, 11], np.uint32)
+    seq = f32(4, 6, 2)
+    gnd, upd4, upd43 = f32(3, 4, 2), f32(4), f32(4, 3)
+    mx = [f32(4, 2), f32(4, 2), f32(4, 2)]
+    idx_family = [
+        ("gather out of range", O.gather, [x53, i64(0, 5, -1, -6)]),
+        ("gather_nd out of range", O.gather_nd,
+         [gnd, i64(3, 1, -1, 4, 7, -9).reshape(3, 2)]),
+        ("scatter out of range", O.scatter,
+         [x53, i64(1, 7, -1, -9), upd43]),
+        ("scatter add duplicates",
+         lambda x, i, u: O.scatter(x, i, u, overwrite=False),
+         [x53, i64(1, 1, -1, 9), upd43]),
+        ("scatter_nd_add out of range", O.scatter_nd_add,
+         [seq[0], i64(0, 1, 3, 1, 9, 0, -1, 2).reshape(4, 2), upd4]),
+        ("multiplex out of range",
+         lambda i, a, b, c: O.multiplex(i, [a, b, c]),
+         [i64(5, -1, -4, 1).reshape(4, 1)] + mx),
+        ("top_k ties", lambda t: O.top_k(t, 4), [ties]),
+        ("argsort ties descending",
+         lambda t: O.argsort(t, descending=True), [ties]),
+        ("argsort ties", O.argsort, [ties]),
+    ]
+    w, b, flat, bw = f32(10, 3), f32(10), f32(13, 2), f32(2, 3, 3)
+    my = f32(12, 3)
+    neg = torch.as_tensor(rng.integers(0, 10, (5, 4)))
+    ids5 = i64(0, 7, 3, 9, 1)
+    rest = [
+        ("tensor", "creation", lambda d: (
+            O.fill_constant((2, 3), 1.5, device=d.device),
+            O.eye(3, 4, device=d.device), O.range(2, 11, 3, device=d.device),
+            O.linspace(-1.0, 2.0, 7, device=d.device))),
+        ("tensor", "shape ops", lambda d: (
+            O.reshape(d(seq), [0, -1]), O.pad(d(x53), [1, 0, 2, 3]),
+            O.tensor.strided_slice(d(seq), [1], [5], [0], [-2]),
+            O.split(d(seq), [2, -1, 1], axis=1), O.expand(d(x53), (2, 1)),
+            O.unstack(d(x53), 1), O.crop(d(seq), (2, 3, 1), (1, 2, 0)))),
+        ("tensor", "keyed draws (moments to 0.1)", lambda d: torch.stack([
+            O.uniform_random((20000,), key, device=d.device).mean(),
+            O.gaussian_random((20000,), key, device=d.device).std(),
+            O.truncated_gaussian_random((20000,), key,
+                                        device=d.device).abs().max()]
+            ).round(decimals=1)),
+        ("math", "elementwise", lambda d: (
+            O.elementwise_add(d(seq), d(seq[0]), axis=1),
+            O.elementwise_mod(d(i64(-7, 7, -7, 7)), d(i64(3, -3, -3, 3))),
+            O.elementwise_floordiv(d(i64(-7, 7, -7, 7)),
+                                   d(i64(3, -3, -3, 3))),
+            O.elementwise_pow(d(x53.abs()), d(x53)))),
+        ("math", "products", lambda d: (
+            O.matmul(d(seq), d(w[:2]), alpha=0.5),
+            O.mul(d(seq), d(my)),
+            O.bilinear_tensor_product(d(x53), d(w[:5]), d(bw), d(b[:2])),
+            O.cos_sim(d(x53), d(w[:5])))),
+        ("math", "utility", lambda d: (
+            O.cumsum(d(seq), 1, exclusive=True, reverse=True),
+            O.logsumexp(d(seq), 1), O.clip_by_norm(d(x53), 1.0),
+            O.maxout(d(seq.reshape(2, 6, 4)), 3), O.isfinite(d(x53)),
+            O.math.has_nan(d(x53)))),
+        ("reduction", "reductions", lambda d: (
+            O.reduce_sum(d(seq), [0, 2]), O.reduce_prod(d(x53.abs()), 1),
+            O.reduce_max(d(seq)), O.reduce_any(d(x53) > 1), O.mean(d(seq)))),
+        ("loss", "losses", lambda d: (
+            O.cross_entropy(torch.softmax(d(x53), -1), d(i64(0, 2, 1, 1, 0))),
+            O.bpr_loss(d(x53), d(i64(0, 2, 1, 1, 0).reshape(5, 1))),
+            O.npair_loss(d(x53), d(w[:5]), d(i64(0, 1, 0, 2, 1))),
+            O.loss.teacher_student_sigmoid_loss(d(b * 10), d(b - 1.5)),
+            O.kldiv_loss(d(x53), d(x53.abs())),
+            O.huber_loss(d(x53), d(w[:5])),
+            O.loss.dice_loss(torch.softmax(d(x53), -1),
+                             d(i64(0, 2, 1, 1, 0))))),
+        ("sampling", "nce and hsigmoid", lambda d: (
+            O.nce_loss(d(x53), d(ids5), d(w), d(b), sampler="log_uniform",
+                       custom_neg=d(neg)),
+            O.hsigmoid_loss(d(x53), d(ids5), d(w), d(b), num_classes=10))),
+        ("sequence", "padded ops", lambda d: (
+            O.sequence_pad(d(flat), d(lens), 6),
+            O.sequence_pool(d(seq), d(lens), "max"),
+            O.sequence_softmax(d(seq[..., 0]), d(lens)),
+            O.sequence_reverse(d(seq), d(lens)),
+            O.sequence_concat([d(seq), d(seq)], [d(lens), d(lens)]),
+            O.sequence_enumerate(d(torch.arange(24).reshape(4, 6)), d(lens),
+                                 3),
+            O.sequence_scatter(d(seq[:, :5, 0]), d(
+                i64(0, 0, 4, 9, 1, 3, 3, 3).reshape(4, 2)),
+                d(seq[:, :2, 1]), d(i64(2, 2, 0, 1))),
+            O.hash(d(i64(0, 1, -1, 2 ** 31 - 1)), 1000, 2),
+            O.add_position_encoding(d(seq)))),
+        ("sequence", "chunk_eval", lambda d: O.chunk_eval(
+            d(tags), d(tags2), d(i64(8, 5, 0)), 2, "IOB")),
+        ("control_flow", "compare and logical", lambda d: (
+            O.less_than(d(x53), 0.1), O.logical_xor(d(x53) > 0,
+                                                    d(x53) < 0.5))),
+        ("control_flow", "scan", lambda d: O.scan(
+            lambda c, x: (torch.tanh(c + x), c * x), d(x53[0]), d(x53),
+            reverse=True)),
+        ("control_flow", "static_rnn", lambda d: O.static_rnn(
+            lambda x, h: (torch.tanh(x + h), torch.tanh(x + h)), d(seq),
+            d(seq[:, 0]))),
+        ("control_flow", "TensorArray", lambda d: O.TensorArray(
+            4, (3,), device=d.device).write(1, d(x53[0])).write(
+                d(i64(-1)), d(x53[1])).stack()),
+        ("metrics", "metric ops", lambda d: (
+            MT.mean_iou(d(tags), d(tags2), 5),
+            MT.precision_recall(d(seq[:, :, 0]),
+                                d(i64(0, 1, 2, 7)), 6)["macro_f1"],
+            MT.positive_negative_pair(d(x53[:, 0].round()),
+                                      d(tags[0, :5] % 3),
+                                      d(tags[1, :5] % 2)))),
+    ]
+    return idx_family, rest
+
+
+class _On:
+    """Moves a tensor to ``device`` (a tensor's copy, so the CPU run's
+    inputs stay as they are)."""
+
+    def __init__(self, device):
+        self.device = device
+
+    def __call__(self, t):
+        return t.to(self.device)
+
+
+def ops_outputs_match(torch, a, b):
+    """Every leaf of ``a`` (the card's) against ``b`` (the CPU's): floats
+    within 1e-5 + 1e-5 relative (NaN where the CPU has NaN), the rest
+    equal."""
+    from paddle_tpu_torch.clip import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    if len(la) != len(lb):
+        return False
+    for x, y in zip(la, lb):
+        x = x.cpu() if torch.is_tensor(x) else torch.as_tensor(x)
+        y = torch.as_tensor(y)
+        if x.shape != y.shape:
+            return False
+        if y.is_floating_point():
+            if not torch.allclose(x.to(y.dtype), y, rtol=1e-5, atol=1e-5,
+                                  equal_nan=True):
+                return False
+        elif not torch.equal(x.to(y.dtype), y):
+            return False
+    return True
+
+
+def phase_ops_library(torch):
+    """Each op family on the card against the CPU (module docstring,
+    phase 29), and the host syncs of the data-dependent ops."""
+    import warnings
+
+    from paddle_tpu_torch import ops as O
+
+    tag = "[ops:library]"
+    idx_family, rest = ops_library_cases(torch)
+    cpu, card = _On("cpu"), _On("cuda")
+    bad, per_family = [], {}
+    on_card = [[a.to("cuda") for a in args] for _, _, args in idx_family]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = [fn(*args) for (_, fn, _), args in zip(idx_family, on_card)]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    for (name, fn, args), out in zip(idx_family, got):
+        if not ops_outputs_match(torch, out, fn(*args)):
+            bad.append(name)
+    per_family["tensor indexing and search, sync-free"] = len(idx_family)
+    n_calls = len(idx_family)
+    for family, name, fn in rest:
+        want = fn(cpu)
+        if not ops_outputs_match(torch, fn(card), want):
+            bad.append(f"{family}: {name}")
+        per_family[family] = per_family.get(family, 0) + 1
+        n_calls += len(want) if isinstance(want, tuple) else 1
+
+    def syncs(fn):
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return sum(map(is_sync_warning, seen))
+
+    x = torch.randn(4, 6, device="cuda")
+    lens = torch.tensor([6, 3, 0, 4], device="cuda")
+    counts = {
+        "where_index": syncs(lambda: O.tensor.where_index(x > 0)),
+        "unique_with_counts": syncs(lambda: O.tensor.unique_with_counts(
+            (x * 3).long())),
+        "sequence_unpad": syncs(lambda: O.sequence_unpad(x[..., None],
+                                                         lens)),
+        "sequence_expand without rmax": syncs(lambda: O.sequence_expand(
+            x, lens)),
+        "while_loop of 5 iterations": syncs(lambda: O.while_loop(
+            lambda v: v[0] < 5, lambda v: (v[0] + 1, v[1] * 2),
+            (torch.zeros((), device="cuda"), x))),
+        "scan of 4 steps": syncs(lambda: O.scan(
+            lambda c, r: (c + r, c), x[0], x)),
+        "chunk_eval": syncs(lambda: O.chunk_eval(
+            (x > 0).long(), (x > 0.5).long(), lens, 1, "IOB")),
+    }
+    log(f"{tag} {len(idx_family) + len(rest)} card-against-CPU checks "
+        f"covering {n_calls} op calls, by family {per_family}; mismatches: "
+        f"{bad or 'none'}; host syncs a call: {counts}")
+    if bad:
+        raise SystemExit(f"{tag} card and CPU disagree on {bad}")
+
+
 def timed_phase(tag, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -4421,6 +5015,11 @@ def main() -> int:
     timed_phase("[train:zoo]", phase_train_zoo, torch, FK, K, QM)
     timed_phase("[train:stacked_lstm]", phase_train_stacked_lstm, torch, FK,
                 K, QM)
+    timed_phase("[train:recommender]", phase_train_recommender, torch, FK, K,
+                QM)
+    timed_phase("[train:lora]", phase_train_lora, torch, FK, K, QM, prompts)
+    timed_phase("[train:word2vec]", phase_train_word2vec, torch, FK, K, QM)
+    timed_phase("[ops:library]", phase_ops_library, torch)
     log(f"[card] {smi}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

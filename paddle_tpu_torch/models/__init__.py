@@ -1,8 +1,9 @@
 """Models of the port (counterpart of paddle_tpu/models)."""
 
-from . import (alexnet, bert, deepfm, googlenet, gpt, mnist, resnet,
-               se_resnext, speculative, stacked_lstm, transformer, vgg, vit)
+from . import (alexnet, bert, deepfm, googlenet, gpt, mnist, recommender,
+               resnet, se_resnext, speculative, stacked_lstm, transformer,
+               vgg, vit)
 
 __all__ = ["alexnet", "bert", "deepfm", "googlenet", "gpt", "mnist",
-           "resnet", "se_resnext", "speculative", "stacked_lstm",
-           "transformer", "vgg", "vit"]
+           "recommender", "resnet", "se_resnext", "speculative",
+           "stacked_lstm", "transformer", "vgg", "vit"]

@@ -3,8 +3,9 @@ Linear (with its ``act=``), Embedding, RMSNorm, LayerNorm, Dropout and
 MultiHeadAttention (attention dropout and packed-row segment ids) with
 its KV-cache decode mixin; the convolutional layers Conv2D,
 Conv2DTranspose, Pool2D, BatchNorm, GroupNorm, PRelu and Flatten, the
-activation layers ReLU, GELU, Sigmoid, Tanh and Softmax, and the
-recurrent GRUCell, LSTMCell and RNN (a cell over time).
+activation layers ReLU, GELU, Sigmoid, Tanh and Softmax, the
+recurrent GRUCell, LSTMCell and RNN (a cell over time), and
+BilinearTensorProduct.
 
 Linear weights are (in, out), as in the JAX package, so parameters move
 across by name without transposes. The JAX package returns new cache
@@ -252,6 +253,31 @@ class PRelu(Layer):
 
     def forward(self, x):
         return OM.prelu(x, self.alpha, self.mode)
+
+
+class BilinearTensorProduct(Layer):
+    """``out[b, k] = x[b] @ weight[k] @ y[b] (+ bias[k])``, weight
+    (out, in1, in2) from XavierUniform, bias zeros (ops/math.py
+    :func:`bilinear_tensor_product`; reference: dygraph/nn.py
+    BilinearTensorProduct)."""
+
+    def __init__(self, in1_features: int, in2_features: int,
+                 out_features: int, bias_attr: bool = True, dtype=None, *,
+                 device=None, generator=None):
+        super().__init__()
+        self.create_parameter("weight",
+                              (out_features, in1_features, in2_features),
+                              dtype, I.XavierUniform(), device=device,
+                              generator=generator)
+        self.has_bias = bias_attr
+        if bias_attr:
+            self.create_parameter("bias", (out_features,), dtype,
+                                  I.Constant(0.0), is_bias=True,
+                                  device=device, generator=generator)
+
+    def forward(self, x, y):
+        return OM.bilinear_tensor_product(
+            x, y, self.weight, self.bias if self.has_bias else None)
 
 
 class RMSNorm(Layer):

@@ -1,6 +1,9 @@
-"""Activations (counterpart of the activation half of
-paddle_tpu/ops/math.py, and of the ``jax.nn`` activations that the JAX
-package's ``act=`` falls back to).
+"""Math ops (counterpart of paddle_tpu/ops/math.py, and of the
+``jax.nn`` activations that the JAX package's ``act=`` falls back to):
+the activations, then the elementwise binary ops with Paddle's ``axis``
+broadcast, the matrix products (``torch.matmul``: the JAX package
+computes them with ``jnp.matmul``, outside any Pallas kernel) and the
+scalar and reduction utilities.
 
 ``activation(name)`` resolves a layer's ``act=`` name as the JAX
 package's ``_apply_act`` does: the one-argument activations of its
@@ -15,11 +18,12 @@ are refused, since the JAX package refuses them."""
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
-from ..core.enforce import InvalidArgumentError
+from ..core.enforce import InvalidArgumentError, enforce
 
 # ----- ops.math's activations (the reference's functor table) ------------
 
@@ -252,6 +256,202 @@ def standardize(x, axis: int = -1, epsilon: float = 1e-5):
     var = torch.mean(torch.square(x), dim=axis, keepdim=True) - \
         torch.square(mean)
     return (x - mean) * torch.rsqrt(var + epsilon)
+
+
+# ----- the rest of ops.math: not act= names --------------------------------
+
+
+def maxout(x, groups: int, axis: int = 1):
+    """Max over ``groups`` consecutive channels of ``axis``
+    (reference: operators/maxout_op.cc)."""
+    shape = list(x.shape)
+    c = shape[axis]
+    enforce(c % groups == 0, "channels %s not divisible by groups %s", c,
+            groups)
+    new_shape = shape[:axis] + [c // groups, groups] + shape[axis + 1:]
+    return torch.amax(x.reshape(new_shape), dim=axis + 1)
+
+
+def _broadcast_y(x, y, axis: int):
+    """``y`` reshaped so its dims line up with x's dims [axis, axis +
+    y.ndim) (reference: operators/elementwise/elementwise_op.h); the
+    trailing 1s broadcast. ``axis == -1`` or equal shapes: y as it is."""
+    y = torch.as_tensor(y, device=x.device if torch.is_tensor(x) else None)
+    if tuple(x.shape) == tuple(y.shape) or axis == -1:
+        return y
+    enforce(0 <= axis and axis + y.ndim <= x.ndim,
+            "bad elementwise axis %s for shapes %s, %s", axis,
+            tuple(x.shape), tuple(y.shape))
+    return y.reshape((1,) * axis + tuple(y.shape)
+                     + (1,) * (x.ndim - axis - y.ndim))
+
+
+def elementwise_add(x, y, axis: int = -1):
+    return x + _broadcast_y(x, y, axis)
+
+
+def elementwise_sub(x, y, axis: int = -1):
+    return x - _broadcast_y(x, y, axis)
+
+
+def elementwise_mul(x, y, axis: int = -1):
+    return x * _broadcast_y(x, y, axis)
+
+
+def elementwise_div(x, y, axis: int = -1):
+    return x / _broadcast_y(x, y, axis)
+
+
+def elementwise_min(x, y, axis: int = -1):
+    return torch.minimum(x, _broadcast_y(x, y, axis))
+
+
+def elementwise_max(x, y, axis: int = -1):
+    return torch.maximum(x, _broadcast_y(x, y, axis))
+
+
+def elementwise_pow(x, y, axis: int = -1):
+    return torch.pow(x, _broadcast_y(x, y, axis))
+
+
+def elementwise_mod(x, y, axis: int = -1):
+    """``jnp.mod``: the result takes the divisor's sign (Python's rule,
+    ``torch.remainder``; C's ``fmod`` takes the dividend's)."""
+    return torch.remainder(x, _broadcast_y(x, y, axis))
+
+
+def elementwise_floordiv(x, y, axis: int = -1):
+    """``jnp.floor_divide``: rounds toward minus infinity, not zero."""
+    return torch.div(x, _broadcast_y(x, y, axis), rounding_mode="floor")
+
+
+def matmul(x, y, transpose_x: bool = False, transpose_y: bool = False,
+           alpha: float = 1.0, precision=None):
+    """Batched product with optional transposes of the last two dims
+    (reference: operators/matmul_op.cc). ``precision`` is the JAX
+    package's ``jnp.matmul`` argument; float32 here computes in float32
+    unless the caller allows TF32 (``torch.backends``), so it is
+    accepted and has no further effect."""
+    if transpose_x and x.ndim >= 2:
+        x = x.transpose(-1, -2)
+    if transpose_y and y.ndim >= 2:
+        y = y.transpose(-1, -2)
+    out = torch.matmul(x, y)
+    if alpha != 1.0:
+        out = out * alpha
+    return out
+
+
+def mul(x, y, x_num_col_dims: int = 1, y_num_col_dims: int = 1):
+    """The flatten-to-2-D product (reference: operators/mul_op.cc): an
+    operand of more than 2 dims is flattened to (prod(shape[:n]), rest)
+    at its ``*_num_col_dims``."""
+    if x.ndim > 2:
+        x = x.reshape(math.prod(x.shape[:x_num_col_dims]), -1)
+    if y.ndim > 2:
+        y = y.reshape(math.prod(y.shape[:y_num_col_dims]), -1)
+    return torch.matmul(x, y)
+
+
+def bilinear_tensor_product(x, y, weight, bias=None):
+    """out[b, k] = x[b] @ weight[k] @ y[b] (+ bias)
+    (reference: operators/bilinear_tensor_product_op.cc)."""
+    out = torch.einsum("bi,kij,bj->bk", x, weight, y)
+    if bias is not None:
+        out = out + bias
+    return out
+
+
+def scale(x, scale: float = 1.0, bias: float = 0.0,
+          bias_after_scale: bool = True):
+    """reference: operators/scale_op.cc."""
+    if bias_after_scale:
+        return x * scale + bias
+    return (x + bias) * scale
+
+
+def clip(x, min: float, max: float):  # noqa: A002 - the reference's names
+    return torch.clamp(x, min, max)
+
+
+def clip_by_norm(x, max_norm: float):
+    """``x * max_norm / ||x||`` where the L2 norm of the whole tensor
+    exceeds ``max_norm``, else ``x`` (reference:
+    operators/clip_by_norm_op.cc)."""
+    norm = torch.sqrt(torch.sum(torch.square(x)))
+    return torch.where(norm > max_norm, x * (max_norm / norm), x)
+
+
+def sign(x):
+    return torch.sign(x)
+
+
+def cumsum(x, axis: Optional[int] = None, exclusive: bool = False,
+           reverse: bool = False):
+    """reference: operators/cumsum_op.cc; ``axis=None`` flattens first.
+    ``exclusive`` subtracts the element from its inclusive sum, as the
+    JAX package does."""
+    if axis is None:
+        x = x.reshape(-1)
+        axis = 0
+    if reverse:
+        x = torch.flip(x, (axis,))
+    out = torch.cumsum(x, dim=axis)
+    if exclusive:
+        out = out - x
+    if reverse:
+        out = torch.flip(out, (axis,))
+    return out
+
+
+def increment(x, value: float = 1.0):
+    return x + value
+
+
+def l1_norm(x):
+    return torch.sum(torch.abs(x))
+
+
+def squared_l2_norm(x):
+    return torch.sum(torch.square(x))
+
+
+def squared_l2_distance(x, y):
+    """(per-row sum of (x - y)^2 over every dim but the first, x - y)."""
+    d = x - y
+    return torch.sum(torch.square(d), dim=tuple(range(1, d.ndim))), d
+
+
+def cos_sim(x, y, eps: float = 1e-12):
+    """Row-wise cosine similarity over the last axis, keeping it as a
+    singleton: ``<x, y> / max(|x| |y|, eps)`` (reference:
+    operators/cos_sim_op.cc)."""
+    xn = torch.sqrt(torch.sum(torch.square(x), dim=-1, keepdim=True))
+    yn = torch.sqrt(torch.sum(torch.square(y), dim=-1, keepdim=True))
+    num = torch.sum(x * y, dim=-1, keepdim=True)
+    return num / torch.clamp_min(xn * yn, eps)
+
+
+def logsumexp(x, axis=None, keepdims: bool = False):
+    """``jax.scipy.special.logsumexp``: over every axis when ``axis`` is
+    None; a slice of only -inf gives -inf."""
+    if axis is None:
+        axis = tuple(range(x.ndim))
+    return torch.logsumexp(x, dim=axis, keepdim=keepdims)
+
+
+def isfinite(x):
+    """A scalar bool: every entry finite (reference:
+    operators/isfinite_op.cc)."""
+    return torch.all(torch.isfinite(x))
+
+
+def has_inf(x):
+    return torch.any(torch.isinf(x))
+
+
+def has_nan(x):
+    return torch.any(torch.isnan(x))
 
 
 # name -> function, in the JAX package's resolution order: ops.math's

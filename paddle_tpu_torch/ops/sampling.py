@@ -1,5 +1,14 @@
-"""Decoding filters and draws (counterpart of the LM-decoding half of
-paddle_tpu/ops/sampling.py).
+"""Sampling ops (counterpart of paddle_tpu/ops/sampling.py): the
+large-vocabulary training losses (NCE, hierarchical sigmoid), their
+class samplers, ``sample_logits`` and ``sampling_id``, then the
+decoding filters and draws.
+
+A sampler takes the JAX package's threefry key (key data, ``uint32[2]``)
+and draws from a ``torch.Generator`` seeded from it
+(``core.random.seed_generator``): the same key gives the same draw in
+the port, and a draw distributed as the JAX package's, not its numbers.
+``nce_loss(custom_neg=)`` takes the negatives from the caller, which
+makes it exact.
 
 The filters (temperature, top-k, top-p) are exact ports. The draw takes
 an explicit ``torch.Generator`` where the JAX package takes a PRNG key:
@@ -16,11 +25,198 @@ their uniforms in (0, 1)."""
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..core.enforce import enforce
+from ..core.places import resolve_device
+from ..core.random import seed_generator
+
+# ----- samplers and the sampled losses -------------------------------------
+
+
+def _log_uniform_sample(gen, shape, range_max: int):
+    """Zipfian ids, P(k) proportional to log((k+2)/(k+1)) over [0,
+    range_max): the inverse CDF exp(u log(range_max + 1)) - 1, truncated
+    toward zero, then clipped."""
+    u = torch.rand(shape, generator=gen, device=gen.device)
+    k = torch.exp(u * math.log(float(range_max + 1))) - 1.0
+    return torch.clamp(k.to(torch.int32), 0, range_max - 1)
+
+
+def _log_uniform_prob(ids, range_max: int):
+    idsf = ids.to(torch.float32)
+    return (torch.log((idsf + 2.0) / (idsf + 1.0))
+            / math.log(float(range_max + 1)))
+
+
+def _uniform_prob(ids, range_max: int):
+    return torch.full(ids.shape, 1.0 / range_max, dtype=torch.float32,
+                      device=ids.device)
+
+
+def _uniform_sample(gen, shape, range_max: int):
+    return torch.randint(0, range_max, shape, generator=gen,
+                         device=gen.device, dtype=torch.int32)
+
+
+_SAMPLERS = {
+    "uniform": (_uniform_sample, _uniform_prob),
+    "log_uniform": (_log_uniform_sample, _log_uniform_prob),
+}
+
+
+def _prob_fn(sampler: str):
+    enforce(sampler in _SAMPLERS, "unknown sampler %s", sampler)
+    return _SAMPLERS[sampler][1]
+
+
+def sample_classes(key, shape, num_classes: int, sampler: str = "uniform",
+                   *, device=None):
+    """(ids int32, their proposal probabilities float32) of ``shape``,
+    drawn from ``key`` on ``device`` (the CUDA card when None)."""
+    enforce(sampler in _SAMPLERS, "unknown sampler %s", sampler)
+    draw, prob = _SAMPLERS[sampler]
+    gen = seed_generator(torch.Generator(device=resolve_device(device)),
+                         key)
+    ids = draw(gen, tuple(shape), num_classes)
+    return ids, prob(ids, num_classes)
+
+
+def nce_loss(x, label, weight, bias=None, num_neg_samples: int = 10,
+             sampler: str = "uniform", key=None, custom_neg=None):
+    """Noise-contrastive estimation (reference: operators/nce_op.cc):
+    x (B, D), label (B,), weight (num_classes, D), bias (num_classes,);
+    the cost (B,). A class's logit is ``x . w_c + b_c - log(S P(c))``,
+    the true class scored against S negatives as binary classification.
+    The negatives are ``custom_neg`` (B, S) when given, else S =
+    ``num_neg_samples`` draws from ``key``."""
+    num_classes = weight.shape[0]
+    b = x.shape[0]
+    label = label.reshape(b).long()
+    if custom_neg is not None:
+        neg = torch.as_tensor(custom_neg, device=x.device)
+        enforce(neg.ndim == 2 and neg.shape[0] == b,
+                "custom_neg must be (B, S), got %s", tuple(neg.shape))
+        neg_p = _prob_fn(sampler)(neg, num_classes)
+    else:
+        enforce(key is not None, "nce_loss requires a PRNG key")
+        neg, neg_p = sample_classes(key, (b, num_neg_samples), num_classes,
+                                    sampler, device=x.device)
+    neg = neg.long()
+    s = neg.shape[1]
+
+    def logit(ids):  # (B, K) -> (B, K)
+        out = torch.einsum("bd,bkd->bk", x, weight[ids])
+        if bias is not None:
+            out = out + bias[ids]
+        return out
+
+    pos_prob = _prob_fn(sampler)(label, num_classes)
+    pos_logit = logit(label[:, None])[:, 0] - torch.log(s * pos_prob)
+    neg_logit = logit(neg) - torch.log(s * neg_p)
+    # -log sigmoid(pos) - sum log(1 - sigmoid(neg)), numerically stable
+    return (F.softplus(-pos_logit)
+            + torch.sum(F.softplus(neg_logit), dim=1))
+
+
+def _default_tree_codes(num_classes: int, device=None):
+    """The complete binary tree of hsigmoid's default mode (reference:
+    operators/math/matrix_bit_code.h SimpleCode: a leaf's node is label +
+    num_classes, walked to the root; the bit is node & 1): (path_table,
+    path_code), each (C, L) int32 padded with -1, L =
+    ceil(log2(num_classes))."""
+    depth = max(int(np.ceil(np.log2(max(num_classes, 2)))), 1)
+    table = -np.ones((num_classes, depth), np.int32)
+    code = -np.ones((num_classes, depth), np.int32)
+    for c in range(num_classes):
+        node = c + num_classes
+        i = 0
+        while node > 1:
+            # inner nodes are 1..num_classes-1; their row is node/2 - 1
+            table[c, i] = node // 2 - 1
+            code[c, i] = node & 1
+            node //= 2
+            i += 1
+    return (torch.as_tensor(table, device=device),
+            torch.as_tensor(code, device=device))
+
+
+def hsigmoid_loss(x, label, weight, bias=None, num_classes: int = None,
+                  path_table=None, path_code=None):
+    """Hierarchical sigmoid (reference:
+    operators/hierarchical_sigmoid_op.cc): x (B, D), label (B,), weight
+    (num_nodes, D), one row per inner node, bias (num_nodes,); the cost
+    (B,). The default tree is the complete binary tree over
+    ``num_classes``; a custom one is ``path_table``/``path_code`` (C, L),
+    padded with -1."""
+    b = x.shape[0]
+    label = label.reshape(b).long()
+    if path_table is None:
+        enforce(num_classes is not None,
+                "hsigmoid needs num_classes or explicit paths")
+        path_table, path_code = _default_tree_codes(num_classes, x.device)
+    else:
+        enforce(path_code is not None,
+                "hsigmoid: path_code is required alongside path_table")
+    path_table = torch.as_tensor(path_table, device=x.device)
+    path_code = torch.as_tensor(path_code, device=x.device)
+    rows = path_table[label].long()            # (B, L) node ids, -1 pads
+    codes = path_code[label]
+    valid = rows >= 0
+    safe = torch.clamp_min(rows, 0)
+    logits = torch.einsum("bd,bld->bl", x, weight[safe])
+    if bias is not None:
+        logits = logits + bias[safe]
+    # bit 1 -> sigmoid(logit), bit 0 -> 1 - sigmoid(logit)
+    cost = F.softplus(logits) - codes.to(logits.dtype) * logits
+    return torch.sum(torch.where(valid, cost, torch.zeros_like(cost)), dim=1)
+
+
+def sampling_id(probs, key, min: float = 0.0,  # noqa: A002
+                max: float = 1.0):  # noqa: A002 - the reference's names
+    """One class id per row of ``probs`` (B, C), rows not necessarily
+    normalised (reference: operators/sampling_id_op.cc): u ~ U(min, max)
+    times the row's total, walked along the CDF; drawn from ``key`` on
+    the probabilities' device."""
+    cdf = torch.cumsum(probs, dim=-1)
+    total = cdf[:, -1:]
+    gen = seed_generator(torch.Generator(device=probs.device), key)
+    u = torch.rand((probs.shape[0], 1), generator=gen, device=probs.device,
+                   dtype=probs.dtype) * (max - min) + min
+    ids = torch.sum((cdf < u * total).to(torch.int32), dim=-1)
+    return torch.clamp_max(ids, probs.shape[-1] - 1)
+
+
+def sample_logits(logits, label, num_samples: int, key,
+                  sampler: str = "log_uniform",
+                  remove_accidental_hits: bool = True):
+    """Negatives drawn from ``key`` and their logits corrected by -log Q
+    (reference: operators/sample_logits_op.cc): (sampled logits (B,
+    1+S), sampled labels (B,) all 0 — the true class is column 0 — and
+    the ids (B, 1+S)). ``remove_accidental_hits`` pushes a negative equal
+    to the true class to -1e20."""
+    b, v = logits.shape
+    label = label.reshape(b).to(torch.int32)
+    neg, neg_p = sample_classes(key, (b, num_samples), v, sampler,
+                                device=logits.device)
+    ids = torch.cat([label[:, None], neg], dim=1)
+    q = torch.cat([_prob_fn(sampler)(label, v)[:, None], neg_p], dim=1)
+    picked = torch.gather(logits, 1, ids.long()) - torch.log(q)
+    if remove_accidental_hits:
+        hit = ids == label[:, None]
+        hit[:, 0] = False
+        picked = torch.where(hit, torch.full((), -1e20, dtype=picked.dtype,
+                                             device=picked.device), picked)
+    return picked, torch.zeros((b,), dtype=torch.int32,
+                               device=logits.device), ids
+
+
+# ----- decoding filters ----------------------------------------------------
 
 
 def top_k_logits(logits, k: int):

@@ -57,6 +57,13 @@ class Trainer:
     it the current generator (core/random.py ``rng_scope``), from which
     dropout draws.
 
+    The trainable state is the model's parameters that require grad:
+    all of them unless the caller froze some with
+    ``requires_grad_(False)`` (LoRA fine-tuning freezes every parameter
+    but the adapters, ``nn.lora_parameters``). A frozen parameter gets
+    no gradient and no optimizer state, and is checkpointed with the
+    buffers.
+
     ``build_strategy`` (core/config.py ``BuildStrategy``, default
     ``BuildStrategy()``) is kept as ``self.strategy``. On one device
     each field does what it does in the JAX Trainer on one device:
@@ -88,8 +95,9 @@ class Trainer:
         self.strategy = build_strategy or BuildStrategy()
         self.amp_policy = amp
         self.grad_accum_steps = grad_accum_steps
-        self.params: Dict[str, torch.nn.Parameter] = dict(
-            model.named_parameters())
+        self.params: Dict[str, torch.nn.Parameter] = {
+            name: p for name, p in model.named_parameters()
+            if p.requires_grad}
         self.opt_state = optimizer.init(self.params)
         self.device = next(iter(self.params.values())).device
         self._generator = make_generator(0, self.device)
@@ -178,10 +186,11 @@ class Trainer:
     # --- checkpoint/resume ---------------------------------------------------
 
     def _buffers(self) -> Dict[str, torch.Tensor]:
-        """The model's persistent buffers, by name."""
+        """The model's persistent buffers and frozen parameters, by
+        name."""
         params = set(self.params)
-        keep = set(self.model.state_dict(keep_vars=True)) - params
-        return {n: b for n, b in self.model.named_buffers() if n in keep}
+        return {n: t for n, t in self.model.state_dict(keep_vars=True).items()
+                if n not in params}
 
     def state(self) -> Dict[str, Any]:
         """The whole resumable state with the JAX Trainer's keys:

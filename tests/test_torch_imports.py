@@ -55,6 +55,11 @@ NMT_SLICE = ("nn.transformer", "ops.decode", "models.transformer",
 MOE_ZOO_RNN_SLICE = ("nn.moe", "nn.rnn_layers", "ops.rnn", "ops.sequence",
                      "models.vgg", "models.alexnet", "models.googlenet",
                      "models.se_resnext", "models.stacked_lstm")
+# the modules of the recommender, LoRA and op-library slice
+OPS_LORA_SLICE = ("models.recommender", "nn.lora", "nn.sampling_layers",
+                  "ops", "ops.tensor", "ops.math", "ops.reduction",
+                  "ops.loss", "ops.sampling", "ops.sequence",
+                  "ops.control_flow", "metrics")
 
 
 def _imported(path):
@@ -94,7 +99,8 @@ def test_package_imports_without_triton_nvcc_or_jax():
 
 
 @pytest.mark.parametrize("name", RESILIENCE_SLICE + CONV_SLICE
-                         + DEEPFM_SLICE + NMT_SLICE + MOE_ZOO_RNN_SLICE)
+                         + DEEPFM_SLICE + NMT_SLICE + MOE_ZOO_RNN_SLICE
+                         + OPS_LORA_SLICE)
 def test_checkpoint_slice_modules_are_jax_free(name):
     path = PKG / (name.replace(".", "/") + ".py")
     if not path.exists():
@@ -239,6 +245,60 @@ def test_moe_zoo_and_rnn_without_device_raise_without_cuda(no_cuda):
     assert {t.device.type for t in model.state_dict().values()} == {"cpu"}
     model = stacked_lstm.StackedLSTM(64, 16, 16, 1, device="cpu")
     assert {p.device.type for p in model.parameters()} == {"cpu"}
+
+
+def test_recommender_layers_and_creation_ops_raise_without_cuda(no_cuda):
+    """The new entry points run on the card unless asked for the CPU:
+    with no card and no ``device=`` they raise."""
+    from paddle_tpu_torch import nn as tnn
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.models import recommender
+
+    key = np.zeros(2, np.uint32)
+    for make in (lambda: recommender.RecommenderNet(),
+                 lambda: tnn.NCE(8, 20), lambda: tnn.HSigmoid(8, 20),
+                 lambda: tnn.BilinearTensorProduct(2, 3, 4),
+                 lambda: ops.fill_constant((2,), 1.0), lambda: ops.ones((2,)),
+                 lambda: ops.zeros((2,)), lambda: ops.eye(2),
+                 lambda: ops.linspace(0, 1, 3), lambda: ops.range(3),
+                 lambda: ops.assign([1.0]),
+                 lambda: ops.uniform_random((2,), key),
+                 lambda: ops.gaussian_random((2,), key),
+                 lambda: ops.truncated_gaussian_random((2,), key),
+                 lambda: ops.sample_classes(key, (2,), 5),
+                 lambda: ops.TensorArray(2, (3,))):
+        with pytest.raises(DeviceUnavailableError):
+            make()
+    model = recommender.RecommenderNet(num_users=8, num_items=8,
+                                       device="cpu")
+    assert {p.device.type for p in model.parameters()} == {"cpu"}
+    gpt = TG.GPTForCausalLM(TG.GPTConfig.tiny(), device="cpu")
+    tnn.apply_lora(gpt, r=2, targets=("q_proj",))
+    assert {t.device.type for t in gpt.state_dict().values()} == {"cpu"}
+
+
+def test_lora_gpt_on_cpu_takes_the_plain_versions_and_counts_nothing():
+    """A LoRA-adapted GPT trains a step and, merged, serves paged on the
+    CPU through the flash and decode wrappers' plain versions, counting
+    no launch."""
+    from paddle_tpu_torch import nn as tnn
+
+    cfg = TG.GPTConfig(vocab_size=64, hidden_size=128, num_layers=1,
+                       num_heads=2, num_kv_heads=1, intermediate_size=128,
+                       max_position=128)
+    model = TG.GPTForCausalLM(cfg, device="cpu")
+    tnn.apply_lora(model, r=4, targets=("q_proj", "v_proj"))
+    n = (K.decode_attention_paged.launches, FK.flash_attention_fwd.launches,
+         FK.flash_attention_dq.launches, FK.flash_attention_dkv.launches)
+    model.forward_loss(torch.randint(1, 64, (2, 64))).backward()
+    tnn.merge_lora(model)
+    dec = BatchedDecoder(model.eval(), slots=2, capacity=128, device="cpu",
+                         pages=4, page_size=64)
+    rid = dec.submit([1, 2, 3], 4)
+    assert dec.run()[rid].shape == (4,)
+    assert (K.decode_attention_paged.launches,
+            FK.flash_attention_fwd.launches, FK.flash_attention_dq.launches,
+            FK.flash_attention_dkv.launches) == n
 
 
 def test_moe_gpt_on_cpu_takes_the_plain_versions_and_counts_nothing():

@@ -9,8 +9,12 @@ package's, bit for bit, on the CPU:
 - after ``seed(s)`` and building the same model in both packages, a
   fresh Trainer's start key is the JAX Trainer's, for GPT, BERT, ResNet,
   MnistMLP, DeepFM, the Transformer NMT, ViT, GPT-moe, BERT-moe,
-  SE-ResNeXt and StackedLSTM at tiny sizes: the port draws one key per
-  parameter, in the JAX package's creation order. The JAX models are
+  SE-ResNeXt, StackedLSTM, the recommender, GPT with LoRA adapters
+  (each adapter's key), and the NCE, HSigmoid and BilinearTensorProduct
+  layers at tiny sizes: the port draws one key per parameter, in the
+  JAX package's creation order; ``merge_lora`` moves the stream as the
+  JAX merge does (its constant-initialised Linears draw one key per
+  parameter and no random values). The JAX models are
   built with their initializers returning zeros (an eager initializer
   compiles a random kernel per shape, most of such a test's time); the
   keys are drawn before an initializer runs, so the stream moves the
@@ -37,6 +41,7 @@ from paddle_tpu.models import bert as JB
 from paddle_tpu.models import deepfm as JDF
 from paddle_tpu.models import gpt as JG
 from paddle_tpu.models import mnist as JM
+from paddle_tpu.models import recommender as JREC
 from paddle_tpu.models import resnet as JRN
 from paddle_tpu.models import se_resnext as JSX
 from paddle_tpu.models import stacked_lstm as JSL
@@ -50,6 +55,7 @@ from paddle_tpu_torch.models import bert as TB
 from paddle_tpu_torch.models import deepfm as TDF
 from paddle_tpu_torch.models import gpt as TG
 from paddle_tpu_torch.models import mnist as TM
+from paddle_tpu_torch.models import recommender as TREC
 from paddle_tpu_torch.models import resnet as TRN
 from paddle_tpu_torch.models import se_resnext as TSX
 from paddle_tpu_torch.models import stacked_lstm as TSL
@@ -197,7 +203,27 @@ MODELS = {
                    lambda: TSX.SEResNeXt((1, 1, 1, 1), 10, device="cpu")),
     "stacked_lstm": (lambda: JSL.StackedLSTM(64, 16, 16, 2),
                      lambda: TSL.StackedLSTM(64, 16, 16, 2, device="cpu")),
+    "recommender": (lambda: JREC.RecommenderNet(),
+                    lambda: TREC.RecommenderNet(device="cpu")),
+    "gpt_lora": (lambda: _lora(JG.GPTForCausalLM(JG.GPTConfig(**GPT_CFG)),
+                               jnn),
+                 lambda: _lora(TG.GPTForCausalLM(TG.GPTConfig(**GPT_CFG),
+                                                 device="cpu"), tnn)),
+    "nce": (lambda: jnn.NCE(16, 50, sampler="log_uniform"),
+            lambda: tnn.NCE(16, 50, sampler="log_uniform", device="cpu")),
+    "hsigmoid": (lambda: jnn.HSigmoid(16, 50),
+                 lambda: tnn.HSigmoid(16, 50, device="cpu")),
+    "bilinear": (lambda: jnn.BilinearTensorProduct(4, 5, 6),
+                 lambda: tnn.BilinearTensorProduct(4, 5, 6, device="cpu")),
 }
+
+
+def _lora(model, nn_mod):
+    """``model`` with LoRA adapters on q_proj and v_proj (the JAX
+    example's recipe): two keys per wrapped projection, lora_a then
+    lora_b, in the walk order."""
+    nn_mod.apply_lora(model, r=8, alpha=16, targets=("q_proj", "v_proj"))
+    return model
 
 
 @pytest.mark.parametrize("name", list(MODELS))
@@ -216,4 +242,43 @@ def test_fresh_trainer_key_is_the_jax_trainers(name, s, monkeypatch):
     tt = Trainer(make_port(), TO.SGD(0.1), lambda *a: None)
     np.testing.assert_array_equal(tt._key, _data(jt._rng))
     # and the streams stay together after the trainers
+    np.testing.assert_array_equal(TR.next_key(), _data(JR.next_key()))
+
+
+def test_lora_adapter_keys_and_the_merge_keep_the_streams_together(
+        monkeypatch):
+    """After seed(s), the same GPT and apply_lora: each adapter's
+    initial values come from the JAX package's key for it (the port's
+    generator seeded from key_for("LoRALinear.lora_a", key)), and after
+    merge_lora both streams stand at the same key."""
+    pt.seed(3)
+    ptt.seed(3)
+    jm = _lora(JG.GPTForCausalLM(JG.GPTConfig(**GPT_CFG)), jnn)
+    tm = _lora(TG.GPTForCausalLM(TG.GPTConfig(**GPT_CFG), device="cpu"), tnn)
+    np.testing.assert_array_equal(TR.next_key(), _data(JR.next_key()))
+    # the keys each adapter drew: replay the stream from the seed
+    ptt.seed(3)
+    keys = []
+    real = TR.next_key
+
+    def spy(n=1):
+        k = real(n)
+        keys.append(k)
+        return k
+
+    monkeypatch.setattr("paddle_tpu_torch.nn.layer.next_key", spy)
+    _lora(TG.GPTForCausalLM(TG.GPTConfig(**GPT_CFG), device="cpu"), tnn)
+    monkeypatch.undo()
+    a_keys = keys[-2 * 4::2]               # lora_a of each wrapped layer
+    for key, (name, p) in zip(a_keys, [
+            (n, p) for n, p in tm.named_parameters()
+            if n.endswith("lora_a")]):
+        gen = TR.seed_generator(torch.Generator(), TR.key_for(
+            "LoRALinear.lora_a", key))
+        want = torch.empty(p.shape).normal_(0.0, 0.02, generator=gen)
+        assert torch.equal(p.detach(), want), name
+    pt.seed(5)
+    ptt.seed(5)
+    jnn.merge_lora(jm)
+    tnn.merge_lora(tm)
     np.testing.assert_array_equal(TR.next_key(), _data(JR.next_key()))

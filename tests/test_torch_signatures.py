@@ -199,7 +199,52 @@ def test_the_comparison_sees_the_shared_surface():
                  "models.stacked_lstm:StackedLSTM.forward",
                  "models.stacked_lstm:loss_fn",
                  "models.stacked_lstm:eval_metrics",
-                 "parallel.api:Trainer.supervised"):
+                 "parallel.api:Trainer.supervised",
+                 # the recommender, LoRA and op-library slice
+                 "models.recommender:RecommenderNet.__init__",
+                 "models.recommender:RecommenderNet.forward",
+                 "models.recommender:loss_fn",
+                 "nn.lora:LoRALinear.__init__", "nn.lora:LoRALinear.forward",
+                 "nn.lora:LoRALinear.merged_weight",
+                 "nn.lora:LoRALinear.to_linear", "nn.lora:apply_lora",
+                 "nn.lora:lora_parameters", "nn.lora:merge_lora",
+                 "nn.sampling_layers:NCE.__init__",
+                 "nn.sampling_layers:NCE.forward",
+                 "nn.sampling_layers:HSigmoid.__init__",
+                 "nn.sampling_layers:HSigmoid.forward",
+                 "nn.layers:BilinearTensorProduct.__init__",
+                 "nn.layers:BilinearTensorProduct.forward",
+                 "ops.tensor:gather", "ops.tensor:gather_nd",
+                 "ops.tensor:scatter", "ops.tensor:scatter_nd_add",
+                 "ops.tensor:top_k", "ops.tensor:argsort",
+                 "ops.tensor:uniform_random", "ops.tensor:random_crop",
+                 "ops.tensor:unique_with_counts", "ops.tensor:where_index",
+                 "ops.tensor:fill_constant", "ops.tensor:strided_slice",
+                 "ops.math:matmul", "ops.math:mul", "ops.math:cos_sim",
+                 "ops.math:elementwise_floordiv", "ops.math:maxout",
+                 "ops.math:bilinear_tensor_product", "ops.math:logsumexp",
+                 "ops.reduction:reduce_prod", "ops.reduction:sum",
+                 "ops.loss:cross_entropy", "ops.loss:bpr_loss",
+                 "ops.loss:npair_loss",
+                 "ops.loss:sampled_softmax_with_cross_entropy",
+                 "ops.loss:teacher_student_sigmoid_loss",
+                 "ops.sampling:nce_loss", "ops.sampling:hsigmoid_loss",
+                 "ops.sampling:sample_classes", "ops.sampling:sample_logits",
+                 "ops.sampling:sampling_id", "ops.sequence:sequence_pad",
+                 "ops.sequence:sequence_expand", "ops.sequence:chunk_eval",
+                 "ops.sequence:hash_embedding_ids",
+                 "ops.sequence:sequence_scatter",
+                 "ops.sequence:sequence_concat",
+                 "ops.control_flow:while_loop", "ops.control_flow:scan",
+                 "ops.control_flow:static_rnn", "ops.control_flow:case",
+                 "ops.control_flow:switch_case",
+                 "ops.control_flow:TensorArray.__init__",
+                 "ops.control_flow:TensorArray.write",
+                 "metrics:Accuracy.update", "metrics:EditDistance.update",
+                 "metrics:CompositeMetric.__init__", "metrics:chunk_eval",
+                 "metrics:ChunkEvaluator.update", "metrics:mean_iou",
+                 "metrics:precision_recall",
+                 "metrics:positive_negative_pair"):
         assert want in labels
     assert set(INTENDED) <= labels
 
