@@ -374,8 +374,48 @@ Phases, each printed as it runs:
    (the JAX fill, clamp and drop results) and top_k and argsort on ties,
    all under torch's sync debug mode "error" (no host read, no device
    assert); a while_loop, scan, static_rnn, TensorArray and chunk_eval.
+   The repaired faults run in the same sync-free family: cross_entropy
+   and bpr_loss with labels out of range, sequence_reverse and
+   sequence_pool("last") with lengths past T, linear_chain_crf,
+   edit_distance and ctc_loss with labels and lengths out of range
+   (NaN fills and clamps, as the JAX package's), float-to-int cast
+   saturating at int8, uint8 and int32 (NaN and +-inf), and the gradients
+   of the clipped and kinked ops at their kinks.
    Printed: the count of ops checked and the host syncs of the ops whose
-   sizes or predicates are read from the data.
+   sizes or predicates are read from the data;
+30. ``[train:ssd]``, MobileNet-SSD's head on PASCAL VOC (PaddlePaddle
+   models, PaddleCV/ssd/mobilenet_ssd.py: MultiBoxHead over maps of
+   19x19x512, 10x10x1024, 5x5x512, 3x3x256, 2x2x256 and 1x1x128, 300
+   px, base 300, 21 classes, min sizes 60-285, max sizes [[], 150, ...,
+   300], aspect ratios [2] then [2, 3], flip: 1917 priors) on feature
+   maps from numpy (the repo has no MobileNet backbone) and 1-8 ground
+   truth boxes an image padded to 8 with a mask, labels 1..20: the
+   check step at B=2, float64 card against CPU gated (loss 1e-4, each
+   grad 1e-3 of its parameter's largest CPU entry; float32 reported);
+   B=32 float32, Adam(1e-3), 10 steps through Trainer on ssd_loss's
+   mean: finite and falling, ms per step, device ops per step and the
+   idle share; then detection_output(nms_threshold=0.45, nms_top_k=400,
+   keep_top_k=200) on the trained head's outputs at B=32: in float64
+   the card's labels and valid masks equal the CPU's on the same head
+   outputs and its scores and boxes lie within 1e-5 + 1e-5 relative
+   (float32 reported), the card's decode under sync debug "error" (no
+   host read); ms and device ops per call; DetectionMAP over the
+   decoded boxes (reported); no hand kernel launches;
+31. ``[ops:detection]``, the other detection paths at their published
+   sizes, float64, card against CPU (floats 1e-5 + 1e-5 relative,
+   integers and masks equal) under sync debug "error": Faster R-CNN's
+   RPN at 800 px, stride 16 (anchor_generator on a 50x50 map, sizes
+   32-512, ratios 0.5/1/2: 37500 anchors; generate_proposals with
+   pre_nms_top_n 6000, post_nms_top_n 1000, nms_thresh 0.7;
+   rpn_target_assign against 8 gt boxes; roi_align (sampling 2) and
+   roi_pool of 512 RoIs at 7x7 on a C=256, 50x50 map;
+   generate_proposal_labels; distribute_fpn_proposals and
+   collect_fpn_proposals over levels 2-5), R-FCN's psroi_pool (7x7
+   bins, 21 classes), YOLOv3's 13x13 head over 416 px (yolo_box, 80
+   classes, 3 of the standard 9 anchors; yolov3_loss and its gradient at
+   B=8 with 50 padded gt boxes), matrix_nms (80 classes x 500 boxes) and
+   box_decoder_and_assign (512 x 81 classes); ms and device ops per
+   call; no hand kernel launches.
 
 Any failure exits non-zero. The line before the last is the kernels'
 JSON record; the last line is
@@ -580,6 +620,19 @@ LORA_POLICY, LORA_STEPS = "mixed_bf16", 10
 # word2vec at PTB's vocabulary
 W2V_VOCAB, W2V_EMBED, W2V_CTX, W2V_NEG = 10000, 32, 4, 5
 W2V_BATCH, W2V_CHECK_B, W2V_STEPS = 4096, 8, 20
+# MobileNet-SSD's multi_box_head on PASCAL VOC (PaddlePaddle models,
+# PaddleCV/ssd/mobilenet_ssd.py): six maps, 300 px, 21 classes, 1917
+# priors; ground truth padded to SSD_G boxes an image
+SSD_MAPS = ((512, 19), (1024, 10), (512, 5), (256, 3), (256, 2), (128, 1))
+SSD_HEAD = dict(image_size=300, num_classes=21, base_size=300,
+                min_sizes=[60.0, 105.0, 150.0, 195.0, 240.0, 285.0],
+                max_sizes=[[], 150.0, 195.0, 240.0, 285.0, 300.0],
+                aspect_ratios=[[2.0]] + [[2.0, 3.0]] * 5, flip=True,
+                offset=0.5)
+SSD_PRIORS, SSD_G = 1917, 8
+SSD_CHECK_B, SSD_B, SSD_STEPS = 2, 32, 10
+SSD_DECODE = dict(nms_threshold=0.45, nms_top_k=400, keep_top_k=200)
+DET_TOL = 1e-5            # card against CPU, float64: atol and rtol
 
 
 def log(*a):
@@ -4626,6 +4679,27 @@ def phase_train_word2vec(torch, FK, K, QM):
     torch.cuda.empty_cache()
 
 
+def kink_grads(x):
+    """The gradient of each clipped or kinked op at the points ``x``
+    (0, the clip bounds), where JAX splits a tie and abs has derivative
+    +1 at 0."""
+    import torch
+
+    from paddle_tpu_torch import ops as O
+
+    fns = (O.abs, O.relu6, O.brelu, O.hard_sigmoid, O.soft_relu,
+           O.math.celu, O.math.hard_silu, O.math.sparse_sigmoid,
+           lambda v: O.clip(v, -1.0, 1.0), O.l1_norm,
+           lambda v: O.sigmoid_cross_entropy_with_logits(v, v * 0 + 0.3),
+           lambda v: O.hinge_loss(v, (v > 0).to(v.dtype)),
+           lambda v: O.loss.teacher_student_sigmoid_loss(v, v * 0 + 0.5))
+    out = []
+    for fn in fns:
+        v = x.clone().requires_grad_(True)
+        out.append(torch.autograd.grad(fn(v).sum(), v)[0])
+    return tuple(out)
+
+
 def ops_library_cases(torch):
     """The [ops:library] checks at small shapes from numpy seed 7: the
     indexing and search family as (name, fn, CPU inputs), run on the card
@@ -4673,6 +4747,33 @@ def ops_library_cases(torch):
         ("argsort ties descending",
          lambda t: O.argsort(t, descending=True), [ties]),
         ("argsort ties", O.argsort, [ties]),
+        # the repaired faults: out-of-range labels and lengths (JAX's
+        # NaN fill and clamp), saturating casts, gradients at kinks
+        ("cross_entropy labels out of range", O.cross_entropy,
+         [torch.softmax(f32(5, 4), -1), i64(0, 4, -1, -5, 2)]),
+        ("bpr_loss labels out of range", O.bpr_loss,
+         [f32(4, 3), i64(-1, 3, 0, -4).reshape(4, 1)]),
+        ("sequence_reverse lengths past T", O.sequence_reverse,
+         [seq, i64(8, 3, 0, 7)]),
+        ("sequence_pool last, lengths past T",
+         lambda x, n: O.sequence_pool(x, n, "last"), [seq, i64(8, 3, 0, 7)]),
+        ("linear_chain_crf labels and lengths out of range",
+         O.linear_chain_crf, [f32(3, 4, 5), f32(5, 5), torch.tensor(
+             [[0, 1, 2, 3], [4, 5, 1, 2], [1, 1, -1, 2]]), i64(6, 4, 9)]),
+        ("edit_distance lengths past Lr", O.edit_distance,
+         [torch.as_tensor(rng.integers(0, 4, (3, 5))), i64(5, 3, 7),
+          torch.as_tensor(rng.integers(0, 4, (3, 4))), i64(4, 9, 2)]),
+        ("ctc_loss labels and lengths out of range",
+         lambda lp, *a: O.ctc_loss(torch.log_softmax(lp, -1), *a),
+         [f32(3, 6, 5), torch.tensor([[1, 2], [3, 7], [2, 2]]),
+          i64(6, 9, 4), i64(2, 2, 3)]),
+        ("cast saturating to int8, uint8, int32",
+         lambda x: tuple(O.cast(x, d) for d in ("int8", "uint8", "int32")),
+         [torch.tensor([-1.5, 300.7, -300.2, 3e9, float("nan"),
+                        float("inf"), -float("inf")])]),
+        ("gradients at kinks", kink_grads, [torch.tensor(
+            [0.0, -0.0, 1.0, -1.0, 2.0, -2.0, 3.0, -3.0, 6.0, 24.0, 40.0,
+             15.0, -15.0])]),
     ]
     w, b, flat, bw = f32(10, 3), f32(10), f32(13, 2), f32(2, 3, 3)
     my = f32(12, 3)
@@ -4865,6 +4966,338 @@ def phase_ops_library(torch):
         raise SystemExit(f"{tag} card and CPU disagree on {bad}")
 
 
+def ssd_features(torch, b, seed=0):
+    """The six MobileNet-SSD feature maps (B, C, S, S) from numpy
+    ``seed``: the repo has no MobileNet backbone, so the head's inputs
+    are drawn, as the recommender's batches are."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.normal(size=(b, c, s, s)).astype(
+        np.float32)) for c, s in SSD_MAPS]
+
+
+def ssd_ground_truth(torch, b, seed=1):
+    """Padded ground truth: 1-8 boxes an image in normalised [x1, y1,
+    x2, y2] (sides 0.05-0.5), labels in 1..20, as (B, 8, 4), (B, 8) and
+    a (B, 8) mask."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    xy = rng.uniform(0.0, 0.5, (b, SSD_G, 2))
+    wh = rng.uniform(0.05, 0.5, (b, SSD_G, 2))
+    gt = np.concatenate([xy, xy + wh], -1).astype(np.float32)
+    label = rng.integers(1, 21, (b, SSD_G)).astype(np.int64)
+    n = rng.integers(1, SSD_G + 1, (b,))
+    mask = np.arange(SSD_G)[None, :] < n[:, None]
+    return (torch.from_numpy(gt), torch.from_numpy(label),
+            torch.from_numpy(mask))
+
+
+def ssd_loss_of(model, *args):
+    from paddle_tpu_torch.ops import detection as D
+
+    feats, (gt, label, mask) = list(args[:6]), args[6:]
+    loc, conf, pb, pv = model(feats)
+    return D.ssd_loss(loc, conf, gt, label, pb, pv, mask).mean()
+
+
+def decode_agreement(torch, got, want):
+    """(labels and valid masks equal, the largest |card - CPU| less
+    DET_TOL x |CPU| over the score and box columns) of two
+    detection_output results, the card's and the CPU's."""
+    go, gv = got[0].cpu().double(), got[1].cpu()
+    wo, wv = want[0].double(), want[1]
+    same = bool(torch.equal(gv, wv)) and bool(torch.equal(go[..., 0],
+                                                          wo[..., 0]))
+    excess = float((go[..., 1:] - wo[..., 1:]).abs().sub(
+        DET_TOL * wo[..., 1:].abs()).max())
+    return same, excess
+
+
+def phase_train_ssd(torch, FK, K, QM):
+    """The MobileNet-SSD head on PASCAL VOC (module docstring, phase
+    30): the float64 check step, Trainer steps at B=32, the decode card
+    against CPU with no host read, and DetectionMAP."""
+    import copy
+
+    from paddle_tpu_torch import metrics as MT
+    from paddle_tpu_torch import optimizer as TO
+    from paddle_tpu_torch.core.dtypes import Policy, policy_scope
+    from paddle_tpu_torch.nn import layers as L
+    from paddle_tpu_torch.ops import detection as D
+    from paddle_tpu_torch.parallel import Trainer
+
+    tag = "[train:ssd]"
+    n0 = all_launches(FK, K, QM)
+    channels = [c for c, _ in SSD_MAPS]
+    cpu = L.MultiBoxHead(channels, **SSD_HEAD, device="cpu",
+                         generator=torch.Generator().manual_seed(50))
+    log(f"{tag} MultiBoxHead over maps {SSD_MAPS}: priors per cell "
+        f"{cpu.num_priors}, {sum(p.numel() for p in cpu.parameters())} "
+        f"parameters")
+    gt = ssd_ground_truth(torch, SSD_CHECK_B)
+    card_against_cpu(torch, f"{tag} B={SSD_CHECK_B}", cpu, ssd_loss_of,
+                     ssd_features(torch, SSD_CHECK_B) + list(gt))
+
+    model = copy.deepcopy(cpu).to("cuda")
+    del cpu
+    feats = [f.to("cuda") for f in ssd_features(torch, SSD_B, seed=2)]
+    gt = [t.to("cuda") for t in ssd_ground_truth(torch, SSD_B, seed=3)]
+    with torch.no_grad():
+        priors = model(feats)[2]
+    if priors.shape != (SSD_PRIORS, 4):
+        raise SystemExit(f"{tag} {tuple(priors.shape)} priors, not "
+                         f"{SSD_PRIORS}")
+    tr = Trainer(model, TO.Adam(1e-3),
+                 lambda m, bt, g: (ssd_loss_of(m, *bt[0], *bt[1]), {}))
+    batch = (feats, gt)
+    losses, ms = timed_steps(torch, lambda: tr.train_step(batch), 2,
+                             SSD_STEPS - 2)
+    mean = sum(ms) / len(ms)
+    busy, idle, ops = step_profile(torch, lambda: tr.train_step(batch),
+                                   mean, n=2)
+    log(f"{tag} B={SSD_B} float32 Adam(1e-3), {SSD_STEPS} steps: losses "
+        f"{[round(v, 6) for v in losses]}; ms per timed step "
+        f"{[round(v, 3) for v in ms]}, mean {mean:.3f} ms, "
+        f"{SSD_B / (mean / 1e3):.1f} images/s; device busy {busy:.3f} ms "
+        f"per step, idle share {idle:.3f}, {ops:.0f} device ops per step")
+    if not finite_and_falling(losses):
+        raise SystemExit(f"{tag} losses not finite and falling")
+
+    # the decode: the trained head's outputs (the card's, copied to the
+    # CPU), decoded on each device, in float64 (the head run under the
+    # float64 policy) and in float32
+    model.eval()
+    f64 = Policy("float64", "float64", "float64")
+    with torch.no_grad():
+        m64 = copy.deepcopy(model).double()
+        with policy_scope(f64):
+            head64 = m64([f.double() for f in feats])
+            cpu64 = copy.deepcopy(m64).cpu()([f.cpu().double()
+                                              for f in feats])
+        head32 = model(feats)
+    head_gap = max(float((a.cpu() - b).abs().max())
+                   for a, b in zip(head64, cpu64))
+    results = {}
+    for name, head in (("float64", head64), ("float32", head32)):
+        on_cpu = [t.cpu() for t in head]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            with torch.no_grad():
+                got = D.detection_output(*head, **SSD_DECODE)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        with torch.no_grad():
+            want = D.detection_output(*on_cpu, **SSD_DECODE)
+        results[name] = (got, decode_agreement(torch, got, want))
+    same64, excess64 = results["float64"][1]
+    same32, excess32 = results["float32"][1]
+
+    def decode():
+        with torch.no_grad():
+            D.detection_output(*head32, **SSD_DECODE)
+
+    _, dms = timed_steps(torch, decode, 1, 3)
+    dmean = sum(dms) / len(dms)
+    dbusy, didle, dops = step_profile(torch, decode, dmean, n=1)
+    out, valid = results["float32"][0]
+    metric = MT.DetectionMAP(num_classes=SSD_HEAD["num_classes"])
+    for i in range(SSD_B):
+        keep = valid[i]
+        metric.update(out[i][keep, 2:], out[i][keep, 1],
+                      out[i][keep, 0].long(), gt[0][i][gt[2][i]],
+                      gt[1][i][gt[2][i]])
+    log(f"{tag} decode {SSD_DECODE} at B={SSD_B}: float64 card against "
+        f"CPU on the same head outputs: labels and valid masks "
+        f"{'equal' if same64 else 'DIFFER'}, scores and boxes past "
+        f"{DET_TOL} + {DET_TOL} relative by {excess64:.3e} (<= 0 "
+        f"required); float32 (reported): labels and masks "
+        f"{'equal' if same32 else 'differ'}, excess {excess32:.3e}; the "
+        f"float64 head's outputs, card against CPU, {head_gap:.3e}; no "
+        f"host read under "
+        f"sync debug \"error\"; {int(valid.sum())} valid detections; "
+        f"{dmean:.3f} ms per call (float32), {dops:.0f} device ops per "
+        f"call, device busy {dbusy:.3f} ms, idle share {didle:.3f}; "
+        f"DetectionMAP on the training batch after {SSD_STEPS} steps "
+        f"{metric.eval():.6f} (reported)")
+    if not same64 or excess64 > 0:
+        raise SystemExit(f"{tag} the float64 decode differs card to CPU")
+    if all_launches(FK, K, QM) != n0:
+        raise SystemExit(f"{tag} a hand kernel launched on the SSD path")
+
+
+def det_inputs(torch):
+    """The [ops:detection] inputs (float64, numpy seed 8), on the CPU:
+    Faster R-CNN's RPN at an 800 px image and stride 16 (a 50 x 50 map,
+    15 anchors a cell, 8 ground-truth boxes, 512 RoIs on a C=256 map),
+    R-FCN's 7 x 7 x 21 position-sensitive map, YOLOv3's 13 x 13 head
+    over 416 px (80 classes, B=8, 50 padded gt boxes), 80 classes of
+    500 candidates for matrix_nms, 512 RoIs x 81 classes for
+    box_decoder_and_assign."""
+    import numpy as np
+
+    rng = np.random.default_rng(8)
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float64))
+
+    def boxes(n, scale):
+        xy = rng.uniform(0.0, 0.8, (n, 2))
+        wh = rng.uniform(0.02, 0.3, (n, 2))
+        return t(np.concatenate([xy, xy + wh], 1) * scale)
+
+    yolo_gt = np.concatenate([rng.uniform(0.05, 0.95, (8, 50, 2)),
+                              rng.uniform(0.02, 0.5, (8, 50, 2))], -1)
+    yolo_gt[:, 20:] = 0.0                         # padded slots
+    return dict(
+        rpn_scores=t(rng.normal(size=(37500,))),
+        rpn_deltas=t(rng.normal(size=(37500, 4)) * 0.2),
+        gt=boxes(8, 800.0), gt_classes=torch.from_numpy(
+            rng.integers(1, 81, (8,))),
+        feat=t(rng.normal(size=(256, 50, 50))),
+        rois=boxes(512, 800.0), fpn_rois=boxes(1000, 800.0),
+        fpn_scores=t(rng.uniform(size=(1000,))),
+        rfcn=t(rng.normal(size=(1, 21 * 49, 50, 50))),
+        yolo_x=t(rng.normal(size=(8, 255, 13, 13))),
+        yolo_gt=t(yolo_gt), yolo_label=torch.from_numpy(
+            rng.integers(0, 80, (8, 50))),
+        nms_boxes=boxes(500, 1.0), nms_scores=t(rng.uniform(
+            size=(80, 500))),
+        dec_prior=boxes(512, 800.0), dec_var=t(np.tile(
+            [0.1, 0.1, 0.2, 0.2], (512, 1))),
+        dec_target=t(rng.normal(size=(512, 324))),
+        dec_score=t(rng.uniform(size=(512, 81))))
+
+
+YOLO_ANCHORS = [10, 13, 16, 30, 33, 23, 30, 61, 62, 45, 59, 119, 116, 90,
+                156, 198, 373, 326]
+
+
+def det_cases(torch):
+    """(name, fn) of [ops:detection]: ``fn(inp, dev)`` runs the op on the
+    inputs ``inp`` (already on ``dev``) and returns its outputs."""
+    from paddle_tpu_torch import ops as O
+
+    def anchors_of(dev):
+        anchors, var = O.anchor_generator(
+            (50, 50), [32.0, 64.0, 128.0, 256.0, 512.0], [0.5, 1.0, 2.0],
+            (16.0, 16.0), dtype=torch.float64, device=dev)
+        return anchors.reshape(-1, 4), var.reshape(-1, 4)
+
+    def rpn(inp, dev):
+        anchors, var = anchors_of(dev)
+        props, ok = O.generate_proposals(
+            inp["rpn_scores"], inp["rpn_deltas"], anchors, var, (800, 800),
+            pre_nms_top_n=6000, post_nms_top_n=1000, nms_thresh=0.7)
+        return anchors, props, ok
+
+    def yolo(inp, dev):
+        x = inp["yolo_x"].clone().requires_grad_(True)
+        img = torch.full((8, 2), 416, dtype=torch.int64, device=dev)
+        boxes, scores = O.yolo_box(x, img, YOLO_ANCHORS[12:], 80, 0.01, 32)
+        loss = O.yolov3_loss(x, inp["yolo_gt"], inp["yolo_label"],
+                             anchors=YOLO_ANCHORS, anchor_mask=[6, 7, 8],
+                             class_num=80, downsample_ratio=32)
+        grad, = torch.autograd.grad(loss, x)
+        return boxes.detach(), scores.detach(), loss.detach(), grad
+
+    def fpn(inp, dev):
+        masks, lvl = O.distribute_fpn_proposals(inp["fpn_rois"])
+        multi = [inp["fpn_rois"][i::4] for i in range(4)]
+        scores = [inp["fpn_scores"][i::4] for i in range(4)]
+        return masks, lvl, O.collect_fpn_proposals(multi, scores,
+                                                   post_nms_top_n=1000)
+
+    return [
+        ("anchor_generator + generate_proposals (RPN)", rpn),
+        ("rpn_target_assign (8 gt boxes)", lambda inp, dev:
+         O.rpn_target_assign(anchors_of(dev)[0], inp["gt"])),
+        ("roi_align 512 x 7x7 (C=256)", lambda inp, dev: O.roi_align(
+            inp["feat"], inp["rois"], output_size=(7, 7),
+            spatial_scale=1 / 16, sampling_ratio=2)),
+        ("roi_pool 512 x 7x7 (C=256)", lambda inp, dev: O.roi_pool(
+            inp["feat"], inp["rois"], output_size=(7, 7),
+            spatial_scale=1 / 16)),
+        ("generate_proposal_labels", lambda inp, dev:
+         O.generate_proposal_labels(inp["rois"], inp["gt"],
+                                    inp["gt_classes"])),
+        ("distribute_fpn_proposals + collect_fpn_proposals", fpn),
+        ("psroi_pool (R-FCN)", lambda inp, dev: O.psroi_pool(
+            inp["rfcn"], torch.cat([torch.zeros_like(inp["rois"][:, :1]),
+                                    inp["rois"]], 1), output_size=(7, 7),
+            spatial_scale=1 / 16)),
+        ("yolo_box + yolov3_loss (13x13, 80 classes)", yolo),
+        ("matrix_nms (80 x 500)", lambda inp, dev: O.matrix_nms(
+            inp["nms_boxes"], inp["nms_scores"], keep_top_k=100,
+            score_threshold=0.5)),
+        ("box_decoder_and_assign (512 x 81)", lambda inp, dev:
+         O.box_decoder_and_assign(inp["dec_prior"], inp["dec_var"],
+                                  inp["dec_target"], inp["dec_score"])),
+    ]
+
+
+def det_outputs_match(torch, a, b):
+    """Every leaf of ``a`` (the card's) against ``b`` (the CPU's):
+    floats within DET_TOL + DET_TOL relative, the rest equal."""
+    from paddle_tpu_torch.clip import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    if len(la) != len(lb):
+        return False
+    for x, y in zip(la, lb):
+        x = x.cpu()
+        if x.shape != y.shape:
+            return False
+        if y.is_floating_point():
+            if not torch.allclose(x, y, rtol=DET_TOL, atol=DET_TOL,
+                                  equal_nan=True):
+                return False
+        elif not torch.equal(x, y):
+            return False
+    return True
+
+
+def phase_ops_detection(torch, FK, K, QM):
+    """The other detection paths at their published sizes, card against
+    CPU in float64 under sync debug "error" (module docstring, phase
+    31), with ms and device ops per call."""
+    tag = "[ops:detection]"
+    n0 = all_launches(FK, K, QM)
+    inp = det_inputs(torch)
+    card = {k: v.to("cuda") for k, v in inp.items()}
+    bad, lines = [], []
+    for name, fn in det_cases(torch):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = fn(card, "cuda")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = fn(inp, "cpu")
+        cpu_s = time.perf_counter() - t0
+        if not det_outputs_match(torch, got, want):
+            bad.append(name)
+        _, ms = timed_steps(torch, lambda: [fn(card, "cuda"), None][1], 0,
+                            3)
+        mean = sum(ms) / len(ms)
+        _, _, ops = step_profile(torch, lambda: fn(card, "cuda"), mean, n=1)
+        lines.append(f"{name} {mean:.3f} ms, {ops:.0f} ops (the CPU "
+                     f"reference {cpu_s:.2f} s)")
+    log(f"{tag} {len(lines)} paths, float64, card against CPU (floats "
+        f"{DET_TOL} + {DET_TOL} relative, integers and masks equal), no "
+        f"host read under sync debug \"error\"; mismatches: "
+        f"{bad or 'none'}; per call: " + "; ".join(lines))
+    if bad:
+        raise SystemExit(f"{tag} card and CPU disagree on {bad}")
+    if all_launches(FK, K, QM) != n0:
+        raise SystemExit(f"{tag} a hand kernel launched")
+
+
 def timed_phase(tag, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -5020,6 +5453,8 @@ def main() -> int:
     timed_phase("[train:lora]", phase_train_lora, torch, FK, K, QM, prompts)
     timed_phase("[train:word2vec]", phase_train_word2vec, torch, FK, K, QM)
     timed_phase("[ops:library]", phase_ops_library, torch)
+    timed_phase("[train:ssd]", phase_train_ssd, torch, FK, K, QM)
+    timed_phase("[ops:detection]", phase_ops_detection, torch, FK, K, QM)
     log(f"[card] {smi}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -4,9 +4,11 @@ on tensors (``accuracy``, ``auc_terms``, ``chunk_eval``, ``mean_iou``,
 ``precision_recall``, ``positive_negative_pair``), which run on their
 inputs' device and read nothing back, and the host-side accumulators on
 ``MetricBase`` (Accuracy, Auc, Precision, Recall, EditDistance,
-CompositeMetric, ChunkEvaluator), which take host values and tensors
-alike. ``detection_map`` and ``DetectionMAP`` come with the detection
-ops (ROADMAP queue 1 entry 4)."""
+CompositeMetric, ChunkEvaluator, DetectionMAP), which take host values
+and tensors alike. ``detection_map`` (11-point interpolated mAP) is
+host-side, as in the JAX package: an eval-time metric over ragged
+detections, its IoUs from ops/detection.py :func:`iou_similarity` on the
+CPU."""
 
 from __future__ import annotations
 
@@ -336,3 +338,74 @@ def positive_negative_pair(score, label, query_id):
     prod = sdiff * (l[:, None] - l[None, :])
     return (torch.sum(valid & (prod > 0)), torch.sum(valid & (prod < 0)),
             torch.sum(valid & (sdiff == 0)))
+
+
+def detection_map(det_boxes, det_scores, det_labels, gt_boxes, gt_labels,
+                  *, num_classes: int, overlap_threshold: float = 0.5):
+    """reference: operators/detection_map_op.cc: the mean over classes
+    of the 11-point interpolated average precision, one batch of
+    detections (D, 4) + (D,) + (D,) against ground truth (G, 4) + (G,);
+    padded entries have label < 0. Detections of a class in descending
+    score order (a stable sort), each matching its highest-IoU gt of
+    that class once. Tensors or arrays; the result a float."""
+    from .ops.detection import iou_similarity
+
+    det_boxes = _host(det_boxes)
+    det_scores = _host(det_scores)
+    det_labels = _host(det_labels)
+    gt_boxes = _host(gt_boxes)
+    gt_labels = _host(gt_labels)
+    aps = []
+    for c in range(num_classes):
+        d_idx = np.where(det_labels == c)[0]
+        g_idx = np.where(gt_labels == c)[0]
+        if len(g_idx) == 0:
+            continue
+        order = d_idx[np.argsort(-det_scores[d_idx], kind="stable")]
+        gts = torch.from_numpy(np.ascontiguousarray(gt_boxes[g_idx]))
+        matched = set()
+        tp = np.zeros(len(order))
+        fp = np.zeros(len(order))
+        for i, di in enumerate(order):
+            ious = iou_similarity(torch.from_numpy(np.ascontiguousarray(
+                det_boxes[di:di + 1])).to(gts.dtype), gts).numpy()[0]
+            j = int(np.argmax(ious))
+            if ious[j] >= overlap_threshold and j not in matched:
+                tp[i] = 1
+                matched.add(j)
+            else:
+                fp[i] = 1
+        ctp = np.cumsum(tp)
+        cfp = np.cumsum(fp)
+        rec = ctp / len(g_idx)
+        prec = ctp / np.maximum(ctp + cfp, 1e-9)
+        ap = 0.0
+        for t in np.linspace(0, 1, 11):
+            p = prec[rec >= t].max() if np.any(rec >= t) else 0.0
+            ap += p / 11
+        aps.append(ap)
+    return float(np.mean(aps)) if aps else 0.0
+
+
+class DetectionMAP(MetricBase):
+    """reference: python/paddle/fluid/metrics.py DetectionMAP: the mean
+    of :func:`detection_map` over the batches given to ``update``."""
+
+    def __init__(self, num_classes: int, overlap_threshold: float = 0.5,
+                 name=None):
+        self.name = name
+        self.num_classes = num_classes
+        self.overlap_threshold = overlap_threshold
+        self.reset()
+
+    def reset(self):
+        self._maps = []
+
+    def update(self, det_boxes, det_scores, det_labels, gt_boxes, gt_labels):
+        self._maps.append(detection_map(
+            det_boxes, det_scores, det_labels, gt_boxes, gt_labels,
+            num_classes=self.num_classes,
+            overlap_threshold=self.overlap_threshold))
+
+    def eval(self):
+        return float(np.mean(self._maps)) if self._maps else 0.0

@@ -5,7 +5,7 @@ from .layers import (GELU, RNN, BatchNorm, BilinearTensorProduct, Conv2D,
                      Conv2DTranspose, Dropout, Embedding, Flatten, GroupNorm,
                      GRUCell, LayerNorm, Linear, LSTMCell,
                      MultiHeadAttention, Pool2D, PRelu, ReLU, RMSNorm,
-                     Sigmoid, Softmax, Tanh)
+                     Sigmoid, Softmax, SpectralNorm, Tanh)
 from .lora import LoRALinear, apply_lora, lora_parameters, merge_lora
 from .moe import SwitchFFN
 from .rnn_layers import GRU, LSTM
@@ -25,4 +25,4 @@ __all__ = ["Layer", "LayerList", "Sequential", "BatchNorm", "Conv2D",
            "FeedForward", "LearnedPositionalEmbedding",
            "PositionalEncoding", "TransformerDecoder",
            "TransformerDecoderLayer", "TransformerEncoder",
-           "TransformerEncoderLayer"]
+           "TransformerEncoderLayer", "SpectralNorm"]

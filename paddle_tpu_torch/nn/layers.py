@@ -4,8 +4,9 @@ MultiHeadAttention (attention dropout and packed-row segment ids) with
 its KV-cache decode mixin; the convolutional layers Conv2D,
 Conv2DTranspose, Pool2D, BatchNorm, GroupNorm, PRelu and Flatten, the
 activation layers ReLU, GELU, Sigmoid, Tanh and Softmax, the
-recurrent GRUCell, LSTMCell and RNN (a cell over time), and
-BilinearTensorProduct.
+recurrent GRUCell, LSTMCell and RNN (a cell over time),
+BilinearTensorProduct, SpectralNorm and the SSD head MultiBoxHead
+(``LayerList`` is re-exported, as the JAX module does).
 
 Linear weights are (in, out), as in the JAX package, so parameters move
 across by name without transposes. The JAX package returns new cache
@@ -27,7 +28,7 @@ from ..core.random import current_generator
 from ..ops import math as OM
 from ..ops import nn as ON
 from ..ops.math import activation
-from .layer import Layer
+from .layer import Layer, LayerList  # noqa: F401 - LayerList re-exported
 
 
 def _apply_act(x, act: Optional[str]):
@@ -278,6 +279,46 @@ class BilinearTensorProduct(Layer):
     def forward(self, x, y):
         return OM.bilinear_tensor_product(
             x, y, self.weight, self.bias if self.has_bias else None)
+
+
+class SpectralNorm(Layer):
+    """Power-iteration weight normalisation (reference: dygraph/nn.py
+    SpectralNorm; ops/nn_extra.py :func:`spectral_norm`): ``forward(
+    weight)`` is weight / sigma. The u (h,) and v (w,) vectors are
+    float32 buffers, the JAX package's names, drawn from a standard
+    normal keyed by ``make_key(0)`` and ``make_key(1)`` (the JAX
+    package's keys; the draws match in distribution); a training forward
+    moves them to the iteration's result."""
+
+    def __init__(self, weight_shape, dim: int = 0, power_iters: int = 1,
+                 eps: float = 1e-12, dtype=None, *, device=None):
+        from ..core.random import make_key, seed_generator
+
+        super().__init__()
+        self.dim, self.power_iters, self.eps = dim, power_iters, eps
+        device = resolve_device(device)
+        h = weight_shape[dim]
+        w = 1
+        for d in weight_shape:
+            w *= d
+        w //= h
+        for name, size, seed in (("u", h, 0), ("v", w, 1)):
+            gen = seed_generator(torch.Generator(device=device),
+                                 make_key(seed))
+            self.register_buffer(name, torch.randn(
+                (size,), generator=gen, dtype=torch.float32, device=device))
+
+    def forward(self, weight):
+        from ..ops.nn_extra import spectral_norm
+
+        out, u, v = spectral_norm(weight, self.u, self.v, dim=self.dim,
+                                  power_iters=self.power_iters,
+                                  eps=self.eps)
+        if self.training:
+            with torch.no_grad():
+                self.u.copy_(u)
+                self.v.copy_(v)
+        return out
 
 
 class RMSNorm(Layer):
@@ -809,3 +850,118 @@ class RNN(Layer):
         if self.time_major:
             outs = outs.transpose(0, 1)
         return outs, final
+
+
+class MultiBoxHead(Layer):
+    """SSD detection head over several feature maps (reference:
+    python/paddle/fluid/layers/detection.py multi_box_head): per map a
+    3x3 conv predicts box deltas (4A channels) and class logits (CA
+    channels), and ops/detection.py :func:`prior_box` gives its priors.
+
+    ``in_channels``: each input map's channel count. Without
+    ``min_sizes`` the sizes follow fluid's derivation from ``min_ratio``
+    and ``max_ratio``; an entry of ``max_sizes`` may be empty (that map
+    has no max-size prior). Parameters ``loc_convs.<i>.weight`` /
+    ``.bias`` and ``conf_convs.<i>.*``, created in the JAX package's
+    order (map by map, loc then conf), so a state crosses by name.
+    ``forward(inputs)`` -> (locations (N, P, 4), confidences (N, P,
+    num_classes), priors (P, 4), variances (P, 4)); the priors are made
+    on the inputs' device, float64 for float64 inputs and float32
+    otherwise, once per map size (they hold no state of the weights)."""
+
+    def __init__(self, in_channels: Sequence[int], image_size,
+                 num_classes: int, *, base_size: Optional[int] = None,
+                 aspect_ratios: Sequence[Sequence[float]] = (),
+                 min_ratio: int = 20, max_ratio: int = 90,
+                 min_sizes: Optional[Sequence[float]] = None,
+                 max_sizes: Optional[Sequence[float]] = None,
+                 steps: Optional[Sequence[float]] = None,
+                 variances: Sequence[float] = (0.1, 0.1, 0.2, 0.2),
+                 flip: bool = True, clip: bool = False,
+                 offset: float = 0.5, dtype=None, device=None,
+                 generator=None):
+        import math
+
+        from ..ops import detection as D
+
+        super().__init__()
+        n_maps = len(in_channels)
+        self.image_size = ((image_size, image_size)
+                           if isinstance(image_size, int) else
+                           tuple(image_size))
+        base = base_size or self.image_size[0]
+        if min_sizes is None:
+            # fluid's derivation: the first map at 10% of the base, the
+            # rest spread from min_ratio to max_ratio
+            min_sizes, max_sizes = [base * 0.1], [base * 0.2]
+            if n_maps > 1:
+                step = int(math.floor((max_ratio - min_ratio)
+                                      / max(n_maps - 2, 1)))
+                for r in range(min_ratio, max_ratio + 1, max(step, 1)):
+                    min_sizes.append(base * r / 100.0)
+                    max_sizes.append(base * (r + step) / 100.0)
+                min_sizes = min_sizes[:n_maps]
+                max_sizes = max_sizes[:n_maps]
+        self.min_sizes = [([s] if not isinstance(s, (list, tuple)) else
+                           list(s)) for s in min_sizes]
+        self.max_sizes = [([s] if not isinstance(s, (list, tuple)) else
+                           list(s)) for s in (max_sizes or [])]
+        if not aspect_ratios:
+            aspect_ratios = [[2.0]] * n_maps
+        self.aspect_ratios = [list(a) for a in aspect_ratios]
+        self.steps = steps
+        self.variances = tuple(variances)
+        self.flip, self.clip, self.offset = flip, clip, offset
+        self.num_classes = num_classes
+        self.num_priors = []
+        self._prior_cache = {}
+        self.loc_convs = LayerList()
+        self.conf_convs = LayerList()
+        for i, c_in in enumerate(in_channels):
+            a = D.prior_box_count(
+                self.min_sizes[i],
+                self.max_sizes[i] if self.max_sizes else (),
+                self.aspect_ratios[i], flip)
+            self.num_priors.append(a)
+            self.loc_convs.append(Conv2D(c_in, a * 4, 3, padding=1,
+                                         dtype=dtype, device=device,
+                                         generator=generator))
+            self.conf_convs.append(Conv2D(c_in, a * num_classes, 3,
+                                          padding=1, dtype=dtype,
+                                          device=device,
+                                          generator=generator))
+
+    def _priors(self, i: int, h: int, w: int, x):
+        """Map ``i``'s (H*W*A, 4) priors and variances. They depend on the
+        configuration and the map's size only, so each (map, size,
+        dtype, device) is made once and kept."""
+        from ..ops import detection as D
+
+        dtype = torch.float64 if x.dtype == torch.float64 else torch.float32
+        key = (i, h, w, dtype, x.device)
+        if key not in self._prior_cache:
+            step = ((self.steps[i], self.steps[i])
+                    if self.steps else (0.0, 0.0))
+            b, v = D.prior_box(
+                (h, w), self.image_size, self.min_sizes[i],
+                self.max_sizes[i] if self.max_sizes else (),
+                self.aspect_ratios[i], variances=self.variances,
+                flip=self.flip, clip=self.clip, step=step,
+                offset=self.offset, dtype=dtype, device=x.device)
+            self._prior_cache[key] = (b.reshape(-1, 4), v.reshape(-1, 4))
+        return self._prior_cache[key]
+
+    def forward(self, inputs):
+        locs, confs, boxes, variances = [], [], [], []
+        for i, x in enumerate(inputs):
+            n, _, h, w = x.shape
+            loc = self.loc_convs[i](x)                    # (N, 4A, H, W)
+            conf = self.conf_convs[i](x)                  # (N, CA, H, W)
+            locs.append(loc.permute(0, 2, 3, 1).reshape(n, -1, 4))
+            confs.append(conf.permute(0, 2, 3, 1).reshape(
+                n, -1, self.num_classes))
+            b, v = self._priors(i, h, w, x)
+            boxes.append(b)
+            variances.append(v)
+        return (torch.cat(locs, 1), torch.cat(confs, 1),
+                torch.cat(boxes, 0), torch.cat(variances, 0))

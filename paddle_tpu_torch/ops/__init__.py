@@ -1,13 +1,12 @@
 """The port's op library (counterpart of paddle_tpu/ops): the namespace
-users call, with the JAX package's names and aliases for every ported
-module, plus attention, the paged KV cache and the CUDA kernels under
-``ops/kernels``. Not ported yet, and so not exported: the detection ops,
-``ops/nn_extra.py`` and the rest of ``ops/nn.py`` (``interpolate``,
-``pad2d``, ``pixel_shuffle``, ``shuffle_channel``, ``space_to_depth``),
-ROADMAP queue 1 entry 4."""
+users call, with the JAX package's names and aliases for every module
+of its ``ops`` (the detection suite and ``nn_extra`` included), plus
+attention, the paged KV cache and the CUDA kernels under
+``ops/kernels``. Every public name of ``paddle_tpu.ops`` has its
+counterpart here (tests/test_torch_namespace.py)."""
 
-from . import (control_flow, decode, loss, math, nn, reduction, rnn,
-               sampling, sequence, tensor)
+from . import (control_flow, decode, detection, detection_extra, loss, math,
+               nn, nn_extra, reduction, rnn, sampling, sequence, tensor)
 from .control_flow import (TensorArray, case, cond, equal, fori_loop,
                            greater_equal, greater_than, less_equal,
                            less_than, logical_and, logical_not, logical_or,
@@ -17,6 +16,16 @@ from .decode import (beam_search, beam_search_batch_step,
                      beam_search_decode_lod, beam_search_step, crf_decoding,
                      ctc_align, ctc_greedy_decode, ctc_loss, edit_distance,
                      gather_beams, linear_chain_crf)
+from .detection import (anchor_generator, bipartite_match, box_clip,
+                        box_coder, collect_fpn_proposals, density_prior_box,
+                        distribute_fpn_proposals, generate_proposals,
+                        iou_similarity, matrix_nms, multiclass_nms, nms,
+                        polygon_box_transform, prior_box, roi_align, roi_pool,
+                        target_assign, yolo_box)
+from .detection_extra import (box_decoder_and_assign,
+                              generate_proposal_labels, mine_hard_examples,
+                              psroi_pool, roi_perspective_transform,
+                              rpn_target_assign, yolov3_loss)
 from .loss import (bpr_loss, cross_entropy, hinge_loss, huber_loss,
                    kldiv_loss, label_smooth, log_loss, margin_rank_loss,
                    mse_loss, modified_huber_loss, npair_loss, rank_loss,
@@ -35,9 +44,17 @@ from .math import (abs, acos, asin, atan, bilinear_tensor_product, brelu,
                    squared_l2_distance, squared_l2_norm, stanh, swish, tanh,
                    tanh_shrink, thresholded_relu)
 from .nn import (adaptive_pool2d, batch_norm, conv2d, conv2d_transpose,
-                 conv3d, depthwise_conv2d, dropout, embedding, group_norm,
-                 l2_normalize, layer_norm, log_softmax, lrn, one_hot, pool2d,
-                 rms_norm, softmax)
+                 conv3d, depthwise_conv2d, dropout, embedding, grid_sampler,
+                 group_norm, interpolate, l2_normalize, layer_norm,
+                 log_softmax, lrn, one_hot, pad2d, pixel_shuffle, pool2d,
+                 rms_norm, shuffle_channel, softmax, space_to_depth,
+                 temporal_shift)
+from .nn_extra import (affine_channel, affine_grid, bilinear_interp,
+                       conv3d_transpose, cvm, data_norm,
+                       depthwise_conv2d_transpose, fsp_matrix,
+                       max_pool2d_with_index, max_pool3d_with_index,
+                       nearest_interp, pool3d, similarity_focus, spp,
+                       tree_conv, unpool)
 from .reduction import (mean, reduce_all, reduce_any, reduce_max,
                         reduce_mean, reduce_min, reduce_prod, reduce_sum)
 from .rnn import (conv_shift, dynamic_rnn, gru, gru_unit, lstm, lstm_unit,

@@ -13,7 +13,11 @@ Orders follow the JAX package where it fixes them: the beam step's top-k
 puts the lower flat index first among equal candidates (``lax.top_k``),
 and the final rankings are stable sorts (``jnp.argsort``). Ties are
 common there: a dead or finished beam's candidates sit at exactly
-``_NEG`` in float32."""
+``_NEG`` in float32.
+
+An id or length out of range reads what the JAX package reads, with no
+host read and no device assert: ``take_along_axis`` gives NaN and plain
+indexing clamps, its gradient dropped (ops/tensor.py)."""
 
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ import torch
 
 from ..clip import tree_leaves, tree_map
 from ..core.enforce import enforce
+from .tensor import _drop_grad, _in_range, _take_along, _wrap_clamp
 
 __all__ = ["ctc_loss", "ctc_align", "ctc_greedy_decode", "beam_search_step",
            "beam_search", "beam_search_decode", "beam_search_batch_step",
@@ -69,20 +74,20 @@ def ctc_loss(log_probs, labels, input_lengths, label_lengths, *,
     lp0 = log_probs[:, 0]
     alpha = torch.full((b, s_len), _NEG, dtype=log_probs.dtype, device=dev)
     alpha = torch.cat([
-        torch.gather(lp0, 1, ext[:, :1]),
+        _take_along(lp0, ext[:, :1], 1),
         torch.where(label_lengths[:, None] > 0,
-                    torch.gather(lp0, 1, ext[:, 1:2]), _NEG),
+                    _take_along(lp0, ext[:, 1:2], 1), _NEG),
         alpha[:, 2:]], dim=1)
     for t in range(1, t_len):
-        emit = torch.gather(log_probs[:, t], 1, ext)
+        emit = _take_along(log_probs[:, t], ext, 1)
         a2 = torch.where(prev2_ok, _shift_right(alpha, 2), _NEG)
         new = _logsumexp2(_logsumexp2(alpha, _shift_right(alpha, 1)),
                           a2) + emit
         # frozen past input_length: the final read takes that alpha
         alpha = torch.where((t < input_lengths)[:, None], new, alpha)
     send = 2 * label_lengths.long()         # the final blank's index
-    a_end = torch.gather(alpha, 1, send[:, None])[:, 0]
-    a_lab = torch.gather(alpha, 1, (send - 1).clamp_min(0)[:, None])[:, 0]
+    a_end = _take_along(alpha, send[:, None], 1)[:, 0]
+    a_lab = _take_along(alpha, (send - 1).clamp_min(0)[:, None], 1)[:, 0]
     a_lab = torch.where(label_lengths > 0, a_lab, _NEG)
     return -_logsumexp2(a_end, a_lab)
 
@@ -288,12 +293,21 @@ def linear_chain_crf(emissions, transitions, labels, lengths, *,
     # the gold path's score
     t_idx = torch.arange(t_len, device=dev)[None, :]
     live = t_idx < lengths[:, None]
-    emit = torch.gather(emissions, 2, labels[..., None])[..., 0]
+    n = emissions.shape[-1]
+    emit = _take_along(emissions, labels[..., None], 2)[..., 0]
     emit = torch.where(live, emit, 0.0).sum(dim=1)
-    trans = transitions[labels[:, :-1], labels[:, 1:]]
+    # x[idx] reads: clamped, the gradient of a clamped read dropped
+    trans = _drop_grad(
+        transitions[_wrap_clamp(labels[:, :-1], n),
+                    _wrap_clamp(labels[:, 1:], n)],
+        _in_range(labels[:, :-1], n) & _in_range(labels[:, 1:], n))
     trans = torch.where(live[:, 1:], trans, 0.0).sum(dim=1)
-    last = torch.gather(labels, 1, (lengths.long() - 1).clamp_min(0)[:, None])
-    gold = emit + trans + start[labels[:, 0]] + stop[last[:, 0]]
+    last = _take_along(labels, (lengths.long() - 1).clamp_min(0)[:, None],
+                       1)[:, 0]
+    first = _drop_grad(start[_wrap_clamp(labels[:, 0], n)],
+                       _in_range(labels[:, 0], n))
+    gold = emit + trans + first + _drop_grad(stop[_wrap_clamp(last, n)],
+                                             _in_range(last, n))
     return log_z - gold
 
 
@@ -352,7 +366,8 @@ def edit_distance(hyp, hyp_lengths, ref, ref_lengths, *,
         new = torch.stack(cols, dim=1)
         row = torch.where((i < hyp_lengths)[:, None], new, row)
     rl = ref_lengths.to(dev).long()
-    d = torch.gather(row, 1, rl[:, None])[:, 0]
+    # row[rl] in JAX: a length past Lr reads the last column
+    d = torch.gather(row, 1, _wrap_clamp(rl, lr + 1)[:, None])[:, 0]
     return d / rl.clamp_min(1) if normalized else d
 
 

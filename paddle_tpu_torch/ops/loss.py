@@ -14,6 +14,9 @@ import torch
 
 from ..core.enforce import enforce
 from ..core.random import seed_generator
+from .math import _clip, _maximum
+from .math import abs as _abs
+from .tensor import _in_range, _take_along, _wrap_clamp
 
 
 def _index_label(label, logits_ndim: int, axis: int):
@@ -32,11 +35,13 @@ def cross_entropy(probs, label, soft_label: bool = False, axis: int = -1,
     class dim kept), or the cross entropy against a soft ``label``.
     Takes probabilities, as the reference's cross_entropy_op takes a
     softmax output."""
-    logp = torch.log(torch.clamp_min(probs, eps))
+    logp = torch.log(_maximum(probs, eps))
     if soft_label:
         return -torch.sum(label * logp, dim=axis, keepdim=True)
     lbl = _index_label(label, logp.ndim, axis).to(logp.device)
-    return -torch.take_along_dim(logp, lbl, dim=axis % logp.ndim)
+    # jnp.take_along_axis: a label in [-C, 0) wraps, one outside [-C, C)
+    # gives NaN
+    return -_take_along(logp, lbl, axis % logp.ndim)
 
 
 def softmax_with_cross_entropy(logits, label, soft_label: bool = False,
@@ -68,9 +73,9 @@ def sigmoid_cross_entropy_with_logits(x, label, ignore_index: int = -100,
     whose label is ``ignore_index`` give 0, and ``normalize`` divides by
     the count of the others (at least 1)
     (reference: operators/sigmoid_cross_entropy_with_logits_op.cc)."""
-    # maximum, not clamp: its gradient at x == 0 is split, as jnp's is
-    loss = torch.maximum(x, x.new_zeros(())) - x * label + torch.log1p(
-        torch.exp(-torch.abs(x)))
+    # maximum, not clamp, and abs with derivative +1 at 0: the gradient
+    # at x == 0 is -label, as JAX's is
+    loss = _maximum(x, 0.0) - x * label + torch.log1p(torch.exp(-_abs(x)))
     mask = (label != ignore_index).to(loss.dtype)
     loss = loss * mask
     if normalize:
@@ -125,7 +130,7 @@ def modified_huber_loss(x, y):
 
 def hinge_loss(logits, label):
     """reference: operators/hinge_loss_op.cc — label in {0, 1}."""
-    return torch.clamp_min(1.0 - logits * (2.0 * label - 1.0), 0.0)
+    return _maximum(1.0 - logits * (2.0 * label - 1.0), 0.0)
 
 
 def log_loss(predicted, label, epsilon: float = 1e-4):
@@ -137,20 +142,23 @@ def log_loss(predicted, label, epsilon: float = 1e-4):
 def bpr_loss(logits, label):
     """reference: operators/bpr_loss_op.cc — Bayesian personalised
     ranking: the mean over the other d - 1 classes of log(1 +
-    exp(-(pos - logit))), the label's own column masked out."""
+    exp(-(pos - logit))), the label's own column masked out. A label in
+    [-d, 0) wraps; one outside [-d, d) gives NaN (``jnp.take_along_axis``)
+    and masks no column (``.at[]`` drops it)."""
     n, d = logits.shape
     lbl = label.reshape(n, 1).long()
-    pos = torch.gather(logits, 1, lbl)
+    pos = _take_along(logits, lbl, 1)
     lse = torch.log1p(torch.exp(-(pos - logits)))
     mask = torch.ones((n, d), dtype=logits.dtype, device=logits.device)
-    mask = mask.scatter(1, lbl, 0.0)
+    mask = mask.scatter(1, _wrap_clamp(lbl, d),
+                        (~_in_range(lbl, d)).to(logits.dtype))
     return torch.sum(lse * mask, dim=1, keepdim=True) / (d - 1)
 
 
 def kldiv_loss(x, target, reduction: str = "mean"):
     """reference: operators/kldiv_loss_op.cc — ``x`` is a log-probability;
     entries with target <= 0 give 0."""
-    loss = target * (torch.log(torch.clamp_min(target, 1e-12)) - x)
+    loss = target * (torch.log(_maximum(target, 1e-12)) - x)
     loss = torch.where(target > 0, loss, torch.zeros_like(loss))
     if reduction == "mean":
         return torch.mean(loss)
@@ -163,7 +171,7 @@ def kldiv_loss(x, target, reduction: str = "mean"):
 
 def margin_rank_loss(label, left, right, margin: float = 0.0):
     """reference: operators/margin_rank_loss_op.cc."""
-    return torch.clamp_min(-label * (left - right) + margin, 0.0)
+    return _maximum(-label * (left - right) + margin, 0.0)
 
 
 def rank_loss(label, left, right):
@@ -177,10 +185,10 @@ def teacher_student_sigmoid_loss(x, label, soft_max_up_bound: float = 15.0,
     """reference: operators/teacher_student_sigmoid_loss_op.cc — x
     clipped to the bounds; a label < -1 is the teacher's soft label
     label + 2, otherwise the label as it is."""
-    xc = torch.clamp(x, soft_max_lower_bound, soft_max_up_bound)
+    xc = _clip(x, soft_max_lower_bound, soft_max_up_bound)
     target = torch.where(label < -1.0, label + 2.0, label)
-    return (torch.clamp_min(xc, 0.0) - xc * target
-            + torch.log1p(torch.exp(-torch.abs(xc))))
+    return (_maximum(xc, 0.0) - xc * target
+            + torch.log1p(torch.exp(-_abs(xc))))
 
 
 def npair_loss(anchor, positive, labels, l2_reg: float = 0.002):

@@ -25,6 +25,23 @@ import torch.nn.functional as F
 
 from ..core.enforce import InvalidArgumentError, enforce
 
+# ----- jnp.maximum / minimum / clip ---------------------------------------
+# torch.clamp gives the whole gradient to a value at its bound; these
+# split a tie 0.5 / 0.5 as JAX's do (jnp.clip is maximum, then minimum)
+
+
+def _maximum(x, v):
+    return torch.maximum(x, v if torch.is_tensor(v) else x.new_full((), v))
+
+
+def _minimum(x, v):
+    return torch.minimum(x, v if torch.is_tensor(v) else x.new_full((), v))
+
+
+def _clip(x, lo, hi):
+    return _minimum(_maximum(x, lo), hi)
+
+
 # ----- ops.math's activations (the reference's functor table) ------------
 
 
@@ -71,7 +88,9 @@ def rsqrt(x):
 
 
 def abs(x):  # noqa: A001 - the reference op's name
-    return torch.abs(x)
+    # derivative +1 at +-0, as jnp.abs's (torch.abs's is 0 there); the
+    # + 0.0 turns the -0.0 that the first branch keeps into +0.0
+    return torch.where(x >= 0, x, -x) + 0.0
 
 
 def ceil(x):
@@ -115,11 +134,11 @@ def square(x):
 
 
 def brelu(x, t_min: float = 0.0, t_max: float = 24.0):
-    return torch.clamp(x, t_min, t_max)
+    return _clip(x, t_min, t_max)
 
 
 def soft_relu(x, threshold: float = 40.0):
-    return torch.log1p(torch.exp(torch.clamp(x, -threshold, threshold)))
+    return torch.log1p(torch.exp(_clip(x, -threshold, threshold)))
 
 
 def pow(x, factor: float = 1.0):  # noqa: A001
@@ -135,11 +154,11 @@ def softplus(x):
 
 
 def softsign(x):
-    return x / (torch.abs(x) + 1.0)
+    return x / (abs(x) + 1.0)
 
 
 def relu6(x, threshold: float = 6.0):
-    return torch.clamp(x, 0.0, threshold)
+    return _clip(x, 0.0, threshold)
 
 
 def leaky_relu(x, alpha: float = 0.02):
@@ -161,7 +180,7 @@ def hard_shrink(x, threshold: float = 0.5):
 
 
 def hard_sigmoid(x, slope: float = 0.2, offset: float = 0.5):
-    return torch.clamp(slope * x + offset, 0.0, 1.0)
+    return _clip(slope * x + offset, 0.0, 1.0)
 
 
 def swish(x, beta: float = 1.0):
@@ -190,8 +209,8 @@ def prelu(x, alpha, mode: str = "all"):
 
 
 def celu(x, alpha: float = 1.0):
-    return torch.clamp(x, min=0.0) + alpha * torch.expm1(
-        torch.clamp(x, max=0.0) / alpha)
+    return _maximum(x, 0.0) + alpha * torch.expm1(
+        _minimum(x, 0.0) / alpha)
 
 
 def glu(x, axis: int = -1):
@@ -202,7 +221,12 @@ def glu(x, axis: int = -1):
 def hard_silu(x):
     """x * relu6(x + 3) / 6 (``jax.nn.hard_swish``; not ops.math's
     hard_sigmoid, whose slope and offset differ)."""
-    return x * (torch.clamp(x + 3.0, 0.0, 6.0) / 6.0)
+    # jax.nn.relu6's derivative is 0 at both bounds (its custom jvp),
+    # which the branches give
+    y = x + 3.0
+    r6 = torch.where(y <= 0.0, torch.zeros_like(y),
+                     torch.where(y >= 6.0, torch.full_like(y, 6.0), y))
+    return x * (r6 / 6.0)
 
 
 def hard_tanh(x):
@@ -244,7 +268,7 @@ def sparse_plus(x):
 
 
 def sparse_sigmoid(x):
-    return 0.5 * torch.clamp(x + 1.0, 0.0, 2.0)
+    return 0.5 * _clip(x + 1.0, 0.0, 2.0)
 
 
 def squareplus(x, b: float = 4.0):
@@ -371,7 +395,7 @@ def scale(x, scale: float = 1.0, bias: float = 0.0,
 
 
 def clip(x, min: float, max: float):  # noqa: A002 - the reference's names
-    return torch.clamp(x, min, max)
+    return _clip(x, min, max)
 
 
 def clip_by_norm(x, max_norm: float):
@@ -409,7 +433,7 @@ def increment(x, value: float = 1.0):
 
 
 def l1_norm(x):
-    return torch.sum(torch.abs(x))
+    return torch.sum(abs(x))
 
 
 def squared_l2_norm(x):
@@ -429,7 +453,7 @@ def cos_sim(x, y, eps: float = 1e-12):
     xn = torch.sqrt(torch.sum(torch.square(x), dim=-1, keepdim=True))
     yn = torch.sqrt(torch.sum(torch.square(y), dim=-1, keepdim=True))
     num = torch.sum(x * y, dim=-1, keepdim=True)
-    return num / torch.clamp_min(xn * yn, eps)
+    return num / _maximum(xn * yn, eps)
 
 
 def logsumexp(x, axis=None, keepdims: bool = False):

@@ -1,6 +1,8 @@
-"""Neural-network ops (counterpart of the matching functions in
-paddle_tpu/ops/nn.py): convolutions, pooling, normalisations, softmax,
-the embedding lookup, one-hot and dropout.
+"""Neural-network ops (counterpart of paddle_tpu/ops/nn.py):
+convolutions, pooling, normalisations, softmax, the embedding lookup,
+one-hot and dropout, and the resize, rearrangement and sampling ops
+(``interpolate``, ``pixel_shuffle``, ``pad2d``, ``space_to_depth``,
+``shuffle_channel``, ``grid_sampler``, ``temporal_shift``).
 
 None of these has a Pallas kernel in the JAX package (XLA runs its
 ``lax.conv_general_dilated`` and ``lax.reduce_window``), so cuDNN, through
@@ -12,7 +14,8 @@ logically NHWC tensors, which are permuted to an NCHW view with
 Where torch's functional op means something else than the JAX
 package's, the JAX meaning is kept and said where: pooling's ceil mode,
 the BatchNorm running statistics, ``lrn``'s alpha, ``one_hot`` of an
-id out of range."""
+id out of range, ``interpolate``'s half-pixel nearest rows and
+antialiased linear weights (``jax.image.resize``'s)."""
 
 from __future__ import annotations
 
@@ -315,3 +318,150 @@ def one_hot(ids, depth: int, dtype=torch.float32):
 
     classes = torch.arange(depth, device=ids.device)
     return (ids[..., None] == classes).to(to_dtype(dtype))
+
+
+# ----- resize, rearrangement, sampling ---------------------------------------
+
+
+def _resize_weights(n_in: int, n_out: int, dtype, device):
+    """(n_in, n_out) weights of ``jax.image.resize``'s linear method
+    along one axis (its ``compute_weight_mat`` with the triangle kernel
+    and antialiasing): half-pixel sample positions, the kernel widened
+    by 1 / scale when downsampling, each column normalised over the taps
+    inside the input, zero where the sample falls outside it."""
+    inv_scale = 1.0 / (n_out / n_in)
+    kernel_scale = max(inv_scale, 1.0)
+    sample = ((torch.arange(n_out, dtype=dtype, device=device) + 0.5)
+              * inv_scale - 0.5)
+    src = torch.arange(n_in, dtype=dtype, device=device)
+    x = torch.abs(sample[None, :] - src[:, None]) / kernel_scale
+    weights = torch.clamp_min(1.0 - torch.abs(x), 0.0)
+    total = torch.sum(weights, dim=0, keepdim=True)
+    weights = torch.where(torch.abs(total) > 1000.0 * 1.1920928955078125e-07,
+                          weights / torch.where(total != 0, total,
+                                                torch.ones_like(total)),
+                          torch.zeros_like(weights))
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return torch.where(inside[None, :], weights, torch.zeros_like(weights))
+
+
+def _nearest_index(n_in: int, n_out: int, device):
+    """``jax.image.resize``'s nearest source rows: floor((i + 0.5) *
+    n_in / n_out) in float32 (half-pixel centres: torch's
+    ``"nearest-exact"``, not ``"nearest"``)."""
+    pos = (torch.arange(n_out, dtype=torch.float32, device=device) + 0.5) \
+        * n_in / n_out
+    return torch.floor(pos).long()
+
+
+def interpolate(x, size: Sequence[int], method: str = "nearest"):
+    """NCHW resize to ``size`` (H, W), as ``jax.image.resize`` computes
+    it: ``"nearest"`` picks half-pixel-centred source rows;
+    ``"bilinear"`` contracts with per-axis triangle-kernel weights that
+    antialias when downsampling (``F.interpolate`` does neither). The
+    weights are float32, float64 for a float64 input (the JAX package
+    runs without 64-bit mode)."""
+    methods = ("nearest", "bilinear")
+    enforce(method in methods, "interpolate method must be one of %s, got %s",
+            sorted(methods), method)
+    h, w = x.shape[2], x.shape[3]
+    oh, ow = (int(s) for s in size)
+    if method == "nearest":
+        if oh != h:
+            x = torch.index_select(x, 2, _nearest_index(h, oh, x.device))
+        if ow != w:
+            x = torch.index_select(x, 3, _nearest_index(w, ow, x.device))
+        return x
+    if not x.dtype.is_floating_point:
+        x = x.to(torch.float32)
+    wdt = torch.float64 if x.dtype == torch.float64 else torch.float32
+    if oh != h:
+        wy = _resize_weights(h, oh, wdt, x.device).to(x.dtype)
+        x = torch.einsum("nchw,hH->ncHw", x, wy)
+    if ow != w:
+        wx = _resize_weights(w, ow, wdt, x.device).to(x.dtype)
+        x = torch.einsum("nchw,wW->nchW", x, wx)
+    return x
+
+
+def pixel_shuffle(x, upscale_factor: int):
+    """reference: operators/pixel_shuffle_op.cc (NCHW)."""
+    n, c, h, w = x.shape
+    r = upscale_factor
+    x = x.reshape(n, c // (r * r), r, r, h, w)
+    x = x.permute(0, 1, 4, 2, 5, 3)
+    return x.reshape(n, c // (r * r), h * r, w * r)
+
+
+def pad2d(x, paddings: Sequence[int], mode: str = "constant",
+          value: float = 0.0):
+    """reference: operators/pad2d_op.cc, NCHW, paddings [top, bottom,
+    left, right]; ``mode`` constant, reflect or edge."""
+    t, b, left, right = paddings
+    cfg = (left, right, t, b)
+    if mode == "constant":
+        return F.pad(x, cfg, value=value)
+    enforce(mode in ("reflect", "edge"),
+            "pad2d mode must be constant|reflect|edge, got %s", mode)
+    return F.pad(x, cfg, mode="reflect" if mode == "reflect" else "replicate")
+
+
+def space_to_depth(x, blocksize: int):
+    """reference: operators/space_to_depth_op.cc (NCHW)."""
+    n, c, h, w = x.shape
+    bs = blocksize
+    x = x.reshape(n, c, h // bs, bs, w // bs, bs)
+    x = x.permute(0, 3, 5, 1, 2, 4)
+    return x.reshape(n, c * bs * bs, h // bs, w // bs)
+
+
+def shuffle_channel(x, group: int):
+    """reference: operators/shuffle_channel_op.cc."""
+    n, c, h, w = x.shape
+    x = x.reshape(n, group, c // group, h, w)
+    return x.transpose(1, 2).reshape(n, c, h, w)
+
+
+def grid_sampler(x, grid):
+    """reference: operators/grid_sampler_op.cc: bilinear samples of x
+    (N, C, H, W) at grid (N, H', W', 2) in [-1, 1] (align-corners
+    coordinates); corners outside the map count 0. Each corner's index
+    is clipped into range before its gather, as in the JAX package."""
+    n, c, h, w = x.shape
+    gx = (grid[..., 0] + 1.0) * (w - 1) / 2.0
+    gy = (grid[..., 1] + 1.0) * (h - 1) / 2.0
+    x0 = torch.floor(gx)
+    y0 = torch.floor(gy)
+    x1, y1 = x0 + 1, y0 + 1
+    wx1, wy1 = gx - x0, gy - y0
+    wx0, wy0 = 1.0 - wx1, 1.0 - wy1
+    flat = x.reshape(n, c, h * w)
+
+    def gather(yy, xx):
+        yy = torch.clamp(yy, 0, h - 1).long()
+        xx = torch.clamp(xx, 0, w - 1).long()
+        idx = (yy * w + xx).reshape(n, 1, -1).expand(n, c, -1)
+        return torch.gather(flat, 2, idx).reshape(n, c, *gx.shape[1:])
+
+    def inb(yy, xx):
+        ok = (yy >= 0) & (yy <= h - 1) & (xx >= 0) & (xx <= w - 1)
+        return ok.to(x.dtype)[:, None]
+
+    return (gather(y0, x0) * (wy0 * wx0)[:, None] * inb(y0, x0)
+            + gather(y0, x1) * (wy0 * wx1)[:, None] * inb(y0, x1)
+            + gather(y1, x0) * (wy1 * wx0)[:, None] * inb(y1, x0)
+            + gather(y1, x1) * (wy1 * wx1)[:, None] * inb(y1, x1))
+
+
+def temporal_shift(x, seg_num: int, shift_ratio: float = 0.25):
+    """reference: operators/temporal_shift_op.cc: channels below c1 read
+    step t - 1, channels c1..c2 step t + 1 (zero past either end)."""
+    nt, c, h, w = x.shape
+    n = nt // seg_num
+    x = x.reshape(n, seg_num, c, h, w)
+    c1 = int(c * shift_ratio)
+    c2 = int(c * 2 * shift_ratio)
+    prev = torch.cat([torch.zeros_like(x[:, :1, :c1]), x[:, :-1, :c1]], dim=1)
+    nxt = torch.cat([x[:, 1:, c1:c2], torch.zeros_like(x[:, :1, c1:c2])],
+                    dim=1)
+    return torch.cat([prev, nxt, x[:, :, c2:]], dim=2).reshape(nt, c, h, w)

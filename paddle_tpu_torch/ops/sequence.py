@@ -21,6 +21,7 @@ import torch.nn.functional as F
 
 from ..core.dtypes import to_dtype
 from ..core.enforce import enforce
+from .tensor import _drop_grad, _in_range, _take_along, _wrap_clamp
 
 
 def sequence_mask(lengths, maxlen: int, dtype=torch.float32):
@@ -86,8 +87,12 @@ def sequence_pool(x, lengths, pool_type: str = "sum"):
         out = torch.amax(masked, dim=1)
         return torch.where(row(lengths) > 0, out, torch.zeros_like(out))
     if pool_type == "last":
-        idx = torch.clamp_min(lengths - 1, 0).long()
-        return x[torch.arange(x.shape[0], device=x.device), idx]
+        # x[..., idx] in JAX reads row T - 1 for a length past T, and its
+        # gradient drops that read
+        last = torch.clamp_min(lengths - 1, 0)
+        out = x[torch.arange(x.shape[0], device=x.device),
+                _wrap_clamp(last, x.shape[1])]
+        return _drop_grad(out, _in_range(last, x.shape[1]))
     if pool_type == "first":
         return x[:, 0]
     enforce(False, "unknown pool_type %s", pool_type)
@@ -104,11 +109,12 @@ def sequence_softmax(x, lengths):
 
 def sequence_reverse(x, lengths):
     """reference: sequence_reverse_op.cc — each row's valid prefix
-    reversed; the padding stays where it is."""
+    reversed; the padding stays where it is. A length past T reads
+    source steps past the end, which give NaN (``jnp.take_along_axis``)."""
     pos = torch.arange(x.shape[1], device=x.device)[None, :]
     ln = lengths[:, None]
     src = torch.where(pos < ln, ln - 1 - pos, pos).long()
-    return torch.take_along_dim(x, _bcast(src, x.ndim), dim=1)
+    return _take_along(x, _bcast(src, x.ndim), 1)
 
 
 def sequence_expand(x, ref_lengths, rmax: Optional[int] = None):

@@ -15,7 +15,9 @@ host:
   [-n, n) reads the fill value (NaN for floats, the type's minimum for
   signed integers, its maximum for unsigned ones, True for bool);
 - ``gather_nd`` and ``multiplex`` index as ``x[...]`` does in JAX: a
-  negative index wraps, then every index is clamped into range;
+  negative index wraps, then every index is clamped into range, and the
+  gradient of a clamped read is dropped (the transposed scatter drops
+  the row);
 - ``scatter`` and ``scatter_nd_add`` are ``x.at[...]``: a negative index
   wraps, and a row out of range is dropped.
 
@@ -275,7 +277,25 @@ def shape(x):
 
 
 def cast(x, dtype):
-    return x.to(to_dtype(dtype))
+    """``x`` as ``dtype``. Float to integer converts as XLA's convert
+    does: toward zero, saturating at the type's range, NaN to 0 (a bare
+    ``.to`` wraps, or is undefined, out of range). The port keeps int64
+    where the JAX package, without 64-bit mode, gives int32."""
+    dt = to_dtype(dtype)
+    if not x.dtype.is_floating_point or dt.is_floating_point or \
+            dt.is_complex or dt == torch.bool:
+        return x.to(dt)
+    info = torch.iinfo(dt)
+    # the limits as x's float type rounds them: a value at or past one
+    # saturates; what lies strictly between converts exactly
+    lo, hi = float(info.min), float(info.max)
+    t = torch.trunc(x)
+    inside = (t > lo) & (t < hi)
+    out = torch.where(inside, t, torch.zeros_like(t)).to(dt)
+    out = torch.where(t >= hi, torch.full((), info.max, dtype=dt,
+                                          device=x.device), out)
+    return torch.where(t <= lo, torch.full((), info.min, dtype=dt,
+                                           device=x.device), out)
 
 
 # --- indexing / search -----------------------------------------------------
@@ -308,18 +328,49 @@ def gather(x, index, axis: int = 0):
                                              dtype=x.dtype, device=x.device))
 
 
+def _take_along(x, index, axis: int):
+    """``jnp.take_along_axis(x, index, axis)``: ``index`` broadcasts
+    against x off ``axis``; an index in [-n, 0) wraps, one outside
+    [-n, n) reads the fill value (module docstring)."""
+    n = x.shape[axis]
+    idx = index.long()
+    inside = (idx >= -n) & (idx < n)
+    safe = torch.where(idx < 0, idx + n, idx).clamp(0, n - 1)
+    out = torch.take_along_dim(x, safe, dim=axis)
+    return torch.where(inside, out, torch.full((), _fill_value(x.dtype),
+                                               dtype=x.dtype,
+                                               device=x.device))
+
+
 def _wrap_clamp(idx, n: int):
     idx = idx.long()
     return torch.where(idx < 0, idx + n, idx).clamp(0, n - 1)
 
 
+def _in_range(idx, n: int):
+    """Whether each index lies in range once a negative one wraps."""
+    idx = idx.long()
+    return (idx >= -n) & (idx < n)
+
+
+def _drop_grad(out, ok):
+    """``out`` with no gradient through the leading entries where ``ok``
+    is False: JAX's ``x[idx]`` clamps an index out of range where it
+    reads, and its transpose (a scatter-add) drops that row."""
+    ok = ok.reshape(ok.shape + (1,) * (out.ndim - ok.ndim))
+    return torch.where(ok, out, out.detach())
+
+
 def gather_nd(x, index):
     """``x[tuple(index[..., j] for j)]``: the last axis of ``index``
     addresses x's first dims; each coordinate wraps if negative, then is
-    clamped into range."""
+    clamped into range (its gradient dropped, as JAX's)."""
     k = index.shape[-1]
     coords = tuple(_wrap_clamp(index[..., j], x.shape[j]) for j in range(k))
-    return x[coords]
+    ok = torch.ones_like(coords[0], dtype=torch.bool)
+    for j in range(k):
+        ok = ok & _in_range(index[..., j], x.shape[j])
+    return _drop_grad(x[coords], ok)
 
 
 def _flat_rows(x, coords):
@@ -410,10 +461,12 @@ def where(cond, x, y):
 
 def multiplex(index, inputs):
     """reference: multiplex_op.cc — row i of ``inputs[index[i]]``; an
-    index wraps if negative, then is clamped into range."""
+    index wraps if negative, then is clamped into range (its gradient
+    dropped, as JAX's)."""
     stacked = torch.stack(list(inputs), dim=0)         # (K, N, ...)
     idx = _wrap_clamp(index.reshape(-1), stacked.shape[0])
-    return stacked[idx, torch.arange(stacked.shape[1], device=idx.device)]
+    out = stacked[idx, torch.arange(stacked.shape[1], device=idx.device)]
+    return _drop_grad(out, _in_range(index.reshape(-1), stacked.shape[0]))
 
 
 def is_empty(x):

@@ -20,6 +20,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from ..core.enforce import UnimplementedError
+from ..ops.math import _clip
 
 
 def _qmax(bit_length: int) -> float:
@@ -33,12 +34,6 @@ def _int_dtype(bit_length: int) -> torch.dtype:
 def _as_f(value, like: torch.Tensor) -> torch.Tensor:
     """``jnp.asarray(value, like.dtype)`` on ``like``'s device."""
     return torch.as_tensor(value, dtype=like.dtype, device=like.device)
-
-
-def _clip(x, lo, hi):
-    """``jnp.clip``: maximum then minimum, so the gradient splits evenly
-    at a tie, as JAX's does."""
-    return torch.minimum(torch.maximum(x, lo), hi)
 
 
 class _STERound(torch.autograd.Function):

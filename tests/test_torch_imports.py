@@ -469,3 +469,24 @@ def test_int8_paths_on_cpu_take_plain_versions_and_count_nothing():
             QM.quant_matmul.launches, QM.quant_linear.launches) == n
     if not torch.cuda.is_available():
         assert n == (0, 0, 0)
+
+
+def test_detection_entry_points_raise_without_cuda(no_cuda):
+    """The detection slice's creation ops and layers run on the card
+    unless asked for the CPU."""
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.nn import layers
+
+    for make in (lambda: ops.prior_box((2, 2), (8, 8), [4.0]),
+                 lambda: ops.density_prior_box((2, 2), (8, 8), [4.0], [1.0],
+                                               [1]),
+                 lambda: ops.anchor_generator((2, 2), [4.0], [1.0],
+                                              (4.0, 4.0)),
+                 lambda: layers.MultiBoxHead([4, 4], 32, 3),
+                 lambda: layers.SpectralNorm((3, 4))):
+        with pytest.raises(DeviceUnavailableError):
+            make()
+    head = layers.MultiBoxHead([4, 4], 32, 3, device="cpu")
+    assert {p.device.type for p in head.parameters()} == {"cpu"}
+    boxes, _ = ops.prior_box((2, 2), (8, 8), [4.0], device="cpu")
+    assert boxes.device.type == "cpu"

@@ -4,7 +4,11 @@ JAX side jitted), the losses within atol 1e-6 + rtol 1e-6 and the
 gradients of a fixed random projection within 1e-5, in float32.
 ``cross_entropy`` is held with hard labels of shape (N,) and (N, 1),
 with soft labels and with probabilities under its eps floor;
-``bpr_loss`` with labels at the first and last class (its mask);
+``bpr_loss`` with labels at the first and last class (its mask); both
+with labels out of range (-1 wraps, C and -C-1 give NaN, as
+``jnp.take_along_axis`` does); the hinge losses, the sigmoid cross
+entropy and the teacher-student loss at their kinks (exactly 0 and the
+clip bounds, where JAX splits a tie and ``abs`` has derivative +1);
 ``sampled_softmax_with_cross_entropy`` draws from a key, so it matches
 the JAX draw in distribution only: its loss averaged over 4000 rows
 within 2% of the JAX call's, and the loss equal to the one
@@ -46,6 +50,9 @@ def bits(*shape):
 
 LABELS = RNG.integers(0, 5, (6,)).astype(np.int32)
 LABELS[0], LABELS[1] = 0, 4
+OUT_LABELS = np.array([0, 5, -1, -6], np.int32)
+PROBS_FLOOR = probs(4, 5)
+PROBS_FLOOR[0, 0] = np.float32(1e-8)
 
 # name -> (args, static kwargs, grad positions)
 CASES = {
@@ -89,6 +96,28 @@ CASES = {
                                           (0,)),
     "label_smooth": ([np.eye(5, dtype=np.float32)[LABELS]],
                      dict(epsilon=0.2), (0,)),
+    # out-of-range labels: -1 wraps to the last class, C and -C-1 read
+    # NaN (jnp.take_along_axis); a probability exactly at the eps floor
+    # splits its gradient (jnp.maximum)
+    "cross_entropy_out_of_range": ([PROBS_FLOOR, OUT_LABELS], {}, (0,)),
+    "bpr_loss_out_of_range": ([f32(4, 5), OUT_LABELS.reshape(4, 1)], {},
+                              (0,)),
+    # kinks: the gradient at exactly 0 and at the bounds (JAX's: abs has
+    # derivative +1 at 0, maximum / minimum / clip split a tie)
+    "sigmoid_cross_entropy_with_logits_kink": (
+        [np.array([[0.0, -0.0, 1.5], [0.0, -2.0, 0.0]], np.float32),
+         np.array([[1.0, 0.0, 1.0], [0.3, 1.0, 0.0]], np.float32)], {},
+        (0,)),
+    "hinge_loss_kink": ([np.array([[1.0], [-1.0], [0.5], [1.0]], np.float32),
+                         np.array([[1.0], [0.0], [1.0], [0.0]], np.float32)],
+                        {}, (0,)),
+    "margin_rank_loss_kink": ([np.array([[1.0], [-1.0], [1.0]], np.float32),
+                               np.array([[0.5], [0.25], [2.0]], np.float32),
+                               np.array([[0.5], [0.25], [1.0]], np.float32)],
+                              {}, (1, 2)),
+    "teacher_student_sigmoid_loss_kink": (
+        [np.array([15.0, -15.0, 0.0, 0.0, 3.0], np.float32),
+         np.array([0.5, 1.0, -2.0, 0.0, -1.5], np.float32)], {}, (0,)),
 }
 
 

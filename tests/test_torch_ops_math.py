@@ -8,7 +8,10 @@ reduction over a few dozen products rounds differently in XLA and
 torch). The cases include Paddle's ``axis`` broadcast, ``mul``'s
 ``*_num_col_dims`` flattening, and ``elementwise_mod`` and
 ``elementwise_floordiv`` on negative operands (``jnp``'s sign rules:
-the result takes the divisor's sign, the quotient rounds down)."""
+the result takes the divisor's sign, the quotient rounds down), and
+the gradients at every kink of ``clip``, ``l1_norm`` and the clipped
+activations (JAX splits a tie at a bound 0.5 / 0.5 and gives ``abs``
+the derivative +1 at 0; ``torch.clamp`` and ``torch.abs`` do not)."""
 
 import functools
 
@@ -92,6 +95,11 @@ CASES = {
     "isfinite_true": ([f32(3)], {}, ()),
     "has_inf": ([np.array([1.0, -np.inf], np.float32)], {}, ()),
     "has_nan": ([np.array([1.0, np.nan], np.float32)], {}, ()),
+    # kinks: clip splits a tie at each bound, abs has derivative +1 at 0
+    "clip_at_bounds": ([np.array([-0.5, 0.7, 0.0, 2.0], np.float32)],
+                       dict(min=-0.5, max=0.7), (0,)),
+    "l1_norm_at_zero": ([np.array([0.0, -0.0, 1.5, -2.0], np.float32)], {},
+                        (0,)),
 }
 
 RED_CASES = {
@@ -132,6 +140,39 @@ def test_reduction_matches_jax(name):
     check_pair(functools.partial(_fn(JR, name), **kw),
                functools.partial(_fn(TR, name), **kw), args, grad=grad,
                gatol=1e-5)
+
+
+# activations at their kinks: exactly 0 and each clip bound, where JAX
+# splits a tie (jnp.clip / maximum / minimum), jnp.abs has derivative +1
+# and jax.nn.relu6 (inside hard_silu) has derivative 0 at its bounds
+KINKS = {
+    "abs": [0.0, -0.0, 1.5, -2.0],
+    "brelu": [0.0, 24.0, -1.0, 3.0, 30.0],
+    "relu6": [0.0, -0.0, 6.0, 3.0, 7.0],
+    # slope 0.25 puts both bounds on exact products (0.2 x + 0.5 at
+    # x = -2.5 is not 0 once XLA fuses it into one fma)
+    "hard_sigmoid": ([-2.0, 2.0, 0.0, 3.0], dict(slope=0.25)),
+    "soft_relu": [40.0, -40.0, 0.0, 50.0],
+    "celu": [0.0, -0.0, 1.0, -1.0],
+    "hard_silu": [-3.0, 3.0, 0.0, -4.0, 4.0],
+    "hard_swish": [-3.0, 3.0, 0.0, -4.0, 4.0],
+    "sparse_sigmoid": [-1.0, 1.0, 0.0, 2.0],
+    "softsign": [0.0, -0.0, 1.0],
+}
+
+
+@pytest.mark.parametrize("name", sorted(KINKS))
+def test_activation_gradient_at_its_kinks_matches_jax(name):
+    import jax
+
+    from paddle_tpu_torch.ops.math import ACTIVATIONS
+
+    pts, kw = KINKS[name] if isinstance(KINKS[name], tuple) else (
+        KINKS[name], {})
+    jfn = getattr(JM, name, None) or getattr(jax.nn, name)
+    check_pair(functools.partial(jfn, **kw),
+               functools.partial(ACTIVATIONS[name], **kw),
+               [np.array(pts, np.float32)], grad=(0,), gatol=1e-6)
 
 
 def test_sum_of_a_list_matches_jax():

@@ -5,7 +5,8 @@ ops that read a size from the data: ``sequence_unpad``,
 ``sequence_expand`` without ``rmax`` and ``sequence_erase``), float
 outputs within atol 1e-6 + rtol 1e-6 (integer outputs equal) and grads
 within 1e-5. Every batch has a padded row and an empty one where the op
-allows it. ``hash_embedding_ids`` matches bit for bit (uint32
+allows it; ``sequence_reverse`` and ``sequence_pool(pool_type="last")``
+also take lengths past T. ``hash_embedding_ids`` matches bit for bit (uint32
 wraparound, emulated in int64), negative and large ids included;
 ``sequence_scatter`` adds duplicate positions; ``chunk_eval`` is held
 in each scheme (IOB, IOE, IOBES, plain), with excluded types, on random
@@ -26,6 +27,7 @@ RNG = np.random.default_rng(4)
 P = functools.partial
 B, L = 4, 6
 LENS = np.array([6, 3, 0, 4], np.int32)
+LONG_LENS = np.array([8, 3, 0, 7], np.int32)
 
 
 def f32(*shape):
@@ -113,6 +115,13 @@ CASES = {
                                   (0,)),
     "sequence_mask": (P(J.sequence_mask, maxlen=L),
                       P(T.sequence_mask, maxlen=L), [LENS], ()),
+    # lengths past T: reverse reads NaN past the end (take_along_axis),
+    # the last step clamps to row T - 1 (x[...])
+    "sequence_reverse_long": (J.sequence_reverse, T.sequence_reverse,
+                              [f32(B, L, 2), LONG_LENS], (0,)),
+    "sequence_pool_last_long": (P(J.sequence_pool, pool_type="last"),
+                                P(T.sequence_pool, pool_type="last"),
+                                [f32(B, L, 3), LONG_LENS], (0,)),
 }
 
 

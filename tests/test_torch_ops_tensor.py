@@ -10,6 +10,8 @@ The cases hold the semantics a plain torch port gets wrong:
   the type's minimum for int32), ``gather_nd`` and ``multiplex`` clamp
   (``x[...]``), ``scatter`` (set and add) and ``scatter_nd_add`` drop
   the row; negative indices in range wrap;
+- float-to-int ``cast`` saturates at the target's range and sends NaN
+  to 0, as XLA's convert does (int8, uint8, int32 with NaN and +-inf);
 - ties: ``top_k`` puts the lower index first, ``argsort(descending=
   True)`` the higher one;
 - the random ops match in distribution only (the same key gives the
@@ -43,6 +45,8 @@ def i32(*a):
 
 
 X53 = f32(5, 3)
+SATURATING = np.array([-1.5, 300.7, -300.2, 3e9, np.nan, np.inf, -np.inf,
+                       -3e9, 126.9, 2147483520.0], np.float32)
 TIES = np.array([[1.0, 3.0, 3.0, 2.0, 3.0, 1.0], [0.0, 0.0, 5.0, 5.0, 0.0,
                                                    -1.0]], np.float32)
 
@@ -114,6 +118,14 @@ CASES = {
     "shape": (J.shape, T.shape, [f32(2, 3, 4)], ()),
     "cast": (P(J.cast, dtype="int32"), P(T.cast, dtype="int32"),
              [f32(3, 4) * 3], ()),
+    # float to int saturates at the range and sends NaN to 0 (XLA's
+    # convert; a bare .to wraps)
+    "cast_saturating_int8": (P(J.cast, dtype="int8"), P(T.cast, dtype="int8"),
+                             [SATURATING], ()),
+    "cast_saturating_uint8": (P(J.cast, dtype="uint8"),
+                              P(T.cast, dtype="uint8"), [SATURATING], ()),
+    "cast_saturating_int32": (P(J.cast, dtype="int32"),
+                              P(T.cast, dtype="int32"), [SATURATING], ()),
     "gather": (P(J.gather, axis=0), P(T.gather, axis=0),
                [X53, i32(0, 4, 2, -1)], (0,)),
     "gather_out_of_range": (P(J.gather, axis=0), P(T.gather, axis=0),
@@ -125,7 +137,7 @@ CASES = {
                   [f32(3, 4, 2), i32(0, 1, 2, 3, 1, 0).reshape(3, 2)], (0,)),
     "gather_nd_out_of_range": (
         J.gather_nd, T.gather_nd,
-        [f32(3, 4, 2), i32(3, 1, -1, 4, 7, -9, 0, -4).reshape(4, 2)], ()),
+        [f32(3, 4, 2), i32(3, 1, -1, 4, 7, -9, 0, -4).reshape(4, 2)], (0,)),
     "scatter": (J.scatter, T.scatter, [X53, i32(1, 3, 0), f32(3, 3)],
                 (0, 2)),
     "scatter_out_of_range": (J.scatter, T.scatter,
@@ -159,7 +171,7 @@ CASES = {
         lambda i, a, b, c: J.multiplex(i, [a, b, c]),
         lambda i, a, b, c: T.multiplex(i, [a, b, c]),
         [i32(5, -1, -4, 3).reshape(4, 1), f32(4, 2), f32(4, 2),
-         f32(4, 2)], ()),
+         f32(4, 2)], (1, 2, 3)),
     "is_empty": (J.is_empty, T.is_empty, [np.zeros((2, 0), np.float32)], ()),
     "roll": (P(J.roll, shifts=2, axis=1), P(T.roll, shifts=2, axis=1),
              [f32(2, 5)], (0,)),
@@ -188,6 +200,23 @@ def test_out_of_range_results_are_the_jax_fill_clamp_and_drop():
     assert torch.equal(s, x)
     nd = T.gather_nd(x, torch.tensor([[9, -9]]))
     assert float(nd[0]) == float(x[4, 0])
+
+
+def test_saturating_cast_values_and_the_int64_choice():
+    """The saturating cases above, spelled out (ROADMAP's table). The JAX
+    package runs without 64-bit mode, so its "int64" is int32 and
+    saturates there; the port keeps int64 and saturates at int64's
+    range."""
+    x = torch.from_numpy(SATURATING[:6])
+    assert T.cast(x, "int8").tolist() == [-1, 127, -128, 127, 0, 127]
+    assert T.cast(x, "uint8").tolist() == [0, 255, 0, 255, 0, 255]
+    assert T.cast(x, "int32").tolist() == [-1, 300, -300, 2 ** 31 - 1, 0,
+                                           2 ** 31 - 1]
+    want = np.asarray(J.cast(jnp.asarray(SATURATING[:6]), "int64"))
+    assert want.dtype == np.int32 and want[3] == 2 ** 31 - 1
+    got = T.cast(x, "int64")
+    assert got.dtype == torch.int64
+    assert got.tolist() == [-1, 300, -300, 3000000000, 0, 2 ** 63 - 1]
 
 
 def test_dynamic_shape_ops_match_jax_eagerly():

@@ -11,7 +11,14 @@ against it on the CPU:
   package's.
 
 Tolerances: the lookup exactly (a gather); the key and the checkpoint's
-key exactly (threefry bit for bit)."""
+key exactly (threefry bit for bit).
+
+And the out-of-range reads of ``ops/decode.py``, which raised on the
+CPU and asserted on the card: the CTC
+loss, the CRF and edit distance with labels and lengths out of range
+give the JAX package's values (``take_along_axis`` reads NaN, ``x[...]``
+clamps and drops the clamped read's gradient), losses within 1e-5 and
+their gradients within 1e-5."""
 
 import jax
 import jax.numpy as jnp
@@ -144,3 +151,53 @@ def test_train_steps_differs_from_n_train_step_calls():
         jt.train_step(jbatch)
     np.testing.assert_array_equal(
         tt._key, np.asarray(jax.random.key_data(jt._rng)))
+
+
+def _decode_case(name):
+    from paddle_tpu.ops import decode as JD
+    from paddle_tpu_torch.ops import decode as TD
+
+    rng = np.random.default_rng(7)
+    if name == "ctc_loss":
+        lp = rng.normal(size=(3, 6, 5)).astype(np.float32)
+        lp = lp - np.log(np.exp(lp).sum(-1, keepdims=True))
+        # a label past V, an input length past T, a label length past L
+        args = [lp, np.array([[1, 2], [3, 7], [2, 2]], np.int32),
+                np.array([6, 9, 4], np.int32), np.array([2, 2, 3], np.int32)]
+        return JD.ctc_loss, TD.ctc_loss, args, (0,)
+    if name == "linear_chain_crf":
+        em = rng.normal(size=(3, 4, 5)).astype(np.float32)
+        tr = rng.normal(size=(5, 5)).astype(np.float32)
+        st = rng.normal(size=(5,)).astype(np.float32)
+        sp = rng.normal(size=(5,)).astype(np.float32)
+        # a label past N in row 1, a negative one (wraps) in row 2, lengths
+        # past T in rows 0 and 2
+        labels = np.array([[0, 1, 2, 3], [4, 5, 1, 2], [1, 1, -1, 2]],
+                          np.int32)
+        args = [em, tr, labels, np.array([6, 4, 9], np.int32), st, sp]
+
+        def j(e, t, l, n, s0, s1):
+            return JD.linear_chain_crf(e, t, l, n, start_transitions=s0,
+                                       stop_transitions=s1)
+
+        def t(e, t_, l, n, s0, s1):
+            return TD.linear_chain_crf(e, t_, l, n, start_transitions=s0,
+                                       stop_transitions=s1)
+        return j, t, args, (0, 1, 4, 5)
+    hyp = rng.integers(0, 4, (3, 5)).astype(np.int32)
+    ref = rng.integers(0, 4, (3, 4)).astype(np.int32)
+    args = [hyp, np.array([5, 3, 7], np.int32), ref,
+            np.array([4, 9, 2], np.int32)]
+    normalized = name.endswith("normalized")
+    return (lambda *a: JD.edit_distance(*a, normalized=normalized),
+            lambda *a: TD.edit_distance(*a, normalized=normalized), args, ())
+
+
+@pytest.mark.parametrize("name", ["ctc_loss", "linear_chain_crf",
+                                  "edit_distance",
+                                  "edit_distance_normalized"])
+def test_decode_ops_read_out_of_range_as_jax(name):
+    from torch_parity import check_pair
+
+    jfn, tfn, args, grad = _decode_case(name)
+    check_pair(jfn, tfn, args, atol=1e-5, rtol=1e-5, grad=grad)

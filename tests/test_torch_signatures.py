@@ -198,6 +198,53 @@ def test_the_comparison_sees_the_shared_surface():
                  "models.stacked_lstm:StackedLSTM.__init__",
                  "models.stacked_lstm:StackedLSTM.forward",
                  "models.stacked_lstm:loss_fn",
+                 # the detection slice and the rest of the ops
+                 "ops.detection:iou_similarity", "ops.detection:box_coder",
+                 "ops.detection:box_clip",
+                 "ops.detection:polygon_box_transform",
+                 "ops.detection:expand_aspect_ratios",
+                 "ops.detection:prior_box_count", "ops.detection:prior_box",
+                 "ops.detection:density_prior_box",
+                 "ops.detection:anchor_generator", "ops.detection:yolo_box",
+                 "ops.detection:nms", "ops.detection:multiclass_nms",
+                 "ops.detection:matrix_nms", "ops.detection:roi_align",
+                 "ops.detection:roi_pool", "ops.detection:generate_proposals",
+                 "ops.detection:bipartite_match",
+                 "ops.detection:target_assign",
+                 "ops.detection:distribute_fpn_proposals",
+                 "ops.detection:collect_fpn_proposals",
+                 "ops.detection:ssd_match", "ops.detection:ssd_loss",
+                 "ops.detection:detection_output",
+                 "ops.detection_extra:psroi_pool",
+                 "ops.detection_extra:roi_perspective_transform",
+                 "ops.detection_extra:rpn_target_assign",
+                 "ops.detection_extra:mine_hard_examples",
+                 "ops.detection_extra:box_decoder_and_assign",
+                 "ops.detection_extra:generate_proposal_labels",
+                 "ops.detection_extra:yolov3_loss",
+                 "ops.detection_extra:poly2mask",
+                 "ops.detection_extra:polys_to_mask_wrt_box",
+                 "ops.detection_extra:generate_mask_labels",
+                 "ops.nn:interpolate", "ops.nn:pixel_shuffle", "ops.nn:pad2d",
+                 "ops.nn:space_to_depth", "ops.nn:shuffle_channel",
+                 "ops.nn:grid_sampler", "ops.nn:temporal_shift",
+                 "ops.nn_extra:pool3d", "ops.nn_extra:max_pool2d_with_index",
+                 "ops.nn_extra:max_pool3d_with_index", "ops.nn_extra:unpool",
+                 "ops.nn_extra:spp", "ops.nn_extra:affine_channel",
+                 "ops.nn_extra:affine_grid", "ops.nn_extra:conv3d_transpose",
+                 "ops.nn_extra:depthwise_conv2d_transpose",
+                 "ops.nn_extra:data_norm", "ops.nn_extra:bilinear_interp",
+                 "ops.nn_extra:nearest_interp", "ops.nn_extra:fsp_matrix",
+                 "ops.nn_extra:similarity_focus", "ops.nn_extra:cvm",
+                 "ops.nn_extra:tree_conv", "ops.nn_extra:adaptive_pool3d",
+                 "ops.nn_extra:spectral_norm",
+                 "ops.nn_extra:image_resize_short",
+                 "nn.layers:MultiBoxHead.__init__",
+                 "nn.layers:MultiBoxHead.forward",
+                 "nn.layers:SpectralNorm.__init__",
+                 "nn.layers:SpectralNorm.forward", "metrics:detection_map",
+                 "metrics:DetectionMAP.__init__",
+                 "metrics:DetectionMAP.update",
                  "models.stacked_lstm:eval_metrics",
                  "parallel.api:Trainer.supervised",
                  # the recommender, LoRA and op-library slice
