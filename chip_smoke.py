@@ -415,7 +415,36 @@ Phases, each printed as it runs:
    classes, 3 of the standard 9 anchors; yolov3_loss and its gradient at
    B=8 with 50 padded gt boxes), matrix_nms (80 classes x 500 boxes) and
    box_decoder_and_assign (512 x 81 classes); ms and device ops per
-   call; no hand kernel launches.
+   call; no hand kernel launches;
+32. ``[train:slim]``, slim compression on bench_gpt's shape (float32,
+   (8, 1024), no remat): a GPTConfig.small() teacher (seed 11) distilled
+   into a 6-layer student of the same widths (seed 12) through
+   slim.Compressor with Adam(1e-3), 4 seeded batches an epoch, 3
+   epochs, eval_fn minus the LM loss on a held-out batch, and the
+   strategies DistillationStrategy(Distiller(): T 4, soft 0.7, hard 0.3)
+   on epochs 0-2 and UniformPruneStrategy(0.5, structured, axis=1 over
+   the six blocks.*.ffn.gate.weight) from epoch 2 (a zero gate column
+   kills its FFN channel). Gates: each step launches the flash forward
+   exactly 18 times (teacher 12, student 6), dq and dk/dv 6 times each,
+   all float32, and no other hand kernel; one distillation step with the
+   kernels against the same step on plain attention (same weights and
+   batch): loss 1e-4, each student grad 1e-3 of its parameter's largest
+   plain-grad entry; the 12 distilled losses finite, the last below the
+   first; the teacher bitwise unchanged, with no grad and no optimizer
+   state; after each epoch from 2 every masked entry exactly 0 and
+   Pruner.sparsity within 0.005 of 0.5. Then shrink_params slices each
+   gate's dead columns with up (axis 1) and down (axis 0) into a GPT of
+   intermediate_size kept: its logits on the held-out batch within 1e-4
+   x the masked student's largest |logit| of the masked student's; the
+   shrunk and the masked student each serve the 8 prompts [train:lora]
+   serves through the paged BatchedDecoder (the paged kernel exactly
+   layers x (ticks + admissions), no other kernel, the teacher-forced
+   check); fake_quantize_range_abs_max, 12 calls at window_size=4 on
+   seeded (4096, 768) activations, card against CPU: states equal,
+   outputs within one grid step (scale / 127), the differing entries
+   counted. Printed: ms per step, tokens/s, peak memory, each epoch's
+   ms and the mask search's, the kept width, the idle share of a step,
+   and decode tokens/s and ms per tick of both students.
 
 Any failure exits non-zero. The line before the last is the kernels'
 JSON record; the last line is
@@ -4250,9 +4279,15 @@ def card_against_cpu(torch, tag, cpu_model, loss_of, inputs):
         raise SystemExit(f"{tag} float64 check step failed")
 
 
+def all_counts(FK, K, QM):
+    """Launches per hand kernel: flash, decode and the int8 product."""
+    return dict(flash_counts(FK), **decode_counts(K),
+                quant_matmul=QM.quant_matmul.launches,
+                quant_linear=QM.quant_linear.launches)
+
+
 def all_launches(FK, K, QM):
-    return (sum(flash_counts(FK).values()) + sum(decode_counts(K).values())
-            + QM.quant_matmul.launches + QM.quant_linear.launches)
+    return sum(all_counts(FK, K, QM).values())
 
 
 def phase_train_zoo(torch, FK, K, QM):
@@ -4570,10 +4605,12 @@ def phase_train_lora(torch, FK, K, QM, prompts):
     torch.cuda.empty_cache()
 
 
-def serve_merged(torch, FK, K, QM, model, prompts, tag):
+def serve_merged(torch, FK, K, QM, model, prompts, tag,
+                 what="merged model"):
     """The merged model served paged: every counter at 0 just before
     run(), the paged kernel exactly layers x (ticks + admissions), no
-    other kernel; tokens held to the teacher-forced check."""
+    other kernel; tokens held to the teacher-forced check. Returns
+    tokens/s and ms per tick."""
     from paddle_tpu_torch.serving import BatchedDecoder
 
     dec = BatchedDecoder(model, slots=8, capacity=CAP, device=model.device,
@@ -4596,7 +4633,7 @@ def serve_merged(torch, FK, K, QM, model, prompts, tag):
     want = model.cfg.num_layers * (dec.tick_count + len(rids))
     gap = teacher_forced_check(torch, model, prompts, outs)
     toks = sum(len(o) for o in outs)
-    log(f"{tag} merged model served {len(outs)} requests paged: {toks} "
+    log(f"{tag} {what} served {len(outs)} requests paged: {toks} "
         f"tokens in {wall:.3f} s ({toks / wall:.1f} tokens/s), "
         f"{dec.tick_count} ticks; launches {launches}, other kernels "
         f"{others} (want decode_attention_paged = {model.cfg.num_layers} x "
@@ -4605,8 +4642,9 @@ def serve_merged(torch, FK, K, QM, model, prompts, tag):
     if launches["decode_attention_paged"] != want or any(
             n for k, n in launches.items() if k != "decode_attention_paged") \
             or any(others.values()):
-        raise SystemExit(f"{tag} serving the merged model launched another "
+        raise SystemExit(f"{tag} serving the {what} launched another "
                          f"kernel or another number of times")
+    return toks / wall, 1e3 * dec.tick_seconds / dec.tick_count
 
 
 def w2v_model(torch, device, generator=None):
@@ -5298,6 +5336,303 @@ def phase_ops_detection(torch, FK, K, QM):
         raise SystemExit(f"{tag} a hand kernel launched")
 
 
+SLIM_STUDENT_LAYERS, SLIM_EPOCHS, SLIM_BATCHES = 6, 3, 4
+SLIM_TARGET, SLIM_TOL = 0.5, 0.005        # Pruner.sparsity's gate
+RANGE_CALLS, RANGE_WINDOW = 12, 4
+
+
+def slim_batch(torch, cfg, seed):
+    """A seeded (TB, TT) token batch and its shifted labels, the last
+    position ignored (-100)."""
+    ids = torch.randint(0, cfg.vocab_size, (TB, TT),
+                        generator=torch.Generator().manual_seed(seed))
+    labels = torch.cat([ids[:, 1:], torch.full((TB, 1), -100)], 1)
+    return ids.to("cuda"), labels.to("cuda")
+
+
+def range_fake_quant_check(torch, tag):
+    """fake_quantize_range_abs_max on the card against the CPU: RANGE_CALLS
+    calls at RANGE_WINDOW on seeded activations of varying scale."""
+    from paddle_tpu_torch.quant import ops as Q
+
+    gen = torch.Generator().manual_seed(21)
+    st = {d: Q.range_state_init(RANGE_WINDOW) for d in ("cpu", "cuda")}
+    worst, differing = 0.0, 0
+    for i in range(RANGE_CALLS):
+        x = torch.randn(4096, 768, generator=gen) * (0.5 + (7 * i) % 5)
+        out = {}
+        for d in ("cpu", "cuda"):
+            out[d], st[d] = Q.fake_quantize_range_abs_max(x.to(d), st[d])
+        a, b = st["cuda"], st["cpu"]
+        if not (torch.equal(a.scale.cpu(), b.scale)
+                and torch.equal(a.scales_window.cpu(), b.scales_window)
+                and torch.equal(a.step.cpu(), b.step)):
+            raise SystemExit(f"{tag} the range fake-quant state differs "
+                             f"card against CPU at call {i}")
+        d = (out["cuda"].cpu() - out["cpu"]).abs()
+        worst = max(worst, float(d.max()) / (float(b.scale) / 127))
+        differing += int((d > 0).sum())
+    log(f"{tag} fake_quantize_range_abs_max, {RANGE_CALLS} calls at "
+        f"window_size={RANGE_WINDOW} on (4096, 768): states equal card "
+        f"against CPU; outputs differ in {differing} entries, worst "
+        f"{worst:.3f} grid steps (limit 1)")
+    if worst > 1:
+        raise SystemExit(f"{tag} the card's fake-quant outputs stray more "
+                         f"than one grid step from the CPU's")
+
+
+def phase_train_slim(torch, FK, K, QM, prompts):
+    """Slim compression at bench_gpt's shape: distil, prune and shrink a
+    GPT, then serve it (see the module docstring, phase 32)."""
+    import copy
+
+    from paddle_tpu_torch import optimizer as TO
+    from paddle_tpu_torch import slim
+    from paddle_tpu_torch.models import gpt
+
+    tag = "[train:slim]"
+    reset_flash_counts(FK)
+    cfg = gpt.GPTConfig.small()
+    cfg.max_position, cfg.remat = TT, False
+    scfg = copy.deepcopy(cfg)
+    scfg.num_layers = SLIM_STUDENT_LAYERS
+
+    def model(c, seed):
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(seed)
+        return gpt.GPTForCausalLM(c, generator=gen)
+
+    teacher, student = model(cfg, 11).eval(), model(scfg, 12)
+    batches = [slim_batch(torch, cfg, 30 + i) for i in range(SLIM_BATCHES)]
+    held = slim_batch(torch, cfg, 40)
+    tparams = dict(teacher.named_parameters())
+    tkeep = {k: v.detach().clone() for k, v in tparams.items()}
+    gates = [f"blocks.{i}.ffn.gate.weight" for i in range(scfg.num_layers)]
+
+    def loss_fn(p, ids, labels, logits_only=False):
+        if logits_only:
+            return student.functional_call(p, ids)[0]
+        return student.functional_call(p, ids, labels,
+                                       method="forward_loss")[0]
+
+    def teacher_apply(p, ids, labels):
+        return teacher.functional_call(p, ids)[0]
+
+    def eval_fn(p):
+        with torch.no_grad():
+            return -float(loss_fn(p, *held))
+
+    losses = []
+
+    class Recorded(slim.Distiller):
+        def loss(self, *a, **kw):
+            v = super().loss(*a, **kw)
+            losses.append(v.detach())
+            return v
+
+    distill = slim.DistillationStrategy(teacher_apply, tparams, Recorded(),
+                                        end_epoch=SLIM_EPOCHS)
+    log(f"{tag} teacher GPTConfig.small() float32, "
+        f"{sum(v.numel() for v in tparams.values())} parameters; student "
+        f"{scfg.num_layers} layers of the same widths, "
+        f"{sum(p.numel() for p in student.parameters())} parameters; "
+        f"batches ({TB}, {TT}), Distiller() T 4, soft 0.7, hard 0.3")
+
+    # 1. one distillation step with the kernels against plain attention
+    ctx = slim.Context(dict(student.named_parameters()))
+    distill.on_epoch_begin(ctx)
+    distilled = ctx.loss_wrapper(loss_fn)
+    mhas = [b.self_attn for m in (teacher, student) for b in m.blocks]
+    result = {}
+    for name, use_flash in (("kernels", True), ("plain", False)):
+        for a in mhas:
+            a.use_flash = use_flash
+        p = {k: v.detach().requires_grad_() for k, v in ctx.params.items()}
+        n0 = all_counts(FK, K, QM)
+        loss = distilled(p, *batches[0])
+        grads = torch.autograd.grad(loss, list(p.values()))
+        launched = {k: v - n0[k] for k, v in all_counts(FK, K, QM).items()}
+        if (min(launched[k] for k in FLASH_ROWS) == 0 if use_flash
+                else any(launched.values())):
+            raise SystemExit(f"{tag} check step {name}: launches "
+                             f"{launched}")
+        result[name] = (loss.item(), dict(zip(p, grads)))
+    for a in mhas:
+        a.use_flash = True
+    losses.clear()
+    (lk, gk), (lp, gp) = result["kernels"], result["plain"]
+    worst, where = max((float((gk[n] - gp[n]).abs().max())
+                        / max(float(gp[n].abs().max()), 1e-30), n)
+                       for n in gp)
+    log(f"{tag} check step: distilled loss kernels {lk:.6f}, plain "
+        f"{lp:.6f} (|diff| {abs(lk - lp):.3e}, atol "
+        f"{TRAIN_TOL['float32'][0]}); worst grad diff / the parameter's "
+        f"max plain grad {worst:.3e} ({where}; limit "
+        f"{TRAIN_TOL['float32'][1]})")
+    if not (abs(lk - lp) <= TRAIN_TOL["float32"][0]
+            and worst <= TRAIN_TOL["float32"][1]):
+        raise SystemExit(f"{tag} the kernel path's distilled loss or grads "
+                         f"disagree with plain attention")
+    del result, gk, gp, ctx, distilled
+    torch.cuda.empty_cache()
+
+    # 2. the Compressor: every step counted and timed through the reader
+    marks, epochs, checks = [], [], []
+
+    def mark():
+        torch.cuda.synchronize()
+        marks.append((time.perf_counter(), all_counts(FK, K, QM)))
+
+    def reader():
+        for batch in batches:
+            mark()
+            yield batch
+        mark()
+
+    class Watch(slim.Strategy):
+        """First in the list: stamps each epoch's start; checks the masks
+        at each epoch's end."""
+
+        def on_epoch_begin(self, c):
+            torch.cuda.synchronize()
+            epochs.append([time.perf_counter(), len(marks)])
+
+        def on_epoch_end(self, c):
+            if c.masks:
+                zeros = all(bool((c.params[n][m == 0] == 0).all())
+                            for n, m in c.masks.items())
+                checks.append((c.epoch_id, zeros,
+                               slim.Pruner.sparsity(c.params, c.masks)))
+
+    prune = slim.UniformPruneStrategy(
+        SLIM_TARGET, structured=True, axis=1, match=lambda n: n in gates,
+        start_epoch=2)
+    comp = slim.Compressor(dict(student.named_parameters()), TO.Adam(1e-3),
+                           loss_fn, reader, eval_fn=eval_fn,
+                           epochs=SLIM_EPOCHS,
+                           strategies=[Watch(), distill, prune])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ctx = comp.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [float(v) for v in losses]
+    want = {"flash_attention_fwd": cfg.num_layers + scfg.num_layers,
+            "flash_attention_dq": scfg.num_layers,
+            "flash_attention_dkv": scfg.num_layers}
+    steps, step_ms = [], []
+    for e, (start, first) in enumerate(epochs):
+        span = marks[first:first + SLIM_BATCHES + 1]
+        for (ta, ca), (tb, cb) in zip(span, span[1:]):
+            steps.append({k: cb[k] - ca[k] for k in ca})
+            step_ms.append(1e3 * (tb - ta))
+        epochs[e] = (1e3 * (span[-1][0] - start),
+                     1e3 * (span[0][0] - start))
+    other_dtypes = {k: getattr(FK, k).launches
+                    - getattr(FK, k).dtype_launches.get(torch.float32, 0)
+                    for k in FLASH_ROWS}
+    bad = [s for s in steps if {k: s[k] for k in FLASH_ROWS} != want
+           or any(v for k, v in s.items() if k not in FLASH_ROWS)]
+    mean = sum(step_ms) / len(step_ms)
+    log(f"{tag} Compressor, {SLIM_EPOCHS} epochs of {SLIM_BATCHES} steps, "
+        f"Adam(1e-3): distilled losses {[round(v, 4) for v in losses]}; "
+        f"eval history {[round(v, 5) for v in ctx.eval_history]}; launches "
+        f"a step {steps[0]} (want {want}, nothing else), flash launches "
+        f"in this phase not float32 {other_dtypes}; {len(bad)} steps off")
+    log(f"{tag} ms per step {[round(v, 3) for v in step_ms]}, mean "
+        f"{mean:.3f} ms ({TB * TT / (mean / 1e3):.1f} tokens/s); epochs' "
+        f"ms {[round(e[0], 1) for e in epochs]}, of which before the "
+        f"first step (the strategies' epoch start: the mask search at "
+        f"epoch 2) {[round(e[1], 1) for e in epochs]}; run {wall:.2f} s; "
+        f"peak memory {peak:.2f} GiB")
+    if bad or len(steps) != SLIM_EPOCHS * SLIM_BATCHES or any(
+            other_dtypes.values()):
+        raise SystemExit(f"{tag} a distillation step launched other kernels "
+                         f"or another number of times: {bad[:2]}")
+    if not (len(losses) == len(steps) and finite_and_falling(losses)):
+        raise SystemExit(f"{tag} the distilled losses are not finite and "
+                         f"falling: {losses}")
+    changed = [k for k, v in tparams.items()
+               if not torch.equal(v.detach(), tkeep[k]) or v.grad is not None]
+    state_ptrs = {t.data_ptr() for leaf in ctx.opt_state["leaf"]
+                  for t in leaf.values()}
+    state_ptrs |= {t.data_ptr() for t in ctx.params.values()}
+    shared = [k for k, v in tparams.items() if v.data_ptr() in state_ptrs]
+    log(f"{tag} teacher: {len(changed)} parameters changed or with a grad, "
+        f"{len(shared)} in the optimizer state or the student's params; "
+        f"optimizer slots {len(ctx.opt_state['leaf'])} for "
+        f"{len(ctx.params)} student parameters")
+    if changed or shared or len(ctx.opt_state["leaf"]) != len(ctx.params):
+        raise SystemExit(f"{tag} the teacher moved, took a grad or holds "
+                         f"optimizer state")
+    log(f"{tag} masks after each epoch from 2 (epoch, every masked entry "
+        f"0, Pruner.sparsity): {checks} (target {SLIM_TARGET} +- "
+        f"{SLIM_TOL})")
+    if [c[0] for c in checks] != list(range(2, SLIM_EPOCHS)) or not all(
+            z and abs(sp - SLIM_TARGET) <= SLIM_TOL for _, z, sp in checks):
+        raise SystemExit(f"{tag} the masks did not hold or missed the "
+                         f"target")
+
+    # 3. the idle share of a distillation step (the Compressor's update on
+    # copies, masks aside)
+    p = {k: v.detach().clone() for k, v in ctx.params.items()}
+    opt = TO.Adam(1e-3)
+    state = opt.init(p)
+    again = slim.Context(p)
+    distill.on_epoch_begin(again)
+    update = opt.minimize_fn(again.loss_wrapper(loss_fn))
+    busy, idle, ops = step_profile(
+        torch, lambda: update(p, state, *batches[0]), mean)
+    log(f"{tag} a distillation step under torch.profiler: device busy "
+        f"{busy:.3f} ms of {mean:.3f} ms, idle share {idle:.3f}, "
+        f"{ops:.1f} device ops")
+    del p, state, update, again
+    torch.cuda.empty_cache()
+
+    # 4. shrink: the dead gate columns out, with up and down
+    kept = int((ctx.masks[gates[0]][0] != 0).sum())
+    ratio = 1 - kept / scfg.intermediate_size
+    plan = [(g, 1, [(g.replace("gate", "up"), 1),
+                    (g.replace("gate", "down"), 0)]) for g in gates]
+    small, idx = slim.shrink_params(ctx.params, plan, ratio)
+    widths = {len(i) for i in idx.values()}
+    ncfg = copy.deepcopy(scfg)
+    ncfg.intermediate_size = kept
+    shrunk = model(ncfg, 13).eval()
+    shrunk.set_parameters(small)
+    masked = student.eval()
+    masked.set_parameters(ctx.params)
+    with torch.no_grad():
+        want_logits = masked(held[0])
+        got = shrunk(held[0])
+    scale = float(want_logits.abs().max())
+    d = float((got - want_logits).abs().max())
+    log(f"{tag} shrink_params at ratio 1 - {kept}/{scfg.intermediate_size}:"
+        f" kept widths {sorted(widths)}; shrunk student "
+        f"{sum(q.numel() for q in shrunk.parameters())} parameters; logits "
+        f"on the held-out batch against the masked student's: max |diff| "
+        f"{d:.3e} (limit 1e-4 x {scale:.3f})")
+    if widths != {kept} or d > 1e-4 * scale:
+        raise SystemExit(f"{tag} the shrunk student is not the masked one")
+    del want_logits, got, teacher, tparams, tkeep, ctx, comp
+    torch.cuda.empty_cache()
+
+    # 5. serve both students paged
+    rates = {}
+    for name, m in (("masked", masked), ("shrunk", shrunk)):
+        rates[name] = serve_merged(torch, FK, K, QM, m, prompts[:8], tag,
+                                   f"the {name} student")
+    log(f"{tag} decode: shrunk student {rates['shrunk'][0]:.1f} tokens/s, "
+        f"{rates['shrunk'][1]:.3f} ms per tick; the unpruned (masked, "
+        f"FFN {scfg.intermediate_size}) student "
+        f"{rates['masked'][0]:.1f} tokens/s, {rates['masked'][1]:.3f} ms "
+        f"per tick")
+    range_fake_quant_check(torch, tag)
+    del masked, shrunk, student
+    torch.cuda.empty_cache()
+
+
 def timed_phase(tag, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -5455,6 +5790,7 @@ def main() -> int:
     timed_phase("[ops:library]", phase_ops_library, torch)
     timed_phase("[train:ssd]", phase_train_ssd, torch, FK, K, QM)
     timed_phase("[ops:detection]", phase_ops_detection, torch, FK, K, QM)
+    timed_phase("[train:slim]", phase_train_slim, torch, FK, K, QM, prompts)
     log(f"[card] {smi}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -11,9 +11,13 @@ CUDA card unless the caller passes ``device="cpu"``.
 
 __version__ = "0.1.0"
 
-from . import amp, core
-from .core import (EnforceError, UnimplementedError, make_generator,
-                   resolve_device, seed)
+from . import amp, core, ops
+from .core import (FLAGS, CPUPlace, EnforceError, Place, TPUPlace,
+                   UnimplementedError, default_place, device_count,
+                   is_compiled_with_tpu, make_generator, resolve_device,
+                   seed, set_device)
 
-__all__ = ["amp", "core", "EnforceError", "UnimplementedError",
-           "make_generator", "resolve_device", "seed"]
+__all__ = ["amp", "core", "ops", "FLAGS", "CPUPlace", "EnforceError",
+           "Place", "TPUPlace", "UnimplementedError", "default_place",
+           "device_count", "is_compiled_with_tpu", "make_generator",
+           "resolve_device", "seed", "set_device"]

@@ -4,11 +4,15 @@ so the port never imports the JAX package)."""
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, NoReturn
 
 
 class EnforceError(RuntimeError):
     """Raised when an ``enforce`` condition fails."""
+
+
+class NotFoundError(EnforceError):
+    pass
 
 
 class InvalidArgumentError(EnforceError, ValueError):
@@ -38,3 +42,26 @@ def enforce(cond: Any, msg: str = "", *args: Any) -> None:
     be a format string applied to ``*args`` lazily."""
     if not cond:
         raise EnforceError(msg % args if args else (msg or "enforce failed"))
+
+
+def enforce_eq(a: Any, b: Any, msg: str = "") -> None:
+    if a != b:
+        raise EnforceError(f"enforce_eq failed: {a!r} != {b!r}. {msg}")
+
+
+def enforce_in(item: Any, container: Any, msg: str = "") -> None:
+    if item not in container:
+        raise EnforceError(
+            f"enforce_in failed: {item!r} not in {container!r}. {msg}")
+
+
+def not_found(msg: str) -> NoReturn:
+    raise NotFoundError(msg)
+
+
+def invalid_argument(msg: str) -> NoReturn:
+    raise InvalidArgumentError(msg)
+
+
+def unimplemented(msg: str) -> NoReturn:
+    raise UnimplementedError(msg)

@@ -1,16 +1,37 @@
-"""Sequence packing and bucket boundaries (counterpart of
-paddle_tpu/data/bucketing.py ``pack_sequences`` and ``round_to_bucket``):
-numpy only, copied here so that the port never imports the JAX package.
-The rest of that module (length bucketing) comes with the data layer,
-ROADMAP queue 1 item 12."""
+"""Length bucketing, sequence packing and bucket boundaries (counterpart
+of paddle_tpu/data/bucketing.py): host-side numpy, copied here so that
+the port never imports the JAX package.
+
+Variable-length samples are grouped into a fixed set of length buckets;
+each bucket pads to its boundary, so a run sees at most
+``len(boundaries)`` step shapes whatever the data's lengths (the JAX
+package bounds its recompiles this way; here it bounds the shapes the
+kernels and the allocator see). Packing is the padding-free dual."""
 
 from __future__ import annotations
 
-from typing import Callable, Iterator, List
+from typing import (Callable, Iterable, Iterator, List, Optional,
+                    Sequence)
 
 import numpy as np
 
 from ..core.enforce import enforce
+
+
+def quantile_boundaries(lengths: Sequence[int], num_buckets: int,
+                        round_to: int = 8) -> List[int]:
+    """Pick bucket boundaries at length quantiles (rounded up to a
+    multiple of ``round_to``) — balances samples per bucket."""
+    enforce(num_buckets >= 1, "num_buckets must be >= 1")
+    ls = np.asarray(sorted(lengths))
+    qs = [ls[min(int(len(ls) * (i + 1) / num_buckets), len(ls) - 1)]
+          for i in range(num_buckets)]
+    out: List[int] = []
+    for q in qs:
+        b = int(-(-int(q) // round_to) * round_to)
+        if not out or b > out[-1]:
+            out.append(b)
+    return out
 
 
 def round_to_bucket(n: int, buckets) -> int:
@@ -28,6 +49,86 @@ def round_to_bucket(n: int, buckets) -> int:
         if n <= bound:
             return int(bound)
     return n
+
+
+def pad_to(sample: np.ndarray, length: int, pad_value=0) -> np.ndarray:
+    """Pad axis 0 of one sample to ``length``."""
+    sample = np.asarray(sample)
+    enforce(sample.shape[0] <= length,
+            "sample length %s exceeds bucket %s", sample.shape[0], length)
+    pad = [(0, length - sample.shape[0])] + [(0, 0)] * (sample.ndim - 1)
+    return np.pad(sample, pad, constant_values=pad_value)
+
+
+def bucket_by_length(reader: Callable[[], Iterator],
+                     boundaries: Sequence[int],
+                     batch_size: int,
+                     length_of: Optional[Callable] = None,
+                     pad_value=0,
+                     drop_long: bool = False) -> Callable[[], Iterator]:
+    """Reader decorator: group samples by length bucket and yield dict
+    batches
+    ``{"data": (B, bucket_len, ...), "lengths": (B,)}`` — one static shape
+    per bucket.
+
+    ``length_of(sample)`` defaults to ``len(sample)`` (or of its first
+    field when the sample is a tuple — remaining fields are carried
+    per-sample in "extras"). Samples longer than the last boundary raise
+    (or are dropped with ``drop_long``).
+    """
+    bounds = list(boundaries)
+    enforce(bounds == sorted(bounds) and len(set(bounds)) == len(bounds),
+            "boundaries must be strictly increasing, got %s", bounds)
+
+    def get_len(sample):
+        if length_of is not None:
+            return length_of(sample)
+        if isinstance(sample, tuple):
+            return len(sample[0])
+        return len(sample)
+
+    def bucket_of(n: int) -> int:
+        for i, b in enumerate(bounds):
+            if n <= b:
+                return i
+        return -1
+
+    def gen():
+        pending: List[List] = [[] for _ in bounds]
+        for sample in reader():
+            n = get_len(sample)
+            i = bucket_of(n)
+            if i < 0:
+                if drop_long:
+                    continue
+                enforce(False, "sample length %s exceeds largest bucket %s "
+                        "(use drop_long=True to skip)", n, bounds[-1])
+            pending[i].append(sample)
+            if len(pending[i]) == batch_size:
+                yield _emit(pending[i], bounds[i])
+                pending[i] = []
+        for i, bucket in enumerate(pending):  # flush remainders
+            if bucket:
+                yield _emit(bucket, bounds[i])
+
+    def _emit(samples: List, bound: int):
+        first_tuple = isinstance(samples[0], tuple)
+        seqs = [s[0] if first_tuple else s for s in samples]
+        lengths = np.asarray([len(s) for s in seqs], np.int32)
+        data = np.stack([pad_to(np.asarray(s), bound, pad_value)
+                         for s in seqs])
+        out = {"data": data, "lengths": lengths}
+        if first_tuple and len(samples[0]) > 1:
+            out["extras"] = [s[1:] for s in samples]
+        return out
+
+    return gen
+
+
+def compile_shape_count(batches: Iterable[dict]) -> int:
+    """Distinct (B, T) shapes a stream produces (the JAX package's count
+    of the recompiles a jitted step would pay). A diagnostic."""
+    return len({b["data"].shape for b in batches})
 
 
 def pack_sequences(reader: Callable[[], Iterator], capacity: int,

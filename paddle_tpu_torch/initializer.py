@@ -7,6 +7,7 @@ generator). Weights that must agree across the two packages cross with
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional, Sequence
 
@@ -152,3 +153,28 @@ class NumpyArray(Initializer):
                 "NumpyArray initializer shape %s != %s", self.value.shape,
                 tuple(shape))
         return torch.as_tensor(self.value, dtype=dtype, device=device)
+
+
+# Paddle-style aliases
+ConstantInitializer = Constant
+UniformInitializer = Uniform
+NormalInitializer = Normal
+TruncatedNormalInitializer = TruncatedNormal
+XavierInitializer = XavierUniform
+MSRAInitializer = MSRA
+BilinearInitializer = Bilinear
+NumpyArrayInitializer = NumpyArray
+
+
+def force_init_on_cpu() -> bool:
+    """reference: initializer.py force_init_on_cpu — parameters are made
+    on the device their layer is given; reported False always."""
+    return False
+
+
+@contextlib.contextmanager
+def init_on_cpu():
+    """reference: initializer.py init_on_cpu — a no-op scope: a layer's
+    ``device=`` decides where its parameters are made (``device="cpu"``
+    for the CPU)."""
+    yield

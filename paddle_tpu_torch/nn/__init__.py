@@ -1,6 +1,6 @@
 """Layers of the port (counterpart of paddle_tpu/nn)."""
 
-from .layer import Layer, LayerList, Sequential
+from .layer import Layer, LayerList, Parameter, Sequential
 from .layers import (GELU, RNN, BatchNorm, BilinearTensorProduct, Conv2D,
                      Conv2DTranspose, Dropout, Embedding, Flatten, GroupNorm,
                      GRUCell, LayerNorm, Linear, LSTMCell,
@@ -15,9 +15,9 @@ from .transformer import (FeedForward, LearnedPositionalEmbedding,
                           TransformerDecoderLayer, TransformerEncoder,
                           TransformerEncoderLayer)
 
-__all__ = ["Layer", "LayerList", "Sequential", "BatchNorm", "Conv2D",
-           "Conv2DTranspose", "Dropout", "Embedding", "Flatten", "GELU",
-           "GroupNorm", "LayerNorm", "Linear", "MultiHeadAttention",
+__all__ = ["Layer", "LayerList", "Parameter", "Sequential", "BatchNorm",
+           "Conv2D", "Conv2DTranspose", "Dropout", "Embedding", "Flatten",
+           "GELU", "GroupNorm", "LayerNorm", "Linear", "MultiHeadAttention",
            "Pool2D", "PRelu", "ReLU", "RMSNorm", "Sigmoid", "Softmax",
            "Tanh", "GRUCell", "LSTMCell", "RNN", "GRU", "LSTM",
            "SwitchFFN", "BilinearTensorProduct", "LoRALinear",

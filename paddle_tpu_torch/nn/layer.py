@@ -15,7 +15,17 @@ core/places.py) and ``generator=`` (a ``torch.Generator`` on that device,
 for its initial draws). Creating a parameter draws one key off the
 global stream (core/random.py) whether or not a generator is given, as
 the JAX package's ``create_parameter`` does, so the stream stays in step
-with the JAX package's."""
+with the JAX package's.
+
+The JAX package's Paddle-style state methods carry over on every layer,
+``LayerList`` and ``Sequential``: ``add_sublayer``, ``named_sublayers``
+(pre-order, the layer itself left out: not torch's ``named_modules``),
+``sublayers``, ``set_parameters`` (an unknown own name raises, a dotted
+name under no sublayer is skipped), ``set_buffers`` (never raises) and
+``update_buffer``. ``layer.w = Parameter(value)`` registers a trainable,
+and assigning a tensor or an array to an existing parameter's name
+updates that parameter (a plain ``torch.nn.Module`` raises
+``TypeError``)."""
 
 from __future__ import annotations
 
@@ -28,13 +38,136 @@ import torch
 from torch import nn
 
 from ..core.dtypes import default_dtype, get_policy, policy_scope, to_dtype
-from ..core.enforce import enforce
+# not_found: re-exported, as the JAX module's namespace has it
+from ..core.enforce import enforce, not_found  # noqa: F401
 from ..core.places import DeviceLike, resolve_device
 from ..core.random import (current_generator, fold_in, key_for, make_key,
                            next_key, rng_scope, seed_generator)
 
 
-class Layer(nn.Module):
+class Parameter:
+    """Marker wrapper: ``layer.w = Parameter(value)`` registers ``value``
+    as a trainable parameter ``w`` (a float64 array that is not a tensor
+    comes in as float32, as ``jnp.asarray`` gives it)."""
+
+    def __init__(self, value):
+        self.value = _as_value(value)
+
+
+def _as_value(value) -> torch.Tensor:
+    """``value`` as a detached tensor; a float64 array or number that is
+    not a tensor becomes float32 (the JAX package's 64-bit mode is
+    off)."""
+    if isinstance(value, torch.Tensor):
+        return value.detach()
+    t = torch.as_tensor(value)
+    return t.float() if t.dtype == torch.float64 else t
+
+
+def _set_parameter(module: nn.Module, name: str, value) -> None:
+    """Give parameter ``name`` of ``module`` the value ``value``: copied
+    into the existing ``nn.Parameter`` (its dtype and device kept, so
+    optimizer and Trainer references stay valid) when the shapes agree,
+    else a new ``nn.Parameter`` on its device and of its dtype."""
+    old = module._parameters[name]
+    value = _as_value(value)
+    with torch.no_grad():
+        if old is not None and old.shape == value.shape:
+            old.copy_(value)
+            return
+        if old is not None:
+            value = value.to(device=old.device, dtype=old.dtype)
+        module._parameters[name] = nn.Parameter(
+            value.clone(), requires_grad=True if old is None
+            else old.requires_grad)
+
+
+def _named_sublayers(module: nn.Module, prefix: str = ""):
+    for name, sub in module._modules.items():
+        if sub is None:
+            continue
+        path = f"{prefix}{name}"
+        yield path, sub
+        yield from _named_sublayers(sub, f"{path}.")
+
+
+def _sub_flat(flat: Dict[str, Any], name: str) -> Dict[str, Any]:
+    prefix = f"{name}."
+    return {k[len(prefix):]: v for k, v in flat.items()
+            if k.startswith(prefix)}
+
+
+def _set_parameters(module: nn.Module, flat: Dict[str, Any]) -> None:
+    for k, v in flat.items():
+        if "." not in k:
+            enforce(k in module._parameters, "unknown parameter %s on %s",
+                    k, type(module).__name__)
+            _set_parameter(module, k, v)
+    for name, sub in module._modules.items():
+        subflat = _sub_flat(flat, name)
+        if subflat and sub is not None:
+            _set_parameters(sub, subflat)
+
+
+def _set_buffers(module: nn.Module, flat: Dict[str, Any]) -> None:
+    for k, v in flat.items():
+        if "." not in k:
+            old = module._buffers.get(k)
+            home = old.device if old is not None else _home(module)
+            module._buffers[k] = _as_value(v).to(home)
+    for name, sub in module._modules.items():
+        subflat = _sub_flat(flat, name)
+        if subflat and sub is not None:
+            _set_buffers(sub, subflat)
+
+
+class _LayerState:
+    """The JAX package's Paddle-style state methods, shared by
+    :class:`Layer`, :class:`LayerList` and :class:`Sequential` (each a
+    ``torch.nn.Module``)."""
+
+    def __setattr__(self, name: str, value: Any) -> None:
+        if isinstance(value, Parameter):
+            super().__setattr__(name, nn.Parameter(value.value))
+            return
+        params = self.__dict__.get("_parameters")
+        if (params is not None and name in params and value is not None
+                and not isinstance(value, nn.Parameter)):
+            # re-assigning an existing parameter updates it
+            _set_parameter(self, name, value)
+            return
+        super().__setattr__(name, value)
+
+    def update_buffer(self, name: str, value) -> None:
+        """Record a new value of buffer ``name`` (BN running stats), kept
+        as given."""
+        enforce(name in self._buffers, "unknown buffer %s", name)
+        self._buffers[name] = value
+
+    def add_sublayer(self, name: str, layer: nn.Module) -> nn.Module:
+        self.add_module(name, layer)
+        return layer
+
+    def named_sublayers(self, prefix: str = ""):
+        """(dotted path, sublayer) in pre-order, the layer itself left
+        out."""
+        return _named_sublayers(self, prefix)
+
+    def sublayers(self) -> List[nn.Module]:
+        return [l for _, l in self.named_sublayers()]
+
+    def set_parameters(self, flat: Dict[str, Any]) -> None:
+        """Set parameters by dotted name. An unknown name of this layer's
+        own raises; a dotted name under no existing sublayer is
+        skipped."""
+        _set_parameters(self, flat)
+
+    def set_buffers(self, flat: Dict[str, Any]) -> None:
+        """Set (or add) buffers by dotted name; never raises."""
+        _set_buffers(self, flat)
+
+
+class Layer(_LayerState, nn.Module):
     """Base class for all network modules of the port. ``name_scope`` is
     accepted for the JAX package's signature, which stores nothing of it
     either."""
@@ -237,14 +370,14 @@ def detach_buffers(module: nn.Module) -> None:
                 m._buffers[name] = b.detach()
 
 
-class LayerList(nn.ModuleList):
+class LayerList(_LayerState, nn.ModuleList):
     """reference: dygraph LayerList — children named "0", "1", ..."""
 
     def __init__(self, layers=()):
         super().__init__(layers)
 
 
-class Sequential(nn.Sequential):
+class Sequential(_LayerState, nn.Sequential):
     """reference: dygraph Sequential — children named "0", "1", ..., so
     parameter names match the JAX package's."""
 

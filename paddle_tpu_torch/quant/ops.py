@@ -3,8 +3,10 @@
 
 Fake quantization simulates int-k in float (quantize, round, dequantize)
 with the straight-through gradient: identity inside the clip range, zero
-outside. The moving-average scale tracker is functional, as in the JAX
-package: it takes a :class:`MovingAverageState` and returns a new one.
+outside. The scale trackers are functional, as in the JAX package: the
+moving average takes a :class:`MovingAverageState` and the sliding
+window (``fake_quantize_range_abs_max``) a :class:`RangeState`, and each
+returns a new one.
 
 Rounding is ``torch.round`` (half to even, as ``jnp.round``) and every
 division is the JAX package's, in the same order, so encoded values equal
@@ -31,6 +33,13 @@ def _int_dtype(bit_length: int) -> torch.dtype:
     return torch.int8 if bit_length <= 8 else torch.int16
 
 
+def _qmax_over(scale: torch.Tensor, bit_length: int) -> torch.Tensor:
+    """``qmax / scale`` as a true division: torch computes a Python
+    number over a tensor as the tensor's reciprocal times the number,
+    which can land an ulp off the JAX package's quotient."""
+    return _as_f(_qmax(bit_length), scale) / scale
+
+
 def _as_f(value, like: torch.Tensor) -> torch.Tensor:
     """``jnp.asarray(value, like.dtype)`` on ``like``'s device."""
     return torch.as_tensor(value, dtype=like.dtype, device=like.device)
@@ -52,9 +61,8 @@ def quantize_dequantize(x, scale, bit_length: int = 8):
     """Simulated quantization: clip to [-scale, scale], round onto the
     int-k grid, return float. Straight-through gradient inside the clip
     range."""
-    qmax = _qmax(bit_length)
     scale = torch.clamp_min(_as_f(scale, x), 1e-8)
-    inv = qmax / scale
+    inv = _qmax_over(scale, bit_length)
     clipped = _clip(x, -scale, scale)
     return _STERound.apply(clipped * inv) / inv
 
@@ -116,6 +124,44 @@ def fake_quantize_moving_average_abs_max(x, st: MovingAverageState,
         return quantize_dequantize(x, st.scale, bit_length), st
     scale, new_st = moving_average_abs_max_scale(x, st, moving_rate)
     return quantize_dequantize(x, scale, bit_length), new_st
+
+
+class RangeState(NamedTuple):
+    scale: torch.Tensor          # current scale
+    scales_window: torch.Tensor  # (window,) ring buffer of recent abs-maxes
+    step: torch.Tensor           # int32 counter
+
+
+def range_state_init(window_size: int = 10000,
+                     dtype=torch.float32) -> RangeState:
+    """A zero scale, a window of ``window_size`` zeros and step 0, on the
+    CPU; the first call moves the state to its input's device."""
+    return RangeState(torch.zeros((), dtype=dtype),
+                      torch.zeros((window_size,), dtype=dtype),
+                      torch.zeros((), dtype=torch.int32))
+
+
+def fake_quantize_range_abs_max(x, st: RangeState, bit_length: int = 8,
+                                is_test: bool = False):
+    """Fake quantization at the max of a sliding window of recent
+    abs-maxes. This call's abs-max goes into slot ``step % window`` of
+    the ring buffer, and the scale is the max over the WHOLE window, the
+    zeros of slots not yet written included. Returns (quantized,
+    new_state) with the new state on ``x``'s device; ``is_test``
+    quantizes at ``st.scale`` and returns ``st`` unchanged. As in the
+    JAX package the new state is a function of ``x``: a caller that keeps
+    it across steps keeps it detached."""
+    if is_test:
+        return quantize_dequantize(x, st.scale, bit_length), st
+    window = st.scales_window.to(x.device)
+    step = st.step.to(x.device)
+    cur = abs_max_scale(x).to(window.dtype)
+    # index_put with a tensor index: no read of the step back to the host
+    idx = torch.remainder(step, window.shape[0]).long().reshape(1)
+    window = window.index_put((idx,), cur.reshape(1))
+    scale = torch.amax(window)
+    return (quantize_dequantize(x, scale, bit_length),
+            RangeState(scale, window, step + 1))
 
 
 # ----- the shared abs-max int-k encode/decode -------------------------------
@@ -186,7 +232,6 @@ def quantize_to_int(x, scale, bit_length: int = 8):
     """Real int quantization for export: ``round(clip(x, -s, s) *
     (qmax / s))`` with ``s = max(scale, 1e-8)``, as int8 (int16 above 8
     bits)."""
-    qmax = _qmax(bit_length)
     scale = torch.clamp_min(_as_f(scale, x), 1e-8)
-    q = torch.round(_clip(x, -scale, scale) * (qmax / scale))
+    q = torch.round(_clip(x, -scale, scale) * _qmax_over(scale, bit_length))
     return q.to(_int_dtype(bit_length))

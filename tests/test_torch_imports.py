@@ -60,6 +60,10 @@ OPS_LORA_SLICE = ("models.recommender", "nn.lora", "nn.sampling_layers",
                   "ops", "ops.tensor", "ops.math", "ops.reduction",
                   "ops.loss", "ops.sampling", "ops.sequence",
                   "ops.control_flow", "metrics")
+# the modules of the slim slice and its surface gaps
+SLIM_SLICE = ("slim", "slim.core", "slim.prune", "slim.distill",
+              "quant.ops", "core.places", "core.enforce", "core",
+              "data.bucketing", "data", "nn.layer")
 
 
 def _imported(path):
@@ -100,7 +104,7 @@ def test_package_imports_without_triton_nvcc_or_jax():
 
 @pytest.mark.parametrize("name", RESILIENCE_SLICE + CONV_SLICE
                          + DEEPFM_SLICE + NMT_SLICE + MOE_ZOO_RNN_SLICE
-                         + OPS_LORA_SLICE)
+                         + OPS_LORA_SLICE + SLIM_SLICE)
 def test_checkpoint_slice_modules_are_jax_free(name):
     path = PKG / (name.replace(".", "/") + ".py")
     if not path.exists():

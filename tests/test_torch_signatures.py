@@ -92,7 +92,18 @@ SHARED = _shared_callables()
 
 def test_the_comparison_sees_the_shared_surface():
     labels = {label for label, _, _ in SHARED}
-    for want in ("nn.layers:Linear.__init__", "optimizer.optimizers:Adam."
+    for want in ("slim.core:Compressor.__init__",
+                 "slim.core:Context.from_file",
+                 "slim.core:SensitivePruneStrategy.__init__",
+                 "slim.prune:shrink_params", "slim.prune:Pruner.make_masks",
+                 "slim.distill:Distiller.loss",
+                 "quant.ops:fake_quantize_range_abs_max",
+                 "core.places:set_device", "core.enforce:enforce_in",
+                 "nn.layer:Layer.set_parameters",
+                 "nn.layer:Layer.named_sublayers",
+                 "nn.layer:Parameter.__init__",
+                 "data.bucketing:bucket_by_length",
+                 "nn.layers:Linear.__init__", "optimizer.optimizers:Adam."
                  "__init__", "ops.attention:xla_attention",
                  "parallel.api:Trainer.supervised", "serving:PagedKVPool."
                  "__init__", "nn.layers:MultiHeadAttention.attend_kv",
