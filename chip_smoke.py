@@ -462,6 +462,35 @@ Phases, each printed as it runs:
    counted. Printed: ms per step, tokens/s, peak memory, each epoch's
    ms and the mask search's, the kept width, the idle share of a step,
    and decode tokens/s and ms per tick of both students.
+33. ``[kernels:ring]``: ring attention's hop entry points,
+   ``ring_fwd_block`` and ``ring_bwd_block`` (the three flash kernels
+   with the kv side's segment ids apart from the q side's), against
+   their plain versions at the ring's per-shard shape (B=2, Tq=Tk=1024,
+   H=12, Hkv=4, D=64), float32 within 1e-4 and bfloat16 within 2e-2:
+   the diagonal causal hop and a past one, q-side ids different from the
+   kv-side ids with rows that have no live key in the block, a kv_mask,
+   delta given and not; then a flash kernel given one id array on both
+   sides against the same call without kv_segment_ids, bit for bit.
+34. ``[dist:ring]`` and ``[dist:ulysses]``: a world of 4 processes on
+   cuda:0 over gloo (torch.multiprocessing, spawn; each loads the
+   libraries the build made and builds none), GPTConfig.small() at
+   T=4096 (B=2, seed 21, float32) trained 3 Adam(1e-4) steps through
+   Trainer(mesh=) with seq_parallel="ring" on dp=1 x sp=4 (1024 tokens a
+   rank) and "ulysses" on dp=2 x sp=2, each held against one process
+   training the same model unsharded on the same batch: the 3 losses
+   within 1e-4 relative, step 1's gradients (averaged over the mesh as
+   the Trainer averages them) within 1e-3 of each parameter's largest
+   unsharded entry. Each rank prints its exact ring_fwd_block,
+   ring_bwd_block, forward, dq and dk/dv launches (ring: rank r runs r +
+   1 hops a layer a step, the causal skip rule; Ulysses: one flash call
+   a layer a step) and the bytes gloo staged through the host; ms a
+   step of every run. A gloo ring on one shared card says nothing of a
+   multi-card ring's speed: its hops pass through host memory and its
+   four ranks share one card. Then the two hop entry points timed at
+   the per-shard shape (a past hop, float32): kernel, plain and SDPA ms
+   (the forward; the backward against SDPA's backward) and the bound;
+   the diagonal hop and a hop with separate ids (SDPA with the boolean
+   mask of the same segments, which gives no lse) logged beside them.
 
 Any failure exits non-zero. The line before the last is the kernels'
 JSON record (each row also names the ``tiles`` its timed launch ran
@@ -6003,6 +6032,388 @@ def log_tiles(tag, FK, K, QM):
                 log(f"{tag} {name} launched with {delta}")
 
 
+# ring attention's hops at the ring's per-shard shape (the [dist:ring]
+# run: B=2, T=4096 over 4 ranks): (causal, separate ids, kv_mask, delta
+# given)
+RING_B, RING_T = 2, 1024
+RING_CASES = [(True, False, False, True), (False, False, False, False),
+              (False, True, True, True), (True, True, False, False),
+              (False, False, True, False)]
+RING_ROWS = {
+    "ring_fwd_block": "paddle_tpu/ops/pallas/flash_attention.py:857 "
+                      "(ring_fwd_block, via _fwd_call :347, pallas_call :398)",
+    "ring_bwd_block": "paddle_tpu/ops/pallas/flash_attention.py:883 "
+                      "(ring_bwd_block, via _bwd_call :577, pallas_calls "
+                      ":637 and :687)",
+}
+# [dist:*]: GPTConfig.small() at T=4096, B=2; 3 Adam steps; (impl, dp, sp)
+DIST_T, DIST_B, DIST_SEED, DIST_STEPS, DIST_LR = 4096, 2, 21, 3, 1e-4
+DIST_RUNS = (("ring", 1, 4), ("ulysses", 2, 2))
+DIST_TOL = (1e-4, 1e-3)        # loss relative, grad / largest entry
+
+
+def ring_inputs(torch, dtype, segs, mask, gen):
+    """q, k, v, do, kv_mask and the two id arrays of one ring hop: the q
+    side packs documents of 100-400 tokens, the kv side others, and the
+    q side's last 100 positions of row 0 carry an id the block lacks (no
+    live key); the mask pads row 0's last 100 keys and all of row 1's."""
+    b, t, h, hkv, d = RING_B, RING_T, TH, THKV, D
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    q, do = rand(b, t, h, d), rand(b, t, h, d)
+    k, v = rand(b, t, hkv, d), rand(b, t, hkv, d)
+    qseg = kseg = km = None
+    if segs:
+        def packed():
+            lens = torch.randint(100, 401, (b, 16), generator=gen,
+                                 device="cuda")
+            ends = torch.cumsum(lens, 1)
+            pos = torch.arange(t, device="cuda")
+            return 1 + (pos[None, :, None] >= ends[:, None, :]).sum(-1).to(
+                torch.int32)
+
+        qseg, kseg = packed(), packed()
+        qseg[0, t - 100:] = 999
+    if mask:
+        km = torch.ones((b, t), dtype=torch.bool, device="cuda")
+        km[0, t - 100:] = False
+        km[1, :] = False
+    return q, k, v, do, km, qseg, kseg
+
+
+def phase_ring_kernels(torch, FK):
+    """[kernels:ring]: each hop entry point against its plain version;
+    returns {dtype name: {entry: max abs err}}."""
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    err = {dname: dict.fromkeys(RING_ROWS, 0.0) for dname in FLASH_DTYPES}
+    scale = D ** -0.5
+    for causal, segs, mask, with_delta in RING_CASES:
+        for dname in FLASH_DTYPES:
+            q, k, v, do, km, qseg, kseg = ring_inputs(
+                torch, getattr(torch, dname), segs, mask, gen)
+            kw = dict(causal=causal, scale=scale)
+            o, lse = FK.ring_fwd_block(q, k, v, km, qseg, kseg, **kw)
+            o_p, lse_p = FK.ring_fwd_block_plain(q, k, v, km, qseg, kseg,
+                                                 **kw)
+            delta = ((do.float() * o.float()).sum(-1) if with_delta
+                     else None)
+            got = FK.ring_bwd_block(q, k, v, km, qseg, kseg, o, lse, do,
+                                    delta=delta, **kw)
+            want = FK.ring_bwd_block_plain(q, k, v, km, qseg, kseg, o, lse,
+                                           do, delta=delta, **kw)
+            torch.cuda.synchronize()
+            e = {n: (a.float() - b.float()).abs().max().item()
+                 for n, a, b in (("o", o, o_p), ("lse", lse, lse_p),
+                                 ("dq", got[0], want[0]),
+                                 ("dk", got[1], want[1]),
+                                 ("dv", got[2], want[2]))}
+            dead = int((lse < -1e29).sum().item())
+            finite = all(bool(torch.isfinite(x).all())
+                         for x in (o,) + tuple(got))
+            ok = finite and max(e.values()) <= FLASH_TOL[dname]
+            log(f"[kernels:ring] causal={causal} ids={segs} kv_mask={mask} "
+                f"delta={with_delta} {dname}: {dead} rows with no live key; "
+                f"max abs err " + ", ".join(f"{n} {x:.3e}"
+                                            for n, x in e.items())
+                + f" (atol {FLASH_TOL[dname]}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit("a ring hop entry point disagrees with its "
+                                 "plain version")
+            for name, x in (("ring_fwd_block", max(e["o"], e["lse"])),
+                            ("ring_bwd_block",
+                             max(e["dq"], e["dk"], e["dv"]))):
+                err[dname][name] = max(err[dname][name], x)
+    # one id array on both sides: kv_segment_ids = segment_ids launches
+    # exactly what the single-array call launches
+    q, k, v, do, _, seg, _ = ring_inputs(torch, torch.float32, True, False,
+                                         gen)
+    one = FK.flash_attention_fwd(q, k, v, causal=True, scale=scale,
+                                 segment_ids=seg)
+    both = FK.flash_attention_fwd(q, k, v, causal=True, scale=scale,
+                                  segment_ids=seg, kv_segment_ids=seg)
+    same = all(torch.equal(a, b) for a, b in zip(one, both))
+    log(f"[kernels:ring] one id array on both sides: the forward's o and "
+        f"lse {'bit-equal' if same else 'DIFFER'} to the single-array call")
+    if not same:
+        raise SystemExit("kv_segment_ids = segment_ids changed the forward")
+    return err
+
+
+def ring_counts(FK):
+    return {name: getattr(FK, name).launches
+            for name in ("ring_fwd_block", "ring_bwd_block",
+                         "flash_attention_fwd", "flash_attention_dq",
+                         "flash_attention_dkv")}
+
+
+def dist_trainer(torch, impl, mesh=None):
+    """GPTConfig.small() (seed DIST_SEED) under Trainer(Adam) on
+    forward_loss, whose optimizer keeps the first step's gradients (on
+    the host)."""
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.parallel import Trainer
+
+    cfg = gpt.GPTConfig.small()
+    cfg.seq_parallel = impl
+    gen = torch.Generator(device="cuda").manual_seed(DIST_SEED)
+    model = gpt.GPTForCausalLM(cfg, generator=gen)
+    trainer = Trainer(model, optimizer.Adam(DIST_LR), lambda m, batch, g: (
+        m.forward_loss(batch), {}), mesh=mesh)
+    first = {}
+    apply = trainer.optimizer.apply
+
+    def keeping(params, grads, state):
+        if not first:
+            first.update({n: g.detach().cpu() for n, g in grads.items()})
+        return apply(params, grads, state)
+
+    trainer.optimizer.apply = keeping
+    return trainer, first
+
+
+def dist_steps(torch, trainer, batch):
+    losses, ms = [], []
+    for _ in range(DIST_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = trainer.train_step(batch)
+        losses.append(loss.item())
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return losses, ms
+
+
+def dist_ids(torch):
+    return torch.randint(0, 32000, (DIST_B, DIST_T),
+                         generator=torch.Generator().manual_seed(22))
+
+
+def dist_rank(rank, store, out_dir):
+    """One rank of the [dist:*] world: both runs, its record written to
+    ``out_dir`` (rank 0 also writes each run's first-step gradients)."""
+    import torch
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from paddle_tpu_torch.core.mesh import build_mesh
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.ops.kernels import flash_attention as FK
+    from paddle_tpu_torch.parallel.collective import STAGING, init_world
+
+    for name in ("decode_attention", "flash_attention", "quant_matmul"):
+        if not _build.library_path(name).exists():
+            raise SystemExit(f"rank {rank}: {name} was not built by the "
+                             f"parent; a rank builds nothing")
+    backend = init_world(rank, 4, "file://" + store)
+    record = {"backend": backend}
+    ids = dist_ids(torch)
+    for impl, dp, sp in DIST_RUNS:
+        mesh = build_mesh(dp=dp, sp=sp, device="cuda:0")
+        trainer, first = dist_trainer(torch, impl, mesh)
+        batch = trainer.data_sharding().local(ids).to("cuda")
+        for name in ring_counts(FK):
+            getattr(FK, name).launches = 0
+        STAGING.reset()
+        losses, ms = dist_steps(torch, trainer, batch)
+        record[impl] = dict(losses=losses, ms=ms, counts=ring_counts(FK),
+                            staged_bytes=STAGING.bytes,
+                            staged_copies=STAGING.copies,
+                            coordinate=mesh.coordinate,
+                            peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        if rank == 0:
+            torch.save(first, os.path.join(out_dir, f"{impl}_grads.pt"))
+        del trainer, first
+        torch.cuda.empty_cache()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(record, f)
+
+
+def expected_ring(rank, impl, sp):
+    """The launches a rank makes in DIST_STEPS steps: ring, rank r (its
+    sp index) r + 1 hops a layer forward and backward; Ulysses one flash
+    call a layer."""
+    from paddle_tpu_torch.models import gpt
+
+    layers = gpt.GPTConfig.small().num_layers * DIST_STEPS
+    if impl == "ring":
+        hops = layers * (rank % sp + 1)
+        return dict(ring_fwd_block=hops, ring_bwd_block=hops,
+                    flash_attention_fwd=hops, flash_attention_dq=hops,
+                    flash_attention_dkv=hops)
+    return dict(ring_fwd_block=0, ring_bwd_block=0,
+                flash_attention_fwd=layers, flash_attention_dq=layers,
+                flash_attention_dkv=layers)
+
+
+def phase_dist(torch, FK):
+    """[dist:ring] and [dist:ulysses] against the unsharded run; returns
+    the ring entry points' launches summed over the ranks."""
+    import torch.multiprocessing as mp
+
+    # the unsharded reference: one process, the whole batch
+    trainer, ref_grads = dist_trainer(torch, None)
+    ids = dist_ids(torch).to("cuda")
+    ref_losses, ref_ms = dist_steps(torch, trainer, ids)
+    log(f"[dist] unsharded reference: GPTConfig.small() T={DIST_T} "
+        f"B={DIST_B} float32, Adam({DIST_LR}) losses {ref_losses}, ms a "
+        f"step {[round(x, 1) for x in ref_ms]}")
+    del trainer, ids
+    torch.cuda.empty_cache()
+    out_dir = tempfile.mkdtemp(prefix="dist_")
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(dist_rank, args=(
+        os.path.join(out_dir, "store"), out_dir), nprocs=4, join=False,
+        start_method="spawn")
+    deadline = time.monotonic() + 420
+    try:
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                raise SystemExit("[dist] the world did not finish in 420 s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    log(f"[dist] 4 ranks on cuda:0, both runs, {time.perf_counter() - t0:.1f}"
+        f" s with the spawn")
+    records = []
+    for r in range(4):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            records.append(json.load(f))
+    launches = dict.fromkeys(RING_ROWS, 0)
+    for impl, dp, sp in DIST_RUNS:
+        tag = f"[dist:{impl}]"
+        for r, rec in enumerate(records):
+            run = rec[impl]
+            want = expected_ring(r, impl, sp)
+            log(f"{tag} rank {r} {run['coordinate']} ({rec['backend']}): "
+                f"losses {run['losses']}; ms a step "
+                f"{[round(x, 1) for x in run['ms']]}; launches "
+                f"{run['counts']} (expected {want}); staged through the "
+                f"host {run['staged_bytes']} bytes in "
+                f"{run['staged_copies']} copies; peak {run['peak_gb']:.2f} "
+                f"GB")
+            if run["counts"] != want:
+                raise SystemExit(f"{tag} rank {r}: launches {run['counts']} "
+                                 f"!= {want}")
+            rel = max(abs(a - b) / abs(b)
+                      for a, b in zip(run["losses"], ref_losses))
+            if rel > DIST_TOL[0]:
+                raise SystemExit(f"{tag} rank {r}: losses {run['losses']} "
+                                 f"against {ref_losses} (rel {rel:.3e})")
+        if impl == "ring":
+            for name in RING_ROWS:
+                launches[name] = sum(rec[impl]["counts"][name]
+                                     for rec in records)
+        grads = torch.load(os.path.join(out_dir, f"{impl}_grads.pt"))
+        worst = max(((grads[n] - g).abs().max().item()
+                     / max(g.abs().max().item(), 1e-30), n)
+                    for n, g in ref_grads.items())
+        ms = [sum(rec[impl]["ms"][1:]) / (DIST_STEPS - 1)
+              for rec in records]
+        log(f"{tag} dp={dp} x sp={sp}: losses within "
+            f"{max(abs(a - b) / abs(b) for a, b in zip(records[0][impl]['losses'], ref_losses)):.3e}"
+            f" relative of the unsharded run's; step 1 grads (the mean over "
+            f"the mesh) within {worst[0]:.3e} of each parameter's largest "
+            f"unsharded entry (worst {worst[1]}; gate {DIST_TOL[1]}); ms a "
+            f"step (steps 2-{DIST_STEPS}, rank 0) {ms[0]:.1f} against "
+            f"{sum(ref_ms[1:]) / (DIST_STEPS - 1):.1f} unsharded (a gloo "
+            f"ring on one shared card says nothing of a multi-card ring's "
+            f"speed)")
+        if worst[0] > DIST_TOL[1]:
+            raise SystemExit(f"{tag}: step 1 gradients off by {worst}")
+    return launches
+
+
+def phase_ring_timing(torch, FK, err, launches):
+    """The hop entry points at the per-shard shape: a past hop (causal
+    False, no ids: what most of the ring's hops run), float32; kernel,
+    plain and SDPA ms and the bound. The diagonal hop and a hop with
+    separate ids logged beside them."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    b, t, h, hkv, d = RING_B, RING_T, TH, THKV, D
+    scale = d ** -0.5
+    rows = []
+    for causal, segs in ((False, False), (True, False), (False, True)):
+        q, k, v, do, _, qseg, kseg = ring_inputs(torch, torch.float32, segs,
+                                                 False, gen)
+        kw = dict(causal=causal, scale=scale)
+        o, lse = FK.ring_fwd_block(q, k, v, None, qseg, kseg, **kw)
+        delta = (do.float() * o.float()).sum(-1)
+        mask = None
+        if segs:
+            mask = qseg[:, None, :, None] == kseg[:, None, None, :]
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        sd = dict(attn_mask=mask, is_causal=causal and mask is None,
+                  enable_gqa=True)
+        out = F.scaled_dot_product_attention(qt, kt, vt, **sd)
+        dot = do.transpose(1, 2)
+        fns = {
+            "ring_fwd_block": (
+                lambda: FK.ring_fwd_block(q, k, v, None, qseg, kseg, **kw),
+                lambda: FK.ring_fwd_block_plain(q, k, v, None, qseg, kseg,
+                                                **kw),
+                lambda: F.scaled_dot_product_attention(qt, kt, vt, **sd)),
+            "ring_bwd_block": (
+                lambda: FK.ring_bwd_block(q, k, v, None, qseg, kseg, o, lse,
+                                          do, delta=delta, **kw),
+                lambda: FK.ring_bwd_block_plain(q, k, v, None, qseg, kseg,
+                                                o, lse, do, delta=delta,
+                                                **kw),
+                lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                            retain_graph=True)),
+        }
+        if segs:
+            live = int((qseg[:, :, None] == kseg[:, None, :]).sum()) * h
+        else:
+            live = b * h * (t * (t + 1) // 2 if causal else t * t)
+        qo = b * t * h * d * 4
+        kv = b * t * hkv * d * 4
+        row = b * h * t * 4
+        ids = 2 * b * t * 4 if segs else 0
+        # flops a live score: the forward's S and P.V (2D each); the
+        # backward's S once, then dP, dV, dQ and dK (2D each) -- the
+        # function's 10D, although its two kernels each recompute S and
+        # dP (6D + 8D, as the flash rows count them one kernel a row)
+        work = {"ring_fwd_block": (4 * d, 2 * qo + 2 * kv + row + ids),
+                "ring_bwd_block": (10 * d, 3 * qo + 4 * kv + 2 * row + ids)}
+        what = ("a past hop" if not (causal or segs) else
+                "the diagonal hop" if causal else
+                "a hop with separate ids (SDPA: the boolean mask)")
+        for name, (kern, plain, lib) in fns.items():
+            ms = time_ms(torch, kern, flush, n=20)
+            plain_ms = time_ms(torch, plain, flush, n=3)
+            lib_ms = time_ms(torch, lib, flush, n=20)
+            flops_per, nbytes = work[name]
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = TF32_PASSES * live * flops_per / TF32_FLOPS * 1e3
+            bound_ms = max(t_bytes, t_ops)
+            bound_by = "bytes" if t_bytes >= t_ops else "operations"
+            log(f"[time:ring] {name} float32 (B={b}, T={t}, H={h}, "
+                f"Hkv={hkv}, D={d}), {what}: kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms"
+                + (" (its backward)" if name == "ring_bwd_block" else "")
+                + f"; {live * flops_per} flops, {nbytes} bytes, bound "
+                f"{bound_ms:.4f} ms ({bound_by}), {100 * bound_ms / ms:.1f}% "
+                f"of the bound")
+            if not (causal or segs):
+                rows.append(dict(
+                    name=name, route="cuda",
+                    source="paddle_tpu_torch/csrc/flash_attention.cu",
+                    replaces=RING_ROWS[name], launches=launches[name],
+                    max_abs_err=err[name], ms=ms, plain_ms=plain_ms,
+                    bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
+                    tiles=list(getattr(FK, name).last_tiles)))
+    return rows
+
+
 def timed_phase(tag, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -6170,6 +6581,11 @@ def main() -> int:
     timed_phase("[train:ssd]", phase_train_ssd, torch, FK, K, QM)
     timed_phase("[ops:detection]", phase_ops_detection, torch, FK, K, QM)
     timed_phase("[train:slim]", phase_train_slim, torch, FK, K, QM, prompts)
+    torch.cuda.empty_cache()
+    ring_err = timed_phase("[kernels:ring]", phase_ring_kernels, torch, FK)
+    ring_launches = timed_phase("[dist]", phase_dist, torch, FK)
+    rows += timed_phase("[time:ring]", phase_ring_timing, torch, FK,
+                        ring_err["float32"], ring_launches)
     log_tiles("[later phases]", FK, K, QM)
     if table_digest() != digest:
         raise SystemExit("the run wrote the committed tuned-block table")

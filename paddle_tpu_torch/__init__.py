@@ -13,11 +13,13 @@ __version__ = "0.1.0"
 
 from . import amp, core, ops
 from .core import (FLAGS, CPUPlace, EnforceError, Place, TPUPlace,
-                   UnimplementedError, default_place, device_count,
-                   is_compiled_with_tpu, make_generator, resolve_device,
-                   seed, set_device)
+                   UnimplementedError, build_mesh, default_place,
+                   device_count, get_mesh, is_compiled_with_tpu,
+                   make_generator, resolve_device, seed, set_device,
+                   set_mesh)
 
 __all__ = ["amp", "core", "ops", "FLAGS", "CPUPlace", "EnforceError",
-           "Place", "TPUPlace", "UnimplementedError", "default_place",
-           "device_count", "is_compiled_with_tpu", "make_generator",
-           "resolve_device", "seed", "set_device"]
+           "Place", "TPUPlace", "UnimplementedError", "build_mesh",
+           "default_place", "device_count", "get_mesh",
+           "is_compiled_with_tpu", "make_generator", "resolve_device",
+           "seed", "set_device", "set_mesh"]

@@ -10,9 +10,11 @@
 // aligned) of head h sees key c of kv head h / G (GQA is kv-major, G =
 // H / Hkv) iff keep(r, c): c <= pos when causal; pos - c < window and,
 // without causal, c - pos < window when a window is set; kv_mask[b, c]
-// when a key-padding mask is given; seg[b, r] == seg[b, c] when the
-// segment ids of packed rows are given (Tq == Tk; segment 0, the padding
-// tail, attends within itself like any other). Scores are (q . k) * scale
+// when a key-padding mask is given; seg[b, r] == kseg[b, c] when the
+// segment ids of packed rows are given (one array for both sides when
+// kseg is null, Tq == Tk; ring attention's hops give the q side's ids
+// and the kv block's apart; segment 0, the padding tail, attends within
+// itself like any other). Scores are (q . k) * scale
 // in float32 and dead ones take the finite -1e30. The forward keeps a
 // running max m and sum l per row, writes o = acc / l (l == 0 read as 1,
 // so a row with no live key outputs zeros) and lse = m + log(max(l,
@@ -146,7 +148,8 @@ struct FlashArgs {
   void* dq;
   void* dk;
   void* dv;
-  const int* seg;    // (B, T) int32 segment ids of packed rows, or null
+  const int* seg;    // (B, Tq) int32 q-side segment ids, or null
+  const int* kseg;   // (B, Tk) kv-side segment ids; null: seg (Tq == Tk)
   const int* seeds;  // (B, H) int32 dropout seeds; read when dropout_p > 0
   long long q_sb, q_st, q_sh;
   long long k_sb, k_st, k_sh;
@@ -744,6 +747,8 @@ __global__ void __launch_bounds__(
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   // the options, compiled out of the instances that run without them
   const int* seg = kOpt ? a.seg : nullptr;
+  // the kv side's ids: the same array unless a ring hop gives its own
+  const int* kvseg = kOpt && a.kseg ? a.kseg : seg;
   const int gr = lane >> 2, tg = lane & 3;
   // longest blocks first, as in dq: under causal the last query tiles
   // see the most keys
@@ -780,7 +785,7 @@ __global__ void __launch_bounds__(
         km_s[buf * KT + i] = (float)a.kv_mask[(long long)b * a.Tk + c0 + i];
     if (seg)
       for (int i = threadIdx.x; i < KT; i += NT)
-        sg_s[buf * KT + i] = seg[(long long)b * a.Tk + c0 + i];
+        sg_s[buf * KT + i] = kvseg[(long long)b * a.Tk + c0 + i];
   };
   // S - 1 tiles in flight ahead of the one computed (q lands with the
   // first group)
@@ -943,6 +948,8 @@ __global__ void __launch_bounds__(
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   // the options, compiled out of the instances that run without them
   const int* seg = kOpt ? a.seg : nullptr;
+  // the kv side's ids: the same array unless a ring hop gives its own
+  const int* kvseg = kOpt && a.kseg ? a.kseg : seg;
   const int gr = lane >> 2, tg = lane & 3;
   // longest blocks first: the tile index is the slowest-varying part of
   // the block id, and under causal the last query tiles see the most keys
@@ -987,7 +994,7 @@ __global__ void __launch_bounds__(
         km_s[buf * KT + i] = (float)a.kv_mask[(long long)b * a.Tk + c0 + i];
     if (seg)
       for (int i = threadIdx.x; i < KT; i += NT)
-        sg_s[buf * KT + i] = seg[(long long)b * a.Tk + c0 + i];
+        sg_s[buf * KT + i] = kvseg[(long long)b * a.Tk + c0 + i];
   };
   if (j_lo <= j_hi) fetch(j_lo, 0);
   cp_async_commit();
@@ -1095,6 +1102,8 @@ __global__ void __launch_bounds__(BC * 2, 1) flash_dkv_kernel(FlashArgs a) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   // the options, compiled out of the instances that run without them
   const int* seg = kOpt ? a.seg : nullptr;
+  // the kv side's ids: the same array unless a ring hop gives its own
+  const int* kvseg = kOpt && a.kseg ? a.kseg : seg;
   const int gr = lane >> 2, tg = lane & 3;
   // longest blocks first: under causal the first key tiles are seen by
   // the most query rows, and the tile is the slowest part of the block id
@@ -1122,7 +1131,7 @@ __global__ void __launch_bounds__(BC * 2, 1) flash_dkv_kernel(FlashArgs a) {
   for (int i = 0; i < 2; ++i) {
     kmask[i] = !a.kv_mask ||
                a.kv_mask[(long long)b * a.Tk + c0 + kl + 8 * i] != 0;
-    if (seg) kseg[i] = seg[(long long)b * a.Tk + c0 + kl + 8 * i];
+    if (seg) kseg[i] = kvseg[(long long)b * a.Tk + c0 + kl + 8 * i];
   }
   const bool drop = kOpt && a.dropout_p > 0.f;
   int i_lo, i_hi;

@@ -24,7 +24,9 @@ from ..core.random import make_generator
 from ..metrics import accuracy
 from ..nn.transformer import TransformerEncoder
 from ..ops import loss as L
-from ..ops.fused_loss import mean_linear_cross_entropy
+from ..ops.fused_loss import linear_cross_entropy, mean_linear_cross_entropy
+from ..parallel.context_parallel import (mesh_parallel, seq_gather,
+                                         seq_shard, seq_sharded, token_mean)
 
 
 @dataclasses.dataclass
@@ -38,7 +40,8 @@ class BertConfig:
     type_vocab_size: int = 2
     dropout: float = 0.1
     use_flash: bool = True
-    seq_parallel: Optional[str] = None  # raises: ROADMAP queue 1 item 11
+    # None | "ring" | "ulysses": shard the encoder over the mesh's 'sp' axis
+    seq_parallel: Optional[str] = None
     remat: bool = False        # recompute each block in the backward
     remat_policy: Optional[str] = None  # None (save nothing) | "dots"
     attn_window: Optional[int] = None   # sliding-window attention width
@@ -126,13 +129,25 @@ class BertModel(nn.Layer):
         """``segment_ids``/``position_ids``: the packed-batch form
         (data/bucketing.py ``pack_sequences``): attention confined to
         each packed segment, positions restarting per segment. Returns
-        (hidden states (B, T, hidden), pooled (B, hidden))."""
+        (hidden states (B, T, hidden), pooled (B, hidden)).
+
+        Under ``cfg.seq_parallel`` and a mesh whose ``sp`` axis has more
+        than one rank, the rank's (B/dp, T) inputs are embedded whole
+        (the learned positions before the slice), the encoder runs on
+        the rank's T/sp rows (its mask and segment ids too), and the
+        hidden states are all-gathered over ``sp`` before the pooler."""
         x = self.embeddings(input_ids, token_type_ids, position_ids)
+        sharded = seq_sharded(self.cfg.seq_parallel)
+        if sharded:
+            x, attention_mask, segment_ids = (
+                seq_shard(a) for a in (x, attention_mask, segment_ids))
         mask = None
         if attention_mask is not None:
             # (B, T) keep-mask -> broadcastable (B, 1, 1, T)
             mask = attention_mask[:, None, None, :]
         h = self.encoder(x, mask=mask, segment_ids=segment_ids)
+        if sharded:
+            h = seq_gather(h)
         pooled = self.pooler(h[:, 0])
         return h, pooled
 
@@ -165,26 +180,47 @@ class BertForPretraining(nn.Layer):
         V) logits never exist). Its operands take the policy's compute
         dtype, as the Linear head they replace does (the JAX package's
         casts; GPT's tied head stays float32, BERT's does not); the
-        products and sums are float32 (ops/fused_loss.py)."""
+        products and sums are float32 (ops/fused_loss.py).
+
+        Under a mesh that spreads the batch or the sequence, the rank's
+        rows (its T/sp of them under ``seq_parallel``) give the sum of
+        their token losses, divided by the count of masked tokens, both
+        summed over the mesh (parallel/context_parallel.py
+        ``token_mean``): the mean over the global batch's masked
+        tokens, which fall unevenly on the ranks."""
+        if seq_sharded(self.bert.cfg.seq_parallel):
+            h, labels = seq_shard(h), seq_shard(labels)
         h_mlm = self.mlm_norm(self.mlm_transform(h))
         b, t, d = h_mlm.shape
         pol = get_policy()
-        return mean_linear_cross_entropy(
-            pol.cast_to_compute(h_mlm.reshape(b * t, d)),
-            pol.cast_to_compute(self.mlm_decoder.weight),
-            pol.cast_to_compute(self.mlm_decoder.bias),
-            labels.reshape(-1), chunk=vocab_chunk, ignore_index=-100)
+        args = (pol.cast_to_compute(h_mlm.reshape(b * t, d)),
+                pol.cast_to_compute(self.mlm_decoder.weight),
+                pol.cast_to_compute(self.mlm_decoder.bias),
+                labels.reshape(-1))
+        if mesh_parallel():
+            losses = linear_cross_entropy(*args, chunk=vocab_chunk,
+                                          ignore_index=-100)
+            return token_mean(losses.sum(), (labels != -100).sum())
+        return mean_linear_cross_entropy(*args, chunk=vocab_chunk,
+                                         ignore_index=-100)
 
     def forward_fused_loss(self, input_ids, mlm_labels, nsp_label,
                            token_type_ids=None, attention_mask=None,
                            vocab_chunk: int = 4096):
         """The pretraining loss, MLM (labels -100 ignored) + NSP, without
-        materializing the (B, T, V) logits."""
+        materializing the (B, T, V) logits. Under a mesh that spreads the
+        batch or the sequence, each term is the global batch's mean and
+        every rank returns it (``_mlm_loss``)."""
         h, pooled = self.bert(input_ids, token_type_ids, attention_mask)
         mlm_loss = self._mlm_loss(h, mlm_labels, vocab_chunk)
-        nsp_logits = self.nsp(pooled)
-        nsp_loss = torch.mean(L.softmax_with_cross_entropy(nsp_logits,
-                                                           nsp_label))
+        nsp = L.softmax_with_cross_entropy(self.nsp(pooled), nsp_label)
+        if mesh_parallel():
+            # the global batch's mean, as the MLM term's: every rank
+            # returns the global loss
+            nsp_loss = token_mean(nsp.sum(), torch.tensor(
+                nsp.numel(), device=nsp.device))
+        else:
+            nsp_loss = torch.mean(nsp)
         return mlm_loss + nsp_loss
 
     def forward_packed_loss(self, tokens, positions, segment_ids,

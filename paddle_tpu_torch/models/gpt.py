@@ -19,10 +19,12 @@ import torch.nn.functional as F
 
 from .. import initializer as I
 from .. import nn
-from ..core.enforce import InvalidArgumentError, UnimplementedError, enforce
+from ..core.enforce import InvalidArgumentError, enforce
 from ..core.places import resolve_device
 from ..core.random import make_generator
 from ..nn.layer import Layer, remat_call
+from ..parallel.context_parallel import (mesh_parallel, seq_gather,
+                                         seq_shard, seq_sharded, token_mean)
 
 
 @dataclasses.dataclass
@@ -60,8 +62,7 @@ class GPTConfig:
 
 
 def _check_supported(cfg: GPTConfig):
-    """Options of later slices raise, naming their ROADMAP.md item;
-    ``moe_experts`` with ``remat`` raises :class:`InvalidArgumentError`:
+    """``moe_experts`` with ``remat`` raises :class:`InvalidArgumentError`:
     the JAX reference cannot run it (the Switch FFN's buffer write inside
     ``jax.checkpoint`` raises ``UnexpectedTracerError``)."""
     if cfg.moe_experts and cfg.remat:
@@ -69,10 +70,6 @@ def _check_supported(cfg: GPTConfig):
             "GPTConfig(moe_experts > 0, remat=True): the JAX reference "
             "cannot run it (the Switch FFN's buffer write inside "
             "jax.checkpoint raises UnexpectedTracerError); use remat=False")
-    if cfg.seq_parallel is not None:
-        raise UnimplementedError(
-            f"seq_parallel={cfg.seq_parallel!r} is not ported yet: ROADMAP "
-            "queue 1 item 11 (distributed)")
 
 
 class _SwiGLU(Layer):
@@ -107,6 +104,7 @@ class GPTBlock(Layer):
         self.self_attn = nn.MultiHeadAttention(
             cfg.hidden_size, cfg.num_heads, dropout=cfg.dropout,
             bias=False, use_flash=cfg.use_flash,
+            seq_parallel=cfg.seq_parallel,
             num_kv_heads=cfg.num_kv_heads or cfg.num_heads,
             rotary=True, rotary_theta=cfg.rope_theta, **kw)
         self.norm2 = nn.RMSNorm(cfg.hidden_size, **kw)
@@ -133,7 +131,22 @@ class GPTForCausalLM(Layer):
     ``device``: the CUDA card when None (raises when there is none);
     pass ``device="cpu"`` for the CPU. ``generator``: the
     ``torch.Generator`` for the initial weights (seed 0 on ``device``
-    when None). ``dtype``: parameter dtype (float32 by default)."""
+    when None). ``dtype``: parameter dtype (float32 by default).
+
+    ``cfg.seq_parallel`` ("ring" or "ulysses") under a current mesh whose
+    ``sp`` axis has more than one rank: the model takes the rank's (B/dp,
+    T) ids, as the JAX Trainer's ``data_sharding`` gives them, embeds
+    them and runs the blocks on the rank's T/sp rows
+    (parallel/context_parallel.py). ``forward`` all-gathers the final
+    hidden state over ``sp`` before the head (its backward is the
+    reduce-scatter); ``forward_loss`` builds the default labels on the
+    full ids before slicing, so the shift never crosses a shard edge.
+    Under any mesh that spreads the batch or the sequence,
+    ``forward_loss`` divides the sum of the rank's token losses by the
+    count of valid tokens, both summed over the ``dp`` and ``sp`` ranks
+    (parallel/context_parallel.py ``token_mean``): every rank gets the
+    global loss, and the mean of the ranks' gradients, as
+    ``Trainer(mesh=)`` takes it, is its gradient."""
 
     def __init__(self, cfg: GPTConfig, device=None, dtype=None,
                  generator: Optional[torch.Generator] = None):
@@ -168,6 +181,8 @@ class GPTForCausalLM(Layer):
     def _trunk(self, ids, kv_mask=None):
         _check_supported(self.cfg)
         x = self.embed(ids)
+        if seq_sharded(self.cfg.seq_parallel):
+            x, kv_mask = seq_shard(x), seq_shard(kv_mask)
         remat = self.cfg.remat and torch.is_grad_enabled()
         for blk in self.blocks:
             if remat:
@@ -180,7 +195,10 @@ class GPTForCausalLM(Layer):
         return self.norm_f(x)
 
     def forward(self, ids, kv_mask=None):
-        return self._trunk(ids, kv_mask=kv_mask) @ self._head_weight()
+        h = self._trunk(ids, kv_mask=kv_mask)
+        if seq_sharded(self.cfg.seq_parallel):
+            h = seq_gather(h)
+        return h @ self._head_weight()
 
     def forward_loss(self, ids, labels=None, kv_mask=None,
                      vocab_chunk: int = 1024, ignore_index: int = -100):
@@ -188,7 +206,8 @@ class GPTForCausalLM(Layer):
         (the (B*T, V) logits never exist). ``labels`` default to ids
         shifted left, the last position ignored; pass explicit labels
         with ``ignore_index`` holes for masked or padded positions."""
-        from ..ops.fused_loss import mean_linear_cross_entropy
+        from ..ops.fused_loss import (linear_cross_entropy,
+                                      mean_linear_cross_entropy)
 
         h = self._trunk(ids, kv_mask=kv_mask)
         if labels is None:
@@ -197,6 +216,14 @@ class GPTForCausalLM(Layer):
                                         dtype=ids.dtype, device=ids.device)],
                 dim=1)
         b, t, d = h.shape
+        if mesh_parallel():
+            if seq_sharded(self.cfg.seq_parallel):
+                labels = seq_shard(labels)
+            labels = labels.reshape(-1)
+            losses = linear_cross_entropy(
+                h.reshape(b * t, d), self._head_weight(), None, labels,
+                chunk=vocab_chunk, ignore_index=ignore_index)
+            return token_mean(losses.sum(), (labels != ignore_index).sum())
         return mean_linear_cross_entropy(
             h.reshape(b * t, d), self._head_weight(), None,
             labels.reshape(-1), chunk=vocab_chunk, ignore_index=ignore_index)

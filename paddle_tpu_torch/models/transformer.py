@@ -30,14 +30,16 @@ import torch
 
 from .. import nn
 from ..core.dtypes import get_policy
-from ..core.enforce import UnimplementedError, enforce
+from ..core.enforce import enforce
 from ..core.places import resolve_device
 from ..nn.transformer import (PositionalEncoding, TransformerDecoder,
                               TransformerEncoder, decoder_layer_step)
 from ..ops import decode as DCD
 from ..ops import loss as L
-from ..ops.fused_loss import mean_linear_cross_entropy
+from ..ops.fused_loss import linear_cross_entropy, mean_linear_cross_entropy
 from ..ops.nn import one_hot
+from ..parallel.context_parallel import (mesh_parallel, seq_gather,
+                                         seq_shard, seq_sharded, token_mean)
 
 
 @dataclasses.dataclass
@@ -56,8 +58,8 @@ class NMTConfig:
     eos_id: int = 1
     pad_id: int = 2
     use_flash: bool = True
-    # the decoder's sequence-parallel self-attention raises: ROADMAP
-    # queue 1 item 11
+    # the decoder's self-attention over the mesh's 'sp' axis (the
+    # encoder's source padding mask keeps it off the encoder)
     seq_parallel: Optional[str] = None
 
     @classmethod
@@ -81,10 +83,6 @@ class TransformerNMT(nn.Layer):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.cfg = cfg = cfg or NMTConfig.base()
-        if cfg.seq_parallel is not None:
-            raise UnimplementedError(
-                f"NMTConfig.seq_parallel={cfg.seq_parallel!r} is not ported "
-                "yet: ROADMAP queue 1 item 11 (distributed)")
         device = resolve_device(device)
         kw = dict(device=device, generator=generator)
         self.src_emb = nn.Embedding(cfg.src_vocab, cfg.d_model,
@@ -110,9 +108,18 @@ class TransformerNMT(nn.Layer):
         return memory, src_pad
 
     def _decode_hidden(self, tgt_ids, memory, src_pad):
-        return self.decoder(self.pos_enc(self.tgt_emb(tgt_ids)), memory,
-                            cross_mask=src_pad[:, None, None, :],
-                            causal=True)
+        """The decoder's hidden states over the whole target. Under
+        ``cfg.seq_parallel`` and a mesh whose ``sp`` axis has more than
+        one rank, the decoder runs on the rank's target rows (embedded
+        and position-encoded whole first; the cross-attention reads the
+        whole memory) and the states are all-gathered over ``sp``."""
+        x = self.pos_enc(self.tgt_emb(tgt_ids))
+        sharded = seq_sharded(self.cfg.seq_parallel)
+        if sharded:
+            x = seq_shard(x)
+        h = self.decoder(x, memory, cross_mask=src_pad[:, None, None, :],
+                         causal=True)
+        return seq_gather(h) if sharded else h
 
     def forward(self, src_ids, tgt_ids):
         """Teacher-forced logits (B, Tt, tgt_vocab); ``tgt_ids`` is the
@@ -125,17 +132,26 @@ class TransformerNMT(nn.Layer):
         """The mean training CE without the (B, T, tgt_vocab) logits: the
         generator head through the chunked linear cross-entropy
         (ops/fused_loss.py), its operands in the policy's compute dtype;
-        ``pad_id`` labels are ignored."""
+        ``pad_id`` labels are ignored. Under a mesh that spreads the batch
+        or the sequence, the mean over the global batch's tokens
+        (parallel/context_parallel.py ``token_mean``)."""
         memory, src_pad = self.encode(src_ids)
         h = self._decode_hidden(tgt_ids, memory, src_pad)
         b, t, d = h.shape
         labels = torch.where(tgt_labels == self.cfg.pad_id, -100, tgt_labels)
         pol = get_policy()
-        return mean_linear_cross_entropy(
-            pol.cast_to_compute(h.reshape(b * t, d)),
-            pol.cast_to_compute(self.generator.weight),
-            pol.cast_to_compute(self.generator.bias),
-            labels.reshape(-1), chunk=vocab_chunk, ignore_index=-100)
+        args = (pol.cast_to_compute(h.reshape(b * t, d)),
+                pol.cast_to_compute(self.generator.weight),
+                pol.cast_to_compute(self.generator.bias),
+                labels.reshape(-1))
+        if mesh_parallel():
+            # the global batch's token mean (the hidden states are whole
+            # on every sp rank: their sums and counts scale alike)
+            losses = linear_cross_entropy(*args, chunk=vocab_chunk,
+                                          ignore_index=-100)
+            return token_mean(losses.sum(), (labels != -100).sum())
+        return mean_linear_cross_entropy(*args, chunk=vocab_chunk,
+                                         ignore_index=-100)
 
     def _start_tokens(self, b: int, max_len: int, device):
         cfg = self.cfg

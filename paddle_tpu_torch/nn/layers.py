@@ -22,7 +22,7 @@ import torch
 
 from .. import initializer as I
 from ..core.dtypes import default_dtype, get_policy, to_dtype
-from ..core.enforce import UnimplementedError, enforce
+from ..core.enforce import enforce
 from ..core.places import resolve_device
 from ..core.random import current_generator
 from ..ops import math as OM
@@ -672,7 +672,17 @@ class _MHADecodeMixin:
 
 
 class MultiHeadAttention(_MHADecodeMixin, Layer):
-    """Transformer attention with GQA and rotary embeddings."""
+    """Transformer attention with GQA and rotary embeddings.
+
+    ``seq_parallel`` ("ring" or "ulysses"; parallel/context_parallel.py)
+    shards the attention over the current mesh's ``sp`` axis: the layer
+    takes the rank's ``P(dp, sp)`` shard (B/dp, T/sp, D) and returns the
+    rank's output rows. Rotary positions are global (``axis_index("sp")
+    * T/sp`` onwards), as the JAX layer rotates the global q and k. Only
+    key-padding masks ((B, Tk) or (B, 1, 1, Tk), the rank's keys), no
+    attention dropout in training and, for ring, Tq == Tk: each raises
+    as in the JAX layer. Any other name builds and raises ``ValueError``
+    at the first call, as the JAX layer's dispatch does."""
 
     def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0,
                  bias: bool = True, use_flash: bool = True,
@@ -681,11 +691,6 @@ class MultiHeadAttention(_MHADecodeMixin, Layer):
                  rotary: bool = False, rotary_theta: float = 10000.0, *,
                  device=None, generator=None):
         super().__init__()
-        if seq_parallel is not None:
-            raise UnimplementedError(
-                f"MultiHeadAttention seq_parallel={seq_parallel!r} (context "
-                "parallelism) is not ported yet: ROADMAP queue 1 item 11 "
-                "(distributed)")
         self.seq_parallel = seq_parallel
         enforce(embed_dim % num_heads == 0,
                 "embed_dim %s not divisible by heads %s", embed_dim,
@@ -725,8 +730,16 @@ class MultiHeadAttention(_MHADecodeMixin, Layer):
             enforce(tk == tq, "rotary MHA is self-attention shaped "
                     "(tq=%s != tk=%s)", tq, tk)
             pos = torch.arange(tq, device=query.device)
+            if self.seq_parallel is not None:
+                from ..parallel.collective import axis_index
+
+                pos = pos + axis_index("sp") * tq
             q = rotary_embedding(q, pos, theta=self.rotary_theta)
             k = rotary_embedding(k, pos, theta=self.rotary_theta)
+        if self.seq_parallel is not None:
+            out = self._seq_parallel(q, k, v, attn_mask, causal,
+                                     segment_ids, window)
+            return self.out_proj(out.reshape(b, tq, d))
         dropping = self.training and self.dropout_p > 0
         out = scaled_dot_product_attention(
             q, k, v, mask=attn_mask, causal=causal,
@@ -735,6 +748,39 @@ class MultiHeadAttention(_MHADecodeMixin, Layer):
             use_flash=self.use_flash, segment_ids=segment_ids,
             window=window)
         return self.out_proj(out.reshape(b, tq, d))
+
+    def _seq_parallel(self, q, k, v, attn_mask, causal, segment_ids,
+                      window):
+        """The attention over the ``sp`` axis: key-padding masks ride the
+        context-parallel paths (ring rotates the mask with its block,
+        Ulysses gathers it); anything per head or per query raises, never
+        falling back to the full (B, H, T, T) scores that sequence
+        parallelism exists to avoid."""
+        from ..ops.attention import _as_kv_mask
+        from ..parallel.context_parallel import context_parallel_attention
+
+        b, tq = q.shape[:2]
+        tk = k.shape[1]
+        kv_mask = None
+        if attn_mask is not None:
+            kv_mask = (attn_mask if attn_mask.ndim == 2
+                       else _as_kv_mask(attn_mask, b, tk))
+            enforce(kv_mask is not None and tuple(kv_mask.shape) == (b, tk),
+                    "seq_parallel=%s supports only key-padding masks ((B, "
+                    "Tk) or (B, 1, 1, Tk)); got shape %s", self.seq_parallel,
+                    tuple(attn_mask.shape))
+        enforce(not (self.training and self.dropout_p > 0),
+                "seq_parallel attention does not support attention "
+                "dropout; set dropout=0 on MultiHeadAttention")
+        if self.seq_parallel == "ring":
+            enforce(tk == tq, "ring attention requires self-attention "
+                    "shapes (tq=%s != tk=%s); use 'ulysses' for "
+                    "cross-attention", tq, tk)
+        kw = ({"use_flash": self.use_flash}
+              if self.seq_parallel in ("ulysses", "ring") else {})
+        return context_parallel_attention(
+            q, k, v, impl=self.seq_parallel, causal=causal, kv_mask=kv_mask,
+            segment_ids=segment_ids, window=window, **kw)
 
 
 class ReLU(Layer):

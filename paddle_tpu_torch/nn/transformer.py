@@ -21,7 +21,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..core.enforce import InvalidArgumentError, UnimplementedError, enforce
+from ..core.enforce import InvalidArgumentError, enforce
 from ..core.places import resolve_device
 from .layer import Layer, LayerList, remat_call
 from .layers import Dropout, Embedding, LayerNorm, Linear, MultiHeadAttention
@@ -44,22 +44,16 @@ class FeedForward(Layer):
         return self.fc2(self.drop(self.fc1(x)))
 
 
-def _check_supported(seq_parallel):
-    """Options of later slices raise, naming their ROADMAP.md item."""
-    if seq_parallel is not None:
-        raise UnimplementedError(
-            f"seq_parallel={seq_parallel!r} is not ported yet: ROADMAP queue "
-            "1 item 11 (distributed)")
-
-
 class TransformerEncoderLayer(Layer):
     """Self-attention and FFN, each with dropout on its residual branch:
     pre-norm (``normalize_before``) or post-norm (BERT's).
     ``moe_experts > 0`` makes the FFN a Switch-MoE FFN (nn/moe.py
     ``SwitchFFN``, default tanh GELU whatever ``activation`` says, as in
     the JAX package), whose aux terms ride its buffers
-    (``*.ffn.aux_loss``). ``seq_parallel`` raises, naming its ROADMAP
-    item."""
+    (``*.ffn.aux_loss``). ``seq_parallel`` ("ring" or "ulysses") shards
+    the self-attention over the mesh's ``sp`` axis: the layer takes the
+    rank's (B/dp, T/sp, D) rows, and the attention dropout is 0 (the
+    residual and FFN dropout stay), as in the JAX layer."""
 
     def __init__(self, d_model: int, nhead: int, dim_feedforward: int,
                  dropout: float = 0.1, activation: str = "gelu",
@@ -69,12 +63,12 @@ class TransformerEncoderLayer(Layer):
                  moe_capacity_factor: float = 1.25, *, device=None,
                  generator=None):
         super().__init__()
-        _check_supported(seq_parallel)
         kw = dict(device=device, generator=generator)
         self.normalize_before = normalize_before
         self.attn_window = attn_window
-        self.self_attn = MultiHeadAttention(d_model, nhead, dropout=dropout,
-                                            use_flash=use_flash, **kw)
+        self.self_attn = MultiHeadAttention(
+            d_model, nhead, dropout=0.0 if seq_parallel else dropout,
+            use_flash=use_flash, seq_parallel=seq_parallel, **kw)
         if moe_experts:
             self.ffn = SwitchFFN(d_model, dim_feedforward, moe_experts,
                                  capacity_factor=moe_capacity_factor, **kw)
@@ -188,7 +182,9 @@ class TransformerDecoderLayer(Layer):
     """Causal self-attention, cross-attention over the encoder's memory
     and FFN, each with dropout on its residual branch, pre-norm or
     post-norm. ``attn_window`` bands the self-attention only.
-    ``seq_parallel`` raises, naming its ROADMAP item."""
+    ``seq_parallel`` shards the self-attention over the ``sp`` axis (the
+    rank's target rows, attention dropout 0); the cross-attention keeps
+    the plain path over the whole memory, as in the JAX layer."""
 
     def __init__(self, d_model: int, nhead: int, dim_feedforward: int,
                  dropout: float = 0.1, activation: str = "gelu",
@@ -196,12 +192,12 @@ class TransformerDecoderLayer(Layer):
                  seq_parallel=None, attn_window=None, *, device=None,
                  generator=None):
         super().__init__()
-        _check_supported(seq_parallel)
         kw = dict(device=device, generator=generator)
         self.normalize_before = normalize_before
         self.attn_window = attn_window
-        self.self_attn = MultiHeadAttention(d_model, nhead, dropout=dropout,
-                                            use_flash=use_flash, **kw)
+        self.self_attn = MultiHeadAttention(
+            d_model, nhead, dropout=0.0 if seq_parallel else dropout,
+            use_flash=use_flash, seq_parallel=seq_parallel, **kw)
         self.cross_attn = MultiHeadAttention(d_model, nhead, dropout=dropout,
                                              use_flash=use_flash, **kw)
         self.ffn = FeedForward(d_model, dim_feedforward, dropout,

@@ -6,7 +6,9 @@ beside it.
 Replaces (TPU kernels): paddle_tpu/ops/pallas/flash_attention.py
 ``_fwd_kernel`` (:func:`flash_attention_fwd`), ``_dq_kernel``
 (:func:`flash_attention_dq`) and ``_dkv_kernel``
-(:func:`flash_attention_dkv`).
+(:func:`flash_attention_dkv`); its ring entry points ``ring_fwd_block``
+and ``ring_bwd_block``, the same kernels with the kv side's segment ids
+apart (:func:`ring_fwd_block`, :func:`ring_bwd_block`).
 
 Bound: operations. The live scores (B*H*T*(T+1)/2 when causal) cost 4*D
 flops each forward, 6*D for dq and 8*D for dk/dv, against a few tens of
@@ -35,9 +37,13 @@ and Tk are multiples of 64 and D is 64, 128 or 256 (the dispatch gate's
 rule, ``ops.attention.flash_shape_ok``). Query row r sits at position
 r + Tk - Tq (bottom-right causal alignment).
 
-Options: ``segment_ids`` (B, T) int, Tq == Tk: packed rows, a score is
-live only where the query's and the key's ids match (segment 0, the
-padding tail, attends within itself, as in the TPU kernels).
+Options: ``segment_ids`` (B, Tq) int: packed rows, a score is live only
+where the query's and the key's ids match (segment 0, the padding tail,
+attends within itself, as in the TPU kernels); the keys' ids are
+``kv_segment_ids`` (B, Tk) where given, else the same array (Tq == Tk).
+Ring attention's hops give them apart: the q side's ids stay home and
+the kv side's travel with their block (:func:`ring_fwd_block`,
+:func:`ring_bwd_block`).
 ``dropout_p`` with ``seeds`` (B, H) int32: attention-probability
 dropout by the TPU kernels' counter-based hash (:func:`hash_keep`, bit
 for bit), so the backward rebuilds the forward's mask from the seeds and
@@ -276,10 +282,13 @@ def keep_scale(p: float) -> float:
 
 # ----- plain versions ------------------------------------------------------
 
-def _keep(b, tq, tk, causal, window, kv_mask, device, segment_ids=None):
+def _keep(b, tq, tk, causal, window, kv_mask, device, segment_ids=None,
+          kv_segment_ids=None, offset=0):
     """(B|1, 1, 1, Tq, Tk) keep-mask over the (b, kv head, group, q, k)
-    score layout — the kernels' per-entry rule."""
-    rows = torch.arange(tq, device=device)[:, None] + (tk - tq)
+    score layout — the kernels' per-entry rule. ``offset``: how far the
+    query rows stand after the keys in position (a ring hop's (my - src)
+    x T), which causal and the window read."""
+    rows = torch.arange(tq, device=device)[:, None] + (tk - tq + offset)
     cols = torch.arange(tk, device=device)[None, :]
     keep = torch.ones((tq, tk), dtype=torch.bool, device=device)
     if causal:
@@ -293,20 +302,23 @@ def _keep(b, tq, tk, causal, window, kv_mask, device, segment_ids=None):
         keep = keep & kv_mask.to(device=device, dtype=torch.bool)[
             :, None, None, None, :]
     if segment_ids is not None:
-        # packed rows: a query sees the keys of its own segment (Tq == Tk)
+        # packed rows: a query sees the keys of its own segment
         seg = segment_ids.to(device)
+        kseg = seg if kv_segment_ids is None else kv_segment_ids.to(device)
         keep = keep & (seg[:, None, None, :, None]
-                       == seg[:, None, None, None, :])
+                       == kseg[:, None, None, None, :])
     return keep
 
 
-def _scores(q, k, causal, scale, window, kv_mask, segment_ids):
+def _scores(q, k, causal, scale, window, kv_mask, segment_ids,
+            kv_segment_ids=None, offset=0):
     """Masked float32 scores (B, Hkv, G, Tq, Tk) and the grouped q."""
     b, tq, h, d = q.shape
     tk, kv_h = k.shape[1], k.shape[2]
     q5 = q.reshape(b, tq, kv_h, h // kv_h, d)
     s = torch.einsum("bqkgd,btkd->bkgqt", q5.float(), k.float()) * scale
-    keep = _keep(b, tq, tk, causal, window, kv_mask, q.device, segment_ids)
+    keep = _keep(b, tq, tk, causal, window, kv_mask, q.device, segment_ids,
+                 kv_segment_ids, offset)
     return torch.where(keep, s, NEG_INF), q5
 
 
@@ -332,12 +344,14 @@ def _dropped(x, keep, dropout_p):
 def flash_attention_fwd_plain(q, k, v, *, causal: bool, scale: float,
                               window: Optional[int] = None, kv_mask=None,
                               segment_ids=None, seeds=None,
-                              dropout_p: float = 0.0):
+                              dropout_p: float = 0.0, kv_segment_ids=None,
+                              offset: int = 0):
     """Plain PyTorch version of :func:`flash_attention_fwd`: the whole
     masked row at once, in float32. Returns (o, lse); l sums the
-    undropped p, o the dropped ones."""
+    undropped p, o the dropped ones. ``offset``: ``_keep``'s."""
     b, tq, h, d = q.shape
-    s, _ = _scores(q, k, causal, scale, window, kv_mask, segment_ids)
+    s, _ = _scores(q, k, causal, scale, window, kv_mask, segment_ids,
+                   kv_segment_ids, offset)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     p = torch.where(s <= NEG_INF * 0.5, 0.0, p)
@@ -352,8 +366,10 @@ def flash_attention_fwd_plain(q, k, v, *, causal: bool, scale: float,
     return o, lse.reshape(b, h, tq)
 
 
-def _probs(q, k, lse, causal, scale, window, kv_mask, segment_ids):
-    s, q5 = _scores(q, k, causal, scale, window, kv_mask, segment_ids)
+def _probs(q, k, lse, causal, scale, window, kv_mask, segment_ids,
+           kv_segment_ids=None, offset=0):
+    s, q5 = _scores(q, k, causal, scale, window, kv_mask, segment_ids,
+                    kv_segment_ids, offset)
     b, kv_h, g, tq, _ = s.shape
     p = torch.exp(s - lse.reshape(b, kv_h, g, tq)[..., None])
     return torch.where(s <= NEG_INF * 0.5, 0.0, p), q5
@@ -372,10 +388,12 @@ def _ds(p, do5, v, delta, scale, dtype, keep, dropout_p):
 def flash_attention_dq_plain(q, k, v, do, lse, delta, *, causal: bool,
                              scale: float, window: Optional[int] = None,
                              kv_mask=None, segment_ids=None, seeds=None,
-                             dropout_p: float = 0.0):
+                             dropout_p: float = 0.0, kv_segment_ids=None,
+                             offset: int = 0):
     """Plain PyTorch version of :func:`flash_attention_dq`."""
     b, tq, h, d = q.shape
-    p, _ = _probs(q, k, lse, causal, scale, window, kv_mask, segment_ids)
+    p, _ = _probs(q, k, lse, causal, scale, window, kv_mask, segment_ids,
+                  kv_segment_ids, offset)
     keep = _drop_mask(p.shape, seeds, dropout_p, q.device)
     ds = _ds(p, do.reshape(p.shape[0], tq, p.shape[1], p.shape[2], d), v,
              delta, scale, k.dtype, keep, dropout_p)
@@ -386,10 +404,12 @@ def flash_attention_dq_plain(q, k, v, do, lse, delta, *, causal: bool,
 def flash_attention_dkv_plain(q, k, v, do, lse, delta, *, causal: bool,
                               scale: float, window: Optional[int] = None,
                               kv_mask=None, segment_ids=None, seeds=None,
-                              dropout_p: float = 0.0):
+                              dropout_p: float = 0.0, kv_segment_ids=None,
+                              offset: int = 0):
     """Plain PyTorch version of :func:`flash_attention_dkv`; dk and dv
     summed over each GQA group. Returns (dk, dv)."""
-    p, q5 = _probs(q, k, lse, causal, scale, window, kv_mask, segment_ids)
+    p, q5 = _probs(q, k, lse, causal, scale, window, kv_mask, segment_ids,
+                   kv_segment_ids, offset)
     keep = _drop_mask(p.shape, seeds, dropout_p, q.device)
     do5 = do.reshape(q5.shape)
     # dv takes the dropped probabilities (o = p_dropped . v)
@@ -411,7 +431,7 @@ class _FlashArgs(ctypes.Structure):
     _fields_ = (
         [(n, ctypes.c_void_p) for n in (
             "q", "k", "v", "dout", "lse", "delta", "kv_mask", "o",
-            "lse_out", "dq", "dk", "dv", "seg", "seeds")]
+            "lse_out", "dq", "dk", "dv", "seg", "kseg", "seeds")]
         + [(f"{t}_s{a}", ctypes.c_longlong) for t in ("q", "k", "v", "do")
            for a in "bth"]
         + [(n, ctypes.c_int) for n in (
@@ -452,7 +472,7 @@ def _lib():
 
 
 def _check(q, k, v, window, kv_mask, segment_ids, seeds, dropout_p,
-           *extra):
+           *extra, kv_segment_ids=None):
     """Shapes and q's dtype for every caller; device, the other operands'
     dtypes and strides for the card."""
     b, tq, h, d = q.shape
@@ -468,11 +488,18 @@ def _check(q, k, v, window, kv_mask, segment_ids, seeds, dropout_p,
     enforce(kv_mask is None or tuple(kv_mask.shape) == (b, tk),
             "kv_mask must be (B, Tk) = (%s, %s), got %s", b, tk,
             None if kv_mask is None else tuple(kv_mask.shape))
-    enforce(segment_ids is None or (tq == tk and tuple(segment_ids.shape)
-                                    == (b, tq)),
-            "segment_ids must be (B, T) = (%s, %s) with Tq == Tk, got %s "
-            "(Tk=%s)", b, tq,
-            None if segment_ids is None else tuple(segment_ids.shape), tk)
+    enforce(segment_ids is None or tuple(segment_ids.shape) == (b, tq),
+            "segment_ids must be (B, Tq) = (%s, %s), got %s", b, tq,
+            None if segment_ids is None else tuple(segment_ids.shape))
+    if kv_segment_ids is None:
+        enforce(segment_ids is None or tq == tk,
+                "one segment_ids array serves both sides only when Tq == "
+                "Tk, got Tq=%s, Tk=%s (give kv_segment_ids)", tq, tk)
+    else:
+        enforce(segment_ids is not None and tuple(kv_segment_ids.shape)
+                == (b, tk),
+                "kv_segment_ids must be (B, Tk) = (%s, %s) beside "
+                "segment_ids, got %s", b, tk, tuple(kv_segment_ids.shape))
     enforce(0.0 <= dropout_p < 1.0, "dropout_p must be in [0, 1), got %s",
             dropout_p)
     enforce(not dropout_p or (seeds is not None
@@ -513,7 +540,7 @@ def _row_stats(x, b, h, tq):
     return x.contiguous()
 
 
-def _args(q, k, v, do, causal, scale, window, kv_mask, seg, seeds,
+def _args(q, k, v, do, causal, scale, window, kv_mask, seg, kseg, seeds,
           dropout_p, tiles, **ptrs):
     b, tq, h, d = q.shape
     a = _FlashArgs()
@@ -524,7 +551,8 @@ def _args(q, k, v, do, causal, scale, window, kv_mask, seg, seeds,
             setattr(a, f"{name}_st", st)
             setattr(a, f"{name}_sh", sh)
             setattr(a, "dout" if name == "do" else name, x.data_ptr())
-    for name, x in (("kv_mask", kv_mask), ("seg", seg), ("seeds", seeds)):
+    for name, x in (("kv_mask", kv_mask), ("seg", seg), ("kseg", kseg),
+                    ("seeds", seeds)):
         if x is not None:
             ptrs[name] = x
     for name, x in ptrs.items():
@@ -549,18 +577,22 @@ def _rows16(x):
     return x.clone(memory_format=torch.contiguous_format)
 
 
-def _options(q, kv_mask, segment_ids, seeds, dropout_p):
-    """The key-padding mask as uint8, the segment ids and the seeds as
-    int32, contiguous on q's device (None where absent; the seeds only
-    under dropout)."""
+def _options(q, kv_mask, segment_ids, seeds, dropout_p,
+             kv_segment_ids=None):
+    """The key-padding mask as uint8, the segment ids (both sides) and
+    the seeds as int32, contiguous on q's device (None where absent; the
+    seeds only under dropout)."""
     dev = q.device
     kvm = (None if kv_mask is None else
            kv_mask.to(device=dev, dtype=torch.uint8).contiguous())
     seg = (None if segment_ids is None else
            segment_ids.to(device=dev, dtype=torch.int32).contiguous())
+    kseg = (seg if kv_segment_ids is None else
+            kv_segment_ids.to(device=dev, dtype=torch.int32).contiguous())
     sd = (seeds.to(device=dev, dtype=torch.int32).contiguous()
           if dropout_p else None)
-    return dict(kv_mask=kvm, seg=seg, seeds=sd, dropout_p=dropout_p)
+    return dict(kv_mask=kvm, seg=seg, kseg=kseg, seeds=sd,
+                dropout_p=dropout_p)
 
 
 def _launch(fn_name, q, a):
@@ -577,7 +609,8 @@ def _launch(fn_name, q, a):
 def flash_attention_fwd(q, k, v, *, causal: bool, scale: float,
                         window: Optional[int] = None, kv_mask=None,
                         segment_ids=None, seeds=None,
-                        dropout_p: float = 0.0, block_q=None, block_k=None):
+                        dropout_p: float = 0.0, block_q=None, block_k=None,
+                        kv_segment_ids=None):
     """Attention of q (B, Tq, H, D) over k/v (B, Tk, Hkv, D). Returns
     (o (B, Tq, H, D) in q's dtype, lse (B, H, Tq) float32); a row with no
     live key gets o = 0 and lse = -1e30. ``segment_ids`` (B, T): packed
@@ -586,12 +619,15 @@ def flash_attention_fwd(q, k, v, *, causal: bool, scale: float,
     int32 (see :func:`hash_keep`) and the kept ones scaled by 1 / (1 -
     p); lse stays that of the undropped row. ``block_q``/``block_k``: the
     tile (see the module docstring; None: the table's, else the
-    default)."""
-    _check(q, k, v, window, kv_mask, segment_ids, seeds, dropout_p)
+    default). ``kv_segment_ids`` (B, Tk): the keys' ids where they are
+    not ``segment_ids``."""
+    _check(q, k, v, window, kv_mask, segment_ids, seeds, dropout_p,
+           kv_segment_ids=kv_segment_ids)
     tiles = kernel_tiles("fwd", q.dtype, q.shape[3], q.shape[1], k.shape[1],
                          causal, block_q, block_k)
     kw = dict(causal=causal, scale=scale, window=window, kv_mask=kv_mask,
-              segment_ids=segment_ids, seeds=seeds, dropout_p=dropout_p)
+              segment_ids=segment_ids, seeds=seeds, dropout_p=dropout_p,
+              kv_segment_ids=kv_segment_ids)
     if q.device.type == "cpu":
         return flash_attention_fwd_plain(q, k, v, **kw)
     b, tq, h, d = q.shape
@@ -600,7 +636,8 @@ def flash_attention_fwd(q, k, v, *, causal: bool, scale: float,
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
     _launch("pt_flash_fwd", q, _args(
         q, k, v, None, causal, scale, window,
-        **_options(q, kv_mask, segment_ids, seeds, dropout_p), tiles=tiles,
+        **_options(q, kv_mask, segment_ids, seeds, dropout_p,
+                   kv_segment_ids), tiles=tiles,
         o=o, lse_out=lse))
     count_launch(flash_attention_fwd, q.dtype, tiles)
     return o, lse
@@ -615,16 +652,19 @@ flash_attention_fwd.last_tiles = None
 def flash_attention_dq(q, k, v, do, lse, delta, *, causal: bool,
                        scale: float, window: Optional[int] = None,
                        kv_mask=None, segment_ids=None, seeds=None,
-                       dropout_p: float = 0.0, block_q_bwd=None):
+                       dropout_p: float = 0.0, block_q_bwd=None,
+                       kv_segment_ids=None):
     """dq (B, Tq, H, D) from the forward's ``lse`` and ``delta`` =
     rowsum(do * o), both (B, H, Tq) float32; the options as the
     forward's. ``block_q_bwd``: the query rows a block owns (None: the
     table's, else the default)."""
-    _check(q, k, v, window, kv_mask, segment_ids, seeds, dropout_p, do)
+    _check(q, k, v, window, kv_mask, segment_ids, seeds, dropout_p, do,
+           kv_segment_ids=kv_segment_ids)
     tiles = kernel_tiles("dq", q.dtype, q.shape[3], q.shape[1], k.shape[1],
                          causal, block_q_bwd)
     kw = dict(causal=causal, scale=scale, window=window, kv_mask=kv_mask,
-              segment_ids=segment_ids, seeds=seeds, dropout_p=dropout_p)
+              segment_ids=segment_ids, seeds=seeds, dropout_p=dropout_p,
+              kv_segment_ids=kv_segment_ids)
     if q.device.type == "cpu":
         return flash_attention_dq_plain(q, k, v, do, lse, delta, **kw)
     b, tq, h, _ = q.shape
@@ -633,7 +673,8 @@ def flash_attention_dq(q, k, v, do, lse, delta, *, causal: bool,
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _launch("pt_flash_dq", q, _args(
         q, k, v, do, causal, scale, window,
-        **_options(q, kv_mask, segment_ids, seeds, dropout_p), tiles=tiles,
+        **_options(q, kv_mask, segment_ids, seeds, dropout_p,
+                   kv_segment_ids), tiles=tiles,
         lse=lse, delta=delta, dq=dq))
     count_launch(flash_attention_dq, q.dtype, tiles)
     return dq
@@ -648,16 +689,19 @@ flash_attention_dq.last_tiles = None
 def flash_attention_dkv(q, k, v, do, lse, delta, *, causal: bool,
                         scale: float, window: Optional[int] = None,
                         kv_mask=None, segment_ids=None, seeds=None,
-                        dropout_p: float = 0.0, block_k_bwd=None):
+                        dropout_p: float = 0.0, block_k_bwd=None,
+                        kv_segment_ids=None):
     """dk and dv (B, Tk, Hkv, D), each summed over the query heads of its
     GQA group (each head with its own dropout seed). Returns (dk, dv).
     ``block_k_bwd``: the key rows a block owns, a divisor of Tk (None:
     the table's, else the default)."""
-    _check(q, k, v, window, kv_mask, segment_ids, seeds, dropout_p, do)
+    _check(q, k, v, window, kv_mask, segment_ids, seeds, dropout_p, do,
+           kv_segment_ids=kv_segment_ids)
     tiles = kernel_tiles("dkv", q.dtype, q.shape[3], q.shape[1], k.shape[1],
                          causal, block_k_bwd)
     kw = dict(causal=causal, scale=scale, window=window, kv_mask=kv_mask,
-              segment_ids=segment_ids, seeds=seeds, dropout_p=dropout_p)
+              segment_ids=segment_ids, seeds=seeds, dropout_p=dropout_p,
+              kv_segment_ids=kv_segment_ids)
     if q.device.type == "cpu":
         return flash_attention_dkv_plain(q, k, v, do, lse, delta, **kw)
     b, tq, h, _ = q.shape
@@ -667,7 +711,8 @@ def flash_attention_dkv(q, k, v, do, lse, delta, *, causal: bool,
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     _launch("pt_flash_dkv", q, _args(
         q, k, v, do, causal, scale, window,
-        **_options(q, kv_mask, segment_ids, seeds, dropout_p), tiles=tiles,
+        **_options(q, kv_mask, segment_ids, seeds, dropout_p,
+                   kv_segment_ids), tiles=tiles,
         lse=lse, delta=delta, dk=dk, dv=dv))
     count_launch(flash_attention_dkv, q.dtype, tiles)
     return dk, dv
@@ -677,3 +722,125 @@ flash_attention_dkv.launches = 0
 flash_attention_dkv.dtype_launches = {}
 flash_attention_dkv.tile_launches = {}
 flash_attention_dkv.last_tiles = None
+
+
+# ----- ring attention's hops -------------------------------------------------
+#
+# Ring attention (parallel/context_parallel.py) keeps the q rows home and
+# rotates the K/V blocks around the 'sp' axis; each hop runs the kernels
+# above on (local q, one kv block). The two entry points differ from a
+# single-device call in that the forward's lse is the output the ring
+# merges hops with, and the q side's and the kv side's segment ids are
+# two arrays (the q ids stay home, the kv ids travel with their block).
+# ``causal`` means this block is the diagonal one (the same global
+# offsets): past blocks are called with causal=False, future ones not
+# at all.
+
+
+def _ring_delta(o, do, delta):
+    """delta (B, H, Tq) float32 from the JAX layout (B, Tq, H), or
+    rowsum(do * o) when None. A ``delta`` laid out (B, H, Tq) in memory
+    (a transposed view) comes back as it is, uncopied."""
+    if delta is None:
+        delta = (do.float() * o.float()).sum(-1)
+    return delta.float().transpose(1, 2).contiguous()
+
+
+def ring_fwd_block_plain(q, k, v, kvm, qseg, kseg, *, causal: bool,
+                         scale: float, window: Optional[int] = None,
+                         offset: int = 0):
+    """Plain PyTorch version of :func:`ring_fwd_block`. ``window`` and
+    ``offset`` (the hop's (my - src) x T) take causal and a sliding
+    window in global positions: ring attention's einsum hop."""
+    return flash_attention_fwd_plain(
+        q, k, v, causal=causal, scale=scale, window=window, kv_mask=kvm,
+        segment_ids=qseg, kv_segment_ids=None if qseg is None else kseg,
+        offset=offset)
+
+
+def ring_fwd_block(q, k, v, kvm, qseg, kseg, *, causal: bool, scale: float,
+                   block_q=None, block_k=None, interpret=None):
+    """One ring hop's forward: local q (B, Tq, H, D) against one kv block
+    (B, Tk, Hkv, D; Hkv | H, the block rotates with its fewer heads).
+    Returns (o, lse): o (B, Tq, H, D) in q's dtype, normalised within the
+    block, and lse (B, H, Tq) float32 its per-row logsumexp, the pair the
+    ring's logaddexp merge takes. A row with no live key in the block
+    gets o = 0 and lse = -1e30. ``kvm`` (B, Tk) keep-mask, ``qseg`` (B,
+    Tq) and ``kseg`` (B, Tk) segment ids (both or neither). On a CUDA
+    tensor the forward kernel launches (``block_q``/``block_k``: its
+    tile, None the table's, else the default); on a CPU tensor, or with
+    ``interpret``, the plain version runs. Counts its launches in
+    ``.launches`` (the forward kernel's wrapper counts them too)."""
+    enforce((qseg is None) == (kseg is None),
+            "ring_fwd_block takes both segment id arrays or neither")
+    if interpret or q.device.type == "cpu":
+        _check(q, k, v, None, kvm, qseg, None, 0.0,
+               kv_segment_ids=None if qseg is None else kseg)
+        return ring_fwd_block_plain(q, k, v, kvm, qseg, kseg, causal=causal,
+                                    scale=scale)
+    out = flash_attention_fwd(q, k, v, causal=causal, scale=scale,
+                              kv_mask=kvm, segment_ids=qseg,
+                              kv_segment_ids=kseg, block_q=block_q,
+                              block_k=block_k)
+    count_launch(ring_fwd_block, q.dtype, flash_attention_fwd.last_tiles)
+    return out
+
+
+ring_fwd_block.launches = 0
+ring_fwd_block.dtype_launches = {}
+ring_fwd_block.tile_launches = {}
+ring_fwd_block.last_tiles = None
+
+
+def ring_bwd_block_plain(q, k, v, kvm, qseg, kseg, o, lse, do, *,
+                         causal: bool, scale: float, delta=None,
+                         window: Optional[int] = None, offset: int = 0):
+    """Plain PyTorch version of :func:`ring_bwd_block`; ``window`` and
+    ``offset`` as in :func:`ring_fwd_block_plain`."""
+    kw = dict(causal=causal, scale=scale, window=window, kv_mask=kvm,
+              segment_ids=qseg, kv_segment_ids=None if qseg is None else kseg,
+              offset=offset)
+    dl = _ring_delta(o, do, delta)
+    dq = flash_attention_dq_plain(q, k, v, do, lse, dl, **kw)
+    dk, dv = flash_attention_dkv_plain(q, k, v, do, lse, dl, **kw)
+    return dq, dk, dv
+
+
+def ring_bwd_block(q, k, v, kvm, qseg, kseg, o, lse, do, *, causal: bool,
+                   scale: float, block_q=None, block_k=None, interpret=None,
+                   delta=None):
+    """One ring hop's backward under the ring's global softmax: p is
+    recomputed against the merged ``lse`` (B, H, Tq) and delta =
+    rowsum(do * o) is taken with the final output ``o``, so (dq, dk, dv)
+    are this (q rows, kv block) pair's exact shares of the global
+    gradients. ``delta``: optional (B, Tq, H) float32 (the JAX layout),
+    hop-invariant, so the ring computes it once; ``o`` is not read when
+    it is given. dk and dv come back summed over each GQA group onto the
+    block's Hkv heads. On CUDA tensors the dq kernel and the dk/dv kernel
+    launch (``block_q``: dq's query rows, ``block_k``: dk/dv's key rows;
+    None the table's, else the default); on CPU tensors, or with
+    ``interpret``, the plain versions run. Counts one launch per call that
+    ran the kernels in ``.launches`` (the dq and dk/dv wrappers count
+    theirs)."""
+    enforce((qseg is None) == (kseg is None),
+            "ring_bwd_block takes both segment id arrays or neither")
+    if interpret or q.device.type == "cpu":
+        _check(q, k, v, None, kvm, qseg, None, 0.0, do,
+               kv_segment_ids=None if qseg is None else kseg)
+        return ring_bwd_block_plain(q, k, v, kvm, qseg, kseg, o, lse, do,
+                                    causal=causal, scale=scale, delta=delta)
+    kw = dict(causal=causal, scale=scale, kv_mask=kvm, segment_ids=qseg,
+              kv_segment_ids=kseg)
+    dl = _ring_delta(o, do, delta)
+    dq = flash_attention_dq(q, k, v, do, lse, dl, block_q_bwd=block_q, **kw)
+    dk, dv = flash_attention_dkv(q, k, v, do, lse, dl, block_k_bwd=block_k,
+                                 **kw)
+    count_launch(ring_bwd_block, q.dtype, (flash_attention_dq.last_tiles[0],
+                                           flash_attention_dkv.last_tiles[0]))
+    return dq, dk, dv
+
+
+ring_bwd_block.launches = 0
+ring_bwd_block.dtype_launches = {}
+ring_bwd_block.tile_launches = {}
+ring_bwd_block.last_tiles = None

@@ -1,5 +1,5 @@
 """The training driver (counterpart of paddle_tpu/parallel/api.py
-``Trainer``), single device.
+``Trainer`` and ``DataParallel``).
 
 The JAX Trainer owns functional (params, buffers, opt_state) and a
 jitted step. Here the model's own parameters are the state: a step runs
@@ -24,7 +24,29 @@ model's remat recompute re-enters the policy itself). With a
 ``MixedPrecisionOptimizer`` (amp.decorate) the backward runs on the
 scaled loss and the step returns the unscaled one. ``grad_accum_steps``
 = k > 1 adds each micro-step's grads to an accumulator and applies the
-optimizer to accumulator / k on the k-th."""
+optimizer to accumulator / k on the k-th.
+
+``mesh=`` (core/mesh.py) trains data- and sequence-parallel, one process
+per rank: the parameters are replicated (every rank builds them from the
+same key of the global stream, so nothing is broadcast), each step takes
+the rank's batch (``data_sharding()``: the batch split over ``dp``, the
+full sequence), and the gradients are averaged over the mesh's ``dp``
+and ``sp`` ranks before the update. The JAX Trainer without a plan
+takes the gradient of the loss of the global batch (GSPMD), so a rank's
+loss must be that global loss, or an equal share of it: the models'
+losses divide the sum of their token losses by the count of valid
+tokens, each summed over the mesh (parallel/context_parallel.py
+``token_mean``), and ``supervised`` gathers the outputs and labels over
+``dp`` before its ``loss_fn``, so each rank computes the loss of the
+global batch. Such a loss's gradient on a rank is the mesh's size times
+the rank's share (its collectives differentiate as JAX transposes them),
+and the mean of the ranks' gradients is the global gradient; never a
+mean of the ranks' own means, which differs wherever ranks count
+different numbers of tokens. The step returns the global loss (the mean
+over the mesh). ``plan=``, ``param_spec=``, ``opt_state_rules=`` and
+``grad_compression=`` belong to the next slice and raise, naming their
+ROADMAP item, as do ``tp``, ``pp`` and ``ep`` axes of more than one
+rank."""
 
 from __future__ import annotations
 
@@ -37,7 +59,8 @@ import torch
 from ..amp import MixedPrecisionOptimizer
 from ..core.config import BuildStrategy
 from ..core.dtypes import POLICIES, policy_scope
-from ..core.enforce import UnimplementedError, enforce
+from ..core.enforce import InvalidArgumentError, UnimplementedError, enforce
+from ..core.mesh import Mesh, PartitionSpec, get_mesh, mesh_scope, sharding
 from ..core.random import (make_generator, next_key, rng_scope,
                            seed_generator, split_key)
 from ..nn.layer import detach_buffers
@@ -71,20 +94,33 @@ class Trainer:
     the port's in-place updates always do, so it changes nothing here;
     the reduce, gradient-scale and fusion fields concern the all-reduce
     across devices, and ``remat_policy`` the JAX Trainer does not read.
-    The multi-device arguments raise :class:`UnimplementedError` naming
-    their ROADMAP item."""
+    ``mesh``: train over its ``dp`` and ``sp`` ranks (see the module
+    docstring); something that is not a mesh raises
+    :class:`InvalidArgumentError`. The other multi-device arguments raise
+    :class:`UnimplementedError` naming their ROADMAP item."""
 
     def __init__(self, model: torch.nn.Module, optimizer: Optimizer,
                  loss_builder: Callable, mesh=None, build_strategy=None,
                  param_spec=None, opt_state_rules=None,
                  amp: Optional[str] = None, grad_accum_steps: int = 1,
                  plan=None, grad_compression: Optional[str] = None):
-        for name, value in (("mesh", mesh), ("plan", plan),
+        for name, value in (("plan", plan),
                             ("param_spec", param_spec),
                             ("opt_state_rules", opt_state_rules),
                             ("grad_compression", grad_compression)):
             if value is not None:
                 raise UnimplementedError(f"Trainer {name}= {_MULTI_DEVICE}")
+        if mesh is not None:
+            if not isinstance(mesh, Mesh):
+                raise InvalidArgumentError(
+                    f"Trainer mesh= takes a mesh (core.mesh.build_mesh), got "
+                    f"{type(mesh).__name__}")
+            for axis in ("pp", "tp", "ep"):
+                if mesh.shape[axis] > 1:
+                    raise UnimplementedError(
+                        f"Trainer mesh= with {axis}={mesh.shape[axis]} (it "
+                        f"needs plan=) {_MULTI_DEVICE}")
+        self.mesh = mesh
         if isinstance(amp, str):
             enforce(amp in POLICIES, "unknown amp policy %s (one of %s)",
                     amp, sorted(POLICIES))
@@ -108,8 +144,37 @@ class Trainer:
             self._accum_count = 0
 
     def _scope(self):
-        return (policy_scope(self.amp_policy) if self.amp_policy
-                else contextlib.nullcontext())
+        stack = contextlib.ExitStack()
+        if self.amp_policy:
+            stack.enter_context(policy_scope(self.amp_policy))
+        if self.mesh is not None:
+            stack.enter_context(mesh_scope(self.mesh))
+        return stack
+
+    def _mean_over_mesh(self, tensors):
+        """The mean of each tensor over the mesh's ranks (one collective
+        per dtype, the tensors flattened into one buffer); the tensors
+        themselves where there is no mesh or one rank."""
+        if self.mesh is None or self.mesh.size == 1:
+            return tensors
+        from .collective import allreduce
+
+        out = list(tensors)
+        by_dtype = {}
+        for i, t in enumerate(tensors):
+            by_dtype.setdefault(t.dtype, []).append(i)
+        for idx in by_dtype.values():
+            flat = torch.cat([tensors[i].reshape(-1) for i in idx])
+            flat = allreduce(flat, ("dp", "sp"), "mean", mesh=self.mesh)
+            for i, part in zip(idx, flat.split(
+                    [tensors[i].numel() for i in idx])):
+                out[i] = part.view_as(tensors[i])
+        return out
+
+    def data_sharding(self):
+        """The sharding of a host batch: the leading dim split over dp
+        (``NamedSharding.local`` cuts the rank's rows)."""
+        return sharding(PartitionSpec("dp"), self.mesh or get_mesh())
 
     def train_step(self, batch) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """One micro-step: loss, backward, and the optimizer's update (on
@@ -136,6 +201,10 @@ class Trainer:
         grads = {name: (p.grad if p.grad is not None
                         else torch.zeros_like(p))
                  for name, p in self.params.items()}
+        if self.mesh is not None:
+            grads = dict(zip(grads, self._mean_over_mesh(
+                list(grads.values()))))
+            loss = self._mean_over_mesh([loss.detach()])[0]
         k = self.grad_accum_steps
         if k == 1:
             self.optimizer.apply(self.params, grads, self.opt_state)
@@ -175,7 +244,10 @@ class Trainer:
         self.model.eval()
         try:
             with torch.no_grad(), self._scope():
-                return self.loss_builder(self.model, batch, None)
+                loss, metrics = self.loss_builder(self.model, batch, None)
+            if self.mesh is not None:
+                loss = self._mean_over_mesh([loss])[0]
+            return loss, metrics
         finally:
             self.model.train(was_training)
 
@@ -272,7 +344,20 @@ class Trainer:
         multiples of the sum of every buffer named ``*aux_loss`` and
         ``*router_z_loss`` (the MoE terms a SwitchFFN records in its
         forward, nn/moe.py) to the training loss; ``eval_step`` reports
-        the task loss alone, as in the JAX Trainer."""
+        the task loss alone, as in the JAX Trainer.
+
+        Under a ``mesh`` whose ``dp`` axis has more than one rank, every
+        tensor of the model's output and of the label (each with the
+        batch leading) is all-gathered over ``dp`` before ``loss_fn``
+        and ``metrics_fn``, which therefore see the global batch, as the
+        JAX Trainer's do (the module docstring). The MoE terms are
+        functions of the global batch's routing there, which no rank
+        holds, so they raise with such a mesh."""
+        gather = isinstance(mesh, Mesh) and mesh.shape["dp"] > 1
+        if gather and (aux_loss_weight or router_z_loss_weight):
+            raise UnimplementedError(
+                f"Trainer.supervised aux_loss_weight / router_z_loss_weight "
+                f"with dp > 1 {_MULTI_DEVICE}")
 
         def loss_builder(model, batch, generator):
             if isinstance(batch, dict):
@@ -280,6 +365,8 @@ class Trainer:
             else:
                 x, label = batch
             out = model(x)
+            if gather:
+                out, label = _over_dp(out, mesh), _over_dp(label, mesh)
             loss = loss_fn(out, label)
             metrics = metrics_fn(out, label) if metrics_fn else {}
             if generator is not None:
@@ -294,6 +381,34 @@ class Trainer:
             return loss, metrics
 
         return cls(model, optimizer, loss_builder, mesh=mesh, **kw)
+
+
+class DataParallel:
+    """A supervised Trainer over a data-parallel mesh of every rank
+    (``core.mesh.auto_mesh(devices)``; reference: dygraph/parallel.py
+    DataParallel). Each rank trains on its rows of the batch."""
+
+    def __new__(cls, model: torch.nn.Module, optimizer: Optimizer,
+                loss_fn: Callable, metrics_fn=None, devices=None):
+        from ..core.mesh import auto_mesh
+
+        return Trainer.supervised(model, optimizer, loss_fn, metrics_fn,
+                                  mesh=auto_mesh(devices))
+
+
+def _over_dp(tree, mesh):
+    """``tree`` with each tensor of at least one dim all-gathered over
+    the mesh's ``dp`` axis along its leading dim (the global batch; the
+    backward keeps the rank's rows of the summed cotangent)."""
+    from .collective import allgather
+
+    if isinstance(tree, dict):
+        return {k: _over_dp(v, mesh) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_over_dp(v, mesh) for v in tree)
+    if isinstance(tree, torch.Tensor) and tree.dim() >= 1:
+        return allgather(tree, "dp", mesh=mesh)
+    return tree
 
 
 def _ints_to_int32(tree):

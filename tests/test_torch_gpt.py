@@ -5,6 +5,7 @@ max_position 128), float32 on the CPU, logits at atol 1e-4. The JAX
 decode steps run under force_flash, so they reach the Pallas decode
 kernel in interpret mode."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -13,7 +14,7 @@ import torch
 import paddle_tpu as pt
 from paddle_tpu.models import gpt as JG
 from paddle_tpu.ops import attention as JA
-from paddle_tpu_torch.core import InvalidArgumentError, UnimplementedError
+from paddle_tpu_torch.core import InvalidArgumentError
 from paddle_tpu_torch.models import gpt as TG
 from paddle_tpu_torch.utils.convert import load_numpy_state
 
@@ -131,24 +132,27 @@ def test_generate_sampled_needs_generator(pair):
     (dict(seq_parallel="ring"), "item 11"),
 ])
 def test_later_slice_configs_raise(over, item):
-    """Options of later slices raise when built (remat and dropout are
-    ported: test_torch_train runs them). The Switch-MoE FFN (item 9) is
-    ported: a MoE GPT's logits match the JAX model's (its training,
-    serving and remat error: tests/test_torch_moe.py)."""
+    """Options of earlier queue items, ported since: the Switch-MoE FFN
+    (item 9): a MoE GPT's logits match the JAX model's (its training,
+    serving and remat error: tests/test_torch_moe.py); ``seq_parallel``
+    (item 11): with no mesh the ring is one hop, and the logits match the
+    JAX model's on its one-device mesh (the sharded runs:
+    tests/test_torch_seq_parallel.py)."""
+    from paddle_tpu.core.mesh import mesh_scope
+
+    jm, tm = _pair(**over)
+    ids = _ids((2, 12) if "moe_experts" in over else (2, 64), 9)
+    with torch.no_grad():
+        got = tm(torch.from_numpy(ids).long())
+    # the JAX ring runs over the current mesh: pin the one-device mesh
+    # (an earlier test may have left a larger one current)
+    with mesh_scope(pt.build_mesh(dp=1, devices=jax.devices()[:1])):
+        want = jm(jnp.asarray(ids))
+    _close(got, want)
     if "moe_experts" in over:
-        jm, tm = _pair(**over)
-        ids = _ids((2, 12), 9)
-        with torch.no_grad():
-            got = tm(torch.from_numpy(ids).long())
-        _close(got, jm(jnp.asarray(ids)))
         assert [n for n, _ in tm.named_buffers()][:3] == [
             "blocks.0.ffn.aux_loss", "blocks.0.ffn.router_z_loss",
             "blocks.0.ffn.kept_fraction"]
-        return
-    with pytest.raises(UnimplementedError, match=item):
-        model = TG.GPTForCausalLM(TG.GPTConfig(**dict(CFG, **over)),
-                                  device="cpu")
-        model.train()(torch.from_numpy(_ids((1, 8), 0)))
 
 
 def test_load_numpy_state_checks_names_and_shapes(pair):

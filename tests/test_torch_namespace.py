@@ -4,10 +4,10 @@ modules merely import, such as ``jax``, ``jnp``, ``math`` and
 ``typing.Callable``, aside), and the detection slice's classes and
 functions are where users look for them.
 
-Of the top-level package, ``slim``, ``quant``, ``core``, ``nn``,
-``nn.layer``, ``data``, ``data.bucketing`` and ``initializer``, the
-names still missing are exactly those that later entries of ROADMAP.md
-queue 1 own, each named with its entry."""
+Of the top-level package, ``slim``, ``quant``, ``core``, ``parallel``,
+``nn``, ``nn.layer``, ``data``, ``data.bucketing`` and ``initializer``,
+the names still missing are exactly those that later entries of
+ROADMAP.md queue 1 own, each named with its entry."""
 
 import ast
 import importlib
@@ -26,21 +26,32 @@ import paddle_tpu_torch.ops
 ENTRY_6 = "queue 1 entry 6 (item 11, distributed)"
 ENTRY_7 = "queue 1 entry 7 (item 8, the profiler)"
 ENTRY_8 = "queue 1 entry 8 (item 12, compat surfaces)"
-_MESH = ("build_mesh", "get_mesh", "set_mesh")
-# module -> {name still missing from the port: the entry that owns it}
+# module -> {name still missing from the port: the entry that owns it}.
+# Entry 6's mesh, collectives and context parallelism are ported; what
+# stays is its next slice: the quantized collectives, the Plan and the
+# sharding rules, pipeline, hybrid, the sharded embedding, dgc, geo-sgd
 STILL_MISSING = {
-    "": dict.fromkeys(_MESH, ENTRY_6),
+    "": {},
     "slim": {},
     "quant": dict.fromkeys(
         ("compress_grads", "quantized_pmean", "quantized_pmean_tree",
          "quantized_psum", "quantized_psum_partitioned"), ENTRY_6),
-    "core": {**dict.fromkeys(
-        _MESH + ("AXIS_NAMES", "auto_mesh", "axis_size",
-                 "build_hybrid_mesh", "build_multihost_mesh", "mesh_scope",
-                 "replicated", "sharding", "DistributeConfig"), ENTRY_6),
-        **dict.fromkeys(("RecordEvent", "profiler", "start_profiler",
-                         "stop_profiler"), ENTRY_7),
-        **dict.fromkeys(("BuildStrategy", "ExecutionStrategy"), ENTRY_8)},
+    "core": {**dict.fromkeys(("RecordEvent", "profiler", "start_profiler",
+                              "stop_profiler"), ENTRY_7),
+             **dict.fromkeys(("BuildStrategy", "ExecutionStrategy"),
+                             ENTRY_8)},
+    "parallel": dict.fromkeys(
+        ("Plan", "compile_step", "device_bytes", "guard_no_resharding",
+         "host_init", "max_device_bytes", "OptStateRules", "constraint",
+         "infer_param_spec", "shard_params", "transformer_tp_rules",
+         "zero_dp_rules", "GPipe", "bubble_fraction", "gpipe_ticks",
+         "interleaved_ticks", "pipeline_apply", "ring_order_layers",
+         "stage_param_sharding", "build_bert_hybrid_step",
+         "build_gpt_hybrid_step", "build_hybrid_transformer_step",
+         "ShardedEmbedding", "embedding_ep_rules",
+         "sharded_embedding_lookup", "DGCMomentum", "dgc_allreduce",
+         "quantized_allreduce", "top_k_sparsify", "GeoSGDTrainer"),
+        ENTRY_6),
     "nn": {},
     "nn.layer": {},
     "data": dict.fromkeys(

@@ -55,7 +55,7 @@ from paddle_tpu.nn import transformer as JNT
 from paddle_tpu.ops import attention as JA
 from paddle_tpu.ops import loss as JL
 from paddle_tpu_torch import optimizer as TO
-from paddle_tpu_torch.core import EnforceError, UnimplementedError
+from paddle_tpu_torch.core import EnforceError
 from paddle_tpu_torch.models import transformer as TT
 from paddle_tpu_torch.nn import transformer as TNT
 from paddle_tpu_torch.ops import attention as TA
@@ -191,13 +191,21 @@ def test_positional_encodings_match_jax():
 
 
 def test_seq_parallel_raises_naming_its_item():
-    with pytest.raises(UnimplementedError, match="item 11"):
-        TNT.TransformerDecoderLayer(D, H, FF, seq_parallel="sp",
-                                    device="cpu")
+    """seq_parallel is ported (tests/test_torch_seq_parallel.py); "sp" is
+    no implementation name: the layer and the model build, and the first
+    call raises ValueError from context_parallel_attention, as the JAX
+    layer does."""
+    layer = TNT.TransformerDecoderLayer(D, H, FF, seq_parallel="sp",
+                                        device="cpu")
+    x = torch.zeros(1, 4, D)
+    with pytest.raises(ValueError, match="unknown context-parallel impl"):
+        layer(x, x)
     cfg = TT.NMTConfig.tiny()
     cfg.seq_parallel = "sp"
-    with pytest.raises(UnimplementedError, match="item 11"):
-        TT.TransformerNMT(cfg, device="cpu")
+    model = TT.TransformerNMT(cfg, device="cpu")
+    ids = torch.full((1, 4), 3)
+    with pytest.raises(ValueError, match="unknown context-parallel impl"):
+        model(ids, ids)
 
 
 # ----- the model --------------------------------------------------------------

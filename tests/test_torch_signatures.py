@@ -426,12 +426,14 @@ def _raises(item, fn, *args, **kw):
 def test_unported_arguments_raise_naming_their_item():
     q = torch.zeros((1, 64, 2, 64))
     cpu = dict(device="cpu")
-    _raises("queue 1 item 11", tnn.MultiHeadAttention, 32, 4,
-            seq_parallel="ring", **cpu)
+    # seq_parallel and mesh= are ported (tests/test_torch_seq_parallel.py
+    # holds them against the JAX package); a mesh= that is no mesh raises
+    assert tnn.MultiHeadAttention(32, 4, seq_parallel="ring",
+                                  **cpu).seq_parallel == "ring"
     model = tnn.Linear(2, 2, device="cpu")
     opt = topt.Adam(1e-3)
-    _raises("queue 1 item 11", Trainer.supervised, model, opt,
-            lambda o, y: o.sum(), mesh=object())
+    with pytest.raises(InvalidArgumentError, match="takes a mesh"):
+        Trainer.supervised(model, opt, lambda o, y: o.sum(), mesh=object())
     # the MoE loss terms are ported (tests/test_torch_moe.py holds them
     # against the JAX Trainer): a training step adds weight x the Switch
     # FFN's recorded term, eval_step reports the task loss

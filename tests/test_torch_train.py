@@ -51,7 +51,8 @@ from paddle_tpu.core import dtypes as JD
 import paddle_tpu_torch
 from paddle_tpu_torch import amp as TAMP
 from paddle_tpu_torch import optimizer as TO
-from paddle_tpu_torch.core import EnforceError, UnimplementedError
+from paddle_tpu_torch.core import (EnforceError, InvalidArgumentError,
+                                   UnimplementedError)
 from paddle_tpu_torch.core import dtypes as TD
 from paddle_tpu_torch.models import gpt as TG
 from paddle_tpu_torch.ops import attention as TA
@@ -210,14 +211,18 @@ def test_train_steps_runs_n_updates_and_supervised():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(mesh=object()), "item 11"), (dict(plan=object()), "item 11"),
+    # mesh= is ported (tests/test_torch_seq_parallel.py): what is not a
+    # mesh raises a typed error
+    pytest.param(dict(mesh=object()), "takes a mesh", id="kw0-item 11"),
+    (dict(plan=object()), "item 11"),
     (dict(param_spec={}), "item 11"), (dict(opt_state_rules=object()),
                                        "item 11"),
     (dict(grad_compression="int8"), "item 11"),
 ])
 def test_trainer_unported_arguments_raise(kw, item):
     _, tm = _pair(12)
-    with pytest.raises(UnimplementedError, match=item):
+    with pytest.raises(InvalidArgumentError if "mesh" in kw
+                       else UnimplementedError, match=item):
         Trainer(tm, TO.SGD(0.1), lambda *a: None, **kw)
 
 

@@ -169,8 +169,7 @@ def test_packed_segments_are_isolated():
 
 
 def test_encoder_options_of_later_slices_raise():
-    from paddle_tpu_torch.core import UnimplementedError
-
+    from paddle_tpu_torch import seed
     from paddle_tpu_torch.core import InvalidArgumentError
 
     # the Switch-MoE FFN (item 9) is ported (tests/test_torch_moe.py
@@ -182,8 +181,15 @@ def test_encoder_options_of_later_slices_raise():
     with pytest.raises(InvalidArgumentError, match="remat"):
         TT.TransformerEncoder(moe_experts=4, remat=True, device="cpu",
                               **ENC)
-    with pytest.raises(UnimplementedError, match="item 11"):
-        TT.TransformerEncoder(seq_parallel="ring", device="cpu", **ENC)
+    # seq_parallel is ported (tests/test_torch_seq_parallel.py): with no
+    # mesh the ring is one hop, the plain encoder's attention
+    seed(2)
+    ring = TT.TransformerEncoder(seq_parallel="ring", device="cpu", **ENC)
+    seed(2)
+    plain = TT.TransformerEncoder(device="cpu", **ENC)
+    x = torch.randn(1, 8, 128, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        _close(ring(x), plain(x), 1e-5)
     enc = TT.TransformerEncoder(scan_layers=True, device="cpu",
                                 **dict(ENC, dropout=0.1)).train()
     with pytest.raises(EnforceError, match="scan_layers"):
