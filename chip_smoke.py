@@ -20,8 +20,9 @@ Phases, each printed as it runs:
    int8, windows None and 100; the int8 product and its fused form at
    every (BM, BN, BK) on a ragged 300x784x520, exactly); the committed
    table's entries for this card; ``tools/torch_tune.py --dry-run`` at one
-   shape per kernel (3 launches a candidate, a winner for each); with an
-   empty table each kernel launches its default tiles; in-memory entries
+   shape per kernel (3 launches a candidate, 3 re-timed rounds, a winner
+   for each); with an empty table each kernel launches its default
+   tiles; in-memory entries
    (``set_tuned(..., persist=False)``) at the training shape, the serving
    capacity and MNIST's first layer reach the launches and still match
    the plain versions; the committed table's bytes unchanged (also at the
@@ -491,6 +492,32 @@ Phases, each printed as it runs:
    (the forward; the backward against SDPA's backward) and the bound;
    the diagonal hop and a hop with separate ids (SDPA with the boolean
    mask of the same segments, which gives no lse) logged beside them.
+35. ``[dist:plan]``, ``[dist:fsdp]`` and ``[dist:moe]``: sharding plans
+   in the same world of 4 ranks, each held against one process training
+   the same model unsharded on the same batch. ``[dist:plan]``: the
+   ``[dist]`` model under ``Plan(dp=1, fsdp=2, tp=2,
+   rules=transformer_tp_rules())``, 3 Adam(1e-4) steps (the unsharded
+   run is ``[dist]``'s): losses within 1e-4 relative, step 1's gradients
+   reassembled from the shards within 1e-3 of each parameter's largest
+   entry, the flash forward, dq and dk/dv exactly 36 launches a rank,
+   each at (6, 2) heads (the rank's q and kv heads), every leaf
+   (parameter and moment) its spec's share of the whole; a rank's
+   parameter and moment bytes against the replicated ones, the bytes
+   gloo staged and the gather-at-use fallbacks reported. ``[dist:fsdp]``:
+   the JAX bench's sharding cell (``bench.py`` ``bench_sharding_plan``:
+   MnistMLP(2048, 2048), Adam(1e-3), B=256, ``Plan(dp=1, fsdp=4)``), 3
+   steps, steps 2 and 3 inside ``guard_no_resharding``: the largest
+   rank's parameters and moments at most half the replicated bytes, the
+   losses and step 1's gradients as above. ``[dist:moe]``: gpt-moe's
+   widths (``GPTConfig.small()``, 8 experts, capacity factor 1.25) cut
+   to 2 layers (a cut of depth only), B=4, T=1024, under ``Plan(dp=2,
+   ep=2, rules=expert_param_spec())``, 2 Adam(1e-4) steps on
+   forward_loss + 0.01 x the aux terms: the losses and step 1's
+   gradients as above, and every token's expert and slot in the first
+   step as the unsharded run routes it, except where the unsharded
+   router's top-two gap is below 1e-4 (such flips counted and reported;
+   slots compared up to a layer's first flip). The ms of these runs
+   price gloo's host staging on one shared card, not a multi-card plan.
 
 Any failure exits non-zero. The line before the last is the kernels'
 JSON record (each row also names the ``tiles`` its timed launch ran
@@ -4438,8 +4465,9 @@ def lstm_batch(torch, b, device, seed=0):
 
 def phase_train_stacked_lstm(torch, FK, K, QM):
     """bench model 6 at full width: the float64 check step at B=4 (padded
-    rows), then B=64 and B=512 under LSTM_POLICY, 2 warm-up and 5 timed
-    steps, with the device's idle share and ops per step."""
+    rows), then B=64 and B=512 under LSTM_POLICY, 2 warm-up and 3 timed
+    steps, with the device's idle share and ops per step (one profiled
+    step)."""
     import paddle_tpu_torch as ptt
     from paddle_tpu_torch import optimizer as TO
     from paddle_tpu_torch.models import stacked_lstm as SL
@@ -4469,10 +4497,10 @@ def phase_train_stacked_lstm(torch, FK, K, QM):
                      lambda m, bt, g: (SL.loss_fn(m(bt[0], bt[1]), bt[2]),
                                        {}), amp=LSTM_POLICY)
         torch.cuda.reset_peak_memory_stats()
-        losses, ms = timed_steps(torch, lambda: tr.train_step(batch), 2, 5)
+        losses, ms = timed_steps(torch, lambda: tr.train_step(batch), 2, 3)
         mean = sum(ms) / len(ms)
         busy, idle, ops = step_profile(torch, lambda: tr.train_step(batch),
-                                       mean, n=2)
+                                       mean, n=1)
         log(f"{tag} B={b} {LSTM_POLICY} Adam(1e-3): losses "
             f"{[round(v, 6) for v in losses]}; ms per timed step "
             f"{[round(v, 3) for v in ms]}, mean {mean:.3f} ms, "
@@ -5901,6 +5929,7 @@ def phase_tune(torch, FK, K, QM):
     t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "tools/torch_tune.py", "--dry-run", "--iters", "3",
+         "--rounds", "3",
          "--attention", "2,256,256,4,2,64", "--causal", "--dtype",
          "float32", "--matmul", "512,256,784", "--decode", "2,512,8,2,64"],
         capture_output=True, text=True, timeout=900)
@@ -6050,6 +6079,15 @@ RING_ROWS = {
 DIST_T, DIST_B, DIST_SEED, DIST_STEPS, DIST_LR = 4096, 2, 21, 3, 1e-4
 DIST_RUNS = (("ring", 1, 4), ("ulysses", 2, 2))
 DIST_TOL = (1e-4, 1e-3)        # loss relative, grad / largest entry
+# [dist:plan]: the same model under Plan(dp=1, fsdp=2, tp=2,
+# transformer_tp_rules()); [dist:fsdp]: the JAX bench's sharding cell
+# (bench.py bench_sharding_plan: MnistMLP(2048, 2048), Adam(1e-3),
+# B=256, Plan(dp=1, fsdp=4)); [dist:moe]: gpt-moe's widths
+# (GPTConfig.small(), 8 experts, capacity factor 1.25) cut to 2 layers
+# under Plan(dp=2, ep=2, expert_param_spec()), B=4, T=1024, 2 steps
+PLAN_SIZES = dict(dp=1, fsdp=2, tp=2)
+FSDP_HIDDEN, FSDP_B, FSDP_STEPS = 2048, 256, 3
+MOE_DIST_LAYERS, MOE_DIST_B, MOE_DIST_T, MOE_DIST_STEPS = 2, 4, 1024, 2
 
 
 def ring_inputs(torch, dtype, segs, mask, gen):
@@ -6148,10 +6186,47 @@ def ring_counts(FK):
                          "flash_attention_dkv")}
 
 
-def dist_trainer(torch, impl, mesh=None):
+def keep_first_grads(torch, trainer, rank=0):
+    """Wrap ``trainer``'s optimizer so that rank ``rank`` keeps the first
+    step's gradients, whole (a placed leaf's shards all-gathered, by
+    every rank), on the host; returns that dict."""
+    from paddle_tpu_torch.parallel import sharding as S
+
+    first, done = {}, []
+    apply = trainer.optimizer.apply
+
+    def keeping(params, grads, state):
+        if not done:
+            done.append(True)
+            for n, g in grads.items():
+                sh = S.sharding_of(params[n])
+                whole = g.detach() if sh is None else gather_whole(g, sh)
+                if trainer.mesh is None or trainer.mesh.rank == rank:
+                    first[n] = whole.cpu()
+        return apply(params, grads, state)
+
+    trainer.optimizer.apply = keeping
+    return first
+
+
+def gather_whole(t, sh):
+    """The whole tensor of which ``t`` is this rank's shard under the
+    sharding ``sh`` (every rank of its axes calls)."""
+    import torch
+
+    from paddle_tpu_torch.parallel.collective import allgather
+
+    with torch.no_grad():
+        for dim, part in enumerate(sh.spec):
+            if part is not None:
+                t = allgather(t, part, dim=dim, mesh=sh.mesh)
+    return t
+
+
+def dist_trainer(torch, impl, mesh=None, plan=None):
     """GPTConfig.small() (seed DIST_SEED) under Trainer(Adam) on
     forward_loss, whose optimizer keeps the first step's gradients (on
-    the host)."""
+    the host, whole)."""
     from paddle_tpu_torch import optimizer
     from paddle_tpu_torch.models import gpt
     from paddle_tpu_torch.parallel import Trainer
@@ -6161,22 +6236,116 @@ def dist_trainer(torch, impl, mesh=None):
     gen = torch.Generator(device="cuda").manual_seed(DIST_SEED)
     model = gpt.GPTForCausalLM(cfg, generator=gen)
     trainer = Trainer(model, optimizer.Adam(DIST_LR), lambda m, batch, g: (
-        m.forward_loss(batch), {}), mesh=mesh)
-    first = {}
-    apply = trainer.optimizer.apply
-
-    def keeping(params, grads, state):
-        if not first:
-            first.update({n: g.detach().cpu() for n, g in grads.items()})
-        return apply(params, grads, state)
-
-    trainer.optimizer.apply = keeping
-    return trainer, first
+        m.forward_loss(batch), {}), mesh=mesh, plan=plan)
+    return trainer, keep_first_grads(torch, trainer)
 
 
-def dist_steps(torch, trainer, batch):
+def fsdp_trainer(torch, plan=None):
+    """[dist:fsdp]'s MnistMLP(2048, 2048) (seed DIST_SEED) under
+    Trainer.supervised(Adam(1e-3)), keeping the first step's
+    gradients."""
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.models import mnist
+    from paddle_tpu_torch.parallel import Trainer
+
+    gen = torch.Generator(device="cuda").manual_seed(DIST_SEED)
+    model = mnist.MnistMLP(FSDP_HIDDEN, FSDP_HIDDEN, generator=gen)
+    trainer = Trainer.supervised(model, optimizer.Adam(1e-3), mnist.loss_fn,
+                                 plan=plan)
+    return trainer, keep_first_grads(torch, trainer)
+
+
+def fsdp_batch(torch):
+    gen = torch.Generator().manual_seed(24)
+    return {"x": torch.randn(FSDP_B, 784, generator=gen),
+            "label": torch.randint(0, 10, (FSDP_B,), generator=gen)}
+
+
+def moe_dist_trainer(torch, plan=None):
+    """[dist:moe]'s model: GPTConfig.small() with MOE_EXPERTS experts,
+    MOE_DIST_LAYERS layers (seed DIST_SEED), float32, under Trainer(Adam)
+    on forward_loss + the aux terms, keeping the first step's
+    gradients."""
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.parallel import Trainer
+
+    cfg = gpt.GPTConfig.small()
+    cfg.num_layers, cfg.moe_experts = MOE_DIST_LAYERS, MOE_EXPERTS
+    gen = torch.Generator(device="cuda").manual_seed(DIST_SEED)
+    model = gpt.GPTForCausalLM(cfg, generator=gen)
+    trainer = Trainer(model, optimizer.Adam(DIST_LR), lambda m, batch, g: (
+        m.forward_loss(batch) + moe_aux(m), {}), plan=plan)
+    return trainer, keep_first_grads(torch, trainer)
+
+
+def moe_dist_ids(torch):
+    return torch.randint(0, 32000, (MOE_DIST_B, MOE_DIST_T),
+                         generator=torch.Generator().manual_seed(25))
+
+
+@contextlib.contextmanager
+def recorded_routes(torch, routes):
+    """While open, each Switch FFN call appends its tokens' (expert,
+    slot, router gap) to ``routes``: the top-1 expert, the slot it takes
+    there in the call's global token order (-1 where the token is
+    dropped past capacity) and the top-1 minus top-2 probability; the
+    calls' positions recomputed as the layer computes them."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.nn import moe
+
+    orig = moe._switch_moe
+
+    def recording(x, router_w, *a, capacity, spread=None, **kw):
+        with torch.no_grad():
+            _, probs, top_i = moe._route(x, router_w, 1)
+            every = top_i if spread is None else spread.gather(top_i)
+            onehot = F.one_hot(every[:, 0], router_w.shape[1]).float()
+            pos = torch.cumsum(onehot, dim=0) * onehot
+            if spread is not None:
+                pos = spread.mine(pos)
+            slot = pos.gather(1, top_i).squeeze(1).long() - 1
+            slot = torch.where(slot < capacity, slot, -1)
+            top2 = probs.topk(2, dim=-1).values
+            routes.append((top_i[:, 0].cpu(), slot.cpu(),
+                           (top2[:, 0] - top2[:, 1]).cpu()))
+        return orig(x, router_w, *a, capacity=capacity, spread=spread, **kw)
+
+    moe._switch_moe = recording
+    try:
+        yield routes
+    finally:
+        moe._switch_moe = orig
+
+
+@contextlib.contextmanager
+def recorded_heads(heads):
+    """While open, each flash forward, dq and dk/dv call adds its (q
+    heads, kv heads) to the set ``heads`` (the wrappers still count
+    their launches)."""
+    from paddle_tpu_torch.ops import attention as A
+
+    orig = A._flash_fns
+
+    def fns(interpret):
+        def rec(f):
+            def call(q, k, *a, **kw):
+                heads.add((q.shape[2], k.shape[2]))
+                return f(q, k, *a, **kw)
+            return call
+        return tuple(rec(f) for f in orig(interpret))
+
+    A._flash_fns = fns
+    try:
+        yield heads
+    finally:
+        A._flash_fns = orig
+
+
+def dist_steps(torch, trainer, batch, n=DIST_STEPS):
     losses, ms = [], []
-    for _ in range(DIST_STEPS):
+    for _ in range(n):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         loss, _ = trainer.train_step(batch)
@@ -6190,8 +6359,113 @@ def dist_ids(torch):
                          generator=torch.Generator().manual_seed(22))
 
 
+def leaf_layout(torch, trainer):
+    """A rank's state under its plan: the leaves (parameters and
+    moments) whose local numel is not their whole numel over their
+    spec's ranks, and the bytes the rank holds against the whole
+    (replicated) bytes, for the parameters and the moments apart."""
+    from paddle_tpu_torch.parallel import sharding as S
+
+    out = dict(bad=[], param_bytes=0, moment_bytes=0, whole_param_bytes=0,
+               whole_moment_bytes=0)
+    names = sorted(trainer.params)
+    leaves = [("param", n, trainer.params[n]) for n in names]
+    leaves += [("moment", f"{n}/{k}", t)
+               for n, slots in zip(names, trainer.opt_state["leaf"])
+               for k, t in slots.items() if torch.is_tensor(t)]
+    for kind, name, t in leaves:
+        sh = S.sharding_of(t)
+        ranks = 1 if sh is None else sh.mesh.axis_size(sh.axes())
+        whole = math.prod(getattr(t, "_pt_global_shape", t.shape))
+        if t.numel() * ranks != whole:
+            out["bad"].append(name)
+        out[f"{kind}_bytes"] += t.numel() * t.element_size()
+        out[f"whole_{kind}_bytes"] += whole * t.element_size()
+    return out
+
+
+def dist_plan_run(torch, FK, rank, out_dir):
+    """[dist:plan] on this rank: 3 steps of the [dist] model under
+    Plan(dp=1, fsdp=2, tp=2, transformer_tp_rules()); the flash launches
+    and the (q, kv) heads they ran at, the layout, the bytes gloo staged
+    and the gather-at-use fallbacks."""
+    from paddle_tpu_torch.parallel import Plan, transformer_tp_rules
+    from paddle_tpu_torch.parallel import sharding as S
+    from paddle_tpu_torch.parallel.collective import STAGING
+
+    plan = Plan(**PLAN_SIZES, rules=transformer_tp_rules(), device="cuda:0")
+    trainer, first = dist_trainer(torch, None, plan=plan)
+    batch = trainer.data_sharding().local(dist_ids(torch)).to("cuda")
+    for name in FLASH_ROWS:
+        getattr(FK, name).launches = 0
+    S.FALLBACKS.clear()
+    STAGING.reset()
+    heads = set()
+    with recorded_heads(heads):
+        losses, ms = dist_steps(torch, trainer, batch)
+    run = dict(losses=losses, ms=ms,
+               counts={n: getattr(FK, n).launches for n in FLASH_ROWS},
+               heads=sorted(heads), fallbacks=sum(S.FALLBACKS.values()),
+               staged_bytes=STAGING.bytes, staged_copies=STAGING.copies,
+               coordinate=plan.mesh.coordinate,
+               layout=leaf_layout(torch, trainer),
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    if rank == 0:
+        torch.save(first, os.path.join(out_dir, "plan_grads.pt"))
+    return run
+
+
+def dist_fsdp_run(torch, rank, out_dir):
+    """[dist:fsdp] on this rank: 3 steps of MnistMLP(2048, 2048) under
+    Plan(dp=1, fsdp=4), steps 2 and 3 inside guard_no_resharding; the
+    largest rank's parameter and moment bytes (max_device_bytes)."""
+    from paddle_tpu_torch.parallel import (Plan, guard_no_resharding,
+                                           max_device_bytes)
+
+    plan = Plan(dp=1, fsdp=4, device="cuda:0")
+    trainer, first = fsdp_trainer(torch, plan)
+    sh = trainer.data_sharding()
+    batch = {k: sh.local(v).to("cuda") for k, v in fsdp_batch(torch).items()}
+    losses, ms = [], []
+    for step in range(FSDP_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with (guard_no_resharding() if step else contextlib.nullcontext()):
+            loss, _ = trainer.train_step(batch)
+        losses.append(loss.item())
+        ms.append((time.perf_counter() - t0) * 1e3)
+    state = {"params": trainer.params, "opt": trainer.opt_state}
+    run = dict(losses=losses, ms=ms, layout=leaf_layout(torch, trainer),
+               max_bytes=max_device_bytes(state, plan.mesh))
+    if rank == 0:
+        torch.save(first, os.path.join(out_dir, "fsdp_grads.pt"))
+    return run
+
+
+def dist_moe_run(torch, rank, out_dir):
+    """[dist:moe] on this rank: 2 steps of the 2-layer MoE GPT under
+    Plan(dp=2, ep=2, expert_param_spec()), the first step's routes
+    recorded (written to ``out_dir``)."""
+    from paddle_tpu_torch.nn.moe import expert_param_spec
+    from paddle_tpu_torch.parallel import Plan
+
+    plan = Plan(dp=2, ep=2, rules=expert_param_spec(), device="cuda:0")
+    trainer, first = moe_dist_trainer(torch, plan)
+    batch = trainer.data_sharding().local(moe_dist_ids(torch)).to("cuda")
+    routes = []
+    with recorded_routes(torch, routes):
+        losses, ms = dist_steps(torch, trainer, batch, 1)
+    more, ms2 = dist_steps(torch, trainer, batch, MOE_DIST_STEPS - 1)
+    torch.save(routes, os.path.join(out_dir, f"moe_routes{rank}.pt"))
+    if rank == 0:
+        torch.save(first, os.path.join(out_dir, "moe_grads.pt"))
+    return dict(losses=losses + more, ms=ms + ms2,
+                coordinate=plan.mesh.coordinate,
+                layout=leaf_layout(torch, trainer))
+
+
 def dist_rank(rank, store, out_dir):
-    """One rank of the [dist:*] world: both runs, its record written to
+    """One rank of the [dist:*] world: every run, its record written to
     ``out_dir`` (rank 0 also writes each run's first-step gradients)."""
     import torch
 
@@ -6227,6 +6501,12 @@ def dist_rank(rank, store, out_dir):
             torch.save(first, os.path.join(out_dir, f"{impl}_grads.pt"))
         del trainer, first
         torch.cuda.empty_cache()
+    for name, run in (("plan", dist_plan_run), ("fsdp", dist_fsdp_run),
+                      ("moe", dist_moe_run)):
+        args = (torch, FK, rank, out_dir) if name == "plan" else (
+            torch, rank, out_dir)
+        record[name] = run(*args)
+        torch.cuda.empty_cache()
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(record, f)
 
@@ -6248,20 +6528,100 @@ def expected_ring(rank, impl, sp):
                 flash_attention_dkv=layers)
 
 
-def phase_dist(torch, FK):
-    """[dist:ring] and [dist:ulysses] against the unsharded run; returns
-    the ring entry points' launches summed over the ranks."""
-    import torch.multiprocessing as mp
+def worst_grad(grads, ref_grads):
+    """(the largest |grad - ref| over each parameter's largest |ref|
+    entry, its name)."""
+    return max(((grads[n] - g).abs().max().item()
+                / max(g.abs().max().item(), 1e-30), n)
+               for n, g in ref_grads.items())
 
-    # the unsharded reference: one process, the whole batch
-    trainer, ref_grads = dist_trainer(torch, None)
+
+def rel_losses(losses, ref):
+    return max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
+
+
+def dist_references(torch):
+    """The unsharded runs the [dist:*] runs are held against, one
+    process on the whole batch each: the [dist] model (ring, Ulysses and
+    plan), [dist:fsdp]'s MLP and [dist:moe]'s model (its first step's
+    routes recorded)."""
+    trainer, grads = dist_trainer(torch, None)
     ids = dist_ids(torch).to("cuda")
-    ref_losses, ref_ms = dist_steps(torch, trainer, ids)
+    losses, ms = dist_steps(torch, trainer, ids)
+    refs = {"gpt": (losses, ms, grads)}
     log(f"[dist] unsharded reference: GPTConfig.small() T={DIST_T} "
-        f"B={DIST_B} float32, Adam({DIST_LR}) losses {ref_losses}, ms a "
-        f"step {[round(x, 1) for x in ref_ms]}")
+        f"B={DIST_B} float32, Adam({DIST_LR}) losses {losses}, ms a "
+        f"step {[round(x, 1) for x in ms]}")
+    del trainer, ids
+    trainer, grads = fsdp_trainer(torch)
+    batch = {k: v.to("cuda") for k, v in fsdp_batch(torch).items()}
+    losses, ms = dist_steps(torch, trainer, batch, FSDP_STEPS)
+    refs["fsdp"] = (losses, ms, grads)
+    log(f"[dist:fsdp] unsharded reference: MnistMLP({FSDP_HIDDEN}, "
+        f"{FSDP_HIDDEN}) B={FSDP_B} float32, Adam(1e-3) losses {losses}, "
+        f"ms a step {[round(x, 1) for x in ms]}")
+    del trainer, batch
+    trainer, grads = moe_dist_trainer(torch)
+    ids = moe_dist_ids(torch).to("cuda")
+    routes = []
+    with recorded_routes(torch, routes):
+        losses, ms = dist_steps(torch, trainer, ids, 1)
+    more, ms2 = dist_steps(torch, trainer, ids, MOE_DIST_STEPS - 1)
+    refs["moe"] = (losses + more, ms + ms2, grads, routes)
+    log(f"[dist:moe] unsharded reference: GPTConfig.small() with "
+        f"{MOE_EXPERTS} experts cut to {MOE_DIST_LAYERS} layers, "
+        f"B={MOE_DIST_B} T={MOE_DIST_T} float32, Adam({DIST_LR}) on "
+        f"forward_loss + {MOE_AUX} x aux: losses {losses + more}, ms a "
+        f"step {[round(x, 1) for x in ms + ms2]}")
     del trainer, ids
     torch.cuda.empty_cache()
+    return refs
+
+
+def check_moe_routes(torch, tag, records, out_dir, ref_routes):
+    """The ranks' tokens' experts and slots, put in the global order (dp
+    index d holds rows d * B/2 on; its ep ranks must agree bit for bit),
+    against the unsharded run's: an expert may differ only where the
+    unsharded router gap is below MOE_FLIP_GAP, and the slots must be
+    equal up to a layer's first such flip (a flipped token moves the
+    later tokens' slots). Returns (flips, slots compared)."""
+    by_dp = {}
+    for r, rec in enumerate(records):
+        routes = torch.load(os.path.join(out_dir, f"moe_routes{r}.pt"))
+        dp = rec["moe"]["coordinate"]["dp"]
+        if dp not in by_dp:
+            by_dp[dp] = routes
+        elif not all(torch.equal(a, b) for x, y in zip(by_dp[dp], routes)
+                     for a, b in zip(x, y)):
+            raise SystemExit(f"{tag} rank {r}: its routes differ from its "
+                             f"ep peer's")
+    flips = compared = 0
+    for layer, (want_e, want_slot, gap) in enumerate(ref_routes):
+        e = torch.cat([by_dp[d][layer][0] for d in sorted(by_dp)])
+        slot = torch.cat([by_dp[d][layer][1] for d in sorted(by_dp)])
+        differ = (e != want_e).nonzero().flatten().tolist()
+        bad = [i for i in differ if gap[i] >= MOE_FLIP_GAP]
+        if bad:
+            raise SystemExit(f"{tag} layer {layer}: tokens {bad[:8]} take "
+                             f"another expert where the unsharded router "
+                             f"gap is >= {MOE_FLIP_GAP}")
+        end = differ[0] if differ else len(e)
+        if not torch.equal(slot[:end], want_slot[:end]):
+            raise SystemExit(f"{tag} layer {layer}: slots differ before "
+                             f"the first flip")
+        flips += len(differ)
+        compared += end
+    return flips, compared
+
+
+def phase_dist(torch, FK):
+    """[dist:ring], [dist:ulysses], [dist:plan], [dist:fsdp] and
+    [dist:moe] against their unsharded runs, in one world of 4 ranks;
+    returns the ring entry points' launches summed over the ranks."""
+    import torch.multiprocessing as mp
+
+    refs = dist_references(torch)
+    ref_losses, ref_ms, ref_grads = refs["gpt"]
     out_dir = tempfile.mkdtemp(prefix="dist_")
     t0 = time.perf_counter()
     ctx = mp.start_processes(dist_rank, args=(
@@ -6277,7 +6637,7 @@ def phase_dist(torch, FK):
             if p.is_alive():
                 p.kill()
                 p.join()
-    log(f"[dist] 4 ranks on cuda:0, both runs, {time.perf_counter() - t0:.1f}"
+    log(f"[dist] 4 ranks on cuda:0, every run, {time.perf_counter() - t0:.1f}"
         f" s with the spawn")
     records = []
     for r in range(4):
@@ -6299,8 +6659,7 @@ def phase_dist(torch, FK):
             if run["counts"] != want:
                 raise SystemExit(f"{tag} rank {r}: launches {run['counts']} "
                                  f"!= {want}")
-            rel = max(abs(a - b) / abs(b)
-                      for a, b in zip(run["losses"], ref_losses))
+            rel = rel_losses(run["losses"], ref_losses)
             if rel > DIST_TOL[0]:
                 raise SystemExit(f"{tag} rank {r}: losses {run['losses']} "
                                  f"against {ref_losses} (rel {rel:.3e})")
@@ -6309,13 +6668,11 @@ def phase_dist(torch, FK):
                 launches[name] = sum(rec[impl]["counts"][name]
                                      for rec in records)
         grads = torch.load(os.path.join(out_dir, f"{impl}_grads.pt"))
-        worst = max(((grads[n] - g).abs().max().item()
-                     / max(g.abs().max().item(), 1e-30), n)
-                    for n, g in ref_grads.items())
+        worst = worst_grad(grads, ref_grads)
         ms = [sum(rec[impl]["ms"][1:]) / (DIST_STEPS - 1)
               for rec in records]
         log(f"{tag} dp={dp} x sp={sp}: losses within "
-            f"{max(abs(a - b) / abs(b) for a, b in zip(records[0][impl]['losses'], ref_losses)):.3e}"
+            f"{rel_losses(records[0][impl]['losses'], ref_losses):.3e}"
             f" relative of the unsharded run's; step 1 grads (the mean over "
             f"the mesh) within {worst[0]:.3e} of each parameter's largest "
             f"unsharded entry (worst {worst[1]}; gate {DIST_TOL[1]}); ms a "
@@ -6325,7 +6682,137 @@ def phase_dist(torch, FK):
             f"speed)")
         if worst[0] > DIST_TOL[1]:
             raise SystemExit(f"{tag}: step 1 gradients off by {worst}")
+    check_dist_plan(torch, records, out_dir, refs["gpt"])
+    check_dist_fsdp(torch, records, out_dir, refs["fsdp"])
+    check_dist_moe(torch, records, out_dir, refs["moe"])
     return launches
+
+
+def check_layout(tag, r, layout):
+    if layout["bad"]:
+        raise SystemExit(f"{tag} rank {r}: leaves {layout['bad'][:8]} do "
+                         f"not hold their spec's share of the whole")
+
+
+def check_dist_plan(torch, records, out_dir, ref):
+    """[dist:plan]'s gates: losses and step-1 gradients within DIST_TOL,
+    36/36/36 flash launches a rank at (6, 2) heads, every leaf its
+    spec's share."""
+    from paddle_tpu_torch.models import gpt
+
+    tag = "[dist:plan]"
+    ref_losses, ref_ms, ref_grads = ref
+    cfg = gpt.GPTConfig.small()
+    layers = cfg.num_layers * DIST_STEPS
+    heads = [[cfg.num_heads // PLAN_SIZES["tp"],
+              cfg.num_kv_heads // PLAN_SIZES["tp"]]]
+    for r, rec in enumerate(records):
+        run = rec["plan"]
+        lay = run["layout"]
+        log(f"{tag} rank {r} {run['coordinate']}: losses {run['losses']}; "
+            f"ms a step {[round(x, 1) for x in run['ms']]}; flash launches "
+            f"{run['counts']} at (q, kv) heads {run['heads']}; parameters "
+            f"{lay['param_bytes']} bytes and moments {lay['moment_bytes']} "
+            f"against {lay['whole_param_bytes']} and "
+            f"{lay['whole_moment_bytes']} replicated; staged through the "
+            f"host {run['staged_bytes']} bytes in {run['staged_copies']} "
+            f"copies; gather-at-use fallbacks {run['fallbacks']}; peak "
+            f"{run['peak_gb']:.2f} GB")
+        if run["counts"] != dict.fromkeys(FLASH_ROWS, layers):
+            raise SystemExit(f"{tag} rank {r}: flash launches "
+                             f"{run['counts']}, want {layers} each")
+        if run["heads"] != heads:
+            raise SystemExit(f"{tag} rank {r}: flash heads {run['heads']}, "
+                             f"want {heads}")
+        check_layout(tag, r, lay)
+        rel = rel_losses(run["losses"], ref_losses)
+        if rel > DIST_TOL[0]:
+            raise SystemExit(f"{tag} rank {r}: losses {run['losses']} "
+                             f"against {ref_losses} (rel {rel:.3e})")
+    worst = worst_grad(torch.load(os.path.join(out_dir, "plan_grads.pt")),
+                       ref_grads)
+    ms = sum(records[0]["plan"]["ms"][1:]) / (DIST_STEPS - 1)
+    log(f"{tag} Plan(dp=1, fsdp=2, tp=2, transformer_tp_rules()): losses "
+        f"within {rel_losses(records[0]['plan']['losses'], ref_losses):.3e} "
+        f"relative of the unsharded run's; step 1 grads (reassembled from "
+        f"the shards) within {worst[0]:.3e} of each parameter's largest "
+        f"unsharded entry (worst {worst[1]}; gate {DIST_TOL[1]}); ms a "
+        f"step (steps 2-{DIST_STEPS}, rank 0) {ms:.1f} against "
+        f"{sum(ref_ms[1:]) / (DIST_STEPS - 1):.1f} unsharded (4 ranks on "
+        f"one card over gloo: the ms price the host staging, not a "
+        f"multi-card plan)")
+    if worst[0] > DIST_TOL[1]:
+        raise SystemExit(f"{tag}: step 1 gradients off by {worst}")
+
+
+def check_dist_fsdp(torch, records, out_dir, ref):
+    """[dist:fsdp]'s gates: the largest rank's parameters and moments at
+    most half the replicated bytes (the bench's own test), losses and
+    step-1 gradients within DIST_TOL; its steady steps ran inside
+    guard_no_resharding (a reshard raises in the rank)."""
+    tag = "[dist:fsdp]"
+    ref_losses, ref_ms, ref_grads = ref
+    for r, rec in enumerate(records):
+        run = rec["fsdp"]
+        lay = run["layout"]
+        whole = lay["whole_param_bytes"] + lay["whole_moment_bytes"]
+        log(f"{tag} rank {r}: losses {run['losses']}; ms a step "
+            f"{[round(x, 1) for x in run['ms']]}; parameters "
+            f"{lay['param_bytes']} + moments {lay['moment_bytes']} bytes "
+            f"against {whole} replicated; max over the ranks "
+            f"{run['max_bytes']} ({run['max_bytes'] / whole:.3f} of "
+            f"replicated)")
+        check_layout(tag, r, lay)
+        if run["max_bytes"] > whole // 2:
+            raise SystemExit(f"{tag}: {run['max_bytes']} bytes on a rank, "
+                             f"more than half of {whole}")
+        rel = rel_losses(run["losses"], ref_losses)
+        if rel > DIST_TOL[0]:
+            raise SystemExit(f"{tag} rank {r}: losses {run['losses']} "
+                             f"against {ref_losses} (rel {rel:.3e})")
+    worst = worst_grad(torch.load(os.path.join(out_dir, "fsdp_grads.pt")),
+                       ref_grads)
+    log(f"{tag} Plan(dp=1, fsdp=4), MnistMLP({FSDP_HIDDEN}, "
+        f"{FSDP_HIDDEN}), B={FSDP_B}: step 1 grads within {worst[0]:.3e} "
+        f"(worst {worst[1]}); guard_no_resharding quiet over steps "
+        f"2-{FSDP_STEPS}; ms a step (rank 0) "
+        f"{[round(x, 1) for x in records[0]['fsdp']['ms']]} against "
+        f"{[round(x, 1) for x in ref_ms]} unsharded (gloo staging on one "
+        f"card)")
+    if worst[0] > DIST_TOL[1]:
+        raise SystemExit(f"{tag}: step 1 gradients off by {worst}")
+
+
+def check_dist_moe(torch, records, out_dir, ref):
+    """[dist:moe]'s gates: losses and step-1 gradients within DIST_TOL,
+    every token's expert and slot as unsharded (check_moe_routes)."""
+    tag = "[dist:moe]"
+    ref_losses, ref_ms, ref_grads, ref_routes = ref
+    for r, rec in enumerate(records):
+        run = rec["moe"]
+        log(f"{tag} rank {r} {run['coordinate']}: losses {run['losses']}; "
+            f"ms a step {[round(x, 1) for x in run['ms']]}; parameters "
+            f"{run['layout']['param_bytes']} bytes against "
+            f"{run['layout']['whole_param_bytes']} replicated")
+        check_layout(tag, r, run["layout"])
+        rel = rel_losses(run["losses"], ref_losses)
+        if rel > DIST_TOL[0]:
+            raise SystemExit(f"{tag} rank {r}: losses {run['losses']} "
+                             f"against {ref_losses} (rel {rel:.3e})")
+    worst = worst_grad(torch.load(os.path.join(out_dir, "moe_grads.pt")),
+                       ref_grads)
+    flips, compared = check_moe_routes(torch, tag, records, out_dir,
+                                       ref_routes)
+    kept = [float((slot >= 0).float().mean()) for _, slot, _ in ref_routes]
+    log(f"{tag} Plan(dp=2, ep=2, expert_param_spec()), {MOE_DIST_LAYERS} "
+        f"layers (a cut of depth only): step 1 grads within {worst[0]:.3e} "
+        f"(worst {worst[1]}; gate {DIST_TOL[1]}); routes: {flips} expert "
+        f"flips over the ranks' tokens, each where the unsharded router "
+        f"gap is below {MOE_FLIP_GAP}; {compared} slots compared equal; "
+        f"the unsharded run kept {[round(k, 4) for k in kept]} of each "
+        f"layer's tokens")
+    if worst[0] > DIST_TOL[1]:
+        raise SystemExit(f"{tag}: step 1 gradients off by {worst}")
 
 
 def phase_ring_timing(torch, FK, err, launches):

@@ -109,6 +109,7 @@ class MixedPrecisionOptimizer(Optimizer):
 
     def apply(self, params, grads, state):
         grads = tree_map(lambda g: g.float(), grads)  # master-grad precision
+        grads = _nan_where_any_rank_is(params, grads)
         unscaled, scaler_state, is_finite = self.scaler.unscale_and_update(
             grads, state["scaler"])
         if not self.use_dynamic:
@@ -118,6 +119,27 @@ class MixedPrecisionOptimizer(Optimizer):
             self.inner.apply(params, unscaled, state["inner"])
         state["scaler"] = scaler_state
         return params, state
+
+
+def _nan_where_any_rank_is(params, grads):
+    """``grads``, with a NaN put in where a sharding plan placed the
+    parameters (parallel/sharding.py) and another rank's shards' grads
+    are not finite: a rank sees only its shards, and every rank must
+    skip the step and move its scale alike (one host read, as the skip
+    itself)."""
+    sh = next((getattr(p, "_pt_sharding", None) for p in tree_leaves(params)
+               if getattr(p, "_pt_sharding", None) is not None), None)
+    if sh is None:
+        return grads
+    from .parallel.collective import allreduce
+
+    leaves = tree_leaves(grads)
+    mine = torch.stack([torch.isfinite(g).all() for g in leaves]).all()
+    every = allreduce(mine.float().reshape(1), tuple(sh.mesh.axis_names),
+                      "min", mesh=sh.mesh)
+    if bool(mine) and not bool(every):
+        return tree_map(lambda g: g * float("nan"), grads)
+    return grads
 
 
 def decorate(optimizer: Optimizer,

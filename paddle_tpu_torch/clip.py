@@ -44,6 +44,21 @@ class GradientClipByValue:
         return tree_map(lambda g: torch.clamp(g, self.min, self.max), grads)
 
 
+def sq_sum(x, sharding=None) -> torch.Tensor:
+    """The sum of squares of ``x``, in its dtype; summed over the ranks
+    that hold the other shards where ``x`` is a placed shard (its
+    ``_pt_sharding``, or ``sharding``: parallel/sharding.py), so every
+    rank gets the whole tensor's."""
+    out = torch.sum(torch.square(x))
+    sh = sharding if sharding is not None else getattr(
+        x, "_pt_sharding", None)
+    if sh is not None and sh.axes():
+        from .parallel.collective import allreduce
+
+        out = allreduce(out, sh.axes(), mesh=sh.mesh)
+    return out
+
+
 class GradientClipByNorm:
     """Per-tensor L2 clip (reference: clip.py GradientClipByNorm)."""
 
@@ -52,7 +67,7 @@ class GradientClipByNorm:
 
     def __call__(self, grads):
         def clip_one(g):
-            norm = torch.sqrt(torch.sum(torch.square(g)))
+            norm = torch.sqrt(sq_sum(g))
             return torch.where(norm > self.clip_norm,
                                g * (self.clip_norm / norm), g)
 
@@ -60,8 +75,9 @@ class GradientClipByNorm:
 
 
 def global_norm(grads) -> torch.Tensor:
-    """L2 norm of every leaf together, in float32."""
-    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
+    """L2 norm of every leaf together, in float32 (a placed shard's part
+    summed over its ranks: :func:`sq_sum`)."""
+    return torch.sqrt(sum(sq_sum(g.float(), getattr(g, "_pt_sharding", None))
                           for g in tree_leaves(grads)))
 
 

@@ -37,7 +37,7 @@ from __future__ import annotations
 import contextlib
 import itertools
 import os
-from typing import Dict, Optional, Sequence, Union
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -71,19 +71,29 @@ def _default_device(rank: int) -> torch.device:
 
 
 class Mesh:
-    """Ranks laid out over the named axes. ``devices``: the (dp, pp, tp,
-    sp, ep) array of global ranks (the JAX mesh's ``devices``); ``shape``
-    the {axis: size} dict; ``rank`` this process's global rank,
+    """Ranks laid out over named axes (``jax.sharding.Mesh``).
+    ``devices``: the array of global ranks, one dim per name of
+    ``axis_names`` (default :data:`AXIS_NAMES`, ``build_mesh``'s (dp, pp,
+    tp, sp, ep); a plan's mesh is (dp, fsdp, tp[, ep]), parallel/plan.py);
+    ``shape`` the {axis: size} dict; ``rank`` this process's global rank,
     ``coordinate`` its {axis: index}; ``device`` its torch device.
-    Built by :func:`build_mesh` and friends; when a process group with
-    more than one rank is up, the constructor creates the axis groups,
-    so every rank must build the same meshes in the same order."""
+    ``batch_axes``: the axes the global batch's rows split over (``dp``
+    and ``fsdp`` where the mesh has them; a plan sets its own), and
+    :attr:`data_axes` those and ``sp``, where ranks hold different
+    tokens. Built by :func:`build_mesh` and friends; when a process
+    group with more than one rank is up, the constructor creates the
+    axis groups, so every rank must build the same meshes in the same
+    order."""
 
-    def __init__(self, devices, *, device=None):
+    def __init__(self, devices, axis_names: Sequence[str] = AXIS_NAMES, *,
+                 device=None):
         devices = np.asarray(devices, dtype=np.int64)
-        enforce(devices.ndim == len(AXIS_NAMES),
-                "a mesh is (dp, pp, tp, sp, ep)-shaped, got %s",
-                devices.shape)
+        axis_names = tuple(axis_names)
+        enforce(len(set(axis_names)) == len(axis_names),
+                "mesh axis names repeat: %s", axis_names)
+        enforce(devices.ndim == len(axis_names),
+                "a mesh over axes %s needs a %s-dim device array, got %s",
+                axis_names, len(axis_names), devices.shape)
         rank, world = _world()
         ranks = sorted(devices.ravel().tolist())
         # a mesh spans the process group's ranks, or this rank alone;
@@ -94,13 +104,15 @@ class Mesh:
                 "the mesh's ranks %s are not the %s ranks of the process "
                 "group", ranks, world)
         self.devices = devices
-        self.axis_names = AXIS_NAMES
-        self.shape: Dict[str, int] = dict(zip(AXIS_NAMES, devices.shape))
+        self.axis_names = axis_names
+        self.shape: Dict[str, int] = dict(zip(axis_names, devices.shape))
         self.size = int(devices.size)
         self.rank = rank
         where = np.argwhere(devices == rank)[0]
         self.coordinate: Dict[str, int] = {
-            a: int(i) for a, i in zip(AXIS_NAMES, where)}
+            a: int(i) for a, i in zip(axis_names, where)}
+        self.batch_axes: Tuple[str, ...] = tuple(
+            a for a in ("dp", "fsdp") if a in self.shape)
         self.device = (torch.device(device) if device is not None
                        else _default_device(rank))
         self._groups = {}
@@ -114,12 +126,25 @@ class Mesh:
 
     # --- axes --------------------------------------------------------------
 
+    @property
+    def data_axes(self) -> Tuple[str, ...]:
+        """The batch axes, then ``sp``, that have more than one rank: the
+        axes over which ranks hold different tokens of the global batch
+        (a model's loss and batch statistics reduce over them; ``tp`` and
+        ``ep`` ranks hold the same rows)."""
+        axes = self.batch_axes + (("sp",) if "sp" in self.shape else ())
+        return tuple(a for a in axes if self.shape[a] > 1)
+
+    def size_of(self, name: str) -> int:
+        """The size of axis ``name``; 1 where the mesh has no such axis."""
+        return int(self.shape.get(name, 1))
+
     def axis_size(self, axis: Axis) -> int:
         """The product of the sizes of ``axis`` (a name or names)."""
         out = 1
         for a in _axes(axis):
             enforce(a in self.shape, "unknown mesh axis %r (the mesh has "
-                    "%s)", a, list(AXIS_NAMES))
+                    "%s)", a, list(self.axis_names))
             out *= self.shape[a]
         return out
 
@@ -138,10 +163,10 @@ class Mesh:
         self.axis_size(names)
         sub = self.devices[tuple(
             slice(None) if a in names else self.coordinate[a]
-            for a in AXIS_NAMES)]
+            for a in self.axis_names)]
         # the remaining dims are the named axes in mesh order; put them in
         # the caller's order, the first name outermost
-        kept = [a for a in AXIS_NAMES if a in names]
+        kept = [a for a in self.axis_names if a in names]
         sub = np.transpose(sub, [kept.index(a) for a in names])
         return [int(r) for r in sub.ravel()]
 
@@ -164,15 +189,16 @@ class Mesh:
     def _make_groups(self):
         import torch.distributed as dist
 
-        big = [a for a in AXIS_NAMES if self.shape[a] > 1]
+        names_all = list(self.axis_names)
+        big = [a for a in names_all if self.shape[a] > 1]
         for r in range(1, len(big) + 1):
             for names in itertools.combinations(big, r):
                 if len(names) == len(big):
                     self._groups[frozenset(names)] = dist.group.WORLD
                     continue
-                rest = [a for a in AXIS_NAMES if a not in names]
+                rest = [a for a in names_all if a not in names]
                 moved = np.moveaxis(
-                    self.devices, [AXIS_NAMES.index(a) for a in rest],
+                    self.devices, [names_all.index(a) for a in rest],
                     range(len(rest)))
                 subs = moved.reshape(-1, self.axis_size(names))
                 mine, _ = dist.new_subgroups_by_enumeration(
@@ -182,14 +208,14 @@ class Mesh:
     @property
     def device_mesh(self):
         """The layout as a ``torch.distributed.device_mesh.DeviceMesh``
-        with the JAX axis names (built at first use, by every rank
+        with the mesh's axis names (built at first use, by every rank
         together; needs the process group)."""
         if self._device_mesh is None:
             from torch.distributed.device_mesh import DeviceMesh
 
             self._device_mesh = DeviceMesh(
                 self.device.type, torch.as_tensor(self.devices),
-                mesh_dim_names=AXIS_NAMES)
+                mesh_dim_names=self.axis_names)
         return self._device_mesh
 
 
@@ -277,6 +303,32 @@ def get_mesh() -> Mesh:
     if _current_mesh is None:
         _current_mesh = Mesh(np.full((1,) * len(AXIS_NAMES), _world()[0]))
     return _current_mesh
+
+
+_local_batch = False
+
+
+@contextlib.contextmanager
+def local_batch():
+    """Inside, :func:`reduce_axes` is empty: each rank's losses and batch
+    statistics are its own rows', as in the body of the JAX package's
+    ``shard_map`` (a pure data-parallel plan's step, parallel/plan.py
+    ``compile_step``), whose caller then averages over the mesh."""
+    global _local_batch
+    prev, _local_batch = _local_batch, True
+    try:
+        yield
+    finally:
+        _local_batch = prev
+
+
+def reduce_axes(mesh: Optional["Mesh"] = None) -> Tuple[str, ...]:
+    """The axes over which a model's losses, batch statistics and MoE
+    routing take the global batch: the current mesh's
+    :attr:`Mesh.data_axes`, or none inside :func:`local_batch`."""
+    if _local_batch:
+        return ()
+    return (mesh or get_mesh()).data_axes
 
 
 def set_mesh(mesh: Mesh) -> Mesh:

@@ -1,7 +1,8 @@
 """The port's counterparts of ``jax.sharding.PartitionSpec`` and
 ``jax.sharding.NamedSharding``, which the JAX package takes from JAX
 itself: a spec of mesh axes per tensor dimension, and a mesh with a spec
-(core/mesh.py builds the meshes)."""
+(core/mesh.py builds the meshes). A spec may name any axis of its mesh:
+``build_mesh``'s (dp, pp, tp, sp, ep) or a plan's (dp, fsdp, tp[, ep])."""
 
 from __future__ import annotations
 
@@ -21,10 +22,15 @@ class PartitionSpec(tuple):
     PartitionSpec``): one entry per leading dimension, each None
     (replicated), an axis name or a tuple of names (split over their
     product, the first name outermost); dimensions past the entries are
-    replicated."""
+    replicated. A tuple of one name is that name, as JAX stores it."""
 
     def __new__(cls, *parts):
+        parts = tuple(p[0] if isinstance(p, tuple) and len(p) == 1 else p
+                      for p in parts)
         return super().__new__(cls, parts)
+
+    def __reduce__(self):
+        return (PartitionSpec, tuple(self))
 
     def __repr__(self):
         return f"PartitionSpec{tuple(self)!r}"
@@ -51,12 +57,23 @@ class NamedSharding:
     def placements(self):
         from torch.distributed.tensor import Replicate, Shard
 
-        out = [Replicate()] * len(AXIS_NAMES)
+        names = tuple(self.mesh.axis_names)
+        out = [Replicate()] * len(names)
         for dim, part in enumerate(self.spec):
             if part is not None:
                 for a in _axes(part):
-                    out[AXIS_NAMES.index(a)] = Shard(dim)
+                    out[names.index(a)] = Shard(dim)
         return tuple(out)
+
+    def axes(self) -> Tuple[str, ...]:
+        """The mesh axes the spec splits over, in spec order."""
+        return tuple(a for part in self.spec if part is not None
+                     for a in _axes(part))
+
+    def local_shape(self, shape: Iterable[int]) -> Tuple[int, ...]:
+        """The shape of this rank's shard of a global ``shape``."""
+        return tuple(s.stop - s.start if s.stop is not None else n
+                     for s, n in zip(self.index(shape), tuple(shape)))
 
     def index(self, shape: Iterable[int]):
         shape = tuple(shape)

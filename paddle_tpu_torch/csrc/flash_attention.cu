@@ -1328,33 +1328,87 @@ int launch(int kind, const FlashArgs& a, cudaStream_t s) {
 // others their per-entry work compiles out. As runtime branches in one
 // instance they made the option-free bfloat16 kernels 7-25% slower
 // (tools/torch_kernel_ab.py --sections flash, H100 SXM at 700 W).
-template <typename T, bool kOpt>
+// kWide: head dims 128 and 256; else 64.
+template <typename T, bool kOpt, bool kWide>
 int launch_d(int kind, const FlashArgs& a, cudaStream_t stream) {
-  switch (a.D) {
-    case 64:
-      return launch<T, 64, kOpt>(kind, a, stream);
-    case 128:
-      return launch<T, 128, kOpt>(kind, a, stream);
-    case 256:
-      return launch<T, 256, kOpt>(kind, a, stream);
+  if constexpr (kWide) {
+    if (a.D == 128) return launch<T, 128, kOpt>(kind, a, stream);
+    if (a.D == 256) return launch<T, 256, kOpt>(kind, a, stream);
+  } else {
+    if (a.D == 64) return launch<T, 64, kOpt>(kind, a, stream);
   }
   return -3;
 }
 
-template <typename T>
-int launch_o(int kind, const FlashArgs& a, cudaStream_t stream) {
-  return a.seg || a.dropout_p > 0.f ? launch_d<T, true>(kind, a, stream)
-                                    : launch_d<T, false>(kind, a, stream);
-}
+}  // namespace
+
+// The instances split over translation units that nvcc builds in
+// parallel (ops/kernels/_build.py): built with -DPT_FLASH_PART=k, part k
+// of 1-8 holds the kernels of one (dtype, options, head dim 64 or wider)
+// triple and part 0 the entry points, which pick a part; built without
+// PT_FLASH_PART, the file is all of them in one unit.
+#ifdef PT_FLASH_PART
+#define PT_FLASH_HAS(k) (PT_FLASH_PART == (k))
+#else
+#define PT_FLASH_HAS(k) 1
+#endif
+#define PT_FLASH_PART_FN(k, T, kOpt, kWide)                              \
+  int pt_flash_part##k(int kind, const FlashArgs* a, void* stream) {     \
+    return launch_d<T, kOpt, kWide>(kind, *a,                            \
+                                    static_cast<cudaStream_t>(stream)); \
+  }
+
+extern "C" {
+
+int pt_flash_part1(int kind, const FlashArgs* a, void* stream);
+int pt_flash_part2(int kind, const FlashArgs* a, void* stream);
+int pt_flash_part3(int kind, const FlashArgs* a, void* stream);
+int pt_flash_part4(int kind, const FlashArgs* a, void* stream);
+int pt_flash_part5(int kind, const FlashArgs* a, void* stream);
+int pt_flash_part6(int kind, const FlashArgs* a, void* stream);
+int pt_flash_part7(int kind, const FlashArgs* a, void* stream);
+int pt_flash_part8(int kind, const FlashArgs* a, void* stream);
+
+#if PT_FLASH_HAS(1)
+PT_FLASH_PART_FN(1, float, false, false)
+#endif
+#if PT_FLASH_HAS(2)
+PT_FLASH_PART_FN(2, float, false, true)
+#endif
+#if PT_FLASH_HAS(3)
+PT_FLASH_PART_FN(3, float, true, false)
+#endif
+#if PT_FLASH_HAS(4)
+PT_FLASH_PART_FN(4, float, true, true)
+#endif
+#if PT_FLASH_HAS(5)
+PT_FLASH_PART_FN(5, __nv_bfloat16, false, false)
+#endif
+#if PT_FLASH_HAS(6)
+PT_FLASH_PART_FN(6, __nv_bfloat16, false, true)
+#endif
+#if PT_FLASH_HAS(7)
+PT_FLASH_PART_FN(7, __nv_bfloat16, true, false)
+#endif
+#if PT_FLASH_HAS(8)
+PT_FLASH_PART_FN(8, __nv_bfloat16, true, true)
+#endif
+
+}  // extern "C"
+
+#if PT_FLASH_HAS(0)
+namespace {
 
 int dispatch(int kind, int dtype, const FlashArgs* a, void* stream) {
+  static int (*const parts[8])(int, const FlashArgs*, void*) = {
+      pt_flash_part1, pt_flash_part2, pt_flash_part3, pt_flash_part4,
+      pt_flash_part5, pt_flash_part6, pt_flash_part7, pt_flash_part8};
   if (a->B <= 0 || a->Hkv <= 0 || a->H % a->Hkv != 0 || a->Tq % kSeqStep ||
       a->Tk % kSeqStep || a->Tq <= 0 || a->Tk <= 0)
     return -1;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_o<float>(kind, *a, s);
-  if (dtype == 1) return launch_o<__nv_bfloat16>(kind, *a, s);
-  return -2;
+  if (dtype != 0 && dtype != 1) return -2;
+  const bool opt = a->seg || a->dropout_p > 0.f;
+  return parts[4 * dtype + 2 * opt + (a->D != 64)](kind, a, stream);
 }
 
 }  // namespace
@@ -1381,3 +1435,4 @@ int pt_flash_dkv(int dtype, const FlashArgs* a, void* stream) {
 size_t pt_flash_args_size(void) { return sizeof(FlashArgs); }
 
 }  // extern "C"
+#endif  // PT_FLASH_HAS(0)

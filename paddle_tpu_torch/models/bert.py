@@ -22,6 +22,7 @@ from ..core.dtypes import get_policy
 from ..core.places import resolve_device
 from ..core.random import make_generator
 from ..metrics import accuracy
+from ..nn.layer import use
 from ..nn.transformer import TransformerEncoder
 from ..ops import loss as L
 from ..ops.fused_loss import linear_cross_entropy, mean_linear_cross_entropy
@@ -194,8 +195,8 @@ class BertForPretraining(nn.Layer):
         b, t, d = h_mlm.shape
         pol = get_policy()
         args = (pol.cast_to_compute(h_mlm.reshape(b * t, d)),
-                pol.cast_to_compute(self.mlm_decoder.weight),
-                pol.cast_to_compute(self.mlm_decoder.bias),
+                pol.cast_to_compute(use(self.mlm_decoder.weight)),
+                pol.cast_to_compute(use(self.mlm_decoder.bias)),
                 labels.reshape(-1))
         if mesh_parallel():
             losses = linear_cross_entropy(*args, chunk=vocab_chunk,

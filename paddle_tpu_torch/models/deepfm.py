@@ -26,6 +26,7 @@ import torch
 from .. import nn
 from ..core.enforce import UnimplementedError, enforce
 from ..core.places import resolve_device
+from ..nn.layer import use
 from ..ops import loss as L
 
 
@@ -113,7 +114,7 @@ class DeepFM(nn.Layer):
         if dense is not None:
             flat = torch.cat([flat, dense], dim=-1)
         deep = self.mlp(flat)[:, 0]
-        return first + second + deep + self.bias[0]    # logits (B,)
+        return first + second + deep + use(self.bias)[0]    # logits (B,)
 
 
 def loss_fn(logits, labels):

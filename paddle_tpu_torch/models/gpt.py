@@ -22,7 +22,7 @@ from .. import nn
 from ..core.enforce import InvalidArgumentError, enforce
 from ..core.places import resolve_device
 from ..core.random import make_generator
-from ..nn.layer import Layer, remat_call
+from ..nn.layer import Layer, remat_call, use, weight_placed
 from ..parallel.context_parallel import (mesh_parallel, seq_gather,
                                          seq_shard, seq_sharded, token_mean)
 
@@ -73,7 +73,10 @@ def _check_supported(cfg: GPTConfig):
 
 
 class _SwiGLU(Layer):
-    """Gated FFN: down(silu(gate(x)) * up(x)) — the Llama MLP."""
+    """Gated FFN: down(silu(gate(x)) * up(x)) — the Llama MLP. Under a
+    sharding plan that places ``gate`` and ``up`` column-parallel and
+    ``down`` row-parallel (``transformer_tp_rules``), the rank computes
+    its columns and one sum over ``tp`` closes the product."""
 
     def __init__(self, d_model: int, d_ff: int, dropout: float = 0.0, *,
                  dtype=None, device=None, generator=None):
@@ -86,7 +89,18 @@ class _SwiGLU(Layer):
         self.drop = nn.Dropout(dropout)
 
     def forward(self, x):
-        return self.drop(self.down(F.silu(self.gate(x)) * self.up(x)))
+        tp = None
+        if weight_placed(self.down):
+            from ..parallel.sharding import tp_pair
+
+            tp = tp_pair([self.gate, self.up], self.down, kind="SwiGLU")
+        if tp is None:
+            return self.drop(self.down(F.silu(self.gate(x)) * self.up(x)))
+        from ..parallel.collective import copy_to_tp
+
+        xc = copy_to_tp(x, tp[0])
+        return self.drop(self.down.row(
+            F.silu(self.gate.column(xc)) * self.up.column(xc), tp[0]))
 
 
 class GPTBlock(Layer):
@@ -175,8 +189,10 @@ class GPTForCausalLM(Layer):
         return self.embed.weight.device
 
     def _head_weight(self):
-        return (self.embed.weight.T if self.cfg.tie_embeddings
-                else self.lm_head)
+        # a sharding plan's vocab-sharded table is gathered at use here
+        # too (nn/layer.py ``use``)
+        return (use(self.embed.weight).T if self.cfg.tie_embeddings
+                else use(self.lm_head))
 
     def _trunk(self, ids, kv_mask=None):
         _check_supported(self.cfg)

@@ -32,6 +32,7 @@ from .. import nn
 from ..core.dtypes import get_policy
 from ..core.enforce import enforce
 from ..core.places import resolve_device
+from ..nn.layer import use
 from ..nn.transformer import (PositionalEncoding, TransformerDecoder,
                               TransformerEncoder, decoder_layer_step)
 from ..ops import decode as DCD
@@ -141,8 +142,8 @@ class TransformerNMT(nn.Layer):
         labels = torch.where(tgt_labels == self.cfg.pad_id, -100, tgt_labels)
         pol = get_policy()
         args = (pol.cast_to_compute(h.reshape(b * t, d)),
-                pol.cast_to_compute(self.generator.weight),
-                pol.cast_to_compute(self.generator.bias),
+                pol.cast_to_compute(use(self.generator.weight)),
+                pol.cast_to_compute(use(self.generator.bias)),
                 labels.reshape(-1))
         if mesh_parallel():
             # the global batch's token mean (the hidden states are whole

@@ -23,6 +23,7 @@ from .. import initializer as I
 from .. import nn
 from ..core.enforce import enforce
 from ..core.places import resolve_device
+from ..nn.layer import use
 from ..ops import loss as L
 
 
@@ -105,9 +106,9 @@ class ViT(nn.Layer):
                 cfg.image_size, cfg.patch_size)
         x = p.reshape(b, self.num_patches, cfg.hidden_size)
         if cfg.pool == "cls":
-            cls = self.cls_token.expand(b, 1, cfg.hidden_size)
+            cls = use(self.cls_token).expand(b, 1, cfg.hidden_size)
             x = torch.cat([cls.to(x.dtype), x], dim=1)
-        x = self.drop(x + self.pos_embed.to(x.dtype))
+        x = self.drop(x + use(self.pos_embed).to(x.dtype))
         x = self.encoder(x)
         pooled = x[:, 0] if cfg.pool == "cls" else torch.mean(x, dim=1)
         return self.head(pooled)

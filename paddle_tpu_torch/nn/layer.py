@@ -360,6 +360,25 @@ def stacked_parameters(layers) -> Dict[str, torch.Tensor]:
     return {k: torch.stack([p[k] for p in per]) for k in names}
 
 
+def use(t):
+    """``t`` whole: all-gathered at use when it is a sharding plan's
+    placed shard (parallel/sharding.py; the backward gives the rank its
+    shard's gradient), else ``t`` itself."""
+    sh = getattr(t, "_pt_sharding", None)
+    if sh is None:
+        return t
+    from ..parallel.collective import gather_at_use
+
+    return gather_at_use(t, sh)
+
+
+def weight_placed(layer) -> bool:
+    """Whether ``layer``'s ``weight`` is a sharding plan's placed shard
+    (False for a layer without one: a W8A16 or int8 swap's)."""
+    return getattr(getattr(layer, "weight", None), "_pt_sharding",
+                   None) is not None
+
+
 def detach_buffers(module: nn.Module) -> None:
     """Replace each buffer of ``module`` that carries an autograd graph
     (a SwitchFFN's aux terms recorded in a training forward, nn/moe.py)

@@ -16,6 +16,7 @@ returned, so the call shapes stay those of the JAX methods."""
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Sequence, Union
 
 import torch
@@ -28,7 +29,8 @@ from ..core.random import current_generator
 from ..ops import math as OM
 from ..ops import nn as ON
 from ..ops.math import activation
-from .layer import Layer, LayerList  # noqa: F401 - LayerList re-exported
+from .layer import LayerList  # noqa: F401 - re-exported
+from .layer import Layer, use, weight_placed
 
 
 def _apply_act(x, act: Optional[str]):
@@ -64,15 +66,48 @@ class Linear(Layer):
                                   generator=generator)
 
     def forward(self, x):
-        # the policy's casts (core/dtypes.py): x, weight and bias to the
-        # compute dtype, the product and bias add there, the result to
-        # the output dtype before ``act``; the parameters stay masters
+        # a sharding plan's placed weight is gathered at use (nn/layer.py
+        # ``use``); the column- and row-parallel forms are
+        # :meth:`column` and :meth:`row`
+        return _apply_act(_linear(x, use(self.weight),
+                                  use(self.bias) if self.has_bias else None),
+                          self.act)
+
+    def column(self, x):
+        """This rank's output columns of a column-parallel layer (weight
+        placed ``P(None, tp)``, bias ``P(tp)``): ``x`` (whole, already
+        through ``copy_to_tp``) times its weight shard, plus its bias
+        shard; ``act`` applied."""
+        return _apply_act(_linear(x, self.weight,
+                                  self.bias if self.has_bias else None),
+                          self.act)
+
+    def row(self, x, axis):
+        """A row-parallel layer (weight placed ``P(tp, None)``): ``x``,
+        this rank's input columns, times its weight rows, summed over
+        ``axis`` (``reduce_from_tp``), plus the whole bias; ``act``
+        applied."""
+        from ..parallel.collective import reduce_from_tp
+
         pol = get_policy()
-        out = torch.matmul(pol.cast_to_compute(x),
-                           pol.cast_to_compute(self.weight))
+        out = reduce_from_tp(torch.matmul(pol.cast_to_compute(x),
+                                          pol.cast_to_compute(self.weight)),
+                             axis)
         if self.has_bias:
             out = out + pol.cast_to_compute(self.bias)
         return _apply_act(pol.cast_to_output(out), self.act)
+
+
+def _linear(x, w, b):
+    """``x @ w (+ b)`` under the policy's casts (core/dtypes.py): x,
+    weight and bias to the compute dtype, the product and bias add
+    there, the result to the output dtype; the parameters stay
+    masters."""
+    pol = get_policy()
+    out = torch.matmul(pol.cast_to_compute(x), pol.cast_to_compute(w))
+    if b is not None:
+        out = out + pol.cast_to_compute(b)
+    return pol.cast_to_output(out)
 
 
 def _kernel(kernel_size):
@@ -113,13 +148,13 @@ class Conv2D(Layer):
     def forward(self, x):
         pol = get_policy()
         out = ON.conv2d(pol.cast_to_compute(x),
-                        pol.cast_to_compute(self.weight), self.stride,
+                        pol.cast_to_compute(use(self.weight)), self.stride,
                         self.padding, self.dilation, self.groups,
                         data_format=self.data_format)
         if self.has_bias:
             bshape = ((1, -1, 1, 1) if self.data_format == "NCHW"
                       else (1, 1, 1, -1))
-            out = out + pol.cast_to_compute(self.bias).reshape(bshape)
+            out = out + pol.cast_to_compute(use(self.bias)).reshape(bshape)
         return _apply_act(pol.cast_to_output(out), self.act)
 
 
@@ -149,11 +184,12 @@ class Conv2DTranspose(Layer):
     def forward(self, x):
         pol = get_policy()
         out = ON.conv2d_transpose(pol.cast_to_compute(x),
-                                  pol.cast_to_compute(self.weight),
+                                  pol.cast_to_compute(use(self.weight)),
                                   self.stride, self.padding,
                                   self.dilation, self.groups)
         if self.has_bias:
-            out = out + pol.cast_to_compute(self.bias).reshape(1, -1, 1, 1)
+            out = out + pol.cast_to_compute(use(self.bias)).reshape(
+                1, -1, 1, 1)
         return _apply_act(pol.cast_to_output(out), self.act)
 
 
@@ -185,7 +221,14 @@ class BatchNorm(Layer):
     batch's statistics normalise and the buffers move as
     ``momentum * old + (1 - momentum) * batch`` (biased variance), in
     place; in eval mode the buffers normalise. No policy cast, as in the
-    JAX package."""
+    JAX package.
+
+    Under a mesh whose data axes hold more than one rank
+    (core/mesh.py ``reduce_axes``), the batch is the global one, as
+    GSPMD runs the JAX layer: the per-channel sums, the counts and the
+    centred sums of squares are all-reduced over those axes
+    (differentiably), so every rank normalises with the global mean and
+    biased variance and moves its buffers identically."""
 
     def __init__(self, num_channels: int, momentum: float = 0.9,
                  epsilon: float = 1e-5, act: Optional[str] = None,
@@ -207,15 +250,55 @@ class BatchNorm(Layer):
             (num_channels,), dtype=torch.float32, device=device))
 
     def forward(self, x):
-        y, new_mean, new_var = ON.batch_norm(
-            x, self.weight, self.bias, self.mean, self.variance,
-            training=self.training, momentum=self.momentum,
-            epsilon=self.epsilon, data_layout=self.data_layout)
+        from ..core.mesh import reduce_axes
+
+        axes = reduce_axes() if self.training else ()
+        if axes:
+            y, new_mean, new_var = self._global_batch_norm(x, axes)
+        else:
+            y, new_mean, new_var = ON.batch_norm(
+                x, use(self.weight), use(self.bias), use(self.mean),
+                use(self.variance), training=self.training,
+                momentum=self.momentum, epsilon=self.epsilon,
+                data_layout=self.data_layout)
         if self.training:
+            new_mean, new_var = _mine(self.mean, new_mean), \
+                _mine(self.variance, new_var)
             with torch.no_grad():
                 self.mean.copy_(new_mean)
                 self.variance.copy_(new_var)
         return _apply_act(y, self.act)
+
+
+    def _global_batch_norm(self, x, axes):
+        """Training batch norm over the global batch: this rank's rows
+        normalised by the statistics of every rank's along ``axes``."""
+        from ..parallel.collective import allreduce
+
+        c_axis = 1 if self.data_layout == "NCHW" else x.ndim - 1
+        dims = tuple(i for i in range(x.ndim) if i != c_axis)
+        shape = tuple(x.shape[c_axis] if i == c_axis else 1
+                      for i in range(x.ndim))
+        count = allreduce(torch.tensor(float(x.numel() // x.shape[c_axis]),
+                                       device=x.device), axes)
+        mean = allreduce(x.sum(dim=dims), axes) / count
+        centred = x - mean.reshape(shape)
+        var = allreduce(torch.square(centred).sum(dim=dims), axes) / count
+        y = centred * torch.rsqrt(var + self.epsilon).reshape(shape)
+        y = y * use(self.weight).reshape(shape) + use(self.bias).reshape(
+            shape)
+        with torch.no_grad():
+            m = self.momentum
+            new_mean = m * use(self.mean) + (1 - m) * mean
+            new_var = m * use(self.variance) + (1 - m) * var
+        return y, new_mean, new_var
+
+
+def _mine(buf, value):
+    """This rank's shard of ``value`` where the buffer ``buf`` is a placed
+    shard (parallel/sharding.py), else ``value``."""
+    sh = getattr(buf, "_pt_sharding", None)
+    return value if sh is None else value[sh.index(value.shape)]
 
 
 class GroupNorm(Layer):
@@ -235,7 +318,7 @@ class GroupNorm(Layer):
                               generator=generator)
 
     def forward(self, x):
-        return ON.group_norm(x, self.weight, self.bias,
+        return ON.group_norm(x, use(self.weight), use(self.bias),
                              groups=self.num_groups, epsilon=self.epsilon)
 
 
@@ -253,7 +336,7 @@ class PRelu(Layer):
                               device=device, generator=generator)
 
     def forward(self, x):
-        return OM.prelu(x, self.alpha, self.mode)
+        return OM.prelu(x, use(self.alpha), self.mode)
 
 
 class BilinearTensorProduct(Layer):
@@ -278,7 +361,7 @@ class BilinearTensorProduct(Layer):
 
     def forward(self, x, y):
         return OM.bilinear_tensor_product(
-            x, y, self.weight, self.bias if self.has_bias else None)
+            x, y, use(self.weight), use(self.bias) if self.has_bias else None)
 
 
 class SpectralNorm(Layer):
@@ -330,7 +413,7 @@ class RMSNorm(Layer):
                               device=device, generator=generator)
 
     def forward(self, x):
-        return ON.rms_norm(x, self.weight, epsilon=self.epsilon)
+        return ON.rms_norm(x, use(self.weight), epsilon=self.epsilon)
 
 
 class Embedding(Layer):
@@ -371,7 +454,7 @@ class Embedding(Layer):
                 rows = torch.where((ids == self.padding_idx)[..., None],
                                    0.0, rows)
             return rows
-        return ON.embedding(ids, self.weight, self.padding_idx)
+        return ON.embedding(ids, use(self.weight), self.padding_idx)
 
 
 class LayerNorm(Layer):
@@ -400,8 +483,8 @@ class LayerNorm(Layer):
     def forward(self, x):
         begin = x.ndim - len(self.normalized_shape)
         return ON.layer_norm(
-            x, self.weight if self.has_scale else None,
-            self.bias if self.has_shift else None,
+            x, use(self.weight) if self.has_scale else None,
+            use(self.bias) if self.has_shift else None,
             begin_norm_axis=begin, epsilon=self.epsilon)
 
 
@@ -425,6 +508,20 @@ class Dropout(Layer):
             return ON.dropout(x, self.p, training=False, mode=self.mode)
         return ON.dropout(x, self.p, current_generator(), training=True,
                           mode=self.mode)
+
+    def columns(self, x, index: int, n: int):
+        """Dropout on a tensor-parallel rank's columns: ``x`` holds last-
+        dim columns ``index`` of ``n`` equal shares of the whole
+        activation, and takes those columns of the mask the whole one
+        would draw (the unsharded layer's mask, from the same key)."""
+        if not self.training or self.p == 0.0:
+            return self(x)
+        k = x.shape[-1]
+        ones = torch.ones(x.shape[:-1] + (k * n,), dtype=x.dtype,
+                          device=x.device)
+        scale = ON.dropout(ones, self.p, current_generator(), training=True,
+                           mode=self.mode)
+        return x * scale[..., index * k:(index + 1) * k]
 
 
 class _MHADecodeMixin:
@@ -717,15 +814,20 @@ class MultiHeadAttention(_MHADecodeMixin, Layer):
     def forward(self, query, key=None, value=None, attn_mask=None,
                 causal: bool = False, segment_ids=None,
                 window: Optional[int] = None):
-        from ..ops.attention import (rotary_embedding,
+        from ..ops.attention import (head_window, rotary_embedding,
                                      scaled_dot_product_attention)
 
         key = query if key is None else key
         value = key if value is None else value
         b, tq, d = query.shape
         tk = key.shape[1]
-        q = self.q_proj(query).reshape(b, tq, self.num_heads, self.head_dim)
-        k, v = self.project_kv(key, value)
+        tp = self._tp()
+        if tp is None:
+            q = self.q_proj(query).reshape(b, tq, self.num_heads,
+                                           self.head_dim)
+            k, v = self.project_kv(key, value)
+        else:
+            q, k, v = self._tp_project(query, key, value, *tp)
         if self.rotary:
             enforce(tk == tq, "rotary MHA is self-attention shaped "
                     "(tq=%s != tk=%s)", tq, tk)
@@ -739,15 +841,55 @@ class MultiHeadAttention(_MHADecodeMixin, Layer):
         if self.seq_parallel is not None:
             out = self._seq_parallel(q, k, v, attn_mask, causal,
                                      segment_ids, window)
-            return self.out_proj(out.reshape(b, tq, d))
-        dropping = self.training and self.dropout_p > 0
-        out = scaled_dot_product_attention(
-            q, k, v, mask=attn_mask, causal=causal,
-            dropout_p=self.dropout_p if dropping else 0.0,
-            dropout_key=current_generator() if dropping else None,
-            use_flash=self.use_flash, segment_ids=segment_ids,
-            window=window)
-        return self.out_proj(out.reshape(b, tq, d))
+        else:
+            dropping = self.training and self.dropout_p > 0
+            with (contextlib.nullcontext() if tp is None else head_window(
+                    tp[2] * q.shape[2], self.num_heads)):
+                out = scaled_dot_product_attention(
+                    q, k, v, mask=attn_mask, causal=causal,
+                    dropout_p=self.dropout_p if dropping else 0.0,
+                    dropout_key=current_generator() if dropping else None,
+                    use_flash=self.use_flash, segment_ids=segment_ids,
+                    window=window)
+        out = out.reshape(b, tq, q.shape[2] * self.head_dim)
+        if tp is None:
+            return self.out_proj(out)
+        return self.out_proj.row(out, tp[0])
+
+    def _tp(self):
+        """(axis, size, index) where a sharding plan placed the q/k/v
+        weights column-parallel and ``out_proj`` row-parallel over one
+        axis that divides the heads and the kv heads: the layer then
+        computes on its heads (:meth:`_tp_project`). None otherwise (a
+        placed weight is gathered at use; a tp layout whose axis does
+        not divide the heads counts a fallback, parallel/sharding.py
+        ``FALLBACKS``)."""
+        if not (weight_placed(self.q_proj) or weight_placed(self.out_proj)):
+            return None
+        from ..parallel.sharding import tp_pair
+
+        return tp_pair([self.q_proj, self.k_proj, self.v_proj],
+                       self.out_proj, (self.num_heads, self.num_kv_heads),
+                       kind="MultiHeadAttention")
+
+    def _tp_project(self, query, key, value, axis, n, index):
+        """This rank's q (B, Tq, H/n, hd), k and v (B, Tk, Hkv/n, hd): its
+        column shards of the projections, on inputs through
+        ``copy_to_tp`` (their gradient sums the ranks' parts). The q and
+        kv heads split by the same index, so each GQA group (q head h
+        reads kv head h // (H/Hkv)) stays whole on one rank."""
+        from ..parallel.collective import copy_to_tp
+
+        b, tq, _ = query.shape
+        tk = key.shape[1]
+        xq = copy_to_tp(query, axis)
+        xk = xq if key is query else copy_to_tp(key, axis)
+        xv = xk if value is key else copy_to_tp(value, axis)
+        h, hkv = self.num_heads // n, self.num_kv_heads // n
+        q = self.q_proj.column(xq).reshape(b, tq, h, self.head_dim)
+        k = self.k_proj.column(xk).reshape(b, tk, hkv, self.head_dim)
+        v = self.v_proj.column(xv).reshape(b, tk, hkv, self.head_dim)
+        return q, k, v
 
     def _seq_parallel(self, q, k, v, attn_mask, causal, segment_ids,
                       window):
@@ -848,8 +990,8 @@ class GRUCell(Layer):
                               I.Constant(0.0), is_bias=True, **kw)
 
     def forward(self, x, h):
-        gates = x @ self.w_ih + self.bias
-        hh = h @ self.w_hh
+        gates = x @ use(self.w_ih) + use(self.bias)
+        hh = h @ use(self.w_hh)
         hs = self.hidden_size
         r = torch.sigmoid(gates[..., :hs] + hh[..., :hs])
         z = torch.sigmoid(gates[..., hs:2 * hs] + hh[..., hs:2 * hs])
@@ -878,7 +1020,7 @@ class LSTMCell(Layer):
 
     def forward(self, x, state):
         h, c = state
-        gates = x @ self.w_ih + h @ self.w_hh + self.bias
+        gates = x @ use(self.w_ih) + h @ use(self.w_hh) + use(self.bias)
         i, f, g, o = torch.chunk(gates, 4, dim=-1)
         new_c = (torch.sigmoid(f + self.forget_bias) * c
                  + torch.sigmoid(i) * torch.tanh(g))

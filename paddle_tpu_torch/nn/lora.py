@@ -25,7 +25,7 @@ from torch import nn as tnn
 from .. import initializer as I
 from ..core.dtypes import get_policy
 from ..core.enforce import enforce
-from .layer import Layer
+from .layer import Layer, use
 from .layers import Dropout, Linear, _apply_act
 
 
@@ -65,21 +65,21 @@ class LoRALinear(Layer):
         # the output dtype before ``act`` (the JAX package's order)
         pol = get_policy()
         out = torch.matmul(pol.cast_to_compute(x),
-                           pol.cast_to_compute(self.weight))
+                           pol.cast_to_compute(use(self.weight)))
         delta = torch.matmul(
             torch.matmul(pol.cast_to_compute(self.drop(x)),
-                         pol.cast_to_compute(self.lora_a)),
-            pol.cast_to_compute(self.lora_b))
+                         pol.cast_to_compute(use(self.lora_a))),
+            pol.cast_to_compute(use(self.lora_b)))
         out = out + self.scale * delta
         if self.has_bias:
-            out = out + pol.cast_to_compute(self.bias)
+            out = out + pol.cast_to_compute(use(self.bias))
         return _apply_act(pol.cast_to_output(out), self.act)
 
     def merged_weight(self):
         """W + (alpha/r) A @ B, computed in float32 and cast to the base
         weight's dtype."""
-        delta = self.lora_a.float() @ self.lora_b.float()
-        return (self.weight.float() + self.scale * delta).to(
+        delta = use(self.lora_a).float() @ use(self.lora_b).float()
+        return (use(self.weight).float() + self.scale * delta).to(
             self.weight.dtype)
 
     def to_linear(self) -> Linear:
@@ -95,7 +95,7 @@ class LoRALinear(Layer):
         with torch.no_grad():
             lin.weight = tnn.Parameter(self.merged_weight())
             if self.has_bias:
-                lin.bias = tnn.Parameter(self.bias.clone())
+                lin.bias = tnn.Parameter(use(self.bias).clone())
         return lin
 
 

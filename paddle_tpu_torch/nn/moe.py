@@ -16,8 +16,19 @@ Semantics kept from the JAX package:
 - the kept count is a float32 sum of a bool mask.
 
 The einsums run as ``torch.einsum``: the JAX package computes them
-outside any Pallas kernel. ``expert_param_spec`` (the 'ep' sharding
-rules) belongs to the distributed slice (ROADMAP queue 1 item 11).
+outside any Pallas kernel.
+
+Under a mesh whose data axes (core/mesh.py ``reduce_axes``: dp, fsdp
+under a plan, and sp) hold more than one rank, the routing is the global
+batch's, as GSPMD runs the JAX layer: each rank's expert choices are
+all-gathered into the global token order (the batch rows, then the
+sequence), every position in an expert's queue and the capacity are the
+global ones, and the rank dispatches its own tokens into the (E,
+C_global) slots. ``aux_loss``, ``router_z_loss`` and ``kept_fraction``
+are the global batch's (their sums all-reduced). :func:`expert_param_spec`
+shards the experts over ``ep``; a rank gathers them at use
+(parallel/sharding.py ``use``). The all-to-all expert dispatch, where
+each ``ep`` rank computes its experts only, is a later speed item.
 
 Buffers. A forward records ``aux_loss``, ``router_z_loss`` and
 ``kept_fraction`` as the JAX layer's ``update_buffer`` does. With
@@ -40,9 +51,9 @@ import torch.nn.functional as F
 
 from .. import initializer as I
 from ..core.enforce import enforce
-from .layer import Layer
+from .layer import Layer, use
 
-__all__ = ["SwitchFFN", "switch_moe"]
+__all__ = ["SwitchFFN", "expert_param_spec", "switch_moe"]
 
 
 def gelu_tanh(x):
@@ -79,23 +90,83 @@ def switch_moe(x, router_w, w1, b1, w2, b2, *, capacity: int,
     ``E * sum_e(fraction_e * mean_prob_e)`` over the first choices,
     z_loss ``mean(logsumexp(logits)^2)``, kept the share of the S * k
     assignments that fit ``capacity``."""
+    return _switch_moe(x, router_w, w1, b1, w2, b2, capacity=capacity,
+                       act=act, top_k=top_k)
+
+
+class _Spread:
+    """Where a rank's (b, t) tokens sit in the global batch: the mesh's
+    batch axes split the rows, ``sp`` the sequence."""
+
+    def __init__(self, mesh, axes, b, t):
+        self.mesh, self.b, self.t = mesh, b, t
+        self.axes = axes
+        self.batch = tuple(a for a in axes if a != "sp")
+        self.sp = "sp" in axes
+        self.rows = mesh.axis_size(self.batch) * b
+        self.cols = mesh.size_of("sp") * t if self.sp else t
+        self.b0 = mesh.axis_index(self.batch) * b
+        self.t0 = mesh.coordinate["sp"] * t if self.sp else 0
+
+    @property
+    def tokens(self) -> int:
+        return self.rows * self.cols
+
+    def gather(self, v):
+        """(b * t, ...) per rank -> (B * T, ...) in the global order."""
+        from ..parallel.collective import allgather
+
+        v = v.reshape(self.b, self.t, *v.shape[1:])
+        if self.sp:
+            v = allgather(v, "sp", dim=1, mesh=self.mesh)
+        if self.batch:
+            v = allgather(v, self.batch, dim=0, mesh=self.mesh)
+        return v.reshape(self.tokens, *v.shape[2:])
+
+    def mine(self, v):
+        """The rank's rows of a global (B * T, ...) tensor."""
+        v = v.reshape(self.rows, self.cols, *v.shape[1:])
+        v = v[self.b0:self.b0 + self.b, self.t0:self.t0 + self.t]
+        return v.reshape(self.b * self.t, *v.shape[2:])
+
+    def sum(self, v):
+        """``v`` summed over the ranks (differentiable, the sum's JAX
+        transpose)."""
+        from ..parallel.collective import allreduce
+
+        return allreduce(v, self.axes, mesh=self.mesh)
+
+
+def _switch_moe(x, router_w, w1, b1, w2, b2, *, capacity: int,
+                act=gelu_tanh, top_k: int = 1, spread=None):
+    """:func:`switch_moe`, whose tokens are the rank's share of the global
+    batch when ``spread`` (a :class:`_Spread`) is given: positions and
+    the aux terms are then the global batch's, ``capacity`` the global
+    one, and ``y`` the rank's tokens' outputs."""
     enforce(top_k in (1, 2), "top_k must be 1 or 2, got %s", top_k)
     s = x.shape[0]
+    total = s if spread is None else spread.tokens
     e = router_w.shape[1]
     logits, probs, top_i = _route(x, router_w, top_k)
     z = torch.logsumexp(logits, dim=-1)
-    z_loss = torch.mean(z * z)
+    if spread is None:
+        z_loss = torch.mean(z * z)
+    else:
+        z_loss = spread.sum(torch.sum(z * z)) / total
     top_p = probs.gather(-1, top_i)
     # Switch top-1 scales by the raw probability; GShard top-2
     # renormalises the two gates to sum to 1 per token
     gates = top_p if top_k == 1 else top_p / top_p.sum(-1, keepdim=True)
-    onehots = [F.one_hot(top_i[:, j], e).float() for j in range(top_k)]
+    every_i = top_i if spread is None else spread.gather(top_i)
+    onehots = [F.one_hot(every_i[:, j], e).float() for j in range(top_k)]
     # 1-based queue positions in arrival order; first choices first
     pos = [torch.cumsum(onehots[0], dim=0) * onehots[0]]
     if top_k == 2:
         first_counts = onehots[0].sum(0)
         pos.append((torch.cumsum(onehots[1], dim=0) + first_counts[None, :])
                    * onehots[1])
+    if spread is not None:
+        pos = [spread.mine(p) for p in pos]
     dmask = combine = None
     kept_ct = torch.zeros((), dtype=torch.float32, device=x.device)
     for j in range(top_k):
@@ -114,20 +185,25 @@ def switch_moe(x, router_w, w1, b1, w2, b2, *, capacity: int,
     out_e = _einsum("ecf,efd->ecd", h, w2) + b2[:, None, :]
     y = _einsum("sec,ecd->sd", combine, out_e)         # dropped -> zeros
     frac = onehots[0].mean(0)
-    mean_prob = probs.mean(0)
+    if spread is None:
+        mean_prob = probs.mean(0)
+    else:
+        mean_prob = spread.sum(probs.sum(0)) / total
+        kept_ct = spread.sum(kept_ct.detach())
     aux = e * torch.sum(frac * mean_prob)
-    kept = kept_ct / (s * top_k)
+    kept = kept_ct / (total * top_k)
     return y, aux.float(), z_loss.float(), kept.float()
 
 
 class SwitchFFN(Layer):
     """Drop-in MoE replacement for the position-wise FFN:
     ``forward(x (B, T, D)) -> (B, T, D)``, routing the call's B * T
-    tokens at ``capacity(B * T)``. Parameters ``router_w``, ``w1``,
-    ``b1``, ``w2``, ``b2`` (experts stacked on the leading axis) and the
-    buffers ``aux_loss``, ``router_z_loss``, ``kept_fraction``, named
-    and created in the JAX package's order. ``act`` defaults to the tanh
-    GELU, ``jax.nn.gelu``'s default."""
+    tokens at ``capacity(B * T)`` (under a mesh, the global batch's
+    tokens at the global capacity: the module docstring). Parameters
+    ``router_w``, ``w1``, ``b1``, ``w2``, ``b2`` (experts stacked on the
+    leading axis) and the buffers ``aux_loss``, ``router_z_loss``,
+    ``kept_fraction``, named and created in the JAX package's order.
+    ``act`` defaults to the tanh GELU, ``jax.nn.gelu``'s default."""
 
     def __init__(self, d_model: int, d_ff: int, num_experts: int,
                  capacity_factor: float = 1.25, act=gelu_tanh, dtype=None,
@@ -180,15 +256,39 @@ class SwitchFFN(Layer):
                 buf.copy_(value)
 
     def forward(self, x):
+        from ..core.mesh import get_mesh, reduce_axes
+
         b, t, d = x.shape
-        y, aux, z_loss, kept = switch_moe(
-            x.reshape(b * t, d), self.router_w, self.w1, self.b1, self.w2,
-            self.b2, capacity=self.capacity(b * t), act=self.act,
-            top_k=self.router_top_k)
+        args = (x.reshape(b * t, d), use(self.router_w), use(self.w1),
+                use(self.b1), use(self.w2), use(self.b2))
+        axes = reduce_axes()
+        if axes:
+            spread = _Spread(get_mesh(), axes, b, t)
+            y, aux, z_loss, kept = _switch_moe(
+                *args, capacity=self.capacity(spread.tokens), act=self.act,
+                top_k=self.router_top_k, spread=spread)
+        else:
+            y, aux, z_loss, kept = switch_moe(
+                *args, capacity=self.capacity(b * t), act=self.act,
+                top_k=self.router_top_k)
         self._record("aux_loss", aux)
         self._record("router_z_loss", z_loss)
         self._record("kept_fraction", kept)
         return y.reshape(b, t, d)
+
+
+def expert_param_spec(axis: str = "ep"):
+    """Sharding rules for SwitchFFN parameters: the experts over
+    ``axis``, the router replicated (compose with
+    ``parallel.sharding.transformer_tp_rules``)."""
+    from ..core.sharding_types import PartitionSpec as P
+
+    return [
+        (r"(^|\.)w1$", P(axis, None, None)),
+        (r"(^|\.)b1$", P(axis, None)),
+        (r"(^|\.)w2$", P(axis, None, None)),
+        (r"(^|\.)b2$", P(axis, None)),
+    ]
 
 
 @contextlib.contextmanager

@@ -16,7 +16,7 @@ import torch
 from .. import initializer as I
 from ..core.enforce import enforce
 from ..ops import rnn as R
-from .layer import Layer
+from .layer import Layer, use
 from .layers import Dropout
 
 
@@ -89,9 +89,10 @@ class LSTM(_RecurrentBase):
     num_gates = 4
 
     def _run_direction(self, x, sfx, lengths, is_reverse):
-        return R.lstm(x, getattr(self, f"w_ih_{sfx}"),
-                      getattr(self, f"w_hh_{sfx}"),
-                      bias=getattr(self, f"bias_{sfx}"), lengths=lengths,
+        return R.lstm(x, use(getattr(self, f"w_ih_{sfx}")),
+                      use(getattr(self, f"w_hh_{sfx}")),
+                      bias=use(getattr(self, f"bias_{sfx}")),
+                      lengths=lengths,
                       is_reverse=is_reverse, unroll=self.scan_unroll)
 
     def _stack_states(self, finals):
@@ -105,9 +106,10 @@ class GRU(_RecurrentBase):
     num_gates = 3
 
     def _run_direction(self, x, sfx, lengths, is_reverse):
-        return R.gru(x, getattr(self, f"w_ih_{sfx}"),
-                     getattr(self, f"w_hh_{sfx}"),
-                     bias=getattr(self, f"bias_{sfx}"), lengths=lengths,
+        return R.gru(x, use(getattr(self, f"w_ih_{sfx}")),
+                     use(getattr(self, f"w_hh_{sfx}")),
+                     bias=use(getattr(self, f"bias_{sfx}")),
+                     lengths=lengths,
                      is_reverse=is_reverse, unroll=self.scan_unroll)
 
     def _stack_states(self, finals):

@@ -9,7 +9,7 @@ import torch
 from .. import initializer as I
 from ..core.places import resolve_device
 from ..ops import sampling as SP
-from .layer import Layer
+from .layer import Layer, use
 
 
 class NCE(Layer):
@@ -36,8 +36,8 @@ class NCE(Layer):
 
     def forward(self, x, label, custom_neg=None):
         return SP.nce_loss(
-            x, label, self.weight,
-            bias=self.bias if self.has_bias else None,
+            x, label, use(self.weight),
+            bias=use(self.bias) if self.has_bias else None,
             num_neg_samples=self.num_neg_samples, sampler=self.sampler,
             key=None if custom_neg is not None else self.rng("nce"),
             custom_neg=custom_neg)
@@ -74,7 +74,7 @@ class HSigmoid(Layer):
 
     def forward(self, x, label):
         return SP.hsigmoid_loss(
-            x, label, self.weight,
-            bias=self.bias if self.has_bias else None,
+            x, label, use(self.weight),
+            bias=use(self.bias) if self.has_bias else None,
             num_classes=self.num_classes, path_table=self.path_table,
             path_code=self.path_code)

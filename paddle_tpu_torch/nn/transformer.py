@@ -23,13 +23,17 @@ import torch
 
 from ..core.enforce import InvalidArgumentError, enforce
 from ..core.places import resolve_device
-from .layer import Layer, LayerList, remat_call
+from .layer import Layer, LayerList, remat_call, use, weight_placed
 from .layers import Dropout, Embedding, LayerNorm, Linear, MultiHeadAttention
 from .moe import SwitchFFN, not_recording
 
 
 class FeedForward(Layer):
-    """Position-wise FFN: Linear -> act -> dropout -> Linear."""
+    """Position-wise FFN: Linear -> act -> dropout -> Linear. Under a
+    sharding plan that places ``fc1`` column-parallel and ``fc2``
+    row-parallel (``transformer_tp_rules``), the rank computes its
+    columns of the hidden layer and one sum over ``tp`` closes the
+    product (parallel/sharding.py ``tp_pair``)."""
 
     def __init__(self, d_model: int, dim_feedforward: int,
                  dropout: float = 0.1, activation: str = "gelu", *,
@@ -41,7 +45,25 @@ class FeedForward(Layer):
         self.drop = Dropout(dropout)
 
     def forward(self, x):
-        return self.fc2(self.drop(self.fc1(x)))
+        tp = tp_local(self.fc1, self.fc2, "FeedForward")
+        if tp is None:
+            return self.fc2(self.drop(self.fc1(x)))
+        from ..parallel.collective import copy_to_tp
+
+        axis, n, index = tp
+        h = self.fc1.column(copy_to_tp(x, axis))
+        return self.fc2.row(self.drop.columns(h, index, n), axis)
+
+
+def tp_local(col, row, kind: str):
+    """(axis, size, index) where a sharding plan placed ``col`` column-
+    parallel and ``row`` row-parallel over one axis; else None (the
+    Linear layers gather at use)."""
+    if not (weight_placed(col) or weight_placed(row)):
+        return None
+    from ..parallel.sharding import tp_pair
+
+    return tp_pair([col], row, kind=kind)
 
 
 class TransformerEncoderLayer(Layer):
@@ -281,7 +303,7 @@ class PositionalEncoding(Layer):
 
     def forward(self, x):
         t = x.shape[1]
-        out = x * self.scale + self.pe[None, :t].to(x.dtype)
+        out = x * self.scale + use(self.pe)[None, :t].to(x.dtype)
         return self.drop(out)
 
 

@@ -26,6 +26,7 @@ plain versions, the port's interpret mode."""
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -99,19 +100,39 @@ def scaled_dot_product_attention(q, k, v, mask=None, causal: bool = False,
                          window=window)
 
 
+_head_window = None
+
+
+@contextlib.contextmanager
+def head_window(first: int, total: int):
+    """Inside, attention dropout draws the seeds of all ``total`` heads
+    and keeps the call's heads from ``first`` on: a tensor-parallel rank
+    attends over its heads only, and drops what the unsharded layer
+    drops on them (the TPU kernels key the hash by the global (batch,
+    head) for this)."""
+    global _head_window
+    prev, _head_window = _head_window, (first, total)
+    try:
+        yield
+    finally:
+        _head_window = prev
+
+
 def _dropout_seeds(generator: torch.Generator, b: int, h: int, device):
     """One int32 dropout seed per (batch, head), drawn from ``generator``
     over the JAX package's range (its ``flash_attention``:
     ``jax.random.randint(key, (b, h), -2**31, 2**31 - 1)``), on
-    ``device``. The kernels and the plain path hash these seeds with the
-    global (row, column) of each score."""
+    ``device``; inside :func:`head_window`, the window's columns of the
+    seeds of every head. The kernels and the plain path hash these seeds
+    with the global (row, column) of each score."""
     enforce(isinstance(generator, torch.Generator),
             "dropout_key must be a torch.Generator, got %s",
             type(generator).__name__)
-    seeds = torch.randint(-2 ** 31, 2 ** 31 - 1, (b, h),
+    first, total = _head_window or (0, h)
+    seeds = torch.randint(-2 ** 31, 2 ** 31 - 1, (b, total),
                           generator=generator, device=generator.device,
                           dtype=torch.int32)
-    return seeds.to(device)
+    return seeds[:, first:first + h].contiguous().to(device)
 
 
 def _flash_fns(interpret: bool):

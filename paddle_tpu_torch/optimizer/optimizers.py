@@ -11,15 +11,26 @@ stays ``params, state = opt.apply(params, grads, state)``. Parameters
 and grads are trees of tensors (a dict, list or tuple); the per-leaf
 state follows the leaf order of ``params``, which is the JAX package's
 (clip.py ``tree_leaves``: a dict in sorted-key order), so a state moves
-between the packages leaf for leaf."""
+between the packages leaf for leaf.
+
+Sharded leaves (parallel/sharding.py). A sharding plan's placed
+parameter is the rank's shard: its moments are born as shards of the
+same spec, the update is the rule's on the shard, and the norms that
+LarsMomentum and Lamb take are summed over the ranks that hold the
+other shards. Where the moments alone are placed (``OptStateRules``,
+ZeRO-1: the parameter replicated), each rank updates its slice of the
+parameter with its moments, and the slices are all-gathered over the
+moments' axes; the step counter stays replicated. Both live here, where
+``update_leaf`` is called, not in each rule."""
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Callable, Dict, Tuple
 
 import torch
 
-from ..clip import tree_leaves, tree_map
+from ..clip import sq_sum, tree_leaves, tree_map
 from ..core.enforce import UnimplementedError, enforce
 from .lr_scheduler import make_schedule
 
@@ -48,8 +59,17 @@ class Optimizer:
     # --- tree lifting -------------------------------------------------------
 
     def init(self, params) -> Dict[str, Any]:
-        return {"step": 0,
-                "leaf": [self.init_leaf(p) for p in tree_leaves(params)]}
+        leaves = []
+        for p in tree_leaves(params):
+            s = self.init_leaf(p)
+            if getattr(p, "_pt_sharding", None) is not None:
+                from ..parallel.sharding import mark
+
+                for t in s.values():
+                    if torch.is_tensor(t) and t.shape == p.shape:
+                        mark(t, p._pt_sharding, p._pt_global_shape)
+            leaves.append(s)
+        return {"step": 0, "leaf": leaves}
 
     def apply(self, params, grads, state: Dict[str, Any]) -> Tuple[Any, Any]:
         """One update of ``params`` from ``grads``, in place."""
@@ -66,7 +86,18 @@ class Optimizer:
                 len(leaves_p), len(leaves_g))
         with torch.no_grad():
             for p, g, s in zip(leaves_p, leaves_g, state["leaf"]):
-                self.update_leaf(p, g, s, lr, step)
+                zero = _zero_sharding(p, s)
+                if zero is None:
+                    with _leaf(getattr(p, "_pt_sharding", None)):
+                        self.update_leaf(p, g, s, lr, step)
+                    continue
+                # ZeRO-1: this rank's slice (a view of p), then every
+                # rank's slices gathered into the whole parameter
+                idx = zero.index(p.shape)
+                mine = p[idx]
+                with _leaf(zero):
+                    self.update_leaf(mine, g[idx], s, lr, step)
+                p.copy_(_gather(mine.clone(), zero))
         state["step"] = step + 1
         return params, state
 
@@ -113,8 +144,47 @@ def _f32(x) -> torch.Tensor:
     return torch.tensor(x, dtype=torch.float32)
 
 
+_leaf_sharding = None
+
+
+@contextlib.contextmanager
+def _leaf(sharding):
+    """The sharding of the leaf being updated (None: whole), which
+    :func:`_norm` sums over."""
+    global _leaf_sharding
+    prev, _leaf_sharding = _leaf_sharding, sharding
+    try:
+        yield
+    finally:
+        _leaf_sharding = prev
+
+
 def _norm(x) -> torch.Tensor:
-    return torch.sqrt(torch.sum(torch.square(x)))
+    """The L2 norm of the leaf of which ``x`` is this rank's part."""
+    return torch.sqrt(sq_sum(x, _leaf_sharding))
+
+
+def _zero_sharding(p, s):
+    """The sharding of ``p``'s placed moments where ``p`` itself is whole
+    (ZeRO-1), else None."""
+    if getattr(p, "_pt_sharding", None) is not None:
+        return None
+    for t in s.values():
+        sh = getattr(t, "_pt_sharding", None)
+        if sh is not None:
+            return sh
+    return None
+
+
+def _gather(x, sharding):
+    """The whole tensor of the shards ``x`` (this rank's) under
+    ``sharding``: all-gathered dim by dim."""
+    from ..parallel.collective import allgather
+
+    for dim, part in enumerate(sharding.spec):
+        if part is not None:
+            x = allgather(x, part, dim=dim, mesh=sharding.mesh)
+    return x
 
 
 class SGD(Optimizer):

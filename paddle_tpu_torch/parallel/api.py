@@ -30,23 +30,40 @@ optimizer to accumulator / k on the k-th.
 per rank: the parameters are replicated (every rank builds them from the
 same key of the global stream, so nothing is broadcast), each step takes
 the rank's batch (``data_sharding()``: the batch split over ``dp``, the
-full sequence), and the gradients are averaged over the mesh's ``dp``
-and ``sp`` ranks before the update. The JAX Trainer without a plan
-takes the gradient of the loss of the global batch (GSPMD), so a rank's
-loss must be that global loss, or an equal share of it: the models'
-losses divide the sum of their token losses by the count of valid
-tokens, each summed over the mesh (parallel/context_parallel.py
-``token_mean``), and ``supervised`` gathers the outputs and labels over
-``dp`` before its ``loss_fn``, so each rank computes the loss of the
-global batch. Such a loss's gradient on a rank is the mesh's size times
-the rank's share (its collectives differentiate as JAX transposes them),
-and the mean of the ranks' gradients is the global gradient; never a
-mean of the ranks' own means, which differs wherever ranks count
-different numbers of tokens. The step returns the global loss (the mean
-over the mesh). ``plan=``, ``param_spec=``, ``opt_state_rules=`` and
-``grad_compression=`` belong to the next slice and raise, naming their
-ROADMAP item, as do ``tp``, ``pp`` and ``ep`` axes of more than one
-rank."""
+full sequence), and the gradients are averaged over the mesh's data
+axes (``Mesh.data_axes``: ``dp`` and ``sp``) before the update. The JAX
+Trainer without a plan takes the gradient of the loss of the global
+batch (GSPMD), so a rank's loss must be that global loss, or an equal
+share of it: the models' losses divide the sum of their token losses by
+the count of valid tokens, each summed over the data axes
+(parallel/context_parallel.py ``token_mean``), ``supervised`` gathers
+the outputs and labels over the batch axes before its ``loss_fn``,
+BatchNorm takes the global batch's statistics and a Switch-MoE FFN
+routes the global batch's tokens (nn/layers.py, nn/moe.py). Such a
+loss's gradient on a rank is the data axes' size times the rank's share
+(its collectives differentiate as JAX transposes them), and the mean of
+the ranks' gradients is the global gradient; never a mean of the ranks'
+own means, which differs wherever ranks count different numbers of
+tokens. The step returns the global loss. Each step's key has the rank's
+data-axis coordinates folded in (``core.random.fold_in``, as JAX's
+``_shard_rng``), so dp and sp ranks draw different dropout masks; ``tp``
+and ``ep`` ranks, which hold the same rows, draw the same ones.
+
+``plan=`` (parallel/plan.py) places the state sharded by construction:
+each parameter and moment, and each buffer a rule names, is cut to the
+rank's shard under its resolved spec, the layers gather at use or
+compute on their shard (parallel/sharding.py), and a leaf's gradient is
+summed over the data axes its spec does not split (the gather's
+backward summed it over those it does) and divided by their size.
+``param_spec=`` places named parameters on ``mesh`` the same way;
+``opt_state_rules=`` places the moments alone (ZeRO-1,
+optimizer/optimizers.py). A pure data-parallel plan runs the JAX
+package's ``shard_map`` regime: each rank's loss and batch statistics
+are its rows' (``core.mesh.local_batch``), and the
+loss, the gradients, the metrics and the buffers are averaged over the
+batch axes. ``grad_compression=`` raises, naming ROADMAP queue 1 entry
+6 item 2; a ``pp`` axis of more than one rank raises, naming item 3
+(pipelines)."""
 
 from __future__ import annotations
 
@@ -60,13 +77,17 @@ from ..amp import MixedPrecisionOptimizer
 from ..core.config import BuildStrategy
 from ..core.dtypes import POLICIES, policy_scope
 from ..core.enforce import InvalidArgumentError, UnimplementedError, enforce
-from ..core.mesh import Mesh, PartitionSpec, get_mesh, mesh_scope, sharding
-from ..core.random import (make_generator, next_key, rng_scope,
+from ..core.mesh import (Mesh, PartitionSpec, get_mesh, mesh_scope,
+                         reduce_axes, sharding)
+from ..core.random import (fold_in, make_generator, next_key, rng_scope,
                            seed_generator, split_key)
+from ..core.sharding_types import NamedSharding
 from ..nn.layer import detach_buffers
 from ..optimizer.optimizers import Optimizer
+from . import sharding as S
+from .plan import Plan, plan_step, pmean_axes
 
-_MULTI_DEVICE = "is not ported yet: ROADMAP queue 1 item 11 (distributed)"
+_ENTRY_6 = "is not ported yet: ROADMAP queue 1 entry 6"
 
 
 class Trainer:
@@ -95,32 +116,54 @@ class Trainer:
     the reduce, gradient-scale and fusion fields concern the all-reduce
     across devices, and ``remat_policy`` the JAX Trainer does not read.
     ``mesh``: train over its ``dp`` and ``sp`` ranks (see the module
-    docstring); something that is not a mesh raises
-    :class:`InvalidArgumentError`. The other multi-device arguments raise
-    :class:`UnimplementedError` naming their ROADMAP item."""
+    docstring); ``plan``, ``param_spec`` and ``opt_state_rules`` place
+    the state sharded (a plan subsumes the other two and owns its
+    mesh). An argument of another type raises
+    :class:`InvalidArgumentError`; ``grad_compression`` raises
+    :class:`UnimplementedError` naming its ROADMAP item."""
 
     def __init__(self, model: torch.nn.Module, optimizer: Optimizer,
                  loss_builder: Callable, mesh=None, build_strategy=None,
                  param_spec=None, opt_state_rules=None,
                  amp: Optional[str] = None, grad_accum_steps: int = 1,
                  plan=None, grad_compression: Optional[str] = None):
-        for name, value in (("plan", plan),
-                            ("param_spec", param_spec),
-                            ("opt_state_rules", opt_state_rules),
-                            ("grad_compression", grad_compression)):
-            if value is not None:
-                raise UnimplementedError(f"Trainer {name}= {_MULTI_DEVICE}")
+        if grad_compression is not None:
+            raise UnimplementedError(
+                f"Trainer grad_compression= (the int8 gradient all-reduce) "
+                f"{_ENTRY_6} item 2 (item 11, distributed)")
+        if plan is not None:
+            if not isinstance(plan, Plan):
+                raise InvalidArgumentError(
+                    f"Trainer plan= takes a Plan (parallel.plan), got "
+                    f"{type(plan).__name__}")
+            enforce(param_spec is None and opt_state_rules is None,
+                    "plan subsumes param_spec/opt_state_rules — express "
+                    "the specs as Plan rules instead")
+            enforce(mesh is None or mesh is plan.mesh,
+                    "pass either mesh or plan, not both (the plan owns "
+                    "its mesh)")
+            mesh = plan.mesh
         if mesh is not None:
             if not isinstance(mesh, Mesh):
                 raise InvalidArgumentError(
                     f"Trainer mesh= takes a mesh (core.mesh.build_mesh), got "
                     f"{type(mesh).__name__}")
-            for axis in ("pp", "tp", "ep"):
-                if mesh.shape[axis] > 1:
-                    raise UnimplementedError(
-                        f"Trainer mesh= with {axis}={mesh.shape[axis]} (it "
-                        f"needs plan=) {_MULTI_DEVICE}")
+            if mesh.size_of("pp") > 1:
+                raise UnimplementedError(
+                    f"Trainer mesh= with pp={mesh.size_of('pp')} (pipelines) "
+                    f"{_ENTRY_6} item 3 (item 11, distributed)")
+        if param_spec is not None and not isinstance(param_spec, dict):
+            raise InvalidArgumentError(
+                f"Trainer param_spec= takes a {{name: PartitionSpec}} dict, "
+                f"got {type(param_spec).__name__}")
+        if opt_state_rules is not None and not isinstance(
+                opt_state_rules, S.OptStateRules):
+            raise InvalidArgumentError(
+                f"Trainer opt_state_rules= takes OptStateRules "
+                f"(parallel.sharding.zero_dp_rules), got "
+                f"{type(opt_state_rules).__name__}")
         self.mesh = mesh
+        self.plan = plan
         if isinstance(amp, str):
             enforce(amp in POLICIES, "unknown amp policy %s (one of %s)",
                     amp, sorted(POLICIES))
@@ -134,14 +177,28 @@ class Trainer:
         self.params: Dict[str, torch.nn.Parameter] = {
             name: p for name, p in model.named_parameters()
             if p.requires_grad}
+        if plan is not None:
+            # sharded by construction: every parameter (the frozen ones
+            # too) cut to the rank's shard on the mesh's device, and the
+            # buffers a rule names (the others replicate)
+            plan.place(dict(model.named_parameters()))
+            plan.place(dict(model.named_buffers()), buffers=True)
+        elif param_spec:
+            for name, spec in param_spec.items():
+                S.place(self.params[name], NamedSharding(mesh, spec))
         self.opt_state = optimizer.init(self.params)
+        if opt_state_rules is not None:
+            opt_state_rules.place(self.opt_state, mesh or get_mesh())
         self.device = next(iter(self.params.values())).device
         self._generator = make_generator(0, self.device)
         self._key = next_key()
+        self._pmean_axes = pmean_axes(plan)
         if grad_accum_steps > 1:
             self._accum = {name: torch.zeros_like(p)
                            for name, p in self.params.items()}
             self._accum_count = 0
+        self._jit_step = plan_step(plan, self._step_body)
+        self._jit_eval = plan_step(plan, self._eval_body)
 
     def _scope(self):
         stack = contextlib.ExitStack()
@@ -151,29 +208,91 @@ class Trainer:
             stack.enter_context(mesh_scope(self.mesh))
         return stack
 
-    def _mean_over_mesh(self, tensors):
-        """The mean of each tensor over the mesh's ranks (one collective
-        per dtype, the tensors flattened into one buffer); the tensors
-        themselves where there is no mesh or one rank."""
-        if self.mesh is None or self.mesh.size == 1:
-            return tensors
+    def _data_axes(self):
+        """The mesh's data axes (dp and sp; the plan's batch axes): the
+        axes whose ranks hold different rows."""
+        return () if self.mesh is None else self.mesh.data_axes
+
+    def _sum_over(self, tensors, axes_of):
+        """Each tensor summed over its axes (``axes_of(i)``), one
+        collective per (axes, dtype), the tensors flattened into one
+        buffer."""
         from .collective import allreduce
 
         out = list(tensors)
-        by_dtype = {}
+        groups = {}
         for i, t in enumerate(tensors):
-            by_dtype.setdefault(t.dtype, []).append(i)
-        for idx in by_dtype.values():
+            axes = axes_of(i)
+            if axes:
+                groups.setdefault((axes, t.dtype), []).append(i)
+        for (axes, _), idx in groups.items():
             flat = torch.cat([tensors[i].reshape(-1) for i in idx])
-            flat = allreduce(flat, ("dp", "sp"), "mean", mesh=self.mesh)
+            flat = allreduce(flat, axes, mesh=self.mesh)
             for i, part in zip(idx, flat.split(
                     [tensors[i].numel() for i in idx])):
                 out[i] = part.view_as(tensors[i])
         return out
 
+    def _mean_over_mesh(self, tensors):
+        """The mean of each tensor over the data axes; the tensors
+        themselves where there are none."""
+        axes = self._data_axes()
+        if not axes:
+            return tensors
+        n = self.mesh.axis_size(axes)
+        return [t / n for t in self._sum_over(tensors, lambda i: axes)]
+
+    def _reduce_grads(self, grads):
+        """The global batch's gradient of every leaf: summed over the
+        data axes its spec does not split (a gathered leaf's backward
+        summed it over those it does), over their size."""
+        axes = self._data_axes()
+        if not axes:
+            return grads
+        n = self.mesh.axis_size(axes)
+        names = list(grads)
+        split = [set(S.sharding_of(self.params[k]).axes())
+                 if S.sharding_of(self.params[k]) is not None else set()
+                 for k in names]
+        summed = self._sum_over([grads[k] for k in names], lambda i: tuple(
+            a for a in axes if a not in split[i]))
+        return {k: g / n for k, g in zip(names, summed)}
+
+    def _step_key(self, sub):
+        """The step's key with this rank's data-axis coordinates folded
+        in (``jax.random.fold_in``, as the JAX Trainer's ``_shard_rng``
+        folds each reduced axis's index): one-rank runs keep the key."""
+        for ax in self._data_axes():
+            sub = fold_in(sub, self.mesh.axis_index(ax))
+        return sub
+
+    def state_shardings(self) -> Optional[Dict[str, Any]]:
+        """The shardings of the live state (plan trainers only): each
+        leaf's ``NamedSharding`` on the plan's mesh (a whole leaf's is
+        the replicated one); the step counters and the key replicate."""
+        if self.plan is None:
+            return None
+        rep = self.plan.replicated()
+
+        def tree(t):
+            if isinstance(t, dict):
+                return {k: tree(v) for k, v in t.items()}
+            if isinstance(t, (list, tuple)):
+                return type(t)(tree(v) for v in t)
+            return S.sharding_of(t) or rep
+
+        sh = {"params": tree(self.params), "buffers": tree(self._buffers()),
+              "opt_state": tree(self.opt_state), "rng": rep}
+        if self.grad_accum_steps > 1:
+            sh["grad_accum"] = {"accum": tree(self._accum), "count": rep}
+        return sh
+
     def data_sharding(self):
-        """The sharding of a host batch: the leading dim split over dp
-        (``NamedSharding.local`` cuts the rank's rows)."""
+        """The sharding of a host batch: the plan's batch sharding, else
+        the leading dim split over dp (``NamedSharding.local`` cuts the
+        rank's rows)."""
+        if self.plan is not None:
+            return self.plan.batch_sharding()
         return sharding(PartitionSpec("dp"), self.mesh or get_mesh())
 
     def train_step(self, batch) -> Tuple[torch.Tensor, Dict[str, Any]]:
@@ -185,11 +304,15 @@ class Trainer:
         return self._step(batch, sub)
 
     def _step(self, batch, sub) -> Tuple[torch.Tensor, Dict[str, Any]]:
-        """One micro-step whose generator is seeded from the key ``sub``."""
+        """One micro-step whose generator is seeded from the key ``sub``
+        (through the step ``plan_step`` selected)."""
+        return self._jit_step(batch, sub)
+
+    def _step_body(self, batch, sub) -> Tuple[torch.Tensor, Dict[str, Any]]:
         self.model.train()
         for p in self.params.values():
             p.grad = None
-        seed_generator(self._generator, sub)
+        seed_generator(self._generator, self._step_key(sub))
         with self._scope(), rng_scope(self._generator):
             loss, metrics = self.loss_builder(self.model, batch,
                                               self._generator)
@@ -202,9 +325,15 @@ class Trainer:
                         else torch.zeros_like(p))
                  for name, p in self.params.items()}
         if self.mesh is not None:
-            grads = dict(zip(grads, self._mean_over_mesh(
-                list(grads.values()))))
+            grads = self._reduce_grads(grads)
             loss = self._mean_over_mesh([loss.detach()])[0]
+            if self._pmean_axes:
+                metrics = self._pmean_tree(metrics)
+                self._pmean_buffers()
+            for name, g in grads.items():
+                sh = S.sharding_of(self.params[name])
+                if sh is not None:
+                    g._pt_sharding = sh      # the clips' norms (clip.py)
         k = self.grad_accum_steps
         if k == 1:
             self.optimizer.apply(self.params, grads, self.opt_state)
@@ -220,6 +349,24 @@ class Trainer:
                     a.zero_()
                 self._accum_count = 0
         return loss.detach(), _detach(metrics)
+
+    def _pmean_tree(self, tree):
+        """A pure data-parallel plan's metrics: each float tensor's mean
+        over the batch axes (JAX's ``pmean`` of the shard_map body's)."""
+        if isinstance(tree, dict):
+            return {k: self._pmean_tree(v) for k, v in tree.items()}
+        if torch.is_tensor(tree) and tree.is_floating_point():
+            return self._mean_over_mesh([tree.detach()])[0]
+        return tree
+
+    def _pmean_buffers(self):
+        """A pure data-parallel plan's buffers: each float buffer set to
+        its mean over the batch axes (JAX pmeans the new buffers, so
+        every rank applies the same)."""
+        bufs = [b for b in self.model.buffers() if b.is_floating_point()]
+        with torch.no_grad():
+            for b, m in zip(bufs, self._mean_over_mesh(bufs)):
+                b.copy_(m)
 
     def train_steps(self, batch, n: int):
         """``n`` updates on the same batch; returns the last step's
@@ -240,6 +387,9 @@ class Trainer:
     def eval_step(self, batch):
         """(loss, metrics) in eval mode, without gradients, under the
         trainer's policy."""
+        return self._jit_eval(batch)
+
+    def _eval_body(self, batch):
         was_training = self.model.training
         self.model.eval()
         try:
@@ -247,6 +397,8 @@ class Trainer:
                 loss, metrics = self.loss_builder(self.model, batch, None)
             if self.mesh is not None:
                 loss = self._mean_over_mesh([loss])[0]
+                if self._pmean_axes:
+                    metrics = self._pmean_tree(metrics)
             return loss, metrics
         finally:
             self.model.train(was_training)
@@ -280,11 +432,26 @@ class Trainer:
                 "count": torch.tensor(self._accum_count, dtype=torch.int32)}
         return st
 
+    def _whole_state(self, what: str) -> None:
+        """Raise where a leaf of the state is a placed shard: a checkpoint
+        of shards (each rank's regions, restored onto any plan) is
+        ROADMAP queue 1 entry 6 item 6."""
+        from ..clip import tree_leaves
+
+        st = self.state()
+        if any(S.sharding_of(t) is not None for t in tree_leaves(
+                [st["params"], st["buffers"], st["opt_state"]])
+               if torch.is_tensor(t)):
+            raise UnimplementedError(
+                f"Trainer.{what} of a sharded state (multi-host "
+                f"checkpoints) {_ENTRY_6} item 6 (item 11, distributed)")
+
     def save_checkpoint(self, manager_or_dir, step: Optional[int] = None):
         """Save ``state()`` into a CheckpointManager (``step`` needed) or
         a directory."""
         from ..checkpoint import CheckpointManager, save_state
 
+        self._whole_state("save_checkpoint")
         if isinstance(manager_or_dir, CheckpointManager):
             enforce(step is not None,
                     "save_checkpoint(manager) needs a step number")
@@ -303,6 +470,7 @@ class Trainer:
         with None its newest committed step that verifies."""
         from ..checkpoint import CheckpointManager, _flatten, restore_state
 
+        self._whole_state("restore_checkpoint")
         target = self.state()
         if isinstance(manager_or_dir, CheckpointManager):
             st = manager_or_dir.restore(step, target=target)
@@ -346,18 +514,14 @@ class Trainer:
         forward, nn/moe.py) to the training loss; ``eval_step`` reports
         the task loss alone, as in the JAX Trainer.
 
-        Under a ``mesh`` whose ``dp`` axis has more than one rank, every
-        tensor of the model's output and of the label (each with the
-        batch leading) is all-gathered over ``dp`` before ``loss_fn``
-        and ``metrics_fn``, which therefore see the global batch, as the
-        JAX Trainer's do (the module docstring). The MoE terms are
-        functions of the global batch's routing there, which no rank
-        holds, so they raise with such a mesh."""
-        gather = isinstance(mesh, Mesh) and mesh.shape["dp"] > 1
-        if gather and (aux_loss_weight or router_z_loss_weight):
-            raise UnimplementedError(
-                f"Trainer.supervised aux_loss_weight / router_z_loss_weight "
-                f"with dp > 1 {_MULTI_DEVICE}")
+        Under a mesh whose batch axes hold more than one rank (``dp``,
+        and ``fsdp`` under a plan), every tensor of the model's output and
+        of the label (each with the batch leading) is all-gathered over
+        them before ``loss_fn`` and ``metrics_fn``, which therefore see
+        the global batch, as the JAX Trainer's do (the module docstring);
+        the MoE terms are the global batch's routing's (nn/moe.py). Under
+        a pure data-parallel plan (the shard_map regime) each rank's are
+        its own rows', averaged by the Trainer."""
 
         def loss_builder(model, batch, generator):
             if isinstance(batch, dict):
@@ -365,8 +529,9 @@ class Trainer:
             else:
                 x, label = batch
             out = model(x)
-            if gather:
-                out, label = _over_dp(out, mesh), _over_dp(label, mesh)
+            axes = tuple(a for a in reduce_axes() if a != "sp")
+            if axes:
+                out, label = _over_dp(out, axes), _over_dp(label, axes)
             loss = loss_fn(out, label)
             metrics = metrics_fn(out, label) if metrics_fn else {}
             if generator is not None:
@@ -396,18 +561,19 @@ class DataParallel:
                                   mesh=auto_mesh(devices))
 
 
-def _over_dp(tree, mesh):
+def _over_dp(tree, axes):
     """``tree`` with each tensor of at least one dim all-gathered over
-    the mesh's ``dp`` axis along its leading dim (the global batch; the
-    backward keeps the rank's rows of the summed cotangent)."""
+    the current mesh's batch ``axes`` along its leading dim (the global
+    batch; the backward keeps the rank's rows of the summed
+    cotangent)."""
     from .collective import allgather
 
     if isinstance(tree, dict):
-        return {k: _over_dp(v, mesh) for k, v in tree.items()}
+        return {k: _over_dp(v, axes) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_over_dp(v, mesh) for v in tree)
+        return type(tree)(_over_dp(v, axes) for v in tree)
     if isinstance(tree, torch.Tensor) and tree.dim() >= 1:
-        return allgather(tree, "dp", mesh=mesh)
+        return allgather(tree, axes)
     return tree
 
 

@@ -26,7 +26,16 @@ to themselves (each rank's cotangent is reduced, not passed through),
 reverse all-to-all, ``ppermute`` to the inverse permutation, and
 ``broadcast`` (a masked sum) to the sum of the cotangents at ``src``.
 ``allreduce`` max and min raise in the backward, as JAX has no
-differentiation rule for them."""
+differentiation rule for them.
+
+Tensor parallelism needs the other transposes: the ranks of a ``tp``
+group hold the same rows, so a cotangent that reaches them is one
+cotangent, not one a rank. Megatron's conjugate pair: :func:`copy_to_tp`
+(identity forward, the sum over ``tp`` backward) opens a column-parallel
+product, :func:`reduce_from_tp` (the sum forward, identity backward)
+closes a row-parallel one; :func:`gather_at_use` all-gathers a sharded
+parameter and gives each rank its shard's gradient: reduce-scattered
+over the batch axes among its spec's axes, cut over the others."""
 
 from __future__ import annotations
 
@@ -353,6 +362,48 @@ class _Broadcast(torch.autograd.Function):
                 else torch.zeros_like(total)), None, None
 
 
+class _CopyToTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, c):
+        ctx.c = c
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum(ctx.c, g), None
+
+
+class _ReduceFromTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, c):
+        return _sum(c, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherAtUse(torch.autograd.Function):
+    """All-gather along ``dim`` over the group ``c``; backward: the sum
+    over ``reduce`` (the batch axes among the group's, or None for all
+    of them), then this rank's chunk."""
+
+    @staticmethod
+    def forward(ctx, x, c, dim, reduce):
+        ctx.c, ctx.dim, ctx.reduce, ctx.n = c, dim, reduce, x.shape[dim]
+        return _all_gather(c, x, dim, True)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.reduce is None:
+            return _reduce_scatter(ctx.c, g.contiguous(), ctx.dim), \
+                None, None, None
+        if ctx.reduce:
+            g = _sum(_Ctx(ctx.reduce, ctx.c.mesh), g)
+        return (g.narrow(ctx.dim, ctx.c.index * ctx.n, ctx.n), None, None,
+                None)
+
+
 # --- the collectives ---------------------------------------------------------
 
 def allreduce(x, axis: Axis = "dp", op: str = "sum", *, mesh=None):
@@ -426,3 +477,49 @@ def broadcast(x, axis: Axis = "dp", src: int = 0, *, mesh=None):
 def axis_index(axis: Axis = "dp", *, mesh=None) -> int:
     """This rank's index along ``axis`` (``lax.axis_index``)."""
     return (mesh or get_mesh()).axis_index(axis)
+
+
+def copy_to_tp(x, axis: Axis = "tp", *, mesh=None):
+    """``x`` as it is; its gradient summed over ``axis`` (Megatron's
+    copy to the tensor-parallel region: each rank's column shard gives
+    part of the cotangent of a replicated input)."""
+    c = _Ctx(axis, mesh)
+    if c.group is None:
+        return x
+    return _CopyToTP.apply(x, c)
+
+
+def reduce_from_tp(x, axis: Axis = "tp", *, mesh=None):
+    """The sum of ``x`` over ``axis``; its gradient passed through as it
+    is (Megatron's reduce from the tensor-parallel region: the ranks'
+    row-parallel partial products make one output, whose cotangent every
+    rank holds whole)."""
+    c = _Ctx(axis, mesh)
+    if c.group is None:
+        return x
+    return _ReduceFromTP.apply(x, c)
+
+
+def gather_at_use(x, sharding):
+    """The whole tensor of which ``x`` is this rank's shard under
+    ``sharding`` (a ``NamedSharding``): all-gathered dim by dim. The
+    backward gives this rank its shard's gradient: summed over the
+    spec's axes that are data axes of the mesh (``Mesh.data_axes``:
+    ranks there computed on different rows) and cut, without a sum,
+    over the others (``tp``, ``ep``: ranks there computed the same
+    rows, so each holds the whole cotangent)."""
+    mesh = sharding.mesh
+    data = set(mesh.data_axes)
+    for dim, part in enumerate(sharding.spec):
+        if part is None:
+            continue
+        c = _Ctx(part, mesh)
+        if c.group is None:
+            continue
+        names = (part,) if isinstance(part, str) else tuple(part)
+        batch = tuple(a for a in names if a in data
+                      and mesh.shape[a] > 1)
+        big = tuple(a for a in names if mesh.shape[a] > 1)
+        reduce = None if batch == big else batch
+        x = _GatherAtUse.apply(x, c, dim, reduce)
+    return x

@@ -42,7 +42,7 @@ from typing import Optional
 import torch
 
 from ..core.enforce import enforce
-from ..core.mesh import get_mesh
+from ..core.mesh import get_mesh, reduce_axes
 from .collective import _all_to_all, _Ctx, _ppermute, allgather
 
 _NEG_INF = -1e30  # finite, as in the flash kernels
@@ -367,7 +367,7 @@ def seq_sharded(seq_parallel) -> bool:
     here: set, and the current mesh's ``sp`` axis has more than one
     rank. With one rank the model runs whole (its attention still takes
     the context-parallel path, a ring of one hop)."""
-    return seq_parallel is not None and get_mesh().shape["sp"] > 1
+    return seq_parallel is not None and get_mesh().size_of("sp") > 1
 
 
 def seq_shard(x, dim: int = 1):
@@ -377,11 +377,11 @@ def seq_shard(x, dim: int = 1):
     if x is None:
         return None
     mesh = get_mesh()
-    n = mesh.shape["sp"]
+    n = mesh.size_of("sp")
     enforce(x.shape[dim] % n == 0, "sequence length %s must divide sp size "
             "%s", x.shape[dim], n)
     t = x.shape[dim] // n
-    return x.narrow(dim, mesh.coordinate["sp"] * t, t)
+    return x.narrow(dim, mesh.coordinate.get("sp", 0) * t, t)
 
 
 def seq_gather(x, dim: int = 1):
@@ -392,20 +392,23 @@ def seq_gather(x, dim: int = 1):
 
 def token_mean(total, count):
     """sum of ``total`` / sum of ``count`` (at least 1), each summed over
-    the current mesh's ``dp`` and ``sp`` ranks: the mean over every valid
-    token of the global batch, never a mean of the ranks' means (ranks
-    count different numbers of tokens: the last ``sp`` rank keeps the
-    shift's ignored column, and ignored labels fall anywhere). Every rank
-    gets the global loss; each one's gradient is dp * sp times its share
-    (the sum's JAX transpose), so the Trainer's mean over the mesh is the
-    gradient of the global loss."""
+    the current mesh's data axes (``core.mesh.reduce_axes``: its batch
+    axes, ``dp`` and under a plan ``fsdp``, and ``sp``): the mean over
+    every valid token of the global batch, never a mean of the ranks'
+    means (ranks count different numbers of tokens: the last ``sp`` rank
+    keeps the shift's ignored column, and ignored labels fall anywhere).
+    Every rank gets the global loss; each one's gradient is the data
+    axes' size times its share (the sum's JAX transpose), so the
+    Trainer's mean over them is the gradient of the global loss. ``tp``
+    and ``ep`` ranks hold the same rows: the sum leaves them out."""
     from .collective import allreduce
 
-    count = allreduce(count.to(total.dtype), ("dp", "sp"))
-    return allreduce(total, ("dp", "sp")) / torch.clamp(count, min=1.0)
+    axes = reduce_axes()
+    count = allreduce(count.to(total.dtype), axes)
+    return allreduce(total, axes) / torch.clamp(count, min=1.0)
 
 
 def mesh_parallel() -> bool:
     """Whether the current mesh spreads the batch or the sequence over
     more than one rank (a loss then takes :func:`token_mean`)."""
-    return get_mesh().axis_size(("dp", "sp")) > 1
+    return bool(reduce_axes())

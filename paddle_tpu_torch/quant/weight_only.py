@@ -16,7 +16,7 @@ from torch import nn as tnn
 
 from ..core.dtypes import get_policy
 from ..core.enforce import enforce
-from ..nn.layer import Layer
+from ..nn.layer import Layer, use
 from ..nn.layers import Linear, _apply_act
 
 
@@ -51,10 +51,11 @@ class WeightOnlyLinear(Layer):
     def forward(self, x):
         pol = get_policy()
         xc = pol.cast_to_compute(x)
-        w = self.qweight.to(xc.dtype) * (self.scale / 127.0).to(xc.dtype)
+        w = use(self.qweight).to(xc.dtype) * (
+            use(self.scale) / 127.0).to(xc.dtype)
         out = torch.matmul(xc, w)
         if self.has_bias:
-            out = out + pol.cast_to_compute(self.bias)
+            out = out + pol.cast_to_compute(use(self.bias))
         return _apply_act(pol.cast_to_output(out), self.act)
 
     def dequantized_weight(self):

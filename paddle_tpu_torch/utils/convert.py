@@ -23,7 +23,10 @@ def load_numpy_state(model: torch.nn.Module,
     is loaded when its name is. Parameters are cast to their float
     dtype; a buffer keeps its dtype, which the value must have (an int8
     weight of a quantized layer stays int8 bit for bit). Every shape
-    must match exactly."""
+    must match exactly: a sharding plan's placed shard
+    (parallel/sharding.py) takes its whole shape, and this rank's shard
+    of the value is cut from the whole state, so a JAX state trains
+    under a plan."""
     params = dict(model.named_parameters())
     buffers = dict(model.named_buffers())
     missing = sorted(set(params) - set(flat))
@@ -35,10 +38,13 @@ def load_numpy_state(model: torch.nn.Module,
     values = {name: np.array(value) for name, value in flat.items()}
     for name, value in values.items():
         target = params.get(name, buffers.get(name))
-        if tuple(value.shape) != tuple(target.shape):
+        whole = getattr(target, "_pt_global_shape", tuple(target.shape))
+        if tuple(value.shape) != tuple(whole):
             raise InvalidArgumentError(
-                f"{name}: shape {tuple(value.shape)} != "
-                f"{tuple(target.shape)}")
+                f"{name}: shape {tuple(value.shape)} != {tuple(whole)}")
+        sharding = getattr(target, "_pt_sharding", None)
+        if sharding is not None:
+            values[name] = value = np.array(sharding.local(value))
         if name in buffers and (torch.from_numpy(value).dtype
                                 != target.dtype):
             raise InvalidArgumentError(

@@ -41,10 +41,7 @@ STILL_MISSING = {
              **dict.fromkeys(("BuildStrategy", "ExecutionStrategy"),
                              ENTRY_8)},
     "parallel": dict.fromkeys(
-        ("Plan", "compile_step", "device_bytes", "guard_no_resharding",
-         "host_init", "max_device_bytes", "OptStateRules", "constraint",
-         "infer_param_spec", "shard_params", "transformer_tp_rules",
-         "zero_dp_rules", "GPipe", "bubble_fraction", "gpipe_ticks",
+        ("GPipe", "bubble_fraction", "gpipe_ticks",
          "interleaved_ticks", "pipeline_apply", "ring_order_layers",
          "stage_param_sharding", "build_bert_hybrid_step",
          "build_gpt_hybrid_step", "build_hybrid_transformer_step",

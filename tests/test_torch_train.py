@@ -211,18 +211,22 @@ def test_train_steps_runs_n_updates_and_supervised():
 
 
 @pytest.mark.parametrize("kw,item", [
-    # mesh= is ported (tests/test_torch_seq_parallel.py): what is not a
-    # mesh raises a typed error
+    # mesh=, plan=, param_spec= and opt_state_rules= are ported
+    # (tests/test_torch_seq_parallel.py, test_torch_plan.py,
+    # test_torch_tensor_parallel.py): an argument of another type raises
+    # a typed error; grad_compression= names its ROADMAP item
     pytest.param(dict(mesh=object()), "takes a mesh", id="kw0-item 11"),
-    (dict(plan=object()), "item 11"),
-    (dict(param_spec={}), "item 11"), (dict(opt_state_rules=object()),
-                                       "item 11"),
+    pytest.param(dict(plan=object()), "takes a Plan", id="kw1-item 11"),
+    pytest.param(dict(param_spec=object()), "takes a {name",
+                 id="kw2-item 11"),
+    pytest.param(dict(opt_state_rules=object()), "takes OptStateRules",
+                 id="kw3-item 11"),
     (dict(grad_compression="int8"), "item 11"),
 ])
 def test_trainer_unported_arguments_raise(kw, item):
     _, tm = _pair(12)
-    with pytest.raises(InvalidArgumentError if "mesh" in kw
-                       else UnimplementedError, match=item):
+    with pytest.raises(UnimplementedError if "grad_compression" in kw
+                       else InvalidArgumentError, match=item):
         Trainer(tm, TO.SGD(0.1), lambda *a: None, **kw)
 
 

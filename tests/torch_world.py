@@ -465,3 +465,243 @@ def job_supervised_bert(sizes, cfg, state, x, label, steps, lr):
                   if m.rank == 0 else None)
         out.append((float(loss), params))
     return out
+
+
+# --- test_torch_{plan,tensor_parallel,mesh_repairs}.py -----------------------
+
+def _rules(name):
+    """The rule set a job names (specs do not cross the queues)."""
+    if name is None:
+        return ()
+    from paddle_tpu_torch.nn.moe import expert_param_spec
+    from paddle_tpu_torch.parallel import transformer_tp_rules
+
+    return {"tp": transformer_tp_rules, "ep": expert_param_spec}[name]()
+
+
+class BNNet:
+    """Linear(8, 6) -> BatchNorm(6) -> ReLU -> Linear(6, 3), the port's
+    side of the BatchNorm jobs (the test builds the JAX one)."""
+
+    @staticmethod
+    def build():
+        from paddle_tpu_torch import nn as tnn
+
+        class Net(tnn.Layer):
+            def __init__(self):
+                super().__init__()
+                self.fc = tnn.Linear(8, 6, device="cpu")
+                self.bn = tnn.BatchNorm(6, device="cpu")
+                self.head = tnn.Linear(6, 3, device="cpu")
+
+            def forward(self, x):
+                return self.head(torch.relu(self.bn(self.fc(x))))
+
+        return Net()
+
+
+def _model(kind, cfg, state):
+    from paddle_tpu_torch.models import mnist as TM
+    from paddle_tpu_torch.utils.convert import load_numpy_state
+
+    if kind == "gpt":
+        impl = cfg.pop("seq_parallel", None)
+        return _gpt(cfg, state, impl)
+    if kind == "bert":
+        return _bert(cfg, state, None)
+    if kind == "nmt":
+        from paddle_tpu_torch.models import transformer as TT
+
+        model = TT.TransformerNMT(TT.NMTConfig(**cfg), device="cpu")
+        load_numpy_state(model, state)
+        return model
+    model = (TM.MnistMLP(**cfg, device="cpu") if kind == "mnist"
+             else BNNet.build())
+    load_numpy_state(model, state)
+    return model
+
+
+def _trainer(kind, model, opt, aux, **kw):
+    from paddle_tpu_torch.models import bert as TB
+    from paddle_tpu_torch.models import gpt as TG
+    from paddle_tpu_torch.models import mnist as TM
+    from paddle_tpu_torch.parallel import Trainer
+
+    if kind == "gpt":
+        return Trainer(model, opt, lambda m, batch, g: (
+            m.forward_loss(batch, vocab_chunk=96), {}), **kw)
+    if kind == "nmt":
+        return Trainer(model, opt, lambda m, b, g: (m.forward_fused_loss(
+            b["src"], b["tgt"], b["labels"], vocab_chunk=96), {}), **kw)
+    loss = {"bert": TB.pretrain_loss, "mnist": TM.loss_fn,
+            "bn": TM.loss_fn, "gpt_sup": TG.loss_fn}[kind]
+    return Trainer.supervised(model, opt, loss, **(aux or {}), **kw)
+
+
+def _whole(model):
+    """{name: the whole parameter}, gathered where it is a placed shard
+    (every rank takes part; rank 0 keeps the result)."""
+    from paddle_tpu_torch.nn.layer import use
+
+    with torch.no_grad():
+        return {n: host(use(p)) for n, p in model.named_parameters()}
+
+
+def job_plan_trainer(kind, cfg, state, batch, steps, opt, plan=None,
+                     mesh_sizes=None, zero=None, aux=None, seed=None):
+    """``steps`` updates of a Trainer on the rank's rows of ``batch``
+    under ``plan`` (Plan keywords, ``rules`` by name), or ``mesh_sizes``
+    (build_mesh keywords) with ``zero`` (zero_dp_rules' min_size);
+    ``aux``: ``Trainer.supervised``'s MoE loss weights. Per
+    step: the loss and (rank 0) the whole parameters; then the rank's
+    layout (each leaf's local and global shape and spec, the moments'
+    specs), the buffers, the gather-at-use fallbacks counted and the
+    step's ``compiled_via``."""
+    from paddle_tpu_torch import optimizer as TO
+    from paddle_tpu_torch.core.random import seed as set_seed
+    from paddle_tpu_torch.parallel import Plan
+    from paddle_tpu_torch.parallel import sharding as S
+
+    if seed is not None:
+        set_seed(seed)
+    kind_model = "gpt" if kind == "gpt_sup" else kind
+    model = _model(kind_model, dict(cfg), state)
+    kw = {}
+    if plan is not None:
+        kw["plan"] = Plan(**{**plan, "rules": _rules(plan.get("rules")),
+                             "device": "cpu"})
+    if mesh_sizes is not None:
+        kw["mesh"] = mesh(**mesh_sizes)
+    if zero is not None:
+        kw["opt_state_rules"] = S.zero_dp_rules(min_size=zero)
+    tt = _trainer(kind, model, getattr(TO, opt[0])(*opt[1:]), aux, **kw)
+    sh = tt.data_sharding()
+
+    def rows(a):
+        if isinstance(a, dict):
+            return {k: rows(v) for k, v in a.items()}
+        t = torch.from_numpy(np.array(a))
+        return sh.local(t.long() if not t.is_floating_point() else t)
+
+    data = rows(batch)
+    S.FALLBACKS.clear()
+    rank0 = tt.mesh is None or tt.mesh.rank == 0
+    out = []
+    for _ in range(steps):
+        loss, _ = tt.train_step(data)
+        whole = _whole(model)
+        out.append((float(loss), whole if rank0 else None))
+    layout = {}
+    for n, p in model.named_parameters():
+        spec = S.sharding_of(p)
+        layout[n] = (tuple(p.shape), tuple(getattr(p, "_pt_global_shape",
+                                                   p.shape)),
+                     None if spec is None else str(tuple(spec.spec)),
+                     1 if spec is None else spec.mesh.axis_size(
+                         spec.axes()))
+    moments = [sorted((k, None if S.sharding_of(t) is None
+                       else str(tuple(S.sharding_of(t).spec)),
+                       tuple(t.shape))
+                      for k, t in s.items() if torch.is_tensor(t))
+               for s in tt.opt_state["leaf"]]
+    buffers = {n: host(b) for n, b in model.named_buffers()}
+    return dict(steps=out, layout=layout, moments=moments, buffers=buffers,
+                fallbacks=dict(S.FALLBACKS),
+                via=tt._jit_step.compiled_via)
+
+
+def job_dropout_masks(sizes, n_steps):
+    """The layer dropout masks (p = 0.5 on a (64, 64) block of ones) a
+    Trainer under the mesh ``sizes`` draws in each of ``n_steps`` steps,
+    with the rank's mesh coordinate."""
+    from paddle_tpu_torch import nn as tnn
+    from paddle_tpu_torch import optimizer as TO
+    from paddle_tpu_torch.core.random import seed as set_seed
+    from paddle_tpu_torch.parallel import Trainer
+
+    set_seed(3)
+    m = mesh(**sizes)
+    model = tnn.Linear(64, 1, device="cpu")
+    drop = tnn.Dropout(0.5)
+
+    def builder(model, batch, gen):
+        keep = drop(torch.ones(64, 64)) != 0
+        return model(keep.float()).sum(), {"keep": keep}
+
+    tt = Trainer(model, TO.SGD(0.0), builder, mesh=m)
+    masks = [tt.train_step(None)[1]["keep"].numpy() for _ in range(n_steps)]
+    return dict(m.coordinate), masks
+
+
+def job_tp_against_whole(kind, cfg, state, batch, plan, steps, opt, seed):
+    """``steps`` updates with dropout on under ``plan`` (one that splits
+    no batch) and, in the same rank, without a mesh from the same
+    global-stream seed: a tp rank draws the whole layer's masks (its
+    heads' attention seeds, its columns' FFN mask), so both give the
+    same losses and parameters."""
+    from paddle_tpu_torch import optimizer as TO
+    from paddle_tpu_torch.core.random import seed as set_seed
+    from paddle_tpu_torch.parallel import Plan
+
+    runs = []
+    for p in (plan, None):
+        set_seed(seed)
+        model = _model(kind, dict(cfg), state)
+        kw = {} if p is None else {"plan": Plan(
+            **{**p, "rules": _rules(p.get("rules")), "device": "cpu"})}
+        tt = _trainer(kind, model, getattr(TO, opt[0])(*opt[1:]), None,
+                      **kw)
+
+        def rows(a):
+            if isinstance(a, dict):
+                return {k: rows(v) for k, v in a.items()}
+            return torch.from_numpy(np.array(a)).long()
+
+        data = rows(batch)
+        losses = [float(tt.train_step(data)[0]) for _ in range(steps)]
+        runs.append((losses, _whole(model)))
+    return runs
+
+
+def job_moe_seq(sizes, cfg, state, ids):
+    """A MoE GPT's forward_loss on the rank's (B/dp, T) ids under the
+    mesh (``cfg`` may name seq_parallel): the loss, the gradients' mean
+    over the mesh (rank 0) and each block's recorded aux, z and kept
+    terms."""
+    from paddle_tpu_torch.core.mesh import mesh_scope
+
+    m = mesh(**sizes)
+    cfg = dict(cfg)
+    model = _gpt(cfg, state, cfg.pop("seq_parallel", None)).train()
+    rows = local(ids, m, ("dp",)).long()
+    with mesh_scope(m), torch.enable_grad():
+        loss = model.forward_loss(rows, vocab_chunk=96)
+        loss.backward()
+    terms = [(float(b.ffn.aux_loss), float(b.ffn.router_z_loss),
+              float(b.ffn.kept_fraction)) for b in model.blocks]
+    return float(loss), _mesh_grads(model, m, "mean"), terms
+
+
+def job_fp16_skip_agrees(inf_rank):
+    """A MixedPrecisionOptimizer step on MnistMLP's placed shards under
+    Plan(fsdp=4) whose grads are finite everywhere but on ``inf_rank``:
+    whether this rank applied the step, and its next loss scale."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch import optimizer as TO
+    from paddle_tpu_torch.models import mnist as TM
+    from paddle_tpu_torch.parallel import Plan
+
+    plan = Plan(fsdp=4, min_shard_size=64, device="cpu")
+    model = TM.MnistMLP(16, 8, device="cpu")
+    params = dict(model.named_parameters())
+    plan.place(params)
+    opt = amp.MixedPrecisionOptimizer(TO.SGD(0.1), init_loss_scaling=8.0,
+                                      decr_every_n_nan_or_inf=1)
+    state = opt.init(params)
+    grads = {n: torch.ones_like(p) for n, p in params.items()}
+    if plan.mesh.rank == inf_rank:
+        grads["fc1.weight"][0, 0] = float("inf")
+    before = {n: p.detach().clone() for n, p in params.items()}
+    opt.apply(params, grads, state)
+    applied = any(not torch.equal(before[n], p) for n, p in params.items())
+    return applied, float(state["scaler"]["scale"])
