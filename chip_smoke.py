@@ -518,6 +518,32 @@ Phases, each printed as it runs:
    router's top-two gap is below 1e-4 (such flips counted and reported;
    slots compared up to a layer's first flip). The ms of these runs
    price gloo's host staging on one shared card, not a multi-card plan.
+36. ``[dist:pipe]`` and ``[dist:int8]`` in the same world.
+   ``[dist:pipe]``: the GPT hybrid step (``parallel/hybrid.py``
+   ``build_gpt_hybrid_step``) at ``GPTConfig.small()`` width and depth
+   (12 layers, tied head, dropout 0) on dp=1 x pp=2 x tp=2, B=8,
+   T=1024, 4 microbatches, float32, 2 SGD(1e-2) steps with the GPipe
+   schedule, then 2 with the interleaved one (v=2), each from the
+   builder's seed, held against the builder's ``ref_step`` (the
+   sequential fold) in one process on a one-rank mesh, same weights and
+   batch: losses within 1e-4 relative, step 1's gradients reassembled
+   from the shards within 1e-3 of each parameter's largest entry, the
+   leaves that replicate over pp equal on both pp ranks, the flash
+   forward, dq and dk/dv exactly 96, 48 and 48 launches a rank a
+   schedule (6 layers x 4 microbatches x 2 steps; the forward twice,
+   remat's recompute), every launch at (6, 2) heads; ms a step, the
+   bytes staged and the bubble fraction reported. ``[dist:int8]``: the
+   JAX bench's quant_comm cell (``bench.py`` ``bench_quant_comm``:
+   MnistMLP(1024, 1024), Adam(1e-3), B=256, ``Plan(dp=4)``), float32,
+   ``grad_compression="int8"`` and ``"int8_sr"`` in 8 lockstep steps
+   from one seed: each compressed loss within max(5e-3, 5e-3 x loss) of
+   the float32 one at every step, the parameters bit-equal on the four
+   ranks after every step, ``pt_collective_bytes_total`` advanced by
+   the static payload times the steps, the int8 runs' bytes staged
+   through the host at least 3.5x fewer than the float32 run's, the
+   float32 run against one process on the whole batch (step 1 within
+   1e-4 relative, every step within the bench's gap); ms a step both
+   ways reported.
 
 Any failure exits non-zero. The line before the last is the kernels'
 JSON record (each row also names the ``tiles`` its timed launch ran
@@ -6088,6 +6114,23 @@ DIST_TOL = (1e-4, 1e-3)        # loss relative, grad / largest entry
 PLAN_SIZES = dict(dp=1, fsdp=2, tp=2)
 FSDP_HIDDEN, FSDP_B, FSDP_STEPS = 2048, 256, 3
 MOE_DIST_LAYERS, MOE_DIST_B, MOE_DIST_T, MOE_DIST_STEPS = 2, 4, 1024, 2
+# [dist:pipe]: GPTConfig.small() (12 layers, tied head, dropout 0) through
+# parallel/hybrid.py build_gpt_hybrid_step on dp=1 x pp=2 x tp=2, B=8,
+# T=1024, 4 microbatches, float32, SGD: 2 steps GPipe, then 2 interleaved
+# (v=2), each from the builder's seed; [dist:int8]: the JAX bench's
+# quant_comm cell (bench.py bench_quant_comm: MnistMLP(1024, 1024),
+# Adam(1e-3), B=256, Plan(dp=4)), float32, int8 and int8_sr, 8 lockstep
+# steps from one seed
+PIPE_SIZES = dict(dp=1, pp=2, tp=2)
+PIPE_B, PIPE_T, PIPE_M, PIPE_STEPS, PIPE_LR, PIPE_SEED = 8, 1024, 4, 2, 1e-2, 26
+PIPE_RUNS = (("gpipe", 1), ("interleaved", 2))
+PIPE_CHUNK = 4096
+INT8_HIDDEN, INT8_B, INT8_STEPS, INT8_SEED = 1024, 256, 8, 27
+INT8_MODES = (None, "int8", "int8_sr")
+# the bench's trajectory gate (bench.py bench_quant_comm), and the
+# staged-bytes gate (the JAX package's payload bound,
+# tests/test_quant_comm.py)
+INT8_GAP, INT8_STAGED_RATIO = 5e-3, 3.5
 
 
 def ring_inputs(torch, dtype, segs, mask, gen):
@@ -6464,9 +6507,168 @@ def dist_moe_run(torch, rank, out_dir):
                 layout=leaf_layout(torch, trainer))
 
 
-def dist_rank(rank, store, out_dir):
-    """One rank of the [dist:*] world: every run, its record written to
-    ``out_dir`` (rank 0 also writes each run's first-step gradients)."""
+def pipe_kw(schedule, v):
+    """[dist:pipe]'s builder arguments for one schedule."""
+    from paddle_tpu_torch.models import gpt
+
+    return dict(cfg=gpt.GPTConfig.small(), batch=PIPE_B, seq_len=PIPE_T,
+                num_microbatches=PIPE_M, lr=PIPE_LR, seed=PIPE_SEED,
+                vocab_chunk=PIPE_CHUNK, pipeline_schedule=schedule,
+                virtual_stages=v)
+
+
+def pipe_steps(torch, step, params, ids, n=PIPE_STEPS):
+    """``n`` SGD steps of a hybrid step: the losses, ms a step and step
+    1's gradients."""
+    losses, ms, first = [], [], None
+    for i in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, grads = step.value_and_grad(params, ids)
+        params = step.update(params, grads)
+        losses.append(loss.item())
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            first = grads
+        del grads
+    return losses, ms, first
+
+
+def whole_grads(torch, grads, ring=None):
+    """{"layers/<name>" or "rest/<name>": the whole gradient on the host}
+    from a rank's shards (every rank calls); the stack in logical order
+    (``ring``: (n, v) of a ring-ordered stack)."""
+    from paddle_tpu_torch.parallel import sharding as S
+    from paddle_tpu_torch.parallel.pipeline import ring_order_layers
+
+    out = {}
+    for g in grads:
+        for k, t in grads[g].items():
+            sh = S.sharding_of(t)
+            w = t.detach() if sh is None else gather_whole(t, sh)
+            if g == "layers" and ring is not None:
+                w = ring_order_layers(w, *ring, inverse=True)
+            out[f"{g}/{k}"] = w.cpu()
+    return out
+
+
+def dist_pipe_run(torch, FK, rank, out_dir):
+    """[dist:pipe] on this rank: PIPE_STEPS SGD steps of the GPT hybrid
+    step for each of PIPE_RUNS; per run the losses, ms, the flash
+    launches and the (q, kv) heads they ran at, the bytes staged, a
+    digest of the leaves that replicate over pp, and step 1's gradients
+    (rank 0 writes them whole)."""
+    import hashlib
+
+    from paddle_tpu_torch.core.mesh import build_mesh
+    from paddle_tpu_torch.parallel import hybrid, pipeline
+    from paddle_tpu_torch.parallel import sharding as S
+    from paddle_tpu_torch.parallel.collective import STAGING
+
+    mesh = build_mesh(**PIPE_SIZES, device="cuda:0")
+    n_pp = PIPE_SIZES["pp"]
+    out = {}
+    for schedule, v in PIPE_RUNS:
+        step, _, params, (ids,) = hybrid.build_gpt_hybrid_step(
+            mesh, **pipe_kw(schedule, v))
+        for name in FLASH_ROWS:
+            getattr(FK, name).launches = 0
+        STAGING.reset()
+        torch.cuda.reset_peak_memory_stats()
+        heads = set()
+        with recorded_heads(heads):
+            losses, ms, first = pipe_steps(torch, step, params, ids)
+        run = dict(losses=losses, ms=ms,
+                   counts={n: getattr(FK, n).launches for n in FLASH_ROWS},
+                   heads=sorted(heads), staged_bytes=STAGING.bytes,
+                   staged_copies=STAGING.copies,
+                   coordinate=mesh.coordinate,
+                   bubble=pipeline.bubble_fraction(n_pp, PIPE_M, schedule,
+                                                   v),
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        # the leaves that replicate over pp, after the steps, by digest
+        digest = hashlib.sha256()
+        for k in sorted(params["rest"]):
+            t = params["rest"][k]
+            if S.sharding_of(t) is None:
+                digest.update(t.detach().cpu().numpy().tobytes())
+        run["rest_digest"] = digest.hexdigest()
+        grads = whole_grads(torch, first, (n_pp, v) if v > 1 else None)
+        if rank == 0:
+            torch.save(grads, os.path.join(out_dir,
+                                           f"pipe_{schedule}_grads.pt"))
+        out[schedule] = run
+        del step, params, first, grads
+        torch.cuda.empty_cache()
+    return out
+
+
+def int8_trainer(torch, comp, plan=True):
+    """[dist:int8]'s MnistMLP(1024, 1024) (seed INT8_SEED) under
+    Trainer.supervised(Adam(1e-3)), on Plan(dp=4, grad_compression=comp)
+    or unsharded (``plan=False``)."""
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.models import mnist
+    from paddle_tpu_torch.parallel import Plan, Trainer
+
+    gen = torch.Generator(device="cuda").manual_seed(INT8_SEED)
+    model = mnist.MnistMLP(INT8_HIDDEN, INT8_HIDDEN, generator=gen)
+    return Trainer.supervised(
+        model, optimizer.Adam(1e-3), mnist.loss_fn,
+        plan=Plan(dp=4, grad_compression=comp, device="cuda:0")
+        if plan else None)
+
+
+def int8_batch(torch):
+    gen = torch.Generator().manual_seed(28)
+    return {"x": torch.randn(INT8_B, 784, generator=gen),
+            "label": torch.randint(0, 10, (INT8_B,), generator=gen)}
+
+
+def dist_int8_run(torch, rank):
+    """[dist:int8] on this rank: the float32, int8 and int8_sr trainers in
+    lockstep, INT8_STEPS steps; per mode the losses, ms, the bytes staged,
+    whether the parameters equal the other ranks' bit for bit after every
+    step, and the static payload; the counters' advance over the run."""
+    from paddle_tpu_torch import telemetry
+    from paddle_tpu_torch.parallel.collective import STAGING, allgather
+    from paddle_tpu_torch.quant.collectives import _comm_metrics
+
+    trainers = {str(m): int8_trainer(torch, m) for m in INT8_MODES}
+    sh = trainers["None"].data_sharding()
+    batch = {k: sh.local(v).to("cuda") for k, v in int8_batch(torch).items()}
+    runs = {m: dict(losses=[], ms=[], staged_bytes=0, same=True,
+                    comm_bytes=list(t._comm_bytes))
+            for m, t in trainers.items()}
+    telemetry.enable()
+    try:
+        mets = _comm_metrics()
+        v0 = (mets["bytes_int8"].value, mets["bytes_fp32"].value)
+        for _ in range(INT8_STEPS):
+            for m, t in trainers.items():
+                run = runs[m]
+                STAGING.reset()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                loss, _ = t.train_step(batch)
+                run["losses"].append(loss.item())
+                run["ms"].append((time.perf_counter() - t0) * 1e3)
+                run["staged_bytes"] += STAGING.bytes
+                for p in t.params.values():
+                    peers = allgather(p.detach()[None], "dp", mesh=t.mesh)
+                    run["same"] = run["same"] and all(
+                        torch.equal(peers[0], q) for q in peers)
+        advance = (mets["bytes_int8"].value - v0[0],
+                   mets["bytes_fp32"].value - v0[1])
+    finally:
+        telemetry.disable()
+    return dict(runs=runs, advance=advance, rank=rank)
+
+
+def dist_rank(rank, store, out_dir, only=None):
+    """One rank of the [dist:*] world: every run (or those named in
+    ``only``), its record written to ``out_dir`` (rank 0 also writes each
+    run's first-step gradients)."""
     import torch
 
     torch.cuda.set_device(0)
@@ -6485,6 +6687,8 @@ def dist_rank(rank, store, out_dir):
     record = {"backend": backend}
     ids = dist_ids(torch)
     for impl, dp, sp in DIST_RUNS:
+        if only is not None and impl not in only:
+            continue
         mesh = build_mesh(dp=dp, sp=sp, device="cuda:0")
         trainer, first = dist_trainer(torch, impl, mesh)
         batch = trainer.data_sharding().local(ids).to("cuda")
@@ -6502,9 +6706,13 @@ def dist_rank(rank, store, out_dir):
         del trainer, first
         torch.cuda.empty_cache()
     for name, run in (("plan", dist_plan_run), ("fsdp", dist_fsdp_run),
-                      ("moe", dist_moe_run)):
-        args = (torch, FK, rank, out_dir) if name == "plan" else (
-            torch, rank, out_dir)
+                      ("moe", dist_moe_run), ("pipe", dist_pipe_run),
+                      ("int8", dist_int8_run)):
+        if only is not None and name not in only:
+            continue
+        args = {"plan": (torch, FK, rank, out_dir),
+                "pipe": (torch, FK, rank, out_dir),
+                "int8": (torch, rank)}.get(name, (torch, rank, out_dir))
         record[name] = run(*args)
         torch.cuda.empty_cache()
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
@@ -6540,15 +6748,58 @@ def rel_losses(losses, ref):
     return max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
 
 
-def dist_references(torch):
+def pipe_reference(torch):
+    """[dist:pipe]'s unsharded run: the GPT hybrid builder on a one-rank
+    mesh (the same weights and batch), its ``ref_step`` (the sequential
+    fold over the 12 layers) for PIPE_STEPS steps: the losses, ms and
+    step 1's whole gradients."""
+    from paddle_tpu_torch.core.mesh import build_mesh
+    from paddle_tpu_torch.parallel import hybrid
+
+    mesh = build_mesh(devices=[0], device="cuda:0")
+    _, ref_step, params, (ids,) = hybrid.build_gpt_hybrid_step(
+        mesh, **pipe_kw("gpipe", 1))
+    losses, ms, first = pipe_steps(torch, ref_step, params, ids)
+    grads = whole_grads(torch, first)
+    del ref_step, params, first
+    torch.cuda.empty_cache()
+    log(f"[dist:pipe] unsharded reference: GPTConfig.small() B={PIPE_B} "
+        f"T={PIPE_T} float32, the sequential fold (ref_step), "
+        f"SGD({PIPE_LR}) losses {losses}, ms a step "
+        f"{[round(x, 1) for x in ms]}")
+    return losses, ms, grads
+
+
+def int8_reference(torch):
+    """[dist:int8]'s unsharded run: the same MLP on the whole batch, one
+    process, float32: the losses."""
+    trainer = int8_trainer(torch, None, plan=False)
+    batch = {k: v.to("cuda") for k, v in int8_batch(torch).items()}
+    losses = [trainer.train_step(batch)[0].item()
+              for _ in range(INT8_STEPS)]
+    del trainer
+    log(f"[dist:int8] unsharded reference: MnistMLP({INT8_HIDDEN}, "
+        f"{INT8_HIDDEN}) B={INT8_B} float32, Adam(1e-3) losses {losses}")
+    return losses
+
+
+def dist_references(torch, only=None):
     """The unsharded runs the [dist:*] runs are held against, one
     process on the whole batch each: the [dist] model (ring, Ulysses and
-    plan), [dist:fsdp]'s MLP and [dist:moe]'s model (its first step's
-    routes recorded)."""
+    plan), [dist:fsdp]'s MLP, [dist:moe]'s model (its first step's
+    routes recorded), [dist:pipe]'s sequential fold and [dist:int8]'s
+    MLP (or those ``only`` needs)."""
+    refs = {}
+    if only is not None:
+        if "pipe" in only:
+            refs["pipe"] = pipe_reference(torch)
+        if "int8" in only:
+            refs["int8"] = int8_reference(torch)
+        return refs
     trainer, grads = dist_trainer(torch, None)
     ids = dist_ids(torch).to("cuda")
     losses, ms = dist_steps(torch, trainer, ids)
-    refs = {"gpt": (losses, ms, grads)}
+    refs["gpt"] = (losses, ms, grads)
     log(f"[dist] unsharded reference: GPTConfig.small() T={DIST_T} "
         f"B={DIST_B} float32, Adam({DIST_LR}) losses {losses}, ms a "
         f"step {[round(x, 1) for x in ms]}")
@@ -6575,6 +6826,8 @@ def dist_references(torch):
         f"step {[round(x, 1) for x in ms + ms2]}")
     del trainer, ids
     torch.cuda.empty_cache()
+    refs["pipe"] = pipe_reference(torch)
+    refs["int8"] = int8_reference(torch)
     return refs
 
 
@@ -6614,24 +6867,24 @@ def check_moe_routes(torch, tag, records, out_dir, ref_routes):
     return flips, compared
 
 
-def phase_dist(torch, FK):
-    """[dist:ring], [dist:ulysses], [dist:plan], [dist:fsdp] and
-    [dist:moe] against their unsharded runs, in one world of 4 ranks;
-    returns the ring entry points' launches summed over the ranks."""
+def phase_dist(torch, FK, only=None):
+    """[dist:ring], [dist:ulysses], [dist:plan], [dist:fsdp], [dist:moe],
+    [dist:pipe] and [dist:int8] (or the runs ``only`` names) against
+    their unsharded runs, in one world of 4 ranks; returns the ring entry
+    points' launches summed over the ranks."""
     import torch.multiprocessing as mp
 
-    refs = dist_references(torch)
-    ref_losses, ref_ms, ref_grads = refs["gpt"]
+    refs = dist_references(torch, only)
     out_dir = tempfile.mkdtemp(prefix="dist_")
     t0 = time.perf_counter()
     ctx = mp.start_processes(dist_rank, args=(
-        os.path.join(out_dir, "store"), out_dir), nprocs=4, join=False,
-        start_method="spawn")
-    deadline = time.monotonic() + 420
+        os.path.join(out_dir, "store"), out_dir, only), nprocs=4,
+        join=False, start_method="spawn")
+    deadline = time.monotonic() + 600
     try:
         while not ctx.join(timeout=5):
             if time.monotonic() > deadline:
-                raise SystemExit("[dist] the world did not finish in 420 s")
+                raise SystemExit("[dist] the world did not finish in 600 s")
     finally:
         for p in ctx.processes:
             if p.is_alive():
@@ -6644,6 +6897,13 @@ def phase_dist(torch, FK):
         with open(os.path.join(out_dir, f"rank{r}.json")) as f:
             records.append(json.load(f))
     launches = dict.fromkeys(RING_ROWS, 0)
+    if only is not None:
+        if "pipe" in only:
+            check_dist_pipe(torch, records, out_dir, refs["pipe"])
+        if "int8" in only:
+            check_dist_int8(records, refs["int8"])
+        return launches
+    ref_losses, ref_ms, ref_grads = refs["gpt"]
     for impl, dp, sp in DIST_RUNS:
         tag = f"[dist:{impl}]"
         for r, rec in enumerate(records):
@@ -6685,6 +6945,8 @@ def phase_dist(torch, FK):
     check_dist_plan(torch, records, out_dir, refs["gpt"])
     check_dist_fsdp(torch, records, out_dir, refs["fsdp"])
     check_dist_moe(torch, records, out_dir, refs["moe"])
+    check_dist_pipe(torch, records, out_dir, refs["pipe"])
+    check_dist_int8(records, refs["int8"])
     return launches
 
 
@@ -6813,6 +7075,146 @@ def check_dist_moe(torch, records, out_dir, ref):
         f"layer's tokens")
     if worst[0] > DIST_TOL[1]:
         raise SystemExit(f"{tag}: step 1 gradients off by {worst}")
+
+
+def expected_pipe():
+    """A rank's flash launches in [dist:pipe]'s PIPE_STEPS steps of one
+    schedule: each of its layers (L / pp of them, in one chunk or v)
+    once a microbatch a step, the forward twice (remat recomputes each
+    stage's chunk in the backward), dq and dk/dv once."""
+    from paddle_tpu_torch.models import gpt
+
+    per = (gpt.GPTConfig.small().num_layers // PIPE_SIZES["pp"]) * PIPE_M \
+        * PIPE_STEPS
+    return dict(flash_attention_fwd=2 * per, flash_attention_dq=per,
+                flash_attention_dkv=per)
+
+
+def check_dist_pipe(torch, records, out_dir, ref):
+    """[dist:pipe]'s gates, each schedule: losses within 1e-4 relative of
+    the sequential fold's, step 1's gradients reassembled from the shards
+    within 1e-3 of each parameter's largest unsharded entry, the
+    replicated leaves equal on the pp ranks of each tp index, the flash
+    launches exactly expected_pipe() a rank at (6, 2) heads."""
+    from paddle_tpu_torch.models import gpt
+
+    ref_losses, ref_ms, ref_grads = ref
+    cfg = gpt.GPTConfig.small()
+    heads = [[cfg.num_heads // PIPE_SIZES["tp"],
+              cfg.num_kv_heads // PIPE_SIZES["tp"]]]
+    want = expected_pipe()
+    for schedule, v in PIPE_RUNS:
+        tag = f"[dist:pipe] {schedule}" + (f" v={v}" if v > 1 else "")
+        digests = {}
+        for r, rec in enumerate(records):
+            run = rec["pipe"][schedule]
+            log(f"{tag} rank {r} {run['coordinate']}: losses "
+                f"{run['losses']}; ms a step "
+                f"{[round(x, 1) for x in run['ms']]}; flash launches "
+                f"{run['counts']} (expected {want}) at (q, kv) heads "
+                f"{run['heads']}; staged through the host "
+                f"{run['staged_bytes']} bytes in {run['staged_copies']} "
+                f"copies; peak {run['peak_gb']:.2f} GB")
+            if run["counts"] != want:
+                raise SystemExit(f"{tag} rank {r}: flash launches "
+                                 f"{run['counts']}, want {want}")
+            if run["heads"] != heads:
+                raise SystemExit(f"{tag} rank {r}: flash heads "
+                                 f"{run['heads']}, want {heads}")
+            rel = rel_losses(run["losses"], ref_losses)
+            if rel > DIST_TOL[0]:
+                raise SystemExit(f"{tag} rank {r}: losses {run['losses']} "
+                                 f"against {ref_losses} (rel {rel:.3e})")
+            tp = run["coordinate"]["tp"]
+            if digests.setdefault(tp, run["rest_digest"]) != \
+                    run["rest_digest"]:
+                raise SystemExit(f"{tag} rank {r}: its replicated leaves "
+                                 f"differ from its pp peer's")
+        grads = torch.load(os.path.join(out_dir,
+                                        f"pipe_{schedule}_grads.pt"))
+        worst = worst_grad(grads, ref_grads)
+        run0 = records[0]["pipe"][schedule]
+        log(f"{tag} dp=1 x pp=2 x tp=2, {PIPE_M} microbatches: losses "
+            f"within {rel_losses(run0['losses'], ref_losses):.3e} relative "
+            f"of the sequential fold's; step 1 grads (reassembled from the "
+            f"shards) within {worst[0]:.3e} of each parameter's largest "
+            f"unsharded entry (worst {worst[1]}; gate {DIST_TOL[1]}); the "
+            f"replicated leaves equal over pp; bubble fraction "
+            f"{run0['bubble']:.4f}; ms a step (rank 0) "
+            f"{[round(x, 1) for x in run0['ms']]} against "
+            f"{[round(x, 1) for x in ref_ms]} for the unsharded fold (4 "
+            f"ranks on one card over gloo: the ms price the host staging, "
+            f"not a multi-card pipeline)")
+        if worst[0] > DIST_TOL[1]:
+            raise SystemExit(f"{tag}: step 1 gradients off by {worst}")
+
+
+def check_dist_int8(records, ref_losses):
+    """[dist:int8]'s gates: each compressed run's loss within
+    max(5e-3, 5e-3 |loss|) of the float32 run's at every step (the
+    bench's trajectory gate), the parameters bit-equal on the four ranks
+    after every step, the counters' advance the static payload times the
+    steps, and the int8 run's staged bytes at least 3.5x fewer than the
+    float32 run's."""
+    tag = "[dist:int8]"
+    for r, rec in enumerate(records):
+        runs = rec["int8"]["runs"]
+        fp = runs["None"]
+        for mode in ("int8", "int8_sr"):
+            run = runs[mode]
+            gaps = [abs(a - b) for a, b in zip(run["losses"], fp["losses"])]
+            bad = [i for i, (g, b) in enumerate(zip(gaps, fp["losses"]))
+                   if g > max(INT8_GAP, INT8_GAP * abs(b))]
+            if bad:
+                raise SystemExit(f"{tag} {mode} rank {r}: loss gap "
+                                 f"{[gaps[i] for i in bad]} at steps {bad}")
+        for mode, run in runs.items():
+            if not run["same"]:
+                raise SystemExit(f"{tag} {mode} rank {r}: the parameters "
+                                 f"differ across the ranks")
+        adv = rec["int8"]["advance"]
+        want = [INT8_STEPS * sum(run["comm_bytes"][i]
+                                 for run in runs.values()) for i in (0, 1)]
+        if list(adv) != want:
+            raise SystemExit(f"{tag} rank {r}: counters advanced {adv}, "
+                             f"want {want}")
+    runs = records[0]["int8"]["runs"]
+    fp = runs["None"]
+    for mode in ("int8", "int8_sr"):
+        run = runs[mode]
+        ratio = fp["staged_bytes"] / run["staged_bytes"]
+        payload = sum(fp["comm_bytes"]) / sum(run["comm_bytes"])
+        gap = max(abs(a - b) for a, b in zip(run["losses"], fp["losses"]))
+        log(f"{tag} {mode} against float32 over {INT8_STEPS} lockstep "
+            f"steps, Plan(dp=4): losses {[round(x, 6) for x in run['losses']]}"
+            f" against {[round(x, 6) for x in fp['losses']]} (largest gap "
+            f"{gap:.3e}, gate max({INT8_GAP}, {INT8_GAP} x loss)); "
+            f"parameters bit-equal on the 4 ranks after every step; "
+            f"payload a step {run['comm_bytes']} (int8, float32 bytes) "
+            f"against {fp['comm_bytes']} ({payload:.3f}x); staged through "
+            f"the host {run['staged_bytes']} bytes against "
+            f"{fp['staged_bytes']} ({ratio:.3f}x fewer, gate "
+            f"{INT8_STAGED_RATIO}); ms a step (steps 2-{INT8_STEPS}, rank "
+            f"0) {sum(run['ms'][1:]) / (INT8_STEPS - 1):.2f} against "
+            f"{sum(fp['ms'][1:]) / (INT8_STEPS - 1):.2f} (gloo on one "
+            f"shared card)")
+        if ratio < INT8_STAGED_RATIO:
+            raise SystemExit(f"{tag} {mode}: staged bytes only "
+                             f"{ratio:.3f}x fewer")
+    # the float32 run against one process on the whole batch: step 1 (the
+    # same weights) within DIST_TOL, the later steps within the bench's
+    # trajectory gate (Adam(1e-3) moves a loss falling 160x by more than
+    # the reduction order's 1e-4 relative)
+    rel = rel_losses(fp["losses"][:1], ref_losses[:1])
+    gaps = [abs(a - b) for a, b in zip(fp["losses"], ref_losses)]
+    log(f"{tag} the float32 run against the unsharded run: step 1 within "
+        f"{rel:.3e} relative (gate {DIST_TOL[0]}), the largest gap over "
+        f"{INT8_STEPS} steps {max(gaps):.3e}; counters advanced by the "
+        f"static payload times {INT8_STEPS} on every rank")
+    if rel > DIST_TOL[0] or any(g > max(INT8_GAP, INT8_GAP * abs(b))
+                                for g, b in zip(gaps, ref_losses)):
+        raise SystemExit(f"{tag} float32 losses {fp['losses']} against the "
+                         f"unsharded {ref_losses}")
 
 
 def phase_ring_timing(torch, FK, err, launches):

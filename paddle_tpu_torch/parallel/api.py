@@ -61,9 +61,27 @@ optimizer/optimizers.py). A pure data-parallel plan runs the JAX
 package's ``shard_map`` regime: each rank's loss and batch statistics
 are its rows' (``core.mesh.local_batch``), and the
 loss, the gradients, the metrics and the buffers are averaged over the
-batch axes. ``grad_compression=`` raises, naming ROADMAP queue 1 entry
-6 item 2; a ``pp`` axis of more than one rank raises, naming item 3
-(pipelines)."""
+batch axes.
+
+``grad_compression=`` ("int8" or "int8_sr"; the plan's value when None)
+compresses the gradient all-reduce at the one reduce boundary every step
+variant shares (``train_step``, the ``grad_accum_steps`` micro-steps and
+``train_steps``), as the JAX Trainer's ``_reduce_grads``: a pure
+data-parallel plan over one batch axis reduces through the int8 ring
+(quant/collectives.py ``quantized_pmean_tree``), a reduce over more than
+one axis falls back to the plain mean, and fsdp/tp plans round-trip the
+reduced gradients through the int8 wire format (``compress_grads``).
+``"int8_sr"`` rounds stochastically from the step's key folded with
+0x51C8. With it off no code of quant/collectives.py runs. Under a pure
+data-parallel plan the per-step payload bytes are computed once and
+added to ``pt_collective_bytes_total`` per dispatched step (telemetry
+on).
+
+A mesh with a ``pp`` axis of more than one rank trains as the JAX
+Trainer does on such a mesh without a pipeline: the batch is cut over
+``dp`` only, the pp ranks hold replicas, compute the same step and
+reduce nothing over ``pp`` (pipelines: parallel/pipeline.py and
+hybrid.py)."""
 
 from __future__ import annotations
 
@@ -119,18 +137,17 @@ class Trainer:
     docstring); ``plan``, ``param_spec`` and ``opt_state_rules`` place
     the state sharded (a plan subsumes the other two and owns its
     mesh). An argument of another type raises
-    :class:`InvalidArgumentError`; ``grad_compression`` raises
-    :class:`UnimplementedError` naming its ROADMAP item."""
+    :class:`InvalidArgumentError`. ``grad_compression`` (None, "int8" or
+    "int8_sr") beats the plan's and needs a plan over more than one
+    device (the module docstring)."""
 
     def __init__(self, model: torch.nn.Module, optimizer: Optimizer,
                  loss_builder: Callable, mesh=None, build_strategy=None,
                  param_spec=None, opt_state_rules=None,
                  amp: Optional[str] = None, grad_accum_steps: int = 1,
                  plan=None, grad_compression: Optional[str] = None):
-        if grad_compression is not None:
-            raise UnimplementedError(
-                f"Trainer grad_compression= (the int8 gradient all-reduce) "
-                f"{_ENTRY_6} item 2 (item 11, distributed)")
+        from ..quant.collectives import check_mode
+
         if plan is not None:
             if not isinstance(plan, Plan):
                 raise InvalidArgumentError(
@@ -148,10 +165,6 @@ class Trainer:
                 raise InvalidArgumentError(
                     f"Trainer mesh= takes a mesh (core.mesh.build_mesh), got "
                     f"{type(mesh).__name__}")
-            if mesh.size_of("pp") > 1:
-                raise UnimplementedError(
-                    f"Trainer mesh= with pp={mesh.size_of('pp')} (pipelines) "
-                    f"{_ENTRY_6} item 3 (item 11, distributed)")
         if param_spec is not None and not isinstance(param_spec, dict):
             raise InvalidArgumentError(
                 f"Trainer param_spec= takes a {{name: PartitionSpec}} dict, "
@@ -164,6 +177,14 @@ class Trainer:
                 f"{type(opt_state_rules).__name__}")
         self.mesh = mesh
         self.plan = plan
+        # the trainer's value beats the plan's (the JAX Trainer's rule)
+        self.grad_compression = check_mode(
+            grad_compression if grad_compression is not None
+            else (plan.grad_compression if plan is not None else None))
+        if self.grad_compression is not None:
+            enforce(plan is not None and plan.num_devices > 1,
+                    "grad_compression compresses the gradient "
+                    "allreduce — it needs a multi-device plan")
         if isinstance(amp, str):
             enforce(amp in POLICIES, "unknown amp policy %s (one of %s)",
                     amp, sorted(POLICIES))
@@ -193,6 +214,15 @@ class Trainer:
         self._generator = make_generator(0, self.device)
         self._key = next_key()
         self._pmean_axes = pmean_axes(plan)
+        # the static per-step payload of the pure data-parallel reduce,
+        # for the byte counters (shapes never change after placement)
+        self._comm_bytes = (0, 0)
+        if self._pmean_axes:
+            from ..quant.collectives import tree_payload_bytes
+
+            self._comm_bytes = tree_payload_bytes(
+                self.params, self.mesh.axis_size(self._pmean_axes),
+                compression=self.grad_compression)
         if grad_accum_steps > 1:
             self._accum = {name: torch.zeros_like(p)
                            for name, p in self.params.items()}
@@ -242,21 +272,49 @@ class Trainer:
         n = self.mesh.axis_size(axes)
         return [t / n for t in self._sum_over(tensors, lambda i: axes)]
 
-    def _reduce_grads(self, grads):
-        """The global batch's gradient of every leaf: summed over the
-        data axes its spec does not split (a gathered leaf's backward
-        summed it over those it does), over their size."""
+    def _reduce_grads(self, grads, sub):
+        """The reduce boundary: the global batch's gradient of every leaf,
+        summed over the data axes its spec does not split (a gathered
+        leaf's backward summed it over those it does), over their size;
+        each placed leaf's gradient carries its sharding. With
+        ``grad_compression``: a pure data-parallel plan over one axis
+        takes the int8 ring mean, other plans the wire format's round
+        trip after the reduce (the module docstring). ``sub``: the step's
+        key (the stochastic rounding's)."""
+        comp = self.grad_compression
+        sr = comp == "int8_sr"
+        if comp is not None and len(self._pmean_axes) == 1:
+            from ..quant.collectives import quantized_pmean_tree
+
+            ax = self._pmean_axes[0]
+            # the JAX step folds the shard's key (_shard_rng) first
+            key = fold_in(self._step_key(sub), 0x51C8) if sr else None
+            return quantized_pmean_tree(grads, ax, self.mesh.axis_size(ax),
+                                        key=key, mesh=self.mesh)
         axes = self._data_axes()
-        if not axes:
-            return grads
-        n = self.mesh.axis_size(axes)
-        names = list(grads)
-        split = [set(S.sharding_of(self.params[k]).axes())
-                 if S.sharding_of(self.params[k]) is not None else set()
-                 for k in names]
-        summed = self._sum_over([grads[k] for k in names], lambda i: tuple(
-            a for a in axes if a not in split[i]))
-        return {k: g / n for k, g in zip(names, summed)}
+        if axes:
+            n = self.mesh.axis_size(axes)
+            names = list(grads)
+            split = [set(S.sharding_of(self.params[k]).axes())
+                     if S.sharding_of(self.params[k]) is not None else set()
+                     for k in names]
+            summed = self._sum_over([grads[k] for k in names],
+                                    lambda i: tuple(a for a in axes
+                                                    if a not in split[i]))
+            grads = {k: g / n for k, g in zip(names, summed)}
+        for name, g in grads.items():
+            p = self.params[name]
+            sh = S.sharding_of(p)
+            if sh is not None:
+                g._pt_sharding = sh          # the clips' norms (clip.py)
+                g._pt_global_shape = p._pt_global_shape
+        if comp is not None and not self._pmean_axes:
+            from ..quant.collectives import compress_grads
+
+            # one key on every rank: each round-trips the whole leaf
+            key = fold_in(sub, 0x51C8) if sr else None
+            grads = compress_grads(grads, key=key)
+        return grads
 
     def _step_key(self, sub):
         """The step's key with this rank's data-axis coordinates folded
@@ -301,7 +359,20 @@ class Trainer:
         loss, detached, on the device (reading it syncs), and the
         metrics."""
         self._key, sub = split_key(self._key)
-        return self._step(batch, sub)
+        out = self._step(batch, sub)
+        self._count_bytes(1)
+        return out
+
+    def _count_bytes(self, steps: int) -> None:
+        """Add ``steps`` steps' payload bytes to the collective counters
+        (a pure data-parallel plan with telemetry on)."""
+        from .. import telemetry
+
+        if self._pmean_axes and telemetry.enabled():
+            from ..quant.collectives import record_payload_bytes
+
+            record_payload_bytes(self._comm_bytes[0] * steps,
+                                 self._comm_bytes[1] * steps)
 
     def _step(self, batch, sub) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """One micro-step whose generator is seeded from the key ``sub``
@@ -325,15 +396,11 @@ class Trainer:
                         else torch.zeros_like(p))
                  for name, p in self.params.items()}
         if self.mesh is not None:
-            grads = self._reduce_grads(grads)
+            grads = self._reduce_grads(grads, sub)
             loss = self._mean_over_mesh([loss.detach()])[0]
             if self._pmean_axes:
                 metrics = self._pmean_tree(metrics)
                 self._pmean_buffers()
-            for name, g in grads.items():
-                sh = S.sharding_of(self.params[name])
-                if sh is not None:
-                    g._pt_sharding = sh      # the clips' norms (clip.py)
         k = self.grad_accum_steps
         if k == 1:
             self.optimizer.apply(self.params, grads, self.opt_state)
@@ -382,6 +449,7 @@ class Trainer:
         self._key, sub = split_key(self._key)
         for step_key in split_key(sub, n):
             out = self._step(batch, step_key)
+        self._count_bytes(n)
         return out
 
     def eval_step(self, batch):

@@ -36,7 +36,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..core.enforce import UnimplementedError, enforce
+from ..core.enforce import enforce
 from ..core.mesh import Mesh, _ranks, _world, local_batch
 from ..core.sharding_types import NamedSharding, PartitionSpec as P
 from . import sharding as S
@@ -64,9 +64,10 @@ class Plan:
     ``devices``: the global ranks of the mesh (default the process
     group's first ``num_devices``); ``mesh``: a port :class:`Mesh` with
     the plan's axes instead; ``device``: the ranks' torch device (the
-    mesh's default otherwise). ``grad_compression`` (the int8 gradient
-    all-reduce) raises :class:`UnimplementedError`: ROADMAP queue 1
-    entry 6 item 2."""
+    mesh's default otherwise). ``grad_compression`` (None, "int8" or
+    "int8_sr"): the plan's default for the Trainer's int8 gradient
+    all-reduce (quant/collectives.py), which ``Trainer(grad_compression=)``
+    overrides."""
 
     def __init__(self, dp: int = 1, fsdp: int = 1, tp: int = 1, *,
                  ep: int = 1, rules: Sequence[Rule] = (),
@@ -79,15 +80,12 @@ class Plan:
         for name, s in (("dp", dp), ("fsdp", fsdp), ("tp", tp),
                         (TABLE_AXIS, ep)):
             enforce(s >= 1, "plan axis %s must be >= 1, got %s", name, s)
-        if grad_compression is not None:
-            raise UnimplementedError(
-                "Plan grad_compression= (the int8 gradient all-reduce) is "
-                "not ported yet: ROADMAP queue 1 entry 6 item 2 (item 11, "
-                "distributed)")
+        from ..quant.collectives import check_mode
+
         self.dp, self.fsdp, self.tp = int(dp), int(fsdp), int(tp)
         self.ep = int(ep)
         self.tables = [re.compile(pat) for pat in tables]
-        self.grad_compression = None
+        self.grad_compression = check_mode(grad_compression)
         self.rules = [(re.compile(pat), spec) for pat, spec in rules]
         self.params = dict(params or {})
         self.min_shard_size = int(min_shard_size)

@@ -21,7 +21,6 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from ..core.enforce import UnimplementedError
 from ..ops.math import _clip
 
 
@@ -180,17 +179,34 @@ def absmax_encode(x, axis: Optional[int] = None, *, absmax=None,
     ``axis``: the axis the abs-max is taken over (None = whole tensor);
     the returned scale keeps it with size 1. ``absmax``: a recorded
     abs-max (calibrated activation scales), which skips the reduction.
-    ``key`` (stochastic rounding) belongs to the int8 collectives and is
-    not ported. Returns ``(q, scale)`` with ``scale`` float32."""
-    if key is not None:
-        raise UnimplementedError(
-            "absmax_encode(key=) (stochastic rounding for the int8 "
-            "collectives) is not ported yet: ROADMAP queue 1 item 11")
+    ``key`` (JAX key data, uint32[2]): stochastic rounding, ``floor(y +
+    u)`` with ``u ~ U[0, 1)`` drawn from a ``torch.Generator`` on ``x``'s
+    device that the key seeds (``core.random.seed_generator``), the
+    gradient-compression option where rounding bias would accumulate
+    across steps. It is unbiased, ``E[q] = y``, and within one step of
+    ``y``, as the JAX package's; the draws match the JAX ones in
+    distribution only. Returns ``(q, scale)`` with ``scale`` float32."""
     if absmax is None:
         absmax = (torch.amax(torch.abs(x)) if axis is None
                   else torch.amax(torch.abs(x), dim=axis, keepdim=True))
     scale = _absmax_scale(absmax, x.device, bit_length, eps)
-    return _encode_at(x, scale, bit_length), scale
+    if key is None:
+        return _encode_at(x, scale, bit_length), scale
+    return _encode_stochastic(x, scale, key, bit_length), scale
+
+
+def _encode_stochastic(x, scale, key, bit_length: int = 8):
+    """:func:`absmax_encode`'s stochastic rounding at a scale taken
+    beforehand: ``clip(floor(x / scale + u), -qmax, qmax)``, ``u ~ U[0,
+    1)`` from a generator on ``x``'s device that ``key`` seeds."""
+    from ..core.random import seed_generator
+
+    gen = seed_generator(torch.Generator(device=x.device), key)
+    y = x.float() / scale
+    y = torch.floor(y + torch.rand(y.shape, generator=gen,
+                                   device=x.device))
+    qmax = _qmax(bit_length)
+    return torch.clamp(y, -qmax, qmax).to(_int_dtype(bit_length))
 
 
 def _absmax_scale(absmax, device, bit_length: int = 8, eps: float = 1e-10):

@@ -55,3 +55,43 @@ def load_numpy_state(model: torch.nn.Module,
                 value = value.astype(np.float32)
             params.get(name, buffers.get(name)).copy_(
                 torch.from_numpy(value))
+
+
+def hybrid_params(arrays, like, *, ring=None):
+    """This rank's params of a hybrid builder (parallel/hybrid.py) from a
+    JAX hybrid builder's, as numpy: ``arrays`` is ``{"layers": {name:
+    (L, ...)}, "rest": {name: array}}`` (or the transformer builder's
+    flat ``{name: array}``), ``like`` the port builder's params of the
+    same structure, whose leaves carry the layout. Each array is cut to
+    this rank's shard under its leaf's sharding and returned as a new
+    trainable leaf on the leaf's device, marked as it is. The stack
+    crosses in the order it is given: the JAX builders store it in ring
+    order under the interleaved schedule, as the port's do. ``ring=(n,
+    v)`` takes a LOGICAL-order stack into the ring order of n pp ranks
+    and v virtual stages first."""
+    from ..parallel import sharding as S
+    from ..parallel.pipeline import ring_order_layers
+
+    def leaf(a, t, stacked):
+        a = np.asarray(a)
+        if stacked and ring is not None:
+            a = ring_order_layers(torch.from_numpy(np.array(a)),
+                                  *ring).numpy()
+        whole = tuple(getattr(t, "_pt_global_shape", t.shape))
+        if a.shape != whole:
+            raise InvalidArgumentError(
+                f"hybrid_params: an array of shape {a.shape} for a leaf of "
+                f"whole shape {whole}")
+        value = torch.from_numpy(np.array(a)).to(t.dtype)
+        sh = S.sharding_of(t)
+        if sh is not None:
+            value = sh.local(value)
+        out = torch.nn.Parameter(value.to(t.device).contiguous())
+        if sh is not None:
+            S.mark(out, sh, whole)
+        return out
+
+    if "layers" in like and isinstance(like["layers"], dict):
+        return {g: {k: leaf(arrays[g][k], t, g == "layers")
+                    for k, t in like[g].items()} for g in like}
+    return {k: leaf(arrays[k], t, False) for k, t in like.items()}

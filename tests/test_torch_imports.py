@@ -66,6 +66,14 @@ SLIM_SLICE = ("slim", "slim.core", "slim.prune", "slim.distill",
               "data.bucketing", "data", "nn.layer")
 
 
+# the int8 all-reduce and pipeline slice, and the rank-side job modules of
+# the distributed tests (the ranks must never import JAX)
+DIST_SLICE = ("quant.collectives", "parallel.pipeline", "parallel.hybrid",
+              "parallel.plan", "utils.convert")
+JOB_MODULES = ("torch_world.py", "torch_quant_jobs.py",
+               "torch_pipeline_jobs.py")
+
+
 def _imported(path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
@@ -102,9 +110,16 @@ def test_package_imports_without_triton_nvcc_or_jax():
     assert out.returncode == 0 and "ok" in out.stdout, out.stderr
 
 
+@pytest.mark.parametrize("name", JOB_MODULES)
+def test_rank_job_modules_are_jax_free(name):
+    path = ROOT / "tests" / name
+    bad = [m for m in _imported(path) if m.split(".")[0] in FORBIDDEN]
+    assert path.exists() and not bad, (name, bad)
+
+
 @pytest.mark.parametrize("name", RESILIENCE_SLICE + CONV_SLICE
                          + DEEPFM_SLICE + NMT_SLICE + MOE_ZOO_RNN_SLICE
-                         + OPS_LORA_SLICE + SLIM_SLICE)
+                         + OPS_LORA_SLICE + SLIM_SLICE + DIST_SLICE)
 def test_checkpoint_slice_modules_are_jax_free(name):
     path = PKG / (name.replace(".", "/") + ".py")
     if not path.exists():

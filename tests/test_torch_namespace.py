@@ -27,25 +27,19 @@ ENTRY_6 = "queue 1 entry 6 (item 11, distributed)"
 ENTRY_7 = "queue 1 entry 7 (item 8, the profiler)"
 ENTRY_8 = "queue 1 entry 8 (item 12, compat surfaces)"
 # module -> {name still missing from the port: the entry that owns it}.
-# Entry 6's mesh, collectives and context parallelism are ported; what
-# stays is its next slice: the quantized collectives, the Plan and the
-# sharding rules, pipeline, hybrid, the sharded embedding, dgc, geo-sgd
+# Entry 6's mesh, collectives, context parallelism, plans, the int8
+# gradient all-reduce, pipelines and the hybrid steps are ported; what
+# stays is the sharded embedding, dgc and geo-sgd
 STILL_MISSING = {
     "": {},
     "slim": {},
-    "quant": dict.fromkeys(
-        ("compress_grads", "quantized_pmean", "quantized_pmean_tree",
-         "quantized_psum", "quantized_psum_partitioned"), ENTRY_6),
+    "quant": {},
     "core": {**dict.fromkeys(("RecordEvent", "profiler", "start_profiler",
                               "stop_profiler"), ENTRY_7),
              **dict.fromkeys(("BuildStrategy", "ExecutionStrategy"),
                              ENTRY_8)},
     "parallel": dict.fromkeys(
-        ("GPipe", "bubble_fraction", "gpipe_ticks",
-         "interleaved_ticks", "pipeline_apply", "ring_order_layers",
-         "stage_param_sharding", "build_bert_hybrid_step",
-         "build_gpt_hybrid_step", "build_hybrid_transformer_step",
-         "ShardedEmbedding", "embedding_ep_rules",
+        ("ShardedEmbedding", "embedding_ep_rules",
          "sharded_embedding_lookup", "DGCMomentum", "dgc_allreduce",
          "quantized_allreduce", "top_k_sparsify", "GeoSGDTrainer"),
         ENTRY_6),

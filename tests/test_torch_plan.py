@@ -188,8 +188,13 @@ def test_trainer_selects_as_the_jax_trainer(eight_devices):
         Trainer.supervised(TMN.MnistMLP(**MNIST, device="cpu"),
                            TO.SGD(0.1), TMN.loss_fn, plan=TPL.Plan(dp=8),
                            param_spec={"fc1.weight": TP_()})
-    with pytest.raises(UnimplementedError, match="entry 6 item 2"):
-        TPL.Plan(dp=2, grad_compression="int8")
+    # grad_compression is ported (tests/test_torch_quant_comm.py): the
+    # plan keeps a valid mode and refuses another, as the JAX plan
+    assert TPL.Plan(dp=2, grad_compression="int8").grad_compression == \
+        JPL.Plan(dp=2, grad_compression="int8",
+                 devices=jax.devices()[:2]).grad_compression == "int8"
+    with pytest.raises(EnforceError, match="grad_compression"):
+        TPL.Plan(dp=2, grad_compression="int4")
 
 
 def test_describe_matches_jax(eight_devices):

@@ -21,7 +21,6 @@ import torch
 
 from paddle_tpu.ops.pallas.quant_matmul import quantize_tensor as jax_qt
 from paddle_tpu.quant import ops as JQ
-from paddle_tpu_torch.core import UnimplementedError
 from paddle_tpu_torch.ops.kernels import quant_matmul as TQM
 from paddle_tpu_torch.quant import ops as TQ
 
@@ -69,8 +68,24 @@ def test_absmax_encode_recorded_absmax_and_16_bit(absmax):
 
 
 def test_absmax_encode_stochastic_key_raises():
-    with pytest.raises(UnimplementedError, match="queue 1 item 11"):
-        TQ.absmax_encode(torch.ones(4), key=0)
+    """``key=`` (stochastic rounding) no longer raises: the codes are
+    within one step of ``x / scale`` and unbiased in the mean, as the JAX
+    package's on the same input (the draws differ: distribution only),
+    the scale is the nearest-rounding one exactly, and one key gives the
+    same codes twice."""
+    x = _x((256, 256), seed=9, scale=1.0)
+    jq, js = JQ.absmax_encode(jnp.asarray(x), axis=1,
+                              key=jax.random.key(0))
+    tq, ts = TQ.absmax_encode(torch.from_numpy(x), axis=1,
+                              key=np.array([0, 7], np.uint32))
+    _eq(ts, js)
+    for q in (np.asarray(jq), tq.numpy()):
+        err = q.astype(np.float32) * np.asarray(js) - x
+        assert (np.abs(err) <= np.asarray(js) * (1 + 1e-5)).all()
+        assert abs(err.mean()) < float(np.asarray(js).mean()) * 0.02
+    again, _ = TQ.absmax_encode(torch.from_numpy(x), axis=1,
+                                key=np.array([0, 7], np.uint32))
+    assert torch.equal(again, tq) and tq.dtype == torch.int8
 
 
 @pytest.mark.parametrize("scale", [0.7, 5.0])

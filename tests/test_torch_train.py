@@ -51,8 +51,7 @@ from paddle_tpu.core import dtypes as JD
 import paddle_tpu_torch
 from paddle_tpu_torch import amp as TAMP
 from paddle_tpu_torch import optimizer as TO
-from paddle_tpu_torch.core import (EnforceError, InvalidArgumentError,
-                                   UnimplementedError)
+from paddle_tpu_torch.core import EnforceError, InvalidArgumentError
 from paddle_tpu_torch.core import dtypes as TD
 from paddle_tpu_torch.models import gpt as TG
 from paddle_tpu_torch.ops import attention as TA
@@ -214,18 +213,20 @@ def test_train_steps_runs_n_updates_and_supervised():
     # mesh=, plan=, param_spec= and opt_state_rules= are ported
     # (tests/test_torch_seq_parallel.py, test_torch_plan.py,
     # test_torch_tensor_parallel.py): an argument of another type raises
-    # a typed error; grad_compression= names its ROADMAP item
+    # a typed error; grad_compression= (tests/test_torch_quant_comm.py)
+    # needs a multi-device plan, as in the JAX Trainer
     pytest.param(dict(mesh=object()), "takes a mesh", id="kw0-item 11"),
     pytest.param(dict(plan=object()), "takes a Plan", id="kw1-item 11"),
     pytest.param(dict(param_spec=object()), "takes a {name",
                  id="kw2-item 11"),
     pytest.param(dict(opt_state_rules=object()), "takes OptStateRules",
                  id="kw3-item 11"),
-    (dict(grad_compression="int8"), "item 11"),
+    pytest.param(dict(grad_compression="int8"), "multi-device plan",
+                 id="kw4-item 11"),
 ])
 def test_trainer_unported_arguments_raise(kw, item):
     _, tm = _pair(12)
-    with pytest.raises(UnimplementedError if "grad_compression" in kw
+    with pytest.raises(EnforceError if "grad_compression" in kw
                        else InvalidArgumentError, match=item):
         Trainer(tm, TO.SGD(0.1), lambda *a: None, **kw)
 
