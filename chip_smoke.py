@@ -544,6 +544,50 @@ Phases, each printed as it runs:
    float32 run against one process on the whole batch (step 1 within
    1e-4 relative, every step within the bench's gap); ms a step both
    ways reported.
+37. ``[dist:embed]`` and ``[dist:geo]`` in the same world.
+   ``[dist:embed]``: the JAX bench's ep arm of deepfm_sparse
+   (``bench.py`` ``_bench_deepfm_sparse_ep``) at
+   ``DeepFMConfig.criteo()`` width (V=1,000,000, 26 fields, 13 dense,
+   embed 16, the (400, 400, 400) tower), float32: the tables registered
+   by ``Plan(dp=2, ep=2, tables=...)``, a global batch of 4096 (2048 a
+   rank) with the bench's power-law ids (numpy seed 0), Adam(1e-3)
+   through ``embedding.sparse_ep_minimize_fn`` fed by
+   ``DevicePrefetcher(sharding=plan.batch_sharding(), prefetch_rows=)``
+   over a ``HostBackedTable.from_array`` of the placed table (capacity
+   V / 16): 3 steps on the float32 wire, then 3 on the default (int8),
+   held against one process running the unsharded
+   ``sparse_minimize_fn`` on the same weights and batches: the float32
+   losses within 1e-5 relative and every parameter after step 3 within
+   1e-5 (or twice the unsharded loop's own distance from a run on the
+   batch rows shuffled, where Adam turns the rounding of a hot row's
+   cancelling gradient into a visible step), the int8 losses within
+   5e-3 relative and the tables after step 6 within 5e-2, untouched rows bitwise unchanged in the tables and
+   both Adam moments, a rank's table bytes at most half the replicated
+   (the bench's byte-budget gate), ``pt_collective_bytes_total``
+   advanced by ``exchange_payload_bytes`` times the steps, the
+   prefetcher's last batch resident and bit-equal to the host rows;
+   then 2 dense Adam steps with the tables over "ep"
+   (``ShardedEmbedding``) through ``Trainer(plan=)`` against the
+   unsharded Trainer: the losses within 1e-4 relative and step 1's
+   gradients, the tables' reassembled from the shards, within 1e-3 of
+   each parameter's largest unsharded entry (an ``ep``-times lookup
+   gradient would show here); ms a step, the payload against the dense
+   gradient's bytes, the bytes staged, the cache hit rate and the host
+   syncs of one step reported. ``[dist:geo]``: ``GPTConfig.small()``
+   widths cut to 2 layers (dropout 0, remat), B=8 (2 rows a rank),
+   T=1024, float32, ``Trainer(mesh=dp4)`` with ``DGCMomentum(1e-2,
+   sparsity=0.999, rampup_begin_step=1)`` under
+   ``GeoSGDTrainer(sync_every=2)``, 4 steps then ``sync()``, held
+   against one process training the four replicas one after another on
+   the same rows and averaging them at the same steps: the losses and
+   the flushed parameters within 1e-4 relative, the divergence above 0
+   after steps 1 and 3 and below 1e-6 after steps 2 and 4 and the sync,
+   the replicas' digests equal over the ranks after every sync, the
+   flash forward, dq and dk/dv exactly 16, 8 and 8 launches a rank at
+   (12, 4) heads; then step 1's gradients through ``dgc_allreduce``
+   quantized and exact: every leaf within 2.5 max|g| 4 / 127, the
+   correlation above 0.999, the quantized form's staged bytes at least
+   3x fewer; ms a step, a sync's ms and the staged bytes reported.
 
 Any failure exits non-zero. The line before the last is the kernels'
 JSON record (each row also names the ``tiles`` its timed launch ran
@@ -6131,6 +6175,25 @@ INT8_MODES = (None, "int8", "int8_sr")
 # staged-bytes gate (the JAX package's payload bound,
 # tests/test_quant_comm.py)
 INT8_GAP, INT8_STAGED_RATIO = 5e-3, 3.5
+# [dist:embed]: the JAX bench's ep arm of deepfm_sparse (bench.py
+# _bench_deepfm_sparse_ep) at DeepFMConfig.criteo() width (V=1,000,000,
+# 26 fields, 13 dense, embed 16, tower (400, 400, 400)), global batch
+# 4096 with the bench's power-law ids (vocab * u**8, numpy seed 0), the
+# tables registered under Plan(dp=2, ep=2), Adam(1e-3): 3 sparse steps on
+# the float32 wire, 3 on the default (int8), then 2 dense steps with the
+# tables over "ep" (ShardedEmbedding) through Trainer(plan=)
+EMBED_VOCAB, EMBED_B, EMBED_STEPS, EMBED_DENSE_STEPS = 1_000_000, 4096, 3, 2
+EMBED_TABLES = r"(embedding|linear_embed)\.weight$"
+EMBED_F32_TOL, EMBED_INT8_TOL = (1e-5, 1e-5), (5e-3, 5e-2)  # loss, rows
+EMBED_DENSE_TOL = (1e-4, 1e-3)      # DIST_TOL: loss, grad / largest entry
+# [dist:geo]: GPTConfig.small() widths (hidden 768, 12 heads, 4 kv heads,
+# FFN 2048, vocab 32000, dropout 0, remat) cut to 2 layers, B=8 (2 rows a
+# rank), T=1024, float32, Trainer(mesh=dp4) with DGCMomentum(1e-2,
+# sparsity=0.999, rampup_begin_step=1) under GeoSGDTrainer(sync_every=2),
+# 4 steps then sync(); then dgc_allreduce of step 1's gradients
+GEO_LAYERS, GEO_B, GEO_T, GEO_STEPS, GEO_SYNC, GEO_SEED = 2, 8, 1024, 4, 2, 29
+GEO_LR, GEO_SPARSITY, GEO_RAMPUP = 1e-2, 0.999, 1
+GEO_TOL, GEO_SYNCED, GEO_CORR, GEO_STAGED_RATIO = 1e-4, 1e-6, 0.999, 3.0
 
 
 def ring_inputs(torch, dtype, segs, mask, gen):
@@ -6665,6 +6728,328 @@ def dist_int8_run(torch, rank):
     return dict(runs=runs, advance=advance, rank=rank)
 
 
+def embed_model(torch, sparse, axis=None):
+    """[dist:embed]'s DeepFM at DeepFMConfig.criteo() width from the
+    global stream seeded 0 (as the bench seeds it), tables over ``axis``
+    (None: nn.Embedding, as the bench's ep arm builds them)."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models import deepfm as DF
+
+    ptt.seed(0)
+    cfg = DF.DeepFMConfig.criteo(EMBED_VOCAB)
+    cfg.embedding_axis, cfg.sparse_grads = axis, sparse
+    return DF.DeepFM(cfg, device="cuda")
+
+
+def embed_batches():
+    """The bench's batches (numpy seed 0): power-law ids over the vocab
+    (the CTR traffic shape: the hot head makes the working set
+    meaningful), dense features normal; EMBED_STEPS x 2 of them."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    out = []
+    for _ in range(2 * EMBED_STEPS):
+        ids = np.minimum(EMBED_VOCAB * rng.random((EMBED_B, 26)) ** 8,
+                         EMBED_VOCAB - 1).astype(np.int64)
+        dense = rng.normal(size=(EMBED_B, 13)).astype(np.float32)
+        out.append({"ids": ids, "dense": dense})
+    return out
+
+
+def embed_loss(model):
+    from paddle_tpu_torch.models import deepfm as DF
+
+    def fl(p, ids, dense):
+        logits, _ = model.functional_call(p, ids, dense)
+        return DF.loss_fn(logits, (ids[:, 0] % 2).float())
+
+    return fl
+
+
+def whole_params(torch, params):
+    """{name: the whole tensor on the host} (placed leaves gathered by
+    every rank)."""
+    from paddle_tpu_torch.nn.layer import use
+
+    with torch.no_grad():
+        return {n: use(p).detach().to("cpu", copy=True)
+                for n, p in params.items()}
+
+
+def embed_payload(tables, shapes, compressed):
+    """One step's exchange payload a rank (bytes), each table's rows at
+    EMBED_B / 2 x 26 local ids over dp=2."""
+    from paddle_tpu_torch.embedding import (exchange_payload_bytes,
+                                            should_compress)
+
+    out = 0
+    for n in tables:
+        dim = shapes[n][1]
+        comp = compressed and should_compress(EMBED_B * 26, 2, dim)
+        out += exchange_payload_bytes(EMBED_B // 2 * 26, dim, 2,
+                                      compressed=comp)
+    return out
+
+
+def dist_embed_run(torch, rank, out_dir):
+    """[dist:embed] on this rank: the sparse run (3 float32-wire steps, 3
+    int8 ones) fed by DevicePrefetcher(sharding=the plan's batch
+    sharding, prefetch_rows=a HostBackedTable mirror of the placed
+    table), then the dense run of the tables over "ep". Rank 0 writes
+    the whole parameters after steps 3 and 6 and the dense run's step-1
+    gradients to ``out_dir``."""
+    from paddle_tpu_torch import optimizer as TO
+    from paddle_tpu_torch import telemetry
+    from paddle_tpu_torch.data.device_loader import DevicePrefetcher
+    from paddle_tpu_torch.embedding import (HostBackedTable,
+                                            dense_grad_bytes,
+                                            sparse_ep_minimize_fn)
+    from paddle_tpu_torch.models import deepfm as DF
+    from paddle_tpu_torch.parallel import Plan, Trainer
+    from paddle_tpu_torch.parallel.collective import STAGING
+    from paddle_tpu_torch.quant.collectives import _comm_metrics
+
+    model = embed_model(torch, True)
+    plan = Plan(dp=2, ep=2, tables=[EMBED_TABLES], device="cuda:0")
+    params = plan.place(dict(model.named_parameters()))
+    tables = sorted(n for n in params if plan.is_table(n))
+    shapes = {n: tuple(params[n]._pt_global_shape) for n in tables}
+    replicated = sum(shapes[n][0] * shapes[n][1] * 4 for n in tables)
+    planned = sum(params[n].numel() * params[n].element_size()
+                  for n in tables)
+    start = {n: params[n].detach().clone() for n in tables}
+    host_tbl = HostBackedTable.from_array(params[tables[0]],
+                                          capacity=EMBED_VOCAB // 16,
+                                          name="deepfm.embedding",
+                                          device="cuda")
+    batches = embed_batches()
+    pref = DevicePrefetcher(batches, size=2, sharding=plan.batch_sharding(),
+                            prefetch_rows=lambda b: host_tbl.prefetch(
+                                b["ids"]))
+    opt = TO.Adam(1e-3)
+    init_fn, f32_step = sparse_ep_minimize_fn(model, embed_loss(model), opt,
+                                              plan=plan, compress=False)
+    _, int8_step = sparse_ep_minimize_fn(model, embed_loss(model), opt,
+                                         plan=plan)
+    state = init_fn(params)
+    losses, ms, staged, syncs = [], [], [], None
+    touched = torch.zeros(EMBED_VOCAB, dtype=torch.bool)
+    for b in batches:
+        touched[torch.from_numpy(b["ids"].reshape(-1))] = True
+    telemetry.enable()
+    try:
+        mets = _comm_metrics()
+        v0 = (mets["bytes_int8"].value, mets["bytes_fp32"].value)
+        for i, b in enumerate(pref):
+            step = f32_step if i < EMBED_STEPS else int8_step
+            STAGING.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if i == 1:
+                (loss, params, state), syncs = sync_count(
+                    torch, lambda: step(params, state, b["ids"], b["dense"]))
+            else:
+                loss, params, state = step(params, state, b["ids"],
+                                           b["dense"])
+            losses.append(loss.item())
+            ms.append((time.perf_counter() - t0) * 1e3)
+            staged.append(STAGING.bytes)
+            if i + 1 in (EMBED_STEPS, 2 * EMBED_STEPS):
+                whole = whole_params(torch, params)
+                if rank == 0:
+                    torch.save(whole, os.path.join(out_dir,
+                                                   f"embed{i + 1}.pt"))
+                del whole
+        advance = (mets["bytes_int8"].value - v0[0],
+                   mets["bytes_fp32"].value - v0[1])
+    finally:
+        telemetry.disable()
+    # the rows of the rank's window that no batch touched, in the table
+    # and both Adam moments
+    frozen = True
+    for n in tables:
+        sh = params[n]._pt_sharding
+        rows = params[n].shape[0]
+        lo = sh.mesh.axis_index("ep") * rows
+        cold = (~touched[lo:lo + rows]).to("cuda")
+        frozen &= torch.equal(params[n][cold], start[n][cold])
+        for leaf in state["sparse"][n].values():
+            if torch.is_tensor(leaf) and leaf.ndim:
+                frozen &= not leaf[cold].any().item()
+    # the prefetcher has drained: the last batch it staged is resident
+    last = batches[-1]["ids"]
+    misses = host_tbl.cache.stats()["misses"]
+    rows = host_tbl.lookup(last)
+    all_hits = host_tbl.cache.stats()["misses"] == misses
+    bit_equal = torch.equal(rows.cpu(), torch.from_numpy(host_tbl.rows[last]))
+    run = dict(losses=losses, ms=ms, staged=staged, syncs=syncs,
+               advance=advance, frozen=bool(frozen), all_hits=all_hits,
+               bit_equal=bit_equal, hit_rate=host_tbl.hit_rate,
+               distinct_last=int(len(set(last.reshape(-1).tolist()))),
+               planned=planned, replicated=replicated,
+               payload=[embed_payload(tables, shapes, False),
+                        embed_payload(tables, shapes, True)],
+               dense_grad=sum(dense_grad_bytes(shapes[n][0], shapes[n][1], 4)
+                              for n in tables),
+               coordinate=plan.mesh.coordinate)
+    del params, state, model, host_tbl
+    torch.cuda.empty_cache()
+    # the dense path: the tables over "ep" (ShardedEmbedding) through
+    # Trainer(plan=), where an ep-times lookup gradient would show
+    model = embed_model(torch, False, axis="ep")
+    plan = Plan(dp=2, ep=2, tables=[EMBED_TABLES], device="cuda:0")
+    trainer = Trainer(model, TO.Adam(1e-3), lambda m, b, g: (DF.loss_fn(
+        m(b["ids"], b["dense"]), (b["ids"][:, 0] % 2).float()), {}),
+        plan=plan)
+    first = keep_first_grads(torch, trainer)
+    sh = trainer.data_sharding()
+    dense_losses, dense_ms = [], []
+    for b in batches[:EMBED_DENSE_STEPS]:
+        batch = {k: sh.local(torch.from_numpy(v)).to("cuda")
+                 for k, v in b.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = trainer.train_step(batch)
+        dense_losses.append(loss.item())
+        dense_ms.append((time.perf_counter() - t0) * 1e3)
+    if rank == 0:
+        torch.save(first, os.path.join(out_dir, "embed_dense_grads.pt"))
+    run.update(dense_losses=dense_losses, dense_ms=dense_ms,
+               dense_local=list(model.embedding.weight.shape))
+    del trainer, model, first
+    torch.cuda.empty_cache()
+    return run
+
+
+def geo_model(torch):
+    """[dist:geo]'s GPT: GPTConfig.small() widths, GEO_LAYERS layers,
+    dropout 0, remat (seed GEO_SEED)."""
+    from paddle_tpu_torch.models import gpt
+
+    cfg = gpt.GPTConfig.small()
+    cfg.num_layers, cfg.dropout, cfg.remat = GEO_LAYERS, 0.0, True
+    gen = torch.Generator(device="cuda").manual_seed(GEO_SEED)
+    return gpt.GPTForCausalLM(cfg, device="cuda", generator=gen)
+
+
+def geo_trainer(torch, mesh=None):
+    from paddle_tpu_torch.parallel import DGCMomentum, Trainer
+
+    return Trainer(geo_model(torch), DGCMomentum(
+        GEO_LR, sparsity=GEO_SPARSITY, rampup_begin_step=GEO_RAMPUP),
+        lambda m, batch, g: (m.forward_loss(batch), {}), mesh=mesh)
+
+
+def geo_ids(torch):
+    from paddle_tpu_torch.models import gpt
+
+    vocab = gpt.GPTConfig.small().vocab_size
+    return torch.randint(0, vocab, (GEO_B, GEO_T),
+                         generator=torch.Generator().manual_seed(30))
+
+
+def params_digest(torch, params):
+    """An int64 digest of the parameters' bits (each 32-bit word weighted
+    by its position mod a prime): equal digests across ranks mean
+    bit-equal replicas but for a collision."""
+    with torch.no_grad():
+        flat = torch.cat([p.detach().reshape(-1).float()
+                          for p in params.values()]).view(torch.int32)
+        w = torch.arange(flat.numel(), device=flat.device) % 1000003 + 1
+        return int((flat.long() * w).sum().item())
+
+
+def dist_geo_run(torch, FK, rank, out_dir):
+    """[dist:geo] on this rank: step 1's gradients (the rank's rows)
+    through dgc_allreduce quantized and exact, then GEO_STEPS geo-SGD
+    steps and sync(); per step the loss, ms and divergence, at each sync
+    the replicas' digests over the ranks; the flash launches and heads
+    of the geo steps. Rank 0 writes the flushed parameters."""
+    from paddle_tpu_torch.core.mesh import build_mesh, local_batch, mesh_scope
+    from paddle_tpu_torch.parallel import (GeoSGDTrainer, allgather,
+                                           allreduce, dgc_allreduce,
+                                           top_k_sparsify)
+    from paddle_tpu_torch.parallel.collective import STAGING
+
+    mesh = build_mesh(dp=4, device="cuda:0")
+    trainer = geo_trainer(torch, mesh)
+    batch = trainer.data_sharding().local(geo_ids(torch)).to("cuda")
+    names = list(trainer.params)
+    with mesh_scope(mesh), local_batch():
+        loss = trainer.model.forward_loss(batch)
+    grads = dict(zip(names, torch.autograd.grad(
+        loss, [trainer.params[n] for n in names])))
+    del loss
+    out = {}
+    for quantize in (True, False):
+        STAGING.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[quantize] = dgc_allreduce(grads, "dp", GEO_SPARSITY, quantize,
+                                      mesh=mesh)
+        torch.cuda.synchronize()
+        out[quantize, "ms"] = (time.perf_counter() - t0) * 1e3
+        out[quantize, "staged"] = STAGING.bytes
+    worst, over = 0.0, []
+    qs, es = [], []
+    for n, g in grads.items():
+        kept = top_k_sparsify(g, GEO_SPARSITY)[0]
+        amax = allreduce(kept.abs().max().reshape(1), "dp", "max",
+                         mesh=mesh).item()
+        err = (out[True][n] - out[False][n]).abs().max().item()
+        tol = 2.5 * amax * 4 / 127
+        worst = max(worst, err / max(tol, 1e-30))
+        if err > tol:
+            over.append(n)
+        qs.append(out[True][n].reshape(-1).double())
+        es.append(out[False][n].reshape(-1).double())
+    q, e = torch.cat(qs), torch.cat(es)
+    corr = torch.corrcoef(torch.stack([q, e]))[0, 1].item()
+    dgc = dict(worst=worst, over=over, corr=corr,
+               staged=[out[True, "staged"], out[False, "staged"]],
+               ms=[out[True, "ms"], out[False, "ms"]])
+    del grads, out, qs, es, q, e
+    for p in trainer.params.values():
+        p.grad = None
+    torch.cuda.empty_cache()
+    geo = GeoSGDTrainer(trainer, sync_every=GEO_SYNC)
+    reset_flash_counts(FK)
+    STAGING.reset()
+    losses, ms, divs, digests = [], [], [], []
+    heads = set()
+    with recorded_heads(heads):
+        for i in range(GEO_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, _ = geo.train_step(batch)
+            losses.append(loss.item())
+            ms.append((time.perf_counter() - t0) * 1e3)
+            divs.append(geo.divergence.item())
+            if (i + 1) % GEO_SYNC == 0:
+                d = torch.tensor([params_digest(torch, trainer.params)],
+                                 device="cuda")
+                digests.append(allgather(d, "dp", mesh=mesh).tolist())
+    counts = flash_counts(FK)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    geo.sync()
+    torch.cuda.synchronize()
+    sync_ms = (time.perf_counter() - t0) * 1e3
+    d = torch.tensor([params_digest(torch, trainer.params)], device="cuda")
+    digests.append(allgather(d, "dp", mesh=mesh).tolist())
+    if rank == 0:
+        torch.save({n: p.detach().cpu() for n, p in trainer.params.items()},
+                   os.path.join(out_dir, "geo_params.pt"))
+    run = dict(losses=losses, ms=ms, divs=divs, digests=digests,
+               final_div=geo.divergence.item(), counts=counts,
+               heads=sorted(heads), sync_ms=sync_ms,
+               staged_bytes=STAGING.bytes, dgc=dgc)
+    del geo, trainer
+    torch.cuda.empty_cache()
+    return run
+
+
 def dist_rank(rank, store, out_dir, only=None):
     """One rank of the [dist:*] world: every run (or those named in
     ``only``), its record written to ``out_dir`` (rank 0 also writes each
@@ -6707,11 +7092,13 @@ def dist_rank(rank, store, out_dir, only=None):
         torch.cuda.empty_cache()
     for name, run in (("plan", dist_plan_run), ("fsdp", dist_fsdp_run),
                       ("moe", dist_moe_run), ("pipe", dist_pipe_run),
-                      ("int8", dist_int8_run)):
+                      ("int8", dist_int8_run), ("embed", dist_embed_run),
+                      ("geo", dist_geo_run)):
         if only is not None and name not in only:
             continue
         args = {"plan": (torch, FK, rank, out_dir),
                 "pipe": (torch, FK, rank, out_dir),
+                "geo": (torch, FK, rank, out_dir),
                 "int8": (torch, rank)}.get(name, (torch, rank, out_dir))
         record[name] = run(*args)
         torch.cuda.empty_cache()
@@ -6783,18 +7170,137 @@ def int8_reference(torch):
     return losses
 
 
+def embed_sparse_loop(torch, batches, order=None):
+    """The unsharded sparse_minimize_fn loop over ``batches`` (each batch's
+    rows taken in ``order`` when given: the same loss, another summation
+    order): the losses, ms and the whole parameters after steps
+    EMBED_STEPS and 2 x EMBED_STEPS."""
+    from paddle_tpu_torch import optimizer as TO
+
+    model = embed_model(torch, True)
+    params = dict(model.named_parameters())
+    init_fn, step_fn = TO.sparse_minimize_fn(model, embed_loss(model),
+                                             TO.Adam(1e-3))
+    state = init_fn(params)
+    losses, ms, snaps = [], [], {}
+    for i, b in enumerate(batches):
+        ids, dense = (torch.from_numpy(b[k] if order is None
+                                       else b[k][order]).to("cuda")
+                      for k in ("ids", "dense"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, params, state = step_fn(params, state, ids, dense)
+        losses.append(loss.item())
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if i + 1 in (EMBED_STEPS, 2 * EMBED_STEPS):
+            snaps[i + 1] = {n: p.detach().to("cpu", copy=True)
+                            for n, p in params.items()}
+    del model, params, state
+    return losses, ms, snaps
+
+
+def embed_reference(torch):
+    """[dist:embed]'s unsharded runs in one process on the whole batches:
+    the port's sparse_minimize_fn over the 6 batches (the losses, ms and
+    the whole parameters after steps 3 and 6), the same loop on the
+    batches' rows in a shuffled order (its distance from the first is
+    the noise floor of the float32 step: Adam turns the rounding of a hot
+    row's cancelling gradient sum into a visible step), then the dense
+    Trainer with the tables over "ep" on the one-rank mesh (the losses
+    and step 1's gradients)."""
+    import numpy as np
+
+    from paddle_tpu_torch import optimizer as TO
+    from paddle_tpu_torch.models import deepfm as DF
+    from paddle_tpu_torch.parallel import Trainer
+
+    batches = embed_batches()
+    losses, ms, snaps = embed_sparse_loop(torch, batches)
+    order = np.random.default_rng(1).permutation(EMBED_B)
+    _, _, other = embed_sparse_loop(torch, batches, order)
+    noise = {step: {n: (other[step][n] - v).abs().max().item()
+                    for n, v in snaps[step].items()} for step in snaps}
+    # the tables over "ep" on the one-rank mesh: unsharded, and the same
+    # weights as the ranks' (the initial values' key names the layer)
+    model = embed_model(torch, False, axis="ep")
+    trainer = Trainer(model, TO.Adam(1e-3), lambda m, b, g: (DF.loss_fn(
+        m(b["ids"], b["dense"]), (b["ids"][:, 0] % 2).float()), {}))
+    first = keep_first_grads(torch, trainer)
+    dense_losses = [trainer.train_step(
+        {k: torch.from_numpy(v).to("cuda") for k, v in b.items()})[0].item()
+        for b in batches[:EMBED_DENSE_STEPS]]
+    del trainer, model
+    torch.cuda.empty_cache()
+    log(f"[dist:embed] unsharded reference: DeepFMConfig.criteo() "
+        f"V={EMBED_VOCAB} b{EMBED_B} float32, sparse_minimize_fn Adam(1e-3)"
+        f" losses {losses}, ms a step {[round(x, 1) for x in ms]}; dense "
+        f"Trainer losses {dense_losses}")
+    return dict(losses=losses, ms=ms, snaps=snaps, noise=noise,
+                dense_losses=dense_losses, first=first)
+
+
+def geo_reference(torch):
+    """[dist:geo]'s unsharded run: the four replicas trained one after
+    another in one process, each on its rank's rows, their parameters
+    averaged (in rank order, as the gloo mean sums) after every
+    GEO_SYNC-th step, and after the last the parameters, buffers and
+    optimizer state: the mean losses and the final parameters."""
+    from paddle_tpu_torch.clip import tree_leaves
+
+    trainers = [geo_trainer(torch) for _ in range(4)]
+    ids = geo_ids(torch).to("cuda")
+    rows = GEO_B // 4
+
+    def average(groups):
+        with torch.no_grad():
+            for ts in zip(*groups):
+                if not (torch.is_tensor(ts[0]) and ts[0].is_floating_point()):
+                    continue
+                total = ts[0].clone()
+                for t in ts[1:]:
+                    total = total + t
+                for t in ts:
+                    t.copy_(total / 4)
+
+    losses, ms = [], []
+    for i in range(GEO_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step = [t.train_step(ids[r * rows:(r + 1) * rows])[0].item()
+                for r, t in enumerate(trainers)]
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(sum(step) / 4)
+        if (i + 1) % GEO_SYNC == 0:
+            average([list(t.params.values()) for t in trainers])
+    average([list(t.params.values()) + list(t._buffers().values())
+             + tree_leaves(t.opt_state) for t in trainers])
+    final = {n: p.detach().to("cpu", copy=True)
+             for n, p in trainers[0].params.items()}
+    del trainers, ids
+    torch.cuda.empty_cache()
+    log(f"[dist:geo] unsharded reference: GPTConfig.small() widths cut to "
+        f"{GEO_LAYERS} layers, 4 replicas of B={rows} T={GEO_T} one after "
+        f"another, DGCMomentum({GEO_LR}, sparsity={GEO_SPARSITY}, "
+        f"rampup_begin_step={GEO_RAMPUP}), averaged every {GEO_SYNC}: "
+        f"losses {losses}, ms a step (4 replicas) "
+        f"{[round(x, 1) for x in ms]}")
+    return dict(losses=losses, ms=ms, final=final)
+
+
 def dist_references(torch, only=None):
     """The unsharded runs the [dist:*] runs are held against, one
     process on the whole batch each: the [dist] model (ring, Ulysses and
     plan), [dist:fsdp]'s MLP, [dist:moe]'s model (its first step's
-    routes recorded), [dist:pipe]'s sequential fold and [dist:int8]'s
-    MLP (or those ``only`` needs)."""
+    routes recorded), [dist:pipe]'s sequential fold, [dist:int8]'s MLP,
+    [dist:embed]'s sparse loop and dense Trainer and [dist:geo]'s four
+    replicas (or those ``only`` needs)."""
     refs = {}
     if only is not None:
-        if "pipe" in only:
-            refs["pipe"] = pipe_reference(torch)
-        if "int8" in only:
-            refs["int8"] = int8_reference(torch)
+        for name, fn in (("pipe", pipe_reference), ("int8", int8_reference),
+                         ("embed", embed_reference),
+                         ("geo", geo_reference)):
+            if name in only:
+                refs[name] = fn(torch)
         return refs
     trainer, grads = dist_trainer(torch, None)
     ids = dist_ids(torch).to("cuda")
@@ -6828,6 +7334,8 @@ def dist_references(torch, only=None):
     torch.cuda.empty_cache()
     refs["pipe"] = pipe_reference(torch)
     refs["int8"] = int8_reference(torch)
+    refs["embed"] = embed_reference(torch)
+    refs["geo"] = geo_reference(torch)
     return refs
 
 
@@ -6869,9 +7377,10 @@ def check_moe_routes(torch, tag, records, out_dir, ref_routes):
 
 def phase_dist(torch, FK, only=None):
     """[dist:ring], [dist:ulysses], [dist:plan], [dist:fsdp], [dist:moe],
-    [dist:pipe] and [dist:int8] (or the runs ``only`` names) against
-    their unsharded runs, in one world of 4 ranks; returns the ring entry
-    points' launches summed over the ranks."""
+    [dist:pipe], [dist:int8], [dist:embed] and [dist:geo] (or the runs
+    ``only`` names) against their unsharded runs, in one world of 4
+    ranks; returns the ring entry points' launches summed over the
+    ranks."""
     import torch.multiprocessing as mp
 
     refs = dist_references(torch, only)
@@ -6902,6 +7411,10 @@ def phase_dist(torch, FK, only=None):
             check_dist_pipe(torch, records, out_dir, refs["pipe"])
         if "int8" in only:
             check_dist_int8(records, refs["int8"])
+        if "embed" in only:
+            check_dist_embed(torch, records, out_dir, refs["embed"])
+        if "geo" in only:
+            check_dist_geo(torch, records, out_dir, refs["geo"])
         return launches
     ref_losses, ref_ms, ref_grads = refs["gpt"]
     for impl, dp, sp in DIST_RUNS:
@@ -6947,6 +7460,8 @@ def phase_dist(torch, FK, only=None):
     check_dist_moe(torch, records, out_dir, refs["moe"])
     check_dist_pipe(torch, records, out_dir, refs["pipe"])
     check_dist_int8(records, refs["int8"])
+    check_dist_embed(torch, records, out_dir, refs["embed"])
+    check_dist_geo(torch, records, out_dir, refs["geo"])
     return launches
 
 
@@ -7215,6 +7730,175 @@ def check_dist_int8(records, ref_losses):
                                 for g, b in zip(gaps, ref_losses)):
         raise SystemExit(f"{tag} float32 losses {fp['losses']} against the "
                          f"unsharded {ref_losses}")
+
+
+def check_dist_embed(torch, records, out_dir, ref):
+    """[dist:embed]'s gates against the unsharded runs: the float32-wire
+    losses within 1e-5 relative and every parameter after step 3 within
+    1e-5, or twice the unsharded loop's own distance in another
+    summation order where that is larger (Adam's normalisation turns
+    the float32 rounding of a hot row's cancelling gradient into a
+    visible step); the int8 losses within 5e-3 relative and the tables
+    after step 6 within 5e-2 (or that noise floor); untouched rows bitwise unchanged in the tables and
+    both Adam moments; a rank's table bytes at most half the replicated
+    ones (bench.py's byte-budget gate); the counters advanced by the
+    payload x the steps; the prefetcher's last batch resident and
+    bit-equal to the host rows; the dense run's losses within 1e-4
+    relative and step 1's gradients within 1e-3 of each parameter's
+    largest unsharded entry."""
+    tag = "[dist:embed]"
+    s = EMBED_STEPS
+    for r, rec in enumerate(records):
+        run = rec["embed"]
+        f32 = rel_losses(run["losses"][:s], ref["losses"][:s])
+        int8 = rel_losses(run["losses"][s:], ref["losses"][s:])
+        want = (s * run["payload"][1], s * run["payload"][0])
+        log(f"{tag} rank {r} {run['coordinate']}: losses {run['losses']} "
+            f"(float32 wire within {f32:.3e}, int8 within {int8:.3e} "
+            f"relative); ms a step {[round(x, 1) for x in run['ms']]}; "
+            f"staged through the host a step {run['staged']} bytes; host "
+            f"syncs in step 2 {run['syncs']}; counters advanced "
+            f"{list(run['advance'])} (int8, float32 bytes; want "
+            f"{list(want)}); untouched rows "
+            f"{'bitwise unchanged' if run['frozen'] else 'MOVED'}; last "
+            f"batch ({run['distinct_last']} distinct ids) all hits "
+            f"{run['all_hits']}, bit-equal to the host rows "
+            f"{run['bit_equal']}; cache hit rate {run['hit_rate']:.4f}; "
+            f"dense run losses {run['dense_losses']} ms "
+            f"{[round(x, 1) for x in run['dense_ms']]}")
+        if f32 > EMBED_F32_TOL[0] or int8 > EMBED_INT8_TOL[0]:
+            raise SystemExit(f"{tag} rank {r}: losses {run['losses']} "
+                             f"against {ref['losses']}")
+        if not run["frozen"]:
+            raise SystemExit(f"{tag} rank {r}: an untouched row moved")
+        if list(run["advance"]) != list(want):
+            raise SystemExit(f"{tag} rank {r}: counters {run['advance']}")
+        if not (run["all_hits"] and run["bit_equal"]):
+            raise SystemExit(f"{tag} rank {r}: the prefetched batch is not "
+                             f"resident and equal to the host rows")
+        if not run["planned"] <= run["replicated"] // 2 < run["replicated"]:
+            raise SystemExit(f"{tag} rank {r}: table bytes {run['planned']} "
+                             f"against replicated {run['replicated']}")
+        rel = rel_losses(run["dense_losses"], ref["dense_losses"])
+        if rel > EMBED_DENSE_TOL[0]:
+            raise SystemExit(f"{tag} rank {r}: dense losses "
+                             f"{run['dense_losses']} against "
+                             f"{ref['dense_losses']}")
+    worst = {}
+    for step, limit in ((s, EMBED_F32_TOL[1]), (2 * s, EMBED_INT8_TOL[1])):
+        got = torch.load(os.path.join(out_dir, f"embed{step}.pt"))
+        want, noise = ref["snaps"][step], ref["noise"][step]
+        names = (list(want) if step == s
+                 else ["embedding.weight", "linear_embed.weight"])
+        d = {n: (got[n] - want[n]).abs().max().item() for n in names}
+        # each parameter's limit: the gate, or twice the unsharded step's
+        # own distance from itself in another summation order
+        lim = {n: max(limit, 2 * noise[n]) for n in names}
+        name = max(d, key=lambda n: d[n] / lim[n])
+        worst[step] = (d[name], name, lim[name], max(noise.values()))
+        if d[name] > lim[name]:
+            raise SystemExit(f"{tag} after step {step}: {name} off by "
+                             f"{d[name]:.3e} (limit {lim[name]:.3e}: "
+                             f"{limit}, or twice the unsharded run's "
+                             f"distance in another order)")
+    grads = torch.load(os.path.join(out_dir, "embed_dense_grads.pt"))
+    gworst = worst_grad(grads, ref["first"])
+    run = records[0]["embed"]
+    log(f"{tag} Plan(dp=2, ep=2) sparse_ep_minimize_fn against the "
+        f"unsharded sparse loop: after step {s} (float32 wire) every "
+        f"parameter within its limit, worst {worst[s][1]} {worst[s][0]:.3e}"
+        f" (limit {worst[s][2]:.3e}: {EMBED_F32_TOL[1]}, or twice the "
+        f"unsharded loop's distance from itself with the batch rows "
+        f"shuffled, at most {worst[s][3]:.3e}); after step {2 * s} (int8) "
+        f"the tables within {worst[2 * s][0]:.3e} (worst {worst[2 * s][1]},"
+        f" limit {worst[2 * s][2]:.3e}); ms a step "
+        f"(rank 0) float32 wire {sum(run['ms'][1:s]) / (s - 1):.1f}, int8 "
+        f"{sum(run['ms'][s + 1:]) / (s - 1):.1f} against the unsharded "
+        f"{sum(ref['ms'][1:]) / (2 * s - 1):.1f}; payload a step "
+        f"{run['payload'][0]} bytes float32, {run['payload'][1]} int8 "
+        f"against the dense table gradient's {run['dense_grad']} "
+        f"({run['dense_grad'] / run['payload'][1]:.1f}x); a rank's table "
+        f"bytes {run['planned']} against {run['replicated']} replicated; "
+        f"dense run (tables over ep, local {run['dense_local']}): step 1 "
+        f"table and dense gradients within {gworst[0]:.3e} of each "
+        f"parameter's largest unsharded entry (worst {gworst[1]}; gate "
+        f"{EMBED_DENSE_TOL[1]})")
+    if gworst[0] > EMBED_DENSE_TOL[1]:
+        raise SystemExit(f"{tag}: dense step 1 gradients off by {gworst}")
+
+
+def check_dist_geo(torch, records, out_dir, ref):
+    """[dist:geo]'s gates: the losses and the flushed parameters within
+    1e-4 relative of the unsharded replicas; the divergence above 0
+    after each local step and below 1e-6 after each sync; the replicas'
+    digests equal over the ranks after every sync; the flash launches a
+    rank exactly the geo steps' (2 forward, 1 dq and 1 dk/dv a layer a
+    step with remat) at (12, 4) heads; dgc_allreduce's quantized sum
+    within 2.5 max|g| 4 / 127 of the exact one on every leaf, their
+    correlation above 0.999, and at least 3x fewer bytes staged."""
+    from paddle_tpu_torch.models import gpt
+
+    tag = "[dist:geo]"
+    cfg = gpt.GPTConfig.small()
+    heads = [[cfg.num_heads, cfg.num_kv_heads]]
+    n = GEO_LAYERS * GEO_STEPS
+    want = {"flash_attention_fwd": 2 * n, "flash_attention_dq": n,
+            "flash_attention_dkv": n}
+    for r, rec in enumerate(records):
+        run = rec["geo"]
+        rel = rel_losses(run["losses"], ref["losses"])
+        dgc = run["dgc"]
+        log(f"{tag} rank {r}: losses {run['losses']} (within {rel:.3e} "
+            f"relative of the replicas'); divergence after each step "
+            f"{run['divs']}, after sync() {run['final_div']:.3e}; digests "
+            f"at the syncs {run['digests']}; launches {run['counts']} "
+            f"(expected {want}) at heads {run['heads']}; ms a step "
+            f"{[round(x, 1) for x in run['ms']]}, sync() "
+            f"{run['sync_ms']:.1f} ms, staged {run['staged_bytes']} bytes "
+            f"over the geo steps; dgc_allreduce of step 1's gradients: "
+            f"worst leaf at {dgc['worst']:.3f} of its bound, correlation "
+            f"{dgc['corr']:.6f}, staged {dgc['staged']} bytes (quantized, "
+            f"exact), ms {[round(x, 1) for x in dgc['ms']]}")
+        if rel > GEO_TOL:
+            raise SystemExit(f"{tag} rank {r}: losses {run['losses']} "
+                             f"against {ref['losses']}")
+        for i, d in enumerate(run["divs"]):
+            synced = (i + 1) % GEO_SYNC == 0
+            if (synced and d >= GEO_SYNCED) or (not synced and d <= 0):
+                raise SystemExit(f"{tag} rank {r}: divergence {run['divs']}")
+        if run["final_div"] >= GEO_SYNCED:
+            raise SystemExit(f"{tag} rank {r}: divergence after sync() "
+                             f"{run['final_div']}")
+        if any(len(set(d)) != 1 for d in run["digests"]):
+            raise SystemExit(f"{tag} rank {r}: replicas differ after a "
+                             f"sync: {run['digests']}")
+        if run["counts"] != want or run["heads"] != heads:
+            raise SystemExit(f"{tag} rank {r}: launches {run['counts']} at "
+                             f"{run['heads']}")
+        if dgc["over"] or dgc["corr"] <= GEO_CORR:
+            raise SystemExit(f"{tag} rank {r}: dgc_allreduce off the exact "
+                             f"sum: {dgc['over'][:4]}, corr {dgc['corr']}")
+        ratio = dgc["staged"][1] / max(dgc["staged"][0], 1)
+        if ratio < GEO_STAGED_RATIO:
+            raise SystemExit(f"{tag} rank {r}: quantized_allreduce staged "
+                             f"only {ratio:.3f}x fewer bytes")
+    got = torch.load(os.path.join(out_dir, "geo_params.pt"))
+    d = {k: (got[k] - v).abs().max().item() / max(v.abs().max().item(),
+                                                  1e-30)
+         for k, v in ref["final"].items()}
+    name = max(d, key=d.get)
+    run = records[0]["geo"]
+    log(f"{tag} dp=4 geo-SGD, sync_every={GEO_SYNC}: flushed parameters "
+        f"within {d[name]:.3e} of each leaf's largest (worst {name}; gate "
+        f"{GEO_TOL}); ms a step (rank 0, steps 2-{GEO_STEPS}) "
+        f"{sum(run['ms'][1:]) / (GEO_STEPS - 1):.1f} against "
+        f"{sum(ref['ms'][1:]) / (GEO_STEPS - 1):.1f} for the 4 replicas in "
+        f"one process; quantized_allreduce staged "
+        f"{run['dgc']['staged'][1] / max(run['dgc']['staged'][0], 1):.3f}"
+        f"x fewer "
+        f"bytes than the float32 sum (gate {GEO_STAGED_RATIO})")
+    if d[name] > GEO_TOL:
+        raise SystemExit(f"{tag}: flushed {name} off by {d[name]:.3e}")
 
 
 def phase_ring_timing(torch, FK, err, launches):

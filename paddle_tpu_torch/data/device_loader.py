@@ -21,8 +21,15 @@ Donation safety: a leaf already on the card is cloned (``donate_safe``),
 so a consumer that updates its batch in place never changes the
 source's tensor. The JAX package's input metrics are telemetry (ROADMAP
 queue 1 item 8); ``host_wait_s`` and ``batches_staged`` count here.
-Staging onto a mesh (``mesh=``, ``sharding=``, ``stage_per_shard=``)
-raises, naming item 11."""
+
+Staging onto a mesh (``sharding=``, or ``mesh=`` for ``P("dp")``). The
+JAX package puts a batch onto a global sharding, and on a multi-host
+mesh each process stages only the shard slices its own devices hold
+(``stage_per_shard``). The port is multi-controller (core/mesh.py):
+staging onto a sharding always means staging this rank's rows of each
+array leaf (``NamedSharding.local``) onto the mesh's device, which is
+the per-shard staging, and ``prefetch_rows`` still sees the whole host
+batch before the cut."""
 
 from __future__ import annotations
 
@@ -35,11 +42,9 @@ import numpy as np
 import torch
 
 from ..clip import tree_leaves, tree_map
-from ..core.enforce import UnimplementedError, enforce
+from ..core.enforce import enforce
 from ..core.places import resolve_device
 from .bucketing import round_to_bucket
-
-_ITEM11 = "is not ported yet: ROADMAP queue 1 item 11 (distributed)"
 
 
 def _dominant_rows(leaves, axis: int) -> Optional[int]:
@@ -171,7 +176,12 @@ class DevicePrefetcher:
     2 and grows by one (up to ``auto_cap``) whenever the median of the
     last ``AUTO_WINDOW`` host waits exceeds ``auto_threshold_s``.
     Abandoning the iterator releases the worker; a worker exception
-    re-raises in the consumer. ``last_real_rows`` is the pre-pad row
+    re-raises in the consumer. ``sharding`` (a ``NamedSharding``; with
+    ``mesh`` alone, ``P("dp")`` on it): each array leaf of at least one
+    dim is cut to this rank's shard after the padding and staged on the
+    mesh's device (``device`` when given); ``stage_per_shard`` (None:
+    on with a sharding) is the only staging the port does onto a
+    sharding, and True needs one. ``last_real_rows`` is the pre-pad row
     count of the batch last yielded; ``host_wait_s`` the seconds the
     consumer spent blocked on the queue, summed; ``last_wait_s`` the
     last such wait."""
@@ -193,11 +203,17 @@ class DevicePrefetcher:
                  stage_per_shard: Optional[bool] = None,
                  prefetch_rows: Optional[Callable[[Any], Any]] = None,
                  device=None):
-        for name, value in (("mesh", mesh), ("sharding", sharding),
-                            ("stage_per_shard", stage_per_shard or None)):
-            if value is not None:
-                raise UnimplementedError(
-                    f"DevicePrefetcher {name}= {_ITEM11}")
+        if sharding is None and mesh is not None:
+            from ..core.sharding_types import NamedSharding, PartitionSpec
+
+            sharding = NamedSharding(mesh, PartitionSpec("dp"))
+        if stage_per_shard is None:
+            stage_per_shard = sharding is not None
+        enforce(not stage_per_shard or sharding is not None,
+                "stage_per_shard needs a sharding (or mesh) to stage "
+                "onto")
+        self.sharding = sharding
+        self.stage_per_shard = bool(stage_per_shard)
         self.auto = size == "auto"
         if self.auto:
             self.auto_cap = int(auto_cap if auto_cap is not None
@@ -219,7 +235,9 @@ class DevicePrefetcher:
         self.batches = batches
         self.size = size
         self._depth = size
-        self.device = resolve_device(device)
+        self.device = resolve_device(
+            device if device is not None or sharding is None
+            else sharding.mesh.device)
         self.transform = transform
         if isinstance(bucket_by, BucketPadder) or bucket_by is None:
             self.padder = bucket_by
@@ -248,6 +266,10 @@ class DevicePrefetcher:
     def _put(self, leaf):
         if getattr(leaf, "shape", None) is None:
             return leaf                 # a Python scalar rides along
+        if self.sharding is not None and len(leaf.shape) >= 1:
+            # this rank's shard (a view of the host batch: the copy
+            # below owns its memory)
+            leaf = self.sharding.local(leaf)
         dev = self.device
         if torch.is_tensor(leaf) and leaf.device == dev:
             return leaf.clone() if self.donate_safe else leaf

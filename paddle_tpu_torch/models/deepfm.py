@@ -24,7 +24,7 @@ from typing import Optional, Sequence
 import torch
 
 from .. import nn
-from ..core.enforce import UnimplementedError, enforce
+from ..core.enforce import enforce
 from ..core.places import resolve_device
 from ..nn.layer import use
 from ..ops import loss as L
@@ -38,8 +38,8 @@ class DeepFMConfig:
     embed_dim: int = 16
     mlp_dims: Sequence[int] = (400, 400, 400)
     dropout: float = 0.0
-    # 'ep' shards the tables over a mesh (ShardedEmbedding, not ported
-    # yet); None keeps them whole on the device
+    # 'ep' shards the tables over the mesh (ShardedEmbedding); None
+    # keeps them whole on the device
     embedding_axis: Optional[str] = "ep"
     # row-sparse gradient updates for the tables (SelectedRows
     # capability; reference: lookup_table is_sparse) — train through
@@ -63,26 +63,34 @@ class DeepFM(nn.Layer):
     parameter's comes from its key off the global stream, which
     ``paddle_tpu_torch.seed`` sets). Under a mixed-precision policy only
     the Linears cast; the tables and the FM terms stay float32, as in the
-    JAX package. ``embedding_axis`` other than None (the mesh-sharded
-    tables of the JAX package's default) raises
-    :class:`UnimplementedError`."""
+    JAX package. ``embedding_axis`` (the JAX package's default "ep")
+    builds both tables as ``parallel.ShardedEmbedding`` over that mesh
+    axis: a plan that registers them (``Plan(ep=, tables=)``, or the
+    rules of ``embedding_ep_rules``) places each rank's rows, and the
+    lookups compute on them; on a one-rank mesh they are plain
+    lookups."""
 
     def __init__(self, cfg: Optional[DeepFMConfig] = None, *, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.cfg = cfg = cfg or DeepFMConfig()
-        if cfg.embedding_axis:
-            raise UnimplementedError(
-                f"DeepFM embedding_axis={cfg.embedding_axis!r} (tables "
-                "sharded over a mesh by ShardedEmbedding) is not ported "
-                "yet: ROADMAP queue 1 item 11 (distributed); pass "
-                "embedding_axis=None")
         device = resolve_device(device)
         kw = dict(device=device, generator=generator)
-        self.embedding = nn.Embedding(cfg.total_vocab, cfg.embed_dim,
-                                      is_sparse=cfg.sparse_grads, **kw)
-        self.linear_embed = nn.Embedding(cfg.total_vocab, 1,
-                                         is_sparse=cfg.sparse_grads, **kw)
+        if cfg.embedding_axis:
+            from ..parallel.sharded_embedding import ShardedEmbedding
+
+            self.embedding = ShardedEmbedding(
+                cfg.total_vocab, cfg.embed_dim, axis=cfg.embedding_axis,
+                is_sparse=cfg.sparse_grads, **kw)
+            self.linear_embed = ShardedEmbedding(
+                cfg.total_vocab, 1, axis=cfg.embedding_axis,
+                is_sparse=cfg.sparse_grads, **kw)
+        else:
+            self.embedding = nn.Embedding(cfg.total_vocab, cfg.embed_dim,
+                                          is_sparse=cfg.sparse_grads, **kw)
+            self.linear_embed = nn.Embedding(cfg.total_vocab, 1,
+                                             is_sparse=cfg.sparse_grads,
+                                             **kw)
         self.create_parameter("bias", (1,), is_bias=True, **kw)
         mlp = []
         d_in = cfg.num_fields * cfg.embed_dim + cfg.dense_dim

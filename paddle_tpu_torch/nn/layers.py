@@ -446,7 +446,7 @@ class Embedding(Layer):
         if ctx is not None and ctx.handles(self):
             if isinstance(ctx, Capture):
                 with torch.no_grad():
-                    rows = ON.embedding(ids, self.weight)
+                    rows = _capture_rows(ids, self.weight)
                 ctx.record(self, ids, rows.requires_grad_())
             else:
                 rows = ctx.pop(self)
@@ -455,6 +455,23 @@ class Embedding(Layer):
                                    0.0, rows)
             return rows
         return ON.embedding(ids, use(self.weight), self.padding_idx)
+
+
+def _capture_rows(ids, table):
+    """A sparse step's rows of ``table`` at ``ids``: a table a sharding
+    plan placed by rows over one axis whose ranks hold the same ids
+    (``Plan(ep=, tables=)``) is the rank's rows, read through the sharded
+    lookup's gather (parallel/sharded_embedding.py), where a plain
+    gather would read the wrong rows; a table placed otherwise (over a
+    data axis, whose ranks hold other ids) is gathered at use."""
+    sh = getattr(table, "_pt_sharding", None)
+    if sh is not None and len(sh.spec) >= 1 and isinstance(sh.spec[0], str) \
+            and sh.spec[0] not in sh.mesh.data_axes \
+            and all(p is None for p in sh.spec[1:]):
+        from ..parallel.sharded_embedding import gather_rows
+
+        return gather_rows(ids, table, axis=sh.spec[0])
+    return ON.embedding(ids, use(table))
 
 
 class LayerNorm(Layer):

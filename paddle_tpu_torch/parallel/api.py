@@ -103,6 +103,7 @@ from ..core.sharding_types import NamedSharding
 from ..nn.layer import detach_buffers
 from ..optimizer.optimizers import Optimizer
 from . import sharding as S
+from .collective import sum_over
 from .plan import Plan, plan_step, pmean_axes
 
 _ENTRY_6 = "is not ported yet: ROADMAP queue 1 entry 6"
@@ -243,26 +244,6 @@ class Trainer:
         axes whose ranks hold different rows."""
         return () if self.mesh is None else self.mesh.data_axes
 
-    def _sum_over(self, tensors, axes_of):
-        """Each tensor summed over its axes (``axes_of(i)``), one
-        collective per (axes, dtype), the tensors flattened into one
-        buffer."""
-        from .collective import allreduce
-
-        out = list(tensors)
-        groups = {}
-        for i, t in enumerate(tensors):
-            axes = axes_of(i)
-            if axes:
-                groups.setdefault((axes, t.dtype), []).append(i)
-        for (axes, _), idx in groups.items():
-            flat = torch.cat([tensors[i].reshape(-1) for i in idx])
-            flat = allreduce(flat, axes, mesh=self.mesh)
-            for i, part in zip(idx, flat.split(
-                    [tensors[i].numel() for i in idx])):
-                out[i] = part.view_as(tensors[i])
-        return out
-
     def _mean_over_mesh(self, tensors):
         """The mean of each tensor over the data axes; the tensors
         themselves where there are none."""
@@ -270,7 +251,8 @@ class Trainer:
         if not axes:
             return tensors
         n = self.mesh.axis_size(axes)
-        return [t / n for t in self._sum_over(tensors, lambda i: axes)]
+        return [t / n for t in sum_over(tensors, lambda i: axes,
+                                        self.mesh)]
 
     def _reduce_grads(self, grads, sub):
         """The reduce boundary: the global batch's gradient of every leaf,
@@ -298,9 +280,10 @@ class Trainer:
             split = [set(S.sharding_of(self.params[k]).axes())
                      if S.sharding_of(self.params[k]) is not None else set()
                      for k in names]
-            summed = self._sum_over([grads[k] for k in names],
-                                    lambda i: tuple(a for a in axes
-                                                    if a not in split[i]))
+            summed = sum_over([grads[k] for k in names],
+                              lambda i: tuple(a for a in axes
+                                              if a not in split[i]),
+                              self.mesh)
             grads = {k: g / n for k, g in zip(names, summed)}
         for name, g in grads.items():
             p = self.params[name]
@@ -379,11 +362,15 @@ class Trainer:
         (through the step ``plan_step`` selected)."""
         return self._jit_step(batch, sub)
 
-    def _step_body(self, batch, sub) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    def _loss_and_grads(self, batch, key):
+        """The rank's loss, metrics and gradients of one forward and
+        backward in training mode, the generator seeded from ``key``
+        (reduced over nothing: :meth:`_step_body` reduces them;
+        parallel/geo_sgd.py steps each replica on them alone)."""
         self.model.train()
         for p in self.params.values():
             p.grad = None
-        seed_generator(self._generator, self._step_key(sub))
+        seed_generator(self._generator, key)
         with self._scope(), rng_scope(self._generator):
             loss, metrics = self.loss_builder(self.model, batch,
                                               self._generator)
@@ -395,6 +382,11 @@ class Trainer:
         grads = {name: (p.grad if p.grad is not None
                         else torch.zeros_like(p))
                  for name, p in self.params.items()}
+        return loss, metrics, grads
+
+    def _step_body(self, batch, sub) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        loss, metrics, grads = self._loss_and_grads(batch,
+                                                    self._step_key(sub))
         if self.mesh is not None:
             grads = self._reduce_grads(grads, sub)
             loss = self._mean_over_mesh([loss.detach()])[0]

@@ -500,6 +500,25 @@ def reduce_from_tp(x, axis: Axis = "tp", *, mesh=None):
     return _ReduceFromTP.apply(x, c)
 
 
+def sum_over(tensors, axes_of, mesh=None):
+    """Each of ``tensors`` summed over its axes (``axes_of(i)``, empty for
+    none) with one ``allreduce`` per (axes, dtype): the tensors of a
+    group flattened into one buffer. Returns a new list."""
+    out = list(tensors)
+    groups = {}
+    for i, t in enumerate(tensors):
+        axes = axes_of(i)
+        if axes:
+            groups.setdefault((axes, t.dtype), []).append(i)
+    for (axes, _), idx in groups.items():
+        flat = torch.cat([tensors[i].reshape(-1) for i in idx])
+        flat = allreduce(flat, axes, mesh=mesh)
+        for i, part in zip(idx, flat.split(
+                [tensors[i].numel() for i in idx])):
+            out[i] = part.view_as(tensors[i])
+    return out
+
+
 def gather_at_use(x, sharding):
     """The whole tensor of which ``x`` is this rank's shard under
     ``sharding`` (a ``NamedSharding``): all-gathered dim by dim. The

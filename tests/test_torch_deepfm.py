@@ -12,7 +12,7 @@ package's, on the CPU, at ``DeepFMConfig.tiny()`` with
   dense normal, labels ``ids[:, 0] % 2``);
 - the same dense steps under ``mixed_bf16`` within 2e-2;
 - ``auc_terms`` exactly and ``Auc.eval`` within 1e-12;
-- ``embedding_axis="ep"`` raises naming queue 1 item 11.
+- ``embedding_axis="ep"`` on one rank equal to ``embedding_axis=None``.
 """
 
 import jax
@@ -31,7 +31,6 @@ from paddle_tpu.models import deepfm as JD
 from paddle_tpu.optimizer.sparse import sparse_minimize_fn as j_sparse
 from paddle_tpu_torch import metrics as TMT
 from paddle_tpu_torch import optimizer as TO
-from paddle_tpu_torch.core import UnimplementedError
 from paddle_tpu_torch.core import dtypes as TDT
 from paddle_tpu_torch.models import deepfm as TD
 from paddle_tpu_torch.optimizer.sparse import sparse_minimize_fn as t_sparse
@@ -208,7 +207,30 @@ def test_auc_terms_and_auc_match_jax(two_col):
 
 
 def test_sharded_tables_raise_naming_their_item():
-    with pytest.raises(UnimplementedError, match="queue 1 item 11"):
-        TD.DeepFM(TD.DeepFMConfig.tiny(), device="cpu")
+    """The tables over "ep" (the JAX package's default) are ported
+    (parallel/sharded_embedding.py): on the one-rank mesh DeepFM tiny
+    builds them as ShardedEmbedding and gives the logits, loss and
+    gradients of the ``embedding_axis=None`` model on the same weights
+    (tests/test_torch_sharded_embedding.py holds them against JAX over
+    a mesh)."""
+    from paddle_tpu_torch.parallel import ShardedEmbedding
+
+    jm, tm = _pair()
+    ep = TD.DeepFM(TD.DeepFMConfig.tiny(), device="cpu")
+    assert isinstance(ep.embedding, ShardedEmbedding)
+    assert isinstance(ep.linear_embed, ShardedEmbedding)
+    load_numpy_state(ep, {k: v.detach().numpy()
+                          for k, v in tm.named_parameters()})
+    ids, dense = _batch(jm.cfg, seed=4)
+    tids = torch.from_numpy(ids)
+    outs = []
+    for m in (tm, ep):
+        loss = TD.loss_fn(m(tids, torch.from_numpy(dense)), _labels_t(tids))
+        loss.backward()
+        outs.append((loss.item(), {k: p.grad for k, p in
+                                   m.named_parameters()}))
+    assert outs[0][0] == outs[1][0]
+    for k, g in outs[0][1].items():
+        assert torch.equal(outs[1][1][k], g), k
     assert TD.DeepFMConfig.criteo().total_vocab == 1_000_000
     assert TD.DeepFMConfig().embedding_axis == "ep"

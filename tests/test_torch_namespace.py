@@ -23,13 +23,12 @@ import paddle_tpu_torch.metrics
 import paddle_tpu_torch.nn.layers
 import paddle_tpu_torch.ops
 
-ENTRY_6 = "queue 1 entry 6 (item 11, distributed)"
 ENTRY_7 = "queue 1 entry 7 (item 8, the profiler)"
 ENTRY_8 = "queue 1 entry 8 (item 12, compat surfaces)"
 # module -> {name still missing from the port: the entry that owns it}.
 # Entry 6's mesh, collectives, context parallelism, plans, the int8
-# gradient all-reduce, pipelines and the hybrid steps are ported; what
-# stays is the sharded embedding, dgc and geo-sgd
+# gradient all-reduce, pipelines, the hybrid steps, the sharded
+# embedding, dgc and geo-sgd are ported
 STILL_MISSING = {
     "": {},
     "slim": {},
@@ -38,11 +37,7 @@ STILL_MISSING = {
                               "stop_profiler"), ENTRY_7),
              **dict.fromkeys(("BuildStrategy", "ExecutionStrategy"),
                              ENTRY_8)},
-    "parallel": dict.fromkeys(
-        ("ShardedEmbedding", "embedding_ep_rules",
-         "sharded_embedding_lookup", "DGCMomentum", "dgc_allreduce",
-         "quantized_allreduce", "top_k_sparsify", "GeoSGDTrainer"),
-        ENTRY_6),
+    "parallel": {},
     "nn": {},
     "nn.layer": {},
     "data": dict.fromkeys(

@@ -526,9 +526,23 @@ def test_checkpoint_slice_arguments_raise_naming_their_item(tmp_path):
     _raises("queue 1 item 11", C.CheckpointManager, str(tmp_path / "m"),
             coordinator=object())
     _raises("queue 1 item 11", C.load, d, mesh=object())
-    for kw in (dict(mesh=object()), dict(sharding=object()),
-               dict(stage_per_shard=True)):
-        _raises("queue 1 item 11", DevicePrefetcher, [], device="cpu", **kw)
+    # DevicePrefetcher's mesh keywords are ported: each stages this
+    # rank's rows of a batch (the one-rank mesh's: all of them)
+    from paddle_tpu_torch.core.mesh import get_mesh, sharding
+    from paddle_tpu_torch.core.sharding_types import PartitionSpec
+
+    one = get_mesh()
+    batch = [{"x": np.arange(8.0).reshape(4, 2)}]
+    for kw in (dict(mesh=one), dict(sharding=sharding(
+            PartitionSpec("dp"), one)), dict(mesh=one,
+                                            stage_per_shard=True)):
+        pref = DevicePrefetcher(batch, device="cpu", **kw)
+        assert pref.stage_per_shard is True
+        assert tuple(pref.sharding.spec) == ("dp",)
+        got = list(pref)
+        assert torch.equal(got[0]["x"], torch.from_numpy(batch[0]["x"]))
+    with pytest.raises(Exception, match="stage_per_shard needs"):
+        DevicePrefetcher([], device="cpu", stage_per_shard=True)
     model = tnn.Linear(2, 2, device="cpu")
     trainer = Trainer(model, topt.SGD(0.1), lambda *a: None)
     loop = TrainLoop(trainer, str(tmp_path / "loop"))

@@ -292,8 +292,17 @@ class TestPreemption:
                          (dict(controller=object()), "item 11")):
             with pytest.raises(UnimplementedError, match=item):
                 loop.run(batches(1), **kw)
-        with pytest.raises(UnimplementedError, match="item 11"):
-            DevicePrefetcher(batches(1), mesh=object(), device="cpu")
+        # the prefetcher's mesh= is ported: it stages the rank's rows
+        # (on the one-rank mesh, every row; tests/test_torch_embedding_
+        # plane.py cuts each rank's of a 4-rank mesh)
+        from paddle_tpu_torch.core.mesh import get_mesh
+
+        want = list(batches(1, rng=np.random.default_rng(5)))
+        pref = DevicePrefetcher(iter(want), mesh=get_mesh(), device="cpu")
+        got = list(pref)
+        assert pref.stage_per_shard and len(got) == 1
+        for k, v in want[0].items():
+            assert torch.equal(got[0][k], v)
 
 
 CFG = dict(vocab_size=512, hidden_size=256, num_layers=2, num_heads=4,
