@@ -588,6 +588,36 @@ Phases, each printed as it runs:
    quantized and exact: every leaf within 2.5 max|g| 4 / 127, the
    correlation above 0.999, the quantized form's staged bytes at least
    3x fewer; ms a step, a sync's ms and the staged bytes reported.
+38. ``[dist:ckpt]`` in the same world: ``[dist:plan]``'s trainer after its
+   3 steps (about 100M parameters with Adam's moments) saved per host
+   through ``CheckpointManager(coordinator=FleetController(...))`` on the
+   world's store, then restored under ``Plan(dp=1, fsdp=4)`` and
+   ``Plan(dp=2, fsdp=2)`` into trainers built from another seed:
+   ``GLOBAL_COMMITTED`` present, every file the manifest names on disk
+   and written once over the ranks, every rank's restored leaves
+   bit-equal to the saved leaves cut to their new shards, one step from
+   the fsdp=4 restore within 1e-4 relative of the unsharded run's 4th
+   step with 12/12/12 flash launches at (12, 4) heads, and a
+   1,000,000 x 16 table saved under ``Plan(ep=4)`` restored under
+   ``Plan(dp=2, ep=2)`` and whole, bit-equal; the bytes and files each
+   rank wrote, the save's blocking ms, the commit barrier's ms and each
+   restore's ms reported.
+39. ``[launch:elastic]``: ``python -m paddle_tpu_torch.launch`` over a
+   worker written to a temporary directory (``fleet.init()`` on 2 ranks
+   sharing cuda:0 over gloo, ``GPTConfig.small()`` widths cut to 2
+   layers, B=8, T=1024, float32, ``Plan(dp=1, fsdp=world)``, Adam,
+   ``TrainLoop(checkpoint_every=2)`` on one shared directory,
+   ``controller=fleet.controller()``). Run (a), ``--nproc 2``, SIGTERM to
+   rank 1: both ranks ``preempted`` at one agreed step, which is
+   globally committed, rc 0. Run (b), ``--nproc 2 --elastic`` on (a)'s
+   directory: both ranks resume at that step; rank 1 is SIGKILLed after
+   a global commit; the survivor stops ``preempted`` naming it; the
+   respawned world of one resumes at or after the step committed at the
+   kill with the checkpoint's exact parameters, and a
+   ``PT_PREEMPT_NOTICE`` file ends it, rc 0. Every attempt's flash
+   forward, dq and dk/dv launch 2 layers x its completed steps each at
+   (12, 4) heads; the seconds from the kill to the first resumed step
+   and each run's seconds reported.
 
 Any failure exits non-zero. The line before the last is the kernels'
 JSON record (each row also names the ``tiles`` its timed launch ran
@@ -601,6 +631,7 @@ import itertools
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -6194,6 +6225,29 @@ EMBED_DENSE_TOL = (1e-4, 1e-3)      # DIST_TOL: loss, grad / largest entry
 GEO_LAYERS, GEO_B, GEO_T, GEO_STEPS, GEO_SYNC, GEO_SEED = 2, 8, 1024, 4, 2, 29
 GEO_LR, GEO_SPARSITY, GEO_RAMPUP = 1e-2, 0.999, 1
 GEO_TOL, GEO_SYNCED, GEO_CORR, GEO_STAGED_RATIO = 1e-4, 1e-6, 0.999, 3.0
+# [dist:ckpt]: [dist:plan]'s trainer after its DIST_STEPS steps, saved per
+# host through CheckpointManager(coordinator=FleetController) on the
+# world's store, restored under Plan(dp=1, fsdp=4) (the batch over dp
+# alone: B=2 rows do not split over 4 ranks) and Plan(dp=2, fsdp=2) into
+# trainers built from another seed; one more step from the fsdp=4
+# restore against the unsharded run's 4th; a table of DeepFMConfig.
+# criteo()'s rows and width (1,000,000 x 16, seed 30) saved under
+# Plan(ep=4) and restored under Plan(dp=2, ep=2) and whole
+CKPT_RESTORES = (("fsdp4", dict(dp=1, fsdp=4), ("dp",)),
+                 ("dp2_fsdp2", dict(dp=2, fsdp=2), ("dp", "fsdp")))
+CKPT_SEED, CKPT_TABLE, CKPT_TABLE_SEED = 31, (1_000_000, 16), 30
+# the [dist:plan] trainer, kept on each rank for [dist:ckpt]
+PLAN_STATE = {}
+# [launch:elastic]: `python -m paddle_tpu_torch.launch` over a worker that
+# chip_smoke writes to its temporary directory: fleet.init() on 2 ranks
+# sharing cuda:0 (gloo), GPTConfig.small() widths cut to 2 layers, B=8,
+# T=1024, float32, Plan(dp=1, fsdp=world), Adam(1e-4),
+# TrainLoop(checkpoint_every=2) on one shared directory,
+# controller=fleet.controller(); run (a) --nproc 2 then SIGTERM to rank
+# 1, run (b) --nproc 2 --elastic on (a)'s directory, SIGKILL to rank 1
+# after a global commit, then a PT_PREEMPT_NOTICE file
+ELASTIC_LAYERS, ELASTIC_B, ELASTIC_T, ELASTIC_EVERY = 2, 8, 1024, 2
+ELASTIC_SEED, ELASTIC_LR, ELASTIC_SIGTERM_AT = 33, 1e-4, 3
 
 
 def ring_inputs(torch, dtype, segs, mask, gen):
@@ -6518,6 +6572,7 @@ def dist_plan_run(torch, FK, rank, out_dir):
                peak_gb=torch.cuda.max_memory_allocated() / 1e9)
     if rank == 0:
         torch.save(first, os.path.join(out_dir, "plan_grads.pt"))
+    PLAN_STATE["trainer"] = trainer
     return run
 
 
@@ -7050,6 +7105,207 @@ def dist_geo_run(torch, FK, rank, out_dir):
     return run
 
 
+def ckpt_trainer(torch, plan):
+    """The [dist] model from another seed under ``plan`` (no gradient
+    kept): what a restore must overwrite."""
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.parallel import Trainer
+
+    gen = torch.Generator(device="cuda").manual_seed(CKPT_SEED)
+    model = gpt.GPTForCausalLM(gpt.GPTConfig.small(), generator=gen)
+    return Trainer(model, optimizer.Adam(DIST_LR), lambda m, batch, g: (
+        m.forward_loss(batch), {}), plan=plan)
+
+
+def ckpt_mismatches(torch, saved, restored):
+    """The paths where a restored leaf is not, bit for bit, its saved
+    leaf's whole value cut to the restored leaf's sharding (every rank
+    calls: the saved shards are all-gathered)."""
+    import numpy as np
+
+    from paddle_tpu_torch.parallel import sharding as S
+
+    got = dict(restored)
+    bad = []
+    for path, leaf in saved:
+        new = got.get(path)
+        if torch.is_tensor(leaf):
+            sh = S.sharding_of(leaf)
+            whole = leaf.detach() if sh is None else gather_whole(leaf, sh)
+            sh2 = S.sharding_of(new)
+            want = whole if sh2 is None else sh2.local(whole)
+            ok = new is not None and torch.equal(want.to(new.device),
+                                                 new.detach())
+        else:
+            ok = np.array_equal(np.asarray(leaf), np.asarray(new))
+        if not ok:
+            bad.append(path)
+    return bad
+
+
+def dist_ckpt_run(torch, FK, rank, out_dir):
+    """[dist:ckpt] on this rank: [dist:plan]'s trainer saved per host
+    through CheckpointManager(coordinator=FleetController) on the store
+    (the bytes and files this rank wrote, the save's blocking and total
+    ms, the commit barrier's ms), restored under each of CKPT_RESTORES
+    (restore ms, the leaves not bit-equal to the saved ones, one step
+    from the fsdp=4 restore with its flash launches and heads), and the
+    ep table across shapes."""
+    from paddle_tpu_torch import checkpoint as C
+    from paddle_tpu_torch.parallel import Plan
+    from paddle_tpu_torch.resilience import FleetController
+    from paddle_tpu_torch.resilience.controller import (ClientTransport,
+                                                        coordination_client)
+
+    saved = PLAN_STATE.pop("trainer")
+    root = os.path.join(out_dir, "ckpt")
+    ctl = FleetController(rank=rank, world=4, run_id="smoke",
+                          transport=ClientTransport(coordination_client(),
+                                                    "smoke"),
+                          hold_poll_s=0.005).start()
+    mgr = C.CheckpointManager(root, coordinator=ctl)
+    before = dict(C.WRITTEN)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mgr.save(DIST_STEPS, saved.state())
+    blocking = (time.perf_counter() - t0) * 1e3
+    mgr.wait_until_finished()
+    run = dict(bytes=C.WRITTEN["bytes"] - before["bytes"],
+               files=C.WRITTEN["files"] - before["files"],
+               blocking_ms=blocking,
+               save_ms=(time.perf_counter() - t0) * 1e3,
+               commit_ms=mgr.last_commit_barrier_s * 1e3)
+    ctl.stop()
+    step_dir = os.path.join(root, f"step_{DIST_STEPS}")
+    leaves = C._flatten(saved.state())
+    for name, sizes, axes in CKPT_RESTORES:
+        plan = Plan(**sizes, batch_axes=axes, device="cuda:0")
+        trainer = ckpt_trainer(torch, plan)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.restore_checkpoint(step_dir)
+        torch.cuda.synchronize()
+        rec = dict(restore_ms=(time.perf_counter() - t0) * 1e3,
+                   bad=ckpt_mismatches(torch, leaves,
+                                       C._flatten(trainer.state())),
+                   layout=leaf_layout(torch, trainer))
+        if name == "fsdp4":
+            batch = trainer.data_sharding().local(dist_ids(torch)).to("cuda")
+            for n in FLASH_ROWS:
+                getattr(FK, n).launches = 0
+            heads = set()
+            with recorded_heads(heads):
+                losses, ms = dist_steps(torch, trainer, batch, 1)
+            rec.update(loss=losses[0], ms=ms[0], heads=sorted(heads),
+                       counts={n: getattr(FK, n).launches
+                               for n in FLASH_ROWS})
+        run[name] = rec
+        del trainer
+        torch.cuda.empty_cache()
+    del saved, leaves
+    torch.cuda.empty_cache()
+    table = torch.randn(*CKPT_TABLE, generator=torch.Generator().manual_seed(
+        CKPT_TABLE_SEED))
+    tables = [r"^table$"]
+    w = table.to("cuda", copy=True)
+    Plan(ep=4, tables=tables, device="cuda:0").place({"table": w})
+    tdir = os.path.join(out_dir, "table_ep4")
+    C.save_state(tdir, {"table": w})
+    p22 = Plan(dp=2, ep=2, tables=tables, device="cuda:0")
+    got = C.restore_state(tdir, mesh=p22.mesh)["table"]
+    run["table_ok"] = (torch.equal(got, got._pt_sharding.local(table))
+                       and torch.equal(C.restore_state(tdir)["table"],
+                                       table))
+    return run
+
+
+ELASTIC_WORKER = """
+import faulthandler, json, os, signal, sys, time
+T0 = time.time()
+# SIGUSR1 prints every thread's stack (the phase's report of a rank that
+# does not finish)
+faulthandler.register(signal.SIGUSR1, all_threads=True)
+sys.path.insert(0, {root!r})
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+from paddle_tpu_torch import checkpoint, fleet, optimizer
+from paddle_tpu_torch.models import gpt
+from paddle_tpu_torch.ops.kernels import flash_attention as FK
+from paddle_tpu_torch.parallel import Plan, Trainer
+from paddle_tpu_torch.parallel import sharding as PS
+from paddle_tpu_torch.train_loop import TrainLoop
+import chip_smoke as S
+
+base = sys.argv[1]
+run_id = os.environ["PT_FLEET_RUN_ID"]
+
+
+def put(name, payload):
+    path = os.path.join(base, name)
+    with open(path + ".w", "w") as f:
+        json.dump(payload, f)
+    os.replace(path + ".w", path)
+
+
+f = fleet.init()
+rank, world = f.worker_index(), f.worker_num()
+ctl = fleet.controller(poll_interval_s=0.05, watch_interval_s=0.1,
+                       agree_timeout_s=120.0, commit_timeout_s=120.0)
+put(f"pid.{{rank}}.{{run_id}}", {{"pid": os.getpid()}})
+cfg = gpt.GPTConfig.small()
+cfg.num_layers = S.ELASTIC_LAYERS
+gen = torch.Generator(device="cuda").manual_seed(S.ELASTIC_SEED)
+model = gpt.GPTForCausalLM(cfg, generator=gen)
+tr = Trainer(model, optimizer.Adam(S.ELASTIC_LR), lambda m, b, g: (
+    m.forward_loss(b), {{}}), plan=Plan(dp=1, fsdp=world,
+                                      device=f.mesh.device))
+ids = torch.randint(0, cfg.vocab_size, (S.ELASTIC_B, S.ELASTIC_T),
+                    generator=torch.Generator().manual_seed(S.ELASTIC_SEED))
+batch = tr.data_sharding().local(ids).to(f.mesh.device)
+ck = os.path.join(base, "ckpt")
+loop = TrainLoop(tr, ck, checkpoint_every=S.ELASTIC_EVERY, max_to_keep=3)
+loop.manager.coordinator = ctl
+resumed = loop.maybe_resume()
+exact = None
+if resumed is not None:
+    saved = checkpoint.restore_state(os.path.join(ck, f"step_{{resumed}}"))
+    exact = True
+    for n, p in tr.params.items():
+        sh = PS.sharding_of(p)
+        want = saved["params"][n]
+        want = want if sh is None else sh.local(want)
+        exact = exact and torch.equal(p.detach().cpu(), want)
+for n in S.FLASH_ROWS:
+    getattr(FK, n).launches = 0
+heads, counts, stamps = set(), {{}}, []
+
+
+def on_step(step, loss, metrics):
+    counts.update({{n: getattr(FK, n).launches for n in S.FLASH_ROWS}})
+    counts["steps"] = step - (resumed or 0)
+    stamps.append(time.time())
+    put(f"step.{{rank}}.{{run_id}}", {{"step": step, "t": stamps[-1],
+                                    "loss": float(loss)}})
+
+
+t_run = time.time()
+with S.recorded_heads(heads):
+    n = loop.run(iter(lambda: batch, None), on_step=on_step, resume=False,
+                 controller=ctl)
+out = {{"status": loop.status, "final_step": n, "world": world,
+       "resumed_from": resumed, "exact": exact, "remat": bool(cfg.remat),
+       "agreed": loop.history.get("preempt_agreed_step"),
+       "lost": loop.history.get("lost_ranks"), "counts": counts,
+       "heads": sorted(heads), "backend": f.backend,
+       "step_ms": [round((b - a) * 1e3, 1) for a, b in zip(stamps, stamps[1:])],
+       "seconds": time.time() - T0, "run_seconds": time.time() - t_run}}
+put(f"out.{{rank}}.{{run_id}}", out)
+print(json.dumps(out), flush=True)
+"""
+
+
 def dist_rank(rank, store, out_dir, only=None):
     """One rank of the [dist:*] world: every run (or those named in
     ``only``), its record written to ``out_dir`` (rank 0 also writes each
@@ -7090,13 +7346,17 @@ def dist_rank(rank, store, out_dir, only=None):
             torch.save(first, os.path.join(out_dir, f"{impl}_grads.pt"))
         del trainer, first
         torch.cuda.empty_cache()
-    for name, run in (("plan", dist_plan_run), ("fsdp", dist_fsdp_run),
+    for name, run in (("plan", dist_plan_run), ("ckpt", dist_ckpt_run),
+                      ("fsdp", dist_fsdp_run),
                       ("moe", dist_moe_run), ("pipe", dist_pipe_run),
                       ("int8", dist_int8_run), ("embed", dist_embed_run),
                       ("geo", dist_geo_run)):
-        if only is not None and name not in only:
+        # [dist:ckpt] saves [dist:plan]'s trainer: it runs the plan too
+        if only is not None and name not in only and not (
+                name == "plan" and "ckpt" in only):
             continue
         args = {"plan": (torch, FK, rank, out_dir),
+                "ckpt": (torch, FK, rank, out_dir),
                 "pipe": (torch, FK, rank, out_dir),
                 "geo": (torch, FK, rank, out_dir),
                 "int8": (torch, rank)}.get(name, (torch, rank, out_dir))
@@ -7301,15 +7561,20 @@ def dist_references(torch, only=None):
                          ("geo", geo_reference)):
             if name in only:
                 refs[name] = fn(torch)
-        return refs
+        if "ckpt" not in only and "plan" not in only:
+            return refs
     trainer, grads = dist_trainer(torch, None)
     ids = dist_ids(torch).to("cuda")
     losses, ms = dist_steps(torch, trainer, ids)
     refs["gpt"] = (losses, ms, grads)
+    # the 4th step, which [dist:ckpt]'s restored trainer takes
+    refs["ckpt"] = dist_steps(torch, trainer, ids, 1)[0][0]
     log(f"[dist] unsharded reference: GPTConfig.small() T={DIST_T} "
         f"B={DIST_B} float32, Adam({DIST_LR}) losses {losses}, ms a "
-        f"step {[round(x, 1) for x in ms]}")
+        f"step {[round(x, 1) for x in ms]}; step 4's loss {refs['ckpt']}")
     del trainer, ids
+    if only is not None:
+        return refs
     trainer, grads = fsdp_trainer(torch)
     batch = {k: v.to("cuda") for k, v in fsdp_batch(torch).items()}
     losses, ms = dist_steps(torch, trainer, batch, FSDP_STEPS)
@@ -7407,6 +7672,10 @@ def phase_dist(torch, FK, only=None):
             records.append(json.load(f))
     launches = dict.fromkeys(RING_ROWS, 0)
     if only is not None:
+        if "plan" in only or "ckpt" in only:
+            check_dist_plan(torch, records, out_dir, refs["gpt"])
+        if "ckpt" in only:
+            check_dist_ckpt(records, out_dir, refs["ckpt"])
         if "pipe" in only:
             check_dist_pipe(torch, records, out_dir, refs["pipe"])
         if "int8" in only:
@@ -7456,6 +7725,7 @@ def phase_dist(torch, FK, only=None):
         if worst[0] > DIST_TOL[1]:
             raise SystemExit(f"{tag}: step 1 gradients off by {worst}")
     check_dist_plan(torch, records, out_dir, refs["gpt"])
+    check_dist_ckpt(records, out_dir, refs["ckpt"])
     check_dist_fsdp(torch, records, out_dir, refs["fsdp"])
     check_dist_moe(torch, records, out_dir, refs["moe"])
     check_dist_pipe(torch, records, out_dir, refs["pipe"])
@@ -7520,6 +7790,70 @@ def check_dist_plan(torch, records, out_dir, ref):
         f"multi-card plan)")
     if worst[0] > DIST_TOL[1]:
         raise SystemExit(f"{tag}: step 1 gradients off by {worst}")
+
+
+def check_dist_ckpt(records, out_dir, ref4):
+    """[dist:ckpt]'s gates: GLOBAL_COMMITTED present, every file of the
+    manifest (each shard region, each whole leaf) on disk and written
+    once over the ranks, every restored leaf bit-equal to its saved
+    value under both plans, the fsdp=4 restore's next step within
+    DIST_TOL of the unsharded run's 4th with 12/12/12 flash launches at
+    (12, 4) heads, the ep table bit-equal across shapes."""
+    from paddle_tpu_torch.models import gpt
+
+    tag = "[dist:ckpt]"
+    d = os.path.join(out_dir, "ckpt", f"step_{DIST_STEPS}")
+    if not os.path.exists(os.path.join(d, "GLOBAL_COMMITTED")):
+        raise SystemExit(f"{tag}: no GLOBAL_COMMITTED in {d}")
+    with open(os.path.join(d, "manifest.json")) as f:
+        leaves = json.load(f)["leaves"]
+    files = [s["file"] for e in leaves for s in e.get("shards", [])]
+    regions = len(files)
+    files += [e["file"] for e in leaves if "shards" not in e]
+    missing = [n for n in files if not os.path.exists(os.path.join(d, n))]
+    written = sum(rec["ckpt"]["files"] for rec in records)
+    if missing or written != len(files):
+        raise SystemExit(f"{tag}: {len(files)} files in the manifest, "
+                         f"{written} written over the ranks, missing "
+                         f"{missing[:4]}")
+    layers = gpt.GPTConfig.small().num_layers
+    for r, rec in enumerate(records):
+        run = rec["ckpt"]
+        f4 = run["fsdp4"]
+        log(f"{tag} rank {r}: wrote {run['files']} files, {run['bytes']} "
+            f"bytes; save blocking {run['blocking_ms']:.1f} ms (the "
+            f"snapshot), {run['save_ms']:.1f} ms to the global commit, the "
+            f"commit barrier {run['commit_ms']:.1f} ms; restore "
+            f"fsdp=4 {f4['restore_ms']:.1f} ms, dp=2 x fsdp=2 "
+            f"{run['dp2_fsdp2']['restore_ms']:.1f} ms; the step after the "
+            f"fsdp=4 restore: loss {f4['loss']} ({f4['ms']:.1f} ms), flash "
+            f"launches {f4['counts']} at (q, kv) heads {f4['heads']}; "
+            f"table {'bit-equal' if run['table_ok'] else 'DIFFERS'}")
+        for name, _, _ in CKPT_RESTORES:
+            if run[name]["bad"]:
+                raise SystemExit(f"{tag} rank {r} {name}: leaves "
+                                 f"{run[name]['bad'][:6]} not bit-equal "
+                                 f"to the saved ones")
+            check_layout(f"{tag} {name}", r, run[name]["layout"])
+        if f4["counts"] != dict.fromkeys(FLASH_ROWS, layers):
+            raise SystemExit(f"{tag} rank {r}: flash launches "
+                             f"{f4['counts']}, want {layers} each")
+        if f4["heads"] != [[12, 4]]:
+            raise SystemExit(f"{tag} rank {r}: heads {f4['heads']}")
+        rel = abs(f4["loss"] - ref4) / abs(ref4)
+        if rel > DIST_TOL[0]:
+            raise SystemExit(f"{tag} rank {r}: step 4 loss {f4['loss']} "
+                             f"against {ref4} (rel {rel:.3e})")
+        if not run["table_ok"]:
+            raise SystemExit(f"{tag} rank {r}: the ep table differs")
+    log(f"{tag} Plan(dp=1, fsdp=2, tp=2) saved per host: {regions} shard "
+        f"regions and {len(files) - regions} whole leaves, each written "
+        f"once, {sum(rec['ckpt']['bytes'] for rec in records)} bytes over "
+        f"the ranks, GLOBAL_COMMITTED; restored bit-equal under "
+        f"Plan(dp=1, fsdp=4) and Plan(dp=2, fsdp=2); step 4 from the "
+        f"fsdp=4 restore within "
+        f"{max(abs(r['ckpt']['fsdp4']['loss'] - ref4) for r in records) / abs(ref4):.3e}"
+        f" relative of the unsharded run's (gate {DIST_TOL[0]})")
 
 
 def check_dist_fsdp(torch, records, out_dir, ref):
@@ -7987,6 +8321,189 @@ def phase_ring_timing(torch, FK, err, launches):
     return rows
 
 
+def elastic_read(base, name):
+    try:
+        with open(os.path.join(base, name)) as f:
+            return json.load(f)
+    except (OSError, ValueError):
+        return None
+
+
+def elastic_job(base, log_name, env, flags):
+    """``python -m paddle_tpu_torch.launch --nproc 2`` over the worker, in
+    its own session (so every process it starts can be stopped), its
+    output to ``log_name`` in ``base``."""
+    log_f = open(os.path.join(base, log_name), "w")
+    p = subprocess.Popen(
+        [sys.executable, "-m", "paddle_tpu_torch.launch", "--nproc", "2",
+         "--grace", "30", "--log-dir", os.path.join(base, "logs"), *flags,
+         os.path.join(base, "worker.py"), base],
+        cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+        stdout=log_f, stderr=subprocess.STDOUT, start_new_session=True)
+    p.log_f = log_f
+    return p
+
+
+def elastic_wait(p, base, what, cond, timeout):
+    deadline = time.monotonic() + timeout
+    while not cond():
+        if p.poll() is not None or time.monotonic() > deadline:
+            elastic_stop(p)
+            with open(p.log_f.name) as f:
+                tail = f.read()[-3000:]
+            raise SystemExit(f"[launch:elastic] waiting for {what}: the "
+                             f"job {'ended' if p.poll() is not None else 'timed out'}"
+                             f" (rc {p.poll()}):\n{tail}")
+        time.sleep(0.02)
+
+
+def elastic_stop(p, timeout=0.0):
+    """Wait up to ``timeout`` s for the launcher, then kill its session."""
+    try:
+        p.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        pass
+    if p.poll() is None:
+        import signal
+
+        os.killpg(p.pid, signal.SIGKILL)
+        p.wait()
+    p.log_f.close()
+    return p.returncode
+
+
+def global_steps(ck):
+    return sorted(int(n[5:]) for n in os.listdir(ck)
+                  if n.startswith("step_") and "." not in n
+                  and os.path.exists(os.path.join(ck, n, "GLOBAL_COMMITTED")))
+
+
+def check_elastic_launches(tag, out, name):
+    """A worker's flash launches over its completed steps: forward, dq
+    and dk/dv each ELASTIC_LAYERS a step (the forward twice under remat)
+    at (12, 4) heads."""
+    c = out["counts"]
+    steps = c.get("steps", 0)
+    want = {"flash_attention_fwd": ELASTIC_LAYERS * steps * (
+        2 if out["remat"] else 1),
+        "flash_attention_dq": ELASTIC_LAYERS * steps,
+        "flash_attention_dkv": ELASTIC_LAYERS * steps}
+    got = {k: c.get(k) for k in want}
+    log(f"{tag} {name}: {out['status']} at step {out['final_step']} "
+        f"(world {out['world']}, {out['backend']}, resumed from "
+        f"{out['resumed_from']}, agreed {out['agreed']}, lost "
+        f"{out['lost']}); {steps} steps (ms between step ends "
+        f"{out['step_ms']}: a periodic save's snapshot and the agreement "
+        f"included), flash launches {got} at (q, kv) "
+        f"heads {out['heads']}, {steps and got['flash_attention_dq'] / steps}"
+        f" dq a step; {out['seconds']:.1f} s in the process, "
+        f"{out['run_seconds']:.1f} s in TrainLoop.run")
+    if steps < 1 or got != want or out["heads"] != [[12, 4]]:
+        raise SystemExit(f"{tag} {name}: flash launches {got} over {steps} "
+                         f"steps at {out['heads']}, want {want} at [[12, 4]]")
+
+
+def phase_launch_elastic(torch, FK):
+    """[launch:elastic]: the launcher, the fleet controller and per-host
+    checkpoints end to end on the card (the constants' comment). Run
+    (a): both ranks stop ``preempted`` at one agreed step that is
+    globally committed, rc 0. Run (b), elastic on (a)'s directory: both
+    ranks resume at that step; after a new global commit rank 1 is
+    SIGKILLed; the survivor stops ``preempted``, naming it; the launcher
+    respawns one rank, which resumes at or after the step committed at
+    the kill with the checkpoint's exact parameters; a PT_PREEMPT_NOTICE
+    file ends it, rc 0. Every worker's flash launches are held to its
+    steps; the time from the kill to the first resumed step and each
+    attempt's seconds are reported."""
+    import signal
+
+    tag = "[launch:elastic]"
+    base = tempfile.mkdtemp(prefix="elastic_")
+    with open(os.path.join(base, "worker.py"), "w") as f:
+        f.write(ELASTIC_WORKER.format(
+            root=os.path.dirname(os.path.abspath(__file__))))
+    notice = os.path.join(base, "NOTICE")
+    env = dict(os.environ, PT_PREEMPT_NOTICE=notice)
+    ck = os.path.join(base, "ckpt")
+    # run (a): SIGTERM to rank 1
+    t0 = time.perf_counter()
+    p = elastic_job(base, "run_a.log", env, [])
+    a0 = f"L{p.pid}a0"
+    elastic_wait(p, base, "rank 1's step 3", lambda: (elastic_read(
+        base, f"step.1.{a0}") or {}).get("step", 0) >= ELASTIC_SIGTERM_AT,
+        300)
+    os.kill(elastic_read(base, f"pid.1.{a0}")["pid"], signal.SIGTERM)
+    rc = elastic_stop(p, 300)
+    outs = [elastic_read(base, f"out.{r}.{a0}") for r in (0, 1)]
+    log(f"{tag} run (a): rc {rc} in {time.perf_counter() - t0:.1f} s")
+    if None in outs:
+        raise SystemExit(f"{tag} run (a): a rank wrote no result (rc {rc})")
+    for r, out in enumerate(outs):
+        check_elastic_launches(tag, out, f"run (a) rank {r}")
+    agreed = outs[0]["agreed"]
+    if rc != 0 or any(o["status"] != "preempted" or o["agreed"] != agreed
+                      or o["final_step"] != agreed for o in outs) \
+            or agreed not in global_steps(ck):
+        raise SystemExit(f"{tag} run (a): rc {rc}, {outs}, globally "
+                         f"committed {global_steps(ck)}")
+    log(f"{tag} run (a): both ranks preempted at the agreed step {agreed}, "
+        f"globally committed")
+    # run (b): elastic; SIGKILL to rank 1 after a global commit
+    t0 = time.perf_counter()
+    p = elastic_job(base, "run_b.log", env, ["--elastic"])
+    b0, b1 = f"L{p.pid}a0", f"L{p.pid}a1"
+    elastic_wait(p, base, "a global commit after the resume",
+                 lambda: global_steps(ck)[-1] > agreed, 300)
+    committed = global_steps(ck)[-1]
+    os.kill(elastic_read(base, f"pid.1.{b0}")["pid"], signal.SIGKILL)
+    t_kill = time.time()
+    deadline = time.monotonic() + 20
+    while elastic_read(base, f"out.0.{b0}") is None and \
+            time.monotonic() < deadline:
+        time.sleep(0.05)
+    if elastic_read(base, f"out.0.{b0}") is None:
+        # the survivor has not finished: its stacks go to the log
+        os.kill(elastic_read(base, f"pid.0.{b0}")["pid"], signal.SIGUSR1)
+    elastic_wait(p, base, "attempt 1's first step",
+                 lambda: elastic_read(base, f"step.0.{b1}") is not None, 300)
+    recover = elastic_read(base, f"step.0.{b1}")["t"] - t_kill
+    with open(notice, "w") as f:
+        f.write("1")
+    rc = elastic_stop(p, 300)
+    seconds = time.perf_counter() - t0
+    first = [elastic_read(base, f"out.{r}.{b0}") for r in (0, 1)]
+    again = elastic_read(base, f"out.0.{b1}")
+    log(f"{tag} run (b): rc {rc} in {seconds:.1f} s; rank 1 SIGKILLed after "
+        f"the global commit of step {committed}; {recover:.2f} s from the "
+        f"kill to attempt 1's first resumed step")
+    if first[0] is None or again is None:
+        with open(p.log_f.name) as f:
+            tail = f.read()[-6000:]
+        raise SystemExit(f"{tag} run (b): missing results {first}, "
+                         f"{again}; the launcher's log ends:\n{tail}")
+    check_elastic_launches(tag, first[0], "run (b) attempt 0 rank 0")
+    check_elastic_launches(tag, again, "run (b) attempt 1 rank 0")
+    if first[1] is not None:
+        raise SystemExit(f"{tag} run (b): the killed rank wrote a result")
+    if first[0]["resumed_from"] != agreed or first[0]["exact"] is not True:
+        raise SystemExit(f"{tag} run (b): attempt 0 resumed from "
+                         f"{first[0]['resumed_from']} (exact "
+                         f"{first[0]['exact']}), want {agreed}")
+    if first[0]["status"] != "preempted" or first[0]["lost"] != [1]:
+        raise SystemExit(f"{tag} run (b): the survivor ended "
+                         f"{first[0]['status']}, lost {first[0]['lost']}")
+    if again["world"] != 1 or again["resumed_from"] is None or \
+            again["resumed_from"] < committed or again["exact"] is not True \
+            or again["status"] != "preempted" or rc != 0:
+        raise SystemExit(f"{tag} run (b): attempt 1 {again}, rc {rc}, "
+                         f"committed at the kill {committed}")
+    log(f"{tag} run (b): attempt 1 (world 1) resumed from step "
+        f"{again['resumed_from']} (>= {committed}) with the checkpoint's "
+        f"exact parameters and ended preempted at step "
+        f"{again['final_step']} by the notice file, rc 0")
+    shutil.rmtree(base, ignore_errors=True)
+
+
 def timed_phase(tag, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -8157,6 +8674,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     ring_err = timed_phase("[kernels:ring]", phase_ring_kernels, torch, FK)
     ring_launches = timed_phase("[dist]", phase_dist, torch, FK)
+    timed_phase("[launch:elastic]", phase_launch_elastic, torch, FK)
     rows += timed_phase("[time:ring]", phase_ring_timing, torch, FK,
                         ring_err["float32"], ring_launches)
     log_tiles("[later phases]", FK, K, QM)

@@ -12,8 +12,8 @@ giant tables on the port's plans, three planes over one table.
   LRU) and prefetched by the data plane
   (``DevicePrefetcher(prefetch_rows=...)``).
 - **durable**: a host-backed table saves and loads its rows through
-  ``paddle_tpu_torch.checkpoint``; a table's restore across ``ep``
-  shapes is ROADMAP queue 1 entry 6 item 6.
+  ``paddle_tpu_torch.checkpoint``; an ep-placed table is saved per host
+  and restores across ``ep`` shapes (``restore_state(mesh=)``).
 """
 
 from .cache import RowCache

@@ -31,10 +31,12 @@ Counters (``pt_embedding_cache_{hits,misses,evictions}_total``,
 ``pt_embedding_prefetched_rows_total``) advance per call when telemetry
 is on; :meth:`statusz` is a ready-made debug-server section.
 :meth:`save`/:meth:`load` write and read the host rows through
-``checkpoint.save_state``/``restore_state`` (one host; the restore of a
-table across ``ep`` shapes is multi-host checkpointing, ROADMAP queue 1
-entry 6 item 6), and :meth:`from_array` ingests a table trained on the
-card, a plan's placed shard included (gathered over its axis first)."""
+``checkpoint.save_state``/``restore_state`` (:meth:`load` also takes a
+table a plan saved per host, its ``ep`` regions assembled; an ep-placed
+table restores onto another ``ep`` shape, or a dense one onto an ep
+plan, through ``restore_state(mesh=)`` or ``shardings=``), and
+:meth:`from_array` ingests a table trained on the card, a plan's placed
+shard included (gathered over its axis first)."""
 
 from __future__ import annotations
 

@@ -94,7 +94,7 @@ import torch
 from ..amp import MixedPrecisionOptimizer
 from ..core.config import BuildStrategy
 from ..core.dtypes import POLICIES, policy_scope
-from ..core.enforce import InvalidArgumentError, UnimplementedError, enforce
+from ..core.enforce import InvalidArgumentError, enforce
 from ..core.mesh import (Mesh, PartitionSpec, get_mesh, mesh_scope,
                          reduce_axes, sharding)
 from ..core.random import (fold_in, make_generator, next_key, rng_scope,
@@ -105,8 +105,6 @@ from ..optimizer.optimizers import Optimizer
 from . import sharding as S
 from .collective import sum_over
 from .plan import Plan, plan_step, pmean_axes
-
-_ENTRY_6 = "is not ported yet: ROADMAP queue 1 entry 6"
 
 
 class Trainer:
@@ -492,26 +490,13 @@ class Trainer:
                 "count": torch.tensor(self._accum_count, dtype=torch.int32)}
         return st
 
-    def _whole_state(self, what: str) -> None:
-        """Raise where a leaf of the state is a placed shard: a checkpoint
-        of shards (each rank's regions, restored onto any plan) is
-        ROADMAP queue 1 entry 6 item 6."""
-        from ..clip import tree_leaves
-
-        st = self.state()
-        if any(S.sharding_of(t) is not None for t in tree_leaves(
-                [st["params"], st["buffers"], st["opt_state"]])
-               if torch.is_tensor(t)):
-            raise UnimplementedError(
-                f"Trainer.{what} of a sharded state (multi-host "
-                f"checkpoints) {_ENTRY_6} item 6 (item 11, distributed)")
-
     def save_checkpoint(self, manager_or_dir, step: Optional[int] = None):
         """Save ``state()`` into a CheckpointManager (``step`` needed) or
-        a directory."""
+        a directory. A placed state (a plan's shards) is written per host:
+        every rank of the plan's process group calls this, and each
+        writes the shard regions it owns (checkpoint.py)."""
         from ..checkpoint import CheckpointManager, save_state
 
-        self._whole_state("save_checkpoint")
         if isinstance(manager_or_dir, CheckpointManager):
             enforce(step is not None,
                     "save_checkpoint(manager) needs a step number")
@@ -527,15 +512,23 @@ class Trainer:
         values are copied into the existing parameters, buffers and
         optimizer tensors on the trainer's device, so the model and the
         optimizer keep their storage. A manager restores ``step``, or
-        with None its newest committed step that verifies."""
+        with None its newest committed step that verifies.
+
+        Each placed leaf (a plan's shard) is restored as this rank's
+        shard under the leaf's current sharding, read from whatever the
+        checkpoint holds: a whole leaf (the single-process format of
+        either package) or the shard regions of any other plan, so a
+        state saved under one plan shape restores under another."""
         from ..checkpoint import CheckpointManager, _flatten, restore_state
 
-        self._whole_state("restore_checkpoint")
         target = self.state()
+        shardings = _shardings_of(target)
         if isinstance(manager_or_dir, CheckpointManager):
-            st = manager_or_dir.restore(step, target=target)
+            st = manager_or_dir.restore(step, shardings=shardings,
+                                        target=target)
         else:
-            st = restore_state(manager_or_dir, target=target)
+            st = restore_state(manager_or_dir, shardings=shardings,
+                               target=target)
         live = {"params": self.params, "buffers": target["buffers"],
                 "opt_state": self.opt_state}
         if self.grad_accum_steps > 1 and "grad_accum" in st:
@@ -646,6 +639,16 @@ def _ints_to_int32(tree):
     if isinstance(tree, int) and not isinstance(tree, bool):
         return torch.tensor(tree, dtype=torch.int32)
     return tree
+
+
+def _shardings_of(tree):
+    """``tree`` with each placed leaf replaced by its sharding and every
+    other leaf by None (restored whole)."""
+    if isinstance(tree, dict):
+        return {k: _shardings_of(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_shardings_of(v) for v in tree)
+    return S.sharding_of(tree) if torch.is_tensor(tree) else None
 
 
 def _leaf_slots(tree, path=()):

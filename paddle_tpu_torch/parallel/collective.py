@@ -64,18 +64,25 @@ STAGING = _Staging()
 
 
 def init_world(rank: int, world_size: int, init_method: str,
-               backend: Optional[str] = None):
+               backend: Optional[str] = None,
+               timeout_s: Optional[float] = None):
     """``torch.distributed.init_process_group`` with the backend this
     module expects: NCCL when every rank has a card of its own (the
-    machine holds at least ``world_size`` cards), gloo otherwise. Returns
-    the backend's name."""
+    machine holds at least ``world_size`` cards), gloo otherwise.
+    ``timeout_s``: how long a collective (and the rendezvous) may wait
+    before it raises (torch's default when None). Returns the backend's
+    name."""
+    import datetime
+
     import torch.distributed as dist
 
     if backend is None:
         backend = ("nccl" if torch.cuda.is_available()
                    and torch.cuda.device_count() >= world_size else "gloo")
+    kw = ({} if timeout_s is None
+          else {"timeout": datetime.timedelta(seconds=timeout_s)})
     dist.init_process_group(backend, init_method=init_method, rank=rank,
-                            world_size=world_size)
+                            world_size=world_size, **kw)
     return backend
 
 

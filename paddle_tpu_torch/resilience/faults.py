@@ -9,17 +9,18 @@ on a seeded, repeatable schedule and is armed process-wide with
 per operation and pass their I/O through :meth:`FaultInjector.fire`;
 with no injector armed they see ``None`` and do nothing else.
 
-Injection points (:data:`POINTS`), the JAX package's for the ported
-paths:
+Injection points (:data:`POINTS`), the JAX package's:
 
 - ``ckpt.write``    each checkpoint leaf file write
 - ``ckpt.manifest`` the manifest write
-- ``ckpt.stage``    a coordinated save's stage phase (multi-process
-  saves, ROADMAP queue 1 item 11; kept so schedules carry over)
+- ``ckpt.stage``    a coordinated save's stage phase
+  (``CheckpointManager(coordinator=)``)
 - ``ckpt.commit``   a coordinated save's commit phase (same)
 - ``restore.read``  each checkpoint file read
 - ``step.nan``      the training step's loss (corrupt -> NaN)
 - ``io.slow``       any checkpoint file I/O (delay rules)
+- ``fleet.notice``  each poll of the fleet controller's notice watcher
+  (a ``corrupt`` rule is a synthetic preemption notice)
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ from typing import Any, Dict, Optional
 from ..core.enforce import enforce
 
 POINTS = ("ckpt.write", "ckpt.manifest", "ckpt.stage", "ckpt.commit",
-          "restore.read", "step.nan", "io.slow")
+          "restore.read", "step.nan", "io.slow", "fleet.notice")
 
 _ACTIVE: Optional["FaultInjector"] = None
 _LOCK = threading.Lock()

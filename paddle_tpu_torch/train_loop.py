@@ -14,11 +14,18 @@ no in-process recovery helps it: the run dies and a restarted process
 resumes from the last committed step. The tests drive recovery with an
 injected ``FaultError`` (an OSError) only.
 
-The JAX package's live diagnostics (``debug_port=``,
-``flight_recorder=``) come with telemetry (ROADMAP queue 1 item 8), and
-fleet-coordinated preemption (``controller=``) with distribution (item
-11); both raise :class:`UnimplementedError` naming their item. Its
-XLA-only step-cost registration has no counterpart."""
+Fleet-coordinated preemption (``controller=``, a
+:class:`resilience.FleetController`): a notice on any rank starts a
+preempt-at-step agreement, every rank trains up to the agreed step,
+commits one checkpoint there and confirms it before reporting
+``preempted``; every periodic save becomes a fleet transaction and the
+resume restores the newest step the whole fleet holds. A peer that
+dies mid-run preempts the fleet with nothing written; the launcher's
+respawn resumes from the last globally committed step. The JAX
+package's live diagnostics (``debug_port=``, ``flight_recorder=``) come
+with telemetry (ROADMAP queue 1 item 8) and raise
+:class:`UnimplementedError` naming it. Its XLA-only step-cost
+registration has no counterpart."""
 
 from __future__ import annotations
 
@@ -155,7 +162,25 @@ class TrainLoop:
     def maybe_resume(self) -> Optional[int]:
         """Restore the newest committed step that verifies (a torn or
         bit-flipped newer one falls back) and continue from it; None when
-        there is no checkpoint."""
+        there is no checkpoint.
+
+        With a coordinator every rank restores the same step, the newest
+        one every live rank holds committed (``agree_restore_step``),
+        which is then promoted to globally committed and every marker
+        above it demoted (``align_global``); None on every rank when
+        they share none. That step is restored exactly: an integrity
+        error propagates rather than let one rank fall back alone."""
+        coord = self.manager._coord()
+        if coord is not None:
+            agreed = coord.agree_restore_step(
+                self.manager.committed_steps())
+            self.manager.align_global(agreed)
+            if agreed is None:
+                return None
+            self.trainer.restore_checkpoint(self.manager, agreed)
+            self.step = agreed
+            self.history["resumed_from"] = agreed
+            return agreed
         if self.manager.latest_step() is None:
             return None
         self.trainer.restore_checkpoint(self.manager, None)
@@ -219,16 +244,30 @@ class TrainLoop:
         - an armed :class:`FaultInjector` is consulted at ``step.nan``
           after each step: a ``corrupt`` rule poisons the loss, a raising
           rule fails the step as a device fault would.
-        - ``debug_port``, ``flight_recorder``, ``controller`` raise
-          :class:`UnimplementedError` (queue 1 items 8 and 11)."""
-        for name, value, item in (
-                ("debug_port", debug_port, "8 (telemetry)"),
-                ("flight_recorder", flight_recorder, "8 (telemetry)"),
-                ("controller", controller, "11 (distributed)")):
+        - ``controller=FleetController(...)`` coordinates preemption
+          over the fleet (the module docstring): it is attached to the
+          manager before the resume, and its handler is the preemption
+          handler (shared with an explicit ``preemption=``). On an
+          agreement the loop trains up to the agreed step, saves it
+          coordinated, confirms, and stops with ``status ==
+          "preempted"`` and ``history["preempt_agreed_step"]``; a clean
+          end announces ``done``. An expired agreement or commit raises
+          :class:`BarrierTimeoutError` naming the missing ranks. When
+          the trainer's mesh spans the process group the agreement runs
+          in lockstep (``FleetController.check``). A step that fails
+          while the launcher marks a peer dead (waited for up to
+          ``dead_grace_s``) stops the run as ``"preempted"`` with
+          ``history["lost_ranks"]`` and writes nothing: no save completes
+          without the dead rank, and the last globally committed step
+          is where the respawned job resumes.
+        - ``debug_port``, ``flight_recorder`` raise
+          :class:`UnimplementedError` (queue 1 item 8)."""
+        for name, value in (("debug_port", debug_port),
+                            ("flight_recorder", flight_recorder)):
             if value is not None:
                 raise UnimplementedError(
                     f"TrainLoop.run {name}= is not ported yet: ROADMAP "
-                    f"queue 1 item {item}")
+                    f"queue 1 item 8 (telemetry)")
         if prefetch is not None or bucket_by is not None:
             from .data.device_loader import DevicePrefetcher
 
@@ -237,6 +276,12 @@ class TrainLoop:
                                else int(prefetch or 0)),
                 bucket_by=bucket_by, pad_value=pad_value,
                 device=self.trainer.device)
+        ctl = controller
+        if ctl is not None and self.manager.coordinator is not ctl:
+            # before the resume: it runs the restore agreement, and the
+            # periodic saves become fleet transactions (a new attempt's
+            # controller replaces the old one's key namespace)
+            self.manager.coordinator = ctl
         if resume:
             self.maybe_resume()
         self._recoveries_this_run = 0
@@ -249,9 +294,93 @@ class TrainLoop:
             if not pre.installed:
                 pre.install()
                 own_pre = True
+        if ctl is not None:
+            if pre is not None:
+                ctl.handler = pre   # one flag: the signal starts the agreement
+            else:
+                pre = ctl.handler
+                if not pre.installed:
+                    try:
+                        pre.install()
+                        own_pre = True
+                    except ValueError:
+                        # not the main thread: notices and peer acks
+                        # still preempt
+                        pass
+        own_ctl = False
+        if ctl is not None and not ctl.started:
+            ctl.start()
+            own_ctl = True
         inj = _faults.active()
         if self._watchdog:
             self._watchdog.start()
+
+        # the ranks' steps are collective: the agreement runs in lockstep
+        # (FleetController.check)
+        mesh = getattr(self.trainer, "mesh", None)
+        lockstep = ctl is not None and ctl.world > 1 and \
+            mesh is not None and mesh.size > 1
+
+        def lost_ranks(wait_s: float):
+            """The peers the launcher marked dead, waiting up to
+            ``wait_s`` for a marker to land."""
+            deadline = time.monotonic() + wait_s
+            while True:
+                dead = [r for r in range(ctl.world) if r != ctl.rank
+                        and ctl._marker(f"dead.{r}") is not None]
+                if dead or time.monotonic() >= deadline:
+                    return dead
+                time.sleep(ctl.hold_poll_s)
+
+        def stop_lost(dead):
+            """A peer died: the fleet is preempted. Nothing is written:
+            no save can complete without the dead rank (its barriers and
+            its regions), so the last globally committed step is the
+            fleet's restore point; a save in flight tears."""
+            self.status = "preempted"
+            self.history["preempted_at"] = self.step
+            self.history["lost_ranks"] = dead
+            self._faulted = True        # close() writes no snapshot
+            try:
+                self.manager.wait_until_finished()
+            except (EnforceError, RuntimeError, OSError) as e:
+                self.history["torn_saves"] = [repr(e)]
+
+        def commit_preempt():
+            """The coordinated epilogue: one checkpoint at the agreed
+            step, confirmed on the transport."""
+            dead = lost_ranks(0.0)
+            if dead:
+                stop_lost(dead)
+                return
+            self.status = "preempted"
+            self.history["preempted_at"] = self.step
+            self.history["preempt_agreed_step"] = ctl.agreed_step
+            self.manager.wait_until_finished()
+            # a rank whose data ran dry below the agreed step stages its
+            # step alone and announces done first, so the peers' commit
+            # at the agreed step does not hold for it
+            below = ctl.agreed_step is not None and \
+                self.step < ctl.agreed_step
+            if below:
+                ctl.note_done(self.step)
+            coord = self.manager._coord()
+            if self.step > 0 and \
+                    self.step not in self.manager.committed_steps():
+                self.manager.save(self.step, self.trainer.state(),
+                                  coordinate=not below)
+                self.manager.wait_until_finished()
+            elif self.step > 0 and coord is not None and not below:
+                # the periodic save of this step may have deferred its
+                # global commit to the agreement: every rank runs it now
+                # (idempotent)
+                self.manager._global_commit(self.step, coord)
+            ctl.note_checkpoint(self.step)
+            committed = ctl.confirm_committed(self.step)
+            if committed and len(set(committed.values())) > 1:
+                print(f"[fleet] ranks committed differing steps: "
+                      f"{committed}", file=sys.stderr)
+
         try:
             batches_it = iter(batches)
             while True:
@@ -259,7 +388,15 @@ class TrainLoop:
                     batch = next(batches_it)
                 except StopIteration:
                     break
-                if pre is not None and pre.requested():
+                if ctl is not None:
+                    # a flag peek and a throttled transport read until a
+                    # preemption is in flight; then this rank acks and
+                    # holds, and ranks below the agreed step train on
+                    agreed = ctl.check(self.step, lockstep=lockstep)
+                    if agreed is not None and self.step >= agreed:
+                        commit_preempt()
+                        break
+                elif pre is not None and pre.requested():
                     # the step in flight has finished: stop clean and let
                     # close() write the final checkpoint
                     self.status = "preempted"
@@ -272,6 +409,15 @@ class TrainLoop:
                     if inj is not None and inj.fire("step.nan"):
                         loss = torch.tensor(float("nan"))
                 except Exception as e:
+                    if ctl is not None and ctl.world > 1 and \
+                            isinstance(e, RuntimeError) and \
+                            not isinstance(e, EnforceError):
+                        # a collective with a dead peer fails: wait for
+                        # the launcher's marker before calling it a fault
+                        dead = lost_ranks(ctl.dead_grace_s)
+                        if dead:
+                            stop_lost(dead)
+                            break
                     if not self._is_recoverable(e) or \
                             self._recoveries_this_run >= \
                             self.max_recoveries:
@@ -301,6 +447,13 @@ class TrainLoop:
                 if self.checkpoint_every and \
                         self.step % self.checkpoint_every == 0:
                     self.manager.save(self.step, self.trainer.state())
+                    if ctl is not None:
+                        ctl.note_checkpoint(self.step)
+            if ctl is not None and self.status == "running" and \
+                    ctl.agreed_step is not None:
+                # the data ran dry (or num_steps landed) below the agreed
+                # step: commit and confirm what there is, peers hold for it
+                commit_preempt()
         except BaseException:
             self.status = "faulted"
             raise
@@ -309,6 +462,13 @@ class TrainLoop:
                 pre.uninstall()
             if self.status == "running":
                 self.status = "completed"
+            if ctl is not None and self.status == "completed":
+                # announced before leaving: a later agreement must not
+                # hold for a rank that finished (a faulted exit is the
+                # launcher's to mark dead)
+                ctl.note_done(self.step)
+            if own_ctl:
+                ctl.stop()
             self.close()
         return self.step
 

@@ -6,8 +6,10 @@ Trainer's save and restore, on the CPU, against the JAX package's.
   async save and wait with retention, target shape and dtype mismatch,
   async failures surfacing at join and at wait, a custom node rejected,
   a trainer resuming identically (losses equal bit for bit on the CPU),
-  the manager with a trainer, and the layer save/load convenience. The
-  per-host and mesh calls raise naming ROADMAP queue 1 item 11.
+  the manager with a trainer, and the layer save/load convenience; the
+  per-host, mesh and coordinator arguments in one process, and a JAX
+  per-host checkpoint restored whole (the multi-process cases:
+  tests/test_torch_multihost_ckpt.py).
 - An async save followed at once by an in-place optimizer step saves
   the pre-step bytes, exactly.
 - For the same numpy state the port's and the JAX package's
@@ -50,7 +52,7 @@ from paddle_tpu_torch import checkpoint as C
 from paddle_tpu_torch import optimizer as TO
 from paddle_tpu_torch.checkpoint import (CheckpointManager, restore_state,
                                          save_state)
-from paddle_tpu_torch.core import EnforceError, UnimplementedError
+from paddle_tpu_torch.core import EnforceError
 from paddle_tpu_torch.core import dtypes as TD
 from paddle_tpu_torch.models import gpt as TG
 from paddle_tpu_torch.models.mnist import MnistMLP
@@ -186,17 +188,33 @@ def test_namedtuple_comes_back_as_tuple(tmp_path):
     assert type(got) is tuple and int(got[1]) == 3
 
 
-def test_per_host_and_mesh_calls_raise_naming_item_11(tmp_path):
+def test_single_process_per_host_mesh_and_coordinator_calls(tmp_path):
+    """The multi-process arguments in one process: ``per_host=True`` on
+    whole leaves writes the single-process format; ``mesh=`` re-applies
+    a saved spec (none here: whole leaves come back whole) and
+    ``shardings=`` cuts this rank's shard of the one-rank mesh (all of
+    it); a world-of-one coordinator leaves every manager path the
+    single-process one (no GLOBAL_COMMITTED); a JAX ``per_host=True``
+    checkpoint of a leaf split over 2 devices restores whole, bit-equal,
+    through the port's region assembly."""
+    from paddle_tpu_torch.core.mesh import get_mesh
+    from paddle_tpu_torch.core.sharding_types import PartitionSpec
+    from paddle_tpu_torch.resilience import FleetController
+
     d = str(tmp_path / "c")
-    with pytest.raises(UnimplementedError, match="queue 1 item 11"):
-        save_state(d, {"x": torch.zeros(2)}, per_host=True)
-    save_state(d, {"x": torch.zeros(2)})
-    for kw in (dict(mesh=object()), dict(shardings={"x": None})):
-        with pytest.raises(UnimplementedError, match="queue 1 item 11"):
-            restore_state(d, **kw)
-    with pytest.raises(UnimplementedError, match="queue 1 item 11"):
-        CheckpointManager(str(tmp_path / "m"), coordinator=object())
-    # a JAX per-host (shard-region) checkpoint is refused, not misread
+    x = torch.arange(6.0).reshape(3, 2)
+    save_state(d, {"x": x}, per_host=True)
+    man = json.load(open(os.path.join(d, "manifest.json")))
+    assert man["leaves"][0]["file"] == "x.npy" and \
+        man["leaves"][0]["spec"] is None
+    for kw in (dict(mesh=get_mesh()),
+               dict(shardings={"x": PartitionSpec("dp")})):
+        assert torch.equal(restore_state(d, **kw)["x"], x)
+    assert torch.equal(C.load(d, mesh=get_mesh())["x"], x)
+    mgr = CheckpointManager(str(tmp_path / "m"), async_save=False,
+                            coordinator=FleetController(rank=0, world=1))
+    mgr.save(1, {"x": x})
+    assert mgr.latest_step() == 1 and mgr.globally_committed_steps() == []
     devs = jax.devices()
     if len(devs) >= 2:
         from jax.sharding import NamedSharding, PartitionSpec as P
@@ -205,8 +223,8 @@ def test_per_host_and_mesh_calls_raise_naming_item_11(tmp_path):
         w = jax.device_put(jnp.arange(8, dtype=jnp.float32).reshape(4, 2),
                            NamedSharding(mesh, P("dp")))
         JC.save_state(str(tmp_path / "ph"), {"w": w}, per_host=True)
-        with pytest.raises(UnimplementedError, match="queue 1 item 11"):
-            restore_state(str(tmp_path / "ph"))
+        got = restore_state(str(tmp_path / "ph"))["w"]
+        np.testing.assert_array_equal(got.numpy(), np.asarray(w))
 
 
 def test_async_save_then_step_keeps_the_pre_step_bytes(tmp_path):

@@ -71,7 +71,10 @@ SLIM_SLICE = ("slim", "slim.core", "slim.prune", "slim.distill",
 DIST_SLICE = ("quant.collectives", "parallel.pipeline", "parallel.hybrid",
               "parallel.plan", "utils.convert")
 JOB_MODULES = ("torch_world.py", "torch_quant_jobs.py",
-               "torch_pipeline_jobs.py")
+               "torch_pipeline_jobs.py", "torch_ckpt_jobs.py")
+# the elastic multi-host slice
+FLEET_SLICE = ("fleet", "launch", "resilience.controller", "checkpoint",
+               "train_loop", "parallel.api", "embedding.host_table")
 
 
 def _imported(path):
@@ -119,7 +122,8 @@ def test_rank_job_modules_are_jax_free(name):
 
 @pytest.mark.parametrize("name", RESILIENCE_SLICE + CONV_SLICE
                          + DEEPFM_SLICE + NMT_SLICE + MOE_ZOO_RNN_SLICE
-                         + OPS_LORA_SLICE + SLIM_SLICE + DIST_SLICE)
+                         + OPS_LORA_SLICE + SLIM_SLICE + DIST_SLICE
+                         + FLEET_SLICE)
 def test_checkpoint_slice_modules_are_jax_free(name):
     path = PKG / (name.replace(".", "/") + ".py")
     if not path.exists():

@@ -115,3 +115,16 @@ def test_only_names_of_later_entries_are_missing(name):
     assert missing == set(STILL_MISSING[name]), (
         sorted(missing - set(STILL_MISSING[name])),
         sorted(set(STILL_MISSING[name]) - missing))
+
+
+def test_fleet_is_a_lazy_top_level_name():
+    """``paddle_tpu_torch.fleet`` loads on first access, as
+    ``paddle_tpu.fleet`` does (the JAX package's lazy map), and keeps
+    the JAX fleet's public names."""
+    import paddle_tpu
+
+    port = paddle_tpu_torch.fleet
+    assert port is importlib.import_module("paddle_tpu_torch.fleet")
+    assert set(paddle_tpu.fleet.__all__) == set(port.__all__)
+    with pytest.raises(AttributeError):
+        paddle_tpu_torch.no_such_module

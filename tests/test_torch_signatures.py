@@ -516,16 +516,21 @@ def test_checkpoint_slice_arguments_raise_naming_their_item(tmp_path):
     from paddle_tpu_torch.data.device_loader import DevicePrefetcher
     from paddle_tpu_torch.train_loop import TrainLoop
 
+    from paddle_tpu_torch.core.mesh import get_mesh
+    from paddle_tpu_torch.resilience import FleetController
+
     d = str(tmp_path / "c")
-    _raises("queue 1 item 11", C.save_state, d, {"x": torch.zeros(1)},
-            per_host=True)
-    C.save_state(d, {"x": torch.zeros(1)}, per_host=None)
-    _raises("queue 1 item 11", C.restore_state, d, mesh=object())
-    _raises("queue 1 item 11", C.restore_state, d, shardings={})
+    # the multi-process arguments (ported: tests/test_torch_multihost_
+    # ckpt.py); in one process each takes effect as the JAX one's does
+    for per_host in (True, None, False):
+        C.save_state(d, {"x": torch.zeros(1)}, per_host=per_host)
+    assert C.restore_state(d, mesh=get_mesh())["x"].shape == (1,)
+    assert C.restore_state(d, shardings={})["x"].shape == (1,)
     assert C.restore_state(d, mesh=None, shardings=None)["x"].shape == (1,)
-    _raises("queue 1 item 11", C.CheckpointManager, str(tmp_path / "m"),
-            coordinator=object())
-    _raises("queue 1 item 11", C.load, d, mesh=object())
+    assert C.load(d, mesh=get_mesh())["x"].shape == (1,)
+    one = FleetController(rank=0, world=1)
+    assert C.CheckpointManager(str(tmp_path / "m"),
+                               coordinator=one).coordinator is one
     # DevicePrefetcher's mesh keywords are ported: each stages this
     # rank's rows of a batch (the one-rank mesh's: all of them)
     from paddle_tpu_torch.core.mesh import get_mesh, sharding
@@ -548,10 +553,10 @@ def test_checkpoint_slice_arguments_raise_naming_their_item(tmp_path):
     loop = TrainLoop(trainer, str(tmp_path / "loop"))
     _raises("queue 1 item 8", loop.run, [], debug_port=0)
     _raises("queue 1 item 8", loop.run, [], flight_recorder=object())
-    _raises("queue 1 item 11", loop.run, [], controller=object())
     _raises("queue 1 item 12", topt.Momentum().apply_gradients, [])
     assert loop.run([], debug_port=None, flight_recorder=None,
                     controller=None, preemption=None) == 0
+    assert loop.run([], controller=FleetController(rank=0, world=1)) == 0
 
 
 def test_convolution_slice_arguments():

@@ -20,7 +20,8 @@
   prefetch, exactly; ``bucket_by``: a ragged last batch padded as the
   JAX package's BucketPadder pads it (equal arrays); preemption stops
   the loop and the final checkpoint lands; the options that come with
-  later items raise naming them."""
+  later items raise naming them (``controller=`` is ported:
+  tests/test_torch_fleet_controller.py)."""
 
 import time
 
@@ -288,10 +289,15 @@ class TestPreemption:
     def test_unported_options_raise_naming_their_item(self, tmp_path):
         loop = TrainLoop(make_trainer(), str(tmp_path))
         for kw, item in ((dict(debug_port=0), "item 8"),
-                         (dict(flight_recorder=object()), "item 8"),
-                         (dict(controller=object()), "item 11")):
+                         (dict(flight_recorder=object()), "item 8")):
             with pytest.raises(UnimplementedError, match=item):
                 loop.run(batches(1), **kw)
+        # controller= is ported (tests/test_torch_fleet_controller.py):
+        # a world of one trains on and completes
+        from paddle_tpu_torch.resilience import FleetController
+
+        assert loop.run(batches(2), controller=FleetController(
+            rank=0, world=1)) == 2
         # the prefetcher's mesh= is ported: it stages the rank's rows
         # (on the one-rank mesh, every row; tests/test_torch_embedding_
         # plane.py cuts each rank's of a 4-rank mesh)
