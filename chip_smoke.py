@@ -632,6 +632,7 @@ import json
 import math
 import os
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -1143,11 +1144,13 @@ def mode_kernel(kw):
             else "decode_attention")
 
 
-def serve(torch, K, model, prompts, max_new=32, streams=None, **kw):
+def serve(torch, K, model, prompts, max_new=32, streams=None,
+          on_decoder=None, **kw):
     """One counted run through BatchedDecoder(slots=8, capacity=2048,
     **kw): warmed through warm_step(), the launch counters set to 0 just
-    before run() and read just after. Returns a dict: dec, outs, reqs
-    (the Request objects, for their token stamps), wall, launches."""
+    before run() and read just after (``on_decoder(dec)`` just before
+    that). Returns a dict: dec, outs, reqs (the Request objects, for
+    their token stamps), wall, launches."""
     from paddle_tpu_torch.serving import BatchedDecoder
 
     dec = BatchedDecoder(model, slots=8, capacity=CAP, device=model.device,
@@ -1157,6 +1160,8 @@ def serve(torch, K, model, prompts, max_new=32, streams=None, **kw):
     rids = [dec.submit(p, max_new, stream=s)
             for p, s in zip(prompts, streams)]
     reqs = list(dec.queue)
+    if on_decoder is not None:
+        on_decoder(dec)
     torch.cuda.synchronize()
     for name in KERNEL_ROWS:
         getattr(K, name).launches = 0
@@ -8504,6 +8509,509 @@ def phase_launch_elastic(torch, FK):
     shutil.rmtree(base, ignore_errors=True)
 
 
+# ----- telemetry and live diagnostics (PR 25) --------------------------------
+
+TELEMETRY_PROFILEZ_MS = 400
+TELEMETRY_STEPS = 4
+PAGED_KERNEL_SYMBOL = "decode_attention_kernel"
+
+
+def sync_counter(torch):
+    """A context manager that counts the synchronizing CUDA calls inside
+    it (torch's sync debug mode, as warnings): ``.n`` after exit."""
+    import contextlib
+    import warnings
+
+    class Count:
+        n = 0
+
+    @contextlib.contextmanager
+    def counting():
+        c = Count()
+        with warnings.catch_warnings(record=True) as got:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                yield c
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        c.n = sum(map(is_sync_warning, got))
+
+    return counting
+
+
+def warm_profiler(torch):
+    """One empty torch.profiler capture on this thread: Kineto's first
+    start in a process takes seconds, which a /profilez window must not
+    spend."""
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0)
+
+
+def telemetry_scraper(dec, require, results, capture):
+    """A thread body: wait for the run's debug server, then either POST
+    one /profilez capture that must hold ``require`` (``capture``) or
+    GET the read endpoints, while the arena decodes (one thread each, so
+    the capture's window opens at the run's first ticks)."""
+    import urllib.error
+    import urllib.request
+
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < 60:
+        srv = dec.debug_server
+        if srv is not None and srv.running:
+            break
+        time.sleep(0.001)
+    else:
+        results["error"] = "the debug server never came up"
+        return
+    if capture:
+        results["capture_at_tick"] = dec.tick_count
+        body = json.dumps({"duration_ms": TELEMETRY_PROFILEZ_MS,
+                           "require": require}).encode()
+        req = urllib.request.Request(srv.url("/profilez"), data=body)
+        try:
+            with urllib.request.urlopen(req, timeout=120) as r:
+                results["/profilez"] = (r.status, json.loads(r.read()))
+        except urllib.error.HTTPError as e:
+            results["/profilez"] = (e.code, json.loads(e.read()))
+        results["captured_to_tick"] = dec.tick_count
+        return
+    for path in ("/metrics", "/healthz", "/statusz", "/tracez", "/memz"):
+        try:
+            with urllib.request.urlopen(srv.url(path), timeout=30) as r:
+                raw = r.read()
+                results[path] = (r.status, raw if path == "/metrics"
+                                 else json.loads(raw))
+        except (urllib.error.URLError, ConnectionError) as e:
+            results[path] = (None, repr(e))
+
+
+def tick_timer(dec, out):
+    """Time each decode tick of ``dec`` (host ms, ending in the tick's
+    token read) into the list ``out``."""
+    inner = dec._step_multi
+
+    def timed():
+        n, t0 = dec.tick_count, time.perf_counter()
+        inner()
+        if dec.tick_count > n:
+            out.append(1e3 * (time.perf_counter() - t0))
+
+    dec._step_multi = timed
+
+
+def tick_line(ms):
+    s = sorted(ms)
+    return (f"mean {sum(ms) / len(ms):.3f}, median {s[len(s) // 2]:.3f}, "
+            f"first {ms[0]:.3f}")
+
+
+def phase_serve_telemetry(torch, K, FK, QM, model, prompts, smi):
+    """The GPT serving cell (paged, page_size 64, 16 requests, max_new 32)
+    with telemetry on: run(debug_port=0, flight_recorder=...) beside the
+    same run with telemetry off; two scraper threads read every
+    endpoint and take one /profilez capture during the run. The
+    instruments' own cost a tick is timed apart: runs with telemetry on
+    and no debug server, scrape or capture, interleaved with runs with it
+    off. Then an expired deadline and a traced KVHandoff."""
+    import shutil
+    import tempfile
+    import threading
+
+    from paddle_tpu_torch import telemetry
+    from paddle_tpu_torch.resilience import reliability as R
+    from paddle_tpu_torch.serving import BatchedDecoder, KVHandoff
+    from paddle_tpu_torch.telemetry import tracing
+
+    tag = "[serve:telemetry]"
+    paged = dict(pages=B * 32 + 8, page_size=PS)
+    kernel = "decode_attention_paged"
+    telemetry.disable()
+    telemetry.reset()
+    ms_off, ms_on = [], []
+    off = serve(torch, K, model, prompts,
+                on_decoder=lambda d: tick_timer(d, ms_off), **paged)
+    syncs_off = host_syncs_per_tick(torch, model, prompts, paged, 1)
+    # the instruments alone (host side, the same shapes): off, on, off, on;
+    # each on run's first tick is counted by the ledger (reset before it)
+    bare = {False: [], True: []}
+    for on in (False, True, False, True):
+        (telemetry.enable if on else telemetry.disable)()
+        telemetry.reset()
+        ms = []
+        serve(torch, K, model, prompts,
+              on_decoder=lambda d: tick_timer(d, ms), **paged)
+        bare[on].append(ms)
+    telemetry.disable()
+    telemetry.reset()
+    bare_med = {on: [statistics.median(ms) for ms in runs]
+                for on, runs in bare.items()}
+    log(f"{tag} {smi}: the instruments alone (no debug server, scrape or "
+        f"capture), ms a tick in runs off, on, off, on: off "
+        + "; ".join(tick_line(ms) for ms in bare[False]) + "; on "
+        + "; ".join(tick_line(ms) for ms in bare[True])
+        + f"; medians off {bare_med[False]}, on {bare_med[True]}, on/off "
+        f"{statistics.median(bare_med[True]) / statistics.median(bare_med[False]):.4f}")
+    start_ms = warm_profiler(torch)
+    root = tempfile.mkdtemp(prefix="pt_smoke_telemetry_")
+    try:
+        os.environ["PT_PROFILEZ_DIR"] = root
+        telemetry.enable()
+        dec = BatchedDecoder(model, slots=8, capacity=CAP,
+                             device=model.device, **paged)
+        dec.warm_step()
+        rids = [dec.submit(p, 32) for p in prompts]
+        tick_timer(dec, ms_on)
+        rec = telemetry.FlightRecorder(root)
+        results = {}
+        scrapers = [threading.Thread(
+            target=telemetry_scraper, name=f"pt-smoke-scraper-{i}",
+            args=(dec, [PAGED_KERNEL_SYMBOL], results, capture))
+            for i, capture in enumerate((True, False))]
+        torch.cuda.synchronize()
+        before = all_counts(FK, K, QM)
+        for t in scrapers:
+            t.start()
+        outs = dec.run(debug_port=0, flight_recorder=rec)
+        torch.cuda.synchronize()
+        launched = {k: v - before[k] for k, v in all_counts(FK, K, QM).items()}
+        for t in scrapers:
+            t.join(timeout=180)
+        if any(t.is_alive() for t in scrapers):
+            raise SystemExit(f"{tag} a scraper thread did not finish")
+        outs = [outs[r] for r in rids]
+        same = all((a == b).all() for a, b in zip(outs, off["outs"]))
+        reg = telemetry.registry()
+        # the sentinel's warnings over the run (the arena drains from 8
+        # slots to 1; reported, not gated: a host-paced tick can really be
+        # slow)
+        warned = [d.message for d in telemetry.profiling.sentinel()
+                  .diagnostics()]
+        ttft = reg.get("pt_serving_ttft_seconds").count
+        itl = reg.get("pt_serving_decode_latency_seconds").count
+        toks = reg.get("pt_serving_tokens_total").value
+        after_first = sum(len(o) - 1 for o in outs)
+        # the sync count with telemetry on, the ledger's first count of
+        # the tick included (reset)
+        telemetry.costs.reset()
+        syncs_on = host_syncs_per_tick(torch, model, prompts, paged, 1)
+        log(f"{tag} {smi}: tokens equal the telemetry-off run's: {same}; "
+            f"{kernel} launches {launched[kernel]} (off run "
+            f"{off['launches'][kernel]}), other kernels "
+            f"{ {k: v for k, v in launched.items() if k != kernel and v} }"
+            f"; TTFT observations {ttft} for {len(prompts)} requests; "
+            f"tokens counted {int(toks)}, after the first "
+            f"{int(toks) - ttft} (want {after_first}); ITL observations "
+            f"{itl} over {dec.tick_count} ticks (one a tick, each the "
+            f"tick's wall over its tokens); host syncs per tick off "
+            f"{syncs_off}, on {syncs_on}; ms per tick off "
+            f"{tick_line(ms_off)}; on {tick_line(ms_on)} (the first counted "
+            f"by the ledger; the /profilez capture and the scrapes in the "
+            f"run); recorder entries {len(rec.ring)}, anomalies "
+            f"{rec.anomalies_total}; sentinel warnings {warned}")
+        if not (same and launched[kernel] == off["launches"][kernel]
+                and not any(v for k, v in launched.items() if k != kernel)
+                and ttft == len(prompts)
+                and int(toks) - ttft == after_first
+                and itl == dec.tick_count and syncs_on == syncs_off):
+            raise SystemExit(f"{tag} a gate failed (above)")
+        bad = [p for p in ("/metrics", "/healthz", "/statusz", "/tracez",
+                           "/memz") if results.get(p, (None,))[0] != 200]
+        if "error" in results or bad:
+            raise SystemExit(f"{tag} endpoints {bad}: {results}")
+        st, mz = results["/statusz"][1], results["/memz"][1]
+        kind = torch.cuda.get_device_name(0)
+        stats = mz["devices"][0]["memory_stats"]
+        log(f"{tag} /statusz devices {st['devices']}, serving "
+            f"{st['status']['serving']}; /memz card 0 bytes_in_use "
+            f"{stats and stats.get('bytes_in_use')}, peak "
+            f"{mz['peak_mem_bytes']}; /metrics {len(results['/metrics'][1])}"
+            f" bytes")
+        if not (st["devices"][0]["kind"] == kind
+                and st["devices"][0]["platform"] == "gpu"
+                and isinstance(stats, dict)
+                and "allocated_bytes.all.current" in stats
+                and "live_array_bytes" not in mz["devices"][0]):
+            raise SystemExit(f"{tag} /statusz or /memz do not name the card "
+                             f"with its allocator stats")
+        code, cap = results["/profilez"]
+        names = cap.get("device_kernels", {}) if code == 200 else {}
+        hits = {k: v for k, v in names.items() if PAGED_KERNEL_SYMBOL in k}
+        log(f"{tag} /profilez {code}: {TELEMETRY_PROFILEZ_MS} ms requested, "
+            f"window {cap.get('window_ms')} ms, profiler start "
+            f"{cap.get('start_ms')} ms and stop {cap.get('stop_ms')} ms "
+            f"(the first start, warmed on the main "
+            f"thread: {start_ms:.1f} ms), {sum(names.values())} CUDA kernel "
+            f"launches of {len(names)} kinds, {PAGED_KERNEL_SYMBOL}: "
+            f"{sum(hits.values())}; posted at tick "
+            f"{results.get('capture_at_tick')}, answered at tick "
+            f"{results.get('captured_to_tick')} of {dec.tick_count}"
+            + ("" if code == 200 else f" ({cap})"))
+        if code != 200 or not hits:
+            raise SystemExit(f"{tag} the capture holds no paged decode "
+                             f"kernel")
+
+        # an already-expired deadline: dropped typed, computes nothing
+        dl_dec = BatchedDecoder(model, slots=8, capacity=CAP,
+                                device=model.device, **paged)
+        with R.bind(R.Deadline(0.0)):
+            rid = dl_dec.submit(prompts[0], 32)
+        n0 = all_counts(FK, K, QM)
+        tok0 = reg.get("pt_serving_tokens_total").value
+        out = dl_dec.run()[rid]
+        cause = reg.get("pt_serving_admission_rejections_total",
+                        {"cause": "deadline"}).value
+        ran = sum(all_counts(FK, K, QM).values()) - sum(n0.values())
+        log(f"{tag} expired deadline: result {out}, cause=deadline "
+            f"{int(cause)}, tokens counted "
+            f"{int(reg.get('pt_serving_tokens_total').value - tok0)}, "
+            f"kernel launches {ran}")
+        if not (out is None and cause == 1 and ran == 0 and
+                reg.get("pt_serving_tokens_total").value == tok0):
+            raise SystemExit(f"{tag} the expired request was computed")
+
+        # a KVHandoff with a trace and a deadline, through its bytes
+        ctx = tracing.new_trace(sampled=True)
+        dl = R.Deadline.after(300)
+        with tracing.bind(ctx), R.bind(dl):
+            h = dec.prefill_export(prompts[3])
+        back = KVHandoff.from_bytes(h.to_bytes())
+        rep = BatchedDecoder(model, slots=8, capacity=CAP,
+                             device=model.device, **paged)
+        rid = rep.inject_prefilled(back, 32)
+        got = rep.run()[rid]
+        direct = BatchedDecoder(model, slots=8, capacity=CAP,
+                                device=model.device, **paged)
+        drid = direct.submit(prompts[3], 32)
+        want = direct.run()[drid]
+        spans = {s["name"] for s in tracing.spans(ctx.trace_id)}
+        log(f"{tag} KVHandoff: trace {back.trace.trace_id == ctx.trace_id}, "
+            f"deadline {back.deadline.t_end == dl.t_end}; handed-off tokens "
+            f"equal the direct ones: {(got == want).all()}; spans on the "
+            f"trace {sorted(spans)}")
+        if not (back.trace.trace_id == ctx.trace_id
+                and back.deadline.t_end == dl.t_end and (got == want).all()):
+            raise SystemExit(f"{tag} the traced handoff lost its trace, its "
+                             f"deadline or its tokens")
+    finally:
+        os.environ.pop("PT_PROFILEZ_DIR", None)
+        telemetry.reset()
+        telemetry.disable()
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
+def analytic_step_flops(cfg, model, b, t):
+    """bench_gpt's step by hand: 6 x the matmul parameters x the tokens;
+    attention's 12 B H T^2 D a layer (QK^T and PV forward, four products
+    backward, over the whole score matrix); the remat recompute (2 x the
+    block parameters x the tokens, less each FFN's down projection,
+    whose output the backward does not need, so checkpoint's early stop
+    never recomputes it, plus attention's 4 B H T^2 D a layer again);
+    and the fused head's backward recompute of the logits (2 x tokens x
+    H x V)."""
+    blocks = sum(p.numel() for name, p in model.named_parameters()
+                 if p.ndim == 2 and name.startswith("blocks."))
+    down = sum(p.numel() for name, p in model.named_parameters()
+               if name.endswith("ffn.down.weight"))
+    n = blocks + cfg.hidden_size * cfg.vocab_size
+    d = cfg.hidden_size // cfg.num_heads
+    attn = b * cfg.num_heads * t * t * d * cfg.num_layers
+    tokens = b * t
+    return (6 * n * tokens + 12 * attn + 2 * (blocks - down) * tokens
+            + 4 * attn + 2 * tokens * cfg.hidden_size * cfg.vocab_size)
+
+
+def phase_train_telemetry(torch, FK, smi):
+    """bench_gpt's cell (GPTConfig.small(), remat, (8, 1024), mixed_bf16,
+    Adam) through TrainLoop.run(debug_port=0, flight_recorder=...) for 4
+    steps, checkpoints every 2, beside the same loop with telemetry off;
+    the ledger's count against plain attention's and the analytic
+    count; a NaN loss halting a halt recorder."""
+    import shutil
+    import tempfile
+
+    import paddle_tpu_torch
+    from paddle_tpu_torch import optimizer, telemetry
+    from paddle_tpu_torch.core import policy_scope
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.parallel import Trainer
+    from paddle_tpu_torch.resilience import FaultInjector
+    from paddle_tpu_torch.train_loop import TrainLoop
+    from paddle_tpu_torch.utils import flops as F
+
+    tag = "[train:telemetry]"
+    cfg = gpt.GPTConfig.small()
+    cfg.max_position, cfg.remat = TT, True
+    data = [torch.randint(0, cfg.vocab_size, (TB, TT),
+                          generator=torch.Generator().manual_seed(70 + i)
+                          ).to("cuda") for i in range(TELEMETRY_STEPS)]
+    want = {"flash_attention_fwd": 2 * cfg.num_layers,
+            "flash_attention_dq": cfg.num_layers,
+            "flash_attention_dkv": cfg.num_layers}
+    counting = sync_counter(torch)
+
+    def make():
+        paddle_tpu_torch.seed(5)
+        model = gpt.GPTForCausalLM(cfg, device="cuda", generator=torch
+                                   .Generator(device="cuda").manual_seed(5))
+        return Trainer(model, optimizer.Adam(1e-3),
+                       lambda m, batch, g: (m.forward_loss(batch), {}),
+                       amp=LOOP_POLICY)
+
+    def run(root, on, **kw):
+        """One loop of the 4 steps: losses, flash launches, host syncs and
+        host ms of each step (each window from one on_step to the next,
+        the periodic save included)."""
+        trainer = make()
+        loop = TrainLoop(trainer, root, checkpoint_every=2)
+        rec = {"losses": [], "bad": [], "syncs": [], "ms": [], "calls": []}
+        inner = trainer.train_step
+
+        def timed_step(batch):
+            # the host time of each train_step call, stamped apart from
+            # the loop's own goodput stamps
+            t = time.perf_counter()
+            out = inner(batch)
+            rec["calls"].append(time.perf_counter() - t)
+            return out
+
+        trainer.train_step = timed_step
+        state = {"n": flash_counts(FK), "t": time.perf_counter(),
+                 "c": None}
+
+        def on_step(step, loss, metrics):
+            n = flash_counts(FK)
+            per = {k: n[k] - state["n"][k] for k in n}
+            if per != want:
+                rec["bad"].append((step, per))
+            state["c"].__exit__(None, None, None)
+            rec["syncs"].append(state["cv"].n)
+            rec["losses"].append(loss.item())      # outside the count
+            now = time.perf_counter()
+            rec["ms"].append(1e3 * (now - state["t"]))
+            state.update(n=flash_counts(FK), t=time.perf_counter())
+            state["c"] = counting()
+            state["cv"] = state["c"].__enter__()
+
+        (telemetry.enable if on else telemetry.disable)()
+        telemetry.reset()
+        torch.cuda.synchronize()
+        state["c"] = counting()
+        state["cv"] = state["c"].__enter__()
+        try:
+            loop.run(iter(data), on_step=on_step, **kw)
+        finally:
+            state["c"].__exit__(None, None, None)
+        return trainer, loop, rec
+
+    root = tempfile.mkdtemp(prefix="pt_smoke_train_telemetry_")
+    try:
+        _, _, off = run(f"{root}/off", False)
+        torch.cuda.empty_cache()
+        recorder = telemetry.FlightRecorder(f"{root}/dumps")
+        trainer, loop, on = run(f"{root}/on", True, debug_port=0,
+                                flight_recorder=recorder)
+        reg = telemetry.registry()
+        rec = telemetry.costs.get("train.step")
+        mfu = reg.get("pt_step_mfu")
+        mfu = mfu.value if mfu is not None else None
+        goodput = reg.get("pt_goodput_ratio", {"role": "train"}).value
+        splits = loop.step_splits
+        sums = [(s["input_wait_s"] + s["dispatch_s"] + s["device_compute_s"])
+                / s["wall_s"] for s in splits]
+        # the split can fail here: its dispatch must cover the call stamped
+        # apart (and the loop's span and ledger exits, within 5% of the
+        # wall), and its device compute, the wait at the guard's loss read,
+        # must be positive and leave the dispatch its share of the wall
+        split_ok = len(splits) == len(on["calls"]) and all(
+            c <= s["dispatch_s"] <= c + 0.05 * s["wall_s"]
+            and 0 < s["device_compute_s"] < s["wall_s"] - s["input_wait_s"]
+            for s, c in zip(splits, on["calls"]))
+        baseline = os.path.exists(f"{root}/on/perf_baselines.json")
+        log(f"{tag} {smi}: losses on {on['losses']}, off {off['losses']} "
+            f"(equal: {on['losses'] == off['losses']}); flash launches a "
+            f"step off {off['bad'] or want}, on {on['bad'] or want}; host "
+            f"syncs a step off {off['syncs']}, on {on['syncs']} (on = off + "
+            f"the recorder's loss read); ms a step off "
+            f"{[round(x, 3) for x in off['ms']]}, on "
+            f"{[round(x, 3) for x in on['ms']]}")
+        log(f"{tag} goodput split a step (s): "
+            f"{[{k: round(v, 6) for k, v in s.items()} for s in splits]}; "
+            f"train_step calls stamped apart (s) "
+            f"{[round(c, 6) for c in on['calls']]} (the split's dispatch "
+            f"covers each, device compute > 0: {split_ok}); "
+            f"buckets / wall {[round(x, 4) for x in sums]}; "
+            f"pt_goodput_ratio {goodput}; pt_step_mfu {mfu} (against "
+            f"989 TFLOP/s bf16, the last step); ledger train.step flops "
+            f"{rec['flops']}, bytes (estimate) {rec['hbm_bytes']}, "
+            f"roofline {rec['roofline']}, kernel calls "
+            f"{rec['kernel_calls']}; sentinel baselines beside the "
+            f"checkpoints: {baseline}")
+        if not (on["losses"] == off["losses"] and not on["bad"]
+                and not off["bad"]
+                and on["syncs"] == [n + 1 for n in off["syncs"]]
+                and len(splits) == TELEMETRY_STEPS
+                and all(abs(x - 1.0) <= 0.05 for x in sums) and split_ok
+                and baseline and mfu is not None and mfu > 0):
+            raise SystemExit(f"{tag} a gate failed (above)")
+
+        # the same step's count with plain attention, as the [train]
+        # check step runs it
+        model = trainer.model
+        model.train()
+        for blk in model.blocks:
+            blk.self_attn.use_flash = False
+
+        def plain_step():
+            with policy_scope(LOOP_POLICY):
+                loss = model.forward_loss(data[0])
+            loss.backward()
+
+        n0 = flash_counts(FK)
+        _, plain = F.count_call(plain_step)
+        plain_launches = {k: v - n0[k] for k, v in flash_counts(FK).items()}
+        for blk in model.blocks:
+            blk.self_attn.use_flash = True
+        model.zero_grad(set_to_none=True)
+        analytic = analytic_step_flops(cfg, model, TB, TT)
+        rel = abs(rec["flops"] - plain.flops) / plain.flops
+        off_analytic = (rec["flops"] - analytic) / analytic
+        log(f"{tag} ledger flops {rec['flops']} (kernels) against the plain "
+            f"path's count {plain.flops} (relative {rel:.3e}, plain flash "
+            f"launches {plain_launches}) and the analytic {analytic} "
+            f"({100 * off_analytic:+.4f}%); the plain path's bytes "
+            f"{plain.bytes} against the kernel path's {rec['hbm_bytes']}")
+        if not (rel <= 1e-6 and abs(off_analytic) <= 0.10
+                and not any(plain_launches.values())):
+            raise SystemExit(f"{tag} the ledger's FLOPs disagree")
+
+        # a NaN in the loss at step 3 halts a halt recorder
+        halt = telemetry.FlightRecorder(f"{root}/halt", policy="halt")
+        inj = FaultInjector(seed=0).on("step.nan", corrupt=True, at=(3,))
+        loop2 = TrainLoop(trainer, f"{root}/halt_ck", checkpoint_every=0)
+        try:
+            with inj:
+                loop2.run(iter(data), flight_recorder=halt, resume=False)
+            raise SystemExit(f"{tag} the NaN at step 3 did not halt")
+        except telemetry.AnomalyHalt as e:
+            log(f"{tag} halt recorder: {e}; ring steps "
+                f"{[r['step'] for r in halt.ring]}")
+            if halt.anomalies[-1]["kind"] != "nan_loss" or \
+                    halt.anomalies[-1]["step"] != 3:
+                raise SystemExit(f"{tag} the wrong anomaly halted")
+    finally:
+        telemetry.reset()
+        telemetry.disable()
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
 def timed_phase(tag, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -8606,6 +9114,8 @@ def main() -> int:
     phase_handoff(torch, K, model, prompts, long_prompts)
     phase_stream(torch, K, model, prompts)
     phase_w8a16(torch, K, model, prompts, run_c)
+    timed_phase("[serve:telemetry]", phase_serve_telemetry, torch, K, FK, QM,
+                model, prompts, smi)
     del base, run_c, run_p
     torch.cuda.empty_cache()
 
@@ -8648,6 +9158,7 @@ def main() -> int:
     rows += phase_flash_option_timing(torch, FK, flash_err["float32"],
                                       packed_step, seg)
     phase_train_loop(torch, FK)
+    timed_phase("[train:telemetry]", phase_train_telemetry, torch, FK, smi)
     phase_bert_resume(torch, FK)
     torch.cuda.empty_cache()
     timed_phase("[train:mnist]", phase_train_mnist, torch)

@@ -42,9 +42,9 @@ carries its sharding as ``_pt_sharding`` and its whole shape as
 ``_pt_global_shape``. ``CheckpointManager(coordinator=)`` makes each
 periodic save a fleet transaction: a step is restore-worthy for the
 fleet once every live rank staged it and its ``GLOBAL_COMMITTED``
-marker landed. The JAX package's checkpoint metrics are telemetry
-(item 8); :data:`WRITTEN` counts the bytes and files this process
-wrote."""
+marker landed. The JAX package's checkpoint instruments are not ported
+yet (ROADMAP queue 1 entry 7's second half); :data:`WRITTEN` counts the
+bytes and files this process wrote."""
 
 from __future__ import annotations
 

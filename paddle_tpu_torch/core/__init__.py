@@ -1,5 +1,6 @@
 """Core runtime of the port: flags, errors, dtypes and the
-mixed-precision policy, devices and places, meshes, random streams."""
+mixed-precision policy, devices and places, meshes, random streams,
+and the profiler's historical surface (``core.profiler``)."""
 
 from .config import FLAGS, DistributeConfig
 from .dtypes import (Policy, default_dtype, get_policy, policy_scope,
@@ -16,6 +17,7 @@ from .places import (CPUPlace, Place, TPUPlace, default_place, device_count,
                      set_device)
 from .random import (current_generator, get_seed, make_generator,
                      next_key, rng_scope, seed)
+from .profiler import RecordEvent, profiler, start_profiler, stop_profiler
 
 __all__ = [
     "FLAGS", "DistributeConfig",
@@ -31,4 +33,5 @@ __all__ = [
     "device_pool", "is_compiled_with_tpu", "resolve_device", "set_device",
     "current_generator", "get_seed", "make_generator", "next_key",
     "rng_scope", "seed",
+    "RecordEvent", "profiler", "start_profiler", "stop_profiler",
 ]

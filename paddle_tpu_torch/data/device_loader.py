@@ -19,8 +19,10 @@ bucketing.
 
 Donation safety: a leaf already on the card is cloned (``donate_safe``),
 so a consumer that updates its batch in place never changes the
-source's tensor. The JAX package's input metrics are telemetry (ROADMAP
-queue 1 item 8); ``host_wait_s`` and ``batches_staged`` count here.
+source's tensor. ``host_wait_s`` and ``batches_staged`` count with
+telemetry off; with it on the JAX package's input instruments record
+(``pt_input_*``: the consumer's host wait, the queue and staging depth,
+the staged batches and the bucket padding's rows).
 
 Staging onto a mesh (``sharding=``, or ``mesh=`` for ``P("dp")``). The
 JAX package puts a batch onto a global sharding, and on a multi-host
@@ -41,10 +43,36 @@ from typing import Any, Callable, Iterable, Iterator, Optional, Union
 import numpy as np
 import torch
 
+from .. import telemetry
 from ..clip import tree_leaves, tree_map
 from ..core.enforce import enforce
 from ..core.places import resolve_device
 from .bucketing import round_to_bucket
+
+
+@telemetry.cached_instruments
+def _input_metrics(reg):
+    """Input-pipeline instrument set (only reached while telemetry is
+    on), memoized against the registry generation."""
+    return {
+        "queue_depth": reg.gauge(
+            "pt_input_prefetch_queue_depth",
+            "device batches staged ahead of the consumer"),
+        "host_wait": reg.histogram(
+            "pt_input_host_wait_seconds",
+            "time the consumer spent blocked waiting for the next "
+            "staged batch (0 ≈ input pipeline fully hidden)", unit="s"),
+        "pad_rows": reg.counter(
+            "pt_input_bucket_pad_rows_total",
+            "batch-axis rows added by bucket padding, summed over "
+            "array leaves (wasted compute bought for compile reuse)"),
+        "batches": reg.counter(
+            "pt_input_batches_total", "batches staged onto device"),
+        "depth": reg.gauge(
+            "pt_input_prefetch_depth",
+            "current prefetch staging capacity (auto sizing grows it "
+            "while host-wait p50 exceeds threshold)"),
+    }
 
 
 def _dominant_rows(leaves, axis: int) -> Optional[int]:
@@ -132,7 +160,10 @@ class BucketPadder:
             added[0] += b - n
             return self._pad_leaf(leaf, n, b)
 
-        return tree_map(pad, batch), added[0], n
+        out = tree_map(pad, batch)
+        if added[0] and telemetry.enabled():
+            _input_metrics()["pad_rows"].inc(added[0])
+        return out, added[0], n
 
     def __call__(self, batch):
         return self.pad(batch)[0]
@@ -252,6 +283,7 @@ class DevicePrefetcher:
         self.donate_safe = donate_safe
         self.prefetch_rows = prefetch_rows
         self.last_real_rows: Optional[int] = None
+        self.last_queue_depth: Optional[int] = None
         self.last_wait_s: Optional[float] = None
         self.host_wait_s = 0.0
         self.batches_staged = 0
@@ -306,6 +338,8 @@ class DevicePrefetcher:
         else:
             staged = tree_map(self._put, item)
         self.batches_staged += 1
+        if telemetry.enabled():
+            _input_metrics()["batches"].inc()
         return staged, real_rows, event
 
     def _hand_over(self, staged, event):
@@ -336,15 +370,22 @@ class DevicePrefetcher:
         with q.mutex:
             q.maxsize = self._depth
             q.not_full.notify()
+        if telemetry.enabled():
+            _input_metrics()["depth"].set(self._depth)
 
     def __iter__(self):
         if self.size == 0:
             for item in self._source():
                 staged, rows, event = self._stage(item)
                 self.last_real_rows = rows
+                self.last_queue_depth = 0
                 yield self._hand_over(staged, event)
             return
 
+        if telemetry.enabled():
+            # the starting capacity too: an auto pipeline that never
+            # grows must still read as a prefetcher
+            _input_metrics()["depth"].set(self._depth)
         q: queue.Queue = queue.Queue(maxsize=self._depth)
         waits: list = []
         err = []
@@ -355,6 +396,8 @@ class DevicePrefetcher:
                 for item in self._source():
                     if not _put_cancellable(q, self._stage(item), stop):
                         return
+                    if telemetry.enabled():
+                        _input_metrics()["queue_depth"].set(q.qsize())
             except BaseException as e:  # re-raised in the consumer
                 err.append(e)
             finally:
@@ -376,11 +419,16 @@ class DevicePrefetcher:
                 wait = time.perf_counter() - t0
                 self.last_wait_s = wait
                 self.host_wait_s += wait
+                if telemetry.enabled():
+                    met = _input_metrics()
+                    met["host_wait"].observe(wait)
+                    met["queue_depth"].set(q.qsize())
                 if self.auto and self._depth < self.auto_cap:
                     waits.append(wait)
                     self._maybe_grow(q, waits)
                 staged, rows, event = item
                 self.last_real_rows = rows
+                self.last_queue_depth = q.qsize()
                 yield self._hand_over(staged, event)
         finally:
             stop.set()

@@ -56,6 +56,7 @@ import torch
 
 from ...core.enforce import (InvalidArgumentError, KernelLaunchError,
                              enforce)
+from ...utils.flops import attention_flops, costed, tensor_bytes
 from ._launches import count_launch
 
 # the TPU kernel's finite mask value (flash_attention.py _NEG_INF) and
@@ -311,6 +312,29 @@ def _raise_on(rc: int, what: str):
             f"or < 0 for refused arguments)")
 
 
+def _contiguous_cost(q, k, v, t, **_):
+    """One query per row against the whole cache, as the plain path
+    computes it; q, both caches and the cursors read once."""
+    b, _, h, d = q.shape
+    return (2 * attention_flops(b, h, 1, k.shape[1], d),
+            tensor_bytes((q, k, v, t)))
+
+
+def _paged_cost(q, *planes_table_t, **_):
+    """The same over each row's logical cache of n_log pages: the pages
+    the table names (and their scales) read once, not the whole pool."""
+    *planes, table, t = planes_table_t
+    b, _, h, d = q.shape
+    n_log = table.shape[1]
+    ps = planes[0].shape[1]
+    rows = b * n_log
+    paged = sum(rows * (p.numel() // p.shape[0]) * p.element_size()
+                for p in planes)
+    return (2 * attention_flops(b, h, 1, n_log * ps, d),
+            paged + tensor_bytes((q, table, t)))
+
+
+@costed(_contiguous_cost)
 def decode_attention(q, k, v, t, *, window: Optional[int] = None,
                      scale: Optional[float] = None, block_k=None):
     """One decode position: q (B, 1, H, D) against caches k/v
@@ -351,6 +375,7 @@ decode_attention.tile_launches = {}
 decode_attention.last_tiles = None
 
 
+@costed(_paged_cost)
 def decode_attention_paged(q, kpool, vpool, table, t, *,
                            window: Optional[int] = None,
                            scale: Optional[float] = None, block_k=None):
@@ -421,6 +446,7 @@ def _check_quant_planes(q, kq, ks, vq, vs):
             f"16-byte aligned")
 
 
+@costed(_paged_cost)
 def decode_attention_paged_quant(q, kq, ks, vq, vs, table, t, *,
                                  window: Optional[int] = None,
                                  scale: Optional[float] = None,

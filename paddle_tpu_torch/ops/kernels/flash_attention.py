@@ -88,6 +88,7 @@ import torch
 
 from ...core.enforce import (InvalidArgumentError, KernelLaunchError,
                              enforce)
+from ...utils.flops import attention_flops, costed, tensor_bytes
 from ._launches import count_launch
 
 # the TPU kernels' finite mask value (flash_attention.py _NEG_INF); p = 0
@@ -606,6 +607,17 @@ def _launch(fn_name, q, a):
             f"or < 0 for refused arguments)")
 
 
+def _cost(products: int):
+    """The cost of ``products`` of attention's score-sized products
+    over q (B, Tq, H, D) and k (B, Tk, Hkv, D), each input read once."""
+    def cost(q, k, *args, **kwargs):
+        b, tq, h, d = q.shape
+        return (products * attention_flops(b, h, tq, k.shape[1], d),
+                tensor_bytes((q, k, args, kwargs)))
+    return cost
+
+
+@costed(_cost(2))
 def flash_attention_fwd(q, k, v, *, causal: bool, scale: float,
                         window: Optional[int] = None, kv_mask=None,
                         segment_ids=None, seeds=None,
@@ -649,6 +661,7 @@ flash_attention_fwd.tile_launches = {}
 flash_attention_fwd.last_tiles = None
 
 
+@costed(_cost(2))
 def flash_attention_dq(q, k, v, do, lse, delta, *, causal: bool,
                        scale: float, window: Optional[int] = None,
                        kv_mask=None, segment_ids=None, seeds=None,
@@ -686,6 +699,7 @@ flash_attention_dq.tile_launches = {}
 flash_attention_dq.last_tiles = None
 
 
+@costed(_cost(2))
 def flash_attention_dkv(q, k, v, do, lse, delta, *, causal: bool,
                         scale: float, window: Optional[int] = None,
                         kv_mask=None, segment_ids=None, seeds=None,
@@ -758,6 +772,7 @@ def ring_fwd_block_plain(q, k, v, kvm, qseg, kseg, *, causal: bool,
         offset=offset)
 
 
+@costed(_cost(2))
 def ring_fwd_block(q, k, v, kvm, qseg, kseg, *, causal: bool, scale: float,
                    block_q=None, block_k=None, interpret=None):
     """One ring hop's forward: local q (B, Tq, H, D) against one kv block
@@ -806,6 +821,7 @@ def ring_bwd_block_plain(q, k, v, kvm, qseg, kseg, o, lse, do, *,
     return dq, dk, dv
 
 
+@costed(_cost(4))
 def ring_bwd_block(q, k, v, kvm, qseg, kseg, o, lse, do, *, causal: bool,
                    scale: float, block_q=None, block_k=None, interpret=None,
                    delta=None):

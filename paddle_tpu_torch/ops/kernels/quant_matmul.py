@@ -62,6 +62,7 @@ import torch
 
 from ...core.enforce import (InvalidArgumentError, KernelLaunchError,
                              enforce)
+from ...utils.flops import costed, tensor_bytes
 from ._launches import count_launch
 
 _OUT_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -213,6 +214,20 @@ def _check_out_dtype(out_dtype, what: str):
             f"{what} writes float32 or bfloat16, got {out_dtype}")
 
 
+def _gemm_cost(a, b, *args, **kwargs):
+    """2 M N K integer operations for a (M, K) and b (K, N); the
+    operands and scales read once."""
+    return (2.0 * a.shape[0] * b.shape[1] * a.shape[1],
+            tensor_bytes((a, b, args, kwargs)))
+
+
+def _packed_cost(a, w_packed, *args, **kwargs):
+    """The same with the weight packed (N, K16), bias included."""
+    return (2.0 * a.shape[0] * w_packed.shape[0] * a.shape[1],
+            tensor_bytes((a, w_packed, args, kwargs)))
+
+
+@costed(_gemm_cost)
 def quant_matmul(a_i8, b_i8, a_scale, b_scale, *,
                  out_dtype=torch.float32, tile_m=None, tile_n=None,
                  tile_k=None, use_pallas=None, interpret: bool = False):
@@ -244,6 +259,7 @@ def quant_matmul(a_i8, b_i8, a_scale, b_scale, *,
                                use_pallas=use_pallas)
 
 
+@costed(_packed_cost)
 def quant_matmul_packed(a_i8, w_packed, a_scale, b_scale, *,
                         out_dtype=torch.float32, tile_m=None, tile_n=None,
                         tile_k=None, use_pallas=None,
@@ -330,6 +346,7 @@ def quant_linear_plain(x, w_packed, a_scale, w_scale, bias=None,
     return out.to(out_dtype)
 
 
+@costed(_packed_cost)
 def quant_linear(x, w_packed, a_scale, w_scale, bias=None,
                  relu: bool = False, *, out_dtype=torch.float32,
                  tile_m=None, tile_n=None, tile_k=None, use_pallas=None,

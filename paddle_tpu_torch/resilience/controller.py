@@ -50,9 +50,14 @@ the rank, never a hang).
 exit clean within the grace window) and the job respawns on N-1 ranks
 from the last globally committed checkpoint.
 
-The JAX package's pod-level aggregation (``publish_endpoint``, ``podz``,
-``tracez_fanout``) needs the debug server of ROADMAP queue 1 item 8 and
-raises :class:`UnimplementedError` naming it."""
+Pod-level aggregation, as in the JAX package: each rank publishes its
+debug server's endpoint on the transport (``publish_endpoint``), and any
+rank's ``/podz`` fans out to every rank's /healthz, /statusz and /memz
+(``podz``), its ``/tracez?trace_id=`` to every rank's trace ring, merged
+into one clock-aligned chrome trace (``tracez_fanout``). The agreement,
+the commits and the staged saves leave events on the trace ring
+(``fleet.preempt.*``, ``fleet.commit.confirmed``, ``fleet.ckpt.*``)
+while telemetry is on."""
 
 from __future__ import annotations
 
@@ -63,7 +68,8 @@ import time
 from typing import Any, Dict, List, Optional
 
 from .. import telemetry
-from ..core.enforce import EnforceError, UnimplementedError, enforce
+from ..core.enforce import EnforceError, enforce
+from ..telemetry import tracing as _tracing
 from ..utils.atomic import atomic_write_text
 from . import faults as _faults
 from .preemption import PreemptionHandler
@@ -76,7 +82,6 @@ __all__ = [
 ]
 
 _ACTIVE: Optional["FleetController"] = None
-_ITEM8 = "is not ported yet: ROADMAP queue 1 item 8 (the debug server)"
 
 # Transport writes retry under a short deadline-bounded policy: a
 # shared-FS blip (OSError) or a store hiccup (RuntimeError: torch's
@@ -335,9 +340,20 @@ def notice_source_from_env(env=None):
     return FileNotice(spec)
 
 
+def _fetch_json(url: str, timeout_s: float = 2.0):
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=timeout_s) as r:
+            return json.loads(r.read().decode("utf-8"))
+    except Exception as e:  # per-rank rows degrade, /podz never 500s
+        return {"error": repr(e)}
+
+
 # ---------------------------------------------------------------------------
 # The controller
 # ---------------------------------------------------------------------------
+
 
 class FleetController:
     """One rank's view of the fleet control plane.
@@ -411,6 +427,7 @@ class FleetController:
         self.ckpt_timeout_s = ckpt_timeout_s
         self.dead_grace_s = dead_grace_s
         self.podz_fetch_timeout_s = podz_fetch_timeout_s
+        self._own_endpoint: Optional[str] = None
         self.acked_step: Optional[int] = None
         self._ack_at: Optional[float] = None
         self.agreed_step: Optional[int] = None
@@ -487,6 +504,12 @@ class FleetController:
         with self._req_mu:
             self.request_reason = self.request_reason or reason
             self._notice = True
+        if telemetry.enabled():
+            # the agreement's breadcrumbs on the trace ring: the fleet
+            # /tracez fan-in shows request -> acks -> agreement on each
+            # rank's lane beside its step spans
+            _tracing.event("fleet.preempt.request", rank=self.rank,
+                           reason=reason)
         self.handler.request()
 
     def _requested(self) -> bool:
@@ -615,6 +638,7 @@ class FleetController:
                 self.transport.put(f"preempt.ack.{self.rank}",
                                    str(self.acked_step))
                 self.transport.put("preempt.flag", str(self.rank))
+                self._event_ack()
             acks: Dict[int, int] = {}
             for r in range(self.world):
                 v = self.transport.get(f"preempt.ack.{r}")
@@ -637,13 +661,21 @@ class FleetController:
                 self.transport.put(f"preempt.ack.{self.rank}",
                                    str(int(step)))
                 self.transport.put("preempt.flag", str(self.rank))
+                self._event_ack()
             acks = self._wait_all("preempt.ack",
                                   timeout_s=self.agree_timeout_s,
                                   what="preempt-agreement")
             self.agreed_step = max(acks.values())
         if telemetry.enabled():
             _fleet_metrics()["agreements"].inc()
+            _tracing.event("fleet.preempt.agreed", rank=self.rank,
+                           step=int(self.agreed_step))
         return self.agreed_step
+
+    def _event_ack(self) -> None:
+        if telemetry.enabled():
+            _tracing.event("fleet.preempt.ack", rank=self.rank,
+                           step=int(self.acked_step))
 
     def confirm_committed(self, step: int) -> Dict[int, int]:
         """Publish this rank's committed step and wait for every live
@@ -659,6 +691,9 @@ class FleetController:
                               what="commit-confirmation")
         self.last_committed_step = step
         self.committed_view = vals
+        if telemetry.enabled():
+            _tracing.event("fleet.commit.confirmed", rank=self.rank,
+                           step=step)
         return vals
 
     def note_checkpoint(self, step: int) -> None:
@@ -699,6 +734,8 @@ class FleetController:
             self._staged_steps.append(step)
         self.last_staged_step = step
         self._update_commit_lag()
+        if telemetry.enabled():
+            _tracing.event("fleet.ckpt.staged", rank=self.rank, step=step)
 
     def wait_global_commit(self, step: int) -> Optional[float]:
         """Phase 2: hold until every live rank staged ``step``, then land
@@ -781,6 +818,9 @@ class FleetController:
             self.transport.delete(f"ckpt.staged.{s}.{self.rank}")
         self.last_commit_barrier_s = round(wait_s, 4)
         self._update_commit_lag()
+        if telemetry.enabled():
+            _tracing.event("fleet.ckpt.global_commit", rank=self.rank,
+                           step=step)
         return wait_s
 
     def global_commit_seen(self, step: int) -> bool:
@@ -839,13 +879,148 @@ class FleetController:
     # -- pod-level aggregation ------------------------------------------------
 
     def publish_endpoint(self, host: str, port: int) -> None:
-        raise UnimplementedError(f"FleetController.publish_endpoint {_ITEM8}")
+        """Announce this rank's debug-server address through the
+        transport so any rank's /podz can fan out to it. The debug
+        server binds loopback by default, which a REMOTE aggregator
+        cannot reach — on a real multi-host fleet set
+        ``PT_PODZ_ADVERTISE_HOST`` (this host's routable name) or bind
+        the server on one; the single-host rig needs neither."""
+        host = os.environ.get("PT_PODZ_ADVERTISE_HOST") or host
+        self._own_endpoint = f"{host}:{port}"
+        if self.transport is not None:
+            self.transport.put(f"debug.{self.rank}",
+                               self._own_endpoint)
+
+    def _podz_row(self, r: int) -> Dict[str, Any]:
+        if r == self.rank and self._own_endpoint:
+            ep = self._own_endpoint
+        elif self.transport is not None:
+            ep = self.transport.get(f"debug.{r}")
+        else:
+            ep = None
+        dead = self._marker(f"dead.{r}") is not None
+        done = self._marker(f"done.{r}")
+        row: Dict[str, Any] = {"rank": r, "endpoint": ep,
+                               "dead": dead,
+                               "done_at_step": (int(done)
+                                                if done else None)}
+        if ep and not dead:
+            t = self.podz_fetch_timeout_s
+            h = _fetch_json(f"http://{ep}/healthz", t)
+            row["healthz"] = h
+            if isinstance(h, dict):
+                row["heartbeat_age_s"] = h.get("last_step_age_s")
+            s = _fetch_json(f"http://{ep}/statusz", t)
+            if isinstance(s, dict) and "error" not in s:
+                row["backend"] = s.get("backend")
+                res = s.get("resilience")
+                view = (res.get("controller")
+                        if isinstance(res, dict) else None)
+                if isinstance(view, dict):
+                    row["last_checkpoint_step"] = view.get(
+                        "last_checkpoint_step")
+                    row["last_committed_step"] = view.get(
+                        "last_committed_step")
+                    # fleet-wide commit next to the local one: a rank
+                    # whose local step runs ahead of the global commit
+                    # is the one wedging (or outpacing) the fleet —
+                    # commit drift is visible at a glance
+                    row["last_committed_global"] = view.get(
+                        "last_global_commit_step")
+                    row["last_staged_step"] = view.get(
+                        "last_staged_step")
+                    row["preempt"] = {
+                        k: view.get(k)
+                        for k in ("preempt_requested", "acked_step",
+                                  "agreed_preempt_step")}
+            else:
+                row["statusz_error"] = (s.get("error")
+                                        if isinstance(s, dict)
+                                        else repr(s))
+            m = _fetch_json(f"http://{ep}/memz", t)
+            if isinstance(m, dict):
+                row["peak_mem_bytes"] = m.get("peak_mem_bytes")
+        return row
 
     def podz(self) -> Dict[str, Any]:
-        raise UnimplementedError(f"FleetController.podz {_ITEM8}")
+        """One fleet view: fan out to every rank's /healthz + /statusz
+        + /memz and distill per-rank heartbeat age, last committed
+        step, and preempt state. Unreachable ranks degrade to an error
+        row — /podz renders whatever the fleet can still tell it.
+        Ranks fetch CONCURRENTLY: a scrape of a partially-wedged fleet
+        is bounded near one rank's fetch budget, not world x timeouts."""
+        from concurrent.futures import ThreadPoolExecutor
 
-    def tracez_fanout(self, trace_id: Optional[str] = None):
-        raise UnimplementedError(f"FleetController.tracez_fanout {_ITEM8}")
+        if self.world <= 1:
+            rows = [self._podz_row(0)]
+        else:
+            with ThreadPoolExecutor(
+                    max_workers=min(8, self.world),
+                    thread_name_prefix="pt-podz-fetch") as ex:
+                rows = list(ex.map(self._podz_row,
+                                   range(self.world)))
+        return {"world_size": self.world,
+                "aggregator_rank": self.rank,
+                "run_id": self.run_id,
+                "preempt_requested": self._requested(),
+                "agreed_preempt_step": self.agreed_step,
+                "last_committed_global": self.last_global_commit_step,
+                "ranks": {str(row["rank"]): row for row in rows}}
+
+    def tracez_fanout(self,
+                      trace_id: Optional[str] = None) -> Dict[str, Any]:
+        """/podz-style TRACE aggregation for training fleets (mounted
+        on the debug server's ``/tracez?trace_id=`` when a controller
+        is attached): fan out to every rank's /tracez, align each
+        rank's spans via its clock-offset handshake, and merge ONE
+        chrome-trace — per-rank lanes carrying the rank-tagged
+        ``train.step`` spans and the preempt-agreement events.
+        Unreachable/dead ranks degrade to error rows."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        collections: List[Dict[str, Any]] = []
+        rows: Dict[str, Any] = {}
+        # ``local=1`` forces each rank's LOCAL ring: every rank mounts
+        # this same fan-out on its own /tracez, so without it two
+        # ranks' aggregators would recurse into each other
+        q = (f"?trace_id={trace_id}&local=1" if trace_id
+             else "?local=1")
+
+        def fetch(r: int):
+            if r == self.rank:
+                return r, _tracing.collection(trace_id,
+                                              proc=f"rank{r}"), "local"
+            if self._marker(f"dead.{r}") is not None:
+                return r, None, "dead"
+            ep = (self.transport.get(f"debug.{r}")
+                  if self.transport is not None else None)
+            if not ep:
+                return r, None, "no endpoint published"
+            j = _fetch_json(f"http://{ep}/tracez{q}",
+                            self.podz_fetch_timeout_s)
+            if isinstance(j, dict) and "trace_spans" in j:
+                j["proc"] = f"rank{r}"
+                return r, j, ep
+            return r, None, (j.get("error") if isinstance(j, dict)
+                             else repr(j))
+
+        with ThreadPoolExecutor(
+                max_workers=min(8, max(1, self.world)),
+                thread_name_prefix="pt-tracez-fetch") as ex:
+            for r, j, info in ex.map(fetch, range(self.world)):
+                if j is not None:
+                    collections.append(j)
+                    rows[str(r)] = {
+                        "rank": r, "source": info,
+                        "spans": len(j.get("trace_spans",
+                                           j.get("spans", [])))}
+                else:
+                    rows[str(r)] = {"rank": r, "error": info}
+        return {"world_size": self.world,
+                "aggregator_rank": self.rank,
+                "trace_id": trace_id,
+                "ranks": rows,
+                "trace": _tracing.merge_chrome_trace(collections)}
 
     # -- introspection ------------------------------------------------------
 

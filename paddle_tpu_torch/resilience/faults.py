@@ -21,6 +21,10 @@ Injection points (:data:`POINTS`), the JAX package's:
 - ``io.slow``       any checkpoint file I/O (delay rules)
 - ``fleet.notice``  each poll of the fleet controller's notice watcher
   (a ``corrupt`` rule is a synthetic preemption notice)
+- ``lock.acquire``  a :class:`telemetry.lockwatch.WatchedLock`
+  acquisition (``path`` = the lock's name; fired only while the
+  lock-order watchdog is enabled): a seeded ``delay_s`` rule on one lock
+  forces two racing threads into a deterministic inversion window
 """
 
 from __future__ import annotations
@@ -30,13 +34,23 @@ import threading
 import time
 from typing import Any, Dict, Optional
 
+from .. import telemetry
 from ..core.enforce import enforce
 
 POINTS = ("ckpt.write", "ckpt.manifest", "ckpt.stage", "ckpt.commit",
-          "restore.read", "step.nan", "io.slow", "fleet.notice")
+          "restore.read", "step.nan", "io.slow", "fleet.notice",
+          "lock.acquire")
 
 _ACTIVE: Optional["FaultInjector"] = None
 _LOCK = threading.Lock()
+
+
+@telemetry.cached_instruments
+def _fault_metrics(reg):
+    return {
+        "fired": reg.counter("pt_faults_injected_total",
+                             "faults fired by an armed FaultInjector"),
+    }
 
 
 class FaultError(OSError):
@@ -127,6 +141,8 @@ class FaultInjector:
         if rule["times"] is not None:
             rule["times"] -= 1
         self.fired[point] = self.fired.get(point, 0) + 1
+        if telemetry.enabled():
+            _fault_metrics()["fired"].inc()
         if rule["delay_s"] > 0.0:
             time.sleep(rule["delay_s"])
         if rule["corrupt"]:
@@ -144,6 +160,12 @@ class FaultInjector:
                 err = err(f"injected fault at {point} (call {n})")
             raise err
         return data if data is not None else True
+
+    def statusz(self) -> Dict[str, Any]:
+        return {"seed": self.seed,
+                "points": sorted(self._rules),
+                "calls": {k: v for k, v in self.calls.items() if v},
+                "fired": {k: v for k, v in self.fired.items() if v}}
 
 
 def active() -> Optional[FaultInjector]:

@@ -4,9 +4,9 @@ paddle_tpu/resilience/preemption.py): the SIGTERM/SIGINT grace handler.
 :class:`PreemptionHandler` turns the signal into a checked flag. A loop
 that opts in (``TrainLoop.run(preemption=...)``) finishes the step in
 flight, writes a final checkpoint and exits with a ``preempted`` status
-instead of dying mid-save; the signal handler only sets an Event. No
-handler is installed unless asked. ``BatchedDecoder.run(preemption=)``
-comes with the serving fleet (ROADMAP queue 1 item 8)."""
+instead of dying mid-save; ``BatchedDecoder.run(preemption=...)`` stops
+admitting and drains the requests in flight. The signal handler only
+sets an Event. No handler is installed unless asked."""
 
 from __future__ import annotations
 
@@ -14,7 +14,22 @@ import signal
 import threading
 from typing import Optional, Sequence
 
+from .. import telemetry
+
 _ACTIVE: Optional["PreemptionHandler"] = None
+
+
+@telemetry.cached_instruments
+def _preempt_metrics(reg):
+    return {
+        "signals": reg.counter(
+            "pt_preemptions_total",
+            "preemption signals received by the grace handler"),
+        "clean_exits": reg.counter(
+            "pt_preempt_clean_exits_total",
+            "drive loops that exited cleanly after a preemption "
+            "signal (final checkpoint written / requests drained)"),
+    }
 
 
 class PreemptionHandler:
@@ -31,6 +46,7 @@ class PreemptionHandler:
         self.signals = tuple(signals)
         self.received_signal: Optional[int] = None
         self._requested = threading.Event()
+        self._counted = False
         self._prev: Optional[dict] = None
         self._prev_active: Optional["PreemptionHandler"] = None
 
@@ -76,12 +92,25 @@ class PreemptionHandler:
         self._requested.set()
 
     def requested(self) -> bool:
-        return self._requested.is_set()
+        r = self._requested.is_set()
+        if r and not self._counted and telemetry.enabled():
+            # counted here, never in _on_signal: the counter takes a lock
+            # the interrupted thread may hold
+            self._counted = True
+            _preempt_metrics()["signals"].inc()
+        return r
 
     def clear(self) -> None:
         """Reset the flag (a new run after a handled preemption)."""
         self._requested.clear()
         self.received_signal = None
+        self._counted = False
+
+    def statusz(self) -> dict:
+        return {"installed": self.installed,
+                "requested": self.requested(),
+                "received_signal": self.received_signal,
+                "signals": [int(s) for s in self.signals]}
 
 
 def active() -> Optional[PreemptionHandler]:

@@ -3,8 +3,9 @@ paddle_tpu/resilience/retry.py): capped exponential backoff with
 seeded jitter, bounded by a deadline. Checkpoint save and restore wrap
 every file operation in :func:`retry_io`; a transient ``OSError`` costs
 a short backoff, while deterministic errors (checksum mismatches,
-enforce failures) propagate at once. The JAX package's retry counters
-are telemetry, which the port has not yet (ROADMAP queue 1 item 8)."""
+enforce failures) propagate at once. ``pt_retry_total`` counts absorbed
+faults and ``pt_retry_exhausted_total`` operations that failed after the
+budget, both only while telemetry is enabled."""
 
 from __future__ import annotations
 
@@ -12,9 +13,22 @@ import random
 import time
 from typing import Callable, Optional, Tuple, Type, TypeVar
 
+from .. import telemetry
 from ..core.enforce import enforce
 
 T = TypeVar("T")
+
+
+@telemetry.cached_instruments
+def _retry_metrics(reg):
+    return {
+        "retries": reg.counter(
+            "pt_retry_total",
+            "transient I/O errors absorbed by resilience.retry"),
+        "exhausted": reg.counter(
+            "pt_retry_exhausted_total",
+            "operations that failed after the full retry budget"),
+    }
 
 
 class RetryPolicy:
@@ -69,5 +83,9 @@ def retry_io(fn: Callable[[], T], *, policy: Optional[RetryPolicy] = None,
             delay = policy.backoff_s(attempt)
             if (attempt >= policy.max_attempts
                     or time.monotonic() - t0 + delay > policy.deadline_s):
+                if telemetry.enabled():
+                    _retry_metrics()["exhausted"].inc()
                 raise
+            if telemetry.enabled():
+                _retry_metrics()["retries"].inc()
             policy._sleep(delay)

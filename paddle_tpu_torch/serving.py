@@ -45,12 +45,25 @@ batch-1 view of its arena row, so nothing is written back. A tick
 uploads its host state (tokens, cursors, admission counters, page
 table) in one copy and reads its tokens back in one.
 
-Left for ROADMAP queue 1 item 8 (each raises a typed error naming it):
-the debug server / flight recorder / preemption hooks of ``run``, and
-trace or deadline objects on a KVHandoff."""
+Telemetry (``paddle_tpu_torch.telemetry``, off by default), as in the
+JAX package: TTFT and per-token decode-latency histograms, token, tick
+and request counters, queue-depth and page-occupancy gauges, admission
+rejections by cause (:func:`reject_cause`), signature tracking of the
+tick and the prefill buckets, each program's cost in the ledger (its
+first real call counted), the goodput ledger and the ITL sentinel, and
+request tracing (each request adopts the caller's bound trace context).
+With telemetry off a tick runs none of it. ``run(debug_port=,
+flight_recorder=, preemption=)`` serve the debug endpoints, record each
+tick, and drain on a grace signal. End-to-end deadlines
+(``resilience.reliability``): a request submitted under a bound
+:class:`Deadline` is dropped with ``deadline_exceeded`` once it expires,
+queued or resident, and never computed after; a :class:`KVHandoff`
+carries its trace context and deadline on the wire (the npz ``trace``
+and ``deadline`` keys)."""
 
 from __future__ import annotations
 
+import contextlib
 import io
 import threading
 import time
@@ -59,15 +72,110 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from . import telemetry
 from .core.dtypes import default_dtype, to_dtype
-from .core.enforce import UnimplementedError, enforce
+from .core.enforce import enforce
 from .core.places import resolve_device
 from .ops import paged_kv
 from .ops.sampling import (filter_logits, generator_seed,
                            keyed_categorical, keyed_sample, keyed_uniform)
+from .resilience import reliability as _reliability
+from .telemetry import costs as _costs
+from .telemetry import profiling as _profiling
+from .telemetry import recompile as _recompile
+from .telemetry import server as _dbg_server
+from .telemetry import tracing as _tracing
 
 __all__ = ["BatchedDecoder", "PagedKVPool", "Request", "KVHandoff",
-           "TokenStream"]
+           "TokenStream", "reject_cause"]
+
+# reusable inert context manager: span call sites gate on
+# telemetry.enabled() (a disabled run executes no tracing code) and fall
+# back to this
+_NULL_CM = contextlib.nullcontext()
+
+
+@telemetry.cached_instruments
+def _serving_metrics(reg):
+    """Serving instrument set, memoized against the registry generation
+    (run() touches it every tick). Only reached while telemetry is
+    enabled."""
+    return {
+        "requests": reg.counter(
+            "pt_serving_requests_total", "requests submitted"),
+        "completed": reg.counter(
+            "pt_serving_completed_total", "requests completed"),
+        "tokens": reg.counter(
+            "pt_serving_tokens_total", "tokens emitted"),
+        "ttft": reg.histogram(
+            "pt_serving_ttft_seconds",
+            "submit-to-first-token latency (includes queue wait)",
+            unit="s"),
+        "decode_latency": reg.histogram(
+            "pt_serving_decode_latency_seconds",
+            "per-token decode latency (dispatch wall time / tokens "
+            "emitted that dispatch)", unit="s"),
+        "queue_depth": reg.gauge(
+            "pt_serving_queue_depth", "requests waiting for a slot"),
+        "rejections": reg.counter(
+            "pt_serving_admission_rejections_total",
+            "admissions rejected or deferred (all causes; see the "
+            "cause-labeled series for the split)"),
+        # the cause-labeled split of the same total: pool_exhausted =
+        # paged admission deferred on page exhaustion, capacity = hard
+        # queue-depth cap, shed = SLO load-shed (router policy),
+        # deadline = the end-to-end deadline expired before or while
+        # serving (a typed drop, never computed)
+        "rejections_by_cause": {
+            cause: reg.counter(
+                "pt_serving_admission_rejections_total",
+                "admissions rejected or deferred, by cause",
+                labels={"cause": cause})
+            for cause in ("pool_exhausted", "capacity", "shed",
+                          "deadline")},
+        "page_occupancy": reg.gauge(
+            "pt_serving_page_occupancy_ratio",
+            "allocated fraction of the KV page pool"),
+        "kv_pool_bytes": reg.gauge(
+            "pt_serving_kv_pool_bytes",
+            "device bytes held by the paged KV pools (all blocks, "
+            "K+V, scales included for kv_dtype=int8) — the "
+            "concurrent-session HBM denominator"),
+        "kv_pool_live_bytes": reg.gauge(
+            "pt_serving_kv_pool_live_bytes",
+            "KV pool bytes backing ALLOCATED pages (occupancy x pool "
+            "bytes)"),
+        "spec_rounds": reg.counter(
+            "pt_serving_spec_row_rounds_total",
+            "speculative verify rounds (per active row)"),
+        "spec_accepted": reg.counter(
+            "pt_serving_spec_accepted_total",
+            "draft tokens accepted by target verify"),
+        "spec_accept_rate": reg.gauge(
+            "pt_serving_spec_accept_rate",
+            "mean accepted draft tokens per verify round (0..gamma)"),
+        "streams": reg.counter(
+            "pt_serving_streams_total",
+            "requests served with a per-token stream attached"),
+        "stream_stalled": reg.counter(
+            "pt_stream_stalled_seconds",
+            "cumulative seconds streams spent stalled on a full "
+            "client buffer (the backpressure that pauses a stream, "
+            "never the arena tick)", unit="s"),
+    }
+
+
+def reject_cause(cause: str) -> None:
+    """Bump the admission-rejection counters (the unlabeled total and
+    the cause-labeled series): the one place the split is recorded.
+    No-op while telemetry is disabled."""
+    if not telemetry.enabled():
+        return
+    m = _serving_metrics()
+    m["rejections"].inc()
+    by = m["rejections_by_cause"].get(cause)
+    if by is not None:
+        by.inc()
 
 
 class PagedKVPool:
@@ -209,8 +317,11 @@ class TokenStream:
 
     def _note_stall_end(self, now: float) -> None:
         if self._stall_t0 is not None:
-            self.stalled_s += max(0.0, now - self._stall_t0)
+            d = max(0.0, now - self._stall_t0)
+            self.stalled_s += d
             self._stall_t0 = None
+            if d and telemetry.enabled():
+                _serving_metrics()["stream_stalled"].inc(d)
 
     def offer(self, toks, now: Optional[float] = None) -> None:
         """Arena side: buffer token records for ``toks[src:]`` while the
@@ -248,7 +359,10 @@ class TokenStream:
                         return False
                 t0 = time.monotonic()
                 self._cond.wait(w)
-                self.stalled_s += time.monotonic() - t0
+                d = time.monotonic() - t0
+                self.stalled_s += d
+                if d and telemetry.enabled():
+                    _serving_metrics()["stream_stalled"].inc(d)
             if self.closed:
                 return False
             if "i" in rec and int(rec["i"]) < self._src:
@@ -350,18 +464,16 @@ class KVHandoff:
     block: (m, page_size, kv_heads, head_dim) float arrays, or
     ``(q, scale)`` pairs for int8 pools (the storage form crosses
     intact). :meth:`to_bytes` / :meth:`from_bytes` are the JAX package's
-    npz wire format, so either package reads the other's bytes. A trace
-    or deadline entry in the bytes is kept as its header string
-    (``trace_header``, ``deadline_header``) and written back out."""
+    npz wire format, so either package reads the other's bytes.
+    ``trace`` (a :class:`telemetry.tracing.TraceContext`) and
+    ``deadline`` (a :class:`resilience.reliability.Deadline`) ride the
+    wire in their header forms (the ``trace`` and ``deadline`` keys): the
+    decode side adopts the request's trace and its remaining budget, not
+    a fresh one."""
 
     def __init__(self, prompt, plen: int, logits, blocks,
                  page_size: int, kv_dtype=None, trace=None,
                  deadline=None):
-        if trace is not None or deadline is not None:
-            raise UnimplementedError(
-                "trace= / deadline= objects on a KVHandoff (telemetry "
-                "tracing and request deadlines) are not ported yet: "
-                "ROADMAP queue 1 item 8")
         self.prompt = np.asarray(prompt, np.int32).reshape(-1)
         self.plen = int(plen)
         self.logits = np.asarray(logits, np.float32)
@@ -370,8 +482,6 @@ class KVHandoff:
         self.kv_dtype = kv_dtype
         self.trace = trace
         self.deadline = deadline
-        self.trace_header: Optional[str] = None
-        self.deadline_header: Optional[str] = None
 
     @property
     def pages(self) -> int:
@@ -402,10 +512,11 @@ class KVHandoff:
         arrays = {"prompt": self.prompt, "logits": self.logits,
                   "meta": np.asarray([self.plen, self.page_size,
                                       int(quant)], np.int64)}
-        if self.trace_header is not None:
-            arrays["trace"] = np.asarray(self.trace_header)
-        if self.deadline_header is not None:
-            arrays["deadline"] = np.asarray(self.deadline_header)
+        if self.trace is not None:
+            arrays["trace"] = np.asarray(self.trace.to_header())
+        if self.deadline is not None:
+            # an absolute wall-clock epoch: meaningful across processes
+            arrays["deadline"] = np.asarray(self.deadline.to_header())
         for side, name in ((0, "k"), (1, "v")):
             payload = stack(side)
             if quant:
@@ -426,13 +537,13 @@ class KVHandoff:
         else:
             blocks = [(z["k"][i], z["v"][i])
                       for i in range(z["k"].shape[0])]
-        h = KVHandoff(z["prompt"], plen, z["logits"], blocks, page_size,
-                      "int8" if quant else None)
-        if "trace" in z.files:
-            h.trace_header = str(z["trace"])
-        if "deadline" in z.files:
-            h.deadline_header = str(z["deadline"])
-        return h
+        trace = (_tracing.from_header(str(z["trace"]))
+                 if "trace" in z.files else None)
+        deadline = (_reliability.Deadline.from_header(str(z["deadline"]))
+                    if "deadline" in z.files else None)
+        return KVHandoff(z["prompt"], plen, z["logits"], blocks, page_size,
+                         "int8" if quant else None, trace=trace,
+                         deadline=deadline)
 
 
 class Request:
@@ -449,6 +560,9 @@ class Request:
         self.t_tokens: List[float] = []   # per-token emission stamps
         self.handoff: Optional[KVHandoff] = None   # pre-filled KV pages
         self.stream: Optional[TokenStream] = None  # per-token sink
+        self.trace = None        # TraceContext (telemetry on, traced hop)
+        self.deadline = None     # reliability.Deadline (bound at submit)
+        self.deadline_exceeded = False  # dropped typed, never computed
 
 
 class BatchedDecoder:
@@ -602,6 +716,18 @@ class BatchedDecoder:
         # the tick's host-to-device staging (pinned, on the card)
         self._stage = None
         self._dstage = None
+        # per-slot trace context of the active request (None unless
+        # telemetry was on at submit and the request is traced): the
+        # decode tick's span and exemplar source
+        self._slot_trace: List[Optional[Any]] = [None] * slots
+        self._weights_fp = None   # stamped per run() while telemetry is on
+        self.debug_server = None  # the last run(debug_port=)'s server
+        self.preempted = False    # the last run() exited on a grace signal
+        # slot-resident requests carrying a deadline: the per-tick expiry
+        # sweep is gated on this count, so an undeadlined run executes no
+        # deadline code per tick
+        self._dl_active = 0
+        self._backend_name: Optional[str] = None
 
     # ----- host API --------------------------------------------------------
 
@@ -632,36 +758,191 @@ class BatchedDecoder:
         r.stream = stream
         self._next_rid += 1
         r.t_submit = time.perf_counter()
+        # the ambient end-to-end deadline (a router's dispatch or the
+        # debug server's POST edge binds it): one contextvar read
+        r.deadline = _reliability.current()
+        if telemetry.enabled():
+            self._note_request(r, _tracing.current())
         self.queue.append(r)
         return r.rid
+
+    def _note_request(self, r: Request, trace) -> None:
+        """A submitted request's telemetry: the request counters, its
+        trace context, the /healthz last-request clock (owner-scoped
+        while run() has our server up, else broadcast)."""
+        m = _serving_metrics()
+        m["requests"].inc()
+        if r.stream is not None:
+            m["streams"].inc()
+        r.trace = trace
+        srv = self.debug_server
+        if srv is not None and srv.running:
+            srv.note("request")
+        else:
+            _dbg_server.note("request")
 
     @torch.inference_mode()
     def run(self, debug_port: Optional[int] = None, flight_recorder=None,
             preemption=None) -> Dict[int, np.ndarray]:
-        """Drive until every submitted request completes."""
-        if debug_port is not None or flight_recorder is not None:
-            raise UnimplementedError(
-                "debug_port= / flight_recorder= (telemetry) are not ported "
-                "yet: ROADMAP queue 1 item 8")
-        if preemption is not None:
-            raise UnimplementedError(
-                "preemption= (resilience) is not ported yet: ROADMAP queue "
-                "1 item 8")
-        while self.queue or self._pf_order or self.active.any():
-            self._admit()
-            self._prefill_tick()
-            self._step()
+        """Drive until every submitted request completes.
+
+        Live diagnostics (opt-in): ``debug_port=P`` serves the debug
+        endpoints (/metrics /healthz /readyz /statusz /tracez /memz,
+        POST /profilez) on 127.0.0.1:P for the drive (0 = ephemeral;
+        ``self.debug_server`` holds the server; starting it enables
+        telemetry; its thread is joined before run() returns).
+        ``flight_recorder=`` records one entry per tick (tick wall time,
+        queue depth, active slots) into a
+        :class:`telemetry.diag.FlightRecorder`: its ``step_stall`` watch
+        catches a wedged arena; policy ``halt`` raises
+        :class:`telemetry.diag.AnomalyHalt`, ``skip_step`` acts as
+        ``record`` (a tick is no optimizer update; nothing rolls back).
+        Consulted only while telemetry is enabled; it reads no device
+        value.
+
+        Preemption grace (opt-in): ``preemption=True`` installs a
+        SIGTERM/SIGINT handler for the drive (or pass a
+        :class:`resilience.PreemptionHandler`). On a signal the arena
+        stops admitting but ticks until every in-flight request (active
+        or mid-prefill) completes: the drained results are returned,
+        ``self.preempted`` is True, and unserved requests stay in
+        ``self.queue``. With None no handler exists and a tick runs no
+        resilience code."""
+        if telemetry.enabled():
+            # the weights' fingerprint, once per run (they change only
+            # between runs): per-tick records pass its hash as an Opaque
+            # token, so a quant/LoRA swap between runs registers as a new
+            # signature without re-walking every leaf per tick
+            models = [self.model] + ([self.draft] if self.draft else [])
+            self._weights_fp = _recompile.Opaque(hash(telemetry.fingerprint(
+                [(dict(m.named_parameters()), dict(m.named_buffers()))
+                 for m in models])))
+        self.debug_server = None
+        if debug_port is not None:
+            self.debug_server = _dbg_server.DebugServer(
+                port=debug_port, owned=True,
+                run_config={"role": "serving", "slots": self.slots,
+                            "capacity": self.capacity,
+                            "paged": self.paged,
+                            "kv_dtype": (self._allocator.kv_dtype
+                                         if self.paged else None),
+                            "spec": self.draft is not None,
+                            "decode_steps": self.decode_steps}).start()
+            self.debug_server.add_status("serving", self._statusz)
+            # on-demand bounded device capture (404 -> 409 -> 200; one
+            # capture at a time, a hard duration cap)
+            self.debug_server.add_post(
+                "/profilez", _profiling.make_profilez())
+            # readiness is not liveness: a draining or not-yet-warmed
+            # arena answers ready=false without reading as dead
+            self.debug_server.set_ready(lambda: self.ready)
+            if self.queue or self._pf_order or self.active.any():
+                # requests submitted before the server came up
+                self.debug_server.note("request")
+        pre = None
+        own_pre = False
+        self.preempted = False
+        if preemption is not None and preemption is not False:
+            from .resilience.preemption import PreemptionHandler
+
+            pre = (PreemptionHandler() if preemption is True
+                   else preemption)
+            if not pre.installed:
+                pre.install()
+                own_pre = True
+        tick = 0
+        try:
+            while self.queue or self._pf_order or self.active.any():
+                if pre is not None and not self.preempted \
+                        and pre.requested():
+                    self.preempted = True
+                if self.preempted and not (self._pf_order
+                                           or self.active.any()):
+                    # in-flight work drained; queued requests stay in
+                    # self.queue for a successor process
+                    break
+                telem = telemetry.enabled()
+                if telem:
+                    self._note_gauges()
+                    t_tick = time.perf_counter()
+                if not self.preempted:
+                    self._admit()
+                self._prefill_tick()
+                self._step()
+                if telem:
+                    tick += 1
+                    # stamp our server when we own one (owner-scoped
+                    # heartbeat, see telemetry.server.note)
+                    if self.debug_server is not None:
+                        self.debug_server.note("step")
+                    else:
+                        _dbg_server.note("step")
+                    if flight_recorder is not None:
+                        action = flight_recorder.record_step(
+                            tick, step_time=time.perf_counter() - t_tick,
+                            queue_depth=len(self.queue),
+                            active_slots=int(self.active.sum()))
+                        if action == "halt":
+                            raise flight_recorder.halt_error(
+                                f"serving tick {tick}")
+        finally:
+            if own_pre:
+                pre.uninstall()
+            if self.debug_server is not None:
+                self.debug_server.stop()
+        if self.preempted and telemetry.enabled():
+            from .resilience.preemption import _preempt_metrics
+
+            _preempt_metrics()["clean_exits"].inc()
         out = {rid: r.result for rid, r in self.done.items()}
         self.done = {}
         return out
+
+    def _note_gauges(self) -> None:
+        """The queue and page-pool gauges, once per loop iteration."""
+        m = _serving_metrics()
+        m["queue_depth"].set(len(self.queue))
+        if self.paged:
+            al = self._allocator
+            occ = (al.pages - al.free_pages) / al.pages
+            m["page_occupancy"].set(occ)
+            pool_b = 2 * len(self.pools) * al.pool_nbytes
+            m["kv_pool_bytes"].set(pool_b)
+            m["kv_pool_live_bytes"].set(occ * pool_b)
+
+    def _statusz(self) -> Dict[str, Any]:
+        """Arena view for /statusz (host fields only; a read mid-tick may
+        tear across fields, fine for monitoring)."""
+        st = {"slots": self.slots, "capacity": self.capacity,
+              "active_slots": int(self.active.sum()),
+              "queue_depth": len(self.queue),
+              "completed": len(self.done),
+              "prefilling": len(self._pf_order),
+              "preempted": self.preempted}
+        if self.paged:
+            al = self._allocator
+            st["pages"] = al.pages
+            st["free_pages"] = al.free_pages
+            st["kv_dtype"] = al.kv_dtype or str(al.dtype).replace("torch.",
+                                                                  "")
+            st["kv_pool_bytes"] = 2 * len(self.pools) * al.pool_nbytes
+            if self.prefix_cache:
+                st["prefix_hits"] = self.prefix_hits
+        if self.draft is not None:
+            st["spec_rounds"] = self.spec_rounds
+            st["spec_accepted"] = self.spec_accepted
+        st["ready"] = self.ready
+        st["degraded"] = self.degraded
+        return st
 
     # ----- readiness, degrade, KV handoff ----------------------------------
 
     @property
     def ready(self) -> bool:
-        """True once the arena has run a decode tick (or
-        :meth:`warm_step`)."""
-        return self._warmed
+        """Readiness (the placement signal): True once the arena has run
+        a decode tick (or :meth:`warm_step`) and is not draining on a
+        preemption."""
+        return self._warmed and not self.preempted
 
     @torch.inference_mode()
     def warm_step(self) -> None:
@@ -692,6 +973,12 @@ class BatchedDecoder:
         only (the payload is pages)."""
         enforce(self.paged, "prefill_export requires paged mode "
                 "(pages=N) — the handoff payload is KV pages")
+        # the deadline check comes BEFORE the prefill: an expired request
+        # never costs device work (the typed drop)
+        dl = _reliability.current()
+        if dl is not None and dl.expired():
+            reject_cause("deadline")
+            dl.check("prefill export")   # raises DeadlineExceededError
         prompt = np.asarray(prompt_ids, np.int32).reshape(-1)
         plen = len(prompt)
         enforce(plen >= 1, "empty prompt")
@@ -701,25 +988,35 @@ class BatchedDecoder:
         ps = self.page_size
         m = -(-plen // ps)
         ids = self._allocator.alloc(m)       # typed error when exhausted
+        telem = telemetry.enabled()
+        ctx = _tracing.current() if telem else None
+        cm = (_tracing.span("serve.prefill.export", ctx=ctx, plen=plen,
+                            pages=int(m)) if telem else _NULL_CM)
         try:
-            row = np.zeros((self.n_log,), np.int32)
-            row[:m] = ids
-            padded = np.zeros((self._bucket_len(plen),), np.int64)
-            padded[:plen] = prompt
-            logits = self._prefill_paged(
-                torch.as_tensor(row, device=self.device),
-                torch.as_tensor(padded, device=self.device), plen)
-            quant = self._allocator.kv_dtype is not None
-            blocks = []
-            for kp, vp in self.pools:
-                payload = []
-                for pool in (kp, vp):
-                    got = paged_kv.export_pages(pool, ids)
-                    payload.append(tuple(a.cpu().numpy() for a in got)
-                                   if quant else got.cpu().numpy())
-                blocks.append(tuple(payload))
-            return KVHandoff(prompt, plen, logits.float().cpu().numpy(),
-                             blocks, ps, self._allocator.kv_dtype)
+            with cm:
+                row = np.zeros((self.n_log,), np.int32)
+                row[:m] = ids
+                lb = self._bucket_len(plen)
+                padded = np.zeros((lb,), np.int64)
+                padded[:plen] = prompt
+                if telem:
+                    _recompile.record("serving.prefill", padded)
+                logits = self._prefill_paged(
+                    torch.as_tensor(row, device=self.device),
+                    torch.as_tensor(padded, device=self.device), plen)
+                quant = self._allocator.kv_dtype is not None
+                blocks = []
+                for kp, vp in self.pools:
+                    payload = []
+                    for pool in (kp, vp):
+                        got = paged_kv.export_pages(pool, ids)
+                        payload.append(tuple(a.cpu().numpy() for a in got)
+                                       if quant else got.cpu().numpy())
+                    blocks.append(tuple(payload))
+                return KVHandoff(prompt, plen,
+                                 logits.float().cpu().numpy(), blocks, ps,
+                                 self._allocator.kv_dtype, trace=ctx,
+                                 deadline=dl)
         finally:
             self._allocator.free(ids)
 
@@ -755,6 +1052,12 @@ class BatchedDecoder:
         r.stream = stream
         self._next_rid += 1
         r.t_submit = time.perf_counter()
+        # the handoff carries the REQUEST's deadline (an absolute epoch:
+        # the remaining budget, not a per-hop reset); a bound ambient
+        # deadline wins, as a bound trace context does below
+        r.deadline = _reliability.current() or handoff.deadline
+        if telemetry.enabled():
+            self._note_request(r, _tracing.current() or handoff.trace)
         self.queue.append(r)
         return r.rid
 
@@ -762,13 +1065,17 @@ class BatchedDecoder:
         """Write the handoff payload into the slot's freshly allocated
         pages and activate from the handoff's logits."""
         h = r.handoff
-        m = -(-h.plen // self.page_size)
-        ids = self._slot_pages[s][:m]
-        for (kp, vp), (pk, pv) in zip(self.pools, h.blocks):
-            paged_kv.import_pages(kp, ids, pk)
-            paged_kv.import_pages(vp, ids, pv)
-        self._activate(s, r, torch.as_tensor(h.logits, device=self.device),
-                       h.plen)
+        cm = (_tracing.span("serve.handoff.import", ctx=r.trace,
+                            plen=h.plen, slot=s)
+              if telemetry.enabled() else _NULL_CM)
+        with cm:
+            m = -(-h.plen // self.page_size)
+            ids = self._slot_pages[s][:m]
+            for (kp, vp), (pk, pv) in zip(self.pools, h.blocks):
+                paged_kv.import_pages(kp, ids, pk)
+                paged_kv.import_pages(vp, ids, pv)
+            self._activate(s, r, torch.as_tensor(h.logits,
+                                                 device=self.device), h.plen)
 
     # ----- prefill ---------------------------------------------------------
 
@@ -938,6 +1245,16 @@ class BatchedDecoder:
             if self.active[s] or self._pf[s] is not None or not self.queue:
                 continue
             r = self.queue.pop(0)
+            # a request that expired while queued is dropped typed before
+            # any prefill work, never silently computed
+            while r.deadline is not None and r.deadline.expired():
+                self._expire_request(r, where="queue")
+                if not self.queue:
+                    r = None
+                    break
+                r = self.queue.pop(0)
+            if r is None:
+                break
             plen = len(r.prompt)
             lb = self._bucket_len(plen)
             padded = np.zeros((lb,), np.int64)
@@ -946,8 +1263,13 @@ class BatchedDecoder:
             if self.paged:
                 cached = self._try_alloc_paged(s, r)
                 if cached is None:
+                    reject_cause("pool_exhausted")
                     self.queue.insert(0, r)
                     break
+            if r.deadline is not None:
+                # slot-resident from here on: the per-tick expiry sweep
+                # (gated on this count) owns the deadline now
+                self._dl_active += 1
             self.owner[s] = r
             self._slot_gen[s] = self.gen_count
             self.gen_count += 1
@@ -976,26 +1298,47 @@ class BatchedDecoder:
                 self._pf_order.append(s)
                 self.t[s] = self.capacity
                 continue
-            if self.paged:
-                row = torch.as_tensor(self.table[s], device=self.device)
-                if cached == 0:
-                    logits = self._prefill_paged(row, dev_padded, plen)
-                elif cached < plen:
-                    # only the uncached suffix, from the page-aligned
-                    # frontier, then the last-token re-step
-                    suf = r.prompt[cached:]
-                    spad = np.zeros((self._bucket_len(len(suf)),), np.int64)
-                    spad[:len(suf)] = suf
-                    logits = self._prefill_paged(
-                        row, torch.as_tensor(spad, device=self.device),
-                        plen, t0=cached)
+            telem = telemetry.enabled()
+            if telem:
+                # a new padded shape here is a new prefill bucket (the
+                # JAX package compiles one program per bucket); chunked
+                # mode left above, it goes by chunk size
+                _recompile.record("serving.prefill", padded)
+            pf_cm = (_tracing.span("serve.prefill", ctx=r.trace, plen=plen,
+                                   slot=s, cached=cached)
+                     if telem else _NULL_CM)
+            with pf_cm:
+                if self.paged:
+                    row = torch.as_tensor(self.table[s], device=self.device)
+                    if cached == 0:
+                        cost = (_costs.counting(
+                            f"serving.prefill[paged,{lb}]",
+                            origin="serving", device=self.device)
+                            if telem else _NULL_CM)
+                        with cost:
+                            logits = self._prefill_paged(row, dev_padded,
+                                                         plen)
+                    elif cached < plen:
+                        # only the uncached suffix, from the page-aligned
+                        # frontier, then the last-token re-step
+                        suf = r.prompt[cached:]
+                        spad = np.zeros((self._bucket_len(len(suf)),),
+                                        np.int64)
+                        spad[:len(suf)] = suf
+                        logits = self._prefill_paged(
+                            row, torch.as_tensor(spad, device=self.device),
+                            plen, t0=cached)
+                    else:
+                        # the whole prompt is cached: the re-step alone
+                        logits = self._restep_paged(row, int(r.prompt[-1]),
+                                                    plen - 1)
                 else:
-                    # the whole prompt is cached: the re-step alone
-                    logits = self._restep_paged(row, int(r.prompt[-1]),
-                                                plen - 1)
-            else:
-                logits = self._prefill(s, dev_padded, plen)
-            self._activate(s, r, logits, plen)
+                    cost = (_costs.counting(
+                        f"serving.prefill[{lb}]", origin="serving",
+                        device=self.device) if telem else _NULL_CM)
+                    with cost:
+                        logits = self._prefill(s, dev_padded, plen)
+                self._activate(s, r, logits, plen)
 
     def _pick(self, logits, gens, poss, salt: int = 0):
         """Next tokens (B,) int32 on the device for (B, V) ``logits``:
@@ -1008,6 +1351,7 @@ class BatchedDecoder:
     def _activate(self, s: int, r: Request, logits, plen: int):
         """Admission epilogue: first-token pick and the slot goes live."""
         self.active[s] = True
+        self._slot_trace[s] = r.trace
         gen = torch.full((1,), int(self._slot_gen[s]), dtype=torch.int64,
                          device=self.device)
         pos = torch.full((1,), plen, dtype=torch.int64, device=self.device)
@@ -1015,6 +1359,19 @@ class BatchedDecoder:
         self.emitted[s] = [tok]
         r.t_first = time.perf_counter()
         r.t_tokens.append(r.t_first)
+        if telemetry.enabled():
+            m = _serving_metrics()
+            traced = r.trace is not None and r.trace.sampled
+            if r.t_submit:
+                # a traced sample stamps its trace id onto the bucket it
+                # lands in: the p99 row's link to its timeline
+                m["ttft"].observe(
+                    r.t_first - r.t_submit,
+                    exemplar=r.trace.trace_id if traced else None)
+            if traced:
+                _tracing.event("serve.first_token", ctx=r.trace, rid=r.rid,
+                               slot=s)
+            m["tokens"].inc()
         self.budget[s] = r.max_new - 1
         self.tok[s] = tok
         self.t[s] = plen
@@ -1102,8 +1459,33 @@ class BatchedDecoder:
         kd = 1 if self.degraded else self.decode_steps
         t0 = time.perf_counter()
         was_active = self.active.copy()
-        tok, t, gens, table = self._tick_inputs()
-        toks = self._decode_window(kd, tok, t, gens, table).cpu().numpy()
+        telem = telemetry.enabled()
+        tick_ctx = None
+        tick_cm = cost_cm = _NULL_CM
+        counted = False
+        if telem:
+            # the weight token participates: a quant/LoRA swap between
+            # runs is a new signature, which (tok, t) alone never shows
+            _recompile.record("serving.step", self.tok, self.t,
+                              weights=self._weights_fp)
+            # one tick advances every active slot, so it rides the first
+            # SAMPLED slot's context (an unsampled one must not shadow a
+            # sampled neighbour)
+            tick_ctx = next((c for c in self._slot_trace
+                             if c is not None and c.sampled), None)
+            if tick_ctx is not None:
+                tick_cm = _tracing.span("serve.decode.tick", ctx=tick_ctx,
+                                        k=kd,
+                                        n_active=int(was_active.sum()))
+            # the step program's cost, counted over its first real call
+            counted = not _costs.known(f"serving.step[k={kd}]")
+            cost_cm = _costs.counting(f"serving.step[k={kd}]",
+                                      origin="serving", device=self.device)
+        with tick_cm:
+            tok, t, gens, table = self._tick_inputs()
+            with cost_cm:
+                window = self._decode_window(kd, tok, t, gens, table)
+            toks = window.cpu().numpy()
         self._warmed = True
         now = time.perf_counter()
         n_emitted = self._emit(was_active, toks,
@@ -1111,6 +1493,9 @@ class BatchedDecoder:
         self.tick_count += 1
         self.tick_tokens += n_emitted
         self.tick_capacity += self.slots * kd
+        if telem and n_emitted:
+            self._note_tick(f"serving.step[k={kd}]", n_emitted, kd,
+                            self.slots * kd, t0, tick_ctx, counted)
         # retired rows keep what _maybe_finish left (paged parking)
         keep = was_active & self.active
         self.tok = np.where(keep, toks[:, -1], self.tok).astype(np.int32)
@@ -1221,16 +1606,111 @@ class BatchedDecoder:
         self.tick_count += 1
         self.tick_tokens += n_emitted
         self.tick_capacity += self.slots * g1
+        if telemetry.enabled():
+            m = _serving_metrics()
+            m["spec_rounds"].inc(int(was_active.sum()))
+            m["spec_accepted"].inc(int(n_np[was_active].sum()))
+            if self.spec_row_rounds:
+                m["spec_accept_rate"].set(
+                    self.spec_accepted / self.spec_row_rounds)
+            if n_emitted:
+                spec_ctx = next((c for c in self._slot_trace
+                                 if c is not None and c.sampled), None)
+                m["tokens"].inc(n_emitted)
+                m["decode_latency"].observe(
+                    (time.perf_counter() - t0) / n_emitted,
+                    exemplar=(spec_ctx.trace_id
+                              if spec_ctx is not None else None))
         # live rows advance by their accepted count + 1
         keep = was_active & self.active
         self.tok = np.where(keep, new_tok, self.tok).astype(np.int32)
         self.t = np.where(keep, new_t, self.t).astype(np.int32)
         self.tick_seconds += time.perf_counter() - t0
 
+    def _note_tick(self, prog: str, n_emitted: int, kd: int,
+                   capacity: int, t0: float, ctx,
+                   counted: bool = False) -> None:
+        """A plain tick's telemetry: tokens, the per-token decode latency
+        (the tick's host wall over its tokens), the serving goodput and
+        the ITL sentinel. The sentinel reads a slot's inter-token latency,
+        the tick's wall over the ``kd`` tokens each slot gets, so an
+        arena draining to one slot does not read as a regression. A
+        degraded arena, or a tick the cost ledger ``counted`` (slowed by
+        the count itself), never feeds a baseline."""
+        m = _serving_metrics()
+        m["tokens"].inc(n_emitted)
+        wall = time.perf_counter() - t0
+        m["decode_latency"].observe(
+            wall / n_emitted,
+            exemplar=ctx.trace_id if ctx is not None else None)
+        _profiling.goodput().note_tick(n_emitted, capacity)
+        if not counted:
+            _profiling.sentinel().observe(prog, self._backend(), wall / kd,
+                                          kind="itl", degraded=self.degraded)
+
     def _step(self):
+        if self._dl_active:
+            # the per-tick deadline sweep: an expired slot is torn down
+            # BEFORE the next tick, so no device work is spent on a
+            # request nobody waits for (zero cost while no resident
+            # request carries a deadline)
+            self._expire_slots()
         if self.draft is not None and not self.degraded:
             return self._step_spec()
         return self._step_multi()
+
+    def _backend(self) -> str:
+        """The sentinel's backend key (the card's kind, or ``cpu``),
+        resolved once."""
+        if self._backend_name is None:
+            self._backend_name = _costs.backend_key(self.device)
+        return self._backend_name
+
+    def _expire_request(self, r: Request, where: str = "queue") -> None:
+        """Drop an expired request typed: a done record with
+        ``deadline_exceeded`` set and no tokens (``run()`` returns None
+        for it), counted under ``cause="deadline"``; its stream fails
+        with :class:`DeadlineExceededError`."""
+        reject_cause("deadline")
+        r.result = None
+        r.deadline_exceeded = True
+        r.t_done = time.perf_counter()
+        self.done[r.rid] = r
+        if r.stream is not None:
+            r.stream.fail(_reliability.DeadlineExceededError(
+                f"request {r.rid} deadline expired in {where}"))
+        if (telemetry.enabled() and r.trace is not None
+                and r.trace.sampled):
+            _tracing.event("serve.deadline_exceeded", ctx=r.trace,
+                           rid=r.rid, where=where)
+
+    def _expire_slots(self) -> None:
+        """Tear down every slot-resident request whose deadline passed
+        (active slots and parked chunked-prefill slots)."""
+        now = time.time()
+        for s in range(self.slots):
+            st = self._pf[s]
+            r = st["r"] if st is not None else self.owner[s]
+            if r is None or r.deadline is None:
+                continue
+            if now < r.deadline.t_end:
+                continue
+            self._expire_request(
+                r, where="prefill" if st is not None else "decode")
+            self._dl_active -= 1
+            if st is not None:
+                self._pf[s] = None
+                self._pf_order.remove(s)
+            self.owner[s] = None
+            self._slot_trace[s] = None
+            self.active[s] = False
+            self.emitted[s] = []
+            if self.paged and self._slot_pages[s] is not None:
+                # freed pages may be reallocated: park the cursor past
+                # capacity so the retired slot's writes drop
+                self._allocator.free(self._slot_pages[s])
+                self._slot_pages[s] = None
+                self.t[s] = self.capacity
 
     def _maybe_finish(self, s: int):
         r = self.owner[s]
@@ -1245,7 +1725,15 @@ class BatchedDecoder:
             # tokens not yet buffered are served from the completion
             # record, then the end record
             r.stream.finish(r.result, r.t_done)
+        if telemetry.enabled():
+            _serving_metrics()["completed"].inc()
+            if r.trace is not None and r.trace.sampled:
+                _tracing.event("serve.done", ctx=r.trace, rid=r.rid,
+                               n_tokens=len(r.result), eos=bool(hit_eos))
+        if r.deadline is not None:
+            self._dl_active -= 1
         self.owner[s] = None
+        self._slot_trace[s] = None
         self.active[s] = False
         self.emitted[s] = []
         if self.paged and self._slot_pages[s] is not None:

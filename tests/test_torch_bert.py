@@ -248,9 +248,14 @@ def test_trainer_packed_bert_with_dropout_trains(flash_on_cpu):
     tokens, positions, segs = _packed_batch(9, batch=4)
     batch = (_t(tokens), _t(positions), torch.from_numpy(segs), _t(tokens))
     runs = []
-    for _ in range(2):
-        trainer = _packed_trainer(10)
-        runs.append([float(trainer.train_step(batch)[0]) for _ in range(3)])
+    torch.use_deterministic_algorithms(True)
+    try:
+        for _ in range(2):
+            trainer = _packed_trainer(10)
+            runs.append([float(trainer.train_step(batch)[0])
+                         for _ in range(3)])
+    finally:
+        torch.use_deterministic_algorithms(False)
     losses = runs[0]
     assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
     assert runs[0] == runs[1]                 # reproducible from the seed

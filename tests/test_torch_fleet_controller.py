@@ -17,11 +17,13 @@ against the JAX package's tests/test_fleet_controller.py, in process:
 - across the packages: a JAX controller and a port controller on one
   FileTransport root agree on one step.
 
-The pod-level aggregation (podz) is ROADMAP queue 1 item 8 and raises
-naming it."""
+The pod-level aggregation: publish_endpoint, podz and tracez_fanout over
+a debug server."""
 
+import json
 import threading
 import time
+import urllib.request
 from datetime import timedelta
 
 import numpy as np
@@ -34,7 +36,7 @@ from paddle_tpu.resilience import controller as JC
 from paddle_tpu_torch import checkpoint as ckpt_mod
 from paddle_tpu_torch import optimizer as TO
 from paddle_tpu_torch import telemetry
-from paddle_tpu_torch.core import EnforceError, UnimplementedError
+from paddle_tpu_torch.core import EnforceError
 from paddle_tpu_torch.models.mnist import MnistMLP
 from paddle_tpu_torch.parallel import Trainer
 from paddle_tpu_torch.resilience import (BarrierTimeoutError, FaultInjector,
@@ -405,10 +407,27 @@ class TestStatus:
     @pytest.mark.parametrize("call", ["podz", "publish_endpoint",
                                       "tracez_fanout"])
     def test_pod_aggregation_raises_naming_item_8(self, tmp_path, call):
+        """The pod-level aggregation the telemetry slice ported (it
+        raised before): rank 0 publishes its debug server, rank 1
+        publishes nothing; both fan-outs render a row per rank."""
+        from paddle_tpu_torch.telemetry import DebugServer
+
         ctl = _controller(tmp_path, 0, 2)
-        args = ("127.0.0.1", 1) if call == "publish_endpoint" else ()
-        with pytest.raises(UnimplementedError, match="queue 1 item 8"):
-            getattr(ctl, call)(*args)
+        with DebugServer(port=0) as srv:
+            ctl.publish_endpoint(srv.host, srv.port)
+            assert ctl.transport.get("debug.0") == \
+                f"{srv.host}:{srv.port}"
+            if call == "podz":
+                view = ctl.podz()
+                assert view["world_size"] == 2
+                assert view["ranks"]["0"]["healthz"]["status"] == "ok"
+                assert view["ranks"]["1"]["endpoint"] is None
+            elif call == "tracez_fanout":
+                view = ctl.tracez_fanout(None)
+                assert view["ranks"]["0"]["source"] == "local"
+                assert view["ranks"]["1"]["error"] == \
+                    "no endpoint published"
+                assert "traceEvents" in view["trace"]
 
 
 class TestTrainLoopCoordinated:
@@ -518,3 +537,56 @@ def test_jax_and_port_controllers_agree_on_one_step(tmp_path):
     # the restore agreement crosses too: the newest common step
     assert _run_threads(lambda: j0.agree_restore_step([2, 4, 6]),
                         lambda: p1.agree_restore_step([4, 6, 8])) == [6, 6]
+
+
+class TestPodAggregation:
+    """The pod-level views over two ranks, each with its own debug server
+    (as ``TrainLoop.run(controller=, debug_port=)`` mounts them), held
+    against the JAX controller's row and view layout."""
+
+    def test_podz_and_tracez_fanout_over_two_ranks(self, tmp_path):
+        from paddle_tpu.resilience.controller import \
+            FleetController as JaxController
+        from paddle_tpu_torch.telemetry import DebugServer
+        from paddle_tpu_torch.telemetry import tracing
+
+        telemetry.enable()
+        c0, c1 = (_controller(tmp_path, r, 2) for r in (0, 1))
+        c1.request(reason="test")
+        # the agreement leaves its breadcrumbs on the trace ring
+        def rank0():
+            deadline = time.time() + 5
+            while c0.check(3) is None and time.time() < deadline:
+                time.sleep(0.01)
+            return c0.agreed_step
+
+        assert _run_threads(lambda: c1.check(3), rank0) == [3, 3]
+        names = [s["name"] for s in tracing.spans()]
+        for n in ("fleet.preempt.request", "fleet.preempt.ack",
+                  "fleet.preempt.agreed"):
+            assert n in names
+        with DebugServer(port=0) as s0, DebugServer(port=0) as s1:
+            for ctl, srv in ((c0, s0), (c1, s1)):
+                ctl.publish_endpoint(srv.host, srv.port)
+                srv.set_fleet(ctl.podz)
+                srv.set_trace_fanin(ctl.tracez_fanout)
+            view = c0.podz()
+            assert view["world_size"] == 2 and view["aggregator_rank"] == 0
+            for r in ("0", "1"):
+                row = view["ranks"][r]
+                assert row["healthz"]["status"] == "ok"
+                assert row["endpoint"] and not row["dead"]
+            jrow = JaxController(rank=0, world=1)._podz_row(0)
+            assert set(jrow) <= set(view["ranks"]["0"])
+            # the fan-in over /tracez: one merged chrome trace, rank lanes
+            with urllib.request.urlopen(s1.url("/tracez?fanin=1"),
+                                        timeout=10) as r:
+                merged = json.loads(r.read())
+            assert {row.get("source") for row in merged["ranks"].values()} \
+                == {"local", f"{s0.host}:{s0.port}"}
+            lanes = {e["args"]["name"] for e in merged["trace"]["traceEvents"]
+                     if e.get("name") == "process_name"}
+            assert lanes & {"rank0", "rank1"}
+            with urllib.request.urlopen(s0.url("/podz"), timeout=10) as r:
+                assert json.loads(r.read())["world_size"] == 2
+        telemetry.reset()

@@ -75,6 +75,14 @@ JOB_MODULES = ("torch_world.py", "torch_quant_jobs.py",
 # the elastic multi-host slice
 FLEET_SLICE = ("fleet", "launch", "resilience.controller", "checkpoint",
                "train_loop", "parallel.api", "embedding.host_table")
+# the telemetry slice: its 13 modules and the hooks' files
+TELEMETRY_SLICE = ("telemetry", "telemetry.tracing", "telemetry.trace",
+                   "core.profiler", "telemetry.recompile",
+                   "telemetry.export", "telemetry.diag",
+                   "telemetry.lockwatch", "utils.flops", "utils.memory",
+                   "telemetry.costs", "telemetry.profiling",
+                   "telemetry.server", "resilience.reliability", "serving",
+                   "utils", "data.device_loader")
 
 
 def _imported(path):
@@ -123,7 +131,7 @@ def test_rank_job_modules_are_jax_free(name):
 @pytest.mark.parametrize("name", RESILIENCE_SLICE + CONV_SLICE
                          + DEEPFM_SLICE + NMT_SLICE + MOE_ZOO_RNN_SLICE
                          + OPS_LORA_SLICE + SLIM_SLICE + DIST_SLICE
-                         + FLEET_SLICE)
+                         + FLEET_SLICE + TELEMETRY_SLICE)
 def test_checkpoint_slice_modules_are_jax_free(name):
     path = PKG / (name.replace(".", "/") + ".py")
     if not path.exists():

@@ -23,7 +23,6 @@ import paddle_tpu_torch.metrics
 import paddle_tpu_torch.nn.layers
 import paddle_tpu_torch.ops
 
-ENTRY_7 = "queue 1 entry 7 (item 8, the profiler)"
 ENTRY_8 = "queue 1 entry 8 (item 12, compat surfaces)"
 # module -> {name still missing from the port: the entry that owns it}.
 # Entry 6's mesh, collectives, context parallelism, plans, the int8
@@ -33,10 +32,7 @@ STILL_MISSING = {
     "": {},
     "slim": {},
     "quant": {},
-    "core": {**dict.fromkeys(("RecordEvent", "profiler", "start_profiler",
-                              "stop_profiler"), ENTRY_7),
-             **dict.fromkeys(("BuildStrategy", "ExecutionStrategy"),
-                             ENTRY_8)},
+    "core": dict.fromkeys(("BuildStrategy", "ExecutionStrategy"), ENTRY_8),
     "parallel": {},
     "nn": {},
     "nn.layer": {},

@@ -29,7 +29,7 @@ from paddle_tpu.ops import paged_kv as JP
 from paddle_tpu.ops import sampling as JS
 from paddle_tpu.serving import BatchedDecoder as JaxDecoder
 from paddle_tpu.serving import PagedKVPool as JaxPool
-from paddle_tpu_torch.core import EnforceError, UnimplementedError
+from paddle_tpu_torch.core import EnforceError
 from paddle_tpu_torch.models import gpt as TG
 from paddle_tpu_torch.ops import paged_kv as TP
 from paddle_tpu_torch.serving import BatchedDecoder, PagedKVPool
@@ -341,11 +341,26 @@ def test_int8_pool_density(setup):
                                 dict(flight_recorder=object()),
                                 dict(preemption=True)])
 def test_later_slice_run_hooks_raise(setup, kw):
+    """The run hooks of the telemetry slice (they raised before it) serve
+    the same tokens as a plain run: the debug server starts and is joined,
+    an unconsulted recorder (telemetry off) and a grace handler change
+    nothing."""
+    from paddle_tpu_torch import telemetry
+
     _, tm, prompts, _ = setup
+    want = BatchedDecoder(tm, slots=2, capacity=128, device="cpu")
+    rid = want.submit(prompts[0], 2)
+    want = want.run()[rid]
     dec = BatchedDecoder(tm, slots=2, capacity=128, device="cpu")
-    dec.submit(prompts[0], 2)
-    with pytest.raises(UnimplementedError, match="item 8"):
-        dec.run(**kw)
+    rid = dec.submit(prompts[0], 2)
+    try:
+        got = dec.run(**kw)[rid]
+    finally:
+        telemetry.disable()          # a debug server turns it on
+    np.testing.assert_array_equal(got, want)
+    assert not dec.preempted
+    if "debug_port" in kw:
+        assert dec.debug_server.port > 0 and not dec.debug_server.running
 
 
 def test_submit_checks(setup):

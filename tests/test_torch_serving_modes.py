@@ -38,7 +38,7 @@ from paddle_tpu.models import gpt as JG
 from paddle_tpu.serving import BatchedDecoder as JaxDecoder
 from paddle_tpu.serving import KVHandoff as JaxHandoff
 from paddle_tpu_torch import quant as TQ
-from paddle_tpu_torch.core import EnforceError, UnimplementedError
+from paddle_tpu_torch.core import EnforceError
 from paddle_tpu_torch.models import gpt as TG
 from paddle_tpu_torch.serving import BatchedDecoder, KVHandoff, TokenStream
 from paddle_tpu_torch.utils.convert import load_numpy_state
@@ -580,20 +580,26 @@ def test_handoff_wire_form_and_headers(models):
         for a, b in zip(k1 + v1, k2 + v2):
             np.testing.assert_array_equal(a, b)
     np.testing.assert_array_equal(h2.logits, h.logits)
-    # a trace / deadline entry rides the bytes as its header string
+    # a trace context and a deadline ride the bytes in header form (the
+    # npz "trace" and "deadline" keys) and come back as objects
+    from paddle_tpu_torch.resilience.reliability import Deadline
+    from paddle_tpu_torch.telemetry import tracing
+
+    ctx = tracing.new_trace()
     z = dict(np.load(io.BytesIO(h.to_bytes())))
-    z["trace"] = np.asarray("00-abc-def-01")
+    z["trace"] = np.asarray(ctx.to_header())
     z["deadline"] = np.asarray("1700000000.5")
     buf = io.BytesIO()
     np.savez(buf, **z)
     h3 = KVHandoff.from_bytes(buf.getvalue())
-    assert h3.trace_header == "00-abc-def-01"
+    assert h3.trace.trace_id == ctx.trace_id
     h4 = KVHandoff.from_bytes(h3.to_bytes())
-    assert h4.deadline_header == "1700000000.5"
-    assert h4.trace_header == "00-abc-def-01"
-    with pytest.raises(UnimplementedError, match="item 8"):
-        KVHandoff(h.prompt, h.plen, h.logits, h.blocks, 64, "int8",
-                  trace=object())
+    assert h4.deadline.t_end == 1700000000.5
+    assert h4.trace.to_header() == ctx.to_header()
+    h5 = KVHandoff(h.prompt, h.plen, h.logits, h.blocks, 64, "int8",
+                   trace=ctx, deadline=Deadline.from_header("1700000000.5"))
+    assert str(np.load(io.BytesIO(h5.to_bytes()))["trace"]) == \
+        ctx.to_header()
 
 
 def test_handoff_typed_errors(models):

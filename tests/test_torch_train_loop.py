@@ -32,7 +32,7 @@ import torch
 from paddle_tpu.data import device_loader as JDL
 import paddle_tpu_torch
 from paddle_tpu_torch import optimizer as TO
-from paddle_tpu_torch.core import EnforceError, UnimplementedError
+from paddle_tpu_torch.core import EnforceError
 from paddle_tpu_torch.core.config import FLAGS
 from paddle_tpu_torch.data.device_loader import (BucketPadder,
                                                  DevicePrefetcher,
@@ -287,11 +287,20 @@ class TestPreemption:
         assert not handler.installed           # the loop uninstalled it
 
     def test_unported_options_raise_naming_their_item(self, tmp_path):
+        """The options the telemetry slice ported (they raised before):
+        a debug server for the run, joined after; an unconsulted recorder
+        with telemetry off."""
+        from paddle_tpu_torch import telemetry
+
+        hooks = TrainLoop(make_trainer(), str(tmp_path / "hooks"))
+        try:
+            assert hooks.run(batches(1), debug_port=0) == 1
+            assert not hooks.debug_server.running
+        finally:
+            telemetry.disable()
+        assert hooks.run(batches(1), flight_recorder=telemetry.
+                         FlightRecorder(str(tmp_path / "fr"))) == 2
         loop = TrainLoop(make_trainer(), str(tmp_path))
-        for kw, item in ((dict(debug_port=0), "item 8"),
-                         (dict(flight_recorder=object()), "item 8")):
-            with pytest.raises(UnimplementedError, match=item):
-                loop.run(batches(1), **kw)
         # controller= is ported (tests/test_torch_fleet_controller.py):
         # a world of one trains on and completes
         from paddle_tpu_torch.resilience import FleetController
@@ -422,3 +431,102 @@ def test_prefetcher_staging_and_teardown():
         DevicePrefetcher(data, size="fast", device="cpu")
     auto = DevicePrefetcher(data, size="auto", auto_cap=3, device="cpu")
     assert auto.current_depth == 2 and len(list(auto)) == 5
+
+
+# ---------------------------------------------------------------------------
+# telemetry and live diagnostics on the loop (against the JAX TrainLoop)
+# ---------------------------------------------------------------------------
+
+def _jax_loop(path):
+    import jax
+    import jax.numpy as jnp
+
+    import paddle_tpu as pt
+    from paddle_tpu import optimizer as JO
+    from paddle_tpu import parallel as JPar
+    from paddle_tpu.models import mnist as JM
+    from paddle_tpu.train_loop import TrainLoop as JaxLoop
+
+    pt.seed(0)
+    trainer = JPar.Trainer.supervised(
+        JM.MnistMLP(hidden1=16, hidden2=8), JO.Adam(1e-3), JM.loss_fn,
+        mesh=pt.build_mesh(dp=1, devices=jax.devices()[:1]))
+    return JaxLoop(trainer, path, checkpoint_every=2), jnp
+
+
+def _loop_view(T):
+    reg = T.registry()
+    return (reg.get("pt_train_steps_total").value,
+            reg.get("pt_train_step_seconds").count,
+            reg.get("pt_jit_compiles_total",
+                    {"site": "train_loop.step"}).value,
+            reg.get("pt_train_nan_skips_total").value,
+            T.profiling.goodput().snapshot()["steps"],
+            sorted(T.costs.ledger()))
+
+
+def test_telemetry_counters_match_jax_and_buckets_sum(tmp_path):
+    from paddle_tpu import telemetry as JT
+    from paddle_tpu_torch import telemetry as TT
+
+    data = list(batches(5, rng=np.random.default_rng(8)))
+    for T in (JT, TT):
+        T.reset()
+        T.enable()
+    try:
+        jloop, jnp = _jax_loop(str(tmp_path / "j"))
+        jloop.run([{k: jnp.asarray(v.numpy()) for k, v in b.items()}
+                   for b in data])
+        loop = TrainLoop(make_trainer(), str(tmp_path / "t"),
+                         checkpoint_every=2)
+        assert loop.run(iter(data)) == jloop.step == 5
+        assert _loop_view(TT) == _loop_view(JT)
+        # every noted step's buckets are its wall (device compute is the
+        # rest of the step after its dispatch, up to the guard's read)
+        assert [s["step"] for s in loop.step_splits] == [1, 2, 3, 4, 5]
+        for s in loop.step_splits:
+            total = s["input_wait_s"] + s["dispatch_s"] + \
+                s["device_compute_s"]
+            assert abs(total - s["wall_s"]) <= 1e-9 + 1e-6 * s["wall_s"]
+        assert (tmp_path / "t" / "perf_baselines.json").exists()
+        rec = TT.costs.get("train.step")
+        assert rec["flops"] > 0 and rec["origin"] == "train_loop"
+        assert TT.registry().get("pt_step_mfu") is None    # no CPU peak
+        # the nan guard's skip counts
+        skip = TrainLoop(make_trainer(), str(tmp_path / "s"),
+                         checkpoint_every=1, nan_policy="skip")
+        skip.run([data[0], bad_batch()])
+        assert TT.registry().get("pt_train_nan_skips_total").value == 1
+    finally:
+        for T in (JT, TT):
+            T.reset()
+            T.disable()
+
+
+def test_flight_recorder_halts_on_a_nan_loss_with_one_read(tmp_path):
+    from paddle_tpu_torch import telemetry as TT
+    from paddle_tpu_torch.amp import MixedPrecisionOptimizer
+
+    TT.enable()
+    try:
+        trainer = Trainer.supervised(
+            MnistMLP(16, 8, device="cpu",
+                     generator=torch.Generator().manual_seed(0)),
+            MixedPrecisionOptimizer(TO.Adam(1e-3), init_loss_scaling=8.0),
+            lambda out, label: torch.nn.functional.cross_entropy(out,
+                                                                 label))
+        rec = TT.FlightRecorder(str(tmp_path / "dumps"), policy="halt")
+        loop = TrainLoop(trainer, str(tmp_path / "ck"), checkpoint_every=0)
+        data = list(batches(2)) + [bad_batch()] + list(batches(2))
+        with pytest.raises(TT.AnomalyHalt, match="step 3: nan_loss"):
+            loop.run(iter(data), flight_recorder=rec)
+        assert loop.status == "faulted" and loop.step == 2
+        assert [e["step"] for e in rec.ring] == [1, 2, 3]
+        assert rec.ring[-1]["anomaly"] == "nan_loss" and rec.dumps
+        # the loss-scale gauge (on the card a pinned copy, read once it
+        # has landed)
+        assert TT.registry().get("pt_train_loss_scale").value == 8.0
+        assert rec.run_config["checkpoint_dir"] == str(tmp_path / "ck")
+    finally:
+        TT.reset()
+        TT.disable()
